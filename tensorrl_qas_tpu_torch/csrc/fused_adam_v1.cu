@@ -1,0 +1,473 @@
+// Fused multi-start Adam env step, one launch per env step (CUDA, sm_90a).
+//
+// Replaces the TPU kernel tensorrl_qas_tpu/ops/pallas_opt.py:_make_kernel
+// (launched by fused_adam_step_pallas / _fused_adam_step_call), together
+// with the gate device functions it takes from ops/pallas_apply.py
+// (_gate_class, _apply_gate_fast, _bwd_gate_fast, _gate_coeffs, _xor_lane).
+// The plain PyTorch version of the same function is
+// tensorrl_qas_tpu_torch/ops/fused_adam.py:fused_adam_step_reference.
+//
+// What one CTA computes, for its env e (grid = E envs):
+//   for it in 0..iters-1:                       (Adam over the OLD tape)
+//     psi   = tape(x) psi0                       S starts x D amplitudes
+//     Hpsi  = H psi                              dense H^T planes from L2
+//     E_s   = Re<psi|H psi> / <psi|psi>          best-iterate tracking
+//     dx    = adjoint sweep, lambda = 2 conj(H psi), masked by `active`
+//     x     = Adam(x, dx)                        bias-corrected, powf(b, t)
+//   final re-check of x, argmin over starts -> x_opt,
+//   x_new[j] = x_opt[map[j]] (map -1 -> 0), e_new = E(new tape, x_new).
+//
+// Layout.  psi and lambda (re and im planes, S x D each) live in shared
+// memory: 4 * 8 * 256 * 4 B = 32 KB at the main path's S = 8, D = 256.
+// The tapes are read into shared memory once by the block.  A gate pairs
+// amplitude i0 (target bit 0) with its partner i1 = i0 ^ 2^t; each thread
+// owns whole pairs, so a gate updates in place and needs one barrier.
+// H psi is a dense loop over the (D, D) H^T planes straight from global
+// memory (512 KB: more than shared memory holds; it stays in L2), each
+// thread producing one output amplitude for all S starts in registers, so
+// H is read once per H psi per CTA.  Energies and the per-gate gradient
+// rows are block reductions (warp shuffles, then shared memory); the
+// energy sums accumulate in double.  All amplitude arithmetic is f32 FMA:
+// no tensor-core TF32 or bf16, whose rounding exceeds the 1.6e-3 Ha
+// acceptance threshold over a 40-gate tape.
+//
+// Bound at the main path's shapes (E = 128, S = 8, D = 256, G = R = 47,
+// iters = 100): the dense H psi is 2 * S * D^2 * 2 = 2.1 M real FMAs per
+// env per Adam iteration, about 54 GFLOP per launch across the batch, plus
+// the forward and adjoint gate chains (about 3 * G * S * D complex 2x2
+// updates per iteration).  The input bytes are small (H planes 0.5 MB,
+// tapes and starts < 1 MB), so the card's f32 rate bounds the launch.
+// This first version is simple, not fast: one CTA per env leaves the
+// work of an env on one SM and H psi runs on the CUDA cores.  H psi as a
+// wgmma product and several CTAs per env (a cluster sharing psi) are work
+// for a later change.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Starts one CTA holds in registers during H psi (the main path runs 8).
+constexpr int kMaxStarts = 8;
+
+// circuits/tape.py GateKind
+enum : int { kNone = 0, kRX = 1, kRY = 2, kRZ = 3, kCX = 4, kX = 5, kY = 6,
+             kZ = 7, kH = 8 };
+
+struct Coef {
+  float u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i;
+};
+
+// 2x2 unitary of a gate kind; c = cos(theta/2), s = sin(theta/2).
+__device__ __forceinline__ Coef gate_coef(int k, float c, float s) {
+  switch (k) {
+    case kRX: return {c, 0.f, 0.f, -s, 0.f, -s, c, 0.f};
+    case kRY: return {c, 0.f, -s, 0.f, s, 0.f, c, 0.f};
+    case kRZ: return {c, -s, 0.f, 0.f, 0.f, 0.f, c, s};
+    case kCX:
+    case kX: return {0.f, 0.f, 1.f, 0.f, 1.f, 0.f, 0.f, 0.f};
+    case kY: return {0.f, 0.f, 0.f, -1.f, 0.f, 1.f, 0.f, 0.f};
+    case kZ: return {1.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f, 0.f};
+    case kH: {
+      const float r = 0.70710678118654752f;
+      return {r, 0.f, r, 0.f, r, 0.f, -r, 0.f};
+    }
+    default: return {1.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f};
+  }
+}
+
+// (ar + i ai) * (br + i bi) + (cr + i ci) * (dr + i di)
+__device__ __forceinline__ void cmul2(float ar, float ai, float br, float bi,
+                                      float cr, float ci, float dr, float di,
+                                      float& outr, float& outi) {
+  outr = ar * br - ai * bi + cr * dr - ci * di;
+  outi = ar * bi + ai * br + cr * di + ci * dr;
+}
+
+struct Tape {
+  const int* kind;
+  const int* tq;
+  const int* cq;
+  const int* slot;
+};
+
+struct Shared {
+  double* red;   // 2 * kWarps * kMaxStarts energy partials
+  float* pre;    // S x D
+  float* pim;
+  float* lre;
+  float* lim;
+  float* x;      // S x R iterate
+  float* m;
+  float* v;
+  float* bx;     // best iterate per start
+  float* dx;     // gradient
+  float* ct;     // cos(x / 2)
+  float* st;     // sin(x / 2)
+  float* be;     // best energy per start
+  float* ev;     // current energy per start
+  Tape old_tape;
+  Tape new_tape;
+  int* map;      // R
+  int* best;     // 1
+};
+
+// psi rows 0..ns-1 <- psi0, trig table of x rows 0..ns-1, dx <- 0.
+__device__ void begin_pass(const Shared& sh, const float* __restrict__ p0re,
+                           const float* __restrict__ p0im, int ns, int D,
+                           int R) {
+  for (int idx = threadIdx.x; idx < ns * D; idx += kThreads) {
+    sh.pre[idx] = p0re[idx & (D - 1)];
+    sh.pim[idx] = p0im[idx & (D - 1)];
+  }
+  for (int idx = threadIdx.x; idx < ns * R; idx += kThreads) {
+    float s, c;
+    sincosf(0.5f * sh.x[idx], &s, &c);
+    sh.st[idx] = s;
+    sh.ct[idx] = c;
+    sh.dx[idx] = 0.f;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int pair_low(int q, int t) {
+  return ((q >> t) << (t + 1)) | (q & ((1 << t) - 1));
+}
+
+// psi <- tape(x) psi for starts 0..ns-1.
+__device__ void forward(const Shared& sh, const Tape& tape, int G, int ns,
+                        int n, int R) {
+  const int D = 1 << n;
+  const int half = D >> 1;
+  for (int g = 0; g < G; ++g) {
+    const int k = tape.kind[g];
+    if (k == kNone) continue;
+    const int t = tape.tq[g], c = tape.cq[g], sl = tape.slot[g];
+    for (int p = threadIdx.x; p < ns * half; p += kThreads) {
+      const int s = p >> (n - 1);
+      const int i0 = pair_low(p & (half - 1), t);
+      if (c >= 0 && !((i0 >> c) & 1)) continue;
+      const int i1 = i0 | (1 << t);
+      float cth = 1.f, sth = 0.f;
+      if (sl >= 0) {
+        cth = sh.ct[s * R + sl];
+        sth = sh.st[s * R + sl];
+      }
+      const Coef u = gate_coef(k, cth, sth);
+      const int o = s * D;
+      const float a0r = sh.pre[o + i0], a0i = sh.pim[o + i0];
+      const float a1r = sh.pre[o + i1], a1i = sh.pim[o + i1];
+      float b0r, b0i, b1r, b1i;
+      cmul2(u.u00r, u.u00i, a0r, a0i, u.u01r, u.u01i, a1r, a1i, b0r, b0i);
+      cmul2(u.u10r, u.u10i, a0r, a0i, u.u11r, u.u11i, a1r, a1i, b1r, b1i);
+      sh.pre[o + i0] = b0r;
+      sh.pim[o + i0] = b0i;
+      sh.pre[o + i1] = b1r;
+      sh.pim[o + i1] = b1i;
+    }
+    __syncthreads();
+  }
+}
+
+// lambda <- 2 conj(H psi); ev[s] <- Re<psi|H psi> / <psi|psi>.
+__device__ void h_energy(const Shared& sh, const float* __restrict__ hre_t,
+                         const float* __restrict__ him_t, int ns, int D) {
+  double raw[kMaxStarts], nn[kMaxStarts];
+#pragma unroll
+  for (int s = 0; s < kMaxStarts; ++s) raw[s] = nn[s] = 0.0;
+  for (int i = threadIdx.x; i < D; i += kThreads) {
+    float ar[kMaxStarts], ai[kMaxStarts];
+#pragma unroll
+    for (int s = 0; s < kMaxStarts; ++s) ar[s] = ai[s] = 0.f;
+    for (int j = 0; j < D; ++j) {
+      const float hr = __ldg(hre_t + (size_t)j * D + i);
+      const float hi = __ldg(him_t + (size_t)j * D + i);
+#pragma unroll
+      for (int s = 0; s < kMaxStarts; ++s) {
+        if (s < ns) {
+          const float pr = sh.pre[s * D + j], pi = sh.pim[s * D + j];
+          ar[s] = fmaf(pr, hr, ar[s]);
+          ar[s] = fmaf(-pi, hi, ar[s]);
+          ai[s] = fmaf(pr, hi, ai[s]);
+          ai[s] = fmaf(pi, hr, ai[s]);
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kMaxStarts; ++s) {
+      if (s < ns) {
+        const float pr = sh.pre[s * D + i], pi = sh.pim[s * D + i];
+        sh.lre[s * D + i] = 2.f * ar[s];
+        sh.lim[s * D + i] = -2.f * ai[s];
+        raw[s] += (double)pr * ar[s] + (double)pi * ai[s];
+        nn[s] += (double)pr * pr + (double)pi * pi;
+      }
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int s = 0; s < kMaxStarts; ++s) {
+    double a = raw[s], b = nn[s];
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+      b += __shfl_xor_sync(0xffffffffu, b, off);
+    }
+    if (lane == 0) {
+      sh.red[(warp * kMaxStarts + s) * 2] = a;
+      sh.red[(warp * kMaxStarts + s) * 2 + 1] = b;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < ns) {
+    double a = 0.0, b = 0.0;
+    for (int w = 0; w < kWarps; ++w) {
+      a += sh.red[(w * kMaxStarts + threadIdx.x) * 2];
+      b += sh.red[(w * kMaxStarts + threadIdx.x) * 2 + 1];
+    }
+    sh.ev[threadIdx.x] = (float)(a / b);
+  }
+  __syncthreads();
+}
+
+// Keep the better of (x, ev) and (bx, be) per start.
+__device__ void track_best(const Shared& sh, int ns, int R) {
+  for (int idx = threadIdx.x; idx < ns * R; idx += kThreads) {
+    const int s = idx / R;
+    if (sh.ev[s] < sh.be[s]) sh.bx[idx] = sh.x[idx];
+  }
+  __syncthreads();
+  if (threadIdx.x < ns && sh.ev[threadIdx.x] < sh.be[threadIdx.x])
+    sh.be[threadIdx.x] = sh.ev[threadIdx.x];
+  __syncthreads();
+}
+
+// Adjoint sweep over the tape: undo each gate on psi (U^H), carry lambda
+// back (U^T), and add 1/2 Im[(P psi)^T lambda] into dx[s, slot].
+__device__ void backward(const Shared& sh, const Tape& tape, int G, int ns,
+                         int n, int R) {
+  const int D = 1 << n;
+  const int half = D >> 1;
+  const int total = ns * half;
+  const int seg = half < 32 ? half : 32;   // lanes sharing one start
+  const int lane = threadIdx.x & 31;
+  for (int g = G - 1; g >= 0; --g) {
+    const int k = tape.kind[g];
+    if (k == kNone) continue;
+    const int t = tape.tq[g], c = tape.cq[g], sl = tape.slot[g];
+    const bool has_grad = sl >= 0 && (k == kRX || k == kRY || k == kRZ);
+    for (int base = 0; base < total; base += kThreads) {
+      const int p = base + threadIdx.x;
+      const bool valid = p < total;
+      const int s = valid ? p >> (n - 1) : 0;
+      float gp = 0.f;
+      if (valid) {
+        const int i0 = pair_low(p & (half - 1), t);
+        if (c < 0 || ((i0 >> c) & 1)) {
+          const int i1 = i0 | (1 << t);
+          float cth = 1.f, sth = 0.f;
+          if (sl >= 0) {
+            cth = sh.ct[s * R + sl];
+            sth = sh.st[s * R + sl];
+          }
+          const Coef u = gate_coef(k, cth, sth);
+          const int o = s * D;
+          const float a0r = sh.pre[o + i0], a0i = sh.pim[o + i0];
+          const float a1r = sh.pre[o + i1], a1i = sh.pim[o + i1];
+          const float l0r = sh.lre[o + i0], l0i = sh.lim[o + i0];
+          const float l1r = sh.lre[o + i1], l1i = sh.lim[o + i1];
+          if (has_grad) {
+            // generator P applied to the post-gate pair (a0, a1)
+            float q0r, q0i, q1r, q1i;
+            if (k == kRX) {
+              q0r = a1r; q0i = a1i; q1r = a0r; q1i = a0i;
+            } else if (k == kRY) {        // (-i a1, i a0)
+              q0r = a1i; q0i = -a1r; q1r = -a0i; q1i = a0r;
+            } else {                      // (a0, -a1)
+              q0r = a0r; q0i = a0i; q1r = -a1r; q1i = -a1i;
+            }
+            gp = 0.5f * (q0r * l0i + q0i * l0r + q1r * l1i + q1i * l1r);
+          }
+          float b0r, b0i, b1r, b1i;       // U^H (a0, a1)
+          cmul2(u.u00r, -u.u00i, a0r, a0i, u.u10r, -u.u10i, a1r, a1i, b0r,
+                b0i);
+          cmul2(u.u01r, -u.u01i, a0r, a0i, u.u11r, -u.u11i, a1r, a1i, b1r,
+                b1i);
+          float m0r, m0i, m1r, m1i;       // U^T (l0, l1)
+          cmul2(u.u00r, u.u00i, l0r, l0i, u.u10r, u.u10i, l1r, l1i, m0r, m0i);
+          cmul2(u.u01r, u.u01i, l0r, l0i, u.u11r, u.u11i, l1r, l1i, m1r, m1i);
+          sh.pre[o + i0] = b0r;
+          sh.pim[o + i0] = b0i;
+          sh.pre[o + i1] = b1r;
+          sh.pim[o + i1] = b1i;
+          sh.lre[o + i0] = m0r;
+          sh.lim[o + i0] = m0i;
+          sh.lre[o + i1] = m1r;
+          sh.lim[o + i1] = m1i;
+        }
+      }
+      if (has_grad) {                     // block-uniform branch
+        for (int off = seg >> 1; off > 0; off >>= 1)
+          gp += __shfl_xor_sync(0xffffffffu, gp, off);
+        if (valid && (lane & (seg - 1)) == 0)
+          atomicAdd(&sh.dx[s * R + sl], gp);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
+                     const float* __restrict__ p0re,
+                     const float* __restrict__ p0im,
+                     const float* __restrict__ hre_t,
+                     const float* __restrict__ him_t,
+                     const float* __restrict__ starts,
+                     const float* __restrict__ active,
+                     float* __restrict__ x_opt, float* __restrict__ e_new,
+                     int S, int G, int R, int n, int iters, float lr,
+                     float b1, float b2, float omb1, float omb2, float eps) {
+  extern __shared__ double smem[];
+  const int D = 1 << n;
+  const int e = blockIdx.x;
+  Shared sh;
+  sh.red = smem;
+  float* f = reinterpret_cast<float*>(smem + 2 * kWarps * kMaxStarts);
+  sh.pre = f; f += S * D;
+  sh.pim = f; f += S * D;
+  sh.lre = f; f += S * D;
+  sh.lim = f; f += S * D;
+  sh.x = f; f += S * R;
+  sh.m = f; f += S * R;
+  sh.v = f; f += S * R;
+  sh.bx = f; f += S * R;
+  sh.dx = f; f += S * R;
+  sh.ct = f; f += S * R;
+  sh.st = f; f += S * R;
+  sh.be = f; f += S;
+  sh.ev = f; f += S;
+  int* ip = reinterpret_cast<int*>(f);
+  int* tapes[8];
+  for (int a = 0; a < 8; ++a) { tapes[a] = ip; ip += G; }
+  sh.old_tape = {tapes[0], tapes[1], tapes[2], tapes[3]};
+  sh.new_tape = {tapes[4], tapes[5], tapes[6], tapes[7]};
+  sh.map = ip; ip += R;
+  sh.best = ip;
+
+  const int* src[8] = {old_g.kind, old_g.tq, old_g.cq, old_g.slot,
+                       new_g.kind, new_g.tq, new_g.cq, new_g.slot};
+  for (int idx = threadIdx.x; idx < 8 * G; idx += kThreads)
+    tapes[idx / G][idx % G] = src[idx / G][(size_t)e * G + idx % G];
+  for (int r = threadIdx.x; r < R; r += kThreads)
+    sh.map[r] = map_idx[(size_t)e * R + r];
+  for (int idx = threadIdx.x; idx < S * R; idx += kThreads) {
+    const float x0 = starts[(size_t)e * S * R + idx];
+    sh.x[idx] = x0;
+    sh.bx[idx] = x0;
+    sh.m[idx] = 0.f;
+    sh.v[idx] = 0.f;
+  }
+  for (int s = threadIdx.x; s < S; s += kThreads) sh.be[s] = INFINITY;
+  __syncthreads();
+
+  for (int it = 0; it < iters; ++it) {
+    begin_pass(sh, p0re, p0im, S, D, R);
+    forward(sh, sh.old_tape, G, S, n, R);
+    h_energy(sh, hre_t, him_t, S, D);
+    track_best(sh, S, R);
+    backward(sh, sh.old_tape, G, S, n, R);
+    const float tt = (float)(it + 1);
+    const float bc1 = 1.f - powf(b1, tt);
+    const float bc2 = 1.f - powf(b2, tt);
+    for (int idx = threadIdx.x; idx < S * R; idx += kThreads) {
+      const float gr = sh.dx[idx] * active[(size_t)e * R + idx % R];
+      const float mm = b1 * sh.m[idx] + omb1 * gr;
+      const float vv = b2 * sh.v[idx] + omb2 * gr * gr;
+      const float mhat = mm / bc1;
+      const float vhat = vv / bc2;
+      sh.x[idx] = sh.x[idx] - lr * mhat / (sqrtf(vhat) + eps);
+      sh.m[idx] = mm;
+      sh.v[idx] = vv;
+    }
+    __syncthreads();
+  }
+
+  // the final iterate may beat the tracked best
+  begin_pass(sh, p0re, p0im, S, D, R);
+  forward(sh, sh.old_tape, G, S, n, R);
+  h_energy(sh, hre_t, him_t, S, D);
+  track_best(sh, S, R);
+
+  if (threadIdx.x == 0) {                 // first minimum, as argmin
+    int b = 0;
+    for (int s = 1; s < S; ++s)
+      if (sh.be[s] < sh.be[b]) b = s;
+    *sh.best = b;
+  }
+  __syncthreads();
+  const int best = *sh.best;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    x_opt[(size_t)e * R + r] = sh.bx[best * R + r];
+    const int mj = sh.map[r];
+    sh.x[r] = mj >= 0 ? sh.bx[best * R + mj] : 0.f;   // row 0 <- x_new
+  }
+  __syncthreads();
+
+  begin_pass(sh, p0re, p0im, 1, D, R);
+  forward(sh, sh.new_tape, G, 1, n, R);
+  h_energy(sh, hre_t, him_t, 1, D);
+  if (threadIdx.x == 0) e_new[e] = sh.ev[0];
+}
+
+size_t smem_bytes(int S, int G, int R, int D) {
+  return sizeof(double) * 2 * kWarps * kMaxStarts +
+         sizeof(float) * ((size_t)4 * S * D + (size_t)7 * S * R + 2 * S) +
+         sizeof(int) * ((size_t)8 * G + R + 1);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared-memory bytes one CTA needs (the wrapper checks it against the
+// card's per-block limit before launching).
+size_t fused_adam_v1_smem_bytes(int S, int G, int R, int n) {
+  return smem_bytes(S, G, R, 1 << n);
+}
+
+const char* fused_adam_v1_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// Returns cudaGetLastError() after the launch (0 on success); the kernel
+// runs asynchronously on `stream`.
+int fused_adam_v1_launch(const int* okind, const int* otq, const int* ocq,
+                         const int* oslot, const int* nkind, const int* ntq,
+                         const int* ncq, const int* nslot, const int* map_idx,
+                         const float* p0re, const float* p0im,
+                         const float* hre_t, const float* him_t,
+                         const float* starts, const float* active,
+                         float* x_opt, float* e_new, int E, int S, int G,
+                         int R, int n, int iters, float lr, float b1,
+                         float b2, float omb1, float omb2, float eps,
+                         void* stream) {
+  if (E < 1 || S < 1 || S > kMaxStarts || G < 1 || R < 1 || n < 1 ||
+      n > 14 || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  const Tape old_g = {okind, otq, ocq, oslot};
+  const Tape new_g = {nkind, ntq, ncq, nslot};
+  const size_t bytes = smem_bytes(S, G, R, 1 << n);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_adam_v1_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  fused_adam_v1_kernel
+      <<<E, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+          old_g, new_g, map_idx, p0re, p0im, hre_t, him_t, starts, active,
+          x_opt, e_new, S, G, R, n, iters, lr, b1, b2, omb1, omb2, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

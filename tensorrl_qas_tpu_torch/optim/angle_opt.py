@@ -1,0 +1,159 @@
+"""Per-step variational angle optimization (multi-start Adam).
+
+After every environment step the reference re-optimizes all circuit
+angles (host COBYLA, ``environment_qulacs.py:220-225, 417-445``).  Here,
+as in the JAX package, a fixed-iteration multi-start Adam does it on the
+device: S starts per env, the whole batch of envs in one call.  On CUDA
+the call is one launch of the fused kernel (``ops/fused_adam.py``); on the
+CPU the same arithmetic runs as plain PyTorch in float64.
+
+Start 0 is the incoming angle vector (COBYLA's warm start); the middle
+starts add Gaussian noise; the last ``n_starts // 4`` are centered at zero
+(one exactly zero).  Random streams come from an explicit
+``torch.Generator`` and cannot match the JAX PRNG; parity tests inject
+identical starts instead.
+
+Start selection is over all S starts in one launch: the JAX package's
+start chunking (``MAX_SR_ROWS``) and env chunking (``MAX_ENV_PER_CALL``)
+exist only for TPU memory limits.
+
+The fused step works on H - c0 I, where c0 is H's identity coefficient
+(-70 Ha for 8-qubit H2O), and c0 is added back to its energies in
+float64.  The gradient is the same (the gates keep <psi|psi> = 1), but
+float32 energies and H psi products then round at the scale of the
+non-constant part of H instead of |c0|.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tensorrl_qas_tpu_torch import as_device, complex_dtype, real_dtype
+from tensorrl_qas_tpu_torch.ops.fused_adam import fused_adam_step
+from tensorrl_qas_tpu_torch.sim.apply import apply_tape
+from tensorrl_qas_tpu_torch.sim.expectation import pauli_expectation
+
+
+def make_multistarts(x0, active, n_starts: int, fresh_starts: int,
+                     restart_scale: float, generator: torch.Generator):
+    """(E, R) warm starts -> (E, S, R) start batch: start 0 exact, the
+    middle ones warm + Gaussian, the last ``fresh_starts`` zero-centered
+    (the first of them exactly zero); inactive slots are zeroed."""
+    e_n, r = x0.shape
+    s, f = n_starts, fresh_starts
+    noise = torch.randn((e_n, s, r), generator=generator, dtype=x0.dtype,
+                        device=x0.device) * restart_scale
+    noise[:, 0, :] = 0.0
+    starts = x0[:, None, :] + noise
+    if f:
+        fresh = noise[:, s - f:, :].clone()
+        fresh[:, 0, :] = 0.0
+        starts[:, s - f:, :] = fresh
+    return starts * active[:, None, :]
+
+
+def operands_from_jax(hre_t, him_t, psi0_re, psi0_im, n_qubits: int,
+                      offset: float = 0.0, device=None):
+    """The JAX optimizer's v1-kernel operands in this port's layout.
+
+    The JAX package keeps the H^T planes zero-padded to at least 128 lanes
+    (``AngleOptimizer._mega_ready``) and psi0 as an (re, im) pair of real
+    planes; the port takes unpadded (D, D) planes of H - offset I (see
+    ``AngleOptimizer.offset``) and a complex (D,) statevector.  Returns
+    ((hre_t, him_t), psi0) on ``device``.
+    """
+    d = 1 << n_qubits
+    dev = as_device(device)
+    hre = np.array(hre_t, dtype=np.float64)[:d, :d] - offset * np.eye(d)
+    planes = tuple(torch.as_tensor(p, dtype=real_dtype(dev), device=dev)
+                   for p in (hre, np.array(him_t)[:d, :d]))
+    psi0 = np.asarray(psi0_re)[:d] + 1j * np.asarray(psi0_im)[:d]
+    return planes, torch.as_tensor(psi0, dtype=complex_dtype(dev),
+                                   device=dev)
+
+
+class AngleOptimizer:
+    """Multi-start Adam angle optimizer bound to one problem.
+
+    Args:
+      pauli: the problem's ``PauliSum``.
+      iters: Adam iterations per env step (config ``global_iters``).
+      n_starts: starts per env.
+      lr: Adam learning rate.
+      restart_scale: stddev of the Gaussian start perturbation.
+      device: where the statevectors live (CUDA by default).
+      seed: seed of the start generator.
+    """
+
+    def __init__(self, pauli, iters: int = 100, n_starts: int = 8,
+                 lr: float = 0.1, restart_scale: float = 0.1, device=None,
+                 seed: int = 0):
+        self.pauli = pauli
+        self.iters = iters
+        self.n_starts = n_starts
+        self.fresh_starts = n_starts // 4
+        self.lr = lr
+        self.restart_scale = restart_scale
+        self.device = as_device(device)
+        self.cdtype = complex_dtype(self.device)
+        self.rdtype = real_dtype(self.device)
+        self.pauli_t = pauli.tensors(self.device, self.cdtype)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.offset = pauli.identity_weight()
+        self._h_planes = None
+
+    def h_planes(self):
+        """(hre_t, him_t): real and imaginary planes of (H - offset I)^T,
+        (D, D)."""
+        if self._h_planes is None:
+            ht = self.pauli.to_dense().T
+            ht -= self.offset * np.eye(ht.shape[0])
+            self._h_planes = tuple(
+                torch.as_tensor(np.ascontiguousarray(p), dtype=self.rdtype,
+                                device=self.device)
+                for p in (ht.real, ht.imag))
+        return self._h_planes
+
+    def energy(self, psi0, tape_arrays, x) -> float:
+        """Energy of one tape at angles x (eager path)."""
+        x = torch.as_tensor(np.asarray(x), dtype=self.rdtype,
+                            device=self.device)
+        psi = apply_tape(psi0, *tape_arrays, x)
+        return float(pauli_expectation(psi, *self.pauli_t))
+
+    def fused_step_batch(self, psi0, old_arrs_b, x0_b, n_active_b,
+                         new_arrs_b, map_idx_b):
+        """One env step for B env replicas in one device call.
+
+        psi0: (D,) complex tensor on the optimizer's device, shared by the
+        batch; old/new_arrs_b: tuples of (B, G) int arrays; x0_b (B, R);
+        n_active_b (B,); map_idx_b (B, R).
+        Returns (x_opt (B, R) numpy, e_new (B,) numpy, nfev).
+        """
+        dev = self.device
+
+        def ints(a):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                                   device=dev)
+
+        x0 = torch.as_tensor(np.asarray(x0_b), dtype=self.rdtype, device=dev)
+        r = x0.shape[1]
+        active = (torch.arange(r, device=dev)[None, :]
+                  < torch.as_tensor(np.asarray(n_active_b),
+                                    device=dev)[:, None]).to(self.rdtype)
+        starts = make_multistarts(x0, active, self.n_starts,
+                                  self.fresh_starts, self.restart_scale,
+                                  self.generator)
+        hre_t, him_t = self.h_planes()
+        x_opt, e_new = fused_adam_step(
+            tuple(ints(a) for a in old_arrs_b),
+            tuple(ints(a) for a in new_arrs_b), ints(map_idx_b),
+            psi0.real.reshape(1, -1).to(self.rdtype).contiguous(),
+            psi0.imag.reshape(1, -1).to(self.rdtype).contiguous(),
+            hre_t, him_t, starts.contiguous(),
+            active[:, None, :].contiguous(), iters=self.iters, lr=self.lr)
+        return (x_opt.cpu().numpy(),
+                e_new.cpu().numpy().astype(np.float64) + self.offset,
+                self.iters * self.n_starts)

@@ -1,0 +1,244 @@
+"""The fused Adam env step of the PyTorch port (ops/fused_adam.py) against
+the JAX package's v1 kernel and XLA path.
+
+- Plain version vs ``fused_adam_step_pallas(..., interpret=True)`` at 3
+  qubits in float32: within 1e-5 (same arithmetic, different f32 rounding
+  and summation order over 5 Adam iterations).
+- Plain version vs the XLA path (``use_pallas=False``) at 5 qubits in
+  float64/complex128: within 1e-10, with the JAX starts injected.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorrl_qas_tpu.circuits.tape import GateKind, GateTape
+from tensorrl_qas_tpu.ops.pallas_opt import fused_adam_step_pallas
+from tensorrl_qas_tpu.optim.angle_opt import AngleOptimizer as OptJax
+from tensorrl_qas_tpu.optim.angle_opt import make_multistarts as starts_jax
+from tensorrl_qas_tpu.problems.hamiltonians import load_problem
+from tensorrl_qas_tpu.sim.expectation import PauliSum
+from tensorrl_qas_tpu_torch.ops import fused_adam
+from tensorrl_qas_tpu.envs import CircuitEnv as EnvJax
+from tensorrl_qas_tpu.envs import EnvConfig as EnvConfigJax
+from tensorrl_qas_tpu_torch.envs.circuit_env import CircuitEnv, EnvConfig
+from tensorrl_qas_tpu_torch.optim.angle_opt import (
+    AngleOptimizer,
+    operands_from_jax,
+)
+from tensorrl_qas_tpu_torch.problems.hamiltonians import (
+    load_problem as load_problem_torch,
+)
+
+
+def _random_batch(rng, n, n_env, cap):
+    """Per env: an old tape of CNOTs / rotations / fixed gates, a new tape
+    (old plus one gate) and the angle remap, as the env builds them."""
+    olds, news, maps, x0s, n_rots = [], [], [], [], []
+    for _ in range(n_env):
+        old = GateTape(n, cap, cap)
+        new = GateTape(n, cap, cap)
+        for _ in range(cap - 2):
+            r = rng.random()
+            t = int(rng.integers(n))
+            if r < 0.3:
+                c = int((t + 1 + rng.integers(n - 1)) % n)
+                gate = (GateKind.CX, t, c, 0.0)
+            elif r < 0.4:
+                gate = (GateKind(int(rng.integers(5, 9))), t, -1, 0.0)
+            else:
+                gate = (GateKind(int(rng.integers(1, 4))), t, -1,
+                        float(rng.normal()))
+            old.add(*gate)
+            new.add(*gate)
+        new.add(GateKind.RY, int(rng.integers(n)))
+        olds.append(old.arrays())
+        news.append(new.arrays())
+        maps.append(np.where(np.arange(cap) < old.n_rots, np.arange(cap),
+                             -1).astype(np.int32))
+        x0s.append(old.x0())
+        n_rots.append(old.n_rots)
+
+    def stack(t):
+        return tuple(np.stack([a[k] for a in t]) for k in range(4))
+
+    return (stack(olds), stack(news), np.stack(maps), np.stack(x0s),
+            np.asarray(n_rots))
+
+
+def _ints(arrs):
+    return tuple(torch.as_tensor(a, dtype=torch.int32) for a in arrs)
+
+
+def test_plain_version_matches_pallas_v1_interpret():
+    n, n_env, s_n, cap, iters = 3, 2, 3, 10, 5
+    rng = np.random.default_rng(0)
+    old, new, maps, x0, n_rots = _random_batch(rng, n, n_env, cap)
+    ps = PauliSum.from_strings(["ZII", "IZI", "IIZ", "XXI", "IYY", "XZY"],
+                               [1.0, 0.5, -0.7, 0.9, 1.3, 0.4], n)
+    psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    psi0 /= np.linalg.norm(psi0)
+    active = (np.arange(cap)[None, None, :]
+              < n_rots[:, None, None]).astype(np.float32)
+    starts = (x0[:, None, :] + 0.3 * rng.normal(size=(n_env, s_n, cap))
+              ).astype(np.float32) * active
+    ht = ps.to_dense().T
+    # the TPU kernel wants 128 lanes: zero-pad state and H (as
+    # AngleOptimizer._mega_ready does); padded lanes never mix in
+    pad = 128
+    htp = np.zeros((pad, pad), complex)
+    htp[: 1 << n, : 1 << n] = ht
+    p0 = np.zeros(pad, complex)
+    p0[: 1 << n] = psi0
+    f32 = jnp.float32
+    xj, ej = fused_adam_step_pallas(
+        tuple(map(jnp.asarray, old)), tuple(map(jnp.asarray, new)),
+        jnp.asarray(maps), jnp.asarray(p0.real[None], f32),
+        jnp.asarray(p0.imag[None], f32), jnp.asarray(htp.real, f32),
+        jnp.asarray(htp.imag, f32), jnp.asarray(starts), jnp.asarray(active),
+        iters=iters, lr=0.1, interpret=True)
+
+    def t32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32)
+
+    xt, et = fused_adam.fused_adam_step_reference(
+        _ints(old), _ints(new), torch.as_tensor(maps), t32(psi0.real[None]),
+        t32(psi0.imag[None]), t32(ht.real), t32(ht.imag), t32(starts),
+        t32(active), iters=iters, lr=0.1)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-5)
+    np.testing.assert_allclose(et.numpy(), np.asarray(ej), atol=1e-5)
+
+
+def test_plain_version_matches_xla_path_complex128():
+    n, n_env, cap = 5, 3, 14
+    rng = np.random.default_rng(1)
+    old, new, maps, x0, n_rots = _random_batch(rng, n, n_env, cap)
+    problem = load_problem("heisenberg", n)
+    psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    psi0 /= np.linalg.norm(psi0)
+    opt_j = OptJax(problem.pauli.device_arrays(jnp.complex128), iters=12,
+                   n_starts=4, lr=0.1, dtype=jnp.complex128)
+    keys = jax.random.split(jax.random.PRNGKey(5), n_env)
+    xj, ej, _ = opt_j.fused_step_batch(
+        (psi0.real, psi0.imag), old, x0, n_rots, new, maps, keys)
+    # the XLA path's starts: _fused_step splits key -> (ko, ke), then
+    # _optimize_multistart splits ko -> (kn, ko2) and draws from kn
+    active = (np.arange(cap)[None, :] < n_rots[:, None]).astype(np.float64)
+    starts = np.stack([np.asarray(starts_jax(
+        jnp.asarray(x0[e]), jnp.asarray(active[e]),
+        jax.random.split(jax.random.split(keys[e])[0])[0],
+        opt_j.n_starts, opt_j.fresh_starts, opt_j.restart_scale))
+        for e in range(n_env)])
+
+    opt_t = AngleOptimizer(load_problem_torch("heisenberg", n).pauli,
+                           iters=12, n_starts=4, lr=0.1, device="cpu")
+    hre_t, him_t = opt_t.h_planes()
+    p0 = torch.as_tensor(psi0)
+    xt, et = fused_adam.fused_adam_step(
+        _ints(old), _ints(new), torch.as_tensor(maps),
+        p0.real[None].contiguous(), p0.imag[None].contiguous(), hre_t, him_t,
+        torch.as_tensor(starts), torch.as_tensor(active[:, None, :]),
+        iters=12, lr=0.1)
+    np.testing.assert_allclose(xt.numpy(), xj, atol=1e-10)
+    np.testing.assert_allclose(et.numpy() + opt_t.offset, ej, atol=1e-10)
+
+
+def test_wrapper_dispatch_and_launch_count():
+    """CPU tensors take the plain version (no launch counted); a device
+    without a kernel raises; CUDA-only checks reject what the kernel does
+    not take before anything is built."""
+    n, n_env, cap = 3, 2, 6
+    rng = np.random.default_rng(2)
+    old, new, maps, x0, n_rots = _random_batch(rng, n, n_env, cap)
+    d = 1 << n
+    args = (_ints(old), _ints(new), torch.as_tensor(maps),
+            torch.zeros(1, d), torch.zeros(1, d), torch.eye(d),
+            torch.zeros(d, d), torch.zeros(n_env, 2, cap),
+            torch.ones(n_env, 1, cap))
+    before = fused_adam.fused_adam_step.launches
+    x, e = fused_adam.fused_adam_step(*args, iters=2, lr=0.1)
+    assert x.shape == (n_env, cap) and e.shape == (n_env,)
+    assert fused_adam.fused_adam_step.launches == before
+    meta = tuple(tuple(t.to("meta") for t in a) if isinstance(a, tuple)
+                 else a.to("meta") for a in args)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_adam.fused_adam_step(*meta, iters=2, lr=0.1)
+    ints = (*args[0], *args[1])
+    floats = args[3:]
+    with pytest.raises(TypeError, match="float32"):
+        fused_adam._check_inputs(ints, (*floats[:-1], floats[-1].double()),
+                                 args[2], args[3], args[5], args[7], args[8])
+    with pytest.raises(ValueError, match="starts"):
+        fused_adam._check_inputs(ints, floats, args[2], args[3], args[5],
+                                 torch.zeros(n_env, 9, cap), args[8])
+    bad_kind = tuple(a.clone() for a in ints)
+    bad_kind[0][0, 0] = int(GateKind.RXX)
+    with pytest.raises(ValueError, match="RXX"):
+        fused_adam._check_inputs(bad_kind, floats, args[2], args[3], args[5],
+                                 args[7], args[8])
+
+
+def test_agreement_accepts_the_plain_version_and_rejects_wrong_results():
+    """The kernel check (``agreement``) on float32 inputs: the plain
+    version's own result and one computed with the H planes rounded
+    differently agree in every env; a result with Adam's rate off by 1%
+    is rejected in the envs with several angles, and one with the RY
+    angles' gradients dropped in exactly the envs that have RY angles."""
+    n, n_env, cap = 5, 6, 10
+    rng = np.random.default_rng(3)
+    old, new, maps, x0, n_rots = _random_batch(rng, n, n_env, cap)
+    ht = load_problem_torch("heisenberg", n).pauli.to_dense().T
+    psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    psi0 /= np.linalg.norm(psi0)
+    f32 = dict(dtype=torch.float32)
+    active = torch.as_tensor(
+        np.arange(cap)[None, :] < n_rots[:, None], **f32)
+    starts = torch.as_tensor(
+        x0[:, None, :] + 0.1 * rng.normal(size=(n_env, 4, cap)),
+        **f32) * active[:, None, :]
+    args = (_ints(old), _ints(new), torch.as_tensor(maps),
+            torch.as_tensor(psi0.real[None], **f32),
+            torch.as_tensor(psi0.imag[None], **f32),
+            torch.as_tensor(np.ascontiguousarray(ht.real), **f32),
+            torch.as_tensor(np.ascontiguousarray(ht.imag), **f32),
+            starts.contiguous(), active[:, None, :].contiguous())
+    ref = fused_adam.plain_results(args, iters=3, lr=0.1)
+    assert len(ref) == 6
+    for x, e in (ref[0], ref[-1]):
+        ok, _, _ = fused_adam.agreement(args, ref, x, e, tol=1e-5)
+        assert bool(ok.all())
+    x, e = fused_adam.fused_adam_step_reference(*args, iters=3, lr=0.101)
+    ok, _, _ = fused_adam.agreement(args, ref, x, e, tol=1e-5)
+    assert bool((~ok)[torch.as_tensor(n_rots) >= 4].all())
+    ry = (args[0][0] == int(GateKind.RY)) & (args[0][3] >= 0)
+    keep = torch.ones_like(args[8])
+    for env, g in ry.nonzero().tolist():
+        keep[env, 0, args[0][3][env, g]] = 0.0
+    x, e = fused_adam.fused_adam_step_reference(
+        *args[:8], (args[8] * keep).contiguous(), iters=3, lr=0.1)
+    ok, _, _ = fused_adam.agreement(args, ref, x, e, tol=1e-5)
+    assert torch.equal(~ok, ry.any(dim=1))      # every env with an RY angle
+
+
+def test_operands_from_jax_match_the_port():
+    """The JAX v1 operands (H^T planes padded to 128 lanes, psi0 as real
+    planes) converted to the port's layout equal the port's own: the H
+    planes to float32 rounding (JAX keeps them in float32), the warm-start
+    psi0 of the 5q env to 1e-12 (both complex128)."""
+    kw = dict(num_qubits=5, num_layers=12, ham_type="heisenberg",
+              tn_placement="fixed", tn_bond=2,
+              curriculum_conf={"thresholds": [1e-3], "accept_err": 1e-3,
+                               "switch_episodes": [100000]})
+    env_j = EnvJax(EnvConfigJax(sim_dtype="complex128", **kw))
+    env_t = CircuitEnv(EnvConfig(device="cpu", **kw))
+    opt_j = env_j.optimizer
+    assert opt_j._mega_ready() and opt_j._hre_t.shape == (128, 128)
+    (hre_t, him_t), psi0 = operands_from_jax(
+        opt_j._hre_t, opt_j._him_t, *env_j._psi0(), 5,
+        offset=env_t.optimizer.offset, device="cpu")
+    ref_re, ref_im = env_t.optimizer.h_planes()
+    np.testing.assert_allclose(hre_t.numpy(), ref_re.numpy(), atol=1e-5)
+    np.testing.assert_allclose(him_t.numpy(), ref_im.numpy(), atol=1e-5)
+    np.testing.assert_allclose(psi0.numpy(), env_t.psi0.numpy(), atol=1e-12)

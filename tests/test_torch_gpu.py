@@ -1,0 +1,125 @@
+"""The CUDA fused Adam kernel against its plain PyTorch version, on the
+card.  Marked ``gpu``; on a host without a CUDA card each test skips
+itself (decided inside the test, so every worker collects the same
+tests).  Run on the card's host, which has no JAX for the root
+conftest.py, with:
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerance 1e-5 on x_opt and e_new after 3 Adam iterations at 8 qubits:
+both are float32 with the energy sums in float64; what remains is the
+summation order of H psi and of the gradient rows.  Float32 noise decides
+some outputs in any float32 implementation, so an env that differs may
+instead lie within the plain version's own float32 noise
+(``ops/fused_adam.py:agreement``, the rule chip_smoke.py applies);
+deliberately wrong kernel results must fail that rule."""
+
+import numpy as np
+import pytest
+import torch
+
+from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
+from tensorrl_qas_tpu_torch.ops import fused_adam
+from tensorrl_qas_tpu_torch.optim.angle_opt import (
+    AngleOptimizer,
+    make_multistarts,
+)
+from tensorrl_qas_tpu_torch.problems.hamiltonians import load_problem
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(dev, n=8, n_env=16, n_starts=8, cap=20, seed=0):
+    rng = np.random.default_rng(seed)
+    olds, news, x0s, n_rots = [], [], [], []
+    for _ in range(n_env):
+        old, new = GateTape(n, cap, cap), GateTape(n, cap, cap)
+        for _ in range(int(rng.integers(0, cap))):
+            t = int(rng.integers(n))
+            if rng.random() < 0.4:
+                gate = (GateKind.CX, t, int((t + 1 + rng.integers(n - 1)) % n),
+                        0.0)
+            else:
+                gate = (GateKind(int(rng.integers(1, 4))), t, -1,
+                        float(rng.normal()))
+            old.add(*gate)
+            new.add(*gate)
+        new.add(GateKind.RX, int(rng.integers(n)))
+        olds.append(old.arrays())
+        news.append(new.arrays())
+        x0s.append(old.x0())
+        n_rots.append(old.n_rots)
+    maps = np.stack([np.where(np.arange(cap) < k, np.arange(cap), -1)
+                     for k in n_rots]).astype(np.int32)
+    prob = load_problem("H2O", n, "H -0.021 -0.002 0.000; O 0.835 0.452 "
+                        "0.000; H 1.477 -0.273 0.000")
+    hre_t, him_t = AngleOptimizer(prob.pauli, device=dev).h_planes()
+    psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    psi0 /= np.linalg.norm(psi0)
+
+    def ints(tapes):
+        return tuple(torch.as_tensor(np.stack([t[k] for t in tapes]),
+                                     dtype=torch.int32, device=dev)
+                     for k in range(4))
+
+    x0 = torch.as_tensor(np.stack(x0s), dtype=torch.float32, device=dev)
+    active = (torch.arange(cap, device=dev)[None, :]
+              < torch.as_tensor(n_rots, device=dev)[:, None]).float()
+    starts = make_multistarts(x0, active, n_starts, n_starts // 4, 0.1,
+                              torch.Generator(device=dev).manual_seed(1))
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (ints(olds), ints(news), torch.as_tensor(maps, device=dev),
+            torch.as_tensor(psi0.real[None], **f32),
+            torch.as_tensor(psi0.imag[None], **f32), hre_t, him_t,
+            starts.contiguous(), active[:, None, :].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_starts", [8, 3])
+def test_kernel_matches_plain_version(n_starts):
+    dev = _card()
+    args = _inputs(dev, n_starts=n_starts)
+    before = fused_adam.fused_adam_step.launches
+    xk, ek = fused_adam.fused_adam_step(*args, iters=3, lr=0.1)
+    torch.cuda.synchronize()
+    assert fused_adam.fused_adam_step.launches == before + 1
+    ref = fused_adam.plain_results(args, iters=3, lr=0.1)
+    ok, strict, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5)
+    assert bool(ok.all())
+    assert strict.float().mean() > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["lr", "drop_ry"])
+def test_check_rejects_a_wrong_kernel_result(fault):
+    """The agreement rule has teeth: the kernel with Adam's rate off by 1%,
+    or with the RY angles' gradients dropped, fails it."""
+    dev = _card()
+    args = _inputs(dev)
+    lr = 0.101 if fault == "lr" else 0.1
+    wrong = list(args)
+    if fault == "drop_ry":
+        kinds, slots = args[0][0], args[0][3]
+        keep = torch.ones_like(args[8])
+        for e, g in ((kinds == int(GateKind.RY))
+                     & (slots >= 0)).nonzero().tolist():
+            keep[e, 0, slots[e, g]] = 0.0
+        wrong[8] = (args[8] * keep).contiguous()
+    xk, ek = fused_adam.fused_adam_step(*wrong, iters=3, lr=lr)
+    ref = fused_adam.plain_results(args, iters=3, lr=0.1)
+    ok, _, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5)
+    assert not bool(ok.all())
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_two_qubit_rotations():
+    dev = _card()
+    args = list(_inputs(dev, n_env=2))
+    kinds = args[0][0].clone()
+    kinds[0, 0] = 9                     # GateKind.RXX
+    args[0] = (kinds, *args[0][1:])
+    with pytest.raises(ValueError, match="RXX"):
+        fused_adam.fused_adam_step(*args, iters=1, lr=0.1)

@@ -1,0 +1,44 @@
+"""The PyTorch port imports neither JAX nor the JAX package: a fresh
+interpreter imports every module of ``tensorrl_qas_tpu_torch`` and finds
+no ``jax``, ``flax``, ``optax`` or ``tensorrl_qas_tpu`` in sys.modules.
+Importing also builds nothing: no kernel library appears."""
+
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+SCRIPT = """
+import importlib, pkgutil, sys
+import tensorrl_qas_tpu_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+banned = ("jax", "jaxlib", "flax", "optax", "tensorrl_qas_tpu")
+found = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(len(names), "modules;", "banned:", found)
+assert not found, found
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "banned: []" in proc.stdout
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 20
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a card the smoke run exits non-zero and prints no result."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={"CUDA_VISIBLE_DEVICES": "",
+                               "PATH": "/usr/bin:/bin",
+                               "HOME": str(tmp_path)})
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
