@@ -1,38 +1,56 @@
-"""Smoke run of the PyTorch port's main path on one CUDA card.
+"""Smoke run of the PyTorch port on one CUDA card: both engines of the fused
+Adam env step and the vectorized trainer through each.
 
     python3 chip_smoke.py
 
 Phases, one line each with its seconds:
 
-1. device   -- a CUDA card must be present (no CPU fallback); prints
-               ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    -- compiles every kernel of the main path with nvcc into
-               build/ and prints ptxas' register / shared-memory / spill
-               lines.
-3. kernel   -- the fused Adam kernel against its plain PyTorch version at
-               the main path's shapes (E = 128 envs, S = 8 starts, G = R =
-               47, D = 256, the 8-qubit H2O Hamiltonian, tapes drawn from
-               a numpy seed): iters = 3 (x_opt, where float32 determines
-               it, and e_new within 1e-5) and iters = 100 (e_new within
-               1e-4 Ha), or, where float32 rounding decides the result,
-               within the plain version's own float32 noise
-               (ops/fused_adam.py:agreement); e_new also against
-               float64 and the eager complex128 simulator; two deliberately
-               wrong kernel results must fail the same check; then the
-               kernel's and the plain version's times.
-4. trainer  -- the CLI's vectorized trainer on configs/TensorRL_fixed/
-               H2O8q_TNbond2.cfg with 128 env replicas for 20 vector steps,
-               results in a temporary directory outside the repository;
-               checks the reference-schema outputs and that every env step
-               went through the kernel.
+1. device     -- a CUDA card must be present (no CPU fallback); prints
+                 ``nvidia-smi --query-gpu=name,power.limit``.
+2. build      -- compiles every kernel with nvcc into build/, one nvcc per
+                 source, all started together, and prints ptxas' register /
+                 shared-memory / spill lines.
+3. kernel v1  -- the dense-H kernel (fused_adam_v1) against its plain
+                 PyTorch version at the 8-qubit main path's shapes (E = 128
+                 envs, S = 8 starts, G = R = 26, D = 256, the H2O
+                 Hamiltonian, tapes drawn from a numpy seed): iters = 3
+                 (x_opt, where float32 determines it, and e_new within
+                 1e-5) and iters = 100 (e_new within 1e-4 Ha), or, where
+                 float32 rounding decides the result, within the plain
+                 version's own float32 noise (ops/fused_adam.py:agreement);
+                 e_new also against the eager complex128 simulator; two
+                 deliberately wrong kernel results must fail the same
+                 check; then the kernel's and the plain version's times.
+4. trainer v1 -- the CLI's vectorized trainer on configs/TensorRL_fixed/
+                 H2O8q_TNbond2.cfg with 128 env replicas for 20 vector
+                 steps, results in a temporary directory outside the
+                 repository; checks the reference-schema outputs and that
+                 every env step went through fused_adam_v1.
+5. kernel v2  -- the flip-group kernel (fused_adam_v2) held to the same
+                 rule at the 12-qubit LiH shapes (E = 16, S = 8, G = R =
+                 116, D = 4096, 84 flip groups), with the same oracle,
+                 controls and timing; then a 3-iteration sweep over the
+                 rest of the 10-18-qubit band: H2O 10q (E = 64), Heisenberg
+                 14q (E = 8, the first size with its state in global
+                 memory), 16q (E = 4) and 18q (E = 2).
+6. trainer v2 -- the trainer on configs/TensorRL_fixed/LIH12q_TNbond2.cfg
+                 with 16 replicas for 80 vector steps (1,280 env steps, so
+                 that the replay buffer passes batch 1000 and replay runs);
+                 checks the outputs, that the replay ran and that every env
+                 step went through fused_adam_v2.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failure, or passing the
 deadline, exits non-zero without that line.
+
+Every kernel check and timing runs at the tape capacity G = R that the
+trainer's env gives the config (``CircuitEnv.tape_capacity``: num_layers
+less the warm start's depth, plus one).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -41,12 +59,17 @@ import sys
 import tempfile
 import threading
 import time
+from typing import Callable, NamedTuple
 
 sys.dont_write_bytecode = True      # write nothing into the checkout
 
 DEADLINE_S = 600
-E_ENVS, STARTS, CAP, N_QUBITS, ITERS = 128, 8, 47, 8, 100
-VECTOR_STEPS = 20
+STARTS, ITERS, LR = 8, 100, 0.1
+V1_CONFIG, V1_ENVS, V1_STEPS = "H2O8q_TNbond2", 128, 20
+V2_CONFIG, V2_ENVS, V2_STEPS = "LIH12q_TNbond2", 16, 80
+# the rest of the band at 3 iterations: (config, envs)
+SWEEP = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8),
+         ("heisenberg_16q_TNbond2", 4), ("heisenberg_18q_TNbond2", 2))
 TOL_ITERS3 = 1e-5        # x_opt and e_new after 3 Adam iterations
 TOL_ITERS100 = 1e-4      # e_new (Ha) after 100 iterations: f32 summation
 #                          order perturbs the Adam trajectories
@@ -87,8 +110,10 @@ def smi_line() -> str:
 
 
 def draw_batch(rng, n_env, cap, n_qubits):
-    """Main-path-shaped inputs: per env a random mid-episode tape of
-    CNOTs and rotations, the same tape plus one gate, and the angle map."""
+    """Mid-episode inputs: per env a random tape of CNOTs and rotations,
+    the same tape plus one gate, and the angle map."""
+    import numpy as np
+
     from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
 
     olds, news, maps, x0s, n_rots = [], [], [], [], []
@@ -117,7 +142,6 @@ def draw_batch(rng, n_env, cap, n_qubits):
         maps.append(mi)
         x0s.append(old.x0())
         n_rots.append(old.n_rots)
-    import numpy as np
 
     def stack(tapes):
         return tuple(np.stack([t[k] for t in tapes]) for k in range(4))
@@ -126,19 +150,217 @@ def draw_batch(rng, n_env, cap, n_qubits):
             np.stack(x0s), np.asarray(n_rots))
 
 
-def flop_count(old_kind, new_kind, n_starts, dim, iters):
-    """Operations of one fused step on this batch: dense H psi (8 flops per
-    complex multiply-add), 2x2 gate updates on the gates present (28 flops
-    a pair forward, 64 backward with the gradient term), energy sums."""
-    g_old = (old_kind != 0).sum(axis=1)
-    g_new = (new_kind != 0).sum(axis=1)
-    pairs = dim // 2
-    evals = (iters + 1) * n_starts
-    hpsi = (evals + 1) * dim * dim * 8
-    fwd = (evals * g_old + g_new) * pairs * 28
-    bwd = iters * n_starts * g_old * pairs * 64
-    energy = (evals + 1) * dim * 4
-    return float((hpsi + fwd + bwd + energy).sum())
+class Engine(NamedTuple):
+    """One kernel of the fused step: its wrapper, its plain version, the H
+    operands it takes from the optimizer, the dynamic shared memory one
+    CTA takes at a case's shapes, and the rows of H one H psi reads (dense
+    D, or one plane per flip group)."""
+    name: str
+    replaces: str
+    step: Callable
+    plain: Callable
+    h_ops: Callable
+    smem_bytes: Callable
+    h_rows: Callable
+
+
+def engines():
+    from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
+
+    v1, v2 = fused_adam._library, fused_adam2d._library
+    return (
+        Engine(name="fused_adam_v1",
+               replaces="tensorrl_qas_tpu/ops/pallas_opt.py:54",
+               step=fused_adam.fused_adam_step,
+               plain=fused_adam.fused_adam_step_reference,
+               h_ops=lambda opt: opt.h_planes(),
+               smem_bytes=lambda case: v1().fused_adam_v1_smem_bytes(
+                   STARTS, case.cap, case.cap, case.n),
+               h_rows=lambda case: 1 << case.n),
+        Engine(name="fused_adam_v2",
+               replaces="tensorrl_qas_tpu/ops/pallas_opt2d.py:160",
+               step=fused_adam2d.fused_adam_step2d,
+               plain=fused_adam2d.fused_adam_step2d_reference,
+               h_ops=lambda opt: opt.w_planes(),
+               smem_bytes=lambda case: v2().fused_adam_v2_smem_bytes(
+                   case.cap, case.cap, case.n, case.args[7].numel()),
+               h_rows=lambda case: case.args[7].numel()))
+
+
+class Case:
+    """Kernel inputs drawn for one config: E envs of random mid-episode
+    tapes at the capacity the trainer's env gives the config (numpy seed
+    1234), a random psi0, starts from the optimizer's start rule; the
+    problem and the H operands from that env's optimizer."""
+
+    def __init__(self, engine, config, n_env):
+        import numpy as np
+        import torch
+
+        from tensorrl_qas_tpu_torch.envs.circuit_env import (
+            CircuitEnv,
+            EnvConfig,
+        )
+        from tensorrl_qas_tpu_torch.optim.angle_opt import make_multistarts
+        from tensorrl_qas_tpu_torch.train.config import get_config
+
+        dev = torch.device("cuda")
+        env = CircuitEnv(EnvConfig.from_conf(
+            get_config("TensorRL_fixed/", f"{config}.cfg"), device="cuda"))
+        self.n = n = env.num_qubits
+        self.cap = cap = env.tape_capacity
+        self.n_env = n_env
+        self.prob = env.problem
+        self.opt = env.optimizer
+        rng = np.random.default_rng(1234)
+        self.old, self.new, self.maps, x0, n_rots = draw_batch(
+            rng, n_env, cap, n)
+        psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+        self.psi0 = psi0 / np.linalg.norm(psi0)
+
+        def ints(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                   device=dev)
+
+        f32 = dict(dtype=torch.float32, device=dev)
+        active = (torch.arange(cap, device=dev)[None, :]
+                  < torch.as_tensor(n_rots, device=dev)[:, None]).float()
+        gen = torch.Generator(device=dev).manual_seed(7)
+        starts = make_multistarts(torch.as_tensor(x0, **f32), active, STARTS,
+                                  STARTS // 4, 0.1, gen).contiguous()
+        self.args = (tuple(ints(a) for a in self.old),
+                     tuple(ints(a) for a in self.new), ints(self.maps),
+                     torch.as_tensor(self.psi0.real[None], **f32),
+                     torch.as_tensor(self.psi0.imag[None], **f32),
+                     *engine.h_ops(self.opt), starts,
+                     active[:, None, :].contiguous())
+
+    def controls(self):
+        """Deliberately wrong kernel inputs the check must reject: Adam's
+        rate off by 1%, and the RY angles' gradients dropped (their
+        `active` entries zeroed).  A 1% rate still reaches the same optima
+        in 100 iterations, so that one is required to fail at 3 iterations
+        only.  -> (name, args, lr, iterations where it must be flagged)."""
+        import numpy as np
+        import torch
+
+        from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+
+        ry = np.zeros((self.n_env, self.cap), bool)
+        for e in range(self.n_env):
+            kinds, slots = self.old[0][e], self.old[3][e]
+            ry[e, slots[(kinds == GateKind.RY) & (slots >= 0)]] = True
+        active = self.args[-1]
+        no_ry = (active * torch.as_tensor(~ry, dtype=torch.float32,
+                                          device=active.device)[:, None, :]
+                 ).contiguous()
+        return (("lr x 1.01", self.args, LR * 1.01, (3,)),
+                ("RY gradients dropped", (*self.args[:-1], no_ry), LR,
+                 (3, ITERS)))
+
+    def oracle_error(self, x_opt, e_new, envs):
+        """Largest |e_new + offset - E| over ``envs``, E from the eager
+        complex128 simulator at the remapped x_opt on the new tape."""
+        import numpy as np
+        import torch
+
+        from tensorrl_qas_tpu_torch.sim.apply import apply_tape
+        from tensorrl_qas_tpu_torch.sim.expectation import pauli_expectation
+
+        dev = x_opt.device
+        x64 = x_opt.double().cpu().numpy()
+        pauli = self.prob.pauli.tensors(dev, torch.complex128)
+        err = 0.0
+        for e in envs:
+            mi = self.maps[e]
+            x_new = np.where(mi >= 0, x64[e][np.maximum(mi, 0)], 0.0)
+            psi = apply_tape(torch.as_tensor(self.psi0, device=dev),
+                             *(a[e] for a in self.new), x_new)
+            e_ref = float(pauli_expectation(psi, *pauli))
+            err = max(err, abs(e_ref - (float(e_new[e]) + self.opt.offset)))
+        return err
+
+
+def check_kernel(engine, case, label, iters, tol, controls=()):
+    """One kernel call held against the plain version's float32 runs
+    (``agreement``), the eager simulator and the controls; raises on any
+    disagreement.  Returns the agreement statistics."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam
+
+    t0 = phase(f"{label} iters={iters}")
+    xk, ek = engine.step(*case.args, iters=iters, lr=LR)
+    torch.cuda.synchronize()
+    ref = fused_adam.plain_results(case.args, iters=iters, lr=LR,
+                                   step=engine.plain)
+    env_ok, _, stats = fused_adam.agreement(
+        case.args, ref, xk, ek, tol=tol, check_x=iters == 3,
+        step=engine.plain)
+    oracle = case.oracle_error(xk, ek, range(0, case.n_env,
+                                             max(1, case.n_env // 8)))
+    caught = {}
+    for name, c_args, c_lr, required in controls:
+        xc, ec = engine.step(*c_args, iters=iters, lr=c_lr)
+        c_ok, _, _ = fused_adam.agreement(case.args, ref, xc, ec, tol=tol,
+                                          check_x=iters == 3,
+                                          step=engine.plain)
+        flagged = int((~c_ok).sum())
+        caught[name] = f"{flagged}/{case.n_env}"
+        if iters in required and flagged == 0:
+            raise AssertionError(f"{label}: control {name!r} passed the "
+                                 f"check at iters={iters}")
+    ok = (bool(env_ok.all()) and oracle <= TOL_ORACLE
+          and bool(torch.isfinite(ek).all())
+          and bool(torch.isfinite(xk).all()))
+    info = dict(tol=tol, **stats, oracle_max_abs_err=f"{oracle:.3e}")
+    if controls:
+        info["controls_envs_flagged"] = caught
+    done(f"{label} iters={iters}", t0, **info, ok=ok)
+    if not ok:
+        raise AssertionError(
+            f"{label} disagrees with its plain version at iters={iters}: "
+            f"envs failing {(~env_ok).nonzero().flatten().tolist()}, "
+            f"oracle {oracle:.3e}")
+    return stats
+
+
+def flop_count(case, h_rows):
+    """Floating-point operations one fused step needs on this batch (an
+    FMA counts 2), from its tapes gate by gate.  Per amplitude pair a
+    rotation takes 12 forward (two complex entries, one of them a real
+    cos and the other a real or imaginary sin) and 32 backward (U^H on
+    psi, U^T on lambda, 8 for its gradient term); H 8 forward and 16
+    backward; CX, X, Y and Z none (a permutation or a sign).  A controlled
+    gate touches D/4 pairs, others D/2.  Per evaluation H psi takes 8 per
+    entry of the ``h_rows`` x D operand, the Rayleigh quotient 8 per
+    amplitude, lambda = 2 conj(H psi) 2; each Adam update about 12 per
+    active angle and start."""
+    import numpy as np
+
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+
+    rot = (GateKind.RX, GateKind.RY, GateKind.RZ)
+    dim = 1 << case.n
+
+    def per_pair(kinds, table):
+        return sum(np.where(np.isin(kinds, k), v, 0) for k, v in table)
+
+    def gate_flops(tape, table):
+        kinds, _, cqs, _ = tape
+        pairs = np.where(cqs >= 0, dim // 4, dim // 2)
+        return (per_pair(kinds, table) * pairs).sum(axis=1)    # (E,)
+
+    fwd = ((rot, 12), ((GateKind.H,), 8))
+    bwd = ((rot, 32), ((GateKind.H,), 16))
+    evals = (ITERS + 1) * STARTS          # iterations and the final check
+    n_rot = np.isin(case.old[0], rot).sum(axis=1)
+    per_env = (evals * gate_flops(case.old, fwd)
+               + ITERS * STARTS * gate_flops(case.old, bwd)
+               + gate_flops(case.new, fwd)
+               + (evals + 1) * (h_rows * dim * 8 + dim * 8)
+               + ITERS * STARTS * (dim * 2 + n_rot * 12))
+    return float(per_env.sum())
 
 
 def time_cuda(fn, warmup, reps):
@@ -159,143 +381,72 @@ def time_cuda(fn, warmup, reps):
     return times[len(times) // 2]
 
 
-def kernel_phase(smoke):
-    import numpy as np
-    import torch
-
-    from tensorrl_qas_tpu_torch.circuits.tape import GateKind
-    from tensorrl_qas_tpu_torch.ops import fused_adam
-    from tensorrl_qas_tpu_torch.optim.angle_opt import (
-        AngleOptimizer,
-        make_multistarts,
-    )
-    from tensorrl_qas_tpu_torch.problems.hamiltonians import load_problem
-    from tensorrl_qas_tpu_torch.sim.apply import apply_tape
-    from tensorrl_qas_tpu_torch.sim.expectation import pauli_expectation
-    from tensorrl_qas_tpu_torch.train.config import get_config
-
-    dev = torch.device("cuda")
-    conf = get_config("TensorRL_fixed/", "H2O8q_TNbond2.cfg")
-    prob = load_problem(conf["problem"]["ham_type"], N_QUBITS,
-                        conf["problem"]["geometry"],
-                        conf["problem"]["mapping"])
-    opt = AngleOptimizer(prob.pauli, device=dev)
-    hre_t, him_t = opt.h_planes()
-    rng = np.random.default_rng(1234)
-    old, new, maps, x0, n_rots = draw_batch(rng, E_ENVS, CAP, N_QUBITS)
-    psi0 = rng.normal(size=1 << N_QUBITS) + 1j * rng.normal(
-        size=1 << N_QUBITS)
-    psi0 /= np.linalg.norm(psi0)
-
-    def ints(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
-
-    f32 = dict(dtype=torch.float32, device=dev)
-    x0_t = torch.as_tensor(x0, **f32)
-    active = (torch.arange(CAP, device=dev)[None, :]
-              < torch.as_tensor(n_rots, device=dev)[:, None]).float()
-    gen = torch.Generator(device=dev).manual_seed(7)
-    starts = make_multistarts(x0_t, active, STARTS, STARTS // 4, 0.1,
-                              gen).contiguous()
-    args = (tuple(ints(a) for a in old), tuple(ints(a) for a in new),
-            ints(maps), torch.as_tensor(psi0.real[None], **f32),
-            torch.as_tensor(psi0.imag[None], **f32), hre_t, him_t, starts,
-            active[:, None, :].contiguous())
-
-    # Deliberately wrong kernel results the check must reject: the kernel
-    # with Adam's rate off by 1%, and with the RY angles' gradients
-    # dropped (their `active` entries zeroed).  A 1% rate still reaches
-    # the same optima in 100 iterations, so that one is required to fail
-    # at 3 iterations only.
-    ry = np.zeros((E_ENVS, CAP), bool)
-    for e in range(E_ENVS):
-        slots = old[3][e][(old[0][e] == GateKind.RY) & (old[3][e] >= 0)]
-        ry[e, slots] = True
-    no_ry = (args[8] * torch.as_tensor(~ry, **f32)[:, None, :]).contiguous()
-    controls = (("lr x 1.01", args, 0.101, (3,)),
-                ("RY gradients dropped", (*args[:8], no_ry), 0.1, (3, ITERS)))
-
-    results = {}
-    for iters, tol in ((3, TOL_ITERS3), (ITERS, TOL_ITERS100)):
-        t0 = phase(f"kernel iters={iters}")
-        xk, ek = fused_adam.fused_adam_step(*args, iters=iters, lr=0.1)
-        torch.cuda.synchronize()
-        ref = fused_adam.plain_results(args, iters=iters, lr=0.1)
-        env_ok, _, stats = fused_adam.agreement(args, ref, xk, ek, tol=tol,
-                                                check_x=iters == 3)
-        # e_new through the eager simulator, independent of the plain
-        # version's code (complex128, every 16th env; the kernel's
-        # energies are of H - offset I)
-        xk64 = xk.double().cpu().numpy()
-        oracle_err = 0.0
-        for e in range(0, E_ENVS, 16):
-            x_new = np.where(maps[e] >= 0, xk64[e][np.maximum(maps[e], 0)],
-                             0.0)
-            psi = apply_tape(torch.as_tensor(psi0, device=dev),
-                             *(a[e] for a in new), x_new)
-            e_ref = float(pauli_expectation(
-                psi, *prob.pauli.tensors(dev, torch.complex128)))
-            oracle_err = max(oracle_err,
-                             abs(e_ref - (float(ek[e]) + opt.offset)))
-        caught = {}
-        for name, c_args, c_lr, required in controls:
-            xc, ec = fused_adam.fused_adam_step(*c_args, iters=iters, lr=c_lr)
-            c_ok, _, _ = fused_adam.agreement(args, ref, xc, ec, tol=tol,
-                                              check_x=iters == 3)
-            flagged = int((~c_ok).sum())
-            caught[name] = f"{flagged}/{E_ENVS}"
-            if iters in required and flagged == 0:
-                raise AssertionError(f"control {name!r} passed the check "
-                                     f"at iters={iters}")
-        ok = (bool(env_ok.all()) and oracle_err <= TOL_ORACLE
-              and bool(torch.isfinite(ek).all())
-              and bool(torch.isfinite(xk).all()))
-        done(f"kernel iters={iters}", t0, tol=tol, **stats,
-             oracle_max_abs_err=f"{oracle_err:.3e}",
-             controls_envs_flagged=caught, ok=ok)
-        if not ok:
-            raise AssertionError(
-                f"kernel disagrees with its plain version at iters={iters}: "
-                f"envs failing {(~env_ok).nonzero().flatten().tolist()}, "
-                f"oracle {oracle_err:.3e}")
-        results[iters] = stats["e_new_max_abs_err"]
-
-    t0 = phase("kernel timing")
-    k_ms = time_cuda(lambda: fused_adam.fused_adam_step(
-        *args, iters=ITERS, lr=0.1), warmup=3, reps=15)
-    p_ms = time_cuda(lambda: fused_adam.fused_adam_step_reference(
-        *args, iters=ITERS, lr=0.1), warmup=1, reps=3)
-    flops = flop_count(old[0], new[0], STARTS, 1 << N_QUBITS, ITERS)
-    nbytes = sum(t.numel() * t.element_size() for t in
-                 (*args[0], *args[1], *args[2:])) + E_ENVS * (CAP + 1) * 4
+def time_kernel(engine, case, label):
+    """Kernel ms (median of CUDA events), plain ms (one call), and the
+    bound: the larger of this batch's operations at the f32 peak and its
+    bytes (inputs read once, outputs written once) at the HBM rate."""
+    t0 = phase(f"{label} timing")
+    k_ms = time_cuda(lambda: engine.step(*case.args, iters=ITERS, lr=LR),
+                     warmup=2, reps=10)
+    p_ms = time_cuda(lambda: engine.plain(*case.args, iters=ITERS, lr=LR),
+                     warmup=0, reps=1)
+    flops = flop_count(case, engine.h_rows(case))
+    tensors = [t for a in case.args
+               for t in (a if isinstance(a, tuple) else (a,))]
+    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
+              + case.n_env * (case.cap + 1) * 4)
     bound_ms = 1e3 * max(flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S)
     bound_by = ("operations" if flops / FP32_PEAK_FLOPS
                 >= nbytes / HBM_BYTES_PER_S else "bytes")
-    done("kernel timing", t0, kernel_ms=f"{k_ms:.4f}",
+    done(f"{label} timing", t0, kernel_ms=f"{k_ms:.4f}",
          plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
          bound_by=bound_by, gflop=f"{flops / 1e9:.3f}",
+         dynamic_smem_bytes_per_cta=engine.smem_bytes(case),
          library_ms="n/a (no single PyTorch call computes this fused step)")
-    smoke["kernel"] = {"max_abs_err": results[ITERS], "ms": k_ms,
-                       "plain_ms": p_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by}
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
-def trainer_phase(smoke):
+def kernel_phase(engine, config, n_env, label):
+    """Both iteration counts with the controls, then the timing."""
+    case = Case(engine, config, n_env)
+    stats = {}
+    for iters, tol in ((3, TOL_ITERS3), (ITERS, TOL_ITERS100)):
+        stats[iters] = check_kernel(engine, case, label, iters, tol,
+                                    case.controls())
+    return {"max_abs_err": stats[ITERS]["e_new_max_abs_err"],
+            **time_kernel(engine, case, label)}
+
+
+def sweep_phase(engine):
+    for config, n_env in SWEEP:
+        case = Case(engine, config, n_env)
+        check_kernel(engine, case, f"sweep {config} E={n_env}", 3,
+                     TOL_ITERS3)
+
+
+def trainer_phase(engine, config, n_env, vector_steps, label):
+    """The CLI's trainer for ``vector_steps`` steps with every kernel's
+    launch count set to 0 just before and read just after; every step must
+    have launched ``engine`` once and no other kernel."""
     import numpy as np
+    import torch
 
-    from tensorrl_qas_tpu_torch.ops import fused_adam
     from tensorrl_qas_tpu_torch.train import cli
 
+    wrappers = {e.name: e.step for e in engines()}
     out = tempfile.mkdtemp(prefix="trlqas_smoke_")
     try:
-        t0 = phase("trainer")
-        fused_adam.fused_adam_step.launches = 0
+        t0 = phase(label)
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
         summary = cli.run([
-            "--config", "H2O8q_TNbond2", "--experiment_name",
-            "TensorRL_fixed/", "--vector", str(E_ENVS), "--total_steps",
-            str(E_ENVS * VECTOR_STEPS), "--results_path", out + "/"])
-        launches = fused_adam.fused_adam_step.launches
-        run_dir = os.path.join(out, "TensorRL_fixed", "H2O8q_TNbond2")
+            "--config", config, "--experiment_name", "TensorRL_fixed/",
+            "--vector", str(n_env), "--total_steps",
+            str(n_env * vector_steps), "--results_path", out + "/"])
+        launches = {k: w.launches for k, w in wrappers.items()}
+        run_dir = os.path.join(out, "TensorRL_fixed", config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
                         allow_pickle=True).item()
         with open(os.path.join(run_dir, "events_0.jsonl")) as f:
@@ -303,33 +454,54 @@ def trainer_phase(smoke):
         keys = {"iter", "steps", "episodes", "successes", "best_error",
                 "best_step_error", "epsilon", "t"}
         checks = {
-            "launches == vector steps": launches == VECTOR_STEPS,
+            "launches == vector steps": all(
+                n == (vector_steps if k == engine.name else 0)
+                for k, n in launches.items()),
+            "replay ran": summary["replay_steps"] > 0,
             "summary schema": set(stats) == {"train", "test"},
-            "events": (len(events) == VECTOR_STEPS
+            "events": (len(events) == vector_steps
                        and all(keys <= set(ev) for ev in events)
-                       and events[-1]["steps"] == E_ENVS * VECTOR_STEPS),
+                       and events[-1]["steps"] == n_env * vector_steps),
             "finite energies": bool(np.isfinite(
                 [summary["best_step_error"], summary["warm_start_gap"]]
             ).all()),
         }
-        done("trainer", t0, env_steps=summary["steps"],
+        done(label, t0, env_steps=summary["steps"],
              env_steps_per_s=f"{summary['steps_per_sec']:.2f}",
+             replay_steps=summary["replay_steps"],
+             peak_device_GiB=round(torch.cuda.max_memory_allocated() / 2**30,
+                                   3),
              best_step_error_Ha=f"{summary['best_step_error']:.6e}",
              warm_start_gap_Ha=f"{summary['warm_start_gap']:.6e}",
              episodes=summary["episodes"], launches=launches,
              checks=checks)
         if not all(checks.values()):
-            raise AssertionError(f"trainer checks failed: {checks}")
-        smoke["launches"] = launches
+            raise AssertionError(f"{label} checks failed: {checks}")
+        return launches[engine.name]
     finally:
         shutil.rmtree(out, ignore_errors=True)
+
+
+def build_phase(names):
+    """One nvcc per kernel source, all started together."""
+    t0 = phase("build")
+    from tensorrl_qas_tpu_torch.ops.build import build
+
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        infos = dict(zip(names, pool.map(build, names)))
+    for name, info in infos.items():
+        for ln in info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "smem" in ln:
+                print(f"  ptxas {name}: {ln.strip()}", flush=True)
+    done("build", t0,
+         nvcc_s={k: round(v["seconds"], 2) for k, v in infos.items()})
 
 
 def main() -> int:
     watchdog = threading.Timer(DEADLINE_S, _expire)
     watchdog.daemon = True
     watchdog.start()
-    t0 = phase("device")
+    t_start = t0 = phase("device")
     import torch
 
     if not torch.cuda.is_available():
@@ -340,33 +512,26 @@ def main() -> int:
     done("device", t0, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    t0 = phase("build")
-    from tensorrl_qas_tpu_torch.ops.build import build
+    v1, v2 = engines()
+    build_phase((v1.name, v2.name))
+    results = {}
+    results[v1] = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
+    results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
+                                            V1_STEPS, "trainer v1")
+    results[v2] = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
+    sweep_phase(v2)
+    results[v2]["launches"] = trainer_phase(v2, V2_CONFIG, V2_ENVS,
+                                            V2_STEPS, "trainer v2")
 
-    info = build("fused_adam_v1")
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
-    for ln in ptxas:
-        print(f"  ptxas: {ln}", flush=True)
-    from tensorrl_qas_tpu_torch.ops import fused_adam
-
-    smem = fused_adam._library().fused_adam_v1_smem_bytes(
-        STARTS, CAP, CAP, N_QUBITS)
-    done("build", t0, nvcc_s=f"{info['seconds']:.2f}", library=info["path"],
-         dynamic_smem_bytes_per_cta=smem)
-
-    smoke = {}
-    kernel_phase(smoke)
-    trainer_phase(smoke)
-
-    k = smoke["kernel"]
     kernels = {"kernels": [{
-        "name": "fused_adam_v1", "route": "cuda",
-        "source": "tensorrl_qas_tpu_torch/csrc/fused_adam_v1.cu",
-        "replaces": "tensorrl_qas_tpu/ops/pallas_opt.py:54",
-        "launches": smoke["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]}
+        "name": e.name, "route": "cuda",
+        "source": f"tensorrl_qas_tpu_torch/csrc/{e.name}.cu",
+        "replaces": e.replaces, "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None}
+        for e, r in results.items()]}
+    done("total", t_start)
     print(f"card: {smi}", flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel tensorrl_qas_tpu/ops/pallas_opt.py:_make_kernel
 // (launched by fused_adam_step_pallas / _fused_adam_step_call), together
 // with the gate device functions it takes from ops/pallas_apply.py
-// (_gate_class, _apply_gate_fast, _bwd_gate_fast, _gate_coeffs, _xor_lane).
+// (_gate_class, _apply_gate_fast, _bwd_gate_fast, _gate_coeffs, _xor_lane),
+// which live in gates.cuh.
 // The plain PyTorch version of the same function is
 // tensorrl_qas_tpu_torch/ops/fused_adam.py:fused_adam_step_reference.
 //
@@ -45,53 +46,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gates.cuh"
+
 namespace {
+
+using namespace gates;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // Starts one CTA holds in registers during H psi (the main path runs 8).
 constexpr int kMaxStarts = 8;
-
-// circuits/tape.py GateKind
-enum : int { kNone = 0, kRX = 1, kRY = 2, kRZ = 3, kCX = 4, kX = 5, kY = 6,
-             kZ = 7, kH = 8 };
-
-struct Coef {
-  float u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i;
-};
-
-// 2x2 unitary of a gate kind; c = cos(theta/2), s = sin(theta/2).
-__device__ __forceinline__ Coef gate_coef(int k, float c, float s) {
-  switch (k) {
-    case kRX: return {c, 0.f, 0.f, -s, 0.f, -s, c, 0.f};
-    case kRY: return {c, 0.f, -s, 0.f, s, 0.f, c, 0.f};
-    case kRZ: return {c, -s, 0.f, 0.f, 0.f, 0.f, c, s};
-    case kCX:
-    case kX: return {0.f, 0.f, 1.f, 0.f, 1.f, 0.f, 0.f, 0.f};
-    case kY: return {0.f, 0.f, 0.f, -1.f, 0.f, 1.f, 0.f, 0.f};
-    case kZ: return {1.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f, 0.f};
-    case kH: {
-      const float r = 0.70710678118654752f;
-      return {r, 0.f, r, 0.f, r, 0.f, -r, 0.f};
-    }
-    default: return {1.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f};
-  }
-}
-
-// (ar + i ai) * (br + i bi) + (cr + i ci) * (dr + i di)
-__device__ __forceinline__ void cmul2(float ar, float ai, float br, float bi,
-                                      float cr, float ci, float dr, float di,
-                                      float& outr, float& outi) {
-  outr = ar * br - ai * bi + cr * dr - ci * di;
-  outi = ar * bi + ai * br + cr * di + ci * dr;
-}
-
-struct Tape {
-  const int* kind;
-  const int* tq;
-  const int* cq;
-  const int* slot;
-};
 
 struct Shared {
   double* red;   // 2 * kWarps * kMaxStarts energy partials
@@ -130,10 +94,6 @@ __device__ void begin_pass(const Shared& sh, const float* __restrict__ p0re,
     sh.dx[idx] = 0.f;
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ int pair_low(int q, int t) {
-  return ((q >> t) << (t + 1)) | (q & ((1 << t) - 1));
 }
 
 // psi <- tape(x) psi for starts 0..ns-1.
@@ -280,13 +240,7 @@ __device__ void backward(const Shared& sh, const Tape& tape, int G, int ns,
           if (has_grad) {
             // generator P applied to the post-gate pair (a0, a1)
             float q0r, q0i, q1r, q1i;
-            if (k == kRX) {
-              q0r = a1r; q0i = a1i; q1r = a0r; q1i = a0i;
-            } else if (k == kRY) {        // (-i a1, i a0)
-              q0r = a1i; q0i = -a1r; q1r = -a0i; q1i = a0r;
-            } else {                      // (a0, -a1)
-              q0r = a0r; q0i = a0i; q1r = -a1r; q1i = -a1i;
-            }
+            generator(k, a0r, a0i, a1r, a1i, q0r, q0i, q1r, q1i);
             gp = 0.5f * (q0r * l0i + q0i * l0r + q1r * l1i + q1i * l1r);
           }
           float b0r, b0i, b1r, b1i;       // U^H (a0, a1)

@@ -150,7 +150,10 @@ class CircuitEnv:
         self.device = as_device(cfg.device)
         self.dtype = complex_dtype(self.device)
 
-        self.problem = load_problem(cfg.ham_type, n, cfg.geometry, cfg.mapping)
+        # the stored dense matrix (up to 4096^2 complex at 12 qubits) is
+        # read by nothing here: the optimizer builds its own H operands
+        self.problem = load_problem(cfg.ham_type, n, cfg.geometry,
+                                    cfg.mapping, keep_dense=False)
         self.min_eig = (cfg.fake_min_energy if cfg.fake_min_energy is not None
                         else self.problem.min_eig)
         self.max_eig = self.problem.max_eig

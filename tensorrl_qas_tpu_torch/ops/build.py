@@ -7,9 +7,10 @@ library under ``build/`` at the repository root:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>_<hash>.so <source>
 
-The file name carries a hash of the source and the flags, so a stale
-library is never loaded.  The compiler's output (``-Xptxas -v``: registers,
-shared memory and spills per kernel) is kept beside the library as
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a stale library is never loaded.  The
+compiler's output (``-Xptxas -v``: registers, shared memory and spills
+per kernel) is kept beside the library as
 ``.log``.  A build writes to a temporary name and renames it into place,
 so an interrupted build leaves nothing that a later one waits on.
 """
@@ -43,8 +44,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -17,7 +17,9 @@ CUDA tensors and runs ``fused_adam_step_reference``, the plain PyTorch
 version of the same arithmetic, on CPU tensors.  Layouts follow the JAX
 reference's public function: tapes (E, G) int32, map_idx (E, R) int32,
 p0re/p0im (1, D), hre_t/him_t (D, D) planes of H^T, starts (E, S, R),
-active (E, 1, R); returns x_opt (E, R) and e_new (E,).
+active (E, 1, R); returns x_opt (E, R) and e_new (E,).  The plain step
+itself (``fused_step_plain``) takes any H operator; ``ops/fused_adam2d.py``
+runs it with flip-grouped Pauli planes.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from tensorrl_qas_tpu_torch.circuits.tape import GateKind
@@ -42,124 +45,161 @@ MAX_SMEM_BYTES = 232448  # H100: shared memory one block may use
 
 # -- plain PyTorch version -------------------------------------------------
 
-def _gate_coeffs(k, theta):
-    """(re, im) parts of the 2x2 unitary entries (u00, u01, u10, u11);
-    k (E, 1, 1) gate kinds, theta (E, S, 1) angles."""
-    c = torch.cos(0.5 * theta)
-    s = torch.sin(0.5 * theta)
-    zero = torch.zeros_like(c)
-    one = torch.ones_like(c)
-    is_rx, is_ry, is_rz = k == _RX, k == _RY, k == _RZ
-    is_x = (k == _CX) | (k == _X)
-    is_y, is_z, is_h = k == _Y, k == _Z, k == _H
-    is_rot_diag = is_rx | is_ry
-    is_id = ~(is_rx | is_ry | is_rz | is_x | is_y | is_z | is_h)
-    w = torch.where
-    r2 = _INV_SQRT2 * one
-    u00r = w(is_rot_diag | is_rz, c, w(is_h, r2, w(is_id | is_z, one, zero)))
-    u00i = w(is_rz, -s, zero)
-    u11r = w(is_rot_diag | is_rz, c,
-             w(is_h, -r2, w(is_id, one, w(is_z, -one, zero))))
-    u11i = w(is_rz, s, zero)
-    u01r = w(is_ry, -s, w(is_x, one, w(is_h, r2, zero)))
-    u01i = w(is_rx, -s, w(is_y, -one, zero))
-    u10r = w(is_ry, s, w(is_x, one, w(is_h, r2, zero)))
-    u10i = w(is_rx, -s, w(is_y, one, zero))
-    return (u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i)
+def _coeff_basis(kind, dtype):
+    """(A, B, C), each (8, E, 1, G): the (re, im) parts of the 2x2 unitary
+    entries (u00, u01, u10, u11) of every gate are A cos(theta/2) +
+    B sin(theta/2) + C.  Kinds beyond H (RXX/RYY/RZZ) are not taken."""
+    r2 = _INV_SQRT2
+    rows = {                      # kind -> {part: (a, b, c)}
+        0: {0: (0, 0, 1), 6: (0, 0, 1)},                 # NONE: identity
+        _RX: {0: (1, 0, 0), 3: (0, -1, 0), 5: (0, -1, 0), 6: (1, 0, 0)},
+        _RY: {0: (1, 0, 0), 2: (0, -1, 0), 4: (0, 1, 0), 6: (1, 0, 0)},
+        _RZ: {0: (1, 0, 0), 1: (0, -1, 0), 6: (1, 0, 0), 7: (0, 1, 0)},
+        _CX: {2: (0, 0, 1), 4: (0, 0, 1)},
+        _X: {2: (0, 0, 1), 4: (0, 0, 1)},
+        _Y: {3: (0, 0, -1), 5: (0, 0, 1)},
+        _Z: {0: (0, 0, 1), 6: (0, 0, -1)},
+        _H: {0: (0, 0, r2), 2: (0, 0, r2), 4: (0, 0, r2), 6: (0, 0, -r2)},
+    }
+    table = np.zeros((_H + 1, 3, 8))
+    for k, parts in rows.items():
+        for part, abc in parts.items():
+            table[k, :, part] = abc
+    table = torch.as_tensor(table, dtype=dtype, device=kind.device)
+    basis = table[kind]                                  # (E, G, 3, 8)
+    return basis.permute(2, 3, 0, 1)[:, :, :, None, :].unbind(0)
 
 
-class _Gate:
-    """Per-env view of tape position g: partner gather index, target bit
-    and control mask, all (E, 1, D)."""
+def check_gate_kinds(*kinds):
+    """Reject the gate kinds the fused step does not take: RXX/RYY/RZZ
+    (the su4 gate set, whose two-qubit partners belong to the composed
+    kernels ``ops/pallas_apply.py`` of the JAX package)."""
+    for k in kinds:
+        k = torch.as_tensor(k)
+        if bool(((k < 0) | (k > _H)).any()):
+            raise ValueError(
+                "the fused Adam step takes gate kinds NONE..H only; "
+                "RXX/RYY/RZZ (the su4 gate set) are not ported")
 
-    def __init__(self, tape, g, x, col):
-        kind, tq, cq, slot = tape
-        e_n, s_n, _ = x.shape
+
+class _Plan:
+    """The part of a batch of tapes that does not depend on the angles,
+    built once per call: per gate the partner gather index, target-bit and
+    control masks, the generator selectors and the coefficient basis."""
+
+    def __init__(self, tape, s_n, col, dtype):
+        kind, tq, cq, slot = tape                        # (E, G) int64
+        e_n = kind.shape[0]
         d = col.shape[-1]
-        self.k = kind[:, g].view(-1, 1, 1)
-        t = tq[:, g].view(-1, 1, 1)
-        c = cq[:, g].view(-1, 1, 1)
-        self.slot = slot[:, g]
-        sidx = self.slot.clamp(min=0).view(-1, 1, 1).expand(e_n, s_n, 1)
-        self.theta = torch.where(self.slot.view(-1, 1, 1) >= 0,
-                                 x.gather(2, sidx),
-                                 torch.zeros_like(x[..., :1]))
-        self.partner = (col ^ (1 << t)).expand(e_n, s_n, d)
-        self.b = (col >> t) & 1
-        self.act = torch.where(c >= 0, (col >> c.clamp(min=0)) & 1,
-                               torch.ones_like(self.b)).bool()
+        t = tq[..., None]                                # (E, G, 1)
+        c = cq[..., None]
+        colg = col.view(1, 1, d)
+        self.shape = (e_n, s_n, d)
+        # positions where every tape holds NONE are exact identities
+        self.live = (kind != 0).any(dim=0).nonzero().flatten().tolist()
+        self.slot = slot
+        self.partner = colg ^ (1 << t)                   # (E, G, D)
+        self.b0 = ((colg >> t) & 1) == 0
+        self.act = torch.where(c >= 0, ((colg >> c.clamp(min=0)) & 1) == 1,
+                               True)
+        self.sel = [(kind == k).to(dtype)[:, None, :] for k in (_RX, _RY,
+                                                                 _RZ)]
+        self.basis = _coeff_basis(kind, dtype)           # 3 x (8, E, 1, G)
 
-    def xor(self, plane):
-        return plane.gather(2, self.partner)
+    def coeffs(self, x):
+        """(8, E, S, G) unitary parts of every gate at angles x (E, S, R)."""
+        e_n, s_n, _ = x.shape
+        sidx = self.slot.clamp(min=0)[:, None, :].expand(e_n, s_n, -1)
+        theta = torch.where(self.slot[:, None, :] >= 0, x.gather(2, sidx),
+                            0.0)
+        a, b, c = self.basis
+        return a * torch.cos(0.5 * theta) + b * torch.sin(0.5 * theta) + c
 
-    def apply_u(self, re, im, coeffs):
-        """One (controlled) 2x2 combine on the re/im planes."""
-        u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i = coeffs
-        pre, pim = self.xor(re), self.xor(im)
-        b0 = self.b == 0
-        dr = torch.where(b0, u00r, u11r)
-        di = torch.where(b0, u00i, u11i)
-        fr = torch.where(b0, u01r, u10r)
-        fi = torch.where(b0, u01i, u10i)
-        nre = dr * re - di * im + fr * pre - fi * pim
-        nim = dr * im + di * re + fr * pim + fi * pre
-        return (torch.where(self.act, nre, re), torch.where(self.act, nim, im))
+    def gate(self, g):
+        """Partner index (E, S, D), target-bit-0 and control masks
+        (E, 1, D) of tape position g."""
+        return (self.partner[:, g, None, :].expand(self.shape),
+                self.b0[:, g, None, :], self.act[:, g, None, :])
 
 
-def _forward(tape, x, re, im, col):
-    for g in range(tape[0].shape[1]):
-        gate = _Gate(tape, g, x, col)
-        re, im = gate.apply_u(re, im, _gate_coeffs(gate.k, gate.theta))
+def _apply_u(re, im, pre, pim, b0, act, coeffs):
+    """One (controlled) 2x2 combine on the re/im planes; pre/pim are the
+    partner amplitudes."""
+    u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i = coeffs
+    dr = torch.where(b0, u00r, u11r)
+    di = torch.where(b0, u00i, u11i)
+    fr = torch.where(b0, u01r, u10r)
+    fi = torch.where(b0, u01i, u10i)
+    nre = dr * re - di * im + fr * pre - fi * pim
+    nim = dr * im + di * re + fr * pim + fi * pre
+    return torch.where(act, nre, re), torch.where(act, nim, im)
+
+
+def _forward(plan, u, re, im):
+    """psi <- tape(x) psi; u = plan.coeffs(x)."""
+    for g in plan.live:
+        idx, b0, act = plan.gate(g)
+        re, im = _apply_u(re, im, re.gather(2, idx), im.gather(2, idx), b0,
+                          act, u[..., g:g + 1].unbind(0))
     return re, im
 
 
-def _h_energy(re, im, hre_t, him_t):
+def dense_h(hre_t, him_t):
+    """H psi through dense (D, D) planes of H^T."""
+    def apply(re, im):
+        return re @ hre_t - im @ him_t, re @ him_t + im @ hre_t
+    return apply
+
+
+def _h_energy(re, im, h_apply):
     """(H psi planes, Rayleigh quotient per row); sums in float64."""
-    hre = re @ hre_t - im @ him_t
-    him = re @ him_t + im @ hre_t
+    hre, him = h_apply(re, im)
     raw = (re.double() * hre.double() + im.double() * him.double()).sum(-1)
     n2 = (re.double() ** 2 + im.double() ** 2).sum(-1)
     return hre, him, (raw / n2).to(re.dtype)
 
 
-def _backward(tape, x, re, im, lre, lim, col):
+def _backward(plan, u, x, re, im, lre, lim):
     """dx (E, S, R): adjoint sweep from the output state."""
     dx = torch.zeros_like(x)
-    for g in reversed(range(tape[0].shape[1])):
-        gate = _Gate(tape, g, x, col)
-        u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i = _gate_coeffs(
-            gate.k, gate.theta)
-        sgn = (1 - 2 * gate.b).to(re.dtype)
-        pre, pim = gate.xor(re), gate.xor(im)
-        is_rx = (gate.k == _RX).to(re.dtype)
-        is_ry = (gate.k == _RY).to(re.dtype)
-        is_rz = (gate.k == _RZ).to(re.dtype)
-        pr = is_rx * pre + is_ry * (sgn * pim) + is_rz * (sgn * re)
-        pi = is_rx * pim - is_ry * (sgn * pre) + is_rz * (sgn * im)
-        act = gate.act.to(re.dtype)
-        cg = 0.5 * torch.sum(act * (pr * lim + pi * lre), dim=-1)  # (E, S)
-        has = (gate.slot >= 0).view(-1, 1)
-        idx = gate.slot.clamp(min=0).view(-1, 1, 1).expand(*cg.shape, 1)
-        dx.scatter_add_(2, idx, torch.where(has, cg, 0.0)[..., None])
+    sel = plan.sel
+    for g in reversed(plan.live):
+        idx, b0, act = plan.gate(g)
+        u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i = u[..., g:g + 1
+                                                           ].unbind(0)
+        sgn = torch.where(b0, 1.0, -1.0).to(re.dtype)
+        pre, pim = re.gather(2, idx), im.gather(2, idx)
+        rx, ry, rz = (k[..., g:g + 1] for k in sel)
+        pr = rx * pre + ry * (sgn * pim) + rz * (sgn * re)
+        pi = rx * pim - ry * (sgn * pre) + rz * (sgn * im)
+        cg = 0.5 * torch.sum(act.to(re.dtype) * (pr * lim + pi * lre),
+                             dim=-1)                             # (E, S)
+        slot = plan.slot[:, g]
+        has = (slot >= 0).view(-1, 1)
+        sidx = slot.clamp(min=0).view(-1, 1, 1).expand(*cg.shape, 1)
+        dx.scatter_add_(2, sidx, torch.where(has, cg, 0.0)[..., None])
         ch = (u00r, -u00i, u10r, -u10i, u01r, -u01i, u11r, -u11i)  # U^H
         ct = (u00r, u00i, u10r, u10i, u01r, u01i, u11r, u11i)      # U^T
-        re, im = gate.apply_u(re, im, ch)
-        lre, lim = gate.apply_u(lre, lim, ct)
+        re, im = _apply_u(re, im, pre, pim, b0, act, ch)
+        lre, lim = _apply_u(lre, lim, lre.gather(2, idx), lim.gather(2, idx),
+                            b0, act, ct)
     return dx
 
 
-def fused_adam_step_reference(old_arrs, new_arrs, map_idx, p0re, p0im,
-                              hre_t, him_t, starts, active, *, iters: int,
-                              lr: float):
-    """Plain PyTorch version of the fused step (same arithmetic as the
-    kernel, vectorized over envs and starts).  Any float dtype; the CPU
-    parity path runs it in float64."""
+def fused_step_plain(old_arrs, new_arrs, map_idx, p0re, p0im, h_apply,
+                     starts, active, *, iters: int, lr: float):
+    """The fused step in plain PyTorch for any H operator
+    ``h_apply(re, im) -> (H psi re, H psi im)`` on (E, S, D) planes: the
+    arithmetic of both kernels (dense H here, flip groups in
+    ``ops/fused_adam2d.py``), vectorized over envs and starts.  Any float
+    dtype; the CPU parity path runs it in float64."""
+    check_gate_kinds(old_arrs[0], new_arrs[0])
     n_env, s_n, _ = starts.shape
     d = p0re.shape[-1]
     dev = starts.device
-    col = torch.arange(d, device=dev).view(1, 1, d)
-    old = tuple(a.long() for a in old_arrs)
-    new = tuple(a.long() for a in new_arrs)
+    col = torch.arange(d, device=dev)
+    old = _Plan(tuple(a.long() for a in old_arrs), s_n, col, starts.dtype)
+    new = _Plan(tuple(a.long() for a in new_arrs), 1, col, starts.dtype)
     re0 = p0re.reshape(1, 1, d).expand(n_env, s_n, d)
     im0 = p0im.reshape(1, 1, d).expand(n_env, s_n, d)
     x = starts.clone()
@@ -169,30 +209,41 @@ def fused_adam_step_reference(old_arrs, new_arrs, map_idx, p0re, p0im,
     be = torch.full((n_env, s_n), math.inf, dtype=x.dtype, device=dev)
 
     def track(x, bx, be):
-        re, im = _forward(old, x, re0, im0, col)
-        hre, him, ev = _h_energy(re, im, hre_t, him_t)
+        u = old.coeffs(x)
+        re, im = _forward(old, u, re0, im0)
+        hre, him, ev = _h_energy(re, im, h_apply)
         better = ev < be
-        return (re, im, hre, him, torch.where(better[..., None], x, bx),
+        return (u, re, im, hre, him, torch.where(better[..., None], x, bx),
                 torch.where(better, ev, be))
 
     for it in range(iters):
-        re, im, hre, him, bx, be = track(x, bx, be)
-        dx = _backward(old, x, re, im, 2.0 * hre, -2.0 * him, col) * active
+        u, re, im, hre, him, bx, be = track(x, bx, be)
+        dx = _backward(old, u, x, re, im, 2.0 * hre, -2.0 * him) * active
         m = B1 * m + (1 - B1) * dx
         v = B2 * v + (1 - B2) * dx * dx
         t = it + 1.0
         mhat = m / (1 - B1 ** t)
         vhat = v / (1 - B2 ** t)
         x = x - lr * mhat / (torch.sqrt(vhat) + EPS)
-    _, _, _, _, bx, be = track(x, bx, be)
+    *_, bx, be = track(x, bx, be)
 
     best = torch.argmin(be, dim=1)
     x_opt = bx[torch.arange(n_env, device=dev), best]          # (E, R)
     mi = map_idx.long()
     x_new = torch.where(mi >= 0, x_opt.gather(1, mi.clamp(min=0)), 0.0)
-    re, im = _forward(new, x_new[:, None, :], re0[:, :1], im0[:, :1], col)
-    _, _, e_new = _h_energy(re, im, hre_t, him_t)
+    re, im = _forward(new, new.coeffs(x_new[:, None, :]), re0[:, :1],
+                      im0[:, :1])
+    _, _, e_new = _h_energy(re, im, h_apply)
     return x_opt, e_new[:, 0]
+
+
+def fused_adam_step_reference(old_arrs, new_arrs, map_idx, p0re, p0im,
+                              hre_t, him_t, starts, active, *, iters: int,
+                              lr: float):
+    """Plain PyTorch version of the v1 kernel (dense H^T planes)."""
+    return fused_step_plain(old_arrs, new_arrs, map_idx, p0re, p0im,
+                            dense_h(hre_t, him_t), starts, active,
+                            iters=iters, lr=lr)
 
 
 N_PERTURBED = 4          # plain runs with the H planes rounded differently
@@ -205,14 +256,18 @@ def _to64(args):
                  else a.double() for a in args)
 
 
-def plain_results(args, *, iters: int, lr: float):
-    """Results of the fused step on ``args`` that the plain version gives
-    within float32 rounding: in float32 (first, the centre), in float64,
-    and in float32 with every entry of the H planes scaled by 1 + u 2^-23
-    (u uniform in [-1, 1], N_PERTURBED draws), which stands in for
-    the rounding of another summation order.  -> [(x_opt, e_new), ...]."""
-    runs = [fused_adam_step_reference(*args, iters=iters, lr=lr),
-            fused_adam_step_reference(*_to64(args), iters=iters, lr=lr)]
+def plain_results(args, *, iters: int, lr: float,
+                  step=fused_adam_step_reference):
+    """Results of the fused step on ``args`` that the plain version
+    ``step`` gives within float32 rounding: in float32 (first, the
+    centre), in float64, and in float32 with every entry of the H planes
+    (``args[5]`` and ``args[6]``: dense H^T planes for v1, flip-group
+    planes for ``fused_adam2d.fused_adam_step2d_reference``) scaled by
+    1 + u 2^-23 (u uniform in [-1, 1], N_PERTURBED draws), which stands in
+    for the rounding of another summation order.
+    -> [(x_opt, e_new), ...]."""
+    runs = [step(*args, iters=iters, lr=lr),
+            step(*_to64(args), iters=iters, lr=lr)]
     gen = torch.Generator(device=args[5].device).manual_seed(0)
     for _ in range(N_PERTURBED):
         wobbled = list(args)
@@ -220,13 +275,14 @@ def plain_results(args, *, iters: int, lr: float):
             u = torch.rand(args[i].shape, generator=gen, dtype=args[i].dtype,
                            device=args[i].device) * 2 - 1
             wobbled[i] = args[i] * (1 + u * 2.0 ** -23)
-        runs.append(fused_adam_step_reference(*wobbled, iters=iters, lr=lr))
+        runs.append(step(*wobbled, iters=iters, lr=lr))
     return runs
 
 
-def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True):
+def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True,
+              step=fused_adam_step_reference):
     """Per-env verdict on a float32 result (x_opt, e_new) of the fused step
-    on ``args``, held against ``ref = plain_results(args, ...)``.
+    on ``args``, held against ``ref = plain_results(args, ..., step=step)``.
 
     Float32 rounding decides some outputs in any float32 implementation:
     an angle whose gradient is near zero takes a sign-of-noise first Adam
@@ -248,10 +304,9 @@ def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True):
 
     def energy64(x, tape, mapping):
         # the plain version with iters = 0 evaluates its one start
-        return fused_adam_step_reference(
-            args64[0], tape, mapping, *args64[3:7],
-            x.double()[:, None, :].contiguous(), args64[8], iters=0,
-            lr=0.0)[1]
+        return step(args64[0], tape, mapping, *args64[3:-2],
+                    x.double()[:, None, :].contiguous(), args64[-1], iters=0,
+                    lr=0.0)[1]
 
     xr, er = ref[0]
     xs = torch.stack([x.double() for x, _ in ref])            # (K, E, R)
@@ -304,50 +359,78 @@ def _library():
     return lib
 
 
-def _check_inputs(ints, floats, map_idx, p0re, hre_t, starts, active):
+def check_step_inputs(name, ints, map_idx, floats, starts, active):
+    """The input checks both CUDA kernels share: one device, contiguous,
+    int32 tapes and map, float32 ``floats`` (p0re, p0im, the H planes,
+    starts, active), (E, G) tapes, S <= MAX_STARTS, D a power of two, the
+    gate kinds, and qubits, slots and map entries in range.  ``ints`` are
+    the old tape's four arrays, then the new tape's.
+    -> (E, S, G, R, n)."""
     dev = starts.device
     for t in (*ints, map_idx, *floats):
         if t.device != dev:
-            raise ValueError("fused_adam_step: all tensors must be on "
-                             f"{dev}, got one on {t.device}")
+            raise ValueError(f"{name}: all tensors must be on {dev}, got "
+                             f"one on {t.device}")
         if not t.is_contiguous():
-            raise ValueError("fused_adam_step: tensors must be contiguous")
+            raise ValueError(f"{name}: tensors must be contiguous")
     if any(t.dtype != torch.int32 for t in (*ints, map_idx)):
-        raise TypeError("fused_adam_step: tapes and map_idx must be int32")
+        raise TypeError(f"{name}: tapes and map_idx must be int32")
     if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError("fused_adam_step: the CUDA kernel takes float32 "
-                        "planes, starts and active")
+        raise TypeError(f"{name}: the CUDA kernel takes float32 planes, "
+                        "starts and active")
     n_env, s_n, r = starts.shape
     g = ints[0].shape[-1]
-    d = p0re.shape[-1]
+    d = floats[0].shape[-1]
     n = d.bit_length() - 1
-    if d < 2 or d != 1 << n:
-        raise ValueError(f"fused_adam_step: D = {d} is not a power of two")
-    if hre_t.shape != (d, d) or p0re.numel() != d:
-        raise ValueError("fused_adam_step: H^T planes must be (D, D) and "
-                         "psi0 planes (1, D)")
+    if d < 2 or d != 1 << n or floats[0].numel() != d:
+        raise ValueError(f"{name}: psi0 planes must be (1, D), D a power "
+                         "of two")
     if any(t.shape != (n_env, g) for t in ints):
-        raise ValueError("fused_adam_step: tapes must all be (E, G)")
+        raise ValueError(f"{name}: tapes must all be (E, G)")
     if map_idx.shape != (n_env, r) or active.shape != (n_env, 1, r):
-        raise ValueError("fused_adam_step: map_idx must be (E, R) and "
-                         "active (E, 1, R)")
+        raise ValueError(f"{name}: map_idx must be (E, R) and active "
+                         "(E, 1, R)")
     if s_n > MAX_STARTS:
-        raise ValueError(f"fused_adam_step: S = {s_n} > {MAX_STARTS} starts")
-    kinds = torch.stack([ints[0], ints[4]])
+        raise ValueError(f"{name}: S = {s_n} > {MAX_STARTS} starts")
+    check_gate_kinds(ints[0], ints[4])
     tqs = torch.stack([ints[1], ints[5]])
     cqs = torch.stack([ints[2], ints[6]])
     slots = torch.stack([ints[3], ints[7]])
-    bad = ((kinds < 0) | (kinds > _H)).any()
-    bad |= ((tqs < 0) | (tqs >= n)).any()
+    bad = ((tqs < 0) | (tqs >= n)).any()
     bad |= ((cqs < -1) | (cqs >= n) | (cqs == tqs)).any()
     bad |= ((slots < -1) | (slots >= r)).any()
     bad |= ((map_idx < -1) | (map_idx >= r)).any()
     if bool(bad):
         raise ValueError(
-            "fused_adam_step: the CUDA kernel takes gate kinds NONE..H "
-            f"(no RXX/RYY/RZZ), qubits in [0, {n}), control != target and "
-            f"slots / map entries in [-1, {r})")
+            f"{name}: qubits must lie in [0, {n}), control != target, "
+            f"slots and map entries in [-1, {r})")
     return n_env, s_n, g, r, n
+
+
+def check_smem(name, smem, per):
+    """Refuse a launch whose CTA needs more shared memory than one block
+    may use."""
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: one {per} needs {smem} B of shared "
+                         f"memory (> {MAX_SMEM_BYTES})")
+
+
+def launch(lib, kernel, *args):
+    """Call ``<kernel>_launch`` of ``lib``; raise on a CUDA error."""
+    rc = getattr(lib, f"{kernel}_launch")(*args)
+    if rc != 0:
+        msg = getattr(lib, f"{kernel}_error_string")(rc).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
+def _check_inputs(ints, floats, map_idx, p0re, hre_t, starts, active):
+    dims = check_step_inputs("fused_adam_step", ints, map_idx, floats,
+                             starts, active)
+    d = p0re.shape[-1]
+    if hre_t.shape != (d, d):
+        raise ValueError("fused_adam_step: H^T planes must be (D, D)")
+    return dims
 
 
 def fused_adam_step(old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t,
@@ -367,23 +450,16 @@ def fused_adam_step(old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t,
     n_env, s_n, g, r, n = _check_inputs(ints, floats, map_idx, p0re, hre_t,
                                         starts, active)
     lib = _library()
-    smem = lib.fused_adam_v1_smem_bytes(s_n, g, r, n)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_adam_step: one env needs {smem} B of shared "
-                         f"memory (> {MAX_SMEM_BYTES}); reduce starts or "
-                         "qubits")
+    check_smem("fused_adam_step", lib.fused_adam_v1_smem_bytes(s_n, g, r, n),
+               "env")
     x_opt = torch.empty((n_env, r), dtype=torch.float32, device=starts.device)
     e_new = torch.empty((n_env,), dtype=torch.float32, device=starts.device)
     stream = torch.cuda.current_stream(starts.device).cuda_stream
-    rc = lib.fused_adam_v1_launch(
-        *(t.data_ptr() for t in ints), map_idx.data_ptr(),
-        *(t.data_ptr() for t in floats), x_opt.data_ptr(), e_new.data_ptr(),
-        n_env, s_n, g, r, n, int(iters), float(lr), B1, B2, 1.0 - B1,
-        1.0 - B2, EPS, stream)
-    if rc != 0:
-        msg = lib.fused_adam_v1_error_string(rc).decode()
-        raise RuntimeError(f"fused_adam_v1 launch failed: CUDA error {rc} "
-                           f"({msg})")
+    launch(lib, "fused_adam_v1",
+           *(t.data_ptr() for t in ints), map_idx.data_ptr(),
+           *(t.data_ptr() for t in floats), x_opt.data_ptr(),
+           e_new.data_ptr(), n_env, s_n, g, r, n, int(iters), float(lr), B1,
+           B2, 1.0 - B1, 1.0 - B2, EPS, stream)
     fused_adam_step.launches += 1
     return x_opt, e_new
 

@@ -1,0 +1,188 @@
+"""One env step of multi-start Adam angle optimization with a flip-grouped
+Pauli H, fused, for 7 <= n <= 18 qubits.
+
+Counterpart of ``tensorrl_qas_tpu/ops/pallas_opt2d.py`` (the v2 kernel,
+without its noise and per-env psi0 variants).  The step is the one of
+``ops/fused_adam.py``; only H psi differs.  Pauli terms that flip the same
+bits f combine into one coefficient plane W_f, so
+
+    (H psi)[i] = sum_f W_f(i) * psi[i ^ f]
+
+with W_f(i) = sum_{k: flip_k = f} w_k iphase_k (-1)^parity(i & sign_k),
+precomputed on the host by ``pauli_flip_groups``: 84 groups for 12-qubit
+LiH instead of a dense (4096, 4096) matrix.
+
+``fused_adam_step2d`` launches the CUDA kernel ``csrc/fused_adam_v2.cu``
+on CUDA tensors and runs ``fused_adam_step2d_reference``, the plain
+PyTorch version of the same arithmetic, on CPU tensors.  Layouts: tapes
+(E, G) int32, map_idx (E, R) int32, p0re/p0im (1, D), wre/wim (G_f, D)
+flip-group planes, flips (G_f,) int32, starts (E, S, R), active
+(E, 1, R); returns x_opt (E, R) and e_new (E,).  The JAX package keeps the
+same planes in (G_f, D / 128, 128) lane tiles; ``optim/angle_opt.py:
+operands2d_from_jax`` converts them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from tensorrl_qas_tpu_torch.ops import fused_adam
+from tensorrl_qas_tpu_torch.ops.fused_adam import B1, B2, EPS
+from tensorrl_qas_tpu_torch.utils.bits import parity
+
+MIN_QUBITS, MAX_QUBITS = 7, 18
+
+
+def pauli_flip_groups(pauli, offset: float = 0.0, dtype=np.float32):
+    """Flip-group coefficient planes of H - offset I.
+
+    Returns (wre (G_f, D), wim (G_f, D), flips (G_f,) int32), groups in
+    increasing flip order.  ``offset`` (the identity weight, see
+    ``AngleOptimizer.offset``) comes off the real part of the f = 0 plane
+    in float64, before the cast to ``dtype``.
+    """
+    d = 1 << pauli.n_qubits
+    flips_arr = np.asarray(pauli.flip)
+    idx = np.arange(d, dtype=np.int64)
+    groups = sorted(set(int(f) for f in flips_arr))
+    wre = np.zeros((len(groups), d), dtype=dtype)
+    wim = np.zeros_like(wre)
+    for gi, f in enumerate(groups):
+        w = np.zeros(d, dtype=np.complex128)
+        for k in np.nonzero(flips_arr == f)[0]:
+            signs = 1.0 - 2.0 * np.asarray(
+                parity(idx & int(pauli.sign_mask[k])), dtype=np.float64)
+            w += pauli.weights[k] * complex(pauli.iphase[k]) * signs
+        if f == 0:
+            w -= offset
+        wre[gi] = np.real(w)
+        wim[gi] = np.imag(w)
+    return wre, wim, np.asarray(groups, dtype=np.int32)
+
+
+def flip_h(wre, wim, flips):
+    """H psi through flip-group planes, summed in group order."""
+    col = torch.arange(wre.shape[-1], device=wre.device)
+    perms = [col ^ f for f in flips.tolist()]
+
+    def apply(re, im):
+        hre = torch.zeros_like(re)
+        him = torch.zeros_like(im)
+        for wr, wi, perm in zip(wre, wim, perms):
+            pre, pim = re.index_select(-1, perm), im.index_select(-1, perm)
+            hre = hre + wr * pre - wi * pim
+            him = him + wr * pim + wi * pre
+        return hre, him
+    return apply
+
+
+def fused_adam_step2d_reference(old_arrs, new_arrs, map_idx, p0re, p0im,
+                                wre, wim, flips, starts, active, *,
+                                iters: int, lr: float):
+    """Plain PyTorch version of the v2 kernel (flip-group planes)."""
+    return fused_adam.fused_step_plain(
+        old_arrs, new_arrs, map_idx, p0re, p0im, flip_h(wre, wim, flips),
+        starts, active, iters=iters, lr=lr)
+
+
+# -- CUDA kernel -------------------------------------------------------------
+
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
+_PTR = ctypes.c_void_p
+
+
+@functools.cache
+def _library():
+    """The kernel's library (built at first use) with its C signatures."""
+    from tensorrl_qas_tpu_torch.ops.build import load
+
+    lib = load("fused_adam_v2")
+    lib.fused_adam_v2_launch.argtypes = (
+        [_PTR] * 22 + [_I32] * 7 + [_F32] * 6 + [_PTR])
+    lib.fused_adam_v2_launch.restype = _I32
+    lib.fused_adam_v2_smem_bytes.argtypes = [_I32] * 4
+    lib.fused_adam_v2_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_adam_v2_workspace_floats.argtypes = [_I32] * 3
+    lib.fused_adam_v2_workspace_floats.restype = ctypes.c_size_t
+    lib.fused_adam_v2_error_string.argtypes = [_I32]
+    lib.fused_adam_v2_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_inputs(ints, floats, map_idx, flips, starts, active):
+    """The v2 kernel's own checks (7 <= n <= 18, the flip-group planes)
+    before those both kernels share (``fused_adam.check_step_inputs``).
+    -> (E, S, G, R, n, G_f)."""
+    name = "fused_adam_step2d"
+    p0re, _, wre, wim = floats[:4]
+    d = p0re.shape[-1]
+    n = d.bit_length() - 1
+    if d != 1 << n or not MIN_QUBITS <= n <= MAX_QUBITS:
+        raise ValueError(f"{name}: D = {d} is not 2^n for "
+                         f"{MIN_QUBITS} <= n <= {MAX_QUBITS}")
+    if flips.device != starts.device or not flips.is_contiguous():
+        raise ValueError(f"{name}: flips must be contiguous, on "
+                         f"{starts.device}")
+    if flips.dtype != torch.int32:
+        raise TypeError(f"{name}: flips must be int32")
+    n_groups = flips.numel()
+    if wre.shape != (n_groups, d) or wim.shape != (n_groups, d):
+        raise ValueError(f"{name}: W planes must be (G_f, D) and flips "
+                         "(G_f,)")
+    dims = fused_adam.check_step_inputs(name, ints, map_idx, floats, starts,
+                                        active)
+    if bool(((flips < 0) | (flips >= d)).any()):
+        raise ValueError(f"{name}: flips must lie in [0, {d})")
+    return (*dims, n_groups)
+
+
+def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
+                      flips, starts, active, *, iters: int, lr: float):
+    """Fused env step with flip-group planes: the CUDA kernel for CUDA
+    tensors, the plain PyTorch version for CPU tensors.  See the module
+    docstring for the layouts.  ``fused_adam_step2d.launches`` counts
+    kernel launches."""
+    if starts.device.type == "cpu":
+        return fused_adam_step2d_reference(
+            old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
+            starts, active, iters=iters, lr=lr)
+    if starts.device.type != "cuda":
+        raise ValueError(f"fused_adam_step2d: no kernel for device "
+                         f"{starts.device}")
+    ints = (*old_arrs, *new_arrs)
+    floats = (p0re, p0im, wre, wim, starts, active)
+    n_env, s_n, g, r, n, n_groups = _check_inputs(ints, floats, map_idx,
+                                                  flips, starts, active)
+    lib = _library()
+    fused_adam.check_smem("fused_adam_step2d",
+                          lib.fused_adam_v2_smem_bytes(g, r, n, n_groups),
+                          "start")
+    dev = starts.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_opt = torch.empty((n_env, r), **f32)
+    e_new = torch.empty((n_env,), **f32)
+    best_x = torch.empty((n_env, s_n, r), **f32)
+    best_e = torch.empty((n_env, s_n), **f32)
+    arrived = torch.zeros((n_env,), dtype=torch.int32, device=dev)
+    n_work = lib.fused_adam_v2_workspace_floats(n_env, s_n, n)
+    work = torch.empty((n_work,), **f32) if n_work else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fused_adam.launch(
+        lib, "fused_adam_v2", *(t.data_ptr() for t in ints),
+        map_idx.data_ptr(), p0re.data_ptr(), p0im.data_ptr(), wre.data_ptr(),
+        wim.data_ptr(), flips.data_ptr(), starts.data_ptr(),
+        active.data_ptr(), x_opt.data_ptr(), e_new.data_ptr(),
+        best_x.data_ptr(), best_e.data_ptr(), arrived.data_ptr(),
+        None if work is None else work.data_ptr(), n_env, s_n, g, r, n,
+        n_groups, int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS,
+        stream)
+    fused_adam_step2d.launches += 1
+    return x_opt, e_new
+
+
+fused_adam_step2d.launches = 0

@@ -30,7 +30,15 @@ import numpy as np
 import torch
 
 from tensorrl_qas_tpu_torch import as_device, complex_dtype, real_dtype
-from tensorrl_qas_tpu_torch.ops.fused_adam import fused_adam_step
+from tensorrl_qas_tpu_torch.ops.fused_adam import (
+    check_gate_kinds,
+    fused_adam_step,
+)
+from tensorrl_qas_tpu_torch.ops.fused_adam2d import (
+    MAX_QUBITS,
+    fused_adam_step2d,
+    pauli_flip_groups,
+)
 from tensorrl_qas_tpu_torch.sim.apply import apply_tape
 from tensorrl_qas_tpu_torch.sim.expectation import pauli_expectation
 
@@ -73,6 +81,31 @@ def operands_from_jax(hre_t, him_t, psi0_re, psi0_im, n_qubits: int,
                                    device=dev)
 
 
+def operands2d_from_jax(wre, wim, flips, psi0_re, psi0_im, n_qubits: int,
+                        offset: float = 0.0, device=None):
+    """The JAX optimizer's v2-kernel operands in this port's layout.
+
+    The JAX package keeps the flip-group planes of H in (G_f, D / 128, 128)
+    lane tiles (``AngleOptimizer._mega2d_ready``) and psi0 as an (re, im)
+    pair of planes; the port takes (G_f, D) planes of H - offset I (the
+    offset off the f = 0 plane, see ``AngleOptimizer.offset``), the flips
+    as an int32 tensor and a complex (D,) statevector.  Returns
+    ((wre, wim, flips), psi0) on ``device``.
+    """
+    d = 1 << n_qubits
+    dev = as_device(device)
+    flips = np.asarray(flips, dtype=np.int32)
+    wre = np.array(wre, dtype=np.float64).reshape(len(flips), d)
+    wre[flips == 0] -= offset
+    wim = np.array(wim, dtype=np.float64).reshape(len(flips), d)
+    planes = tuple(torch.as_tensor(p, dtype=real_dtype(dev), device=dev)
+                   for p in (wre, wim))
+    psi0 = (np.asarray(psi0_re).reshape(d)
+            + 1j * np.asarray(psi0_im).reshape(d))
+    return ((*planes, torch.as_tensor(flips, device=dev)),
+            torch.as_tensor(psi0, dtype=complex_dtype(dev), device=dev))
+
+
 class AngleOptimizer:
     """Multi-start Adam angle optimizer bound to one problem.
 
@@ -103,6 +136,22 @@ class AngleOptimizer:
         self.generator.manual_seed(seed)
         self.offset = pauli.identity_weight()
         self._h_planes = None
+        self._w_planes = None
+
+    def _pick_engine(self, *kinds) -> str:
+        """The fused engine for this problem and tapes of these gate kinds:
+        'v1' (dense H^T planes) for D <= 512, 'v2' (flip groups) for
+        1024 <= D <= 2^18.  Larger problems and RXX/RYY/RZZ gates have no
+        fused engine (ValueError), refused here before any H operand is
+        built."""
+        check_gate_kinds(*kinds)
+        n = self.pauli.n_qubits
+        if n <= 9:
+            return "v1"
+        if n <= MAX_QUBITS:
+            return "v2"
+        raise ValueError(f"no fused Adam engine for {n} qubits (at most "
+                         f"{MAX_QUBITS})")
 
     def h_planes(self):
         """(hre_t, him_t): real and imaginary planes of (H - offset I)^T,
@@ -115,6 +164,18 @@ class AngleOptimizer:
                                 device=self.device)
                 for p in (ht.real, ht.imag))
         return self._h_planes
+
+    def w_planes(self):
+        """(wre, wim, flips): flip-group planes of H - offset I, (G_f, D)
+        each, and the flip masks (G_f,) int32."""
+        if self._w_planes is None:
+            wre, wim, flips = pauli_flip_groups(self.pauli, self.offset,
+                                                dtype=np.float64)
+            self._w_planes = (
+                *(torch.as_tensor(p, dtype=self.rdtype, device=self.device)
+                  for p in (wre, wim)),
+                torch.as_tensor(flips, device=self.device))
+        return self._w_planes
 
     def energy(self, psi0, tape_arrays, x) -> float:
         """Energy of one tape at angles x (eager path)."""
@@ -146,14 +207,17 @@ class AngleOptimizer:
         starts = make_multistarts(x0, active, self.n_starts,
                                   self.fresh_starts, self.restart_scale,
                                   self.generator)
-        hre_t, him_t = self.h_planes()
-        x_opt, e_new = fused_adam_step(
+        if self._pick_engine(old_arrs_b[0], new_arrs_b[0]) == "v1":
+            step, h_ops = fused_adam_step, self.h_planes()
+        else:
+            step, h_ops = fused_adam_step2d, self.w_planes()
+        x_opt, e_new = step(
             tuple(ints(a) for a in old_arrs_b),
             tuple(ints(a) for a in new_arrs_b), ints(map_idx_b),
             psi0.real.reshape(1, -1).to(self.rdtype).contiguous(),
             psi0.imag.reshape(1, -1).to(self.rdtype).contiguous(),
-            hre_t, him_t, starts.contiguous(),
-            active[:, None, :].contiguous(), iters=self.iters, lr=self.lr)
+            *h_ops, starts.contiguous(), active[:, None, :].contiguous(),
+            iters=self.iters, lr=self.lr)
         return (x_opt.cpu().numpy(),
                 e_new.cpu().numpy().astype(np.float64) + self.offset,
                 self.iters * self.n_starts)

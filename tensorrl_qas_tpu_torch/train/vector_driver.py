@@ -89,7 +89,8 @@ def train_vectorized(venv: VectorCircuitEnv, agent, conf: dict, seed: int,
     Produces the same artifact set as the sequential driver: the
     reference-schema ``summary_<seed>.npy`` (per-episode stats, completion
     order), the ``events_<seed>.jsonl`` stream, and checkpoints. Returns
-    summary stats (episodes finished, best error, steps/sec).
+    summary stats (episodes finished, best error, replay train steps taken
+    so far, steps/sec).
 
     ``eps_per_step``: the reference decays epsilon once per env step (one
     replay call per step, ``agents/DeepQ.py:134-137``); the vectorized loop
@@ -221,5 +222,5 @@ def train_vectorized(venv: VectorCircuitEnv, agent, conf: dict, seed: int,
             "warm_start_gap": float(warm_gap),
             "ep_best_errors": ep_best_errors,
             "ep_final_errors": ep_final_errors,
-            "steps": steps,
+            "steps": steps, "replay_steps": int(agent.step_counter),
             "steps_per_sec": steps / dt, "wall_s": dt}

@@ -46,6 +46,22 @@ def test_qnetwork_params_from_jax_same_q_values():
     np.testing.assert_allclose(q_t, q_j, atol=TOL)
 
 
+def test_qnetwork_params_from_jax_at_12q_state_width():
+    """The carried-over MLP at the input width of the 12-qubit LiH config
+    (137 layers x 12 qubits x 18 = 29,592 features, 12 x 14 actions)."""
+    rng = np.random.default_rng(1)
+    width, n_actions = 137 * 12 * 18, 12 * 14
+    net_j = QNetJax(hidden=(64, 32), n_actions=n_actions)
+    params = net_j.init(jax.random.PRNGKey(2), jnp.zeros((1, width)))
+    x = (rng.random(size=(5, width)) < 0.05).astype(np.float32)
+    q_j = np.asarray(net_j.apply(params, jnp.asarray(x)))
+    net_t = QNetwork(width, (64, 32), n_actions)
+    net_t.load_state_dict(params_from_jax(_np_params(params)))
+    with torch.no_grad():
+        q_t = net_t(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(q_t, q_j, atol=TOL)
+
+
 def test_one_replay_step_matches_jax():
     conf = small_conf()
     state_size, action_size = 4 * 3 * 9, 15

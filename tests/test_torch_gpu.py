@@ -1,8 +1,8 @@
-"""The CUDA fused Adam kernel against its plain PyTorch version, on the
-card.  Marked ``gpu``; on a host without a CUDA card each test skips
-itself (decided inside the test, so every worker collects the same
-tests).  Run on the card's host, which has no JAX for the root
-conftest.py, with:
+"""The CUDA fused Adam kernels (v1: dense H, v2: flip-group H) against
+their plain PyTorch versions, on the card.  Marked ``gpu``; on a host
+without a CUDA card each test skips itself (decided inside the test, so
+every worker collects the same tests).  Run on the card's host, which
+has no JAX for the root conftest.py, with:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerance 1e-5 on x_opt and e_new after 3 Adam iterations at 8 qubits:
@@ -11,19 +11,25 @@ summation order of H psi and of the gradient rows.  Float32 noise decides
 some outputs in any float32 implementation, so an env that differs may
 instead lie within the plain version's own float32 noise
 (``ops/fused_adam.py:agreement``, the rule chip_smoke.py applies);
-deliberately wrong kernel results must fail that rule."""
+deliberately wrong kernel results must fail that rule.  The v2 kernel is
+held to the same rule at 7 qubits (a random Pauli sum), 12 (LiH, state in
+shared memory) and 16 (Heisenberg, state in the global workspace)."""
 
 import numpy as np
 import pytest
 import torch
 
 from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
-from tensorrl_qas_tpu_torch.ops import fused_adam
+from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
 from tensorrl_qas_tpu_torch.optim.angle_opt import (
     AngleOptimizer,
     make_multistarts,
 )
 from tensorrl_qas_tpu_torch.problems.hamiltonians import load_problem
+from tensorrl_qas_tpu_torch.sim.expectation import PauliSum
+
+H2O = "H -0.021 -0.002 0.000; O 0.835 0.452 0.000; H 1.477 -0.273 0.000"
+LIH = "Li 0.000 0.000 0.000; H 0.000 0.000 3.400"
 
 
 def _card():
@@ -32,7 +38,9 @@ def _card():
     return torch.device("cuda")
 
 
-def _inputs(dev, n=8, n_env=16, n_starts=8, cap=20, seed=0):
+def _tapes(dev, n, n_env, n_starts, cap, seed):
+    """Random mid-episode tapes, the remap, a random psi0 and the starts:
+    (old, new, map_idx, p0re, p0im) and (starts, active) on ``dev``."""
     rng = np.random.default_rng(seed)
     olds, news, x0s, n_rots = [], [], [], []
     for _ in range(n_env):
@@ -54,9 +62,6 @@ def _inputs(dev, n=8, n_env=16, n_starts=8, cap=20, seed=0):
         n_rots.append(old.n_rots)
     maps = np.stack([np.where(np.arange(cap) < k, np.arange(cap), -1)
                      for k in n_rots]).astype(np.int32)
-    prob = load_problem("H2O", n, "H -0.021 -0.002 0.000; O 0.835 0.452 "
-                        "0.000; H 1.477 -0.273 0.000")
-    hre_t, him_t = AngleOptimizer(prob.pauli, device=dev).h_planes()
     psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
     psi0 /= np.linalg.norm(psi0)
 
@@ -71,10 +76,34 @@ def _inputs(dev, n=8, n_env=16, n_starts=8, cap=20, seed=0):
     starts = make_multistarts(x0, active, n_starts, n_starts // 4, 0.1,
                               torch.Generator(device=dev).manual_seed(1))
     f32 = dict(dtype=torch.float32, device=dev)
-    return (ints(olds), ints(news), torch.as_tensor(maps, device=dev),
-            torch.as_tensor(psi0.real[None], **f32),
-            torch.as_tensor(psi0.imag[None], **f32), hre_t, him_t,
-            starts.contiguous(), active[:, None, :].contiguous())
+    return ((ints(olds), ints(news), torch.as_tensor(maps, device=dev),
+             torch.as_tensor(psi0.real[None], **f32),
+             torch.as_tensor(psi0.imag[None], **f32)),
+            (starts.contiguous(), active[:, None, :].contiguous()))
+
+
+def _inputs(dev, n=8, n_env=16, n_starts=8, cap=20, seed=0):
+    """v1 arguments at 8-qubit H2O."""
+    head, tail = _tapes(dev, n, n_env, n_starts, cap, seed)
+    prob = load_problem("H2O", n, H2O)
+    return (*head, *AngleOptimizer(prob.pauli, device=dev).h_planes(), *tail)
+
+
+def _pauli(n):
+    if n == 12:
+        return load_problem("LIH", 12, LIH).pauli
+    if n == 16:
+        return load_problem("heisenberg", 16).pauli
+    rng = np.random.default_rng(n)
+    paulis = ["I" * n] + ["".join(rng.choice(list("IXYZ"), size=n))
+                          for _ in range(40)]
+    return PauliSum.from_strings(paulis, rng.normal(size=41), n)
+
+
+def _inputs2d(dev, n, n_env=4, n_starts=8, cap=30, seed=0):
+    """v2 arguments: flip-group planes of H - c0 I."""
+    head, tail = _tapes(dev, n, n_env, n_starts, cap, seed)
+    return (*head, *AngleOptimizer(_pauli(n), device=dev).w_planes(), *tail)
 
 
 @pytest.mark.gpu
@@ -123,3 +152,53 @@ def test_kernel_rejects_two_qubit_rotations():
     args[0] = (kinds, *args[0][1:])
     with pytest.raises(ValueError, match="RXX"):
         fused_adam.fused_adam_step(*args, iters=1, lr=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [7, 12, 16])
+def test_kernel2d_matches_plain_version(n):
+    dev = _card()
+    args = _inputs2d(dev, n)
+    before = fused_adam2d.fused_adam_step2d.launches
+    xk, ek = fused_adam2d.fused_adam_step2d(*args, iters=3, lr=0.1)
+    torch.cuda.synchronize()
+    assert fused_adam2d.fused_adam_step2d.launches == before + 1
+    plain = fused_adam2d.fused_adam_step2d_reference
+    ref = fused_adam.plain_results(args, iters=3, lr=0.1, step=plain)
+    ok, strict, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5,
+                                         step=plain)
+    assert bool(ok.all())
+    assert strict.float().mean() > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [7, 12, 16])
+@pytest.mark.parametrize("fault", ["lr", "drop_ry"])
+def test_check_rejects_a_wrong_kernel2d_result(n, fault):
+    dev = _card()
+    args = _inputs2d(dev, n)
+    lr = 0.101 if fault == "lr" else 0.1
+    wrong = list(args)
+    if fault == "drop_ry":
+        kinds, slots = args[0][0], args[0][3]
+        keep = torch.ones_like(args[9])
+        for e, g in ((kinds == int(GateKind.RY))
+                     & (slots >= 0)).nonzero().tolist():
+            keep[e, 0, slots[e, g]] = 0.0
+        wrong[9] = (args[9] * keep).contiguous()
+    xk, ek = fused_adam2d.fused_adam_step2d(*wrong, iters=3, lr=lr)
+    plain = fused_adam2d.fused_adam_step2d_reference
+    ref = fused_adam.plain_results(args, iters=3, lr=0.1, step=plain)
+    ok, _, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5, step=plain)
+    assert not bool(ok.all())
+
+
+@pytest.mark.gpu
+def test_kernel2d_rejects_two_qubit_rotations():
+    dev = _card()
+    args = list(_inputs2d(dev, 7, n_env=2))
+    kinds = args[0][0].clone()
+    kinds[0, 0] = int(GateKind.RZZ)
+    args[0] = (kinds, *args[0][1:])
+    with pytest.raises(ValueError, match="RXX/RYY/RZZ"):
+        fused_adam2d.fused_adam_step2d(*args, iters=1, lr=0.1)
