@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: both engines of the fused
-Adam env step and the vectorized trainer through each.
+Adam env step, noiseless and with depolarizing noise, and the vectorized
+trainer through each of the four kernels.
 
     python3 chip_smoke.py
 
@@ -38,10 +39,41 @@ Phases, one line each with its seconds:
                  that the replay buffer passes batch 1000 and replay runs);
                  checks the outputs, that the replay ran and that every env
                  step went through fused_adam_v2.
+7. kernel v1 5q -- the v1 kernel below 8 qubits (the CLI's default config,
+                 heisenberg_5q_TNbond2, E = 64) at 3 iterations, with the
+                 controls.
+8. kernel v1n -- the noise variant of v1 at the noise config's shapes
+                 (H2O8q_TNbond2_noise: E = 128, S = 8, G = R = 46, p1 = 0.01,
+                 p2 = 0.05, seeds per env) against its plain version under
+                 the same Philox draws, as in 3., its e_new against the
+                 eager simulator on the tape with the drawn errors woven in;
+                 a third control, the noiseless kernel's result, must be
+                 flagged in most envs at 3 iterations; then its times and
+                 the noiseless kernel's on the same inputs.
+9. p = 0      -- the noise variants of both kernels at p1 = p2 = 0 equal the
+                 noiseless kernels (1e-6 allowed, bit for bit expected);
+                 also reports whether two noiseless launches agree bit
+                 for bit (the kernels sum in a fixed order).
+10. Kraus    -- 4096 trajectory samples of the v1 noise variant on the
+                 5-qubit tape of tests/test_noise_pallas.py at p1 = 0.15,
+                 p2 = 0.25 (lr = 0, identity map): the mean of e_new within
+                 5 sigma + 1e-3 of the exact density-matrix value; the
+                 samples differ; e_new equals the plain version's within
+                 1e-5.
+11. trainer v1n -- the CLI's trainer on H2O8q_TNbond2_noise (depolarizing
+                 noise inferred from the name) with 128 replicas for 20
+                 vector steps, every step through the v1 noise variant.
+12. kernel v2n -- the v2 noise variant at LiH 12q (E = 16, S = 8, G = R =
+                 116) at 3 iterations with the three controls and its
+                 times, then at 14q (E = 8, state in the workspace); 100
+                 iterations at LiH 12q run when the elapsed time allows.
+13. trainer v2n -- the trainer on LIH12q_TNbond2 with --noise depolarizing,
+                 16 replicas, 20 vector steps, every step through the v2
+                 noise variant.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Any failure, or passing the
-deadline, exits non-zero without that line.
+The line before the last is a JSON object with one entry per kernel (v1,
+v1 noise, v2, v2 noise); the last line is {"ok": true, "device": {...}}.
+Any failure, or passing the deadline, exits non-zero without that line.
 
 Every kernel check and timing runs at the tape capacity G = R that the
 trainer's env gives the config (``CircuitEnv.tape_capacity``: num_layers
@@ -67,6 +99,15 @@ DEADLINE_S = 600
 STARTS, ITERS, LR = 8, 100, 0.1
 V1_CONFIG, V1_ENVS, V1_STEPS = "H2O8q_TNbond2", 128, 20
 V2_CONFIG, V2_ENVS, V2_STEPS = "LIH12q_TNbond2", 16, 80
+V1_SMALL = ("heisenberg_5q_TNbond2", 64)      # v1 below 8 qubits
+V1N_CONFIG = "H2O8q_TNbond2_noise"            # noise inferred from the name
+V2N_STEPS = 20
+V2N_SWEEP = (("heisenberg_14q_TNbond2", 8),)
+KRAUS_ENVS, KRAUS_P = 4096, (0.15, 0.25)
+TOL_P0 = 1e-6            # noise variant at p = 0 vs the noiseless kernel
+# the optional 100-iteration v2 noise check runs when this much of the
+# deadline is left
+V2N_LONG_MIN_LEFT_S = 300
 # the rest of the band at 3 iterations: (config, envs)
 SWEEP = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8),
          ("heisenberg_16q_TNbond2", 4), ("heisenberg_18q_TNbond2", 2))
@@ -151,47 +192,70 @@ def draw_batch(rng, n_env, cap, n_qubits):
 
 
 class Engine(NamedTuple):
-    """One kernel of the fused step: its wrapper, its plain version, the H
+    """One kernel of the fused step: its wrapper (shared by a kernel's two
+    variants), whether it is the noise variant, its plain version, the H
     operands it takes from the optimizer, the dynamic shared memory one
     CTA takes at a case's shapes, and the rows of H one H psi reads (dense
     D, or one plane per flip group)."""
     name: str
     replaces: str
+    source: str
     step: Callable
+    noise: bool
     plain: Callable
     h_ops: Callable
     smem_bytes: Callable
     h_rows: Callable
 
+    def launches(self) -> int:
+        """This variant's launches since the wrapper's counts were set to
+        0."""
+        if self.noise:
+            return self.step.noise_launches
+        return self.step.launches - self.step.noise_launches
+
 
 def engines():
+    """(v1, v1 noise, v2, v2 noise)."""
     from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
 
     v1, v2 = fused_adam._library, fused_adam2d._library
-    return (
-        Engine(name="fused_adam_v1",
-               replaces="tensorrl_qas_tpu/ops/pallas_opt.py:54",
-               step=fused_adam.fused_adam_step,
-               plain=fused_adam.fused_adam_step_reference,
-               h_ops=lambda opt: opt.h_planes(),
-               smem_bytes=lambda case: v1().fused_adam_v1_smem_bytes(
-                   STARTS, case.cap, case.cap, case.n),
-               h_rows=lambda case: 1 << case.n),
-        Engine(name="fused_adam_v2",
-               replaces="tensorrl_qas_tpu/ops/pallas_opt2d.py:160",
-               step=fused_adam2d.fused_adam_step2d,
-               plain=fused_adam2d.fused_adam_step2d_reference,
-               h_ops=lambda opt: opt.w_planes(),
-               smem_bytes=lambda case: v2().fused_adam_v2_smem_bytes(
-                   case.cap, case.cap, case.n, case.args[7].numel()),
-               h_rows=lambda case: case.args[7].numel()))
+    out = []
+    for noise in (False, True):
+        suffix = "_noise" if noise else ""
+        variant = " (_make_kernel, noise=(p1, p2))" if noise else ""
+        out.append(Engine(
+            name="fused_adam_v1" + suffix,
+            replaces="tensorrl_qas_tpu/ops/pallas_opt.py:54" + variant,
+            source="tensorrl_qas_tpu_torch/csrc/fused_adam_v1.cu",
+            step=fused_adam.fused_adam_step, noise=noise,
+            plain=fused_adam.fused_adam_step_reference,
+            h_ops=lambda opt: opt.h_planes(),
+            smem_bytes=lambda case, noise=noise:
+                v1().fused_adam_v1_smem_bytes(STARTS, case.cap, case.cap,
+                                              case.n, noise),
+            h_rows=lambda case: 1 << case.n))
+        out.append(Engine(
+            name="fused_adam_v2" + suffix,
+            replaces="tensorrl_qas_tpu/ops/pallas_opt2d.py:160" + variant,
+            source="tensorrl_qas_tpu_torch/csrc/fused_adam_v2.cu",
+            step=fused_adam2d.fused_adam_step2d, noise=noise,
+            plain=fused_adam2d.fused_adam_step2d_reference,
+            h_ops=lambda opt: opt.w_planes(),
+            smem_bytes=lambda case, noise=noise:
+                v2().fused_adam_v2_smem_bytes(case.cap, case.cap, case.n,
+                                              case.args[7].numel(), noise),
+            h_rows=lambda case: case.args[7].numel()))
+    return out[0], out[2], out[1], out[3]
 
 
 class Case:
     """Kernel inputs drawn for one config: E envs of random mid-episode
     tapes at the capacity the trainer's env gives the config (numpy seed
     1234), a random psi0, starts from the optimizer's start rule; the
-    problem and the H operands from that env's optimizer."""
+    problem and the H operands from that env's optimizer.  For a noise
+    variant, p1 and p2 from that optimizer (the config's) and seeds per
+    env from a torch generator (``noise_kw``)."""
 
     def __init__(self, engine, config, n_env):
         import numpy as np
@@ -206,7 +270,9 @@ class Case:
 
         dev = torch.device("cuda")
         env = CircuitEnv(EnvConfig.from_conf(
-            get_config("TensorRL_fixed/", f"{config}.cfg"), device="cuda"))
+            get_config("TensorRL_fixed/", f"{config}.cfg"),
+            noise_mode="depolarizing" if engine.noise else "none",
+            device="cuda"))
         self.n = n = env.num_qubits
         self.cap = cap = env.tape_capacity
         self.n_env = n_env
@@ -234,13 +300,23 @@ class Case:
                      torch.as_tensor(self.psi0.imag[None], **f32),
                      *engine.h_ops(self.opt), starts,
                      active[:, None, :].contiguous())
+        self.noise_kw = {}
+        if engine.noise:
+            seeds = torch.randint(
+                0, 2**31 - 1, (n_env, 2), dtype=torch.int32, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(11))
+            self.noise_kw = dict(noise=(self.opt.noise_p1,
+                                        self.opt.noise_p2), seeds=seeds)
 
     def controls(self):
         """Deliberately wrong kernel inputs the check must reject: Adam's
         rate off by 1%, and the RY angles' gradients dropped (their
-        `active` entries zeroed).  A 1% rate still reaches the same optima
+        `active` entries zeroed); for a noise variant also the noiseless
+        kernel on the same inputs.  A 1% rate still reaches the same optima
         in 100 iterations, so that one is required to fail at 3 iterations
-        only.  -> (name, args, lr, iterations where it must be flagged)."""
+        only; the noiseless result must be flagged in most envs at 3.
+        -> (name, args, lr, noise keywords, iterations where it must be
+        flagged, least share of envs flagged there)."""
         import numpy as np
         import torch
 
@@ -254,28 +330,43 @@ class Case:
         no_ry = (active * torch.as_tensor(~ry, dtype=torch.float32,
                                           device=active.device)[:, None, :]
                  ).contiguous()
-        return (("lr x 1.01", self.args, LR * 1.01, (3,)),
-                ("RY gradients dropped", (*self.args[:-1], no_ry), LR,
-                 (3, ITERS)))
+        out = [("lr x 1.01", self.args, LR * 1.01, self.noise_kw, (3,), 0.0),
+               ("RY gradients dropped", (*self.args[:-1], no_ry), LR,
+                self.noise_kw, (3, ITERS), 0.0)]
+        if self.noise_kw:
+            out.append(("noiseless kernel", self.args, LR, {}, (3,), 0.5))
+        return out
 
-    def oracle_error(self, x_opt, e_new, envs):
+    def oracle_error(self, x_opt, e_new, envs, iters):
         """Largest |e_new + offset - E| over ``envs``, E from the eager
-        complex128 simulator at the remapped x_opt on the new tape."""
+        complex128 simulator at the remapped x_opt on the new tape (for a
+        noise variant with e_new's drawn errors, tag iters + 1, woven into
+        the tape)."""
         import numpy as np
         import torch
 
+        from tensorrl_qas_tpu_torch.optim.angle_opt import extend_tape_arrays
         from tensorrl_qas_tpu_torch.sim.apply import apply_tape
         from tensorrl_qas_tpu_torch.sim.expectation import pauli_expectation
+        from tensorrl_qas_tpu_torch.sim.noise import (
+            depolarizing_draw,
+            noise_thresholds,
+        )
 
         dev = x_opt.device
         x64 = x_opt.double().cpu().numpy()
         pauli = self.prob.pauli.tensors(dev, torch.complex128)
+        new = tuple(torch.as_tensor(a, device=dev) for a in self.new)
+        if self.noise_kw:
+            new = extend_tape_arrays(new, *depolarizing_draw(
+                new[0], self.noise_kw["seeds"], iters + 1,
+                noise_thresholds(*self.noise_kw["noise"])))
         err = 0.0
         for e in envs:
             mi = self.maps[e]
             x_new = np.where(mi >= 0, x64[e][np.maximum(mi, 0)], 0.0)
             psi = apply_tape(torch.as_tensor(self.psi0, device=dev),
-                             *(a[e] for a in self.new), x_new)
+                             *(a[e] for a in new), x_new)
             e_ref = float(pauli_expectation(psi, *pauli))
             err = max(err, abs(e_ref - (float(e_new[e]) + self.opt.offset)))
         return err
@@ -283,33 +374,38 @@ class Case:
 
 def check_kernel(engine, case, label, iters, tol, controls=()):
     """One kernel call held against the plain version's float32 runs
-    (``agreement``), the eager simulator and the controls; raises on any
-    disagreement.  Returns the agreement statistics."""
+    (``agreement``, under the same noise draws for a noise variant), the
+    eager simulator and the controls; raises on any disagreement.  Returns
+    the agreement statistics."""
     import torch
 
     from tensorrl_qas_tpu_torch.ops import fused_adam
 
     t0 = phase(f"{label} iters={iters}")
-    xk, ek = engine.step(*case.args, iters=iters, lr=LR)
+    kw = case.noise_kw
+    xk, ek = engine.step(*case.args, iters=iters, lr=LR, **kw)
     torch.cuda.synchronize()
     ref = fused_adam.plain_results(case.args, iters=iters, lr=LR,
-                                   step=engine.plain)
+                                   step=engine.plain, **kw)
     env_ok, _, stats = fused_adam.agreement(
         case.args, ref, xk, ek, tol=tol, check_x=iters == 3,
-        step=engine.plain)
+        step=engine.plain, iters=iters, **kw)
     oracle = case.oracle_error(xk, ek, range(0, case.n_env,
-                                             max(1, case.n_env // 8)))
+                                             max(1, case.n_env // 8)), iters)
     caught = {}
-    for name, c_args, c_lr, required in controls:
-        xc, ec = engine.step(*c_args, iters=iters, lr=c_lr)
+    for name, c_args, c_lr, c_kw, required, share in controls:
+        xc, ec = engine.step(*c_args, iters=iters, lr=c_lr, **c_kw)
         c_ok, _, _ = fused_adam.agreement(case.args, ref, xc, ec, tol=tol,
                                           check_x=iters == 3,
-                                          step=engine.plain)
+                                          step=engine.plain, iters=iters,
+                                          **kw)
         flagged = int((~c_ok).sum())
         caught[name] = f"{flagged}/{case.n_env}"
-        if iters in required and flagged == 0:
+        if iters in required and (flagged == 0
+                                  or flagged <= share * case.n_env):
             raise AssertionError(f"{label}: control {name!r} passed the "
-                                 f"check at iters={iters}")
+                                 f"check at iters={iters} in "
+                                 f"{case.n_env - flagged}/{case.n_env} envs")
     ok = (bool(env_ok.all()) and oracle <= TOL_ORACLE
           and bool(torch.isfinite(ek).all())
           and bool(torch.isfinite(xk).all()))
@@ -335,7 +431,8 @@ def flop_count(case, h_rows):
     gate touches D/4 pairs, others D/2.  Per evaluation H psi takes 8 per
     entry of the ``h_rows`` x D operand, the Rayleigh quotient 8 per
     amplitude, lambda = 2 conj(H psi) 2; each Adam update about 12 per
-    active angle and start."""
+    active angle and start.  A noise variant's error Paulis are swaps and
+    signs: no flops."""
     import numpy as np
 
     from tensorrl_qas_tpu_torch.circuits.tape import GateKind
@@ -386,12 +483,19 @@ def time_kernel(engine, case, label):
     bound: the larger of this batch's operations at the f32 peak and its
     bytes (inputs read once, outputs written once) at the HBM rate."""
     t0 = phase(f"{label} timing")
-    k_ms = time_cuda(lambda: engine.step(*case.args, iters=ITERS, lr=LR),
-                     warmup=2, reps=10)
-    p_ms = time_cuda(lambda: engine.plain(*case.args, iters=ITERS, lr=LR),
-                     warmup=0, reps=1)
+    kw = case.noise_kw
+    k_ms = time_cuda(lambda: engine.step(*case.args, iters=ITERS, lr=LR,
+                                         **kw), warmup=2, reps=10)
+    extra = {}
+    if kw:      # what the noise costs: the noiseless kernel, same inputs
+        extra["noiseless_kernel_same_inputs_ms"] = "{:.4f}".format(time_cuda(
+            lambda: engine.step(*case.args, iters=ITERS, lr=LR), warmup=1,
+            reps=10))
+    p_ms = time_cuda(lambda: engine.plain(*case.args, iters=ITERS, lr=LR,
+                                          **kw), warmup=0, reps=1)
     flops = flop_count(case, engine.h_rows(case))
-    tensors = [t for a in case.args
+    seeds = [kw["seeds"]] if kw else []
+    tensors = [t for a in (*case.args, *seeds)
                for t in (a if isinstance(a, tuple) else (a,))]
     nbytes = (sum(t.numel() * t.element_size() for t in tensors)
               + case.n_env * (case.cap + 1) * 4)
@@ -401,31 +505,117 @@ def time_kernel(engine, case, label):
     done(f"{label} timing", t0, kernel_ms=f"{k_ms:.4f}",
          plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
          bound_by=bound_by, gflop=f"{flops / 1e9:.3f}",
-         dynamic_smem_bytes_per_cta=engine.smem_bytes(case),
+         dynamic_smem_bytes_per_cta=engine.smem_bytes(case), **extra,
          library_ms="n/a (no single PyTorch call computes this fused step)")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
 
-def kernel_phase(engine, config, n_env, label):
-    """Both iteration counts with the controls, then the timing."""
+def kernel_phase(engine, config, n_env, label, long_check=True):
+    """Both iteration counts (the 100-iteration one unless
+    ``long_check`` is False) with the controls, then the timing."""
     case = Case(engine, config, n_env)
     stats = {}
     for iters, tol in ((3, TOL_ITERS3), (ITERS, TOL_ITERS100)):
+        if iters == ITERS and not long_check:
+            continue
         stats[iters] = check_kernel(engine, case, label, iters, tol,
                                     case.controls())
-    return {"max_abs_err": stats[ITERS]["e_new_max_abs_err"],
-            **time_kernel(engine, case, label)}
+    return {"max_abs_err": stats[max(stats)]["e_new_max_abs_err"],
+            **time_kernel(engine, case, label)}, case
 
 
-def sweep_phase(engine):
-    for config, n_env in SWEEP:
+def sweep_phase(engine, sweep=SWEEP):
+    for config, n_env in sweep:
         case = Case(engine, config, n_env)
         check_kernel(engine, case, f"sweep {config} E={n_env}", 3,
                      TOL_ITERS3)
 
 
-def trainer_phase(engine, config, n_env, vector_steps, label):
+def p0_phase(engine, noisy, config, n_env):
+    """The noise variant at p1 = p2 = 0 against the noiseless kernel on
+    the same inputs, at 100 iterations."""
+    import torch
+
+    t0 = phase(f"p=0 {noisy.name}")
+    case = Case(engine, config, n_env)
+    x0, e0 = engine.step(*case.args, iters=ITERS, lr=LR)
+    x1, e1 = engine.step(*case.args, iters=ITERS, lr=LR)
+    seeds = torch.zeros((n_env, 2), dtype=torch.int32, device="cuda")
+    xp, ep = noisy.step(*case.args, iters=ITERS, lr=LR, noise=(0.0, 0.0),
+                        seeds=seeds)
+    torch.cuda.synchronize()
+    err = max(float((xp - x0).abs().max()), float((ep - e0).abs().max()))
+    ok = err <= TOL_P0
+    done(f"p=0 {noisy.name}", t0, config=config, n_env=n_env,
+         max_abs_diff=f"{err:.3e}",
+         bit_for_bit=bool(torch.equal(xp, x0) and torch.equal(ep, e0)),
+         noiseless_repeat_bit_for_bit=bool(torch.equal(x1, x0)
+                                           and torch.equal(e1, e0)),
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"{noisy.name} at p = 0 differs from the "
+                             f"noiseless kernel by {err:.3e}")
+
+
+def kraus_phase(noisy):
+    """Trajectory samples of the v1 noise variant at 5 qubits against the
+    exact channel (tests/test_noise_pallas.py's tape and Pauli sum)."""
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
+    from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
+    from tensorrl_qas_tpu_torch.sim.apply import zero_state
+    from tensorrl_qas_tpu_torch.sim.expectation import PauliSum
+    from tensorrl_qas_tpu_torch.sim.noise import depolarizing_energy_exact
+
+    t0 = phase("kraus")
+    n, dev = 5, torch.device("cuda")
+    tape = GateTape(n, 4, 4)
+    tape.add(GateKind.RY, target=0, angle=0.7)
+    tape.add_cx(0, 1)
+    tape.add(GateKind.RX, target=2, angle=-1.1)
+    tape.add_cx(1, 2)
+    pauli = PauliSum.from_strings(
+        [s + "I" * (n - len(s)) for s in ("Z", "IZ", "IIZ", "XX", "IYY")],
+        [1.0, 0.5, -0.7, 0.9, 1.3], n)
+    exact = depolarizing_energy_exact(zero_state(n), *tape.arrays(),
+                                      tape.x0(), pauli.to_dense(), *KRAUS_P)
+    e_n = KRAUS_ENVS
+    arrs = tuple(torch.as_tensor(a, dtype=torch.int32, device=dev)
+                 .repeat(e_n, 1).contiguous() for a in tape.arrays())
+    opt = AngleOptimizer(pauli, device=dev)
+    psi0 = zero_state(n, torch.complex64, dev)
+    x0 = torch.as_tensor(tape.x0(), dtype=torch.float32, device=dev)
+    seeds = torch.randint(0, 2**31 - 1, (e_n, 2), dtype=torch.int32,
+                          device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              5))
+    args = (arrs, arrs, torch.arange(4, dtype=torch.int32, device=dev)
+            .repeat(e_n, 1).contiguous(), psi0.real[None].contiguous(),
+            psi0.imag[None].contiguous(), *opt.h_planes(),
+            x0.repeat(e_n, 1, 1).contiguous(),
+            torch.ones(e_n, 1, 4, device=dev))
+    kw = dict(iters=1, lr=0.0, noise=KRAUS_P, seeds=seeds)
+    _, ek = noisy.step(*args, **kw)
+    _, ep = noisy.plain(*args, **kw)
+    es = ek.double().cpu().numpy() + opt.offset
+    sigma = es.std() / np.sqrt(e_n)
+    dev_mean = abs(es.mean() - exact)
+    plain_err = float((ek - ep).abs().max())
+    ok = dev_mean < 5 * sigma + 1e-3 and es.std() > 0 and plain_err <= 1e-5
+    done("kraus", t0, n_qubits=n, samples=e_n, p=KRAUS_P,
+         mean=f"{es.mean():.6f}", exact=f"{exact:.6f}",
+         sigma_of_mean=f"{sigma:.3e}", abs_dev=f"{dev_mean:.3e}",
+         plain_max_abs_err=f"{plain_err:.3e}", ok=ok)
+    if not ok:
+        raise AssertionError("the v1 noise variant's trajectories miss the "
+                             "Kraus channel or its plain version")
+
+
+def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
+                  expect_replay=True):
     """The CLI's trainer for ``vector_steps`` steps with every kernel's
     launch count set to 0 just before and read just after; every step must
     have launched ``engine`` once and no other kernel."""
@@ -434,18 +624,20 @@ def trainer_phase(engine, config, n_env, vector_steps, label):
 
     from tensorrl_qas_tpu_torch.train import cli
 
-    wrappers = {e.name: e.step for e in engines()}
+    variants = engines()
     out = tempfile.mkdtemp(prefix="trlqas_smoke_")
     try:
         t0 = phase(label)
         torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
-            w.launches = 0
+        for e in variants:
+            e.step.launches = 0
+            e.step.noise_launches = 0
         summary = cli.run([
             "--config", config, "--experiment_name", "TensorRL_fixed/",
             "--vector", str(n_env), "--total_steps",
-            str(n_env * vector_steps), "--results_path", out + "/"])
-        launches = {k: w.launches for k, w in wrappers.items()}
+            str(n_env * vector_steps), "--results_path", out + "/",
+            *extra])
+        launches = {e.name: e.launches() for e in variants}
         run_dir = os.path.join(out, "TensorRL_fixed", config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
                         allow_pickle=True).item()
@@ -457,7 +649,7 @@ def trainer_phase(engine, config, n_env, vector_steps, label):
             "launches == vector steps": all(
                 n == (vector_steps if k == engine.name else 0)
                 for k, n in launches.items()),
-            "replay ran": summary["replay_steps"] > 0,
+            "replay ran": summary["replay_steps"] > 0 or not expect_replay,
             "summary schema": set(stats) == {"train", "test"},
             "events": (len(events) == vector_steps
                        and all(keys <= set(ev) for ev in events)
@@ -512,20 +704,43 @@ def main() -> int:
     done("device", t0, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    v1, v2 = engines()
-    build_phase((v1.name, v2.name))
+    v1, v1n, v2, v2n = engines()
+    build_phase(("fused_adam_v1", "fused_adam_v2"))
     results = {}
-    results[v1] = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
+    results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
     results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
                                             V1_STEPS, "trainer v1")
-    results[v2] = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
+    results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
     sweep_phase(v2)
     results[v2]["launches"] = trainer_phase(v2, V2_CONFIG, V2_ENVS,
                                             V2_STEPS, "trainer v2")
+    small = Case(v1, *V1_SMALL)
+    check_kernel(v1, small, f"kernel v1 {V1_SMALL[0]} E={V1_SMALL[1]}", 3,
+                 TOL_ITERS3, small.controls())
+
+    results[v1n], _ = kernel_phase(v1n, V1N_CONFIG, V1_ENVS, "kernel v1n")
+    p0_phase(v1, v1n, V1N_CONFIG, V1_ENVS)
+    p0_phase(v2, v2n, V2_CONFIG, V2_ENVS)
+    kraus_phase(v1n)
+    results[v1n]["launches"] = trainer_phase(v1n, V1N_CONFIG, V1_ENVS,
+                                             V1_STEPS, "trainer v1n")
+    results[v2n], case = kernel_phase(v2n, V2_CONFIG, V2_ENVS, "kernel v2n",
+                                      long_check=False)
+    sweep_phase(v2n, V2N_SWEEP)
+    results[v2n]["launches"] = trainer_phase(
+        v2n, V2_CONFIG, V2_ENVS, V2N_STEPS, "trainer v2n",
+        extra=("--noise", "depolarizing"), expect_replay=False)
+    left = DEADLINE_S - (time.perf_counter() - t_start)
+    if left >= V2N_LONG_MIN_LEFT_S:
+        stats = check_kernel(v2n, case, "kernel v2n", ITERS, TOL_ITERS100,
+                             case.controls())
+        results[v2n]["max_abs_err"] = stats["e_new_max_abs_err"]
+    else:
+        print(f"[kernel v2n iters={ITERS}] skipped: {left:.0f} s of the "
+              f"deadline left (< {V2N_LONG_MIN_LEFT_S})", flush=True)
 
     kernels = {"kernels": [{
-        "name": e.name, "route": "cuda",
-        "source": f"tensorrl_qas_tpu_torch/csrc/{e.name}.cu",
+        "name": e.name, "route": "cuda", "source": e.source,
         "replaces": e.replaces, "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

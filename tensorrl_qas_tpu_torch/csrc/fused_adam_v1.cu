@@ -7,6 +7,9 @@
 // which live in gates.cuh.
 // The plain PyTorch version of the same function is
 // tensorrl_qas_tpu_torch/ops/fused_adam.py:fused_adam_step_reference.
+// The noise variant (the same kernel launched with a non-null `seeds`)
+// replaces the TPU kernel compiled with noise=(p1, p2)
+// (pallas_opt.py:draw_noise / noise_kinds / apply_noise): see "Noise" below.
 //
 // What one CTA computes, for its env e (grid = E envs):
 //   for it in 0..iters-1:                       (Adam over the OLD tape)
@@ -14,21 +17,23 @@
 //     Hpsi  = H psi                              dense H^T planes from L2
 //     E_s   = Re<psi|H psi> / <psi|psi>          best-iterate tracking
 //     dx    = adjoint sweep, lambda = 2 conj(H psi), masked by `active`
-//     x     = Adam(x, dx)                        bias-corrected, powf(b, t)
+//     x     = Adam(x, dx)                        bias-corrected
 //   final re-check of x, argmin over starts -> x_opt,
 //   x_new[j] = x_opt[map[j]] (map -1 -> 0), e_new = E(new tape, x_new).
 //
 // Layout.  psi and lambda (re and im planes, S x D each) live in shared
-// memory: 4 * 8 * 256 * 4 B = 32 KB at the main path's S = 8, D = 256.
+// memory: 4 * 8 * 256 * 4 B = 32 KB at the main path's S = 8, D = 256
+// (64 KB at S = 16: any S whose planes fit in shared memory is taken).
 // The tapes are read into shared memory once by the block.  A gate pairs
 // amplitude i0 (target bit 0) with its partner i1 = i0 ^ 2^t; each thread
 // owns whole pairs, so a gate updates in place and needs one barrier.
 // H psi is a dense loop over the (D, D) H^T planes straight from global
 // memory (512 KB: more than shared memory holds; it stays in L2), each
-// thread producing one output amplitude for all S starts in registers, so
-// H is read once per H psi per CTA.  Energies and the per-gate gradient
-// rows are block reductions (warp shuffles, then shared memory); the
-// energy sums accumulate in double.  All amplitude arithmetic is f32 FMA:
+// thread producing one output amplitude for a block of up to kMaxStarts
+// starts in registers, so H is read once per H psi per block of starts.
+// Energies and the per-gate gradient rows are block reductions (warp
+// shuffles, then shared memory) in a fixed order; the energy sums
+// accumulate in double.  All amplitude arithmetic is f32 FMA:
 // no tensor-core TF32 or bf16, whose rounding exceeds the 1.6e-3 Ha
 // acceptance threshold over a 40-gate tape.
 //
@@ -42,11 +47,30 @@
 // work of an env on one SM and H psi runs on the CUDA cores.  H psi as a
 // wgmma product and several CTAs per env (a cluster sharing psi) are work
 // for a later change.
+//
+// Noise.  With seeds the CTA draws its env's depolarizing realization
+// (philox.cuh: key = seeds[e], counter = (gate, tag)) once per tag -- Adam
+// iteration `it`, `iters` for the final re-check, `iters + 1` for e_new --
+// as per-gate error kinds in shared memory (one thread per gate, then the
+// barrier that begins the pass), and applies it to all S starts: after a
+// gate whose error fired, one more pass over the pairs of the error's qubit
+// (a swap or a sign, one barrier); in the adjoint sweep the same Paulis
+// are undone on psi and transposed onto lambda before the gate's own
+// adjoint step.  Errors fire after a few percent of the gates at the
+// configs' p1 = 0.01, p2 = 0.05, so the extra passes and the G Philox
+// calls per tag add little to the noiseless work; they cost no flops.
+// The variant is a block-uniform runtime flag, not a second compiled
+// kernel: two template instances contracted the shared arithmetic into
+// FMAs differently (x_opt apart by 2.3e-6 at p = 0 on the card), while one
+// code path makes the variant at p = 0 the noiseless kernel bit for bit.
+// The gradient sums run in a fixed order (see backward), so a launch is
+// deterministic.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "gates.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -54,8 +78,14 @@ using namespace gates;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Starts one CTA holds in registers during H psi (the main path runs 8).
+// Starts one thread holds in registers during H psi (the main path runs
+// 8); more starts are taken in blocks of this many.
 constexpr int kMaxStarts = 8;
+
+// Gradient partials per start and gate: one per 32 amplitude pairs.
+__host__ __device__ inline int grad_chunks(int D) {
+  return D >= 64 ? D / 64 : 1;
+}
 
 struct Shared {
   double* red;   // 2 * kWarps * kMaxStarts energy partials
@@ -72,11 +102,52 @@ struct Shared {
   float* st;     // sin(x / 2)
   float* be;     // best energy per start
   float* ev;     // current energy per start
+  float* gpart;  // 2 x S x chunks gradient partials (double-buffered)
   Tape old_tape;
   Tape new_tape;
   int* map;      // R
   int* best;     // 1
+  int* err_t;    // G error kinds on the target (noise variant)
+  int* err_c;    // G error kinds on the control
 };
+
+// Error kinds of every gate of `tape` at `tag` into err_t / err_c; the
+// caller's next barrier publishes them.
+__device__ void draw_errors(const Shared& sh, const Tape& tape, int G,
+                            const int* __restrict__ seeds, int e, int tag,
+                            unsigned thr1, unsigned thr2) {
+  const unsigned k0 = (unsigned)seeds[2 * e], k1 = (unsigned)seeds[2 * e + 1];
+  for (int g = threadIdx.x; g < G; g += kThreads)
+    philox::error_kinds(tape.kind[g], g, tag, k0, k1, thr1, thr2,
+                        sh.err_t[g], sh.err_c[g]);
+}
+
+// Pauli k on qubit q of starts 0..ns-1: on psi (forward), or, with
+// kAdjoint, undone on psi and transposed onto lambda.
+template <bool kAdjoint>
+__device__ void error_pass(const Shared& sh, int k, int q, int ns, int n) {
+  const int D = 1 << n;
+  const int half = D >> 1;
+  for (int p = threadIdx.x; p < ns * half; p += kThreads) {
+    const int o = (p >> (n - 1)) * D;
+    const int i0 = o + pair_low(p & (half - 1), q);
+    const int i1 = i0 + (1 << q);
+    philox::pauli_pair<false>(k, sh.pre[i0], sh.pim[i0], sh.pre[i1],
+                              sh.pim[i1]);
+    if (kAdjoint)
+      philox::pauli_pair<true>(k, sh.lre[i0], sh.lim[i0], sh.lre[i1],
+                               sh.lim[i1]);
+  }
+  __syncthreads();
+}
+
+// Both error Paulis of gate g (block-uniform: they live in shared memory).
+template <bool kAdjoint>
+__device__ void gate_errors(const Shared& sh, int g, int t, int c, int ns,
+                            int n) {
+  if (sh.err_t[g]) error_pass<kAdjoint>(sh, sh.err_t[g], t, ns, n);
+  if (sh.err_c[g]) error_pass<kAdjoint>(sh, sh.err_c[g], c < 0 ? 0 : c, ns, n);
+}
 
 // psi rows 0..ns-1 <- psi0, trig table of x rows 0..ns-1, dx <- 0.
 __device__ void begin_pass(const Shared& sh, const float* __restrict__ p0re,
@@ -96,9 +167,10 @@ __device__ void begin_pass(const Shared& sh, const float* __restrict__ p0re,
   __syncthreads();
 }
 
-// psi <- tape(x) psi for starts 0..ns-1.
+// psi <- tape(x) psi for starts 0..ns-1, each gate followed by its drawn
+// errors in the noise variant.
 __device__ void forward(const Shared& sh, const Tape& tape, int G, int ns,
-                        int n, int R) {
+                        int n, int R, bool noise) {
   const int D = 1 << n;
   const int half = D >> 1;
   for (int g = 0; g < G; ++g) {
@@ -128,12 +200,19 @@ __device__ void forward(const Shared& sh, const Tape& tape, int G, int ns,
       sh.pim[o + i1] = b1i;
     }
     __syncthreads();
+    if (noise) gate_errors<false>(sh, g, t, c, ns, n);
   }
 }
 
-// lambda <- 2 conj(H psi); ev[s] <- Re<psi|H psi> / <psi|psi>.
-__device__ void h_energy(const Shared& sh, const float* __restrict__ hre_t,
-                         const float* __restrict__ him_t, int ns, int D) {
+// lambda <- 2 conj(H psi); ev[s] <- Re<psi|H psi> / <psi|psi> for the
+// starts s0 .. s0 + nb - 1 (nb <= kMaxStarts).
+__device__ __forceinline__ void h_energy_block(
+    const Shared& sh, const float* __restrict__ hre_t,
+    const float* __restrict__ him_t, int s0, int nb, int D) {
+  const float* pre = sh.pre + (size_t)s0 * D;
+  const float* pim = sh.pim + (size_t)s0 * D;
+  float* lre = sh.lre + (size_t)s0 * D;
+  float* lim = sh.lim + (size_t)s0 * D;
   double raw[kMaxStarts], nn[kMaxStarts];
 #pragma unroll
   for (int s = 0; s < kMaxStarts; ++s) raw[s] = nn[s] = 0.0;
@@ -146,8 +225,8 @@ __device__ void h_energy(const Shared& sh, const float* __restrict__ hre_t,
       const float hi = __ldg(him_t + (size_t)j * D + i);
 #pragma unroll
       for (int s = 0; s < kMaxStarts; ++s) {
-        if (s < ns) {
-          const float pr = sh.pre[s * D + j], pi = sh.pim[s * D + j];
+        if (s < nb) {
+          const float pr = pre[s * D + j], pi = pim[s * D + j];
           ar[s] = fmaf(pr, hr, ar[s]);
           ar[s] = fmaf(-pi, hi, ar[s]);
           ai[s] = fmaf(pr, hi, ai[s]);
@@ -157,10 +236,10 @@ __device__ void h_energy(const Shared& sh, const float* __restrict__ hre_t,
     }
 #pragma unroll
     for (int s = 0; s < kMaxStarts; ++s) {
-      if (s < ns) {
-        const float pr = sh.pre[s * D + i], pi = sh.pim[s * D + i];
-        sh.lre[s * D + i] = 2.f * ar[s];
-        sh.lim[s * D + i] = -2.f * ai[s];
+      if (s < nb) {
+        const float pr = pre[s * D + i], pi = pim[s * D + i];
+        lre[s * D + i] = 2.f * ar[s];
+        lim[s * D + i] = -2.f * ai[s];
         raw[s] += (double)pr * ar[s] + (double)pi * ai[s];
         nn[s] += (double)pr * pr + (double)pi * pi;
       }
@@ -180,15 +259,29 @@ __device__ void h_energy(const Shared& sh, const float* __restrict__ hre_t,
     }
   }
   __syncthreads();
-  if (threadIdx.x < ns) {
+  if (threadIdx.x < nb) {
     double a = 0.0, b = 0.0;
     for (int w = 0; w < kWarps; ++w) {
       a += sh.red[(w * kMaxStarts + threadIdx.x) * 2];
       b += sh.red[(w * kMaxStarts + threadIdx.x) * 2 + 1];
     }
-    sh.ev[threadIdx.x] = (float)(a / b);
+    sh.ev[s0 + threadIdx.x] = (float)(a / b);
   }
   __syncthreads();
+}
+
+// H psi and energies of starts 0..ns-1: one block of kMaxStarts starts
+// in registers at a time (the common ns <= kMaxStarts case keeps the
+// single-block code, which compiles tighter than the loop).
+__device__ void h_energy(const Shared& sh, const float* __restrict__ hre_t,
+                         const float* __restrict__ him_t, int ns, int D) {
+  if (ns <= kMaxStarts) {
+    h_energy_block(sh, hre_t, him_t, 0, ns, D);
+    return;
+  }
+  for (int s0 = 0; s0 < ns; s0 += kMaxStarts)
+    h_energy_block(sh, hre_t, him_t, s0,
+                   ns - s0 < kMaxStarts ? ns - s0 : kMaxStarts, D);
 }
 
 // Keep the better of (x, ev) and (bx, be) per start.
@@ -204,19 +297,29 @@ __device__ void track_best(const Shared& sh, int ns, int R) {
 }
 
 // Adjoint sweep over the tape: undo each gate on psi (U^H), carry lambda
-// back (U^T), and add 1/2 Im[(P psi)^T lambda] into dx[s, slot].
+// back (U^T), and add 1/2 Im[(P psi)^T lambda] into dx[s, slot]; in the
+// noise variant each gate's drawn errors are undone first.  A gradient
+// row is summed in a fixed order (warp shuffles over chunks of `seg`
+// pairs, then thread s over its start's chunks), so the kernel is
+// deterministic; the chunk partials alternate between two buffers, which
+// lets thread s sum gate g's while the others start on the next gate.
 __device__ void backward(const Shared& sh, const Tape& tape, int G, int ns,
-                         int n, int R) {
+                         int n, int R, bool noise) {
   const int D = 1 << n;
   const int half = D >> 1;
   const int total = ns * half;
   const int seg = half < 32 ? half : 32;   // lanes sharing one start
+  const int per = half / seg;              // chunks per start
   const int lane = threadIdx.x & 31;
+  int parity = 0;
   for (int g = G - 1; g >= 0; --g) {
     const int k = tape.kind[g];
     if (k == kNone) continue;
     const int t = tape.tq[g], c = tape.cq[g], sl = tape.slot[g];
+    if (noise) gate_errors<true>(sh, g, t, c, ns, n);
     const bool has_grad = sl >= 0 && (k == kRX || k == kRY || k == kRZ);
+    float* gbuf = sh.gpart + parity * ns * per;
+    parity ^= 1;
     for (int base = 0; base < total; base += kThreads) {
       const int p = base + threadIdx.x;
       const bool valid = p < total;
@@ -264,12 +367,17 @@ __device__ void backward(const Shared& sh, const Tape& tape, int G, int ns,
       if (has_grad) {                     // block-uniform branch
         for (int off = seg >> 1; off > 0; off >>= 1)
           gp += __shfl_xor_sync(0xffffffffu, gp, off);
-        if (valid && (lane & (seg - 1)) == 0)
-          atomicAdd(&sh.dx[s * R + sl], gp);
+        if (valid && (lane & (seg - 1)) == 0) gbuf[p / seg] = gp;
       }
     }
     __syncthreads();
+    if (has_grad && threadIdx.x < ns) {
+      float acc = 0.f;
+      for (int q = 0; q < per; ++q) acc += gbuf[threadIdx.x * per + q];
+      sh.dx[threadIdx.x * R + sl] += acc;
+    }
   }
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -280,10 +388,13 @@ fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
                      const float* __restrict__ him_t,
                      const float* __restrict__ starts,
                      const float* __restrict__ active,
+                     const int* __restrict__ seeds,
                      float* __restrict__ x_opt, float* __restrict__ e_new,
                      int S, int G, int R, int n, int iters, float lr,
-                     float b1, float b2, float omb1, float omb2, float eps) {
+                     double b1, double b2, float omb1, float omb2,
+                     float eps, unsigned thr1, unsigned thr2) {
   extern __shared__ double smem[];
+  const bool noise = seeds != nullptr;
   const int D = 1 << n;
   const int e = blockIdx.x;
   Shared sh;
@@ -302,13 +413,16 @@ fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   sh.st = f; f += S * R;
   sh.be = f; f += S;
   sh.ev = f; f += S;
+  sh.gpart = f; f += 2 * S * grad_chunks(D);
   int* ip = reinterpret_cast<int*>(f);
   int* tapes[8];
   for (int a = 0; a < 8; ++a) { tapes[a] = ip; ip += G; }
   sh.old_tape = {tapes[0], tapes[1], tapes[2], tapes[3]};
   sh.new_tape = {tapes[4], tapes[5], tapes[6], tapes[7]};
   sh.map = ip; ip += R;
-  sh.best = ip;
+  sh.best = ip; ip += 1;
+  sh.err_t = ip; ip += noise ? G : 0;
+  sh.err_c = ip;
 
   const int* src[8] = {old_g.kind, old_g.tq, old_g.cq, old_g.slot,
                        new_g.kind, new_g.tq, new_g.cq, new_g.slot};
@@ -326,19 +440,27 @@ fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   for (int s = threadIdx.x; s < S; s += kThreads) sh.be[s] = INFINITY;
   __syncthreads();
 
+  // b^t as a running product in double from the exact rates: the bias
+  // corrections are then the plain version's 1 - b^t rounded once to
+  // float (1.f - powf(0.999f, t) is off by 1.3e-5 relative at t = 1,
+  // since 0.999f = 0.99900001)
+  double b1t = 1.0, b2t = 1.0;
+  const float b1f = (float)b1, b2f = (float)b2;
   for (int it = 0; it < iters; ++it) {
+    if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, it, thr1, thr2);
     begin_pass(sh, p0re, p0im, S, D, R);
-    forward(sh, sh.old_tape, G, S, n, R);
+    forward(sh, sh.old_tape, G, S, n, R, noise);
     h_energy(sh, hre_t, him_t, S, D);
     track_best(sh, S, R);
-    backward(sh, sh.old_tape, G, S, n, R);
-    const float tt = (float)(it + 1);
-    const float bc1 = 1.f - powf(b1, tt);
-    const float bc2 = 1.f - powf(b2, tt);
+    backward(sh, sh.old_tape, G, S, n, R, noise);
+    b1t *= b1;
+    b2t *= b2;
+    const float bc1 = (float)(1.0 - b1t);
+    const float bc2 = (float)(1.0 - b2t);
     for (int idx = threadIdx.x; idx < S * R; idx += kThreads) {
       const float gr = sh.dx[idx] * active[(size_t)e * R + idx % R];
-      const float mm = b1 * sh.m[idx] + omb1 * gr;
-      const float vv = b2 * sh.v[idx] + omb2 * gr * gr;
+      const float mm = b1f * sh.m[idx] + omb1 * gr;
+      const float vv = b2f * sh.v[idx] + omb2 * gr * gr;
       const float mhat = mm / bc1;
       const float vhat = vv / bc2;
       sh.x[idx] = sh.x[idx] - lr * mhat / (sqrtf(vhat) + eps);
@@ -349,8 +471,9 @@ fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   }
 
   // the final iterate may beat the tracked best
+  if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, iters, thr1, thr2);
   begin_pass(sh, p0re, p0im, S, D, R);
-  forward(sh, sh.old_tape, G, S, n, R);
+  forward(sh, sh.old_tape, G, S, n, R, noise);
   h_energy(sh, hre_t, him_t, S, D);
   track_best(sh, S, R);
 
@@ -369,26 +492,30 @@ fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   }
   __syncthreads();
 
+  if (noise)                              // a fresh realization for e_new
+    draw_errors(sh, sh.new_tape, G, seeds, e, iters + 1, thr1, thr2);
   begin_pass(sh, p0re, p0im, 1, D, R);
-  forward(sh, sh.new_tape, G, 1, n, R);
+  forward(sh, sh.new_tape, G, 1, n, R, noise);
   h_energy(sh, hre_t, him_t, 1, D);
   if (threadIdx.x == 0) e_new[e] = sh.ev[0];
 }
 
-size_t smem_bytes(int S, int G, int R, int D) {
+size_t smem_bytes(int S, int G, int R, int D, bool noise) {
   return sizeof(double) * 2 * kWarps * kMaxStarts +
-         sizeof(float) * ((size_t)4 * S * D + (size_t)7 * S * R + 2 * S) +
-         sizeof(int) * ((size_t)8 * G + R + 1);
+         sizeof(float) * ((size_t)4 * S * D + (size_t)7 * S * R + 2 * S +
+                          (size_t)2 * S * grad_chunks(D)) +
+         sizeof(int) * ((size_t)(noise ? 10 : 8) * G + R + 1);
 }
+
 
 }  // namespace
 
 extern "C" {
 
 // Shared-memory bytes one CTA needs (the wrapper checks it against the
-// card's per-block limit before launching).
-size_t fused_adam_v1_smem_bytes(int S, int G, int R, int n) {
-  return smem_bytes(S, G, R, 1 << n);
+// card's per-block limit before launching); noise: the noise variant.
+size_t fused_adam_v1_smem_bytes(int S, int G, int R, int n, int noise) {
+  return smem_bytes(S, G, R, 1 << n, noise != 0);
 }
 
 const char* fused_adam_v1_error_string(int code) {
@@ -396,31 +523,34 @@ const char* fused_adam_v1_error_string(int code) {
 }
 
 // Returns cudaGetLastError() after the launch (0 on success); the kernel
-// runs asynchronously on `stream`.
+// runs asynchronously on `stream`.  A non-null `seeds` (E x 2 int32)
+// launches the noise variant with fire thresholds thr1 (after rotations)
+// and thr2 (after CX) out of 2^24.  b1 and b2 are Adam's exact rates.
 int fused_adam_v1_launch(const int* okind, const int* otq, const int* ocq,
                          const int* oslot, const int* nkind, const int* ntq,
                          const int* ncq, const int* nslot, const int* map_idx,
                          const float* p0re, const float* p0im,
                          const float* hre_t, const float* him_t,
                          const float* starts, const float* active,
-                         float* x_opt, float* e_new, int E, int S, int G,
-                         int R, int n, int iters, float lr, float b1,
-                         float b2, float omb1, float omb2, float eps,
+                         const int* seeds, float* x_opt, float* e_new, int E,
+                         int S, int G, int R, int n, int iters, float lr,
+                         double b1, double b2, float omb1, float omb2,
+                         float eps, unsigned thr1, unsigned thr2,
                          void* stream) {
-  if (E < 1 || S < 1 || S > kMaxStarts || G < 1 || R < 1 || n < 1 ||
-      n > 14 || iters < 0)
+  if (E < 1 || S < 1 || G < 1 || R < 1 || n < 1 || n > 14 || iters < 0)
     return (int)cudaErrorInvalidValue;
   const Tape old_g = {okind, otq, ocq, oslot};
   const Tape new_g = {nkind, ntq, ncq, nslot};
-  const size_t bytes = smem_bytes(S, G, R, 1 << n);
+  const size_t bytes = smem_bytes(S, G, R, 1 << n, seeds != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_adam_v1_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      fused_adam_v1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_adam_v1_kernel
-      <<<E, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-          old_g, new_g, map_idx, p0re, p0im, hre_t, him_t, starts, active,
-          x_opt, e_new, S, G, R, n, iters, lr, b1, b2, omb1, omb2, eps);
+  fused_adam_v1_kernel<<<E, kThreads, bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
+      old_g, new_g, map_idx, p0re, p0im, hre_t, him_t, starts, active, seeds,
+      x_opt, e_new, S, G, R, n, iters, lr, b1, b2, omb1, omb2, eps, thr1,
+      thr2);
   return (int)cudaGetLastError();
 }
 

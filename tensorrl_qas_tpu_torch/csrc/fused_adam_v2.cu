@@ -2,8 +2,10 @@
 // per env step (CUDA, sm_90a), for 7 <= n <= 18 qubits.
 //
 // Replaces the TPU kernel tensorrl_qas_tpu/ops/pallas_opt2d.py:_make_kernel
-// (launched by fused_adam_step_pallas2d / _fused_adam_step_call2d), without
-// its noise and per-env psi0 variants.  The gate device functions are
+// (launched by fused_adam_step_pallas2d / _fused_adam_step_call2d) and its
+// noise variant (the same kernel launched with a non-null `seeds`;
+// pallas_opt2d.py:draw_noise / apply_noise), without its per-env psi0
+// variant.  The gate device functions are
 // gates.cuh, shared with fused_adam_v1.cu.  The plain PyTorch version of
 // the same function is
 // tensorrl_qas_tpu_torch/ops/fused_adam2d.py:fused_adam_step2d_reference.
@@ -14,7 +16,7 @@
 //     Hpsi  = sum_f W_f * psi[i ^ f]             flip-group planes from L2
 //     E     = Re<psi|H psi> / <psi|psi>          best-iterate tracking
 //     dx    = adjoint sweep, lambda = 2 conj(H psi), masked by `active`
-//     x     = Adam(x, dx)                        bias-corrected, powf(b, t)
+//     x     = Adam(x, dx)                        bias-corrected
 //   final re-check of x; the start's best (x, E) goes to global memory.
 // The last CTA of each env to finish (a per-env arrival counter) then picks
 // the first start of least energy as x_opt, remaps it onto the new tape
@@ -49,11 +51,25 @@
 // CTA per start, one barrier per gate, W from L2 on every H psi.  Staging
 // W in shared memory, several CTAs per start (a cluster sharing psi) and
 // fewer barriers are work for a later change.
+//
+// Noise.  With seeds every CTA of env e computes the env's depolarizing
+// realization itself (philox.cuh: key = seeds[e], counter = (gate, tag)),
+// once per tag -- Adam iteration `it`, `iters` for the final re-check,
+// `iters + 1` for e_new -- into per-gate error kinds in shared memory.  The
+// same (key, counter) gives every start the same draws, so one realization
+// is shared by an env's starts without any communication, whether psi
+// lives in shared memory or in the workspace.  A fired error is one more
+// pass over the pairs of its qubit (a swap or a sign, one barrier) after
+// the gate; the adjoint sweep undoes it on psi and transposes it onto
+// lambda before the gate's own adjoint step.  As in fused_adam_v1.cu the
+// variant is a block-uniform runtime flag, so that at p = 0 it is the
+// noiseless kernel bit for bit (two template instances were not).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "gates.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -79,12 +95,50 @@ struct Shared {
   float* ct;     // cos(x / 2)
   float* st;     // sin(x / 2)
   float* scal;   // [0] current energy, [1] best energy
+  float* gpart;  // 2 x kWarps gradient partials (double-buffered)
   Tape old_tape;
   Tape new_tape;
   int* map;      // R
   int* flips;    // G_f
   int* flag;     // [0] last CTA of its env, [1] best start
+  int* err_t;    // G error kinds on the target (noise variant)
+  int* err_c;    // G error kinds on the control
 };
+
+// Error kinds of every gate of `tape` at `tag` into err_t / err_c; the
+// caller's next barrier publishes them.
+__device__ void draw_errors(const Shared& sh, const Tape& tape, int G,
+                            const int* __restrict__ seeds, int e, int tag,
+                            unsigned thr1, unsigned thr2) {
+  const unsigned k0 = (unsigned)seeds[2 * e], k1 = (unsigned)seeds[2 * e + 1];
+  for (int g = threadIdx.x; g < G; g += kThreads)
+    philox::error_kinds(tape.kind[g], g, tag, k0, k1, thr1, thr2,
+                        sh.err_t[g], sh.err_c[g]);
+}
+
+// Pauli k on qubit q: on psi (forward), or, with kAdjoint, undone on psi
+// and transposed onto lambda.
+template <bool kAdjoint>
+__device__ void error_pass(const Shared& sh, int k, int q, int n) {
+  const int half = 1 << (n - 1);
+  for (int p = threadIdx.x; p < half; p += kThreads) {
+    const int i0 = pair_low(p, q);
+    const int i1 = i0 | (1 << q);
+    philox::pauli_pair<false>(k, sh.pre[i0], sh.pim[i0], sh.pre[i1],
+                              sh.pim[i1]);
+    if (kAdjoint)
+      philox::pauli_pair<true>(k, sh.lre[i0], sh.lim[i0], sh.lre[i1],
+                               sh.lim[i1]);
+  }
+  __syncthreads();
+}
+
+// Both error Paulis of gate g (block-uniform: they live in shared memory).
+template <bool kAdjoint>
+__device__ void gate_errors(const Shared& sh, int g, int t, int c, int n) {
+  if (sh.err_t[g]) error_pass<kAdjoint>(sh, sh.err_t[g], t, n);
+  if (sh.err_c[g]) error_pass<kAdjoint>(sh, sh.err_c[g], c < 0 ? 0 : c, n);
+}
 
 // psi <- psi0, trig table of x, dx <- 0.
 __device__ void begin_pass(const Shared& sh, const float* __restrict__ p0re,
@@ -103,8 +157,10 @@ __device__ void begin_pass(const Shared& sh, const float* __restrict__ p0re,
   __syncthreads();
 }
 
-// psi <- tape(x) psi.
-__device__ void forward(const Shared& sh, const Tape& tape, int G, int n) {
+// psi <- tape(x) psi, each gate followed by its drawn errors in the noise
+// variant.
+__device__ void forward(const Shared& sh, const Tape& tape, int G, int n,
+                        bool noise) {
   const int half = 1 << (n - 1);
   for (int g = 0; g < G; ++g) {
     const int k = tape.kind[g];
@@ -127,6 +183,7 @@ __device__ void forward(const Shared& sh, const Tape& tape, int G, int n) {
       sh.pim[i1] = b1i;
     }
     __syncthreads();
+    if (noise) gate_errors<false>(sh, g, t, c, n);
   }
 }
 
@@ -184,14 +241,24 @@ __device__ void track_best(const Shared& sh, int R) {
 }
 
 // Adjoint sweep over the tape: undo each gate on psi (U^H), carry lambda
-// back (U^T), and add 1/2 Im[(P psi)^T lambda] into dx[slot].
-__device__ void backward(const Shared& sh, const Tape& tape, int G, int n) {
+// back (U^T), and add 1/2 Im[(P psi)^T lambda] into dx[slot]; in the noise
+// variant each gate's drawn errors are undone first.  A gradient row is
+// summed in a fixed order (warp shuffles, then thread 0 over the warps),
+// so the kernel is deterministic; the warp partials alternate between two
+// buffers, which lets thread 0 sum gate g's while the others start on the
+// next gate.
+__device__ void backward(const Shared& sh, const Tape& tape, int G, int n,
+                         bool noise) {
   const int half = 1 << (n - 1);
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int parity = 0;
   for (int g = G - 1; g >= 0; --g) {
     const int k = tape.kind[g];
     if (k == kNone) continue;
     const int t = tape.tq[g], c = tape.cq[g], sl = tape.slot[g];
+    if (noise) gate_errors<true>(sh, g, t, c, n);
+    float* gbuf = sh.gpart + parity * kWarps;
+    parity ^= 1;
     const bool has_grad = sl >= 0 && (k == kRX || k == kRY || k == kRZ);
     const Coef u = sl >= 0 ? gate_coef(k, sh.ct[sl], sh.st[sl])
                            : gate_coef(k, 1.f, 0.f);
@@ -227,10 +294,16 @@ __device__ void backward(const Shared& sh, const Tape& tape, int G, int n) {
     if (has_grad) {                       // block-uniform branch
       for (int off = 16; off > 0; off >>= 1)
         gp += __shfl_xor_sync(0xffffffffu, gp, off);
-      if (lane == 0) atomicAdd(&sh.dx[sl], gp);
+      if (lane == 0) gbuf[warp] = gp;
     }
     __syncthreads();
+    if (has_grad && threadIdx.x == 0) {
+      float acc = 0.f;
+      for (int w = 0; w < kWarps; ++w) acc += gbuf[w];
+      sh.dx[sl] += acc;
+    }
   }
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -242,12 +315,14 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
                      const int* __restrict__ flips,
                      const float* __restrict__ starts,
                      const float* __restrict__ active,
+                     const int* __restrict__ seeds,
                      float* __restrict__ x_opt, float* __restrict__ e_new,
                      float* best_x, float* best_e, unsigned int* arrived,
                      float* work, int S, int G, int R, int n, int n_groups,
-                     int iters, float lr, float b1, float b2, float omb1,
-                     float omb2, float eps) {
+                     int iters, float lr, double b1, double b2, float omb1,
+                     float omb2, float eps, unsigned thr1, unsigned thr2) {
   extern __shared__ double smem[];
+  const bool noise = seeds != nullptr;
   const int D = 1 << n;
   const int e = blockIdx.x / S;
   const int row = blockIdx.x;             // e * S + s
@@ -272,6 +347,7 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   sh.ct = f; f += R;
   sh.st = f; f += R;
   sh.scal = f; f += 2;
+  sh.gpart = f; f += 2 * kWarps;
   int* ip = reinterpret_cast<int*>(f);
   int* tapes[8];
   for (int a = 0; a < 8; ++a) { tapes[a] = ip; ip += G; }
@@ -279,7 +355,9 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   sh.new_tape = {tapes[4], tapes[5], tapes[6], tapes[7]};
   sh.map = ip; ip += R;
   sh.flips = ip; ip += n_groups;
-  sh.flag = ip;
+  sh.flag = ip; ip += 2;
+  sh.err_t = ip; ip += noise ? G : 0;
+  sh.err_c = ip;
 
   const int* src[8] = {old_g.kind, old_g.tq, old_g.cq, old_g.slot,
                        new_g.kind, new_g.tq, new_g.cq, new_g.slot};
@@ -298,19 +376,27 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   if (threadIdx.x == 0) sh.scal[1] = INFINITY;
   __syncthreads();
 
+  // b^t as a running product in double from the exact rates: the bias
+  // corrections are then the plain version's 1 - b^t rounded once to
+  // float (1.f - powf(0.999f, t) is off by 1.3e-5 relative at t = 1,
+  // since 0.999f = 0.99900001)
+  double b1t = 1.0, b2t = 1.0;
+  const float b1f = (float)b1, b2f = (float)b2;
   for (int it = 0; it < iters; ++it) {
+    if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, it, thr1, thr2);
     begin_pass(sh, p0re, p0im, D, R);
-    forward(sh, sh.old_tape, G, n);
+    forward(sh, sh.old_tape, G, n, noise);
     h_energy(sh, wre, wim, n_groups, D);
     track_best(sh, R);
-    backward(sh, sh.old_tape, G, n);
-    const float tt = (float)(it + 1);
-    const float bc1 = 1.f - powf(b1, tt);
-    const float bc2 = 1.f - powf(b2, tt);
+    backward(sh, sh.old_tape, G, n, noise);
+    b1t *= b1;
+    b2t *= b2;
+    const float bc1 = (float)(1.0 - b1t);
+    const float bc2 = (float)(1.0 - b2t);
     for (int r = threadIdx.x; r < R; r += kThreads) {
       const float gr = sh.dx[r] * active[(size_t)e * R + r];
-      const float mm = b1 * sh.m[r] + omb1 * gr;
-      const float vv = b2 * sh.v[r] + omb2 * gr * gr;
+      const float mm = b1f * sh.m[r] + omb1 * gr;
+      const float vv = b2f * sh.v[r] + omb2 * gr * gr;
       const float mhat = mm / bc1;
       const float vhat = vv / bc2;
       sh.x[r] = sh.x[r] - lr * mhat / (sqrtf(vhat) + eps);
@@ -321,8 +407,9 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   }
 
   // the final iterate may beat the tracked best
+  if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, iters, thr1, thr2);
   begin_pass(sh, p0re, p0im, D, R);
-  forward(sh, sh.old_tape, G, n);
+  forward(sh, sh.old_tape, G, n, noise);
   h_energy(sh, wre, wim, n_groups, D);
   track_best(sh, R);
 
@@ -364,29 +451,33 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   }
   __syncthreads();
 
+  if (noise)                              // a fresh realization for e_new
+    draw_errors(sh, sh.new_tape, G, seeds, e, iters + 1, thr1, thr2);
   begin_pass(sh, p0re, p0im, D, R);
-  forward(sh, sh.new_tape, G, n);
+  forward(sh, sh.new_tape, G, n, noise);
   h_energy(sh, wre, wim, n_groups, D);
   if (threadIdx.x == 0) e_new[e] = sh.scal[0];
 }
 
 bool state_in_smem(int n) { return n <= kSmemStateMaxQubits; }
 
-size_t smem_bytes(int G, int R, int n, int n_groups) {
+size_t smem_bytes(int G, int R, int n, int n_groups, bool noise) {
   const size_t state = state_in_smem(n) ? (size_t)4 << n : 0;
   return sizeof(double) * 2 * kWarps +
-         sizeof(float) * (state + (size_t)7 * R + 2) +
-         sizeof(int) * ((size_t)8 * G + R + n_groups + 2);
+         sizeof(float) * (state + (size_t)7 * R + 2 + 2 * kWarps) +
+         sizeof(int) * ((size_t)(noise ? 10 : 8) * G + R + n_groups + 2);
 }
+
 
 }  // namespace
 
 extern "C" {
 
 // Shared-memory bytes one CTA needs (the wrapper checks it against the
-// card's per-block limit before launching).
-size_t fused_adam_v2_smem_bytes(int G, int R, int n, int n_groups) {
-  return smem_bytes(G, R, n, n_groups);
+// card's per-block limit before launching); noise: the noise variant.
+size_t fused_adam_v2_smem_bytes(int G, int R, int n, int n_groups,
+                                int noise) {
+  return smem_bytes(G, R, n, n_groups, noise != 0);
 }
 
 // Floats of global workspace for psi and lambda of E x S starts: 0 when
@@ -402,33 +493,37 @@ const char* fused_adam_v2_error_string(int code) {
 // Returns cudaGetLastError() after the launch (0 on success); the kernel
 // runs asynchronously on `stream`.  best_x (E, S, R) and best_e (E, S) are
 // scratch; arrived (E,) must be zero; work is null or holds
-// fused_adam_v2_workspace_floats(E, S, n) floats.
+// fused_adam_v2_workspace_floats(E, S, n) floats.  A non-null `seeds`
+// (E x 2 int32) launches the noise variant with fire thresholds thr1
+// (after rotations) and thr2 (after CX) out of 2^24.  b1 and b2 are
+// Adam's exact rates.
 int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
                          const int* oslot, const int* nkind, const int* ntq,
                          const int* ncq, const int* nslot, const int* map_idx,
                          const float* p0re, const float* p0im,
                          const float* wre, const float* wim, const int* flips,
                          const float* starts, const float* active,
-                         float* x_opt, float* e_new, float* best_x,
-                         float* best_e, unsigned int* arrived, float* work,
-                         int E, int S, int G, int R, int n, int n_groups,
-                         int iters, float lr, float b1, float b2, float omb1,
-                         float omb2, float eps, void* stream) {
+                         const int* seeds, float* x_opt, float* e_new,
+                         float* best_x, float* best_e, unsigned int* arrived,
+                         float* work, int E, int S, int G, int R, int n,
+                         int n_groups, int iters, float lr, double b1,
+                         double b2, float omb1, float omb2, float eps,
+                         unsigned thr1, unsigned thr2, void* stream) {
   if (E < 1 || S < 1 || G < 1 || R < 1 || n < 7 || n > 18 ||
       n_groups < 1 || iters < 0 || (work == nullptr) != state_in_smem(n))
     return (int)cudaErrorInvalidValue;
   const Tape old_g = {okind, otq, ocq, oslot};
   const Tape new_g = {nkind, ntq, ncq, nslot};
-  const size_t bytes = smem_bytes(G, R, n, n_groups);
+  const size_t bytes = smem_bytes(G, R, n, n_groups, seeds != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_adam_v2_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      fused_adam_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_adam_v2_kernel
-      <<<E * S, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-          old_g, new_g, map_idx, p0re, p0im, wre, wim, flips, starts, active,
-          x_opt, e_new, best_x, best_e, arrived, work, S, G, R, n, n_groups,
-          iters, lr, b1, b2, omb1, omb2, eps);
+  fused_adam_v2_kernel<<<E * S, kThreads, bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
+      old_g, new_g, map_idx, p0re, p0im, wre, wim, flips, starts, active,
+      seeds, x_opt, e_new, best_x, best_e, arrived, work, S, G, R, n,
+      n_groups, iters, lr, b1, b2, omb1, omb2, eps, thr1, thr2);
   return (int)cudaGetLastError();
 }
 

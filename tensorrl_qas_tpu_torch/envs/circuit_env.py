@@ -3,9 +3,11 @@
 Port of ``tensorrl_qas_tpu/envs/circuit_env.py`` for the TensorRL-fixed
 mode: the tensor-network warm-start circuit is compiled once into the
 initial statevector (reference ``environment_qulacs_TN_notin_agent.py:158``)
-and the agent appends one gate per step.  The other modes of the JAX env
-(in-state placement, noise, su4, sharding, block-coordinate) are not
-ported yet and are refused by ``CircuitEnv``.
+and the agent appends one gate per step, noiselessly or with depolarizing
+noise on the agent's gates (the warm start stays noiseless in psi0, as in
+the JAX package's fixed mode).  The other modes of the JAX env (in-state
+placement, shot noise, su4, sharding, block-coordinate) are not ported
+yet and are refused by ``CircuitEnv``.
 
 Step semantics follow the reference, including its ordering
 (``environment_qulacs.py:169-267``): the per-step angle optimizer runs on
@@ -29,7 +31,10 @@ from tensorrl_qas_tpu_torch.circuits.qasm import load_circuit_tape
 from tensorrl_qas_tpu_torch.circuits.tensor_ir import StateTensor
 from tensorrl_qas_tpu_torch.envs.curricula import make_curriculum
 from tensorrl_qas_tpu_torch.envs.illegal import IllegalActionTracker
-from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
+from tensorrl_qas_tpu_torch.optim.angle_opt import (
+    AngleOptimizer,
+    check_noise,
+)
 from tensorrl_qas_tpu_torch.problems.hamiltonians import (
     load_problem,
     resolve_warmstart_qasm,
@@ -58,7 +63,11 @@ class EnvConfig:
     curriculum_type: str = "VanillaCurriculum"
     curriculum_conf: dict = dataclasses.field(default_factory=dict)
     state_with_angles: int = 0
-    noise_mode: str = "none"
+    noise_mode: str = "none"              # 'none' | 'depolarizing' | 'shot'
+    noise_values: tuple = ()              # (p1, p2); () = 0.01, 0.05
+    n_shots: int = 0
+    n_traj: int = 1                       # trajectories per noisy energy
+    noise_resample: str = "iter"          # 'iter' | 'step' (AngleOptimizer)
     topology: str = "all_to_all"
     gate_set: str = "cnot"
     optim_method: str | None = "scipy_each_step"
@@ -80,10 +89,14 @@ class EnvConfig:
         prob = conf["problem"]
         agent = conf.get("agent", {})
         nlo = conf.get("non_local_opt", {})
+        noise_vals = env.get("noise_values", 0)
+        if isinstance(noise_vals, str) and noise_vals != "0":
+            vals = tuple(float(x)
+                         for x in noise_vals.strip("[]() ").split(","))
+        else:
+            vals = ()
         if noise_mode is None:
-            noise_vals = env.get("noise_values", 0)
-            noisy = isinstance(noise_vals, str) and noise_vals != "0"
-            noise_mode = "depolarizing" if noisy else "none"
+            noise_mode = "depolarizing" if vals else "none"
         alg = optim_alg
         if alg is None:
             # the reference's COBYLA configs map onto multi-start Adam
@@ -106,6 +119,9 @@ class EnvConfig:
             curriculum_conf=dict(env),
             state_with_angles=int(agent.get("angles", 0)),
             noise_mode=noise_mode,
+            noise_values=vals,
+            n_shots=int(env.get("n_shots", 0)),
+            noise_resample=env.get("noise_resample", "iter"),
             topology=env.get("topology", "all_to_all"),
             gate_set=env.get("gate_set", "cnot"),
             optim_method=nlo.get("method", None),
@@ -127,7 +143,6 @@ _TN_PSI_CACHE: dict = {}
 def _check_supported(cfg: EnvConfig) -> None:
     unsupported = {
         "tn_placement": (cfg.tn_placement, "fixed"),
-        "noise_mode": (cfg.noise_mode, "none"),
         "gate_set": (cfg.gate_set, "cnot"),
         "optim_alg": (cfg.optim_alg, "adam"),
     }
@@ -135,6 +150,21 @@ def _check_supported(cfg: EnvConfig) -> None:
         if value != ported:
             raise NotImplementedError(
                 f"{field}={value!r} is not ported yet (only {ported!r})")
+    check_noise(cfg.noise_mode, cfg.n_traj)
+
+
+def make_optimizer(cfg: EnvConfig, pauli, device, seed: int):
+    """The env's angle optimizer: Adam settings and noise from ``cfg``;
+    p1/p2 are the reference's 0.01 / 0.05 (``VQE_qulacs_noise.py:32,45``)
+    unless ``noise_values`` gives two values."""
+    p1, p2 = (cfg.noise_values[:2] if len(cfg.noise_values) >= 2
+              else (0.01, 0.05))
+    return AngleOptimizer(
+        pauli, iters=cfg.global_iters, n_starts=cfg.n_starts,
+        lr=cfg.adam_lr, restart_scale=cfg.restart_scale, device=device,
+        seed=seed, noise_mode=cfg.noise_mode, noise_p1=p1, noise_p2=p2,
+        n_shots=cfg.n_shots, n_traj=cfg.n_traj,
+        noise_resample=cfg.noise_resample)
 
 
 class CircuitEnv:
@@ -193,11 +223,8 @@ class CircuitEnv:
         self.tape_capacity = max_steps
         self.rot_capacity = max_steps
 
-        self.optimizer = optimizer or AngleOptimizer(
-            self.problem.pauli, iters=cfg.global_iters,
-            n_starts=cfg.n_starts, lr=cfg.adam_lr,
-            restart_scale=cfg.restart_scale, device=self.device,
-            seed=cfg.seed)
+        self.optimizer = optimizer or make_optimizer(
+            cfg, self.problem.pauli, self.device, cfg.seed)
 
         self.curriculum_dict = {
             cfg.ham_type: make_curriculum(cfg.curriculum_type,
@@ -324,7 +351,7 @@ class CircuitEnv:
         if train_flag and energy < self.curriculum.lowest_energy:
             self.curriculum.lowest_energy = float(energy)
         self.error = float(abs(self.min_eig - energy))
-        self.error_noiseless = self.error
+        self.error_noiseless = self.error   # noisy modes report it twice
         rwd = self.reward_fn(energy)
         self.prev_energy = float(energy)
         self.rwd = rwd

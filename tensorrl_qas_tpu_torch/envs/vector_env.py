@@ -13,8 +13,11 @@ import dataclasses
 
 import numpy as np
 
-from tensorrl_qas_tpu_torch.envs.circuit_env import CircuitEnv, EnvConfig
-from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
+from tensorrl_qas_tpu_torch.envs.circuit_env import (
+    CircuitEnv,
+    EnvConfig,
+    make_optimizer,
+)
 
 
 class VectorCircuitEnv:
@@ -27,11 +30,8 @@ class VectorCircuitEnv:
         first = CircuitEnv(cfg)
         # all replicas share one optimizer (same shapes and problem); its
         # start generator is seeded per vector env
-        self.optimizer = AngleOptimizer(
-            first.problem.pauli, iters=cfg.global_iters,
-            n_starts=cfg.n_starts, lr=cfg.adam_lr,
-            restart_scale=cfg.restart_scale, device=cfg.device,
-            seed=cfg.seed ^ 0xBEEF)
+        self.optimizer = make_optimizer(cfg, first.problem.pauli,
+                                        cfg.device, cfg.seed ^ 0xBEEF)
         first.optimizer = self.optimizer
         self.envs = [first] + [
             CircuitEnv(dataclasses.replace(cfg, seed=cfg.seed + i),

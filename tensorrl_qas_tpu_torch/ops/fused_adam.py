@@ -20,6 +20,15 @@ p0re/p0im (1, D), hre_t/him_t (D, D) planes of H^T, starts (E, S, R),
 active (E, 1, R); returns x_opt (E, R) and e_new (E,).  The plain step
 itself (``fused_step_plain``) takes any H operator; ``ops/fused_adam2d.py``
 runs it with flip-grouped Pauli planes.
+
+``noise=(p1, p2)`` with ``seeds`` (E, 2) int32 is the depolarizing-
+trajectory variant (the JAX kernel's ``noise=``): after every gate of the
+forward sweeps the error Paulis of ``sim/noise.py:depolarizing_draw`` fire,
+a fresh realization per Adam iteration (tag ``it``), for the final
+re-check (``iters``) and for e_new (``iters + 1``), shared by an env's
+starts; the adjoint sweep undoes them on psi and applies their transposes
+to the cotangent before each gate's own adjoint step
+(``pallas_opt.py:188-191``).
 """
 
 from __future__ import annotations
@@ -32,6 +41,12 @@ import numpy as np
 import torch
 
 from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+from tensorrl_qas_tpu_torch.sim.noise import (
+    apply_pauli,
+    depolarizing_draw,
+    noise_thresholds,
+    philox_words,
+)
 
 _RX, _RY, _RZ = int(GateKind.RX), int(GateKind.RY), int(GateKind.RZ)
 _CX, _X, _Y = int(GateKind.CX), int(GateKind.X), int(GateKind.Y)
@@ -39,7 +54,6 @@ _Z, _H = int(GateKind.Z), int(GateKind.H)
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
-MAX_STARTS = 8           # register-blocked H psi in the kernel
 MAX_SMEM_BYTES = 232448  # H100: shared memory one block may use
 
 
@@ -135,12 +149,36 @@ def _apply_u(re, im, pre, pim, b0, act, coeffs):
     return torch.where(act, nre, re), torch.where(act, nim, im)
 
 
-def _forward(plan, u, re, im):
-    """psi <- tape(x) psi; u = plan.coeffs(x)."""
+def _noise_ops(arrs, seeds, tags, thresholds, draw):
+    """The error Paulis of one tape at each tag: {tag: {g: ((kind (E,),
+    qubit (E,)), ...)}}, listing only the tape positions where an error
+    fires in some env (one host read for all tags)."""
+    kind, tq, cq = arrs[0].long(), arrs[1].long(), arrs[2].long()
+    draws = [depolarizing_draw(kind, seeds, t, thresholds, draw)
+             for t in tags]
+    kts = torch.stack([k for k, _ in draws])                   # (T, E, G)
+    kcs = torch.stack([k for _, k in draws])
+    fire = torch.stack([(kts != 0).any(1), (kcs != 0).any(1)]).cpu().numpy()
+    qubits = (tq, cq.clamp(min=0))
+    ops = {}
+    for i, tag in enumerate(tags):
+        ops[tag] = {
+            int(g): tuple((ks[i, :, g], q[:, g]) for ks, q, f
+                          in zip((kts, kcs), qubits, fire[:, i, g]) if f)
+            for g in np.nonzero(fire[:, i].any(0))[0]}
+    return ops
+
+
+def _forward(plan, u, re, im, errors=None):
+    """psi <- tape(x) psi; u = plan.coeffs(x); ``errors`` the error Paulis
+    after each gate ({g: ((kind, qubit), ...)}, see ``_noise_ops``)."""
+    errors = errors or {}
     for g in plan.live:
         idx, b0, act = plan.gate(g)
         re, im = _apply_u(re, im, re.gather(2, idx), im.gather(2, idx), b0,
                           act, u[..., g:g + 1].unbind(0))
+        for k, q in errors.get(g, ()):
+            re, im = apply_pauli(re, im, k[:, None], q[:, None])
     return re, im
 
 
@@ -159,11 +197,18 @@ def _h_energy(re, im, h_apply):
     return hre, him, (raw / n2).to(re.dtype)
 
 
-def _backward(plan, u, x, re, im, lre, lim):
-    """dx (E, S, R): adjoint sweep from the output state."""
+def _backward(plan, u, x, re, im, lre, lim, errors=None):
+    """dx (E, S, R): adjoint sweep from the output state; each gate's error
+    Paulis are undone on psi (P^H = P) and carried back on the cotangent
+    (P^T) first."""
+    errors = errors or {}
     dx = torch.zeros_like(x)
     sel = plan.sel
     for g in reversed(plan.live):
+        for k, q in errors.get(g, ()):
+            re, im = apply_pauli(re, im, k[:, None], q[:, None])
+            lre, lim = apply_pauli(lre, lim, k[:, None], q[:, None],
+                                   transpose=True)
         idx, b0, act = plan.gate(g)
         u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i = u[..., g:g + 1
                                                            ].unbind(0)
@@ -187,12 +232,18 @@ def _backward(plan, u, x, re, im, lre, lim):
 
 
 def fused_step_plain(old_arrs, new_arrs, map_idx, p0re, p0im, h_apply,
-                     starts, active, *, iters: int, lr: float):
+                     starts, active, *, iters: int, lr: float, noise=None,
+                     seeds=None, draw=None, enew_tag=None):
     """The fused step in plain PyTorch for any H operator
     ``h_apply(re, im) -> (H psi re, H psi im)`` on (E, S, D) planes: the
     arithmetic of both kernels (dense H here, flip groups in
     ``ops/fused_adam2d.py``), vectorized over envs and starts.  Any float
-    dtype; the CPU parity path runs it in float64."""
+    dtype; the CPU parity path runs it in float64.
+
+    ``noise=(p1, p2)`` and ``seeds`` (E, 2) draw the depolarizing errors
+    of ``sim/noise.py:depolarizing_draw`` (module docstring); ``draw``
+    replaces its Philox words (default ``philox_words``), ``enew_tag`` the
+    tag of e_new's realization (default ``iters + 1``)."""
     check_gate_kinds(old_arrs[0], new_arrs[0])
     n_env, s_n, _ = starts.shape
     d = p0re.shape[-1]
@@ -207,43 +258,53 @@ def fused_step_plain(old_arrs, new_arrs, map_idx, p0re, p0im, h_apply,
     v = torch.zeros_like(x)
     bx = x.clone()
     be = torch.full((n_env, s_n), math.inf, dtype=x.dtype, device=dev)
+    enew_tag = iters + 1 if enew_tag is None else enew_tag
+    err_old, err_new = {}, {}
+    if noise is not None:
+        thresholds = noise_thresholds(*noise)
+        draw = draw or philox_words
+        err_old = _noise_ops(old_arrs, seeds, range(iters + 1), thresholds,
+                             draw)
+        err_new = _noise_ops(new_arrs, seeds, (enew_tag,), thresholds, draw)
 
-    def track(x, bx, be):
+    def track(x, bx, be, tag):
         u = old.coeffs(x)
-        re, im = _forward(old, u, re0, im0)
+        re, im = _forward(old, u, re0, im0, err_old.get(tag))
         hre, him, ev = _h_energy(re, im, h_apply)
         better = ev < be
         return (u, re, im, hre, him, torch.where(better[..., None], x, bx),
                 torch.where(better, ev, be))
 
     for it in range(iters):
-        u, re, im, hre, him, bx, be = track(x, bx, be)
-        dx = _backward(old, u, x, re, im, 2.0 * hre, -2.0 * him) * active
+        u, re, im, hre, him, bx, be = track(x, bx, be, it)
+        dx = _backward(old, u, x, re, im, 2.0 * hre, -2.0 * him,
+                       err_old.get(it)) * active
         m = B1 * m + (1 - B1) * dx
         v = B2 * v + (1 - B2) * dx * dx
         t = it + 1.0
         mhat = m / (1 - B1 ** t)
         vhat = v / (1 - B2 ** t)
         x = x - lr * mhat / (torch.sqrt(vhat) + EPS)
-    *_, bx, be = track(x, bx, be)
+    *_, bx, be = track(x, bx, be, iters)
 
     best = torch.argmin(be, dim=1)
     x_opt = bx[torch.arange(n_env, device=dev), best]          # (E, R)
     mi = map_idx.long()
     x_new = torch.where(mi >= 0, x_opt.gather(1, mi.clamp(min=0)), 0.0)
     re, im = _forward(new, new.coeffs(x_new[:, None, :]), re0[:, :1],
-                      im0[:, :1])
+                      im0[:, :1], err_new.get(enew_tag))
     _, _, e_new = _h_energy(re, im, h_apply)
     return x_opt, e_new[:, 0]
 
 
 def fused_adam_step_reference(old_arrs, new_arrs, map_idx, p0re, p0im,
                               hre_t, him_t, starts, active, *, iters: int,
-                              lr: float):
-    """Plain PyTorch version of the v1 kernel (dense H^T planes)."""
+                              lr: float, **noise):
+    """Plain PyTorch version of the v1 kernel (dense H^T planes);
+    ``noise``: the noise keywords of ``fused_step_plain``."""
     return fused_step_plain(old_arrs, new_arrs, map_idx, p0re, p0im,
                             dense_h(hre_t, him_t), starts, active,
-                            iters=iters, lr=lr)
+                            iters=iters, lr=lr, **noise)
 
 
 N_PERTURBED = 4          # plain runs with the H planes rounded differently
@@ -257,17 +318,18 @@ def _to64(args):
 
 
 def plain_results(args, *, iters: int, lr: float,
-                  step=fused_adam_step_reference):
+                  step=fused_adam_step_reference, **noise):
     """Results of the fused step on ``args`` that the plain version
     ``step`` gives within float32 rounding: in float32 (first, the
     centre), in float64, and in float32 with every entry of the H planes
     (``args[5]`` and ``args[6]``: dense H^T planes for v1, flip-group
     planes for ``fused_adam2d.fused_adam_step2d_reference``) scaled by
     1 + u 2^-23 (u uniform in [-1, 1], N_PERTURBED draws), which stands in
-    for the rounding of another summation order.
+    for the rounding of another summation order.  ``noise``: the noise
+    keywords of ``fused_step_plain`` (every run draws the same errors).
     -> [(x_opt, e_new), ...]."""
-    runs = [step(*args, iters=iters, lr=lr),
-            step(*_to64(args), iters=iters, lr=lr)]
+    runs = [step(*args, iters=iters, lr=lr, **noise),
+            step(*_to64(args), iters=iters, lr=lr, **noise)]
     gen = torch.Generator(device=args[5].device).manual_seed(0)
     for _ in range(N_PERTURBED):
         wobbled = list(args)
@@ -275,12 +337,13 @@ def plain_results(args, *, iters: int, lr: float,
             u = torch.rand(args[i].shape, generator=gen, dtype=args[i].dtype,
                            device=args[i].device) * 2 - 1
             wobbled[i] = args[i] * (1 + u * 2.0 ** -23)
-        runs.append(step(*wobbled, iters=iters, lr=lr))
+        runs.append(step(*wobbled, iters=iters, lr=lr, **noise))
     return runs
 
 
 def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True,
-              step=fused_adam_step_reference):
+              step=fused_adam_step_reference, iters: int | None = None,
+              **noise):
     """Per-env verdict on a float32 result (x_opt, e_new) of the fused step
     on ``args``, held against ``ref = plain_results(args, ..., step=step)``.
 
@@ -298,15 +361,23 @@ def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True,
     and in both cases e_new is within TOL_CONSISTENT of the float64
     new-tape energy at its own remapped x_opt.
 
+    With ``noise`` (the noise keywords ``ref`` was computed with), every
+    float64 energy is taken under e_new's realization (tag ``iters + 1``:
+    ``iters`` is then required).
+
     Returns (ok (E,) bool, strict (E,) bool, stats dict).
     """
     args64 = _to64(args)
+    if noise.get("noise") is not None:
+        if iters is None:
+            raise ValueError("agreement: a noisy check needs iters")
+        noise = dict(noise, enew_tag=iters + 1)
 
     def energy64(x, tape, mapping):
         # the plain version with iters = 0 evaluates its one start
         return step(args64[0], tape, mapping, *args64[3:-2],
                     x.double()[:, None, :].contiguous(), args64[-1], iters=0,
-                    lr=0.0)[1]
+                    lr=0.0, **noise)[1]
 
     xr, er = ref[0]
     xs = torch.stack([x.double() for x, _ in ref])            # (K, E, R)
@@ -339,7 +410,9 @@ def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True,
 # -- CUDA kernel -------------------------------------------------------------
 
 _I32 = ctypes.c_int
+_U32 = ctypes.c_uint32
 _F32 = ctypes.c_float
+_F64 = ctypes.c_double
 _PTR = ctypes.c_void_p
 
 
@@ -350,9 +423,10 @@ def _library():
 
     lib = load("fused_adam_v1")
     lib.fused_adam_v1_launch.argtypes = (
-        [_PTR] * 17 + [_I32] * 6 + [_F32] * 6 + [_PTR])
+        [_PTR] * 18 + [_I32] * 6 + [_F32, _F64, _F64]
+        + [_F32] * 3 + [_U32] * 2 + [_PTR])
     lib.fused_adam_v1_launch.restype = _I32
-    lib.fused_adam_v1_smem_bytes.argtypes = [_I32] * 4
+    lib.fused_adam_v1_smem_bytes.argtypes = [_I32] * 5
     lib.fused_adam_v1_smem_bytes.restype = ctypes.c_size_t
     lib.fused_adam_v1_error_string.argtypes = [_I32]
     lib.fused_adam_v1_error_string.restype = ctypes.c_char_p
@@ -362,9 +436,9 @@ def _library():
 def check_step_inputs(name, ints, map_idx, floats, starts, active):
     """The input checks both CUDA kernels share: one device, contiguous,
     int32 tapes and map, float32 ``floats`` (p0re, p0im, the H planes,
-    starts, active), (E, G) tapes, S <= MAX_STARTS, D a power of two, the
-    gate kinds, and qubits, slots and map entries in range.  ``ints`` are
-    the old tape's four arrays, then the new tape's.
+    starts, active), (E, G) tapes, D a power of two, the gate kinds, and
+    qubits, slots and map entries in range.  ``ints`` are the old tape's
+    four arrays, then the new tape's.
     -> (E, S, G, R, n)."""
     dev = starts.device
     for t in (*ints, map_idx, *floats):
@@ -390,8 +464,6 @@ def check_step_inputs(name, ints, map_idx, floats, starts, active):
     if map_idx.shape != (n_env, r) or active.shape != (n_env, 1, r):
         raise ValueError(f"{name}: map_idx must be (E, R) and active "
                          "(E, 1, R)")
-    if s_n > MAX_STARTS:
-        raise ValueError(f"{name}: S = {s_n} > {MAX_STARTS} starts")
     check_gate_kinds(ints[0], ints[4])
     tqs = torch.stack([ints[1], ints[5]])
     cqs = torch.stack([ints[2], ints[6]])
@@ -405,6 +477,21 @@ def check_step_inputs(name, ints, map_idx, floats, starts, active):
             f"{name}: qubits must lie in [0, {n}), control != target, "
             f"slots and map entries in [-1, {r})")
     return n_env, s_n, g, r, n
+
+
+def noise_args(name, noise, seeds, n_env, dev):
+    """(seeds pointer or None, threshold 1, threshold 2) for a kernel
+    launch; checks ``seeds`` (E, 2) int32 on ``dev`` when ``noise`` is
+    given."""
+    if noise is None:
+        return None, 0, 0
+    if (seeds is None or seeds.device != dev or seeds.dtype != torch.int32
+            or seeds.shape != (n_env, 2) or not seeds.is_contiguous()):
+        raise ValueError(f"{name}: noise needs seeds, a contiguous (E, 2) "
+                         f"int32 tensor on {dev}")
+    if not all(0.0 <= p <= 1.0 for p in noise):
+        raise ValueError(f"{name}: noise probabilities must lie in [0, 1]")
+    return (seeds.data_ptr(), *noise_thresholds(*noise))
 
 
 def check_smem(name, smem, per):
@@ -434,14 +521,17 @@ def _check_inputs(ints, floats, map_idx, p0re, hre_t, starts, active):
 
 
 def fused_adam_step(old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t,
-                    starts, active, *, iters: int, lr: float):
+                    starts, active, *, iters: int, lr: float, noise=None,
+                    seeds=None):
     """Fused env step: the CUDA kernel for CUDA tensors, the plain
     PyTorch version for CPU tensors.  See the module docstring for the
-    layouts.  ``fused_adam_step.launches`` counts kernel launches."""
+    layouts and ``noise`` / ``seeds``.  ``fused_adam_step.launches`` counts
+    kernel launches, ``fused_adam_step.noise_launches`` those of the noise
+    variant among them."""
     if starts.device.type == "cpu":
         return fused_adam_step_reference(
             old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t, starts,
-            active, iters=iters, lr=lr)
+            active, iters=iters, lr=lr, noise=noise, seeds=seeds)
     if starts.device.type != "cuda":
         raise ValueError(f"fused_adam_step: no kernel for device "
                          f"{starts.device}")
@@ -449,19 +539,24 @@ def fused_adam_step(old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t,
     floats = (p0re, p0im, hre_t, him_t, starts, active)
     n_env, s_n, g, r, n = _check_inputs(ints, floats, map_idx, p0re, hre_t,
                                         starts, active)
+    seeds_ptr, thr1, thr2 = noise_args("fused_adam_step", noise, seeds,
+                                       n_env, starts.device)
     lib = _library()
-    check_smem("fused_adam_step", lib.fused_adam_v1_smem_bytes(s_n, g, r, n),
+    check_smem("fused_adam_step",
+               lib.fused_adam_v1_smem_bytes(s_n, g, r, n, noise is not None),
                "env")
     x_opt = torch.empty((n_env, r), dtype=torch.float32, device=starts.device)
     e_new = torch.empty((n_env,), dtype=torch.float32, device=starts.device)
     stream = torch.cuda.current_stream(starts.device).cuda_stream
     launch(lib, "fused_adam_v1",
            *(t.data_ptr() for t in ints), map_idx.data_ptr(),
-           *(t.data_ptr() for t in floats), x_opt.data_ptr(),
+           *(t.data_ptr() for t in floats), seeds_ptr, x_opt.data_ptr(),
            e_new.data_ptr(), n_env, s_n, g, r, n, int(iters), float(lr), B1,
-           B2, 1.0 - B1, 1.0 - B2, EPS, stream)
+           B2, 1.0 - B1, 1.0 - B2, EPS, thr1, thr2, stream)
     fused_adam_step.launches += 1
+    fused_adam_step.noise_launches += noise is not None
     return x_opt, e_new
 
 
 fused_adam_step.launches = 0
+fused_adam_step.noise_launches = 0

@@ -2,9 +2,9 @@
 Pauli H, fused, for 7 <= n <= 18 qubits.
 
 Counterpart of ``tensorrl_qas_tpu/ops/pallas_opt2d.py`` (the v2 kernel,
-without its noise and per-env psi0 variants).  The step is the one of
-``ops/fused_adam.py``; only H psi differs.  Pauli terms that flip the same
-bits f combine into one coefficient plane W_f, so
+with its noise variant and without its per-env psi0 variant).  The step
+is the one of ``ops/fused_adam.py``; only H psi differs.  Pauli terms
+that flip the same bits f combine into one coefficient plane W_f, so
 
     (H psi)[i] = sum_f W_f(i) * psi[i ^ f]
 
@@ -17,8 +17,10 @@ on CUDA tensors and runs ``fused_adam_step2d_reference``, the plain
 PyTorch version of the same arithmetic, on CPU tensors.  Layouts: tapes
 (E, G) int32, map_idx (E, R) int32, p0re/p0im (1, D), wre/wim (G_f, D)
 flip-group planes, flips (G_f,) int32, starts (E, S, R), active
-(E, 1, R); returns x_opt (E, R) and e_new (E,).  The JAX package keeps the
-same planes in (G_f, D / 128, 128) lane tiles; ``optim/angle_opt.py:
+(E, 1, R); returns x_opt (E, R) and e_new (E,).  ``noise=(p1, p2)`` with
+``seeds`` (E, 2) int32 is the depolarizing-trajectory variant of
+``ops/fused_adam.py``.  The JAX package keeps the same planes in
+(G_f, D / 128, 128) lane tiles; ``optim/angle_opt.py:
 operands2d_from_jax`` converts them.
 """
 
@@ -82,17 +84,20 @@ def flip_h(wre, wim, flips):
 
 def fused_adam_step2d_reference(old_arrs, new_arrs, map_idx, p0re, p0im,
                                 wre, wim, flips, starts, active, *,
-                                iters: int, lr: float):
-    """Plain PyTorch version of the v2 kernel (flip-group planes)."""
+                                iters: int, lr: float, **noise):
+    """Plain PyTorch version of the v2 kernel (flip-group planes);
+    ``noise``: the noise keywords of ``fused_adam.fused_step_plain``."""
     return fused_adam.fused_step_plain(
         old_arrs, new_arrs, map_idx, p0re, p0im, flip_h(wre, wim, flips),
-        starts, active, iters=iters, lr=lr)
+        starts, active, iters=iters, lr=lr, **noise)
 
 
 # -- CUDA kernel -------------------------------------------------------------
 
 _I32 = ctypes.c_int
+_U32 = ctypes.c_uint32
 _F32 = ctypes.c_float
+_F64 = ctypes.c_double
 _PTR = ctypes.c_void_p
 
 
@@ -103,9 +108,10 @@ def _library():
 
     lib = load("fused_adam_v2")
     lib.fused_adam_v2_launch.argtypes = (
-        [_PTR] * 22 + [_I32] * 7 + [_F32] * 6 + [_PTR])
+        [_PTR] * 23 + [_I32] * 7 + [_F32, _F64, _F64]
+        + [_F32] * 3 + [_U32] * 2 + [_PTR])
     lib.fused_adam_v2_launch.restype = _I32
-    lib.fused_adam_v2_smem_bytes.argtypes = [_I32] * 4
+    lib.fused_adam_v2_smem_bytes.argtypes = [_I32] * 5
     lib.fused_adam_v2_smem_bytes.restype = ctypes.c_size_t
     lib.fused_adam_v2_workspace_floats.argtypes = [_I32] * 3
     lib.fused_adam_v2_workspace_floats.restype = ctypes.c_size_t
@@ -142,15 +148,18 @@ def _check_inputs(ints, floats, map_idx, flips, starts, active):
 
 
 def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
-                      flips, starts, active, *, iters: int, lr: float):
+                      flips, starts, active, *, iters: int, lr: float,
+                      noise=None, seeds=None):
     """Fused env step with flip-group planes: the CUDA kernel for CUDA
     tensors, the plain PyTorch version for CPU tensors.  See the module
-    docstring for the layouts.  ``fused_adam_step2d.launches`` counts
-    kernel launches."""
+    docstring for the layouts and ``noise`` / ``seeds``.
+    ``fused_adam_step2d.launches`` counts kernel launches,
+    ``fused_adam_step2d.noise_launches`` those of the noise variant among
+    them."""
     if starts.device.type == "cpu":
         return fused_adam_step2d_reference(
             old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
-            starts, active, iters=iters, lr=lr)
+            starts, active, iters=iters, lr=lr, noise=noise, seeds=seeds)
     if starts.device.type != "cuda":
         raise ValueError(f"fused_adam_step2d: no kernel for device "
                          f"{starts.device}")
@@ -158,11 +167,14 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     floats = (p0re, p0im, wre, wim, starts, active)
     n_env, s_n, g, r, n, n_groups = _check_inputs(ints, floats, map_idx,
                                                   flips, starts, active)
-    lib = _library()
-    fused_adam.check_smem("fused_adam_step2d",
-                          lib.fused_adam_v2_smem_bytes(g, r, n, n_groups),
-                          "start")
     dev = starts.device
+    seeds_ptr, thr1, thr2 = fused_adam.noise_args(
+        "fused_adam_step2d", noise, seeds, n_env, dev)
+    lib = _library()
+    fused_adam.check_smem(
+        "fused_adam_step2d",
+        lib.fused_adam_v2_smem_bytes(g, r, n, n_groups, noise is not None),
+        "start")
     f32 = dict(dtype=torch.float32, device=dev)
     x_opt = torch.empty((n_env, r), **f32)
     e_new = torch.empty((n_env,), **f32)
@@ -176,13 +188,15 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
         lib, "fused_adam_v2", *(t.data_ptr() for t in ints),
         map_idx.data_ptr(), p0re.data_ptr(), p0im.data_ptr(), wre.data_ptr(),
         wim.data_ptr(), flips.data_ptr(), starts.data_ptr(),
-        active.data_ptr(), x_opt.data_ptr(), e_new.data_ptr(),
+        active.data_ptr(), seeds_ptr, x_opt.data_ptr(), e_new.data_ptr(),
         best_x.data_ptr(), best_e.data_ptr(), arrived.data_ptr(),
         None if work is None else work.data_ptr(), n_env, s_n, g, r, n,
         n_groups, int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS,
-        stream)
+        thr1, thr2, stream)
     fused_adam_step2d.launches += 1
+    fused_adam_step2d.noise_launches += noise is not None
     return x_opt, e_new
 
 
 fused_adam_step2d.launches = 0
+fused_adam_step2d.noise_launches = 0

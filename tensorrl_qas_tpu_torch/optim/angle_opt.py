@@ -22,6 +22,15 @@ The fused step works on H - c0 I, where c0 is H's identity coefficient
 float64.  The gradient is the same (the gates keep <psi|psi> = 1), but
 float32 energies and H psi products then round at the scale of the
 non-constant part of H instead of |c0|.
+
+Depolarizing noise (``noise_mode='depolarizing'``, one trajectory per
+evaluation as in the reference) runs in the fused kernels too:
+``noise_resample='iter'`` (the default) hands them ``noise=(p1, p2)`` and
+per-call seeds, and they draw a fresh realization every Adam iteration;
+``'step'`` quenches one realization per env step into 3G-long tapes
+(``extend_tape_arrays``) for the noiseless kernels.  Shot noise and
+``n_traj > 1`` need the composed kernels (``tensorrl_qas_tpu/ops/
+pallas_apply.py``), which are not ported yet (ROADMAP.md, A4).
 """
 
 from __future__ import annotations
@@ -41,6 +50,45 @@ from tensorrl_qas_tpu_torch.ops.fused_adam2d import (
 )
 from tensorrl_qas_tpu_torch.sim.apply import apply_tape
 from tensorrl_qas_tpu_torch.sim.expectation import pauli_expectation
+from tensorrl_qas_tpu_torch.sim.noise import (
+    apply_tape_depolarizing,
+    sample_depolarizing_kinds,
+    shot_noise,
+)
+
+NOISE_MODES = ("none", "depolarizing", "shot")
+NOISE_RESAMPLE = ("iter", "step")
+
+
+def check_noise(noise_mode: str, n_traj: int = 1) -> None:
+    """Refuse the noise settings the fused engines do not take: shot noise
+    and depolarizing noise averaged over ``n_traj > 1`` trajectories need
+    the composed engine (NotImplementedError)."""
+    if noise_mode == "shot" or (noise_mode == "depolarizing"
+                                and n_traj > 1):
+        what = ("noise_mode='shot'" if noise_mode == "shot"
+                else f"n_traj={n_traj}")
+        raise NotImplementedError(
+            f"{what} needs the composed engine over the kernels of "
+            "tensorrl_qas_tpu/ops/pallas_apply.py, which is not ported yet "
+            "(ROADMAP.md, A4: su4, shot noise and n_traj > 1)")
+
+
+def extend_tape_arrays(arrs, kt, kc):
+    """Interleave error-gate kinds into a 3x-long tape: position 3g is gate
+    g, 3g + 1 its error on the target, 3g + 2 its error on the control
+    (NONE where no error fired), without angle slots.  (..., G) integer
+    tensors; the counterpart of the JAX package's function of this
+    name."""
+    kind, tq, cq, slot = (torch.as_tensor(a) for a in arrs)
+    shape = (*kind.shape[:-1], 3 * kind.shape[-1])
+    neg1 = torch.full_like(kind, -1)
+
+    def weave(a, b, c):
+        return torch.stack([a, b.to(a.dtype), c.to(a.dtype)],
+                           dim=-1).reshape(shape)
+    return (weave(kind, kt, kc), weave(tq, tq, cq.clamp(min=0)),
+            weave(cq, neg1, neg1), weave(slot, neg1, neg1))
 
 
 def make_multistarts(x0, active, n_starts: int, fresh_starts: int,
@@ -116,12 +164,29 @@ class AngleOptimizer:
       lr: Adam learning rate.
       restart_scale: stddev of the Gaussian start perturbation.
       device: where the statevectors live (CUDA by default).
-      seed: seed of the start generator.
+      seed: seed of the generator of starts and noise draws.
+      noise_mode: 'none' | 'depolarizing' | 'shot'.
+      noise_p1/noise_p2: depolarizing probabilities after rotations /
+        CNOTs (the reference's 0.01 / 0.05, ``VQE_qulacs_noise.py:32,45``).
+      n_shots: shot-noise sample count (0: none).
+      n_traj: trajectories averaged per depolarizing energy.
+      noise_resample: 'iter' (a fresh realization every Adam iteration,
+        in the kernels) or 'step' (one per env step, quenched into the
+        tapes).
     """
 
     def __init__(self, pauli, iters: int = 100, n_starts: int = 8,
                  lr: float = 0.1, restart_scale: float = 0.1, device=None,
-                 seed: int = 0):
+                 seed: int = 0, noise_mode: str = "none",
+                 noise_p1: float = 0.01, noise_p2: float = 0.05,
+                 n_shots: int = 0, n_traj: int = 1,
+                 noise_resample: str = "iter"):
+        if noise_mode not in NOISE_MODES:
+            raise ValueError(f"noise_mode must be one of {NOISE_MODES}, "
+                             f"got {noise_mode!r}")
+        if noise_resample not in NOISE_RESAMPLE:
+            raise ValueError(f"noise_resample must be one of "
+                             f"{NOISE_RESAMPLE}, got {noise_resample!r}")
         self.pauli = pauli
         self.iters = iters
         self.n_starts = n_starts
@@ -135,6 +200,12 @@ class AngleOptimizer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.offset = pauli.identity_weight()
+        self.noise_mode = noise_mode
+        self.noise_p1 = noise_p1
+        self.noise_p2 = noise_p2
+        self.n_shots = n_shots
+        self.n_traj = n_traj
+        self.noise_resample = noise_resample
         self._h_planes = None
         self._w_planes = None
 
@@ -142,8 +213,10 @@ class AngleOptimizer:
         """The fused engine for this problem and tapes of these gate kinds:
         'v1' (dense H^T planes) for D <= 512, 'v2' (flip groups) for
         1024 <= D <= 2^18.  Larger problems and RXX/RYY/RZZ gates have no
-        fused engine (ValueError), refused here before any H operand is
+        fused engine (ValueError), nor have shot noise and n_traj > 1
+        (NotImplementedError), refused here before any H operand is
         built."""
+        check_noise(self.noise_mode, self.n_traj)
         check_gate_kinds(*kinds)
         n = self.pauli.n_qubits
         if n <= 9:
@@ -178,11 +251,28 @@ class AngleOptimizer:
         return self._w_planes
 
     def energy(self, psi0, tape_arrays, x) -> float:
-        """Energy of one tape at angles x (eager path)."""
+        """Energy of one tape at angles x (eager path): with depolarizing
+        noise the mean over ``n_traj`` trajectories, with shot noise plus
+        its Gaussian sample, both drawn from the optimizer's generator."""
         x = torch.as_tensor(np.asarray(x), dtype=self.rdtype,
                             device=self.device)
+        if self.noise_mode == "depolarizing":
+            psi = apply_tape_depolarizing(
+                psi0.expand(self.n_traj, -1), *tape_arrays, x,
+                self.generator, self.noise_p1, self.noise_p2)
+            return float(pauli_expectation(psi, *self.pauli_t).mean())
         psi = apply_tape(psi0, *tape_arrays, x)
-        return float(pauli_expectation(psi, *self.pauli_t))
+        e = float(pauli_expectation(psi, *self.pauli_t))
+        if self.noise_mode == "shot" and self.n_shots:
+            e += float(shot_noise(self.pauli_t[0], self.n_shots,
+                                  self.generator))
+        return e
+
+    def _quench(self, arrs, p):
+        """One drawn realization woven into a 3G-long int32 tape."""
+        kt, kc = sample_depolarizing_kinds(arrs[0], self.generator, *p)
+        return tuple(a.to(torch.int32).contiguous()
+                     for a in extend_tape_arrays(arrs, kt, kc))
 
     def fused_step_batch(self, psi0, old_arrs_b, x0_b, n_active_b,
                          new_arrs_b, map_idx_b):
@@ -204,20 +294,31 @@ class AngleOptimizer:
         active = (torch.arange(r, device=dev)[None, :]
                   < torch.as_tensor(np.asarray(n_active_b),
                                     device=dev)[:, None]).to(self.rdtype)
+        engine = self._pick_engine(old_arrs_b[0], new_arrs_b[0])
         starts = make_multistarts(x0, active, self.n_starts,
                                   self.fresh_starts, self.restart_scale,
                                   self.generator)
-        if self._pick_engine(old_arrs_b[0], new_arrs_b[0]) == "v1":
+        old = tuple(ints(a) for a in old_arrs_b)
+        new = tuple(ints(a) for a in new_arrs_b)
+        noise = {}
+        if self.noise_mode == "depolarizing":
+            p = (self.noise_p1, self.noise_p2)
+            if self.noise_resample == "iter":
+                noise = dict(noise=p, seeds=torch.randint(
+                    0, 2**31 - 1, (x0.shape[0], 2), generator=self.generator,
+                    dtype=torch.int32, device=dev))
+            else:
+                old, new = (self._quench(arrs, p) for arrs in (old, new))
+        if engine == "v1":
             step, h_ops = fused_adam_step, self.h_planes()
         else:
             step, h_ops = fused_adam_step2d, self.w_planes()
         x_opt, e_new = step(
-            tuple(ints(a) for a in old_arrs_b),
-            tuple(ints(a) for a in new_arrs_b), ints(map_idx_b),
+            old, new, ints(map_idx_b),
             psi0.real.reshape(1, -1).to(self.rdtype).contiguous(),
             psi0.imag.reshape(1, -1).to(self.rdtype).contiguous(),
             *h_ops, starts.contiguous(), active[:, None, :].contiguous(),
-            iters=self.iters, lr=self.lr)
+            iters=self.iters, lr=self.lr, **noise)
         return (x_opt.cpu().numpy(),
                 e_new.cpu().numpy().astype(np.float64) + self.offset,
                 self.iters * self.n_starts)

@@ -8,8 +8,10 @@ Same invocation shape as the JAX package's CLI and the reference
         --experiment_name TensorRL_fixed/ --vector 128 --total_steps 2560
 
 Runs on the CUDA card unless ``--device cpu``.  The port covers the
-vectorized trainer in TensorRL-fixed mode; the sequential driver, the
-other modes and most override flags of the JAX CLI are not ported yet.
+vectorized trainer in TensorRL-fixed mode, noiseless or with depolarizing
+noise (``--config H2O8q_TNbond2_noise``, or ``--noise depolarizing``);
+the sequential driver, the other modes and most override flags of the JAX
+CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="config file name without .cfg")
     p.add_argument("--experiment_name", type=str, default="TensorRL_fixed/",
                    help="config family directory (with trailing slash)")
+    p.add_argument("--noise", choices=["none", "depolarizing", "shot"],
+                   default=None,
+                   help="override the noise mode inferred from the names")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the simulation and the agent")
     p.add_argument("--episodes", type=int, default=None,
@@ -84,6 +89,8 @@ def run(argv=None) -> dict:
     conf = get_config(args.experiment_name, f"{args.config}.cfg")
     tn_placement, noise_mode, topology = infer_modes(args.experiment_name,
                                                      args.config)
+    if args.noise:
+        noise_mode = args.noise
     conf["env"]["topology"] = topology
     np.random.seed(args.seed)
 

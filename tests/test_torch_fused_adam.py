@@ -26,6 +26,7 @@ from tensorrl_qas_tpu.envs import EnvConfig as EnvConfigJax
 from tensorrl_qas_tpu_torch.envs.circuit_env import CircuitEnv, EnvConfig
 from tensorrl_qas_tpu_torch.optim.angle_opt import (
     AngleOptimizer,
+    make_multistarts,
     operands_from_jax,
 )
 from tensorrl_qas_tpu_torch.problems.hamiltonians import (
@@ -170,9 +171,18 @@ def test_wrapper_dispatch_and_launch_count():
     with pytest.raises(TypeError, match="float32"):
         fused_adam._check_inputs(ints, (*floats[:-1], floats[-1].double()),
                                  args[2], args[3], args[5], args[7], args[8])
-    with pytest.raises(ValueError, match="starts"):
-        fused_adam._check_inputs(ints, floats, args[2], args[3], args[5],
-                                 torch.zeros(n_env, 9, cap), args[8])
+    # more starts than one H psi block (8) are taken in blocks
+    dims = fused_adam._check_inputs(ints, floats, args[2], args[3], args[5],
+                                    torch.zeros(n_env, 16, cap), args[8])
+    assert dims[1] == 16
+    seeds = torch.zeros(n_env, 2, dtype=torch.int32)
+    assert fused_adam.noise_args("fused_adam_step", None, None, n_env,
+                                 seeds.device) == (None, 0, 0)
+    assert fused_adam.noise_args("fused_adam_step", (0.01, 0.05), seeds,
+                                 n_env, seeds.device)[1:] == (167773, 838861)
+    with pytest.raises(ValueError, match="seeds"):
+        fused_adam.noise_args("fused_adam_step", (0.01, 0.05),
+                              seeds.long(), n_env, seeds.device)
     bad_kind = tuple(a.clone() for a in ints)
     bad_kind[0][0, 0] = int(GateKind.RXX)
     with pytest.raises(ValueError, match="RXX"):
@@ -242,3 +252,44 @@ def test_operands_from_jax_match_the_port():
     np.testing.assert_allclose(hre_t.numpy(), ref_re.numpy(), atol=1e-5)
     np.testing.assert_allclose(him_t.numpy(), ref_im.numpy(), atol=1e-5)
     np.testing.assert_allclose(psi0.numpy(), env_t.psi0.numpy(), atol=1e-12)
+
+
+def test_optimizer_takes_sixteen_starts():
+    """More starts than one H psi block of the kernel (8): the optimizer
+    steps with 16, and the winner is chosen over all of them at once --
+    x_opt is the result of the start whose best old-tape energy is least
+    (each start's Adam run is independent of the others)."""
+    n, n_env, cap = 5, 2, 8
+    rng = np.random.default_rng(7)
+    old, new, maps, x0, n_rots = _random_batch(rng, n, n_env, cap)
+    opt = AngleOptimizer(load_problem_torch("heisenberg", n).pauli, iters=6,
+                         n_starts=16, lr=0.1, device="cpu", seed=4)
+    psi0 = torch.as_tensor(rng.normal(size=1 << n)
+                           + 1j * rng.normal(size=1 << n))
+    psi0 = psi0 / psi0.norm()
+    x_opt, e_new, nfev = opt.fused_step_batch(psi0, old, x0, n_rots, new,
+                                              maps)
+    assert x_opt.shape == (n_env, cap) and np.isfinite(e_new).all()
+    assert nfev == 6 * 16
+    # the same starts, one at a time
+    gen = torch.Generator().manual_seed(4)
+    active = torch.as_tensor(np.arange(cap)[None, :] < n_rots[:, None],
+                             dtype=torch.float64)
+    starts = make_multistarts(torch.as_tensor(x0), active, 16, 4, 0.1, gen)
+    head = (_ints(old), _ints(new), torch.as_tensor(maps),
+            psi0.real[None].contiguous(), psi0.imag[None].contiguous(),
+            *opt.h_planes())
+    ident = torch.arange(cap, dtype=torch.int32).repeat(n_env, 1)
+    singles, energies = [], []
+    for s in range(16):
+        xs, _ = fused_adam.fused_adam_step(
+            *head, starts[:, s:s + 1].contiguous(), active[:, None, :],
+            iters=6, lr=0.1)
+        _, es = fused_adam.fused_adam_step(
+            head[0], head[0], ident, *head[3:], xs[:, None, :],
+            active[:, None, :], iters=0, lr=0.0)
+        singles.append(xs)
+        energies.append(es)
+    best = torch.stack(energies).argmin(0)
+    want = torch.stack(singles)[best, torch.arange(n_env)]
+    np.testing.assert_allclose(x_opt, want.numpy(), atol=1e-12)

@@ -250,8 +250,12 @@ def test_wrapper_checks_and_launch_count():
         check(floats=(*floats[:2], wre.double(), *floats[3:]))
     with pytest.raises(TypeError, match="int32"):
         check(flips=flips.long())
-    with pytest.raises(ValueError, match="starts"):
-        check(starts=torch.zeros(n_env, 9, cap))
+    # any number of starts: one CTA per (env, start)
+    check(starts=torch.zeros(n_env, 16, cap))
+    with pytest.raises(ValueError, match="seeds"):
+        fused_adam.noise_args("fused_adam_step2d", (0.01, 0.05),
+                              torch.zeros(n_env, 3, dtype=torch.int32),
+                              n_env, torch.device("cpu"))
     small = (torch.zeros(1, 64), torch.zeros(1, 64), wre[:, :64].clone(),
              wim[:, :64].clone(), *floats[4:])
     with pytest.raises(ValueError, match="7 <= n <= 18"):

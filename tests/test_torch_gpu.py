@@ -13,7 +13,16 @@ instead lie within the plain version's own float32 noise
 (``ops/fused_adam.py:agreement``, the rule chip_smoke.py applies);
 deliberately wrong kernel results must fail that rule.  The v2 kernel is
 held to the same rule at 7 qubits (a random Pauli sum), 12 (LiH, state in
-shared memory) and 16 (Heisenberg, state in the global workspace)."""
+shared memory) and 16 (Heisenberg, state in the global workspace).
+
+The noise variants (``noise=(p1, p2)``, seeds per env) are held to the
+same rule against their plain versions under the same Philox draws; the
+noiseless kernel's result on those inputs must fail it, and at p = 0 the
+noise variant must equal the noiseless kernel (bit for bit expected,
+1e-6 allowed, the atol of tests/test_noise_pallas.py's p = 0 test).  The
+5-qubit Kraus check holds the mean of several thousand trajectory samples
+of the v1 noise variant within 5 sigma + 1e-3 of the exact channel.  Both
+kernels take 16 starts, and v1 runs at 4 and 5 qubits."""
 
 import numpy as np
 import pytest
@@ -83,10 +92,10 @@ def _tapes(dev, n, n_env, n_starts, cap, seed):
 
 
 def _inputs(dev, n=8, n_env=16, n_starts=8, cap=20, seed=0):
-    """v1 arguments at 8-qubit H2O."""
+    """v1 arguments at 8-qubit H2O (other n: a random Pauli sum)."""
     head, tail = _tapes(dev, n, n_env, n_starts, cap, seed)
-    prob = load_problem("H2O", n, H2O)
-    return (*head, *AngleOptimizer(prob.pauli, device=dev).h_planes(), *tail)
+    pauli = load_problem("H2O", n, H2O).pauli if n == 8 else _pauli(n)
+    return (*head, *AngleOptimizer(pauli, device=dev).h_planes(), *tail)
 
 
 def _pauli(n):
@@ -202,3 +211,147 @@ def test_kernel2d_rejects_two_qubit_rotations():
     args[0] = (kinds, *args[0][1:])
     with pytest.raises(ValueError, match="RXX/RYY/RZZ"):
         fused_adam2d.fused_adam_step2d(*args, iters=1, lr=0.1)
+
+
+NOISE = (0.1, 0.2)
+
+
+def _engine(name):
+    """(wrapper, plain version, argument builder) of one kernel."""
+    if name == "v1":
+        return (fused_adam.fused_adam_step,
+                fused_adam.fused_adam_step_reference, _inputs)
+    return (fused_adam2d.fused_adam_step2d,
+            fused_adam2d.fused_adam_step2d_reference,
+            lambda dev, **kw: _inputs2d(dev, 12, **kw))
+
+
+def _seeds(dev, n_env, seed=0):
+    return torch.randint(0, 2**31 - 1, (n_env, 2), dtype=torch.int32,
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed))
+
+
+def _held_to_plain(step, plain, args, iters=3, **noise):
+    """One launch against the plain version's runs under the same draws
+    (``agreement``) -> (ok, strict, wrong) where wrong is the verdict on
+    the noiseless kernel's result when noise is given."""
+    before = (step.launches, step.noise_launches)
+    xk, ek = step(*args, iters=iters, lr=0.1, **noise)
+    torch.cuda.synchronize()
+    assert step.launches == before[0] + 1
+    assert step.noise_launches == before[1] + bool(noise)
+    ref = fused_adam.plain_results(args, iters=iters, lr=0.1, step=plain,
+                                   **noise)
+    ok, strict, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5,
+                                         step=plain, iters=iters, **noise)
+    wrong = None
+    if noise:
+        xc, ec = step(*args, iters=iters, lr=0.1)
+        wrong, _, _ = fused_adam.agreement(args, ref, xc, ec, tol=1e-5,
+                                           step=plain, iters=iters, **noise)
+    return ok, strict, wrong
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["v1", "v2"])
+def test_noise_kernel_matches_plain_version(name):
+    dev = _card()
+    step, plain, build = _engine(name)
+    args = build(dev)
+    ok, strict, wrong = _held_to_plain(
+        step, plain, args, noise=NOISE, seeds=_seeds(dev, args[-1].shape[0]))
+    assert bool(ok.all())
+    assert strict.float().mean() > 0.5
+    # the noiseless kernel's result on the same inputs is flagged
+    assert (~wrong).float().mean() > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["v1", "v2"])
+def test_kernel_is_deterministic(name):
+    """Gradient rows are summed in a fixed order: two launches on the same
+    inputs agree bit for bit."""
+    dev = _card()
+    step, _, build = _engine(name)
+    args = build(dev)
+    x0, e0 = step(*args, iters=5, lr=0.1)
+    x1, e1 = step(*args, iters=5, lr=0.1)
+    assert torch.equal(x0, x1) and torch.equal(e0, e1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["v1", "v2"])
+def test_noise_kernel_at_p0_is_the_noiseless_kernel(name):
+    dev = _card()
+    step, _, build = _engine(name)
+    args = build(dev)
+    x0, e0 = step(*args, iters=5, lr=0.1)
+    xp, ep = step(*args, iters=5, lr=0.1, noise=(0.0, 0.0),
+                  seeds=_seeds(dev, args[-1].shape[0]))
+    assert (xp - x0).abs().max() <= 1e-6 and (ep - e0).abs().max() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("name", ["v1", "v2"])
+def test_sixteen_starts_match_plain_version(name, noisy):
+    dev = _card()
+    step, plain, build = _engine(name)
+    args = build(dev, n_env=4, n_starts=16)
+    noise = (dict(noise=NOISE, seeds=_seeds(dev, 4, seed=1)) if noisy
+             else {})
+    ok, strict, _ = _held_to_plain(step, plain, args, **noise)
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("n", [4, 5])
+def test_v1_below_eight_qubits_matches_plain_version(n, noisy):
+    dev = _card()
+    args = _inputs(dev, n=n, cap=16)
+    noise = (dict(noise=NOISE, seeds=_seeds(dev, 16, seed=n)) if noisy
+             else {})
+    ok, strict, _ = _held_to_plain(fused_adam.fused_adam_step,
+                                   fused_adam.fused_adam_step_reference,
+                                   args, **noise)
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+
+
+@pytest.mark.gpu
+def test_noise_kernel_trajectories_match_kraus_at_5_qubits():
+    """The 5-qubit tape of tests/test_noise_pallas.py:_test_tape at p1 =
+    0.15, p2 = 0.25; lr = 0 and an identity map keep x_new = x0, so every
+    env's e_new is one trajectory sample of its own Philox stream."""
+    from tensorrl_qas_tpu_torch.sim.apply import zero_state
+    from tensorrl_qas_tpu_torch.sim.noise import depolarizing_energy_exact
+
+    dev = _card()
+    n, n_env, p = 5, 4096, (0.15, 0.25)
+    tape = GateTape(n, 4, 4)
+    tape.add(GateKind.RY, target=0, angle=0.7)
+    tape.add_cx(0, 1)
+    tape.add(GateKind.RX, target=2, angle=-1.1)
+    tape.add_cx(1, 2)
+    pauli = PauliSum.from_strings(
+        [s + "I" * (n - len(s)) for s in ("Z", "IZ", "IIZ", "XX", "IYY")],
+        [1.0, 0.5, -0.7, 0.9, 1.3], n)
+    exact = depolarizing_energy_exact(zero_state(n), *tape.arrays(),
+                                      tape.x0(), pauli.to_dense(), *p)
+    arrs = tuple(torch.as_tensor(a, dtype=torch.int32, device=dev)
+                 .repeat(n_env, 1).contiguous() for a in tape.arrays())
+    opt = AngleOptimizer(pauli, device=dev)
+    psi0 = zero_state(n, torch.complex64, dev)
+    x0 = torch.as_tensor(tape.x0(), dtype=torch.float32, device=dev)
+    _, e_new = fused_adam.fused_adam_step(
+        arrs, arrs, torch.arange(4, dtype=torch.int32, device=dev)
+        .repeat(n_env, 1).contiguous(), psi0.real[None].contiguous(),
+        psi0.imag[None].contiguous(), *opt.h_planes(),
+        x0.repeat(n_env, 1, 1).contiguous(),
+        torch.ones(n_env, 1, 4, device=dev), iters=1, lr=0.0, noise=p,
+        seeds=_seeds(dev, n_env, seed=9))
+    es = e_new.double().cpu().numpy() + opt.offset
+    assert es.std() > 0.0
+    assert abs(es.mean() - exact) < 5 * es.std() / np.sqrt(n_env) + 1e-3
