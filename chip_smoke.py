@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: both engines of the fused
-Adam env step, noiseless and with depolarizing noise, and the vectorized
-trainer through each of the four kernels.
+Adam env step, noiseless, with depolarizing noise and with a psi0 per env,
+and the vectorized trainer through each of the six kernel variants, in the
+TensorRL-fixed, TensorRL-trainable and StructureRL families.
 
     python3 chip_smoke.py
 
@@ -45,7 +46,8 @@ Phases, one line each with its seconds:
 8. kernel v1n -- the noise variant of v1 at the noise config's shapes
                  (H2O8q_TNbond2_noise: E = 128, S = 8, G = R = 46, p1 = 0.01,
                  p2 = 0.05, seeds per env) against its plain version under
-                 the same Philox draws, as in 3., its e_new against the
+                 the same Philox draws, as in 3. at 3 iterations (100 in
+                 19.), its e_new against the
                  eager simulator on the tape with the drawn errors woven in;
                  a third control, the noiseless kernel's result, must be
                  flagged in most envs at 3 iterations; then its times and
@@ -65,19 +67,44 @@ Phases, one line each with its seconds:
                  vector steps, every step through the v1 noise variant.
 12. kernel v2n -- the v2 noise variant at LiH 12q (E = 16, S = 8, G = R =
                  116) at 3 iterations with the three controls and its
-                 times, then at 14q (E = 8, state in the workspace); 100
-                 iterations at LiH 12q run when the elapsed time allows.
+                 times, then at 14q (E = 8, state in the workspace).
 13. trainer v2n -- the trainer on LIH12q_TNbond2 with --noise depolarizing,
                  16 replicas, 20 vector steps, every step through the v2
                  noise variant.
+14. kernel v1 trainable -- v1 at configs/TensorRL_trainable/H2O8q_TNbond2's
+                 capacities (E = 128, G = 172 gates, R = 151 angles; every
+                 tape opens with the embedded warm start) at 3 iterations
+                 with the controls, and its time (the plain version is
+                 timed in 16.).
+15. rows v1p  -- v1 launched with (E, D) psi0 planes whose rows all equal
+                 the shared plane gives the shared launch bit for bit (100
+                 iterations).
+16. kernel v1p -- v1 with a random psi0 per env (block-coordinate mode's
+                 input) at the same shapes, held to its plain version at 3
+                 iterations with three controls (the third: every env given
+                 the first env's psi0), and its and the plain version's
+                 times.
+17. trainers v1 trainable / StructureRL / v1p -- the trainer on the
+                 TensorRL_trainable/ and StructureRL/ H2O8q_TNbond2 configs
+                 (128 replicas, 20 vector steps), through v1 with shared
+                 psi0, then on the trainable config with --block_coord 3,
+                 every step through v1 with per-env psi0.
+18. kernel v2 trainable, rows v2p, kernel v2p, trainer v2p -- 14.-17. for
+                 v2 at TensorRL_trainable/LIH12q_TNbond2 (E = 16, G = 244,
+                 R = 211), the trainer with --block_coord 3 and 16
+                 replicas for 20 vector steps.
+19. the 100-iteration checks of 8. and 12., each when enough of the
+                 deadline is left (``LONG_MIN_LEFT_S``).
 
-The line before the last is a JSON object with one entry per kernel (v1,
-v1 noise, v2, v2 noise); the last line is {"ok": true, "device": {...}}.
-Any failure, or passing the deadline, exits non-zero without that line.
+The line before the last is a JSON object with one entry per kernel
+variant (v1, v1 noise, v2, v2 noise, v1 and v2 per-env psi0); the last line
+is {"ok": true, "device": {...}}.  Any failure, or passing the deadline,
+exits non-zero without that line.
 
-Every kernel check and timing runs at the tape capacity G = R that the
-trainer's env gives the config (``CircuitEnv.tape_capacity``: num_layers
-less the warm start's depth, plus one).
+Every kernel check and timing runs at the tape capacities that the
+trainer's env gives the config (``CircuitEnv.tape_capacity`` and
+``rot_capacity``: num_layers less the warm start's depth, plus one, and
+in the in_state families plus the warm start's gates and angles).
 """
 
 from __future__ import annotations
@@ -97,6 +124,8 @@ sys.dont_write_bytecode = True      # write nothing into the checkout
 
 DEADLINE_S = 600
 STARTS, ITERS, LR = 8, 100, 0.1
+FIXED, TRAINABLE = "TensorRL_fixed/", "TensorRL_trainable/"
+STRUCTURE = "StructureRL/"
 V1_CONFIG, V1_ENVS, V1_STEPS = "H2O8q_TNbond2", 128, 20
 V2_CONFIG, V2_ENVS, V2_STEPS = "LIH12q_TNbond2", 16, 80
 V1_SMALL = ("heisenberg_5q_TNbond2", 64)      # v1 below 8 qubits
@@ -104,10 +133,14 @@ V1N_CONFIG = "H2O8q_TNbond2_noise"            # noise inferred from the name
 V2N_STEPS = 20
 V2N_SWEEP = (("heisenberg_14q_TNbond2", 8),)
 KRAUS_ENVS, KRAUS_P = 4096, (0.15, 0.25)
+# in_state placement: the 8q H2O configs with 128 replicas (v1), the 12q
+# LiH config with 16 (v2); block-coordinate trainers with K = 3
+T_STEPS, BLOCK_COORD = 20, ("--block_coord", "3")
 TOL_P0 = 1e-6            # noise variant at p = 0 vs the noiseless kernel
-# the optional 100-iteration v2 noise check runs when this much of the
-# deadline is left
-V2N_LONG_MIN_LEFT_S = 300
+# the optional 100-iteration checks of the noise variants (run last, in
+# this order) run when this much of the deadline is left, about twice
+# what they took on the H100: v1n's 67-101 s, v2n's 92 s
+LONG_MIN_LEFT_S = {"fused_adam_v1_noise": 200, "fused_adam_v2_noise": 300}
 # the rest of the band at 3 iterations: (config, envs)
 SWEEP = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8),
          ("heisenberg_16q_TNbond2", 4), ("heisenberg_18q_TNbond2", 2))
@@ -150,17 +183,25 @@ def smi_line() -> str:
     return out.splitlines()[0]
 
 
-def draw_batch(rng, n_env, cap, n_qubits):
-    """Mid-episode inputs: per env a random tape of CNOTs and rotations,
-    the same tape plus one gate, and the angle map."""
+def draw_batch(rng, n_env, cap, rot_cap, n_qubits, prefix=None):
+    """Mid-episode inputs: per env a tape of ``cap`` gates and ``rot_cap``
+    angles that opens with the ``prefix`` tape's gates (the embedded warm
+    start of in_state placement) and goes on with random CNOTs and
+    rotations, the same tape plus one gate, and the angle map."""
     import numpy as np
 
     from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
 
+    head = []
+    if prefix is not None:
+        head = [(GateKind(int(prefix.kind[g])), int(prefix.tq[g]),
+                 int(prefix.cq[g]), float(prefix.angles[prefix.angle_slot[g]])
+                 if prefix.angle_slot[g] >= 0 else 0.0)
+                for g in range(prefix.n_gates)]
     olds, news, maps, x0s, n_rots = [], [], [], [], []
     for _ in range(n_env):
         gates = []
-        for _ in range(int(rng.integers(0, cap))):
+        for _ in range(int(rng.integers(0, cap - len(head)))):
             if rng.random() < 0.4:
                 c = int(rng.integers(n_qubits))
                 t = int((c + 1 + rng.integers(n_qubits - 1)) % n_qubits)
@@ -168,8 +209,11 @@ def draw_batch(rng, n_env, cap, n_qubits):
             else:
                 gates.append((GateKind(int(rng.integers(1, 4))),
                               int(rng.integers(n_qubits)), -1))
-        old = GateTape(n_qubits, cap, cap)
-        new = GateTape(n_qubits, cap, cap)
+        old = GateTape(n_qubits, cap, rot_cap)
+        new = GateTape(n_qubits, cap, rot_cap)
+        for gate in head:
+            old.add(*gate)
+            new.add(*gate)
         for k, t, c in gates:
             ang = float(rng.normal()) if c < 0 else 0.0
             old.add(k, t, c, ang)
@@ -177,7 +221,7 @@ def draw_batch(rng, n_env, cap, n_qubits):
         new.add(GateKind(int(rng.integers(1, 4))), int(rng.integers(n_qubits)))
         olds.append(old.arrays())
         news.append(new.arrays())
-        mi = [-1] * cap
+        mi = [-1] * rot_cap
         for j in range(old.n_rots):
             mi[j] = j
         maps.append(mi)
@@ -192,72 +236,98 @@ def draw_batch(rng, n_env, cap, n_qubits):
 
 
 class Engine(NamedTuple):
-    """One kernel of the fused step: its wrapper (shared by a kernel's two
-    variants), whether it is the noise variant, its plain version, the H
-    operands it takes from the optimizer, the dynamic shared memory one
-    CTA takes at a case's shapes, and the rows of H one H psi reads (dense
-    D, or one plane per flip group)."""
+    """One kernel of the fused step: its wrapper (shared by a kernel's
+    variants), its variant ("" plain, "noise", or "psi0" for per-env psi0
+    planes), its plain version, the H operands it takes from the
+    optimizer, the dynamic shared memory one CTA takes at a case's shapes,
+    and the rows of H one H psi reads (dense D, or one plane per flip
+    group)."""
     name: str
     replaces: str
     source: str
     step: Callable
-    noise: bool
+    variant: str
     plain: Callable
     h_ops: Callable
     smem_bytes: Callable
     h_rows: Callable
 
+    @property
+    def noise(self) -> bool:
+        return self.variant == "noise"
+
     def launches(self) -> int:
         """This variant's launches since the wrapper's counts were set to
-        0."""
-        if self.noise:
+        0 (a launch that were noisy and per-env would count in both of
+        those and make the plain count negative: none is expected)."""
+        if self.variant == "noise":
             return self.step.noise_launches
-        return self.step.launches - self.step.noise_launches
+        if self.variant == "psi0":
+            return self.step.psi0_launches
+        return (self.step.launches - self.step.noise_launches
+                - self.step.psi0_launches)
+
+
+# the TPU kernel each (source, variant) replaces
+REPLACES = {
+    ("v1", ""): "tensorrl_qas_tpu/ops/pallas_opt.py:54",
+    ("v1", "noise"): "tensorrl_qas_tpu/ops/pallas_opt.py:54 (_make_kernel, "
+                     "noise=(p1, p2))",
+    ("v1", "psi0"): "tensorrl_qas_tpu/ops/pallas_opt.py:54 (_make_kernel; "
+                    "per-env psi0, which the JAX package runs on XLA: "
+                    "tensorrl_qas_tpu/optim/angle_opt.py:694-699)",
+    ("v2", ""): "tensorrl_qas_tpu/ops/pallas_opt2d.py:160",
+    ("v2", "noise"): "tensorrl_qas_tpu/ops/pallas_opt2d.py:160 "
+                     "(_make_kernel, noise=(p1, p2))",
+    ("v2", "psi0"): "tensorrl_qas_tpu/ops/pallas_opt2d.py:646 "
+                    "(_make_kernel, per_env_psi0=True)",
+}
 
 
 def engines():
-    """(v1, v1 noise, v2, v2 noise)."""
+    """(v1, v1 noise, v2, v2 noise, v1 per-env psi0, v2 per-env psi0)."""
     from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
 
     v1, v2 = fused_adam._library, fused_adam2d._library
-    out = []
-    for noise in (False, True):
-        suffix = "_noise" if noise else ""
-        variant = " (_make_kernel, noise=(p1, p2))" if noise else ""
-        out.append(Engine(
-            name="fused_adam_v1" + suffix,
-            replaces="tensorrl_qas_tpu/ops/pallas_opt.py:54" + variant,
+    out = {}
+    for variant in ("", "noise", "psi0"):
+        suffix = f"_{variant}" if variant else ""
+        noise = variant == "noise"
+        out["v1" + variant] = Engine(
+            name="fused_adam_v1" + suffix, replaces=REPLACES["v1", variant],
             source="tensorrl_qas_tpu_torch/csrc/fused_adam_v1.cu",
-            step=fused_adam.fused_adam_step, noise=noise,
+            step=fused_adam.fused_adam_step, variant=variant,
             plain=fused_adam.fused_adam_step_reference,
             h_ops=lambda opt: opt.h_planes(),
             smem_bytes=lambda case, noise=noise:
-                v1().fused_adam_v1_smem_bytes(STARTS, case.cap, case.cap,
+                v1().fused_adam_v1_smem_bytes(STARTS, case.g, case.r,
                                               case.n, noise),
-            h_rows=lambda case: 1 << case.n))
-        out.append(Engine(
-            name="fused_adam_v2" + suffix,
-            replaces="tensorrl_qas_tpu/ops/pallas_opt2d.py:160" + variant,
+            h_rows=lambda case: 1 << case.n)
+        out["v2" + variant] = Engine(
+            name="fused_adam_v2" + suffix, replaces=REPLACES["v2", variant],
             source="tensorrl_qas_tpu_torch/csrc/fused_adam_v2.cu",
-            step=fused_adam2d.fused_adam_step2d, noise=noise,
+            step=fused_adam2d.fused_adam_step2d, variant=variant,
             plain=fused_adam2d.fused_adam_step2d_reference,
             h_ops=lambda opt: opt.w_planes(),
             smem_bytes=lambda case, noise=noise:
-                v2().fused_adam_v2_smem_bytes(case.cap, case.cap, case.n,
+                v2().fused_adam_v2_smem_bytes(case.g, case.r, case.n,
                                               case.args[7].numel(), noise),
-            h_rows=lambda case: case.args[7].numel()))
-    return out[0], out[2], out[1], out[3]
+            h_rows=lambda case: case.args[7].numel())
+    return tuple(out[k] for k in ("v1", "v1noise", "v2", "v2noise",
+                                  "v1psi0", "v2psi0"))
 
 
 class Case:
-    """Kernel inputs drawn for one config: E envs of random mid-episode
-    tapes at the capacity the trainer's env gives the config (numpy seed
-    1234), a random psi0, starts from the optimizer's start rule; the
-    problem and the H operands from that env's optimizer.  For a noise
-    variant, p1 and p2 from that optimizer (the config's) and seeds per
-    env from a torch generator (``noise_kw``)."""
+    """Kernel inputs drawn for one config of a family: E envs of random
+    mid-episode tapes at the capacities the trainer's env gives the config
+    (G gates, R angles; in the in_state families every tape opens with
+    the embedded warm start of the env's reset), numpy seed 1234, a random
+    psi0 (one row per env for the per-env psi0 variant), starts from the
+    optimizer's start rule; the problem and the H operands from that env's
+    optimizer.  For a noise variant, p1 and p2 from that optimizer (the
+    config's) and seeds per env from a torch generator (``noise_kw``)."""
 
-    def __init__(self, engine, config, n_env):
+    def __init__(self, engine, config, n_env, family=FIXED):
         import numpy as np
         import torch
 
@@ -269,35 +339,43 @@ class Case:
         from tensorrl_qas_tpu_torch.train.config import get_config
 
         dev = torch.device("cuda")
+        in_state = family != FIXED
         env = CircuitEnv(EnvConfig.from_conf(
-            get_config("TensorRL_fixed/", f"{config}.cfg"),
+            get_config(family, f"{config}.cfg"),
+            tn_placement="in_state" if in_state else "fixed",
             noise_mode="depolarizing" if engine.noise else "none",
             device="cuda"))
         self.n = n = env.num_qubits
-        self.cap = cap = env.tape_capacity
+        self.g, self.r = g, r = env.tape_capacity, env.rot_capacity
         self.n_env = n_env
         self.prob = env.problem
         self.opt = env.optimizer
+        prefix = None
+        if in_state:
+            env.reset()
+            prefix = env._tape(env.state)
         rng = np.random.default_rng(1234)
         self.old, self.new, self.maps, x0, n_rots = draw_batch(
-            rng, n_env, cap, n)
-        psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
-        self.psi0 = psi0 / np.linalg.norm(psi0)
+            rng, n_env, g, r, n, prefix)
+        rows = n_env if engine.variant == "psi0" else 1
+        psi0 = (rng.normal(size=(rows, 1 << n))
+                + 1j * rng.normal(size=(rows, 1 << n)))
+        self.psi0 = psi0 / np.linalg.norm(psi0, axis=1, keepdims=True)
 
         def ints(a):
             return torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                    device=dev)
 
         f32 = dict(dtype=torch.float32, device=dev)
-        active = (torch.arange(cap, device=dev)[None, :]
+        active = (torch.arange(r, device=dev)[None, :]
                   < torch.as_tensor(n_rots, device=dev)[:, None]).float()
         gen = torch.Generator(device=dev).manual_seed(7)
         starts = make_multistarts(torch.as_tensor(x0, **f32), active, STARTS,
                                   STARTS // 4, 0.1, gen).contiguous()
         self.args = (tuple(ints(a) for a in self.old),
                      tuple(ints(a) for a in self.new), ints(self.maps),
-                     torch.as_tensor(self.psi0.real[None], **f32),
-                     torch.as_tensor(self.psi0.imag[None], **f32),
+                     torch.as_tensor(self.psi0.real, **f32),
+                     torch.as_tensor(self.psi0.imag, **f32),
                      *engine.h_ops(self.opt), starts,
                      active[:, None, :].contiguous())
         self.noise_kw = {}
@@ -312,9 +390,10 @@ class Case:
         """Deliberately wrong kernel inputs the check must reject: Adam's
         rate off by 1%, and the RY angles' gradients dropped (their
         `active` entries zeroed); for a noise variant also the noiseless
-        kernel on the same inputs.  A 1% rate still reaches the same optima
+        kernel on the same inputs, for the per-env psi0 variant the first
+        env's psi0 shared by all.  A 1% rate still reaches the same optima
         in 100 iterations, so that one is required to fail at 3 iterations
-        only; the noiseless result must be flagged in most envs at 3.
+        only; the third control must be flagged in most envs at 3.
         -> (name, args, lr, noise keywords, iterations where it must be
         flagged, least share of envs flagged there)."""
         import numpy as np
@@ -322,7 +401,7 @@ class Case:
 
         from tensorrl_qas_tpu_torch.circuits.tape import GateKind
 
-        ry = np.zeros((self.n_env, self.cap), bool)
+        ry = np.zeros((self.n_env, self.r), bool)
         for e in range(self.n_env):
             kinds, slots = self.old[0][e], self.old[3][e]
             ry[e, slots[(kinds == GateKind.RY) & (slots >= 0)]] = True
@@ -335,6 +414,11 @@ class Case:
                 self.noise_kw, (3, ITERS), 0.0)]
         if self.noise_kw:
             out.append(("noiseless kernel", self.args, LR, {}, (3,), 0.5))
+        if len(self.psi0) > 1:
+            row0 = (*self.args[:3], self.args[3][:1], self.args[4][:1],
+                    *self.args[5:])
+            out.append(("psi0 row 0 for every env", row0, LR, {}, (3,),
+                        0.5))
         return out
 
     def oracle_error(self, x_opt, e_new, envs, iters):
@@ -365,7 +449,8 @@ class Case:
         for e in envs:
             mi = self.maps[e]
             x_new = np.where(mi >= 0, x64[e][np.maximum(mi, 0)], 0.0)
-            psi = apply_tape(torch.as_tensor(self.psi0, device=dev),
+            psi0 = self.psi0[e if len(self.psi0) > 1 else 0]
+            psi = apply_tape(torch.as_tensor(psi0, device=dev),
                              *(a[e] for a in new), x_new)
             e_ref = float(pauli_expectation(psi, *pauli))
             err = max(err, abs(e_ref - (float(e_new[e]) + self.opt.offset)))
@@ -478,10 +563,11 @@ def time_cuda(fn, warmup, reps):
     return times[len(times) // 2]
 
 
-def time_kernel(engine, case, label):
-    """Kernel ms (median of CUDA events), plain ms (one call), and the
-    bound: the larger of this batch's operations at the f32 peak and its
-    bytes (inputs read once, outputs written once) at the HBM rate."""
+def time_kernel(engine, case, label, time_plain=True):
+    """Kernel ms (median of CUDA events), plain ms (one call, unless
+    ``time_plain`` is False), and the bound: the larger of this batch's
+    operations at the f32 peak and its bytes (inputs read once, outputs
+    written once) at the HBM rate."""
     t0 = phase(f"{label} timing")
     kw = case.noise_kw
     k_ms = time_cuda(lambda: engine.step(*case.args, iters=ITERS, lr=LR,
@@ -491,19 +577,22 @@ def time_kernel(engine, case, label):
         extra["noiseless_kernel_same_inputs_ms"] = "{:.4f}".format(time_cuda(
             lambda: engine.step(*case.args, iters=ITERS, lr=LR), warmup=1,
             reps=10))
-    p_ms = time_cuda(lambda: engine.plain(*case.args, iters=ITERS, lr=LR,
-                                          **kw), warmup=0, reps=1)
+    p_ms = None
+    if time_plain:
+        p_ms = time_cuda(lambda: engine.plain(*case.args, iters=ITERS,
+                                              lr=LR, **kw), warmup=0, reps=1)
     flops = flop_count(case, engine.h_rows(case))
     seeds = [kw["seeds"]] if kw else []
     tensors = [t for a in (*case.args, *seeds)
                for t in (a if isinstance(a, tuple) else (a,))]
     nbytes = (sum(t.numel() * t.element_size() for t in tensors)
-              + case.n_env * (case.cap + 1) * 4)
+              + case.n_env * (case.r + 1) * 4)
     bound_ms = 1e3 * max(flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S)
     bound_by = ("operations" if flops / FP32_PEAK_FLOPS
                 >= nbytes / HBM_BYTES_PER_S else "bytes")
     done(f"{label} timing", t0, kernel_ms=f"{k_ms:.4f}",
-         plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+         plain_ms="not timed" if p_ms is None else f"{p_ms:.4f}",
+         bound_ms=f"{bound_ms:.4f}",
          bound_by=bound_by, gflop=f"{flops / 1e9:.3f}",
          dynamic_smem_bytes_per_cta=engine.smem_bytes(case), **extra,
          library_ms="n/a (no single PyTorch call computes this fused step)")
@@ -511,10 +600,13 @@ def time_kernel(engine, case, label):
             "bound_by": bound_by}
 
 
-def kernel_phase(engine, config, n_env, label, long_check=True):
+def kernel_phase(engine, config, n_env, label, long_check=True,
+                 family=FIXED, time_plain=True):
     """Both iteration counts (the 100-iteration one unless
     ``long_check`` is False) with the controls, then the timing."""
-    case = Case(engine, config, n_env)
+    case = Case(engine, config, n_env, family)
+    print(f"[{label}] {family}{config}: E={n_env} G={case.g} R={case.r} "
+          f"D={1 << case.n} psi0 rows={len(case.psi0)}", flush=True)
     stats = {}
     for iters, tol in ((3, TOL_ITERS3), (ITERS, TOL_ITERS100)):
         if iters == ITERS and not long_check:
@@ -522,7 +614,7 @@ def kernel_phase(engine, config, n_env, label, long_check=True):
         stats[iters] = check_kernel(engine, case, label, iters, tol,
                                     case.controls())
     return {"max_abs_err": stats[max(stats)]["e_new_max_abs_err"],
-            **time_kernel(engine, case, label)}, case
+            **time_kernel(engine, case, label, time_plain)}, case
 
 
 def sweep_phase(engine, sweep=SWEEP):
@@ -556,6 +648,27 @@ def p0_phase(engine, noisy, config, n_env):
     if not ok:
         raise AssertionError(f"{noisy.name} at p = 0 differs from the "
                              f"noiseless kernel by {err:.3e}")
+
+
+def psi0_rows_phase(engine, per_env, case):
+    """The per-env psi0 launch with every row equal to the shared plane
+    against the shared launch on ``case`` (a shared-psi0 case), at 100
+    iterations: the stride only moves a pointer, so bit for bit."""
+    import torch
+
+    t0 = phase(f"rows {per_env.name}")
+    xs, es = engine.step(*case.args, iters=ITERS, lr=LR)
+    rows = (*case.args[:3], *(p.expand(case.n_env, -1).contiguous()
+                              for p in case.args[3:5]), *case.args[5:])
+    xp, ep = per_env.step(*rows, iters=ITERS, lr=LR)
+    torch.cuda.synchronize()
+    bit = bool(torch.equal(xp, xs) and torch.equal(ep, es))
+    err = max(float((xp - xs).abs().max()), float((ep - es).abs().max()))
+    done(f"rows {per_env.name}", t0, G=case.g, R=case.r, n_env=case.n_env,
+         max_abs_diff=f"{err:.3e}", bit_for_bit=bit, ok=bit)
+    if not bit:
+        raise AssertionError(f"{per_env.name} with identical rows differs "
+                             "from the shared launch")
 
 
 def kraus_phase(noisy):
@@ -615,10 +728,11 @@ def kraus_phase(noisy):
 
 
 def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
-                  expect_replay=True):
-    """The CLI's trainer for ``vector_steps`` steps with every kernel's
-    launch count set to 0 just before and read just after; every step must
-    have launched ``engine`` once and no other kernel."""
+                  expect_replay=True, family=FIXED):
+    """The CLI's trainer on ``family``/``config`` for ``vector_steps``
+    steps with every kernel's launch count set to 0 just before and read
+    just after; every step must have launched ``engine`` once and no other
+    kernel."""
     import numpy as np
     import torch
 
@@ -632,13 +746,14 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
         for e in variants:
             e.step.launches = 0
             e.step.noise_launches = 0
+            e.step.psi0_launches = 0
         summary = cli.run([
-            "--config", config, "--experiment_name", "TensorRL_fixed/",
+            "--config", config, "--experiment_name", family,
             "--vector", str(n_env), "--total_steps",
             str(n_env * vector_steps), "--results_path", out + "/",
             *extra])
         launches = {e.name: e.launches() for e in variants}
-        run_dir = os.path.join(out, "TensorRL_fixed", config)
+        run_dir = os.path.join(out, family, config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
                         allow_pickle=True).item()
         with open(os.path.join(run_dir, "events_0.jsonl")) as f:
@@ -704,7 +819,7 @@ def main() -> int:
     done("device", t0, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    v1, v1n, v2, v2n = engines()
+    v1, v1n, v2, v2n, v1p, v2p = engines()
     build_phase(("fused_adam_v1", "fused_adam_v2"))
     results = {}
     results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
@@ -718,26 +833,55 @@ def main() -> int:
     check_kernel(v1, small, f"kernel v1 {V1_SMALL[0]} E={V1_SMALL[1]}", 3,
                  TOL_ITERS3, small.controls())
 
-    results[v1n], _ = kernel_phase(v1n, V1N_CONFIG, V1_ENVS, "kernel v1n")
+    results[v1n], case_v1n = kernel_phase(v1n, V1N_CONFIG, V1_ENVS,
+                                          "kernel v1n", long_check=False)
     p0_phase(v1, v1n, V1N_CONFIG, V1_ENVS)
     p0_phase(v2, v2n, V2_CONFIG, V2_ENVS)
     kraus_phase(v1n)
     results[v1n]["launches"] = trainer_phase(v1n, V1N_CONFIG, V1_ENVS,
                                              V1_STEPS, "trainer v1n")
-    results[v2n], case = kernel_phase(v2n, V2_CONFIG, V2_ENVS, "kernel v2n",
-                                      long_check=False)
+    results[v2n], case_v2n = kernel_phase(v2n, V2_CONFIG, V2_ENVS,
+                                          "kernel v2n", long_check=False)
     sweep_phase(v2n, V2N_SWEEP)
     results[v2n]["launches"] = trainer_phase(
         v2n, V2_CONFIG, V2_ENVS, V2N_STEPS, "trainer v2n",
         extra=("--noise", "depolarizing"), expect_replay=False)
-    left = DEADLINE_S - (time.perf_counter() - t_start)
-    if left >= V2N_LONG_MIN_LEFT_S:
-        stats = check_kernel(v2n, case, "kernel v2n", ITERS, TOL_ITERS100,
-                             case.controls())
-        results[v2n]["max_abs_err"] = stats["e_new_max_abs_err"]
-    else:
-        print(f"[kernel v2n iters={ITERS}] skipped: {left:.0f} s of the "
-              f"deadline left (< {V2N_LONG_MIN_LEFT_S})", flush=True)
+
+    # in_state placement: the kernels at the trainable capacities (G != R),
+    # their per-env psi0 variants, and the trainers of both families
+    _, case = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1 trainable",
+                           long_check=False, family=TRAINABLE,
+                           time_plain=False)
+    psi0_rows_phase(v1, v1p, case)
+    results[v1p], _ = kernel_phase(v1p, V1_CONFIG, V1_ENVS, "kernel v1p",
+                                   long_check=False, family=TRAINABLE)
+    for family, label in ((TRAINABLE, "trainer v1 trainable"),
+                          (STRUCTURE, "trainer v1 StructureRL")):
+        trainer_phase(v1, V1_CONFIG, V1_ENVS, T_STEPS, label, family=family)
+    results[v1p]["launches"] = trainer_phase(
+        v1p, V1_CONFIG, V1_ENVS, T_STEPS, "trainer v1p", BLOCK_COORD,
+        family=TRAINABLE)
+    _, case = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2 trainable",
+                           long_check=False, family=TRAINABLE,
+                           time_plain=False)
+    psi0_rows_phase(v2, v2p, case)
+    results[v2p], _ = kernel_phase(v2p, V2_CONFIG, V2_ENVS, "kernel v2p",
+                                   long_check=False, family=TRAINABLE)
+    results[v2p]["launches"] = trainer_phase(
+        v2p, V2_CONFIG, V2_ENVS, T_STEPS, "trainer v2p", BLOCK_COORD,
+        expect_replay=False, family=TRAINABLE)
+
+    for engine, case in ((v1n, case_v1n), (v2n, case_v2n)):
+        left = DEADLINE_S - (time.perf_counter() - t_start)
+        need = LONG_MIN_LEFT_S[engine.name]
+        label = "kernel " + ("v1n" if engine is v1n else "v2n")
+        if left >= need:
+            stats = check_kernel(engine, case, label, ITERS, TOL_ITERS100,
+                                 case.controls())
+            results[engine]["max_abs_err"] = stats["e_new_max_abs_err"]
+        else:
+            print(f"[{label} iters={ITERS}] skipped: {left:.0f} s of the "
+                  f"deadline left (< {need})", flush=True)
 
     kernels = {"kernels": [{
         "name": e.name, "route": "cuda", "source": e.source,

@@ -10,6 +10,10 @@
 // The noise variant (the same kernel launched with a non-null `seeds`)
 // replaces the TPU kernel compiled with noise=(p1, p2)
 // (pallas_opt.py:draw_noise / noise_kinds / apply_noise): see "Noise" below.
+// Launched with psi0_stride = D, each env starts from its own psi0 row
+// (block-coordinate trainable mode); the JAX package has no such v1
+// variant and runs that case on XLA (optim/angle_opt.py:694-699).  See
+// "Per-env psi0" below.
 //
 // What one CTA computes, for its env e (grid = E envs):
 //   for it in 0..iters-1:                       (Adam over the OLD tape)
@@ -65,6 +69,16 @@
 // code path makes the variant at p = 0 the noiseless kernel bit for bit.
 // The gradient sums run in a fixed order (see backward), so a launch is
 // deterministic.
+//
+// Per-env psi0.  psi0_stride is the distance in floats between two envs'
+// psi0 rows: 0 for one plane shared by the batch, D for (E, D) planes.
+// It only moves the pointer begin_pass reads from, so it is a runtime
+// argument of the one kernel and not a second template instance: with
+// identical rows the per-env launch is the shared launch bit for bit.
+// The tapes are G gates and the angle rows R entries apart; the two
+// capacities differ when the tapes embed a warm-start circuit (172 gates,
+// 151 angles for 8-qubit H2O in trainable mode), and every shared-memory
+// row and global offset below is sized by the one it indexes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -390,13 +404,15 @@ fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
                      const float* __restrict__ active,
                      const int* __restrict__ seeds,
                      float* __restrict__ x_opt, float* __restrict__ e_new,
-                     int S, int G, int R, int n, int iters, float lr,
-                     double b1, double b2, float omb1, float omb2,
+                     int S, int G, int R, int n, int psi0_stride, int iters,
+                     float lr, double b1, double b2, float omb1, float omb2,
                      float eps, unsigned thr1, unsigned thr2) {
   extern __shared__ double smem[];
   const bool noise = seeds != nullptr;
   const int D = 1 << n;
   const int e = blockIdx.x;
+  const float* p0r = p0re + (size_t)e * psi0_stride;   // this env's psi0
+  const float* p0i = p0im + (size_t)e * psi0_stride;
   Shared sh;
   sh.red = smem;
   float* f = reinterpret_cast<float*>(smem + 2 * kWarps * kMaxStarts);
@@ -448,7 +464,7 @@ fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   const float b1f = (float)b1, b2f = (float)b2;
   for (int it = 0; it < iters; ++it) {
     if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, it, thr1, thr2);
-    begin_pass(sh, p0re, p0im, S, D, R);
+    begin_pass(sh, p0r, p0i, S, D, R);
     forward(sh, sh.old_tape, G, S, n, R, noise);
     h_energy(sh, hre_t, him_t, S, D);
     track_best(sh, S, R);
@@ -472,7 +488,7 @@ fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
 
   // the final iterate may beat the tracked best
   if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, iters, thr1, thr2);
-  begin_pass(sh, p0re, p0im, S, D, R);
+  begin_pass(sh, p0r, p0i, S, D, R);
   forward(sh, sh.old_tape, G, S, n, R, noise);
   h_energy(sh, hre_t, him_t, S, D);
   track_best(sh, S, R);
@@ -494,7 +510,7 @@ fused_adam_v1_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
 
   if (noise)                              // a fresh realization for e_new
     draw_errors(sh, sh.new_tape, G, seeds, e, iters + 1, thr1, thr2);
-  begin_pass(sh, p0re, p0im, 1, D, R);
+  begin_pass(sh, p0r, p0i, 1, D, R);
   forward(sh, sh.new_tape, G, 1, n, R, noise);
   h_energy(sh, hre_t, him_t, 1, D);
   if (threadIdx.x == 0) e_new[e] = sh.ev[0];
@@ -525,7 +541,9 @@ const char* fused_adam_v1_error_string(int code) {
 // Returns cudaGetLastError() after the launch (0 on success); the kernel
 // runs asynchronously on `stream`.  A non-null `seeds` (E x 2 int32)
 // launches the noise variant with fire thresholds thr1 (after rotations)
-// and thr2 (after CX) out of 2^24.  b1 and b2 are Adam's exact rates.
+// and thr2 (after CX) out of 2^24.  psi0_stride is 0 for (1, D) psi0
+// planes shared by the envs, D for (E, D) planes.  b1 and b2 are Adam's
+// exact rates.
 int fused_adam_v1_launch(const int* okind, const int* otq, const int* ocq,
                          const int* oslot, const int* nkind, const int* ntq,
                          const int* ncq, const int* nslot, const int* map_idx,
@@ -533,11 +551,12 @@ int fused_adam_v1_launch(const int* okind, const int* otq, const int* ocq,
                          const float* hre_t, const float* him_t,
                          const float* starts, const float* active,
                          const int* seeds, float* x_opt, float* e_new, int E,
-                         int S, int G, int R, int n, int iters, float lr,
-                         double b1, double b2, float omb1, float omb2,
-                         float eps, unsigned thr1, unsigned thr2,
-                         void* stream) {
-  if (E < 1 || S < 1 || G < 1 || R < 1 || n < 1 || n > 14 || iters < 0)
+                         int S, int G, int R, int n, int psi0_stride,
+                         int iters, float lr, double b1, double b2,
+                         float omb1, float omb2, float eps, unsigned thr1,
+                         unsigned thr2, void* stream) {
+  if (E < 1 || S < 1 || G < 1 || R < 1 || n < 1 || n > 14 || iters < 0 ||
+      (psi0_stride != 0 && psi0_stride != 1 << n))
     return (int)cudaErrorInvalidValue;
   const Tape old_g = {okind, otq, ocq, oslot};
   const Tape new_g = {nkind, ntq, ncq, nslot};
@@ -549,8 +568,8 @@ int fused_adam_v1_launch(const int* okind, const int* otq, const int* ocq,
   fused_adam_v1_kernel<<<E, kThreads, bytes,
                          static_cast<cudaStream_t>(stream)>>>(
       old_g, new_g, map_idx, p0re, p0im, hre_t, him_t, starts, active, seeds,
-      x_opt, e_new, S, G, R, n, iters, lr, b1, b2, omb1, omb2, eps, thr1,
-      thr2);
+      x_opt, e_new, S, G, R, n, psi0_stride, iters, lr, b1, b2, omb1, omb2,
+      eps, thr1, thr2);
   return (int)cudaGetLastError();
 }
 

@@ -2,10 +2,11 @@
 // per env step (CUDA, sm_90a), for 7 <= n <= 18 qubits.
 //
 // Replaces the TPU kernel tensorrl_qas_tpu/ops/pallas_opt2d.py:_make_kernel
-// (launched by fused_adam_step_pallas2d / _fused_adam_step_call2d) and its
+// (launched by fused_adam_step_pallas2d / _fused_adam_step_call2d), its
 // noise variant (the same kernel launched with a non-null `seeds`;
-// pallas_opt2d.py:draw_noise / apply_noise), without its per-env psi0
-// variant.  The gate device functions are
+// pallas_opt2d.py:draw_noise / apply_noise) and its per-env psi0 variant
+// (per_env_psi0=True, pallas_opt2d.py:646-650, launched here with
+// psi0_stride = D; see "Per-env psi0" below).  The gate device functions are
 // gates.cuh, shared with fused_adam_v1.cu.  The plain PyTorch version of
 // the same function is
 // tensorrl_qas_tpu_torch/ops/fused_adam2d.py:fused_adam_step2d_reference.
@@ -64,6 +65,16 @@
 // lambda before the gate's own adjoint step.  As in fused_adam_v1.cu the
 // variant is a block-uniform runtime flag, so that at p = 0 it is the
 // noiseless kernel bit for bit (two template instances were not).
+//
+// Per-env psi0.  psi0_stride is the distance in floats between two envs'
+// psi0 rows: 0 for one plane shared by the batch, D for (E, D) planes
+// (block-coordinate trainable mode, where a frozen env starts from its
+// cached prefix state).  Every CTA of env e copies row e into its psi,
+// whether psi lives in shared memory or in the workspace; the stride is a
+// runtime argument of the one kernel, so with identical rows the per-env
+// launch is the shared launch bit for bit.  G (tape) and R (angles) are
+// independent capacities: 244 gates and 211 angles for 12-qubit LiH in
+// trainable mode, where the tapes embed the warm-start circuit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -319,13 +330,16 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
                      float* __restrict__ x_opt, float* __restrict__ e_new,
                      float* best_x, float* best_e, unsigned int* arrived,
                      float* work, int S, int G, int R, int n, int n_groups,
-                     int iters, float lr, double b1, double b2, float omb1,
-                     float omb2, float eps, unsigned thr1, unsigned thr2) {
+                     int psi0_stride, int iters, float lr, double b1,
+                     double b2, float omb1, float omb2, float eps,
+                     unsigned thr1, unsigned thr2) {
   extern __shared__ double smem[];
   const bool noise = seeds != nullptr;
   const int D = 1 << n;
   const int e = blockIdx.x / S;
   const int row = blockIdx.x;             // e * S + s
+  const float* p0r = p0re + (size_t)e * psi0_stride;   // this env's psi0
+  const float* p0i = p0im + (size_t)e * psi0_stride;
   Shared sh;
   sh.red = smem;
   float* f = reinterpret_cast<float*>(smem + 2 * kWarps);
@@ -384,7 +398,7 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   const float b1f = (float)b1, b2f = (float)b2;
   for (int it = 0; it < iters; ++it) {
     if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, it, thr1, thr2);
-    begin_pass(sh, p0re, p0im, D, R);
+    begin_pass(sh, p0r, p0i, D, R);
     forward(sh, sh.old_tape, G, n, noise);
     h_energy(sh, wre, wim, n_groups, D);
     track_best(sh, R);
@@ -408,7 +422,7 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
 
   // the final iterate may beat the tracked best
   if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, iters, thr1, thr2);
-  begin_pass(sh, p0re, p0im, D, R);
+  begin_pass(sh, p0r, p0i, D, R);
   forward(sh, sh.old_tape, G, n, noise);
   h_energy(sh, wre, wim, n_groups, D);
   track_best(sh, R);
@@ -453,7 +467,7 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
 
   if (noise)                              // a fresh realization for e_new
     draw_errors(sh, sh.new_tape, G, seeds, e, iters + 1, thr1, thr2);
-  begin_pass(sh, p0re, p0im, D, R);
+  begin_pass(sh, p0r, p0i, D, R);
   forward(sh, sh.new_tape, G, n, noise);
   h_energy(sh, wre, wim, n_groups, D);
   if (threadIdx.x == 0) e_new[e] = sh.scal[0];
@@ -495,8 +509,9 @@ const char* fused_adam_v2_error_string(int code) {
 // scratch; arrived (E,) must be zero; work is null or holds
 // fused_adam_v2_workspace_floats(E, S, n) floats.  A non-null `seeds`
 // (E x 2 int32) launches the noise variant with fire thresholds thr1
-// (after rotations) and thr2 (after CX) out of 2^24.  b1 and b2 are
-// Adam's exact rates.
+// (after rotations) and thr2 (after CX) out of 2^24.  psi0_stride is 0
+// for (1, D) psi0 planes shared by the envs, D for (E, D) planes.  b1 and
+// b2 are Adam's exact rates.
 int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
                          const int* oslot, const int* nkind, const int* ntq,
                          const int* ncq, const int* nslot, const int* map_idx,
@@ -506,11 +521,13 @@ int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
                          const int* seeds, float* x_opt, float* e_new,
                          float* best_x, float* best_e, unsigned int* arrived,
                          float* work, int E, int S, int G, int R, int n,
-                         int n_groups, int iters, float lr, double b1,
-                         double b2, float omb1, float omb2, float eps,
-                         unsigned thr1, unsigned thr2, void* stream) {
+                         int n_groups, int psi0_stride, int iters, float lr,
+                         double b1, double b2, float omb1, float omb2,
+                         float eps, unsigned thr1, unsigned thr2,
+                         void* stream) {
   if (E < 1 || S < 1 || G < 1 || R < 1 || n < 7 || n > 18 ||
-      n_groups < 1 || iters < 0 || (work == nullptr) != state_in_smem(n))
+      n_groups < 1 || iters < 0 || (work == nullptr) != state_in_smem(n) ||
+      (psi0_stride != 0 && psi0_stride != 1 << n))
     return (int)cudaErrorInvalidValue;
   const Tape old_g = {okind, otq, ocq, oslot};
   const Tape new_g = {nkind, ntq, ncq, nslot};
@@ -523,7 +540,7 @@ int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
                          static_cast<cudaStream_t>(stream)>>>(
       old_g, new_g, map_idx, p0re, p0im, wre, wim, flips, starts, active,
       seeds, x_opt, e_new, best_x, best_e, arrived, work, S, G, R, n,
-      n_groups, iters, lr, b1, b2, omb1, omb2, eps, thr1, thr2);
+      n_groups, psi0_stride, iters, lr, b1, b2, omb1, omb2, eps, thr1, thr2);
   return (int)cudaGetLastError();
 }
 

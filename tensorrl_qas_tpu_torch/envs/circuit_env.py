@@ -1,13 +1,25 @@
-"""The RL circuit-construction environment (fixed warm-start placement).
+"""The RL circuit-construction environment.
 
-Port of ``tensorrl_qas_tpu/envs/circuit_env.py`` for the TensorRL-fixed
-mode: the tensor-network warm-start circuit is compiled once into the
-initial statevector (reference ``environment_qulacs_TN_notin_agent.py:158``)
-and the agent appends one gate per step, noiselessly or with depolarizing
-noise on the agent's gates (the warm start stays noiseless in psi0, as in
-the JAX package's fixed mode).  The other modes of the JAX env (in-state
-placement, shot noise, su4, sharding, block-coordinate) are not ported
-yet and are refused by ``CircuitEnv``.
+Port of ``tensorrl_qas_tpu/envs/circuit_env.py`` for the CNOT gate set
+and the fused Adam optimizer, in both warm-start placements:
+
+- ``tn_placement='fixed'`` (TensorRL-fixed): the tensor-network warm-start
+  circuit is compiled once into the initial statevector (reference
+  ``environment_qulacs_TN_notin_agent.py:158``); with depolarizing noise
+  only the agent's gates are noisy, as in the JAX package's fixed mode.
+- ``tn_placement='in_state'`` (TensorRL-trainable and StructureRL): the
+  warm-start gates are embedded in the leading layers of the RL state
+  (``circuits/tensor_ir.py:embed_tape``, reference
+  ``environment_qulacs.py:285-328``) and ride every tape from |0...0>, so
+  their angles are re-optimized with the agent's; ``zero_param_init``
+  (StructureRL) keeps the structure and zeroes the angles.
+  ``block_coord_k = K > 1`` re-optimizes the embedded block only on every
+  K-th step: on the others its gates are masked to padding and the device
+  call starts from the cached prefix state instead (``step_psi0``), which
+  hands each replica of a ``VectorCircuitEnv`` its own psi0.
+
+The other modes of the JAX env (shot noise, su4, sharding, COBYLA) are
+not ported yet and are refused by ``CircuitEnv``.
 
 Step semantics follow the reference, including its ordering
 (``environment_qulacs.py:169-267``): the per-step angle optimizer runs on
@@ -28,7 +40,8 @@ import numpy as np
 from tensorrl_qas_tpu_torch import as_device, complex_dtype
 from tensorrl_qas_tpu_torch.circuits.actions import action_dictionary
 from tensorrl_qas_tpu_torch.circuits.qasm import load_circuit_tape
-from tensorrl_qas_tpu_torch.circuits.tensor_ir import StateTensor
+from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+from tensorrl_qas_tpu_torch.circuits.tensor_ir import StateTensor, embed_tape
 from tensorrl_qas_tpu_torch.envs.curricula import make_curriculum
 from tensorrl_qas_tpu_torch.envs.illegal import IllegalActionTracker
 from tensorrl_qas_tpu_torch.optim.angle_opt import (
@@ -53,9 +66,10 @@ class EnvConfig:
     ham_type: str
     geometry: str = ""
     mapping: str = "jordan_wigner"
-    tn_placement: str = "fixed"
+    tn_placement: str = "fixed"           # 'fixed' | 'in_state'
     tn_init: int = 1
     tn_bond: int = 2
+    zero_param_init: int = 0              # StructureRL: embed at angle 0
     rand_halt: int = 0
     accept_err: float = 1.6e-3
     fn_type: str = "incremental_with_fixed_ends"
@@ -70,6 +84,10 @@ class EnvConfig:
     noise_resample: str = "iter"          # 'iter' | 'step' (AngleOptimizer)
     topology: str = "all_to_all"
     gate_set: str = "cnot"
+    # block-coordinate trainable mode (in_state only, noiseless): the
+    # embedded block's angles are re-optimized on every K-th step only;
+    # 0/1 = off (joint optimization every step, the reference's)
+    block_coord_k: int = 0
     optim_method: str | None = "scipy_each_step"
     optim_alg: str = "adam"
     global_iters: int = 100
@@ -111,6 +129,7 @@ class EnvConfig:
             tn_placement=tn_placement or env.get("tn_placement", "fixed"),
             tn_init=int(env.get("tn_init", 1)),
             tn_bond=int(env.get("tn_bond", 0)),
+            zero_param_init=int(env.get("zero_param_init", 0)),
             rand_halt=int(env.get("rand_halt", 0)),
             accept_err=float(env.get("accept_err", 1.6e-3)),
             fn_type=env.get("fn_type", "incremental_with_fixed_ends"),
@@ -124,6 +143,7 @@ class EnvConfig:
             noise_resample=env.get("noise_resample", "iter"),
             topology=env.get("topology", "all_to_all"),
             gate_set=env.get("gate_set", "cnot"),
+            block_coord_k=int(env.get("block_coord_k", 0)),
             optim_method=nlo.get("method", None),
             optim_alg=alg,
             global_iters=int(nlo.get("global_iters", 100)),
@@ -141,8 +161,10 @@ _TN_PSI_CACHE: dict = {}
 
 
 def _check_supported(cfg: EnvConfig) -> None:
+    if cfg.tn_placement not in ("fixed", "in_state"):
+        raise ValueError(f"tn_placement must be 'fixed' or 'in_state', got "
+                         f"{cfg.tn_placement!r}")
     unsupported = {
-        "tn_placement": (cfg.tn_placement, "fixed"),
         "gate_set": (cfg.gate_set, "cnot"),
         "optim_alg": (cfg.optim_alg, "adam"),
     }
@@ -151,6 +173,11 @@ def _check_supported(cfg: EnvConfig) -> None:
             raise NotImplementedError(
                 f"{field}={value!r} is not ported yet (only {ported!r})")
     check_noise(cfg.noise_mode, cfg.n_traj)
+    if cfg.block_coord_k > 1 and cfg.noise_mode != "none":
+        raise ValueError(
+            "block_coord_k requires noise_mode='none': depolarizing/"
+            "shot noise must fire on the embedded prefix gates, which "
+            "the frozen-prefix transform masks out")
 
 
 def make_optimizer(cfg: EnvConfig, pauli, device, seed: int):
@@ -165,6 +192,30 @@ def make_optimizer(cfg: EnvConfig, pauli, device, seed: int):
         seed=seed, noise_mode=cfg.noise_mode, noise_p1=p1, noise_p2=p2,
         n_shots=cfg.n_shots, n_traj=cfg.n_traj,
         noise_resample=cfg.noise_resample)
+
+
+def bc_prefix_states(envs) -> None:
+    """Cache the frozen-prefix state of every env in ``envs`` (replicas of
+    one config) that is on a frozen block-coordinate step without one: the
+    embedded block at its current angles applied to |0...0>, by the eager
+    simulator on the envs' device, outside any kernel (the JAX package
+    computes it outside its kernels too).  One batched pass serves them
+    all: the replicas embed the same block, which opens every tape with
+    the same gates and angle slots, so only the angles differ.  A joint
+    step may move those angles and drops the cache (``step_finish``)."""
+    need = [e for e in envs if e._bc_frozen and e._bc_cache is None]
+    if not need:
+        return
+    first = need[0]
+    tape = first._tape(first.state)
+    kind = tape.kind.copy()
+    kind[first._bc_n_gates:] = int(GateKind.NONE)      # the prefix only
+    x = np.stack([tape.x0()] + [e._tape(e.state).x0() for e in need[1:]])
+    psi0 = zero_state(first.num_qubits, first.dtype, first.device)
+    psi = apply_tape(psi0.expand(len(need), -1), kind, tape.tq, tape.cq,
+                     tape.angle_slot, x)
+    for env, row in zip(need, psi):
+        env._bc_cache = row
 
 
 class CircuitEnv:
@@ -188,15 +239,19 @@ class CircuitEnv:
                         else self.problem.min_eig)
         self.max_eig = self.problem.max_eig
 
-        # --- warm-start circuit, compiled once into psi0 -------------------
+        # --- warm-start circuit: compiled once into psi0 (fixed) or embedded
+        # in the state at every reset (in_state, psi0 = |0...0>) ----------
         self.tn_tape = None
         self.tn_depth = 0
+        self.psi0 = zero_state(n, self.dtype, self.device)
+        in_state = cfg.tn_placement == "in_state"
         if cfg.tn_init and cfg.tn_bond:
             qasm_path = resolve_warmstart_qasm(
                 cfg.ham_type, n, cfg.tn_bond, cfg.geometry, cfg.mapping,
                 gate_set=cfg.gate_set, tn_placement=cfg.tn_placement)
             self.tn_tape = load_circuit_tape(qasm_path)
             self.tn_depth = self.tn_tape.depth()
+        if self.tn_tape is not None and not in_state:
             memo_key = (str(qasm_path), str(self.device))
             psi = _TN_PSI_CACHE.get(memo_key)
             if psi is None:
@@ -204,8 +259,6 @@ class CircuitEnv:
                                  *self.tn_tape.arrays(), self.tn_tape.x0())
                 _TN_PSI_CACHE[memo_key] = psi
             self.psi0 = psi
-        else:
-            self.psi0 = zero_state(n, self.dtype, self.device)
         self.num_layers_termination = cfg.num_layers - self.tn_depth
 
         # --- action space ---------------------------------------------------
@@ -218,10 +271,13 @@ class CircuitEnv:
                                                      reverted=True))
         self.state_size = cfg.num_layers * n * (n + 6)
 
-        # --- tape capacities (static shapes across the whole run) -----------
+        # --- tape capacities (static shapes across the whole run): in
+        # in_state placement the embedded warm start rides every tape -------
         max_steps = self.num_layers_termination + 1
-        self.tape_capacity = max_steps
-        self.rot_capacity = max_steps
+        self.tape_capacity = self.rot_capacity = max_steps
+        if in_state and self.tn_tape is not None:
+            self.tape_capacity += self.tn_tape.n_gates
+            self.rot_capacity += self.tn_tape.n_rots
 
         self.optimizer = optimizer or make_optimizer(
             cfg, self.problem.pauli, self.device, cfg.seed)
@@ -235,6 +291,13 @@ class CircuitEnv:
         self.tracker = IllegalActionTracker(n, self.action_dict)
         self._np_rng = np.random.default_rng(cfg.seed)
 
+        # in_state: layers the embedded block takes; block-coordinate state
+        self.layer_offset = 0
+        self._bc_frozen = False
+        self._bc_n_gates = 0
+        self._bc_n_rots = 0
+        self._bc_cache = None
+
         # per-step observables read by the driver
         self.energy = 0.0
         self.error = 0.0
@@ -247,6 +310,31 @@ class CircuitEnv:
         self.current_number_of_cnots = 0
         self.step_counter = -1
         self.current_bond_distance = 0
+
+    # -- block-coordinate trainable mode (EnvConfig.block_coord_k) -----------
+
+    def _bc_active(self) -> bool:
+        return (self.cfg.block_coord_k > 1
+                and self.cfg.tn_placement == "in_state"
+                and self.tn_tape is not None and self.layer_offset > 0)
+
+    def _bc_mask_prefix(self, arrs):
+        """The embedded prefix's gates turned into padding (both kernels
+        skip ``GateKind.NONE``)."""
+        kind, tq, cq, slot = arrs
+        kind = np.asarray(kind).copy()
+        kind[: self._bc_n_gates] = int(GateKind.NONE)
+        return (kind, tq, cq, slot)
+
+    def step_psi0(self):
+        """psi0 of THIS step's device call: the warm start (fixed mode,
+        joint steps) or the cached frozen-prefix state (frozen
+        block-coordinate steps)."""
+        if not self._bc_frozen:
+            return self.psi0
+        if self._bc_cache is None:
+            bc_prefix_states([self])
+        return self._bc_cache
 
     # -- helpers --------------------------------------------------------------
 
@@ -278,6 +366,20 @@ class CircuitEnv:
     def reset(self) -> np.ndarray:
         cfg = self.cfg
         self.state = StateTensor(cfg.num_layers, cfg.num_qubits)
+        self.layer_offset = 0
+        if self.tn_tape is not None and cfg.tn_placement == "in_state":
+            self.layer_offset = embed_tape(
+                self.state, self.tn_tape,
+                zero_params=bool(cfg.zero_param_init))
+        self._bc_frozen = False
+        self._bc_cache = None
+        if self._bc_active():
+            # the fresh state holds exactly the embedded block and to_tape
+            # is layer-major, so the block is a strict tape prefix with
+            # rotation slots [0, n_rots)
+            ptape = self._tape(self.state)
+            self._bc_n_gates = ptape.n_gates
+            self._bc_n_rots = ptape.n_rots
         if cfg.rand_halt:
             # episode lengths matched to the reference's
             # clip(NegBinom(70, 0.573), 25, 70) draw
@@ -304,8 +406,11 @@ class CircuitEnv:
 
     def step_begin(self, action):
         """Host phase: place the gate and return the device-call payload
-        (old/new tape arrays, warm start, number of live angles, remap)."""
+        (old/new tape arrays, warm start, number of live angles, remap); on
+        a frozen block-coordinate step the tapes carry the embedded prefix
+        as padding and ``step_psi0`` gives the state it leaves."""
         n = self.num_qubits
+        off = self.layer_offset
         old_state = self.state
         next_state = self.state.copy()
         self.step_counter += 1
@@ -318,13 +423,14 @@ class CircuitEnv:
             gate_layer = max(self.moments[ctrl], self.moments[targ])
 
         if ctrl < n:
-            next_state.place_cnot(gate_layer, ctrl, targ)
+            next_state.place_cnot(off + gate_layer, ctrl, targ)
             m = max(self.moments[ctrl], self.moments[targ]) + 1
             self.moments[ctrl] = m
             self.moments[targ] = m
             self.current_number_of_cnots += 1
         elif rot_qubit < n:
-            next_state.place_rotation(gate_layer, rot_axis - 1, rot_qubit, 0.0)
+            next_state.place_rotation(off + gate_layer, rot_axis - 1,
+                                      rot_qubit, 0.0)
             self.moments[rot_qubit] += 1
 
         self.current_action = list(action)
@@ -334,14 +440,27 @@ class CircuitEnv:
         new_tape = self._tape(next_state)
         map_idx = self._angle_map(old_state, next_state)
         self._pending = (old_state, next_state, old_tape)
-        return (old_tape.arrays(), old_tape.x0(), old_tape.n_rots,
-                new_tape.arrays(), map_idx)
+        old_arrs, new_arrs = old_tape.arrays(), new_tape.arrays()
+        self._bc_frozen = (self._bc_active() and self.step_counter
+                           % self.cfg.block_coord_k != 0)
+        if self._bc_frozen:
+            old_arrs = self._bc_mask_prefix(old_arrs)
+            new_arrs = self._bc_mask_prefix(new_arrs)
+        return (old_arrs, old_tape.x0(), old_tape.n_rots, new_arrs, map_idx)
 
     def step_finish(self, x_opt, energy, nfev, train_flag: bool = True):
         """Apply the device results; compute reward, done and curriculum."""
         old_state, next_state, old_tape = self._pending
         self._pending = None
         opt_angles = np.asarray(x_opt)[: old_tape.n_rots].copy()
+        if self._bc_frozen:
+            # the masked prefix's angles saw no gradient, but the start
+            # perturbation moved them in the returned vector: keep the
+            # embedded block's angles as they were
+            opt_angles[: self._bc_n_rots] = old_tape.x0()[: self._bc_n_rots]
+        elif self._bc_active():
+            # a joint step moved the prefix angles: drop the cached state
+            self._bc_cache = None
         old_state.set_rot_angles(opt_angles)
         next_state.thetas = old_state.thetas
         self.opt_ang_save = opt_angles
@@ -369,6 +488,15 @@ class CircuitEnv:
             self.curriculum_dict[self.current_prob] = copy.deepcopy(
                 self.curriculum)
         return self._observation(self.state), float(rwd), done
+
+    def step(self, action, train_flag: bool = True):
+        """One step of this env alone: the fused step on a batch of one."""
+        old_arrs, x0, n_rots, new_arrs, map_idx = self.step_begin(action)
+        x_opt, e_new, nfev = self.optimizer.fused_step_batch(
+            self.step_psi0(), tuple(a[None] for a in old_arrs), x0[None],
+            np.asarray([n_rots]), tuple(a[None] for a in new_arrs),
+            map_idx[None])
+        return self.step_finish(x_opt[0], float(e_new[0]), nfev, train_flag)
 
     def reward_fn(self, energy: float) -> float:
         """Reference ``incremental_with_fixed_ends``

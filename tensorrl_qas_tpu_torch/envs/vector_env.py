@@ -2,7 +2,8 @@
 
 B independent episodes advance together; their per-step device work
 (multi-start angle optimization + post-action energy) is one launch of
-the fused kernel for the whole batch.  Episode bookkeeping stays
+the fused kernel for the whole batch (with a psi0 per replica in
+block-coordinate trainable mode).  Episode bookkeeping stays
 per-replica host logic, and replicas auto-reset on done, so the wrapper
 hands the agent a fixed-width stream of transitions.
 """
@@ -12,10 +13,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from tensorrl_qas_tpu_torch.envs.circuit_env import (
     CircuitEnv,
     EnvConfig,
+    bc_prefix_states,
     make_optimizer,
 )
 
@@ -72,9 +75,16 @@ class VectorCircuitEnv:
         new_arrs_b = tuple(np.stack([p[3][k] for p in payloads])
                            for k in range(4))
         map_idx_b = np.stack([p[4] for p in payloads])
+        if self.envs[0]._bc_active():
+            # block-coordinate trainable mode: each replica brings this
+            # step's own psi0 (the cached prefix state on frozen steps,
+            # |0...0> on joint ones), (B, D)
+            bc_prefix_states(self.envs)
+            psi0 = torch.stack([env.step_psi0() for env in self.envs])
+        else:
+            psi0 = self.envs[0].psi0
         x_opt_b, e_new_b, nfev = self.optimizer.fused_step_batch(
-            self.envs[0].psi0, old_arrs_b, x0_b, n_active_b, new_arrs_b,
-            map_idx_b)
+            psi0, old_arrs_b, x0_b, n_active_b, new_arrs_b, map_idx_b)
 
         obs, rewards, dones, infos = [], [], [], []
         for env, x_opt, e in zip(self.envs, x_opt_b, e_new_b):

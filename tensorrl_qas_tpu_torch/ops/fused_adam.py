@@ -16,8 +16,11 @@ For each env e of a batch, with S optimizer starts:
 CUDA tensors and runs ``fused_adam_step_reference``, the plain PyTorch
 version of the same arithmetic, on CPU tensors.  Layouts follow the JAX
 reference's public function: tapes (E, G) int32, map_idx (E, R) int32,
-p0re/p0im (1, D), hre_t/him_t (D, D) planes of H^T, starts (E, S, R),
-active (E, 1, R); returns x_opt (E, R) and e_new (E,).  The plain step
+p0re/p0im (1, D) shared by the envs or (E, D) one per env, hre_t/him_t
+(D, D) planes of H^T, starts (E, S, R), active (E, 1, R); returns x_opt
+(E, R) and e_new (E,).  G (tape capacity) and R (angle capacity) are
+independent: tapes that embed a warm-start circuit carry more gates than
+angles.  The plain step
 itself (``fused_step_plain``) takes any H operator; ``ops/fused_adam2d.py``
 runs it with flip-grouped Pauli planes.
 
@@ -251,8 +254,9 @@ def fused_step_plain(old_arrs, new_arrs, map_idx, p0re, p0im, h_apply,
     col = torch.arange(d, device=dev)
     old = _Plan(tuple(a.long() for a in old_arrs), s_n, col, starts.dtype)
     new = _Plan(tuple(a.long() for a in new_arrs), 1, col, starts.dtype)
-    re0 = p0re.reshape(1, 1, d).expand(n_env, s_n, d)
-    im0 = p0im.reshape(1, 1, d).expand(n_env, s_n, d)
+    # (1, D) planes broadcast over the envs, (E, D) planes are per env
+    re0 = p0re.reshape(-1, 1, d).expand(n_env, s_n, d)
+    im0 = p0im.reshape(-1, 1, d).expand(n_env, s_n, d)
     x = starts.clone()
     m = torch.zeros_like(x)
     v = torch.zeros_like(x)
@@ -423,7 +427,7 @@ def _library():
 
     lib = load("fused_adam_v1")
     lib.fused_adam_v1_launch.argtypes = (
-        [_PTR] * 18 + [_I32] * 6 + [_F32, _F64, _F64]
+        [_PTR] * 18 + [_I32] * 7 + [_F32, _F64, _F64]
         + [_F32] * 3 + [_U32] * 2 + [_PTR])
     lib.fused_adam_v1_launch.restype = _I32
     lib.fused_adam_v1_smem_bytes.argtypes = [_I32] * 5
@@ -436,9 +440,9 @@ def _library():
 def check_step_inputs(name, ints, map_idx, floats, starts, active):
     """The input checks both CUDA kernels share: one device, contiguous,
     int32 tapes and map, float32 ``floats`` (p0re, p0im, the H planes,
-    starts, active), (E, G) tapes, D a power of two, the gate kinds, and
-    qubits, slots and map entries in range.  ``ints`` are the old tape's
-    four arrays, then the new tape's.
+    starts, active), psi0 planes (1, D) or (E, D), D a power of two,
+    (E, G) tapes, the gate kinds, and qubits, slots and map entries in
+    range.  ``ints`` are the old tape's four arrays, then the new tape's.
     -> (E, S, G, R, n)."""
     dev = starts.device
     for t in (*ints, map_idx, *floats):
@@ -454,11 +458,13 @@ def check_step_inputs(name, ints, map_idx, floats, starts, active):
                         "starts and active")
     n_env, s_n, r = starts.shape
     g = ints[0].shape[-1]
-    d = floats[0].shape[-1]
+    p0re, p0im = floats[:2]
+    d = p0re.shape[-1]
     n = d.bit_length() - 1
-    if d < 2 or d != 1 << n or floats[0].numel() != d:
-        raise ValueError(f"{name}: psi0 planes must be (1, D), D a power "
-                         "of two")
+    if (d < 2 or d != 1 << n or p0re.dim() != 2
+            or p0re.shape[0] not in (1, n_env) or p0im.shape != p0re.shape):
+        raise ValueError(f"{name}: psi0 planes must be (1, D) or (E, D), "
+                         "D a power of two")
     if any(t.shape != (n_env, g) for t in ints):
         raise ValueError(f"{name}: tapes must all be (E, G)")
     if map_idx.shape != (n_env, r) or active.shape != (n_env, 1, r):
@@ -502,6 +508,13 @@ def check_smem(name, smem, per):
                          f"memory (> {MAX_SMEM_BYTES})")
 
 
+def psi0_stride(p0re) -> int:
+    """Floats between two envs' psi0 rows: 0 for a (1, D) plane shared by
+    the envs, D for (E, D) planes (at E = 1 the two coincide and the
+    launch counts as shared)."""
+    return 0 if p0re.shape[0] == 1 else p0re.shape[-1]
+
+
 def launch(lib, kernel, *args):
     """Call ``<kernel>_launch`` of ``lib``; raise on a CUDA error."""
     rc = getattr(lib, f"{kernel}_launch")(*args)
@@ -527,7 +540,8 @@ def fused_adam_step(old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t,
     PyTorch version for CPU tensors.  See the module docstring for the
     layouts and ``noise`` / ``seeds``.  ``fused_adam_step.launches`` counts
     kernel launches, ``fused_adam_step.noise_launches`` those of the noise
-    variant among them."""
+    variant and ``fused_adam_step.psi0_launches`` those with per-env psi0
+    planes among them."""
     if starts.device.type == "cpu":
         return fused_adam_step_reference(
             old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t, starts,
@@ -547,16 +561,19 @@ def fused_adam_step(old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t,
                "env")
     x_opt = torch.empty((n_env, r), dtype=torch.float32, device=starts.device)
     e_new = torch.empty((n_env,), dtype=torch.float32, device=starts.device)
+    stride = psi0_stride(p0re)
     stream = torch.cuda.current_stream(starts.device).cuda_stream
     launch(lib, "fused_adam_v1",
            *(t.data_ptr() for t in ints), map_idx.data_ptr(),
            *(t.data_ptr() for t in floats), seeds_ptr, x_opt.data_ptr(),
-           e_new.data_ptr(), n_env, s_n, g, r, n, int(iters), float(lr), B1,
-           B2, 1.0 - B1, 1.0 - B2, EPS, thr1, thr2, stream)
+           e_new.data_ptr(), n_env, s_n, g, r, n, stride, int(iters),
+           float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS, thr1, thr2, stream)
     fused_adam_step.launches += 1
     fused_adam_step.noise_launches += noise is not None
+    fused_adam_step.psi0_launches += stride != 0
     return x_opt, e_new
 
 
 fused_adam_step.launches = 0
 fused_adam_step.noise_launches = 0
+fused_adam_step.psi0_launches = 0

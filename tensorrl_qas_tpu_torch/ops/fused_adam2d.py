@@ -2,8 +2,8 @@
 Pauli H, fused, for 7 <= n <= 18 qubits.
 
 Counterpart of ``tensorrl_qas_tpu/ops/pallas_opt2d.py`` (the v2 kernel,
-with its noise variant and without its per-env psi0 variant).  The step
-is the one of ``ops/fused_adam.py``; only H psi differs.  Pauli terms
+with its noise and per-env psi0 variants).  The step is the one of
+``ops/fused_adam.py``; only H psi differs.  Pauli terms
 that flip the same bits f combine into one coefficient plane W_f, so
 
     (H psi)[i] = sum_f W_f(i) * psi[i ^ f]
@@ -15,12 +15,13 @@ LiH instead of a dense (4096, 4096) matrix.
 ``fused_adam_step2d`` launches the CUDA kernel ``csrc/fused_adam_v2.cu``
 on CUDA tensors and runs ``fused_adam_step2d_reference``, the plain
 PyTorch version of the same arithmetic, on CPU tensors.  Layouts: tapes
-(E, G) int32, map_idx (E, R) int32, p0re/p0im (1, D), wre/wim (G_f, D)
-flip-group planes, flips (G_f,) int32, starts (E, S, R), active
-(E, 1, R); returns x_opt (E, R) and e_new (E,).  ``noise=(p1, p2)`` with
-``seeds`` (E, 2) int32 is the depolarizing-trajectory variant of
-``ops/fused_adam.py``.  The JAX package keeps the same planes in
-(G_f, D / 128, 128) lane tiles; ``optim/angle_opt.py:
+(E, G) int32, map_idx (E, R) int32, p0re/p0im (1, D) shared or (E, D)
+one per env (the JAX kernel's ``per_env_psi0``, which takes (E, D / 128,
+128) blocks), wre/wim (G_f, D) flip-group planes, flips (G_f,) int32,
+starts (E, S, R), active (E, 1, R); returns x_opt (E, R) and e_new (E,).
+``noise=(p1, p2)`` with ``seeds`` (E, 2) int32 is the depolarizing-
+trajectory variant of ``ops/fused_adam.py``.  The JAX package keeps the
+same planes in (G_f, D / 128, 128) lane tiles; ``optim/angle_opt.py:
 operands2d_from_jax`` converts them.
 """
 
@@ -108,7 +109,7 @@ def _library():
 
     lib = load("fused_adam_v2")
     lib.fused_adam_v2_launch.argtypes = (
-        [_PTR] * 23 + [_I32] * 7 + [_F32, _F64, _F64]
+        [_PTR] * 23 + [_I32] * 8 + [_F32, _F64, _F64]
         + [_F32] * 3 + [_U32] * 2 + [_PTR])
     lib.fused_adam_v2_launch.restype = _I32
     lib.fused_adam_v2_smem_bytes.argtypes = [_I32] * 5
@@ -154,8 +155,9 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     tensors, the plain PyTorch version for CPU tensors.  See the module
     docstring for the layouts and ``noise`` / ``seeds``.
     ``fused_adam_step2d.launches`` counts kernel launches,
-    ``fused_adam_step2d.noise_launches`` those of the noise variant among
-    them."""
+    ``fused_adam_step2d.noise_launches`` those of the noise variant and
+    ``fused_adam_step2d.psi0_launches`` those with per-env psi0 planes
+    among them."""
     if starts.device.type == "cpu":
         return fused_adam_step2d_reference(
             old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
@@ -183,6 +185,7 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     arrived = torch.zeros((n_env,), dtype=torch.int32, device=dev)
     n_work = lib.fused_adam_v2_workspace_floats(n_env, s_n, n)
     work = torch.empty((n_work,), **f32) if n_work else None
+    stride = fused_adam.psi0_stride(p0re)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fused_adam.launch(
         lib, "fused_adam_v2", *(t.data_ptr() for t in ints),
@@ -191,12 +194,14 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
         active.data_ptr(), seeds_ptr, x_opt.data_ptr(), e_new.data_ptr(),
         best_x.data_ptr(), best_e.data_ptr(), arrived.data_ptr(),
         None if work is None else work.data_ptr(), n_env, s_n, g, r, n,
-        n_groups, int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS,
-        thr1, thr2, stream)
+        n_groups, stride, int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2,
+        EPS, thr1, thr2, stream)
     fused_adam_step2d.launches += 1
     fused_adam_step2d.noise_launches += noise is not None
+    fused_adam_step2d.psi0_launches += stride != 0
     return x_opt, e_new
 
 
 fused_adam_step2d.launches = 0
 fused_adam_step2d.noise_launches = 0
+fused_adam_step2d.psi0_launches = 0

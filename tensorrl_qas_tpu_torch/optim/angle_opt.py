@@ -278,10 +278,17 @@ class AngleOptimizer:
                          new_arrs_b, map_idx_b):
         """One env step for B env replicas in one device call.
 
-        psi0: (D,) complex tensor on the optimizer's device, shared by the
-        batch; old/new_arrs_b: tuples of (B, G) int arrays; x0_b (B, R);
-        n_active_b (B,); map_idx_b (B, R).
+        psi0: complex tensor on the optimizer's device, (D,) shared by the
+        batch or (B, D) one per env (block-coordinate trainable mode);
+        old/new_arrs_b: tuples of (B, G) int arrays; x0_b (B, R);
+        n_active_b (B,); map_idx_b (B, R).  G and R are independent (an
+        embedded warm start gives more gates than angles).
         Returns (x_opt (B, R) numpy, e_new (B,) numpy, nfev).
+
+        Both engines take either psi0 layout, so the engine choice does
+        not depend on it.  The JAX package differs here: its v1 kernel
+        takes a shared psi0 only, and a (B, D) psi0 drops v1 to its XLA
+        path (reference ``optim/angle_opt.py:694-699``).
         """
         dev = self.device
 
@@ -313,10 +320,11 @@ class AngleOptimizer:
             step, h_ops = fused_adam_step, self.h_planes()
         else:
             step, h_ops = fused_adam_step2d, self.w_planes()
+        p0 = psi0.reshape(-1, psi0.shape[-1])
         x_opt, e_new = step(
             old, new, ints(map_idx_b),
-            psi0.real.reshape(1, -1).to(self.rdtype).contiguous(),
-            psi0.imag.reshape(1, -1).to(self.rdtype).contiguous(),
+            p0.real.to(self.rdtype).contiguous(),
+            p0.imag.to(self.rdtype).contiguous(),
             *h_ops, starts.contiguous(), active[:, None, :].contiguous(),
             iters=self.iters, lr=self.lr, **noise)
         return (x_opt.cpu().numpy(),

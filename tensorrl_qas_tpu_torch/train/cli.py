@@ -8,10 +8,15 @@ Same invocation shape as the JAX package's CLI and the reference
         --experiment_name TensorRL_fixed/ --vector 128 --total_steps 2560
 
 Runs on the CUDA card unless ``--device cpu``.  The port covers the
-vectorized trainer in TensorRL-fixed mode, noiseless or with depolarizing
-noise (``--config H2O8q_TNbond2_noise``, or ``--noise depolarizing``);
-the sequential driver, the other modes and most override flags of the JAX
-CLI are not ported yet.
+vectorized trainer in the three config families: TensorRL-fixed (the warm
+start compiled into psi0), TensorRL-trainable and StructureRL (the warm
+start embedded in the RL state, its angles re-optimized with the agent's;
+``--experiment_name TensorRL_trainable/`` or ``StructureRL/``, or
+``--tn_placement in_state``), with block-coordinate optimization of the
+embedded block (``--block_coord K``), noiseless or with depolarizing
+noise (``--config H2O8q_TNbond2_noise``, or ``--noise depolarizing``).
+The sequential driver, su4, shot noise, COBYLA and most override flags of
+the JAX CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="config file name without .cfg")
     p.add_argument("--experiment_name", type=str, default="TensorRL_fixed/",
                    help="config family directory (with trailing slash)")
+    p.add_argument("--tn_placement", choices=["fixed", "in_state"],
+                   default=None,
+                   help="override the warm-start placement inferred from "
+                        "the experiment name")
     p.add_argument("--noise", choices=["none", "depolarizing", "shot"],
                    default=None,
                    help="override the noise mode inferred from the names")
@@ -76,6 +85,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override the multi-start count (0 = default 8)")
     p.add_argument("--batch_size", type=int, default=0,
                    help="override [agent] batch_size (0 = config)")
+    p.add_argument("--block_coord", type=int, default=0,
+                   help="trainable (in_state) mode: re-optimize the "
+                        "embedded warm-start block only every K-th step; "
+                        "the steps between carry only the agent's gates on "
+                        "a cached prefix statevector (0 = joint "
+                        "optimization every step, the reference's)")
     return p
 
 
@@ -89,6 +104,8 @@ def run(argv=None) -> dict:
     conf = get_config(args.experiment_name, f"{args.config}.cfg")
     tn_placement, noise_mode, topology = infer_modes(args.experiment_name,
                                                      args.config)
+    if args.tn_placement:
+        tn_placement = args.tn_placement
     if args.noise:
         noise_mode = args.noise
     conf["env"]["topology"] = topology
@@ -98,6 +115,7 @@ def run(argv=None) -> dict:
         (args.global_iters, "non_local_opt", "global_iters"),
         (args.n_starts, "env", "n_starts"),
         (args.batch_size, "agent", "batch_size"),
+        (args.block_coord, "env", "block_coord_k"),
     ]
     for value, section, key in overrides:
         if value:

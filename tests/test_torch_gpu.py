@@ -22,13 +22,22 @@ noise variant must equal the noiseless kernel (bit for bit expected,
 1e-6 allowed, the atol of tests/test_noise_pallas.py's p = 0 test).  The
 5-qubit Kraus check holds the mean of several thousand trajectory samples
 of the v1 noise variant within 5 sigma + 1e-3 of the exact channel.  Both
-kernels take 16 starts, and v1 runs at 4 and 5 qubits."""
+kernels take 16 starts, and v1 runs at 4 and 5 qubits.
+
+Per-env psi0 ((E, D) planes, block-coordinate trainable mode) is held to
+the same rule for v1 and for v2 at 12 and 14 qubits (state in shared
+memory, then in the workspace); the shared psi0 of row 0 must fail it, and
+identical rows must give the shared launch bit for bit.  Both kernels run
+at the trainable configs' capacities, where the tapes embed the warm start
+and G != R: v1 at H2O 8q (G = 172, R = 151; noisy at the _noise config),
+v2 at LiH 12q (G = 244, R = 211)."""
 
 import numpy as np
 import pytest
 import torch
 
 from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
+from tensorrl_qas_tpu_torch.envs.circuit_env import CircuitEnv, EnvConfig
 from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
 from tensorrl_qas_tpu_torch.optim.angle_opt import (
     AngleOptimizer,
@@ -36,6 +45,7 @@ from tensorrl_qas_tpu_torch.optim.angle_opt import (
 )
 from tensorrl_qas_tpu_torch.problems.hamiltonians import load_problem
 from tensorrl_qas_tpu_torch.sim.expectation import PauliSum
+from tensorrl_qas_tpu_torch.train.config import get_config
 
 H2O = "H -0.021 -0.002 0.000; O 0.835 0.452 0.000; H 1.477 -0.273 0.000"
 LIH = "Li 0.000 0.000 0.000; H 0.000 0.000 3.400"
@@ -47,14 +57,26 @@ def _card():
     return torch.device("cuda")
 
 
-def _tapes(dev, n, n_env, n_starts, cap, seed):
+def _tapes(dev, n, n_env, n_starts, cap, seed, prefix=None, rot_cap=None):
     """Random mid-episode tapes, the remap, a random psi0 and the starts:
-    (old, new, map_idx, p0re, p0im) and (starts, active) on ``dev``."""
+    (old, new, map_idx, p0re, p0im) and (starts, active) on ``dev``.  A
+    ``prefix`` tape (an embedded warm start) opens every tape, whose
+    capacities are then ``cap`` gates and ``rot_cap`` angles."""
     rng = np.random.default_rng(seed)
+    rot_cap = rot_cap or cap
+    head = []
+    if prefix is not None:
+        head = [(GateKind(int(prefix.kind[g])), int(prefix.tq[g]),
+                 int(prefix.cq[g]), float(prefix.angles[prefix.angle_slot[g]])
+                 if prefix.angle_slot[g] >= 0 else 0.0)
+                for g in range(prefix.n_gates)]
     olds, news, x0s, n_rots = [], [], [], []
     for _ in range(n_env):
-        old, new = GateTape(n, cap, cap), GateTape(n, cap, cap)
-        for _ in range(int(rng.integers(0, cap))):
+        old, new = GateTape(n, cap, rot_cap), GateTape(n, cap, rot_cap)
+        for gate in head:
+            old.add(*gate)
+            new.add(*gate)
+        for _ in range(int(rng.integers(0, cap - len(head)))):
             t = int(rng.integers(n))
             if rng.random() < 0.4:
                 gate = (GateKind.CX, t, int((t + 1 + rng.integers(n - 1)) % n),
@@ -69,7 +91,7 @@ def _tapes(dev, n, n_env, n_starts, cap, seed):
         news.append(new.arrays())
         x0s.append(old.x0())
         n_rots.append(old.n_rots)
-    maps = np.stack([np.where(np.arange(cap) < k, np.arange(cap), -1)
+    maps = np.stack([np.where(np.arange(rot_cap) < k, np.arange(rot_cap), -1)
                      for k in n_rots]).astype(np.int32)
     psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
     psi0 /= np.linalg.norm(psi0)
@@ -80,7 +102,7 @@ def _tapes(dev, n, n_env, n_starts, cap, seed):
                      for k in range(4))
 
     x0 = torch.as_tensor(np.stack(x0s), dtype=torch.float32, device=dev)
-    active = (torch.arange(cap, device=dev)[None, :]
+    active = (torch.arange(rot_cap, device=dev)[None, :]
               < torch.as_tensor(n_rots, device=dev)[:, None]).float()
     starts = make_multistarts(x0, active, n_starts, n_starts // 4, 0.1,
                               torch.Generator(device=dev).manual_seed(1))
@@ -355,3 +377,111 @@ def test_noise_kernel_trajectories_match_kraus_at_5_qubits():
     es = e_new.double().cpu().numpy() + opt.offset
     assert es.std() > 0.0
     assert abs(es.mean() - exact) < 5 * es.std() / np.sqrt(n_env) + 1e-3
+
+
+# -- per-env psi0 and the trainable capacities -------------------------------
+
+def _per_env(args, seed=3):
+    """``args`` with one random psi0 row per env, (E, D) planes."""
+    n_env, d = args[-1].shape[0], args[3].shape[-1]
+    rng = np.random.default_rng(seed)
+    psi = rng.normal(size=(n_env, d)) + 1j * rng.normal(size=(n_env, d))
+    psi /= np.linalg.norm(psi, axis=1, keepdims=True)
+    f32 = dict(dtype=torch.float32, device=args[3].device)
+    return (*args[:3], torch.as_tensor(psi.real, **f32),
+            torch.as_tensor(psi.imag, **f32), *args[5:])
+
+
+def _psi0_case(case, dev):
+    """(wrapper, plain version, shared-psi0 arguments)."""
+    if case == "v1":
+        return (fused_adam.fused_adam_step,
+                fused_adam.fused_adam_step_reference, _inputs(dev))
+    n = int(case.split()[1][:-1])
+    return (fused_adam2d.fused_adam_step2d,
+            fused_adam2d.fused_adam_step2d_reference,
+            _inputs2d(dev, n, n_env=4 if n < 14 else 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["v1", "v2 12q", "v2 14q"])
+def test_per_env_psi0_kernel_matches_plain_version(case):
+    dev = _card()
+    step, plain, shared = _psi0_case(case, dev)
+    args = _per_env(shared)
+    before = step.psi0_launches
+    ok, strict, _ = _held_to_plain(step, plain, args)
+    assert step.psi0_launches == before + 1
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+    # the kernel given row 0 for every env (a stride ignored) is flagged
+    ref = fused_adam.plain_results(args, iters=3, lr=0.1, step=plain)
+    row0 = (*args[:3], args[3][:1], args[4][:1], *args[5:])
+    xw, ew = step(*row0, iters=3, lr=0.1)
+    wrong, _, _ = fused_adam.agreement(args, ref, xw, ew, tol=1e-5,
+                                       step=plain)
+    assert (~wrong[1:]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["v1", "v2 12q", "v2 14q"])
+def test_per_env_psi0_identical_rows_equal_the_shared_launch(case):
+    dev = _card()
+    step, _, args = _psi0_case(case, dev)
+    n_env = args[-1].shape[0]
+    rows = (*args[:3], *(p.expand(n_env, -1).contiguous()
+                         for p in args[3:5]), *args[5:])
+    before = (step.launches, step.psi0_launches)
+    xs, es = step(*args, iters=5, lr=0.1)
+    xp, ep = step(*rows, iters=5, lr=0.1)
+    assert (step.launches, step.psi0_launches) == (before[0] + 2,
+                                                   before[1] + 1)
+    assert torch.equal(xp, xs) and torch.equal(ep, es)
+
+
+def _trainable(dev, config, n_env, noisy=False):
+    """Arguments at an in_state config's capacities: every tape opens with
+    the embedded warm start (from the env's own reset), then random gates;
+    H operands from the env's optimizer."""
+    env = CircuitEnv(EnvConfig.from_conf(
+        get_config("TensorRL_trainable/", f"{config}.cfg"),
+        tn_placement="in_state",
+        noise_mode="depolarizing" if noisy else "none", device=dev))
+    env.reset()
+    g, r = env.tape_capacity, env.rot_capacity
+    head, tail = _tapes(dev, env.num_qubits, n_env, 8, g, 0,
+                        prefix=env._tape(env.state), rot_cap=r)
+    h_ops = (env.optimizer.h_planes() if env.num_qubits < 10
+             else env.optimizer.w_planes())
+    return (g, r), (*head, *h_ops, *tail)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config, caps", [("H2O8q_TNbond2", (172, 151)),
+                                          ("LIH12q_TNbond2", (244, 211))])
+def test_kernels_at_trainable_capacities_match_plain_version(config, caps):
+    dev = _card()
+    got_caps, args = _trainable(dev, config, 8)
+    assert got_caps == caps and args[0][0].shape[1] == caps[0]
+    assert args[-1].shape[-1] == caps[1]
+    if config.startswith("H2O8q"):
+        step, plain = (fused_adam.fused_adam_step,
+                       fused_adam.fused_adam_step_reference)
+    else:
+        step, plain = (fused_adam2d.fused_adam_step2d,
+                       fused_adam2d.fused_adam_step2d_reference)
+    ok, strict, _ = _held_to_plain(step, plain, args)
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+    ok, strict, _ = _held_to_plain(step, plain, _per_env(args))
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+
+
+@pytest.mark.gpu
+def test_noise_kernel_at_trainable_noise_capacity_matches_plain_version():
+    dev = _card()
+    caps, args = _trainable(dev, "H2O8q_TNbond2_noise", 8, noisy=True)
+    assert caps == (172, 151)
+    ok, strict, wrong = _held_to_plain(
+        fused_adam.fused_adam_step, fused_adam.fused_adam_step_reference,
+        args, noise=(0.01, 0.05), seeds=_seeds(dev, 8, seed=2))
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+    assert (~wrong).any()
