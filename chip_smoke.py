@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card: both engines of the fused
 Adam env step, noiseless, with depolarizing noise and with a psi0 per env,
-and the vectorized trainer through each of the six kernel variants, in the
-TensorRL-fixed, TensorRL-trainable and StructureRL families.
+the composed engine's tape kernels (forward B3f, adjoint B3b), and the
+vectorized trainer through each of the six fused-kernel variants, in the
+TensorRL-fixed, TensorRL-trainable and StructureRL families, and through
+the composed engine with the su4 gate set and with shot noise.
 
     python3 chip_smoke.py
 
@@ -86,20 +88,47 @@ Phases, one line each with its seconds:
                  times.
 17. trainers v1 trainable / StructureRL / v1p -- the trainer on the
                  TensorRL_trainable/ and StructureRL/ H2O8q_TNbond2 configs
-                 (128 replicas, 20 vector steps), through v1 with shared
+                 (128 replicas, 12 vector steps), through v1 with shared
                  psi0, then on the trainable config with --block_coord 3,
                  every step through v1 with per-env psi0.
 18. kernel v2 trainable, rows v2p, kernel v2p, trainer v2p -- 14.-17. for
                  v2 at TensorRL_trainable/LIH12q_TNbond2 (E = 16, G = 244,
                  R = 211), the trainer with --block_coord 3 and 16
-                 replicas for 20 vector steps.
-19. the 100-iteration checks of 8. and 12., each when enough of the
+                 replicas for 12 vector steps.
+19. kernel tape -- the composed engine's forward (B3f) and adjoint (B3b)
+                 tape kernels against their plain versions at the su4 8-qubit
+                 shapes (E = 128, S = 8, G = R = 30, D = 256; random su4
+                 tapes plus H, Y and a controlled RY so that every gate
+                 class is hit, numpy seed 1234): forward planes within 1e-5,
+                 psi0 cotangents and angle gradients within 1e-4; RYY's sign
+                 flipped and RZZ's gradient dropped must fail; two launches
+                 bit for bit; then both kernels' and plain versions' times,
+                 and the same at 12 (E = 16) and 13 qubits (E = 8).
+20. composed su4 / shot / traj4 -- the composed step (AngleOptimizer
+                 through the tape kernels against itself on their plain
+                 versions, ops/fused_adam.py:agreement, 3 iterations, the
+                 controls of 3.): su4 tapes at H2O8q_TNbond2's su4
+                 capacities with the eager simulator as oracle; shot noise
+                 with 1024 shots at H2O8q_TNbond2_noise_restricted's
+                 capacities under the same tagged draws (and at 0 shots bit
+                 for bit the noiseless composed step); depolarizing noise
+                 over 4 trajectories at H2O8q_TNbond2_noise's; the third
+                 control of the noisy ones is a result under other draws.
+                 Then one 100-iteration composed step timed.
+21. trainers su4 / restricted -- the CLI's trainer on H2O8q_TNbond2
+                 --gate_set su4 and on H2O8q_TNbond2_noise_restricted (shot
+                 noise and the hexagon topology inferred from the name), 128
+                 replicas, 20 vector steps each: every vector step launches
+                 B3f iters + 2 times and B3b iters times, and no fused
+                 kernel.
+22. the 100-iteration checks of 8. and 12., each when enough of the
                  deadline is left (``LONG_MIN_LEFT_S``).
 
 The line before the last is a JSON object with one entry per kernel
-variant (v1, v1 noise, v2, v2 noise, v1 and v2 per-env psi0); the last line
-is {"ok": true, "device": {...}}.  Any failure, or passing the deadline,
-exits non-zero without that line.
+variant (v1, v1 noise, v2, v2 noise, v1 and v2 per-env psi0, the tape
+kernels' forward and adjoint); the last line is {"ok": true, "device":
+{...}}.  Any failure, or passing the deadline, exits non-zero without that
+line.
 
 Every kernel check and timing runs at the tape capacities that the
 trainer's env gives the config (``CircuitEnv.tape_capacity`` and
@@ -134,8 +163,23 @@ V2N_STEPS = 20
 V2N_SWEEP = (("heisenberg_14q_TNbond2", 8),)
 KRAUS_ENVS, KRAUS_P = 4096, (0.15, 0.25)
 # in_state placement: the 8q H2O configs with 128 replicas (v1), the 12q
-# LiH config with 16 (v2); block-coordinate trainers with K = 3
-T_STEPS, BLOCK_COORD = 20, ("--block_coord", "3")
+# LiH config with 16 (v2); block-coordinate trainers with K = 3; 12 vector
+# steps, the fewest with which the 8q trainers' replay runs (20 before the
+# composed engine's phases needed the time)
+T_STEPS, BLOCK_COORD = 12, ("--block_coord", "3")
+# the composed engine: tape kernels at the su4 8q shapes (the su4 config's
+# capacity G = R = 30, E = 128) and at 12 and 13 qubits (E = 16, 8); its
+# step at 3 iterations in three settings; two trainers with 128 replicas
+SU4_ARGS = ("--gate_set", "su4")
+TAPE_SHAPES = ((8, 128), (12, 16), (13, 8))
+TAPE_CAP = 30            # G = R of H2O8q_TNbond2 with the su4 warm start
+RESTRICTED_CONFIG = "H2O8q_TNbond2_noise_restricted"
+NOISY_CONFIG = "H2O8q_TNbond2_noise"
+COMPOSED_STEPS = 20
+N_SHOTS, N_TRAJ, NOISE_SEED = 1024, 4, 11
+TOL_FWD = 1e-5           # B3f planes vs plain: float32 gate arithmetic
+TOL_BWD = 1e-4           # B3b cotangents and angle gradients: float32 row
+#                          sums in another order
 TOL_P0 = 1e-6            # noise variant at p = 0 vs the noiseless kernel
 # the optional 100-iteration checks of the noise variants (run last, in
 # this order) run when this much of the deadline is left, about twice
@@ -183,11 +227,13 @@ def smi_line() -> str:
     return out.splitlines()[0]
 
 
-def draw_batch(rng, n_env, cap, rot_cap, n_qubits, prefix=None):
+def draw_batch(rng, n_env, cap, rot_cap, n_qubits, prefix=None,
+               gate_set="cnot"):
     """Mid-episode inputs: per env a tape of ``cap`` gates and ``rot_cap``
     angles that opens with the ``prefix`` tape's gates (the embedded warm
     start of in_state placement) and goes on with random CNOTs and
-    rotations, the same tape plus one gate, and the angle map."""
+    rotations (with ``gate_set='su4'``: RXX / RYY / RZZ and rotations), the
+    same tape plus one gate, and the angle map."""
     import numpy as np
 
     from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
@@ -205,7 +251,9 @@ def draw_batch(rng, n_env, cap, rot_cap, n_qubits, prefix=None):
             if rng.random() < 0.4:
                 c = int(rng.integers(n_qubits))
                 t = int((c + 1 + rng.integers(n_qubits - 1)) % n_qubits)
-                gates.append((GateKind.CX, t, c))
+                two_q = (GateKind(int(rng.integers(9, 12)))
+                         if gate_set == "su4" else GateKind.CX)
+                gates.append((two_q, t, c))
             else:
                 gates.append((GateKind(int(rng.integers(1, 4))),
                               int(rng.integers(n_qubits)), -1))
@@ -215,7 +263,7 @@ def draw_batch(rng, n_env, cap, rot_cap, n_qubits, prefix=None):
             old.add(*gate)
             new.add(*gate)
         for k, t, c in gates:
-            ang = float(rng.normal()) if c < 0 else 0.0
+            ang = float(rng.normal()) if k != GateKind.CX else 0.0
             old.add(k, t, c, ang)
             new.add(k, t, c, ang)
         new.add(GateKind(int(rng.integers(1, 4))), int(rng.integers(n_qubits)))
@@ -256,6 +304,14 @@ class Engine(NamedTuple):
     def noise(self) -> bool:
         return self.variant == "noise"
 
+    def with_optimizer(self, opt):
+        """The composed engine (variant "composed") of ``opt``: its step
+        through the tape kernels, and on their plain versions."""
+        from tensorrl_qas_tpu_torch.optim.angle_opt import composed_step
+
+        return self._replace(step=composed_step(opt),
+                             plain=composed_step(opt, plain=True))
+
     def launches(self) -> int:
         """This variant's launches since the wrapper's counts were set to
         0 (a launch that were noisy and per-env would count in both of
@@ -281,7 +337,20 @@ REPLACES = {
                      "(_make_kernel, noise=(p1, p2))",
     ("v2", "psi0"): "tensorrl_qas_tpu/ops/pallas_opt2d.py:646 "
                     "(_make_kernel, per_env_psi0=True)",
+    ("tape", "fwd"): "tensorrl_qas_tpu/ops/pallas_apply.py:473 "
+                     "(_fwd_kernel, via _call_fwd :559)",
+    ("tape", "bwd"): "tensorrl_qas_tpu/ops/pallas_apply.py:502 "
+                     "(_bwd_kernel, via _call_bwd :576, the custom_vjp of "
+                     "apply_tape_pallas_ri)",
 }
+TAPE_SOURCE = "tensorrl_qas_tpu_torch/csrc/apply_tape.cu"
+# the composed engine: a step of many tape-kernel launches, held like a
+# fused step (its step / plain come from an optimizer, with_optimizer)
+COMPOSED = Engine(
+    name="composed", replaces=REPLACES["tape", "fwd"], source=TAPE_SOURCE,
+    step=None, variant="composed", plain=None,
+    h_ops=lambda opt: opt.h_planes(), smem_bytes=lambda case: None,
+    h_rows=lambda case: 1 << case.n)
 
 
 def engines():
@@ -325,9 +394,13 @@ class Case:
     psi0 (one row per env for the per-env psi0 variant), starts from the
     optimizer's start rule; the problem and the H operands from that env's
     optimizer.  For a noise variant, p1 and p2 from that optimizer (the
-    config's) and seeds per env from a torch generator (``noise_kw``)."""
+    config's) and seeds per env from a torch generator (``noise_kw``).
+    ``gate_set='su4'``: the su4 env's capacities and su4 tapes; the
+    composed engine's noisy settings set ``noise_kw`` to their seed and
+    ``has_oracle`` to False afterwards."""
 
-    def __init__(self, engine, config, n_env, family=FIXED):
+    def __init__(self, engine, config, n_env, family=FIXED,
+                 gate_set="cnot"):
         import numpy as np
         import torch
 
@@ -340,9 +413,10 @@ class Case:
 
         dev = torch.device("cuda")
         in_state = family != FIXED
+        conf = get_config(family, f"{config}.cfg")
+        conf["env"]["gate_set"] = gate_set
         env = CircuitEnv(EnvConfig.from_conf(
-            get_config(family, f"{config}.cfg"),
-            tn_placement="in_state" if in_state else "fixed",
+            conf, tn_placement="in_state" if in_state else "fixed",
             noise_mode="depolarizing" if engine.noise else "none",
             device="cuda"))
         self.n = n = env.num_qubits
@@ -355,8 +429,9 @@ class Case:
             env.reset()
             prefix = env._tape(env.state)
         rng = np.random.default_rng(1234)
+        self.has_oracle = True
         self.old, self.new, self.maps, x0, n_rots = draw_batch(
-            rng, n_env, g, r, n, prefix)
+            rng, n_env, g, r, n, prefix, gate_set)
         rows = n_env if engine.variant == "psi0" else 1
         psi0 = (rng.normal(size=(rows, 1 << n))
                 + 1j * rng.normal(size=(rows, 1 << n)))
@@ -412,8 +487,11 @@ class Case:
         out = [("lr x 1.01", self.args, LR * 1.01, self.noise_kw, (3,), 0.0),
                ("RY gradients dropped", (*self.args[:-1], no_ry), LR,
                 self.noise_kw, (3, ITERS), 0.0)]
-        if self.noise_kw:
+        if self.noise_kw.get("noise") is not None:
             out.append(("noiseless kernel", self.args, LR, {}, (3,), 0.5))
+        if "seed" in self.noise_kw:
+            out.append(("other draws", self.args, LR,
+                        {"seed": self.noise_kw["seed"] + 1}, (3,), 0.5))
         if len(self.psi0) > 1:
             row0 = (*self.args[:3], self.args[3][:1], self.args[4][:1],
                     *self.args[5:])
@@ -475,8 +553,10 @@ def check_kernel(engine, case, label, iters, tol, controls=()):
     env_ok, _, stats = fused_adam.agreement(
         case.args, ref, xk, ek, tol=tol, check_x=iters == 3,
         step=engine.plain, iters=iters, **kw)
-    oracle = case.oracle_error(xk, ek, range(0, case.n_env,
-                                             max(1, case.n_env // 8)), iters)
+    oracle = (case.oracle_error(xk, ek, range(0, case.n_env,
+                                              max(1, case.n_env // 8)),
+                                iters)
+              if case.has_oracle else float("nan"))
     caught = {}
     for name, c_args, c_lr, c_kw, required, share in controls:
         xc, ec = engine.step(*c_args, iters=iters, lr=c_lr, **c_kw)
@@ -491,7 +571,8 @@ def check_kernel(engine, case, label, iters, tol, controls=()):
             raise AssertionError(f"{label}: control {name!r} passed the "
                                  f"check at iters={iters} in "
                                  f"{case.n_env - flagged}/{case.n_env} envs")
-    ok = (bool(env_ok.all()) and oracle <= TOL_ORACLE
+    ok = (bool(env_ok.all())
+          and (oracle <= TOL_ORACLE or not case.has_oracle)
           and bool(torch.isfinite(ek).all())
           and bool(torch.isfinite(xk).all()))
     info = dict(tol=tol, **stats, oracle_max_abs_err=f"{oracle:.3e}")
@@ -506,40 +587,57 @@ def check_kernel(engine, case, label, iters, tol, controls=()):
     return stats
 
 
+def tape_flops(tape, dim, table):
+    """(E,) floating-point operations of one pass of each env's tape over
+    one state (an FMA counts 2): ``table`` gives the operations per
+    amplitude pair by gate kind; a controlled 1-qubit gate touches D/4
+    pairs, every other gate D/2 (a two-qubit rotation's cq is its second
+    qubit, not a control)."""
+    import numpy as np
+
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+
+    kinds, _, cqs, _ = (np.asarray(a) for a in tape)
+    controlled = (cqs >= 0) & (kinds < int(GateKind.RXX))
+    pairs = np.where(controlled, dim // 4, dim // 2)
+    per_pair = sum(np.where(np.isin(kinds, k), v, 0) for k, v in table)
+    return (per_pair * pairs).sum(axis=1)
+
+
+def gate_tables():
+    """Operations per amplitude pair, forward and adjoint.  A rotation
+    (RX, RY, RZ, and RXX, RYY, RZZ, whose pairs are (i, i ^ 2^t ^ 2^c) or,
+    for RZZ, two phases) takes 12 forward (two complex entries, one of
+    them a real cos and the other a real or imaginary sin) and 32 in the
+    adjoint (U^H on psi, U^T on lambda, 8 for its gradient term); H 8
+    forward and 16 adjoint; CX, X, Y and Z none (a permutation or a
+    sign)."""
+    from tensorrl_qas_tpu_torch.circuits.tape import ROTATION_KINDS, GateKind
+
+    rot = tuple(int(k) for k in ROTATION_KINDS)
+    h = (int(GateKind.H),)
+    return ((rot, 12), (h, 8)), ((rot, 32), (h, 16))
+
+
 def flop_count(case, h_rows):
-    """Floating-point operations one fused step needs on this batch (an
-    FMA counts 2), from its tapes gate by gate.  Per amplitude pair a
-    rotation takes 12 forward (two complex entries, one of them a real
-    cos and the other a real or imaginary sin) and 32 backward (U^H on
-    psi, U^T on lambda, 8 for its gradient term); H 8 forward and 16
-    backward; CX, X, Y and Z none (a permutation or a sign).  A controlled
-    gate touches D/4 pairs, others D/2.  Per evaluation H psi takes 8 per
-    entry of the ``h_rows`` x D operand, the Rayleigh quotient 8 per
-    amplitude, lambda = 2 conj(H psi) 2; each Adam update about 12 per
-    active angle and start.  A noise variant's error Paulis are swaps and
-    signs: no flops."""
+    """Floating-point operations one fused step needs on this batch, from
+    its tapes gate by gate (``tape_flops``, ``gate_tables``).  Per
+    evaluation H psi takes 8 per entry of the ``h_rows`` x D operand, the
+    Rayleigh quotient 8 per amplitude, lambda = 2 conj(H psi) 2; each Adam
+    update about 12 per active angle and start.  A noise variant's error
+    Paulis are swaps and signs: no flops."""
     import numpy as np
 
     from tensorrl_qas_tpu_torch.circuits.tape import GateKind
 
     rot = (GateKind.RX, GateKind.RY, GateKind.RZ)
     dim = 1 << case.n
-
-    def per_pair(kinds, table):
-        return sum(np.where(np.isin(kinds, k), v, 0) for k, v in table)
-
-    def gate_flops(tape, table):
-        kinds, _, cqs, _ = tape
-        pairs = np.where(cqs >= 0, dim // 4, dim // 2)
-        return (per_pair(kinds, table) * pairs).sum(axis=1)    # (E,)
-
-    fwd = ((rot, 12), ((GateKind.H,), 8))
-    bwd = ((rot, 32), ((GateKind.H,), 16))
+    fwd, bwd = gate_tables()
     evals = (ITERS + 1) * STARTS          # iterations and the final check
     n_rot = np.isin(case.old[0], rot).sum(axis=1)
-    per_env = (evals * gate_flops(case.old, fwd)
-               + ITERS * STARTS * gate_flops(case.old, bwd)
-               + gate_flops(case.new, fwd)
+    per_env = (evals * tape_flops(case.old, dim, fwd)
+               + ITERS * STARTS * tape_flops(case.old, dim, bwd)
+               + tape_flops(case.new, dim, fwd)
                + (evals + 1) * (h_rows * dim * 8 + dim * 8)
                + ITERS * STARTS * (dim * 2 + n_rot * 12))
     return float(per_env.sum())
@@ -561,6 +659,30 @@ def time_cuda(fn, warmup, reps):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def time_back_to_back(fn, launches=20):
+    """ms per call of ``fn`` over ``launches`` calls between two CUDA
+    events (after 2 warm-up calls), so that a short kernel's launches queue
+    up behind each other; the median of 5 such runs."""
+    return time_cuda(lambda: [fn() for _ in range(launches)], warmup=2,
+                     reps=5) / launches
+
+
+def device_ms(fn, name, reps=10):
+    """Device time per call of the kernels whose names contain ``name``,
+    from torch.profiler's CUDA activity over ``reps`` calls (None when the
+    trace holds no device time for them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if name in e.key)
+    return total / reps / 1e3 if total else None
 
 
 def time_kernel(engine, case, label, time_plain=True):
@@ -727,18 +849,236 @@ def kraus_phase(noisy):
                              "Kraus channel or its plain version")
 
 
-def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
-                  expect_replay=True, family=FIXED):
-    """The CLI's trainer on ``family``/``config`` for ``vector_steps``
-    steps with every kernel's launch count set to 0 just before and read
-    just after; every step must have launched ``engine`` once and no other
-    kernel."""
+def draw_tape_batch(rng, n_env, s_n, cap, n):
+    """Random su4 tapes of ``cap`` gates and angles, each opening with H, Y,
+    a controlled RY, RXX, RYY and RZZ (every gate class of the TPU
+    kernel's ``_gate_class``) and going on with random RXX / RYY / RZZ and
+    RX / RY / RZ; random unit psi rows, angles and unit-norm cotangent rows
+    on the card: (planes, tape, angles, cotangents)."""
     import numpy as np
     import torch
 
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
+
+    tapes = []
+    for _ in range(n_env):
+        tape = GateTape(n, cap, cap)
+        t = int(rng.integers(n))
+        c = int((t + 1 + rng.integers(n - 1)) % n)
+        tape.add(GateKind.H, t)
+        tape.add(GateKind.Y, c)
+        tape.add(GateKind.RY, t, c, float(rng.normal()))
+        for k in (GateKind.RXX, GateKind.RYY, GateKind.RZZ):
+            tape.add(k, t, c, float(rng.normal()))
+        for _ in range(int(rng.integers(0, cap - 6))):
+            t = int(rng.integers(n))
+            c = int((t + 1 + rng.integers(n - 1)) % n)
+            if rng.random() < 0.5:
+                tape.add(GateKind(int(rng.integers(9, 12))), t, c,
+                         float(rng.normal()))
+            else:
+                tape.add(GateKind(int(rng.integers(1, 4))), t,
+                         angle=float(rng.normal()))
+        tapes.append(tape.arrays())
+    dev = torch.device("cuda")
+    d = 1 << n
+    psi = (rng.normal(size=(n_env, s_n, d))
+           + 1j * rng.normal(size=(n_env, s_n, d)))
+    psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
+    lam = rng.normal(size=(2, n_env, s_n, d))
+    lam /= np.linalg.norm(lam, axis=(0, 3), keepdims=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    tape = tuple(torch.as_tensor(np.stack([a[k] for a in tapes]),
+                                 dtype=torch.int32, device=dev)
+                 for k in range(4))
+    return ((torch.as_tensor(psi.real, **f32),
+             torch.as_tensor(psi.imag, **f32)), tape,
+            torch.as_tensor(rng.normal(size=(n_env, s_n, cap)), **f32),
+            (torch.as_tensor(lam[0], **f32), torch.as_tensor(lam[1], **f32)))
+
+
+def tape_phase(n, n_env, cap, label):
+    """B3f and B3b against their plain versions on one random batch, the
+    two controls, a repeat bit for bit, then their times and bounds.
+    -> {"fwd": entry, "bwd": entry} of the kernels line (without
+    launches)."""
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    t0 = phase(label)
+    planes, tape, angles, cot = draw_tape_batch(
+        np.random.default_rng(1234), n_env, STARTS, cap, n)
+    out = at.apply_tape_fwd(*planes, *tape, angles)
+    grads = at.apply_tape_bwd(*out, *cot, *tape, angles)
+    torch.cuda.synchronize()
+    out_p = at.apply_tape_fwd_plain(*planes, *tape, angles)
+    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *tape, angles)
+
+    def max_err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+    err_f, err_b = max_err(out, out_p), max_err(grads, grads_p)
+    kind, _, _, slot = tape
+    e_idx = torch.arange(n_env, device=kind.device)[:, None]
+    ryy = torch.where(kind == int(GateKind.RYY), slot, -1)
+    flip = torch.ones_like(angles)
+    flip[e_idx.expand_as(ryy)[ryy >= 0], :, ryy[ryy >= 0].long()] = -1.0
+    wrong_f = max_err(at.apply_tape_fwd(*planes, *tape,
+                                        (angles * flip).contiguous()),
+                      out_p)
+    rzz = torch.where(kind == int(GateKind.RZZ), slot, -1)
+    dang = grads[2].clone()
+    dang[e_idx.expand_as(rzz)[rzz >= 0], :, rzz[rzz >= 0].long()] = 0.0
+    wrong_b = max_err((dang,), (grads_p[2],))
+    out2 = at.apply_tape_fwd(*planes, *tape, angles)
+    grads2 = at.apply_tape_bwd(*out2, *cot, *tape, angles)
+    bit = all(torch.equal(a, b) for a, b in zip((*out, *grads),
+                                                (*out2, *grads2)))
+    ok = (err_f <= TOL_FWD and err_b <= TOL_BWD
+          and wrong_f > 10 * TOL_FWD and wrong_b > 10 * TOL_BWD and bit
+          and all(bool(torch.isfinite(t).all()) for t in (*out, *grads)))
+    done(label, t0, E=n_env, S=STARTS, G=cap, R=cap, D=1 << n,
+         fwd_max_abs_err=f"{err_f:.3e}", bwd_max_abs_err=f"{err_b:.3e}",
+         tol=(TOL_FWD, TOL_BWD),
+         controls={"RYY sign flipped": f"{wrong_f:.3e}",
+                   "RZZ gradient dropped": f"{wrong_b:.3e}"},
+         repeat_bit_for_bit=bit, ok=ok)
+    if not ok:
+        raise AssertionError(f"{label}: the tape kernels disagree with "
+                             "their plain versions or a control passed")
+
+    t0 = phase(f"{label} timing")
+    fwd_flops_t, bwd_flops_t = gate_tables()
+    tape_np = tuple(a.cpu().numpy() for a in tape)
+    plane_bytes = planes[0].numel() * 4
+    in_bytes = sum(a.numel() * 4 for a in (*tape, angles))
+    runs = {
+        "fwd": (lambda: at.apply_tape_fwd(*planes, *tape, angles,
+                                          tapes_checked=True),
+                lambda: at.apply_tape_fwd_plain(*planes, *tape, angles),
+                fwd_flops_t, 4 * plane_bytes + in_bytes, err_f),
+        "bwd": (lambda: at.apply_tape_bwd(*out, *cot, *tape, angles,
+                                          tapes_checked=True),
+                lambda: at.apply_tape_bwd_plain(*out, *cot, *tape, angles),
+                bwd_flops_t, 6 * plane_bytes + in_bytes
+                + angles.numel() * 4, err_b)}
+    entries, info = {}, {}
+    for key, (kernel, plain, table, nbytes, err) in runs.items():
+        flops = float(STARTS * tape_flops(tape_np, 1 << n, table).sum())
+        k_ms = time_back_to_back(kernel)
+        dev_ms = device_ms(kernel, f"apply_tape_{key}_kernel")
+        p_ms = time_cuda(plain, warmup=0, reps=1)
+        t_ops, t_bytes = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+        entries[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": 1e3 * max(t_ops, t_bytes),
+                        "bound_by": "operations" if t_ops >= t_bytes
+                        else "bytes"}
+        info[key] = (f"kernel {k_ms:.4f} ms (back to back; profiler "
+                     f"device time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+                     f"plain {p_ms:.4f} ms, bound "
+                     f"{entries[key]['bound_ms']:.6f} ms "
+                     f"({entries[key]['bound_by']}; {flops / 1e6:.3f} "
+                     f"MFLOP, {nbytes / 1e6:.3f} MB)")
+    lib = at._library()
+    done(f"{label} timing", t0, **info,
+         dynamic_smem_bytes_per_cta=(lib.apply_tape_fwd_smem_bytes(cap, cap,
+                                                                   n),
+                                     lib.apply_tape_bwd_smem_bytes(cap, cap,
+                                                                   n)),
+         library_ms="n/a (no single PyTorch call computes a tape)")
+    return entries
+
+
+def composed_phase(mode):
+    """The composed step through the tape kernels against itself on their
+    plain versions (``check_kernel`` at 3 iterations, with controls) in
+    one of the three settings; for shot noise also n_shots = 0 against
+    the noiseless composed step, bit for bit; for su4 one 100-iteration
+    step timed."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
+
+    config, gate_set, kw = {
+        "su4": (V1_CONFIG, "su4", dict(enable_2q=True)),
+        "shot": (RESTRICTED_CONFIG, "cnot",
+                 dict(noise_mode="shot", n_shots=N_SHOTS)),
+        "traj4": (NOISY_CONFIG, "cnot",
+                  dict(noise_mode="depolarizing", n_traj=N_TRAJ)),
+    }[mode]
+    case = Case(COMPOSED, config, V1_ENVS, gate_set=gate_set)
+    if mode == "su4" and (case.g, case.r) != (TAPE_CAP, TAPE_CAP):
+        raise AssertionError(f"su4 capacities {case.g, case.r}, the tape "
+                             f"phase assumed {TAPE_CAP}")
+    print(f"[composed {mode}] {config} {gate_set}: E={V1_ENVS} G={case.g} "
+          f"R={case.r} D={1 << case.n} {kw}", flush=True)
+    pauli = case.prob.pauli
+    engine = COMPOSED.with_optimizer(AngleOptimizer(pauli, device="cuda",
+                                                    **kw))
+    if mode != "su4":
+        case.noise_kw = {"seed": NOISE_SEED}
+        case.has_oracle = False
+    check_kernel(engine, case, f"composed {mode}", 3, TOL_ITERS3,
+                 case.controls())
+    if mode == "shot":
+        t0 = phase("composed shot n_shots=0")
+        zero = COMPOSED.with_optimizer(AngleOptimizer(
+            pauli, device="cuda", noise_mode="shot", n_shots=0))
+        clean = COMPOSED.with_optimizer(AngleOptimizer(pauli, device="cuda"))
+        xz, ez = zero.step(*case.args, iters=3, lr=LR, seed=NOISE_SEED)
+        xc, ec = clean.step(*case.args, iters=3, lr=LR)
+        bit = bool(torch.equal(xz, xc) and torch.equal(ez, ec))
+        done("composed shot n_shots=0", t0, bit_for_bit=bit, ok=bit)
+        if not bit:
+            raise AssertionError("shot mode at n_shots = 0 differs from "
+                                 "the noiseless composed step")
+    if mode == "su4":
+        t0 = phase("composed su4 timing")
+        before = (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches)
+        ms = time_cuda(lambda: engine.step(*case.args, iters=ITERS, lr=LR),
+                       warmup=1, reps=3)
+        per = tuple((k.launches - b) // 4 for k, b in
+                    zip((at.apply_tape_fwd, at.apply_tape_bwd), before))
+        # where a step's time goes: device time by kernel under the
+        # profiler (which slows the host) against the step's wall time
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            engine.step(*case.args, iters=ITERS, lr=LR)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t1)
+        dev = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages() if e.self_device_time_total}
+        tape_ms = sum(v for k, v in dev.items() if "apply_tape" in k)
+        done("composed su4 timing", t0, iters=ITERS,
+             step_ms=f"{ms:.4f}", launches_per_step={"fwd": per[0],
+                                                     "bwd": per[1]},
+             profiled_step_wall_ms=f"{wall:.2f}",
+             device_ms_tape_kernels=f"{tape_ms:.3f}",
+             device_ms_all_kernels=f"{sum(dev.values()):.3f}",
+             device_kernels=len(dev))
+
+
+def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
+                  expect_replay=True, family=FIXED, expect=None):
+    """The CLI's trainer on ``family``/``config`` for ``vector_steps``
+    steps with every kernel's launch count set to 0 just before and read
+    just after; every step must have launched ``engine`` once and no other
+    kernel, or the kernels as ``expect`` ({name: launches}, the others 0)
+    says.  -> {kernel name: launches}."""
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
     from tensorrl_qas_tpu_torch.train import cli
 
     variants = engines()
+    tape_kernels = (at.apply_tape_fwd, at.apply_tape_bwd)
+    expect = expect or {engine.name: vector_steps}
     out = tempfile.mkdtemp(prefix="trlqas_smoke_")
     try:
         t0 = phase(label)
@@ -747,12 +1087,15 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
             e.step.launches = 0
             e.step.noise_launches = 0
             e.step.psi0_launches = 0
+        for k in tape_kernels:
+            k.launches = 0
         summary = cli.run([
             "--config", config, "--experiment_name", family,
             "--vector", str(n_env), "--total_steps",
             str(n_env * vector_steps), "--results_path", out + "/",
             *extra])
         launches = {e.name: e.launches() for e in variants}
+        launches.update({k.__name__: k.launches for k in tape_kernels})
         run_dir = os.path.join(out, family, config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
                         allow_pickle=True).item()
@@ -761,9 +1104,8 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
         keys = {"iter", "steps", "episodes", "successes", "best_error",
                 "best_step_error", "epsilon", "t"}
         checks = {
-            "launches == vector steps": all(
-                n == (vector_steps if k == engine.name else 0)
-                for k, n in launches.items()),
+            "launches as expected": all(
+                n == expect.get(k, 0) for k, n in launches.items()),
             "replay ran": summary["replay_steps"] > 0 or not expect_replay,
             "summary schema": set(stats) == {"train", "test"},
             "events": (len(events) == vector_steps
@@ -784,7 +1126,7 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
              checks=checks)
         if not all(checks.values()):
             raise AssertionError(f"{label} checks failed: {checks}")
-        return launches[engine.name]
+        return launches
     finally:
         shutil.rmtree(out, ignore_errors=True)
 
@@ -820,15 +1162,15 @@ def main() -> int:
          count=torch.cuda.device_count())
 
     v1, v1n, v2, v2n, v1p, v2p = engines()
-    build_phase(("fused_adam_v1", "fused_adam_v2"))
+    build_phase(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
     results = {}
     results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
     results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
-                                            V1_STEPS, "trainer v1")
+                                            V1_STEPS, "trainer v1")[v1.name]
     results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
     sweep_phase(v2)
     results[v2]["launches"] = trainer_phase(v2, V2_CONFIG, V2_ENVS,
-                                            V2_STEPS, "trainer v2")
+                                            V2_STEPS, "trainer v2")[v2.name]
     small = Case(v1, *V1_SMALL)
     check_kernel(v1, small, f"kernel v1 {V1_SMALL[0]} E={V1_SMALL[1]}", 3,
                  TOL_ITERS3, small.controls())
@@ -838,14 +1180,14 @@ def main() -> int:
     p0_phase(v1, v1n, V1N_CONFIG, V1_ENVS)
     p0_phase(v2, v2n, V2_CONFIG, V2_ENVS)
     kraus_phase(v1n)
-    results[v1n]["launches"] = trainer_phase(v1n, V1N_CONFIG, V1_ENVS,
-                                             V1_STEPS, "trainer v1n")
+    results[v1n]["launches"] = trainer_phase(
+        v1n, V1N_CONFIG, V1_ENVS, V1_STEPS, "trainer v1n")[v1n.name]
     results[v2n], case_v2n = kernel_phase(v2n, V2_CONFIG, V2_ENVS,
                                           "kernel v2n", long_check=False)
     sweep_phase(v2n, V2N_SWEEP)
     results[v2n]["launches"] = trainer_phase(
         v2n, V2_CONFIG, V2_ENVS, V2N_STEPS, "trainer v2n",
-        extra=("--noise", "depolarizing"), expect_replay=False)
+        extra=("--noise", "depolarizing"), expect_replay=False)[v2n.name]
 
     # in_state placement: the kernels at the trainable capacities (G != R),
     # their per-env psi0 variants, and the trainers of both families
@@ -860,7 +1202,7 @@ def main() -> int:
         trainer_phase(v1, V1_CONFIG, V1_ENVS, T_STEPS, label, family=family)
     results[v1p]["launches"] = trainer_phase(
         v1p, V1_CONFIG, V1_ENVS, T_STEPS, "trainer v1p", BLOCK_COORD,
-        family=TRAINABLE)
+        family=TRAINABLE)[v1p.name]
     _, case = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2 trainable",
                            long_check=False, family=TRAINABLE,
                            time_plain=False)
@@ -869,7 +1211,25 @@ def main() -> int:
                                    long_check=False, family=TRAINABLE)
     results[v2p]["launches"] = trainer_phase(
         v2p, V2_CONFIG, V2_ENVS, T_STEPS, "trainer v2p", BLOCK_COORD,
-        expect_replay=False, family=TRAINABLE)
+        expect_replay=False, family=TRAINABLE)[v2p.name]
+
+    # the composed engine: its tape kernels, its step in three settings,
+    # and the su4 and shot-noise trainers, each vector step iters + 2
+    # forward and iters adjoint launches
+    tape = {}
+    for n, n_env in TAPE_SHAPES:
+        entries = tape_phase(n, n_env, TAPE_CAP, f"kernel tape {n}q")
+        tape = tape or entries          # the kernels line: the 8q shapes
+    for mode in ("su4", "shot", "traj4"):
+        composed_phase(mode)
+    per_step = {"apply_tape_fwd": COMPOSED_STEPS * (ITERS + 2),
+                "apply_tape_bwd": COMPOSED_STEPS * ITERS}
+    launches = trainer_phase(COMPOSED, V1_CONFIG, V1_ENVS, COMPOSED_STEPS,
+                             "trainer su4", SU4_ARGS, expect=per_step)
+    for key in ("fwd", "bwd"):
+        tape[key]["launches"] = launches[f"apply_tape_{key}"]
+    trainer_phase(COMPOSED, RESTRICTED_CONFIG, V1_ENVS, COMPOSED_STEPS,
+                  "trainer restricted", expect=per_step)
 
     for engine, case in ((v1n, case_v1n), (v2n, case_v2n)):
         left = DEADLINE_S - (time.perf_counter() - t_start)
@@ -889,7 +1249,13 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None}
-        for e, r in results.items()]}
+        for e, r in results.items()] + [{
+        "name": f"apply_tape_{key}", "route": "cuda", "source": TAPE_SOURCE,
+        "replaces": REPLACES["tape", key], "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None}
+        for key, r in tape.items()]}
     done("total", t_start)
     print(f"card: {smi}", flush=True)
     print(json.dumps(kernels), flush=True)

@@ -56,10 +56,13 @@ class DQN:
             raise NotImplementedError("prioritized replay is not ported yet")
 
         # observation size: strip the angle block, optionally append the
-        # energy and threshold scalars (reference ``DeepQ.py:43-46``)
+        # energy and threshold scalars (reference ``DeepQ.py:43-46``); the
+        # su4 gate set carries a (3n+3)-row angle block instead of 3
+        gate_set = env_c.get("gate_set", "cnot")
+        angle_rows = 3 * self.num_qubits + 3 if gate_set == "su4" else 3
         s = state_size
         if not self.with_angles:
-            s -= self.num_layers * self.num_qubits * 3
+            s -= self.num_layers * self.num_qubits * angle_rows
         if agent_c.get("en_state", 0):
             s += 1
         if agent_c.get("threshold_in_state", 0):
@@ -67,7 +70,8 @@ class DQN:
         self.state_size = s
 
         topology = env_c.get("topology", "all_to_all")
-        self.translate = action_dictionary(self.num_qubits, topology)
+        self.translate = action_dictionary(self.num_qubits, topology,
+                                           gate_set=gate_set)
 
         # per-step discount; the reference rounds to 2 decimals (DeepQ.py:55)
         self.gamma = float(np.round(self.final_gamma

@@ -1,7 +1,7 @@
 """The RL circuit-construction environment.
 
-Port of ``tensorrl_qas_tpu/envs/circuit_env.py`` for the CNOT gate set
-and the fused Adam optimizer, in both warm-start placements:
+Port of ``tensorrl_qas_tpu/envs/circuit_env.py`` for multi-start Adam, in
+both warm-start placements:
 
 - ``tn_placement='fixed'`` (TensorRL-fixed): the tensor-network warm-start
   circuit is compiled once into the initial statevector (reference
@@ -18,8 +18,15 @@ and the fused Adam optimizer, in both warm-start placements:
   call starts from the cached prefix state instead (``step_psi0``), which
   hands each replica of a ``VectorCircuitEnv`` its own psi0.
 
-The other modes of the JAX env (shot noise, su4, sharding, COBYLA) are
-not ported yet and are refused by ``CircuitEnv``.
+Noise: depolarizing (``noise_mode='depolarizing'``, ``n_traj``
+trajectories per energy) and shot noise (``'shot'``, ``n_shots``).  With
+``gate_set='su4'`` the agent places RXX/RYY/RZZ rotations instead of
+CNOTs (``SU4StateTensor``, reference ``environments/VQAs/
+VQE_qulacs_su4.py``); every su4 gate is parametric, and su4 runs
+noiseless only, as in the JAX package.  The fixed placement's psi0 is the
+su4-basis warm start with its two-qubit rotations applied (the JAX env
+drops them there: ROADMAP.md, C).  Sharding and COBYLA are not ported yet
+and are refused by ``CircuitEnv``.
 
 Step semantics follow the reference, including its ordering
 (``environment_qulacs.py:169-267``): the per-step angle optimizer runs on
@@ -41,13 +48,14 @@ from tensorrl_qas_tpu_torch import as_device, complex_dtype
 from tensorrl_qas_tpu_torch.circuits.actions import action_dictionary
 from tensorrl_qas_tpu_torch.circuits.qasm import load_circuit_tape
 from tensorrl_qas_tpu_torch.circuits.tape import GateKind
-from tensorrl_qas_tpu_torch.circuits.tensor_ir import StateTensor, embed_tape
+from tensorrl_qas_tpu_torch.circuits.tensor_ir import (
+    SU4StateTensor,
+    StateTensor,
+    embed_tape,
+)
 from tensorrl_qas_tpu_torch.envs.curricula import make_curriculum
 from tensorrl_qas_tpu_torch.envs.illegal import IllegalActionTracker
-from tensorrl_qas_tpu_torch.optim.angle_opt import (
-    AngleOptimizer,
-    check_noise,
-)
+from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
 from tensorrl_qas_tpu_torch.problems.hamiltonians import (
     load_problem,
     resolve_warmstart_qasm,
@@ -164,15 +172,17 @@ def _check_supported(cfg: EnvConfig) -> None:
     if cfg.tn_placement not in ("fixed", "in_state"):
         raise ValueError(f"tn_placement must be 'fixed' or 'in_state', got "
                          f"{cfg.tn_placement!r}")
-    unsupported = {
-        "gate_set": (cfg.gate_set, "cnot"),
-        "optim_alg": (cfg.optim_alg, "adam"),
-    }
-    for field, (value, ported) in unsupported.items():
-        if value != ported:
-            raise NotImplementedError(
-                f"{field}={value!r} is not ported yet (only {ported!r})")
-    check_noise(cfg.noise_mode, cfg.n_traj)
+    if cfg.gate_set not in ("cnot", "su4"):
+        raise ValueError(f"gate_set must be 'cnot' or 'su4', got "
+                         f"{cfg.gate_set!r}")
+    if cfg.optim_alg != "adam":
+        raise NotImplementedError(
+            f"optim_alg={cfg.optim_alg!r} is not ported yet (only 'adam'; "
+            "ROADMAP.md, A5)")
+    if cfg.gate_set == "su4" and cfg.noise_mode != "none":
+        raise NotImplementedError(
+            "su4 gate set is noiseless-only (as in the reference, whose su4 "
+            "noise variants were never wired)")
     if cfg.block_coord_k > 1 and cfg.noise_mode != "none":
         raise ValueError(
             "block_coord_k requires noise_mode='none': depolarizing/"
@@ -191,7 +201,7 @@ def make_optimizer(cfg: EnvConfig, pauli, device, seed: int):
         lr=cfg.adam_lr, restart_scale=cfg.restart_scale, device=device,
         seed=seed, noise_mode=cfg.noise_mode, noise_p1=p1, noise_p2=p2,
         n_shots=cfg.n_shots, n_traj=cfg.n_traj,
-        noise_resample=cfg.noise_resample)
+        noise_resample=cfg.noise_resample, enable_2q=cfg.gate_set == "su4")
 
 
 def bc_prefix_states(envs) -> None:
@@ -264,20 +274,27 @@ class CircuitEnv:
         # --- action space ---------------------------------------------------
         self.action_dict = action_dictionary(n, cfg.topology,
                                              gate_set=cfg.gate_set)
-        if cfg.topology == "all_to_all":
+        if cfg.gate_set == "su4":
+            self.action_size = 3 * n * n
+            self.state_size = cfg.num_layers * n * (6 * n + 6)
+        elif cfg.topology == "all_to_all":
             self.action_size = n * (n + 2)
+            self.state_size = cfg.num_layers * n * (n + 6)
         else:
             self.action_size = len(action_dictionary(n, cfg.topology,
                                                      reverted=True))
-        self.state_size = cfg.num_layers * n * (n + 6)
+            self.state_size = cfg.num_layers * n * (n + 6)
 
         # --- tape capacities (static shapes across the whole run): in
-        # in_state placement the embedded warm start rides every tape -------
+        # in_state placement the embedded warm start rides every tape; every
+        # su4 gate is parametric -------------------------------------------
         max_steps = self.num_layers_termination + 1
         self.tape_capacity = self.rot_capacity = max_steps
         if in_state and self.tn_tape is not None:
             self.tape_capacity += self.tn_tape.n_gates
             self.rot_capacity += self.tn_tape.n_rots
+        if cfg.gate_set == "su4":
+            self.rot_capacity = self.tape_capacity
 
         self.optimizer = optimizer or make_optimizer(
             cfg, self.problem.pauli, self.device, cfg.seed)
@@ -365,7 +382,8 @@ class CircuitEnv:
 
     def reset(self) -> np.ndarray:
         cfg = self.cfg
-        self.state = StateTensor(cfg.num_layers, cfg.num_qubits)
+        state_cls = SU4StateTensor if cfg.gate_set == "su4" else StateTensor
+        self.state = state_cls(cfg.num_layers, cfg.num_qubits)
         self.layer_offset = 0
         if self.tn_tape is not None and cfg.tn_placement == "in_state":
             self.layer_offset = embed_tape(
@@ -423,7 +441,12 @@ class CircuitEnv:
             gate_layer = max(self.moments[ctrl], self.moments[targ])
 
         if ctrl < n:
-            next_state.place_cnot(off + gate_layer, ctrl, targ)
+            if self.cfg.gate_set == "su4":
+                # two-qubit Pauli rotation: rot_axis 1/2/3 = XX/YY/ZZ
+                next_state.place_two_rotation(off + gate_layer, rot_axis - 1,
+                                              ctrl, targ, 0.0)
+            else:
+                next_state.place_cnot(off + gate_layer, ctrl, targ)
             m = max(self.moments[ctrl], self.moments[targ]) + 1
             self.moments[ctrl] = m
             self.moments[targ] = m

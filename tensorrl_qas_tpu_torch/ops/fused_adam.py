@@ -89,14 +89,16 @@ def _coeff_basis(kind, dtype):
 
 def check_gate_kinds(*kinds):
     """Reject the gate kinds the fused step does not take: RXX/RYY/RZZ
-    (the su4 gate set, whose two-qubit partners belong to the composed
-    kernels ``ops/pallas_apply.py`` of the JAX package)."""
+    (the su4 gate set), which run in the composed engine
+    (``AngleOptimizer`` with ``enable_2q``, kernels ``ops/apply_tape.py``)
+    as in the JAX package."""
     for k in kinds:
         k = torch.as_tensor(k)
         if bool(((k < 0) | (k > _H)).any()):
             raise ValueError(
                 "the fused Adam step takes gate kinds NONE..H only; "
-                "RXX/RYY/RZZ (the su4 gate set) are not ported")
+                "RXX/RYY/RZZ (the su4 gate set) run in the composed engine "
+                "(AngleOptimizer(enable_2q=True))")
 
 
 class _Plan:
@@ -365,14 +367,16 @@ def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True,
     and in both cases e_new is within TOL_CONSISTENT of the float64
     new-tape energy at its own remapped x_opt.
 
-    With ``noise`` (the noise keywords ``ref`` was computed with), every
-    float64 energy is taken under e_new's realization (tag ``iters + 1``:
-    ``iters`` is then required).
+    With ``noise`` (the noise keywords ``ref`` was computed with: the fused
+    steps' ``noise`` and ``seeds``, or the composed engine's ``seed``,
+    ``optim/angle_opt.py:composed_step``), every float64 energy is taken
+    under e_new's realization (tag ``iters + 1``: ``iters`` is then
+    required).
 
     Returns (ok (E,) bool, strict (E,) bool, stats dict).
     """
     args64 = _to64(args)
-    if noise.get("noise") is not None:
+    if noise.get("noise") is not None or noise.get("seed") is not None:
         if iters is None:
             raise ValueError("agreement: a noisy check needs iters")
         noise = dict(noise, enew_tag=iters + 1)

@@ -28,9 +28,16 @@ evaluation as in the reference) runs in the fused kernels too:
 ``noise_resample='iter'`` (the default) hands them ``noise=(p1, p2)`` and
 per-call seeds, and they draw a fresh realization every Adam iteration;
 ``'step'`` quenches one realization per env step into 3G-long tapes
-(``extend_tape_arrays``) for the noiseless kernels.  Shot noise and
-``n_traj > 1`` need the composed kernels (``tensorrl_qas_tpu/ops/
-pallas_apply.py``), which are not ported yet (ROADMAP.md, A4).
+(``extend_tape_arrays``) for the noiseless kernels.
+
+The composed engine (``AngleOptimizer._fused_step_composed``, the twin of
+the JAX package's ``_fused_step_pallas``) serves what the fused kernels
+cannot: the su4 gate set's RXX/RYY/RZZ (``enable_2q``), shot noise, and
+depolarizing noise averaged over ``n_traj > 1`` trajectories (re-drawn
+every Adam iteration whatever ``noise_resample`` says, as in the JAX
+package).  Each Adam iteration is one forward and one adjoint launch of
+the tape kernels (``ops/apply_tape.py``), with the energy's H psi as a
+matrix product between them.
 """
 
 from __future__ import annotations
@@ -39,12 +46,19 @@ import numpy as np
 import torch
 
 from tensorrl_qas_tpu_torch import as_device, complex_dtype, real_dtype
+from tensorrl_qas_tpu_torch.ops import apply_tape as tape_ops
 from tensorrl_qas_tpu_torch.ops.fused_adam import (
+    B1,
+    B2,
+    EPS,
+    _h_energy,
     check_gate_kinds,
+    dense_h,
     fused_adam_step,
 )
 from tensorrl_qas_tpu_torch.ops.fused_adam2d import (
     MAX_QUBITS,
+    flip_h,
     fused_adam_step2d,
     pauli_flip_groups,
 )
@@ -58,20 +72,6 @@ from tensorrl_qas_tpu_torch.sim.noise import (
 
 NOISE_MODES = ("none", "depolarizing", "shot")
 NOISE_RESAMPLE = ("iter", "step")
-
-
-def check_noise(noise_mode: str, n_traj: int = 1) -> None:
-    """Refuse the noise settings the fused engines do not take: shot noise
-    and depolarizing noise averaged over ``n_traj > 1`` trajectories need
-    the composed engine (NotImplementedError)."""
-    if noise_mode == "shot" or (noise_mode == "depolarizing"
-                                and n_traj > 1):
-        what = ("noise_mode='shot'" if noise_mode == "shot"
-                else f"n_traj={n_traj}")
-        raise NotImplementedError(
-            f"{what} needs the composed engine over the kernels of "
-            "tensorrl_qas_tpu/ops/pallas_apply.py, which is not ported yet "
-            "(ROADMAP.md, A4: su4, shot noise and n_traj > 1)")
 
 
 def extend_tape_arrays(arrs, kt, kc):
@@ -172,7 +172,9 @@ class AngleOptimizer:
       n_traj: trajectories averaged per depolarizing energy.
       noise_resample: 'iter' (a fresh realization every Adam iteration,
         in the kernels) or 'step' (one per env step, quenched into the
-        tapes).
+        tapes); the composed engine re-draws every iteration either way.
+      enable_2q: tapes may hold RXX/RYY/RZZ (the su4 gate set), which
+        only the composed engine takes.
     """
 
     def __init__(self, pauli, iters: int = 100, n_starts: int = 8,
@@ -180,13 +182,15 @@ class AngleOptimizer:
                  seed: int = 0, noise_mode: str = "none",
                  noise_p1: float = 0.01, noise_p2: float = 0.05,
                  n_shots: int = 0, n_traj: int = 1,
-                 noise_resample: str = "iter"):
+                 noise_resample: str = "iter", enable_2q: bool = False):
         if noise_mode not in NOISE_MODES:
             raise ValueError(f"noise_mode must be one of {NOISE_MODES}, "
                              f"got {noise_mode!r}")
         if noise_resample not in NOISE_RESAMPLE:
             raise ValueError(f"noise_resample must be one of "
                              f"{NOISE_RESAMPLE}, got {noise_resample!r}")
+        if n_traj < 1:
+            raise ValueError(f"n_traj must be at least 1, got {n_traj}")
         self.pauli = pauli
         self.iters = iters
         self.n_starts = n_starts
@@ -206,19 +210,27 @@ class AngleOptimizer:
         self.n_shots = n_shots
         self.n_traj = n_traj
         self.noise_resample = noise_resample
+        self.enable_2q = enable_2q
         self._h_planes = None
         self._w_planes = None
 
     def _pick_engine(self, *kinds) -> str:
-        """The fused engine for this problem and tapes of these gate kinds:
-        'v1' (dense H^T planes) for D <= 512, 'v2' (flip groups) for
-        1024 <= D <= 2^18.  Larger problems and RXX/RYY/RZZ gates have no
-        fused engine (ValueError), nor have shot noise and n_traj > 1
-        (NotImplementedError), refused here before any H operand is
-        built."""
-        check_noise(self.noise_mode, self.n_traj)
-        check_gate_kinds(*kinds)
+        """The engine for this problem and tapes of these gate kinds:
+        'composed' for the su4 gate set (``enable_2q``), shot noise and
+        ``n_traj > 1`` (reference ``optim/angle_opt.py:283-287, 690-693``),
+        at most 16 qubits; else the fused 'v1' (dense H^T planes) for
+        D <= 512, 'v2' (flip groups) for 1024 <= D <= 2^18.  Larger
+        problems, and RXX/RYY/RZZ gates without ``enable_2q``, raise
+        ValueError here, before any H operand is built."""
         n = self.pauli.n_qubits
+        if (self.enable_2q or self.noise_mode == "shot"
+                or (self.noise_mode == "depolarizing" and self.n_traj > 1)):
+            if n > tape_ops.MAX_QUBITS:
+                raise ValueError(
+                    f"no composed engine for {n} qubits (at most "
+                    f"{tape_ops.MAX_QUBITS}; ROADMAP.md, A6)")
+            return "composed"
+        check_gate_kinds(*kinds)
         if n <= 9:
             return "v1"
         if n <= MAX_QUBITS:
@@ -274,9 +286,134 @@ class AngleOptimizer:
         return tuple(a.to(torch.int32).contiguous()
                      for a in extend_tape_arrays(arrs, kt, kc))
 
+    def _h_apply(self, dtype):
+        """H - offset I on (..., D) planes of ``dtype``: the dense H^T
+        planes up to 9 qubits, the flip-group planes above."""
+        if self.pauli.n_qubits <= 9:
+            return dense_h(*(p.to(dtype) for p in self.h_planes()))
+        wre, wim, flips = self.w_planes()
+        return flip_h(wre.to(dtype), wim.to(dtype), flips)
+
+    def _sample_noise_kinds(self, kind, n_traj: int, generator):
+        """``n_traj`` depolarizing realizations (k_t, k_c), each
+        (n_traj, E, G), of the (E, G) tapes ``kind``, shared by an env's
+        starts (tests inject their own here)."""
+        return sample_depolarizing_kinds(kind.expand(n_traj, -1, -1),
+                                         generator, self.noise_p1,
+                                         self.noise_p2)
+
+    def _noise_generator(self, seed: int, tag: int):
+        """The composed engine's draws at ``tag`` of a step seeded with
+        ``seed``: tag ``it`` for Adam iteration it, ``iters`` for the final
+        re-check, ``iters + 1`` for e_new (the fused kernels' tags), so a
+        realization does not depend on the draws before it."""
+        return torch.Generator(device=self.device).manual_seed(
+            (seed << 20) + tag)
+
+    def _composed_energy(self, x, tape, re0, im0, h_apply, plain, gen):
+        """(E, S) energies of H - offset I at angles x (E, S, R) of the
+        (E, G) int32 tapes from psi0 planes re0 / im0 ((1 or E, 1, D)):
+        one forward launch (``ApplyTape``, differentiable in x), then the
+        Rayleigh quotient with float64 sums.  Depolarizing: the mean over
+        ``n_traj`` realizations drawn from ``gen``, stacked along the env
+        axis (still one launch); shot noise: plus (eps @ w) n_shots^-1/2
+        per (env, start), eps standard normal per Pauli term drawn from
+        ``gen`` in float64, on the value only."""
+        e_n, s_n, _ = x.shape
+        t_n = 1
+        if self.noise_mode == "depolarizing":
+            t_n = self.n_traj
+            kt, kc = self._sample_noise_kinds(tape[0], t_n, gen)
+            tape = tuple(
+                a.reshape(t_n * e_n, -1).to(torch.int32).contiguous()
+                for a in extend_tape_arrays(
+                    tuple(a.expand(t_n, -1, -1) for a in tape), kt, kc))
+            x = x.repeat(t_n, 1, 1)
+        d = re0.shape[-1]
+        re, im = (p.expand(e_n, s_n, d).repeat(t_n, 1, 1) for p in (re0, im0))
+        ore, oim = tape_ops.apply_tape_ri(re, im, *tape, x, plain=plain,
+                                          tapes_checked=True)
+        _, _, ev = _h_energy(ore, oim, h_apply)
+        ev = ev.view(t_n, e_n, s_n).mean(0)
+        if self.noise_mode == "shot" and self.n_shots:
+            w = self.pauli_t[0].double()
+            eps = torch.randn((e_n, s_n, w.shape[0]), generator=gen,
+                              dtype=torch.float64, device=ev.device)
+            ev = ev + ((eps @ w) * self.n_shots ** -0.5).to(ev.dtype)
+        return ev
+
+    def _fused_step_composed(self, old, new, map_idx, p0re, p0im, h_apply,
+                             starts, active, *, iters: int, lr: float,
+                             seed: int = 0, enew_tag: int | None = None,
+                             plain: bool = False):
+        """The composed engine (reference ``_fused_step_pallas``,
+        ``optim/angle_opt.py:580-671``), in the fused step's layout: (E, G)
+        int32 tapes ``old`` / ``new`` (checked with ``check_tapes``),
+        map_idx (E, R), psi0 planes (1, D) shared or (E, D) one per env,
+        ``h_apply`` (H - offset I on planes), starts (E, S, R), active
+        (E, 1, R); any float dtype.  Multi-start Adam over ``old``, each
+        iteration one forward and one adjoint launch at x (gradient masked
+        by ``active``), tracking every start's best iterate by its (noisy)
+        energy; a final re-check of x; x_opt = the best start; e_new on
+        ``new`` at x_opt remapped by ``map_idx`` (map -1 -> 0), S = 1.
+        Adam's bias corrections are computed in float64.  Noise is drawn
+        at tags (``_noise_generator``: ``seed``; ``enew_tag`` replaces
+        e_new's tag ``iters + 1``).  The forward kernel takes (E, S, D)
+        planes either way, so per-env psi0 (su4 with block-coordinate
+        mode) costs nothing here (the JAX package runs that case on XLA,
+        ``optim/angle_opt.py:818-822``).  ``plain`` runs the kernels'
+        plain versions on any device (the card check's reference).
+        Returns (x_opt (E, R), e_new (E,)) of H - offset I."""
+        dtype = starts.dtype
+        re0, im0 = (p.to(dtype).reshape(-1, 1, p.shape[-1])
+                    for p in (p0re, p0im))
+        noisy = self.noise_mode != "none"
+
+        def energy(x, tape, tag):
+            gen = self._noise_generator(seed, tag) if noisy else None
+            return self._composed_energy(x, tape, re0, im0, h_apply, plain,
+                                         gen)
+
+        x = starts.clone()
+        m = torch.zeros_like(x)
+        v = torch.zeros_like(x)
+        bx = x.clone()
+        be = torch.full(x.shape[:2], float("inf"), dtype=dtype,
+                        device=x.device)
+        for it in range(iters):
+            xg = x.detach().requires_grad_()
+            with torch.enable_grad():
+                ev = energy(xg, old, it)
+                g, = torch.autograd.grad(ev.sum(), xg)
+            ev = ev.detach()
+            g = g * active
+            better = ev < be
+            bx = torch.where(better[..., None], x, bx)
+            be = torch.where(better, ev, be)
+            m = B1 * m + (1 - B1) * g
+            v = B2 * v + (1 - B2) * g * g
+            t = it + 1.0
+            x = x - lr * (m / (1 - B1 ** t)) / (
+                torch.sqrt(v / (1 - B2 ** t)) + EPS)
+        with torch.no_grad():
+            ev = energy(x, old, iters)
+            better = ev < be
+            bx = torch.where(better[..., None], x, bx)
+            be = torch.where(better, ev, be)
+            best = torch.argmin(be, dim=1)
+            x_opt = bx[torch.arange(x.shape[0], device=x.device), best]
+            mi = map_idx.long()
+            x_new = torch.where(mi >= 0, x_opt.gather(1, mi.clamp(min=0)),
+                                0.0)
+            e_new = energy(x_new[:, None, :], new,
+                           iters + 1 if enew_tag is None else enew_tag)
+        return x_opt, e_new[:, 0]
+
     def fused_step_batch(self, psi0, old_arrs_b, x0_b, n_active_b,
                          new_arrs_b, map_idx_b):
-        """One env step for B env replicas in one device call.
+        """One env step for B env replicas in one device call (the fused
+        engines) or one forward and one adjoint launch per Adam iteration
+        (the composed engine).
 
         psi0: complex tensor on the optimizer's device, (D,) shared by the
         batch or (B, D) one per env (block-coordinate trainable mode);
@@ -285,7 +422,7 @@ class AngleOptimizer:
         embedded warm start gives more gates than angles).
         Returns (x_opt (B, R) numpy, e_new (B,) numpy, nfev).
 
-        Both engines take either psi0 layout, so the engine choice does
+        Every engine takes either psi0 layout, so the engine choice does
         not depend on it.  The JAX package differs here: its v1 kernel
         takes a shared psi0 only, and a (B, D) psi0 drops v1 to its XLA
         path (reference ``optim/angle_opt.py:694-699``).
@@ -307,6 +444,21 @@ class AngleOptimizer:
                                   self.generator)
         old = tuple(ints(a) for a in old_arrs_b)
         new = tuple(ints(a) for a in new_arrs_b)
+        p0 = psi0.reshape(-1, psi0.shape[-1])
+        p0re = p0.real.to(self.rdtype).contiguous()
+        p0im = p0.imag.to(self.rdtype).contiguous()
+        if engine == "composed":
+            for tape in (old, new):
+                tape_ops.check_tapes(*tape, self.pauli.n_qubits, r)
+            seed = int(torch.randint(0, 2**31 - 1, (1,),
+                                     generator=self.generator, device=dev))
+            x_opt, e_new = self._fused_step_composed(
+                old, new, ints(map_idx_b), p0re, p0im,
+                self._h_apply(self.rdtype), starts, active[:, None, :],
+                iters=self.iters, lr=self.lr, seed=seed)
+            return (x_opt.cpu().numpy(),
+                    e_new.cpu().numpy().astype(np.float64) + self.offset,
+                    self.iters * self.n_starts)
         noise = {}
         if self.noise_mode == "depolarizing":
             p = (self.noise_p1, self.noise_p2)
@@ -320,13 +472,27 @@ class AngleOptimizer:
             step, h_ops = fused_adam_step, self.h_planes()
         else:
             step, h_ops = fused_adam_step2d, self.w_planes()
-        p0 = psi0.reshape(-1, psi0.shape[-1])
         x_opt, e_new = step(
-            old, new, ints(map_idx_b),
-            p0.real.to(self.rdtype).contiguous(),
-            p0.imag.to(self.rdtype).contiguous(),
+            old, new, ints(map_idx_b), p0re, p0im,
             *h_ops, starts.contiguous(), active[:, None, :].contiguous(),
             iters=self.iters, lr=self.lr, **noise)
         return (x_opt.cpu().numpy(),
                 e_new.cpu().numpy().astype(np.float64) + self.offset,
                 self.iters * self.n_starts)
+
+
+def composed_step(opt: AngleOptimizer, plain: bool = False):
+    """``opt``'s composed engine as a function of the fused step's
+    arguments, ``step(old, new, map_idx, p0re, p0im, *h_ops, starts,
+    active, *, iters, lr, seed=0, enew_tag=None)`` with the dense H^T
+    planes (two H operands) or the flip-group planes and flips (three), so
+    that ``ops/fused_adam.py:plain_results`` and ``agreement`` hold the
+    kernels (``plain=False``) to the plain versions (``plain=True``)."""
+    def step(old, new, map_idx, p0re, p0im, *rest, iters, lr, seed=0,
+             enew_tag=None):
+        *h_ops, starts, active = rest
+        h_apply = dense_h(*h_ops) if len(h_ops) == 2 else flip_h(*h_ops)
+        return opt._fused_step_composed(
+            old, new, map_idx, p0re, p0im, h_apply, starts, active,
+            iters=iters, lr=lr, seed=seed, enew_tag=enew_tag, plain=plain)
+    return step

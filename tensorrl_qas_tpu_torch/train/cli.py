@@ -13,10 +13,12 @@ start compiled into psi0), TensorRL-trainable and StructureRL (the warm
 start embedded in the RL state, its angles re-optimized with the agent's;
 ``--experiment_name TensorRL_trainable/`` or ``StructureRL/``, or
 ``--tn_placement in_state``), with block-coordinate optimization of the
-embedded block (``--block_coord K``), noiseless or with depolarizing
-noise (``--config H2O8q_TNbond2_noise``, or ``--noise depolarizing``).
-The sequential driver, su4, shot noise, COBYLA and most override flags of
-the JAX CLI are not ported yet.
+embedded block (``--block_coord K``); noiseless, with depolarizing noise
+(``--config H2O8q_TNbond2_noise``, or ``--noise depolarizing``) or with
+shot noise on the hexagon topology (the ``_restricted`` configs, inferred
+from the name; ``--noise shot``); with the CNOT or the su4 gate set
+(``--gate_set su4``: RXX/RYY/RZZ actions, noiseless).  The sequential
+driver, COBYLA and most override flags of the JAX CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -64,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--noise", choices=["none", "depolarizing", "shot"],
                    default=None,
                    help="override the noise mode inferred from the names")
+    p.add_argument("--gate_set", choices=["cnot", "su4"], default=None,
+                   help="action gate set: CNOT+rotations (default) or the "
+                        "SU(4) Pauli-rotation set RXX/RYY/RZZ+rotations")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the simulation and the agent")
     p.add_argument("--episodes", type=int, default=None,
@@ -109,6 +114,8 @@ def run(argv=None) -> dict:
     if args.noise:
         noise_mode = args.noise
     conf["env"]["topology"] = topology
+    if args.gate_set:
+        conf["env"]["gate_set"] = args.gate_set
     np.random.seed(args.seed)
 
     overrides = [

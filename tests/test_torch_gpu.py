@@ -30,7 +30,18 @@ memory, then in the workspace); the shared psi0 of row 0 must fail it, and
 identical rows must give the shared launch bit for bit.  Both kernels run
 at the trainable configs' capacities, where the tapes embed the warm start
 and G != R: v1 at H2O 8q (G = 172, R = 151; noisy at the _noise config),
-v2 at LiH 12q (G = 244, R = 211)."""
+v2 at LiH 12q (G = 244, R = 211).
+
+The composed engine's tape kernels (B3f forward, B3b adjoint,
+``ops/apply_tape.py``) are held to their plain versions at 5, 8, 10, 12,
+13 (state in shared memory) and 14 qubits (global memory): forward
+planes within 1e-5, the psi0 cotangents and angle gradients within 1e-4
+(float32 row sums in another order); RYY's sign flipped and RZZ's
+gradient dropped must exceed them; two launches agree bit for bit;
+more than 16 qubits is refused.  The composed step (``AngleOptimizer``
+through the kernels against itself on the plain versions, 3 iterations,
+``agreement``) runs for su4 tapes, shot noise (1024 shots) and
+depolarizing noise over 4 trajectories, under the same tagged draws."""
 
 import numpy as np
 import pytest
@@ -485,3 +496,186 @@ def test_noise_kernel_at_trainable_noise_capacity_matches_plain_version():
         args, noise=(0.01, 0.05), seeds=_seeds(dev, 8, seed=2))
     assert bool(ok.all()) and strict.float().mean() > 0.5
     assert (~wrong).any()
+
+
+# -- the composed engine's tape kernels (B3f / B3b, ops/apply_tape.py) ------
+
+TOL_FWD, TOL_BWD = 1e-5, 1e-4
+SU4 = (GateKind.RXX, GateKind.RYY, GateKind.RZZ, GateKind.RX, GateKind.RY,
+       GateKind.RZ)
+
+
+def _tape_case(dev, n, n_env=8, s_n=4, n_gates=30, seed=0):
+    """Random tapes over every gate class (su4 rotations, 1-qubit gates, a
+    controlled RY, CX, H, Y, padding), random unit psi rows, angles and
+    unit-norm cotangents, on ``dev``: (planes, tape, angles, cotangents)."""
+    rng = np.random.default_rng(seed)
+    pool = (*SU4, GateKind.CX, GateKind.H, GateKind.Y, GateKind.X,
+            GateKind.Z)
+    g_cap = n_gates + 2
+    arrs = [np.zeros((n_env, g_cap), np.int32) for _ in range(2)]
+    arrs += [np.full((n_env, g_cap), -1, np.int32) for _ in range(2)]
+    for e in range(n_env):
+        r = 0
+        for g in range(n_gates):
+            k = pool[g % len(pool)] if g < len(pool) else \
+                pool[int(rng.integers(len(pool)))]
+            t = int(rng.integers(n))
+            c = int((t + 1 + rng.integers(n - 1)) % n)
+            ctrl = k in (GateKind.CX, *SU4[:3]) or (
+                k == GateKind.RY and g % 5 == 0)
+            arrs[0][e, g], arrs[1][e, g] = int(k), t
+            arrs[2][e, g] = c if ctrl else -1
+            if k in SU4:
+                arrs[3][e, g] = r
+                r += 1
+    d = 1 << n
+    psi = rng.normal(size=(n_env, s_n, d)) + 1j * rng.normal(
+        size=(n_env, s_n, d))
+    psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
+    lam = rng.normal(size=(2, n_env, s_n, d))
+    lam /= np.linalg.norm(lam, axis=(0, 3), keepdims=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return ((torch.as_tensor(psi.real, **f32),
+             torch.as_tensor(psi.imag, **f32)),
+            tuple(torch.as_tensor(a, device=dev) for a in arrs),
+            torch.as_tensor(rng.normal(size=(n_env, s_n, n_gates)), **f32),
+            (torch.as_tensor(lam[0], **f32), torch.as_tensor(lam[1], **f32)))
+
+
+def _max_err(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [5, 8, 10, 12, 13, 14])
+def test_tape_kernels_match_plain_versions(n):
+    """B3f and B3b against their plain versions (state in shared memory up
+    to 13 qubits, in global memory at 14); two wrong results must fail
+    the same tolerances: RYY's sign flipped, RZZ's gradient dropped."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    dev = _card()
+    planes, tape, angles, cot = _tape_case(dev, n, n_env=8 if n < 12 else 4)
+    before = (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches)
+    out = at.apply_tape_fwd(*planes, *tape, angles)
+    grads = at.apply_tape_bwd(*out, *cot, *tape, angles)
+    torch.cuda.synchronize()
+    assert (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    out_p = at.apply_tape_fwd_plain(*planes, *tape, angles)
+    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *tape, angles)
+    assert _max_err(out, out_p) <= TOL_FWD
+    assert _max_err(grads, grads_p) <= TOL_BWD
+    # controls: RYY applied as exp(+i theta/2 YY), RZZ's gradient dropped
+    kind, _, _, slot = tape
+    ryy = (kind == int(GateKind.RYY)) & (slot >= 0)
+    flip = torch.ones_like(angles)
+    for e in range(kind.shape[0]):
+        flip[e, :, slot[e][ryy[e]].long()] = -1.0
+    wrong = at.apply_tape_fwd(*planes, *tape, (angles * flip).contiguous())
+    assert _max_err(wrong, out_p) > 100 * TOL_FWD
+    rzz = (kind == int(GateKind.RZZ)) & (slot >= 0)
+    dang = grads[2].clone()
+    for e in range(kind.shape[0]):
+        dang[e, :, slot[e][rzz[e]].long()] = 0.0
+    assert _max_err((dang,), (grads_p[2],)) > 10 * TOL_BWD
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 14])
+def test_tape_kernels_are_deterministic(n):
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    dev = _card()
+    planes, tape, angles, cot = _tape_case(dev, n, n_env=4, seed=1)
+    runs = []
+    for _ in range(2):
+        out = at.apply_tape_fwd(*planes, *tape, angles)
+        runs.append((*out, *at.apply_tape_bwd(*out, *cot, *tape, angles)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_tape_kernels_refuse_more_than_sixteen_qubits():
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    dev = _card()
+    planes, tape, angles, _ = _tape_case(dev, 17, n_env=1, s_n=1,
+                                         n_gates=4)
+    with pytest.raises(ValueError, match="at most 16"):
+        at.apply_tape_fwd(*planes, *tape, angles)
+
+
+def _composed_args(dev, n_env=16, s_n=4, su4=True, seed=0):
+    """Fused-step arguments at 8-qubit H2O for the composed engine: su4
+    tapes (RXX/RYY/RZZ/RX/RY/RZ) or CNOT-set ones, identity angle map."""
+    head, tail = _tapes(dev, 8, n_env, s_n, 30, seed)
+    if su4:
+        rng = np.random.default_rng(seed)
+        old, new = head[0], head[1]
+        live = old[0] != 0
+        kinds = torch.as_tensor(rng.choice([int(k) for k in SU4],
+                                           size=tuple(old[0].shape)),
+                                dtype=torch.int32, device=dev)
+        two_q = kinds >= int(GateKind.RXX)
+        partner = (old[1] + 1 + torch.as_tensor(
+            rng.integers(7, size=tuple(old[0].shape)), device=dev)) % 8
+        kind = torch.where(live, kinds, 0).int()
+        cq = torch.where(live & two_q, partner, -1).int()
+        slot = torch.where(live, torch.cumsum(live.int(), 1) - 1, -1).int()
+        old = (kind.contiguous(), old[1], cq.contiguous(), slot.contiguous())
+        last = ((new[0] != 0).sum(1) - 1).int()
+        rows = torch.arange(n_env, device=dev)
+        new = tuple(a.clone() for a in old)
+        new[0][rows, last] = int(GateKind.RY)
+        new[1][rows, last] = old[1][rows, last]
+        new[3][rows, last] = last
+        n_rots = live.int().sum(1)
+        head = (old, new, torch.where(
+            torch.arange(30, device=dev)[None] < n_rots[:, None],
+            torch.arange(30, device=dev)[None], -1).int().contiguous(),
+            *head[3:])
+        active = (torch.arange(30, device=dev)[None]
+                  < n_rots[:, None]).float()
+        x0 = torch.randn(n_env, 30, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+        tail = (make_multistarts(x0 * active, active, s_n, s_n // 4, 0.1,
+                                 torch.Generator(device=dev).manual_seed(1)
+                                 ).contiguous(),
+                active[:, None, :].contiguous())
+    pauli = load_problem("H2O", 8, H2O).pauli
+    return pauli, (*head, *tail)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["su4", "shot", "traj4"])
+def test_composed_step_kernels_match_plain_versions(mode):
+    """The composed engine through the kernels against itself on the
+    plain versions, held by ``agreement`` at 3 iterations under the same
+    tagged draws; a 1% Adam rate must fail it."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import composed_step
+
+    dev = _card()
+    pauli, args = _composed_args(dev, su4=mode == "su4")
+    kw = {"su4": dict(enable_2q=True),
+          "shot": dict(noise_mode="shot", n_shots=1024),
+          "traj4": dict(noise_mode="depolarizing", n_traj=4)}[mode]
+    opt = AngleOptimizer(pauli, device=dev, **kw)
+    args = (*args[:5], *opt.h_planes(), *args[5:])
+    noise = {} if mode == "su4" else {"seed": 11}
+    kernel, plain = composed_step(opt), composed_step(opt, plain=True)
+    before = (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches)
+    xk, ek = kernel(*args, iters=3, lr=0.1, **noise)
+    assert (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches) == (
+        before[0] + 5, before[1] + 3)
+    ref = fused_adam.plain_results(args, iters=3, lr=0.1, step=plain,
+                                   **noise)
+    ok, strict, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5,
+                                         step=plain, iters=3, **noise)
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+    xw, ew = kernel(*args, iters=3, lr=0.101, **noise)
+    wrong, _, _ = fused_adam.agreement(args, ref, xw, ew, tol=1e-5,
+                                       step=plain, iters=3, **noise)
+    assert not bool(wrong.all())

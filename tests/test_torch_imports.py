@@ -42,3 +42,26 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                                "HOME": str(tmp_path)})
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_tape_kernels_module_builds_nothing_at_import():
+    """The composed engine's kernel module (``ops/apply_tape.py``) imports
+    without JAX and without building or loading its library; its plain
+    versions and autograd Function are there, its launch counts at 0."""
+    script = """
+import sys
+from tensorrl_qas_tpu_torch.ops import apply_tape as at
+from tensorrl_qas_tpu_torch.optim import angle_opt
+assert at._library.cache_info().currsize == 0
+assert (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches) == (0, 0)
+assert callable(at.apply_tape_fwd_plain) and callable(at.apply_tape_bwd_plain)
+assert hasattr(angle_opt, "composed_step") and at.MAX_QUBITS == 16
+banned = ("jax", "jaxlib", "tensorrl_qas_tpu", "triton")
+found = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+assert not found, found
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -16,8 +16,9 @@ and the exact Kraus channel, on the CPU.
   ``tests/test_noise_pallas.py:_kraus_expectation``, which the port's own
   ``depolarizing_energy_exact`` matches to 1e-12.
 - The noisy env on configs/TensorRL_fixed/H2O8q_TNbond2_noise.cfg steps
-  and reports error == error_noiseless; shot noise and n_traj > 1 are
-  refused.
+  and reports error == error_noiseless; shot noise and n_traj > 1 run in
+  the composed engine (tests/test_torch_su4.py) and are refused with the
+  su4 gate set, which is noiseless-only.
 """
 
 import numpy as np
@@ -358,15 +359,21 @@ def test_noise_config_env_steps_on_the_cpu():
                                      dict(noise_mode="depolarizing",
                                           n_traj=2)])
 def test_composed_engine_settings_are_refused(setting):
+    """Shot noise and n_traj > 1 take the composed engine (no longer
+    refused since it is ported) and run; the env refuses them with the
+    su4 gate set, noiseless-only as in the JAX package."""
     ps, inputs = _opt_inputs()
     opt = AngleOptimizer(ps, iters=2, n_starts=2, device="cpu", **setting)
-    with pytest.raises(NotImplementedError, match="A4"):
-        opt.fused_step_batch(*inputs)
+    assert opt._pick_engine(inputs[1][0]) == "composed"
+    x_opt, e_new, _ = opt.fused_step_batch(*inputs)
+    assert np.isfinite(x_opt).all() and np.isfinite(e_new).all()
     conf = get_config("TensorRL_fixed/", "heisenberg_5q_TNbond2.cfg")
     cfg = EnvConfig.from_conf(conf, tn_placement="fixed",
                               noise_mode=setting["noise_mode"], device="cpu")
     cfg.n_traj = setting.get("n_traj", 1)
-    with pytest.raises(NotImplementedError, match="A4"):
+    VectorCircuitEnv(cfg, n_envs=1)
+    cfg.gate_set = "su4"
+    with pytest.raises(NotImplementedError, match="noiseless-only"):
         VectorCircuitEnv(cfg, n_envs=1)
 
 
