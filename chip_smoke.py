@@ -6,14 +6,17 @@ TensorRL-fixed, TensorRL-trainable and StructureRL families, and through
 the composed engine with the su4 gate set and with shot noise.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --split     # the v2 split phase alone (5b.)
 
 Phases, one line each with its seconds:
 
 1. device     -- a CUDA card must be present (no CPU fallback); prints
                  ``nvidia-smi --query-gpu=name,power.limit``.
 2. build      -- compiles every kernel with nvcc into build/, one nvcc per
-                 source, all started together, and prints ptxas' register /
-                 shared-memory / spill lines.
+                 source, all started together at the outset, and prints
+                 ptxas' register / shared-memory / spill lines; the v1
+                 phases wait only for v1, so the v2 source (the longest
+                 build) compiles while they run.
 3. kernel v1  -- the dense-H kernel (fused_adam_v1) against its plain
                  PyTorch version at the 8-qubit main path's shapes (E = 128
                  envs, S = 8 starts, G = R = 26, D = 256, the H2O
@@ -37,6 +40,15 @@ Phases, one line each with its seconds:
                  rest of the 10-18-qubit band: H2O 10q (E = 64), Heisenberg
                  14q (E = 8, the first size with its state in global
                  memory), 16q (E = 4) and 18q (E = 2).
+5b. split      -- where a v2 launch's time goes: 100 iterations at the 12q
+                 LiH shapes with every gate kNone (also with 2 of the 16
+                 envs), at half and at the full tape capacity (the cost of
+                 a tape slot), and at 10q H2O (E = 64) and 14q Heisenberg
+                 (E = 8).  With ``--split`` the script runs only this phase,
+                 a split by gate class (synthetic tapes of one gate class
+                 each, at 100 and 0 iterations, with the swaps the schedule
+                 puts in) and v2 at the trainable capacities and v2n timed
+                 the same way, and prints no result lines.
 6. trainer v2 -- the trainer on configs/TensorRL_fixed/LIH12q_TNbond2.cfg
                  with 16 replicas for 80 vector steps (1,280 env steps, so
                  that the replay buffer passes batch 1000 and replay runs);
@@ -118,7 +130,7 @@ Phases, one line each with its seconds:
 21. trainers su4 / restricted -- the CLI's trainer on H2O8q_TNbond2
                  --gate_set su4 and on H2O8q_TNbond2_noise_restricted (shot
                  noise and the hexagon topology inferred from the name), 128
-                 replicas, 20 vector steps each: every vector step launches
+                 replicas, 12 vector steps each: every vector step launches
                  B3f iters + 2 times and B3b iters times, and no fused
                  kernel.
 22. the 100-iteration checks of 8. and 12., each when enough of the
@@ -175,7 +187,9 @@ TAPE_SHAPES = ((8, 128), (12, 16), (13, 8))
 TAPE_CAP = 30            # G = R of H2O8q_TNbond2 with the su4 warm start
 RESTRICTED_CONFIG = "H2O8q_TNbond2_noise_restricted"
 NOISY_CONFIG = "H2O8q_TNbond2_noise"
-COMPOSED_STEPS = 20
+# 12: the fewest vector steps with which the 8q replay runs (20 before the
+# v2 register kernel's longer build needed the time)
+COMPOSED_STEPS = 12
 N_SHOTS, N_TRAJ, NOISE_SEED = 1024, 4, 11
 TOL_FWD = 1e-5           # B3f planes vs plain: float32 gate arithmetic
 TOL_BWD = 1e-4           # B3b cotangents and angle gradients: float32 row
@@ -185,6 +199,8 @@ TOL_P0 = 1e-6            # noise variant at p = 0 vs the noiseless kernel
 # this order) run when this much of the deadline is left, about twice
 # what they took on the H100: v1n's 67-101 s, v2n's 92 s
 LONG_MIN_LEFT_S = {"fused_adam_v1_noise": 200, "fused_adam_v2_noise": 300}
+# the split phase's shapes besides 12q LiH: both state bands of v2
+SPLIT_SHAPES = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8))
 # the rest of the band at 3 iterations: (config, envs)
 SWEEP = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8),
          ("heisenberg_16q_TNbond2", 4), ("heisenberg_18q_TNbond2", 2))
@@ -397,10 +413,11 @@ class Case:
     config's) and seeds per env from a torch generator (``noise_kw``).
     ``gate_set='su4'``: the su4 env's capacities and su4 tapes; the
     composed engine's noisy settings set ``noise_kw`` to their seed and
-    ``has_oracle`` to False afterwards."""
+    ``has_oracle`` to False afterwards.  ``caps=(G, R)`` overrides the
+    env's capacities."""
 
     def __init__(self, engine, config, n_env, family=FIXED,
-                 gate_set="cnot"):
+                 gate_set="cnot", caps=None):
         import numpy as np
         import torch
 
@@ -420,7 +437,8 @@ class Case:
             noise_mode="depolarizing" if engine.noise else "none",
             device="cuda"))
         self.n = n = env.num_qubits
-        self.g, self.r = g, r = env.tape_capacity, env.rot_capacity
+        self.g, self.r = g, r = caps or (env.tape_capacity,
+                                         env.rot_capacity)
         self.n_env = n_env
         self.prob = env.problem
         self.opt = env.optimizer
@@ -737,6 +755,46 @@ def kernel_phase(engine, config, n_env, label, long_check=True,
                                     case.controls())
     return {"max_abs_err": stats[max(stats)]["e_new_max_abs_err"],
             **time_kernel(engine, case, label, time_plain)}, case
+
+
+def split_phase(engine):
+    """Where a v2 launch's time goes (100 iterations, CUDA events): at the
+    12q LiH shapes with every gate of both tapes kNone (H psi, Adam and
+    the tail; also with 2 of the 16 envs), at half the tape capacity and
+    at the full one (their
+    difference over the slots between them: the cost of a tape slot), and
+    at the 10q H2O and 14q Heisenberg shapes of ``SPLIT_SHAPES`` (shared
+    memory and workspace band)."""
+    import torch
+
+    t0 = phase("split")
+    full = Case(engine, V2_CONFIG, V2_ENVS)
+    half = Case(engine, V2_CONFIG, V2_ENVS, caps=(full.g // 2, full.r // 2))
+
+    def no_gates(tape):
+        return (torch.zeros_like(tape[0]), *tape[1:])
+    empty = (no_gates(full.args[0]), no_gates(full.args[1]), *full.args[2:])
+    # the gate-free launch with 2 envs (16 CTAs): whether H psi's reads of
+    # W are bound by each SM's own intake or by what L2 gives all SMs
+    old, new, map_idx, *planes, starts, active = empty
+    few = (tuple(t[:2].contiguous() for t in old),
+           tuple(t[:2].contiguous() for t in new), map_idx[:2].contiguous(),
+           *planes, starts[:2].contiguous(), active[:2].contiguous())
+    runs = {"none": empty, "none E=2": few, f"G={half.g}": half.args,
+            f"G={full.g}": full.args}
+    runs.update({f"{config} E={n_env}": Case(engine, config, n_env).args
+                 for config, n_env in SPLIT_SHAPES})
+    ms, live = {}, {}
+    for label, args in runs.items():
+        ms[label] = time_cuda(lambda: engine.step(*args, iters=ITERS, lr=LR),
+                              warmup=2, reps=10)
+        live[label] = int((args[0][0] != 0).sum(1).max())
+    per_slot = (ms[f"G={full.g}"] - ms[f"G={half.g}"]) / (full.g - half.g)
+    done("split", t0, E=V2_ENVS, S=STARTS, iters=ITERS,
+         kernel_ms={k: f"{v:.4f}" for k, v in ms.items()},
+         longest_live_tape=live, ms_per_tape_slot=f"{per_slot:.5f}",
+         gate_free_share=f"{ms['none'] / ms[f'G={full.g}']:.3f}")
+    return ms
 
 
 def sweep_phase(engine, sweep=SWEEP):
@@ -1131,22 +1189,111 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
         shutil.rmtree(out, ignore_errors=True)
 
 
-def build_phase(names):
-    """One nvcc per kernel source, all started together."""
-    t0 = phase("build")
-    from tensorrl_qas_tpu_torch.ops.build import build
+class Builds:
+    """One nvcc per kernel source, all started together when made;
+    ``wait(*names)`` blocks until those sources are built (a failed build
+    raises there) and prints their ptxas lines, so that a long build runs
+    while the phases that do not need it do."""
 
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        infos = dict(zip(names, pool.map(build, names)))
-    for name, info in infos.items():
-        for ln in info["log"].splitlines():
-            if "registers" in ln or "spill" in ln or "smem" in ln:
-                print(f"  ptxas {name}: {ln.strip()}", flush=True)
-    done("build", t0,
-         nvcc_s={k: round(v["seconds"], 2) for k, v in infos.items()})
+    def __init__(self, names):
+        from tensorrl_qas_tpu_torch.ops.build import build
+
+        self.t0 = time.perf_counter()
+        self.pool = concurrent.futures.ThreadPoolExecutor(len(names))
+        self.futures = {name: self.pool.submit(build, name)
+                        for name in names}
+
+    def wait(self, *names):
+        t0 = phase("build " + " ".join(names))
+        infos = {name: self.futures.pop(name).result() for name in names}
+        for name, info in infos.items():
+            for ln in info["log"].splitlines():
+                if "registers" in ln or "spill" in ln or "smem" in ln:
+                    print(f"  ptxas {name}: {ln.strip()}", flush=True)
+        if not self.futures:
+            self.pool.shutdown()
+        done("build " + " ".join(names), t0,
+             nvcc_s={k: round(v["seconds"], 2) for k, v in infos.items()},
+             since_start_s=round(time.perf_counter() - self.t0, 2))
 
 
-def main() -> int:
+# synthetic tapes for the split by gate class at 12q (lane bits hold
+# qubits 0..4, the registers start with the first four other targets):
+# label -> the (kind, target, control) cycle every env's tape repeats
+CLASS_PATTERNS = {
+    "RY one register qubit": [("RY", 5, -1)],
+    "RY registers": [("RY", q, -1) for q in (5, 6, 7, 8)],
+    "RZ registers": [("RZ", q, -1) for q in (5, 6, 7, 8)],
+    "RX registers": [("RX", q, -1) for q in (5, 6, 7, 8)],
+    "CX registers": [("CX", q, 0) for q in (5, 6, 7, 8)],
+    "RY lanes": [("RY", q, -1) for q in range(5)],
+    "RY warp qubits": [("RY", q, -1) for q in range(5, 12)],
+}
+
+
+def class_split(engine):
+    """v2 at the 12q LiH shapes on tapes of G - 3 gates of one class
+    (``CLASS_PATTERNS``), every env the same tape, at 100 iterations and
+    at 0 (two forward passes and no adjoint): what a gate costs by the bit
+    its target sits on and by its form, and how many swaps the schedule
+    (``swap_schedule``, the kernel's twin) puts in."""
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+    from tensorrl_qas_tpu_torch.ops.fused_adam2d import SWAP, swap_schedule
+
+    t0 = phase("split by gate class")
+    full = Case(engine, V2_CONFIG, V2_ENVS)
+    live = full.g - 3
+    ms, ms0, swaps = {}, {}, {}
+    for label, pattern in {"none": [], **CLASS_PATTERNS}.items():
+        arrs = np.zeros((4, full.g), np.int32)
+        arrs[2:] = -1
+        for g in range(live if pattern else 0):
+            k, t, c = pattern[g % len(pattern)]
+            arrs[:, g] = (int(GateKind[k]), t, c, g if k != "CX" else -1)
+        tape = tuple(torch.as_tensor(np.repeat(a[None], V2_ENVS, 0),
+                                     device="cuda") for a in arrs)
+        args = (tape, tape, *full.args[2:])
+        ms[label] = "{:.4f}".format(time_cuda(
+            lambda: engine.step(*args, iters=ITERS, lr=LR), warmup=2,
+            reps=10))
+        # no Adam iteration: the final check and e_new, two forward
+        # passes and two H psi
+        ms0[label] = "{:.4f}".format(time_cuda(
+            lambda: engine.step(*args, iters=0, lr=LR), warmup=2, reps=10))
+        swaps[label] = sum(g == SWAP for g, _, _ in
+                           swap_schedule(*arrs[:3], full.n)[1])
+    done("split by gate class", t0, gates=live, kernel_ms=ms,
+         kernel_ms_iters0=ms0, swaps_per_pass=swaps)
+
+
+def split_only(v2, v2n):
+    """``--split``: the split phase, the split by gate class (where the
+    checkout's v2 has the register kernel, i.e. a ``swap_schedule``), then
+    v2 at the trainable capacities and v2n at 12q LiH timed the same way,
+    so that two checkouts run in one call compare on one card."""
+    from tensorrl_qas_tpu_torch.ops import fused_adam2d
+
+    split_phase(v2)
+    if hasattr(fused_adam2d, "swap_schedule"):
+        class_split(v2)
+    else:
+        print("[split by gate class] skipped: no register kernel in this "
+              "checkout", flush=True)
+    t0 = phase("split compare")
+    ms = {}
+    for label, engine, family in (("v2 trainable", v2, TRAINABLE),
+                                  ("v2n", v2n, FIXED)):
+        case = Case(engine, V2_CONFIG, V2_ENVS, family)
+        ms[f"{label} G={case.g} R={case.r}"] = "{:.4f}".format(time_cuda(
+            lambda: engine.step(*case.args, iters=ITERS, lr=LR,
+                                **case.noise_kw), warmup=2, reps=10))
+    done("split compare", t0, kernel_ms=ms)
+
+
+def main(argv=()) -> int:
     watchdog = threading.Timer(DEADLINE_S, _expire)
     watchdog.daemon = True
     watchdog.start()
@@ -1162,12 +1309,20 @@ def main() -> int:
          count=torch.cuda.device_count())
 
     v1, v1n, v2, v2n, v1p, v2p = engines()
-    build_phase(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
+    if "--split" in argv:
+        Builds(("fused_adam_v2",)).wait("fused_adam_v2")
+        split_only(v2, v2n)
+        watchdog.cancel()
+        return 0
+    builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
+    builds.wait("fused_adam_v1")
     results = {}
     results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
     results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
                                             V1_STEPS, "trainer v1")[v1.name]
+    builds.wait("fused_adam_v2", "apply_tape")
     results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
+    split_phase(v2)
     sweep_phase(v2)
     results[v2]["launches"] = trainer_phase(v2, V2_CONFIG, V2_ENVS,
                                             V2_STEPS, "trainer v2")[v2.name]
@@ -1268,7 +1423,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = main(sys.argv[1:])
     except BaseException:
         print(f"FAILED in phase {_phase[0]!r}", flush=True)
         raise

@@ -13,7 +13,10 @@ precomputed on the host by ``pauli_flip_groups``: 84 groups for 12-qubit
 LiH instead of a dense (4096, 4096) matrix.
 
 ``fused_adam_step2d`` launches the CUDA kernel ``csrc/fused_adam_v2.cu``
-on CUDA tensors and runs ``fused_adam_step2d_reference``, the plain
+on CUDA tensors -- for 7 <= n <= 12 with psi in registers, laid out as
+``register_layout`` says and moved as ``swap_schedule`` (the plain twin of
+the kernel's schedule) says; from 13 with psi in shared memory (13) or a
+global workspace -- and runs ``fused_adam_step2d_reference``, the plain
 PyTorch version of the same arithmetic, on CPU tensors.  Layouts: tapes
 (E, G) int32, map_idx (E, R) int32, p0re/p0im (1, D) shared or (E, D)
 one per env (the JAX kernel's ``per_env_psi0``, which takes (E, D / 128,
@@ -93,6 +96,59 @@ def fused_adam_step2d_reference(old_arrs, new_arrs, map_idx, p0re, p0im,
         starts, active, iters=iters, lr=lr, **noise)
 
 
+# -- the register layout of the kernel (7 <= n <= 12) ------------------------
+
+SWAP = -1                # the gate index of a swap in a schedule
+
+
+def register_layout(n: int):
+    """(r, lanes, warps): how the kernel's CTA holds the 2^n amplitudes of
+    one start for 7 <= n <= 12.  Amplitude p of the physical order lives
+    in thread p >> r, register p & (2^r - 1): physical bits [0, r) pick
+    the register, the next ``lanes`` bits the lane of the warp, the rest
+    the warp (2^(n - r) threads, 256 at 12 qubits)."""
+    r = 4
+    lanes = min(5, n - r)
+    return r, lanes, n - r - lanes
+
+
+def swap_schedule(kind, tq, cq, n: int):
+    """Twin of the kernel's ``build_schedule``: where each logical qubit
+    sits while one tape runs.  Lane bits hold logical qubits 0..lanes-1
+    for good.  The registers start with the first r distinct targets among
+    the other qubits (in tape order, then the lowest unused), the warp
+    bits with the rest in increasing order.  A gate whose target sits on
+    a warp bit is preceded by a swap of that bit with the register whose
+    qubit is next used as a target furthest ahead (Belady; ties: the
+    lowest register).  Controls are predicates on any bit and never move.
+
+    ``kind``, ``tq``, ``cq``: one tape's (G,) arrays.  -> (map0, ops,
+    map1): the logical qubit at each physical bit before and after the
+    tape, and the ops in order, (g, target bit, control bit or -1) for
+    gate g and (SWAP, register bit, warp bit) for a swap."""
+    r, lanes, _ = register_layout(n)
+    kind, tq, cq = (np.asarray(a).tolist() for a in (kind, tq, cq))
+    g_n = len(kind)
+    live = [g for g in range(g_n) if kind[g] != 0]
+    first, after = [g_n] * n, [g_n] * g_n
+    for g in reversed(live):
+        after[g], first[tq[g]] = first[tq[g]], g
+    rest = sorted(range(lanes, n), key=lambda q: (first[q], q))
+    occ = rest[:r] + list(range(lanes)) + sorted(rest[r:])
+    pos = {q: p for p, q in enumerate(occ)}
+    map0, ops, next_use = list(occ), [], list(first)
+    for g in live:
+        t = tq[g]
+        if pos[t] >= r + lanes:
+            a = max(range(r), key=lambda a: (next_use[occ[a]], -a))
+            b, qa = pos[t], occ[a]
+            ops.append((SWAP, a, b))
+            occ[a], occ[b], pos[t], pos[qa] = t, qa, a, b
+        ops.append((g, pos[t], pos[cq[g]] if cq[g] >= 0 else -1))
+        next_use[t] = after[g]
+    return map0, ops, list(occ)
+
+
 # -- CUDA kernel -------------------------------------------------------------
 
 _I32 = ctypes.c_int
@@ -109,7 +165,7 @@ def _library():
 
     lib = load("fused_adam_v2")
     lib.fused_adam_v2_launch.argtypes = (
-        [_PTR] * 23 + [_I32] * 8 + [_F32, _F64, _F64]
+        [_PTR] * 24 + [_I32] * 8 + [_F32, _F64, _F64]
         + [_F32] * 3 + [_U32] * 2 + [_PTR])
     lib.fused_adam_v2_launch.restype = _I32
     lib.fused_adam_v2_smem_bytes.argtypes = [_I32] * 5
@@ -186,13 +242,16 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     n_work = lib.fused_adam_v2_workspace_floats(n_env, s_n, n)
     work = torch.empty((n_work,), **f32) if n_work else None
     stride = fused_adam.psi0_stride(p0re)
+    # the groups whose imaginary plane is not zero (none for a real H)
+    wim_any = (wim != 0).any(dim=1).to(torch.int32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fused_adam.launch(
         lib, "fused_adam_v2", *(t.data_ptr() for t in ints),
         map_idx.data_ptr(), p0re.data_ptr(), p0im.data_ptr(), wre.data_ptr(),
-        wim.data_ptr(), flips.data_ptr(), starts.data_ptr(),
-        active.data_ptr(), seeds_ptr, x_opt.data_ptr(), e_new.data_ptr(),
-        best_x.data_ptr(), best_e.data_ptr(), arrived.data_ptr(),
+        wim.data_ptr(), flips.data_ptr(), wim_any.data_ptr(),
+        starts.data_ptr(), active.data_ptr(), seeds_ptr, x_opt.data_ptr(),
+        e_new.data_ptr(), best_x.data_ptr(), best_e.data_ptr(),
+        arrived.data_ptr(),
         None if work is None else work.data_ptr(), n_env, s_n, g, r, n,
         n_groups, stride, int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2,
         EPS, thr1, thr2, stream)

@@ -12,8 +12,13 @@ some outputs in any float32 implementation, so an env that differs may
 instead lie within the plain version's own float32 noise
 (``ops/fused_adam.py:agreement``, the rule chip_smoke.py applies);
 deliberately wrong kernel results must fail that rule.  The v2 kernel is
-held to the same rule at 7 qubits (a random Pauli sum), 12 (LiH, state in
-shared memory) and 16 (Heisenberg, state in the global workspace).
+held to the same rule at 7, 10, 11 (a random Pauli sum) and 12 qubits
+(LiH) -- the register kernel -- and at 13 (a random Pauli sum, state in
+shared memory) and 16 (Heisenberg, state in the global workspace) -- the
+first design; at 12 also with every target and control on the qubits
+that start on warp bits, and with 3 starts.  Two v2 launches agree bit
+for bit at 12 and 13 qubits, as do p = 0 and the noiseless kernel, and
+identical psi0 rows and the shared plane.
 
 The noise variants (``noise=(p1, p2)``, seeds per env) are held to the
 same rule against their plain versions under the same Philox draws; the
@@ -68,13 +73,18 @@ def _card():
     return torch.device("cuda")
 
 
-def _tapes(dev, n, n_env, n_starts, cap, seed, prefix=None, rot_cap=None):
+def _tapes(dev, n, n_env, n_starts, cap, seed, prefix=None, rot_cap=None,
+           qubits=None):
     """Random mid-episode tapes, the remap, a random psi0 and the starts:
     (old, new, map_idx, p0re, p0im) and (starts, active) on ``dev``.  A
     ``prefix`` tape (an embedded warm start) opens every tape, whose
-    capacities are then ``cap`` gates and ``rot_cap`` angles."""
+    capacities are then ``cap`` gates and ``rot_cap`` angles.  ``qubits``:
+    the qubits the random gates' targets and controls are drawn from (all
+    n by default)."""
     rng = np.random.default_rng(seed)
     rot_cap = rot_cap or cap
+    qubits = list(range(n)) if qubits is None else list(qubits)
+    n_q = len(qubits)
     head = []
     if prefix is not None:
         head = [(GateKind(int(prefix.kind[g])), int(prefix.tq[g]),
@@ -88,16 +98,17 @@ def _tapes(dev, n, n_env, n_starts, cap, seed, prefix=None, rot_cap=None):
             old.add(*gate)
             new.add(*gate)
         for _ in range(int(rng.integers(0, cap - len(head)))):
-            t = int(rng.integers(n))
+            i = int(rng.integers(n_q))
+            t = qubits[i]
             if rng.random() < 0.4:
-                gate = (GateKind.CX, t, int((t + 1 + rng.integers(n - 1)) % n),
-                        0.0)
+                c = qubits[(i + 1 + int(rng.integers(n_q - 1))) % n_q]
+                gate = (GateKind.CX, t, c, 0.0)
             else:
                 gate = (GateKind(int(rng.integers(1, 4))), t, -1,
                         float(rng.normal()))
             old.add(*gate)
             new.add(*gate)
-        new.add(GateKind.RX, int(rng.integers(n)))
+        new.add(GateKind.RX, qubits[int(rng.integers(n_q))])
         olds.append(old.arrays())
         news.append(new.arrays())
         x0s.append(old.x0())
@@ -142,9 +153,9 @@ def _pauli(n):
     return PauliSum.from_strings(paulis, rng.normal(size=41), n)
 
 
-def _inputs2d(dev, n, n_env=4, n_starts=8, cap=30, seed=0):
+def _inputs2d(dev, n, n_env=4, n_starts=8, cap=30, seed=0, qubits=None):
     """v2 arguments: flip-group planes of H - c0 I."""
-    head, tail = _tapes(dev, n, n_env, n_starts, cap, seed)
+    head, tail = _tapes(dev, n, n_env, n_starts, cap, seed, qubits=qubits)
     return (*head, *AngleOptimizer(_pauli(n), device=dev).w_planes(), *tail)
 
 
@@ -196,11 +207,19 @@ def test_kernel_rejects_two_qubit_rotations():
         fused_adam.fused_adam_step(*args, iters=1, lr=0.1)
 
 
+# the v2 cases: n qubits (the register kernel up to 13, the workspace one
+# at 16), plus at 12 qubits every target and control on the qubits that
+# start on warp bits (5..11: a swap before most gates) and 3 starts
+V2_CASES = {f"{n}q": dict(n=n) for n in (7, 10, 11, 12, 13, 16)}
+V2_CASES["12q warp qubits"] = dict(n=12, qubits=range(5, 12))
+V2_CASES["12q S=3"] = dict(n=12, n_starts=3)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [7, 12, 16])
-def test_kernel2d_matches_plain_version(n):
+@pytest.mark.parametrize("case", list(V2_CASES))
+def test_kernel2d_matches_plain_version(case):
     dev = _card()
-    args = _inputs2d(dev, n)
+    args = _inputs2d(dev, **V2_CASES[case])
     before = fused_adam2d.fused_adam_step2d.launches
     xk, ek = fused_adam2d.fused_adam_step2d(*args, iters=3, lr=0.1)
     torch.cuda.synchronize()
@@ -214,11 +233,11 @@ def test_kernel2d_matches_plain_version(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [7, 12, 16])
+@pytest.mark.parametrize("case", list(V2_CASES))
 @pytest.mark.parametrize("fault", ["lr", "drop_ry"])
-def test_check_rejects_a_wrong_kernel2d_result(n, fault):
+def test_check_rejects_a_wrong_kernel2d_result(case, fault):
     dev = _card()
-    args = _inputs2d(dev, n)
+    args = _inputs2d(dev, **V2_CASES[case])
     lr = 0.101 if fault == "lr" else 0.1
     wrong = list(args)
     if fault == "drop_ry":
@@ -250,13 +269,15 @@ NOISE = (0.1, 0.2)
 
 
 def _engine(name):
-    """(wrapper, plain version, argument builder) of one kernel."""
+    """(wrapper, plain version, argument builder) of one kernel: "v1",
+    "v2" (12 qubits) or "v2 13q"."""
     if name == "v1":
         return (fused_adam.fused_adam_step,
                 fused_adam.fused_adam_step_reference, _inputs)
+    n = 13 if name == "v2 13q" else 12
     return (fused_adam2d.fused_adam_step2d,
             fused_adam2d.fused_adam_step2d_reference,
-            lambda dev, **kw: _inputs2d(dev, 12, **kw))
+            lambda dev, **kw: _inputs2d(dev, n, **kw))
 
 
 def _seeds(dev, n_env, seed=0):
@@ -302,7 +323,7 @@ def test_noise_kernel_matches_plain_version(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["v1", "v2"])
+@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q"])
 def test_kernel_is_deterministic(name):
     """Gradient rows are summed in a fixed order: two launches on the same
     inputs agree bit for bit."""
@@ -315,7 +336,7 @@ def test_kernel_is_deterministic(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["v1", "v2"])
+@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q"])
 def test_noise_kernel_at_p0_is_the_noiseless_kernel(name):
     dev = _card()
     step, _, build = _engine(name)
@@ -434,7 +455,7 @@ def test_per_env_psi0_kernel_matches_plain_version(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["v1", "v2 12q", "v2 14q"])
+@pytest.mark.parametrize("case", ["v1", "v2 12q", "v2 13q", "v2 14q"])
 def test_per_env_psi0_identical_rows_equal_the_shared_launch(case):
     dev = _card()
     step, _, args = _psi0_case(case, dev)
