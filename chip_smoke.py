@@ -6,7 +6,7 @@ TensorRL-fixed, TensorRL-trainable and StructureRL families, and through
 the composed engine with the su4 gate set and with shot noise.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --split     # the v2 split phase alone (5b.)
+    python3 chip_smoke.py --split     # the split phases alone (3b., 5b.)
 
 Phases, one line each with its seconds:
 
@@ -17,7 +17,7 @@ Phases, one line each with its seconds:
                  ptxas' register / shared-memory / spill lines; the v1
                  phases wait only for v1, so the v2 source (the longest
                  build) compiles while they run.
-3. kernel v1  -- the dense-H kernel (fused_adam_v1) against its plain
+3. kernel v1  -- the v1 kernel (fused_adam_v1) against its plain
                  PyTorch version at the 8-qubit main path's shapes (E = 128
                  envs, S = 8 starts, G = R = 26, D = 256, the H2O
                  Hamiltonian, tapes drawn from a numpy seed): iters = 3
@@ -27,12 +27,23 @@ Phases, one line each with its seconds:
                  version's own float32 noise (ops/fused_adam.py:agreement);
                  e_new also against the eager complex128 simulator; two
                  deliberately wrong kernel results must fail the same
-                 check; then the kernel's and the plain version's times.
+                 check; then the kernel's and the plain version's times,
+                 and its bound with H psi over the flip groups and, as
+                 the first v1 kernel counted it, as a dense product.
+3b. split v1  -- where a v1 launch's time goes: 100 iterations at the 8q
+                 shapes with every gate kNone (the fixed part), at G = 13
+                 and G = 26 (the cost of a tape slot), at the trainable
+                 capacity (G = 172, R = 151) and at 5q Heisenberg (E =
+                 64); then the 8q fixed and trainable shapes at 8 and 16
+                 amplitudes a thread (``reg_bits``).
 4. trainer v1 -- the CLI's vectorized trainer on configs/TensorRL_fixed/
                  H2O8q_TNbond2.cfg with 128 env replicas for 20 vector
                  steps, results in a temporary directory outside the
                  repository; checks the reference-schema outputs and that
-                 every env step went through fused_adam_v1.
+                 every env step went through fused_adam_v1; traced, it
+                 prints the kernel's device time per vector step beside
+                 the wall time per step (as does the trainable trainer of
+                 17.).
 5. kernel v2  -- the flip-group kernel (fused_adam_v2) held to the same
                  rule at the 12-qubit LiH shapes (E = 16, S = 8, G = R =
                  116, D = 4096, 84 flip groups), with the same oracle,
@@ -44,11 +55,12 @@ Phases, one line each with its seconds:
                  LiH shapes with every gate kNone (also with 2 of the 16
                  envs), at half and at the full tape capacity (the cost of
                  a tape slot), and at 10q H2O (E = 64) and 14q Heisenberg
-                 (E = 8).  With ``--split`` the script runs only this phase,
-                 a split by gate class (synthetic tapes of one gate class
-                 each, at 100 and 0 iterations, with the swaps the schedule
-                 puts in) and v2 at the trainable capacities and v2n timed
-                 the same way, and prints no result lines.
+                 (E = 8).  With ``--split`` the script runs only 3b. and
+                 this phase, a split by gate class (synthetic tapes of one
+                 gate class each, at 100 and 0 iterations, with the swaps
+                 the schedule puts in), v2 at the trainable capacities and
+                 v2n timed the same way, and the two traced v1 trainers,
+                 and prints no result lines.
 6. trainer v2 -- the trainer on configs/TensorRL_fixed/LIH12q_TNbond2.cfg
                  with 16 replicas for 80 vector steps (1,280 env steps, so
                  that the replay buffer passes batch 1000 and replay runs);
@@ -304,8 +316,7 @@ class Engine(NamedTuple):
     variants), its variant ("" plain, "noise", or "psi0" for per-env psi0
     planes), its plain version, the H operands it takes from the
     optimizer, the dynamic shared memory one CTA takes at a case's shapes,
-    and the rows of H one H psi reads (dense D, or one plane per flip
-    group)."""
+    and the operations one H psi needs at a case's shapes (``h_flops``)."""
     name: str
     replaces: str
     source: str
@@ -314,7 +325,7 @@ class Engine(NamedTuple):
     plain: Callable
     h_ops: Callable
     smem_bytes: Callable
-    h_rows: Callable
+    h_flops: Callable
 
     @property
     def noise(self) -> bool:
@@ -366,14 +377,15 @@ COMPOSED = Engine(
     name="composed", replaces=REPLACES["tape", "fwd"], source=TAPE_SOURCE,
     step=None, variant="composed", plain=None,
     h_ops=lambda opt: opt.h_planes(), smem_bytes=lambda case: None,
-    h_rows=lambda case: 1 << case.n)
+    h_flops=lambda case: 8 << (2 * case.n))
 
 
 def engines():
-    """(v1, v1 noise, v2, v2 noise, v1 per-env psi0, v2 per-env psi0)."""
+    """(v1, v1 noise, v2, v2 noise, v1 per-env psi0, v2 per-env psi0).
+    Both kernels take the flip-group planes."""
     from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
 
-    v1, v2 = fused_adam._library, fused_adam2d._library
+    v2 = fused_adam2d._library
     out = {}
     for variant in ("", "noise", "psi0"):
         suffix = f"_{variant}" if variant else ""
@@ -383,11 +395,9 @@ def engines():
             source="tensorrl_qas_tpu_torch/csrc/fused_adam_v1.cu",
             step=fused_adam.fused_adam_step, variant=variant,
             plain=fused_adam.fused_adam_step_reference,
-            h_ops=lambda opt: opt.h_planes(),
-            smem_bytes=lambda case, noise=noise:
-                v1().fused_adam_v1_smem_bytes(STARTS, case.g, case.r,
-                                              case.n, noise),
-            h_rows=lambda case: 1 << case.n)
+            h_ops=lambda opt: opt.w_planes(),
+            smem_bytes=lambda case, noise=noise: v1_smem_bytes(case, noise),
+            h_flops=flip_h_flops)
         out["v2" + variant] = Engine(
             name="fused_adam_v2" + suffix, replaces=REPLACES["v2", variant],
             source="tensorrl_qas_tpu_torch/csrc/fused_adam_v2.cu",
@@ -397,9 +407,33 @@ def engines():
             smem_bytes=lambda case, noise=noise:
                 v2().fused_adam_v2_smem_bytes(case.g, case.r, case.n,
                                               case.args[7].numel(), noise),
-            h_rows=lambda case: case.args[7].numel())
+            h_flops=flip_h_flops)
     return tuple(out[k] for k in ("v1", "v1noise", "v2", "v2noise",
                                   "v1psi0", "v2psi0"))
+
+
+def flip_h_flops(case):
+    """Operations of one H psi over a case's flip groups, H psi[i] =
+    sum_f W_f[i] psi[i ^ f]: 8 an amplitude for a group whose imaginary
+    plane is not zero (a complex product and sum), 4 for a real one."""
+    dim, wim = 1 << case.n, case.args[6]
+    n_cplx = int((wim != 0).any(dim=1).sum())
+    return dim * (4 * wim.shape[0] + 4 * n_cplx)
+
+
+def v1_smem_bytes(case, noise):
+    """The v1 kernel's dynamic shared memory a CTA at a case's shapes, and
+    whether the W planes are in it."""
+    from tensorrl_qas_tpu_torch.ops import fused_adam
+
+    wim, flips = case.args[6], case.args[7]
+    n_cplx = int((wim != 0).any(dim=1).sum())
+    rb = fused_adam.group_layout(case.n, STARTS)[0]
+    sizes = [fused_adam._library().fused_adam_v1_smem_bytes(
+        STARTS, case.g, case.r, case.n, flips.numel(), n_cplx, noise, rb, w)
+        for w in (0, 1)]
+    w_smem = sizes[1] <= fused_adam.MAX_SMEM_BYTES
+    return {"bytes": sizes[w_smem], "W_in_shared_memory": w_smem}
 
 
 class Case:
@@ -637,11 +671,11 @@ def gate_tables():
     return ((rot, 12), (h, 8)), ((rot, 32), (h, 16))
 
 
-def flop_count(case, h_rows):
+def flop_count(case, h_flops):
     """Floating-point operations one fused step needs on this batch, from
     its tapes gate by gate (``tape_flops``, ``gate_tables``).  Per
-    evaluation H psi takes 8 per entry of the ``h_rows`` x D operand, the
-    Rayleigh quotient 8 per amplitude, lambda = 2 conj(H psi) 2; each Adam
+    evaluation H psi takes ``h_flops``, the Rayleigh quotient 8 per
+    amplitude, lambda = 2 conj(H psi) 2; each Adam
     update about 12 per active angle and start.  A noise variant's error
     Paulis are swaps and signs: no flops."""
     import numpy as np
@@ -656,7 +690,7 @@ def flop_count(case, h_rows):
     per_env = (evals * tape_flops(case.old, dim, fwd)
                + ITERS * STARTS * tape_flops(case.old, dim, bwd)
                + tape_flops(case.new, dim, fwd)
-               + (evals + 1) * (h_rows * dim * 8 + dim * 8)
+               + (evals + 1) * (h_flops + dim * 8)
                + ITERS * STARTS * (dim * 2 + n_rot * 12))
     return float(per_env.sum())
 
@@ -703,6 +737,19 @@ def device_ms(fn, name, reps=10):
     return total / reps / 1e3 if total else None
 
 
+def device_us_by_name(prof):
+    """Device microseconds by kernel name in a finished torch.profiler
+    trace, summed from its raw events (``key_averages`` builds a tree of
+    every event first, over a minute for a traced trainer)."""
+    import torch
+
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            out[ev.name()] = out.get(ev.name(), 0.0) + ev.duration_ns() / 1e3
+    return out
+
+
 def time_kernel(engine, case, label, time_plain=True):
     """Kernel ms (median of CUDA events), plain ms (one call, unless
     ``time_plain`` is False), and the bound: the larger of this batch's
@@ -721,7 +768,7 @@ def time_kernel(engine, case, label, time_plain=True):
     if time_plain:
         p_ms = time_cuda(lambda: engine.plain(*case.args, iters=ITERS,
                                               lr=LR, **kw), warmup=0, reps=1)
-    flops = flop_count(case, engine.h_rows(case))
+    flops = flop_count(case, engine.h_flops(case))
     seeds = [kw["seeds"]] if kw else []
     tensors = [t for a in (*case.args, *seeds)
                for t in (a if isinstance(a, tuple) else (a,))]
@@ -730,9 +777,14 @@ def time_kernel(engine, case, label, time_plain=True):
     bound_ms = 1e3 * max(flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S)
     bound_by = ("operations" if flops / FP32_PEAK_FLOPS
                 >= nbytes / HBM_BYTES_PER_S else "bytes")
+    # the same bound with H psi counted as a dense complex D x D product,
+    # as the first v1 kernel's bounds were
+    dense_ms = 1e3 * max(flop_count(case, 8 << (2 * case.n))
+                         / FP32_PEAK_FLOPS,
+                         nbytes / HBM_BYTES_PER_S)
     done(f"{label} timing", t0, kernel_ms=f"{k_ms:.4f}",
          plain_ms="not timed" if p_ms is None else f"{p_ms:.4f}",
-         bound_ms=f"{bound_ms:.4f}",
+         bound_ms=f"{bound_ms:.4f}", dense_h_bound_ms=f"{dense_ms:.4f}",
          bound_by=bound_by, gflop=f"{flops / 1e9:.3f}",
          dynamic_smem_bytes_per_cta=engine.smem_bytes(case), **extra,
          library_ms="n/a (no single PyTorch call computes this fused step)")
@@ -757,44 +809,86 @@ def kernel_phase(engine, config, n_env, label, long_check=True,
             **time_kernel(engine, case, label, time_plain)}, case
 
 
-def split_phase(engine):
-    """Where a v2 launch's time goes (100 iterations, CUDA events): at the
-    12q LiH shapes with every gate of both tapes kNone (H psi, Adam and
-    the tail; also with 2 of the 16 envs), at half the tape capacity and
-    at the full one (their
-    difference over the slots between them: the cost of a tape slot), and
-    at the 10q H2O and 14q Heisenberg shapes of ``SPLIT_SHAPES`` (shared
-    memory and workspace band)."""
+def split_phase(engine, config, n_env, others=(), few=None):
+    """Where a launch's time goes (100 iterations, CUDA events): at
+    ``config``'s shapes with every gate of both tapes kNone (H psi, Adam
+    and the tail; also with ``few`` of the envs when given), at half the
+    tape capacity and at the full one (their difference over the slots
+    between them: the cost of a tape slot), and at each (config, envs,
+    family) of ``others``."""
     import torch
 
-    t0 = phase("split")
-    full = Case(engine, V2_CONFIG, V2_ENVS)
-    half = Case(engine, V2_CONFIG, V2_ENVS, caps=(full.g // 2, full.r // 2))
+    label = f"split {engine.name}"
+    t0 = phase(label)
+    full = Case(engine, config, n_env)
+    half = Case(engine, config, n_env, caps=(full.g // 2, full.r // 2))
 
     def no_gates(tape):
         return (torch.zeros_like(tape[0]), *tape[1:])
     empty = (no_gates(full.args[0]), no_gates(full.args[1]), *full.args[2:])
-    # the gate-free launch with 2 envs (16 CTAs): whether H psi's reads of
-    # W are bound by each SM's own intake or by what L2 gives all SMs
-    old, new, map_idx, *planes, starts, active = empty
-    few = (tuple(t[:2].contiguous() for t in old),
-           tuple(t[:2].contiguous() for t in new), map_idx[:2].contiguous(),
-           *planes, starts[:2].contiguous(), active[:2].contiguous())
-    runs = {"none": empty, "none E=2": few, f"G={half.g}": half.args,
-            f"G={full.g}": full.args}
-    runs.update({f"{config} E={n_env}": Case(engine, config, n_env).args
-                 for config, n_env in SPLIT_SHAPES})
-    ms, live = {}, {}
-    for label, args in runs.items():
-        ms[label] = time_cuda(lambda: engine.step(*args, iters=ITERS, lr=LR),
-                              warmup=2, reps=10)
-        live[label] = int((args[0][0] != 0).sum(1).max())
+    runs = {"none": empty}
+    if few:
+        # the gate-free launch with fewer envs: whether H psi's reads of W
+        # are bound by each SM's own intake or by what L2 gives all SMs
+        old, new, map_idx, *planes, starts, active = empty
+        runs[f"none E={few}"] = (
+            tuple(t[:few].contiguous() for t in old),
+            tuple(t[:few].contiguous() for t in new),
+            map_idx[:few].contiguous(), *planes, starts[:few].contiguous(),
+            active[:few].contiguous())
+    runs[f"G={half.g}"] = half.args
+    runs[f"G={full.g}"] = full.args
+    for other, envs, family in others:
+        case = Case(engine, other, envs, family)
+        runs[f"{family}{other} E={envs} G={case.g} R={case.r}"] = case.args
+    ms, dev, live = {}, {}, {}
+    for key, args in runs.items():
+        ms[key] = time_cuda(lambda: engine.step(*args, iters=ITERS, lr=LR),
+                            warmup=2, reps=10)
+        dev[key] = device_ms(lambda: engine.step(*args, iters=ITERS, lr=LR),
+                             engine.name, reps=5)
+        live[key] = int((args[0][0] != 0).sum(1).max())
     per_slot = (ms[f"G={full.g}"] - ms[f"G={half.g}"]) / (full.g - half.g)
-    done("split", t0, E=V2_ENVS, S=STARTS, iters=ITERS,
+    done(label, t0, config=config, E=n_env, S=STARTS, iters=ITERS,
          kernel_ms={k: f"{v:.4f}" for k, v in ms.items()},
+         device_ms={k: "not measured" if v is None else f"{v:.4f}"
+                    for k, v in dev.items()},
          longest_live_tape=live, ms_per_tape_slot=f"{per_slot:.5f}",
          gate_free_share=f"{ms['none'] / ms[f'G={full.g}']:.3f}")
     return ms
+
+
+def split_v1(v1):
+    """The v1 split: 8q H2O (E = 128), its trainable capacity and 5q
+    Heisenberg (E = 64); then the 8q shapes at 8 and 16 amplitudes a
+    thread (``run_kernel``'s ``reg_bits``)."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam
+
+    ms = split_phase(v1, V1_CONFIG, V1_ENVS,
+                     ((V1_CONFIG, V1_ENVS, TRAINABLE), (*V1_SMALL, FIXED)))
+    t0 = phase("split v1 register bits")
+    stream = torch.cuda.current_stream().cuda_stream
+    by = {}
+    for family in (FIXED, TRAINABLE):
+        case = Case(v1, V1_CONFIG, V1_ENVS, family)
+        for rb in (3, 4):
+            by[f"{family}{V1_CONFIG} G={case.g} A={1 << rb}"] = (
+                "{:.4f}".format(time_cuda(
+                    lambda: fused_adam.run_kernel(
+                        fused_adam._library(), *case.args, iters=ITERS,
+                        lr=LR, noise=None, seeds=None, stream=stream,
+                        reg_bits=rb), warmup=2, reps=10)))
+    done("split v1 register bits", t0, kernel_ms=by)
+    return ms
+
+
+def split_v2(v2):
+    """The v2 split: 12q LiH (E = 16, also with 2 envs), 10q H2O and 14q
+    Heisenberg (``SPLIT_SHAPES``)."""
+    return split_phase(v2, V2_CONFIG, V2_ENVS,
+                       tuple((c, e, FIXED) for c, e in SPLIT_SHAPES), few=2)
 
 
 def sweep_phase(engine, sweep=SWEEP):
@@ -887,7 +981,7 @@ def kraus_phase(noisy):
                               5))
     args = (arrs, arrs, torch.arange(4, dtype=torch.int32, device=dev)
             .repeat(e_n, 1).contiguous(), psi0.real[None].contiguous(),
-            psi0.imag[None].contiguous(), *opt.h_planes(),
+            psi0.imag[None].contiguous(), *opt.w_planes(),
             x0.repeat(e_n, 1, 1).contiguous(),
             torch.ones(e_n, 1, 4, device=dev))
     kw = dict(iters=1, lr=0.0, noise=KRAUS_P, seeds=seeds)
@@ -1122,14 +1216,21 @@ def composed_phase(mode):
 
 
 def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
-                  expect_replay=True, family=FIXED, expect=None):
+                  expect_replay=True, family=FIXED, expect=None,
+                  profile=False):
     """The CLI's trainer on ``family``/``config`` for ``vector_steps``
     steps with every kernel's launch count set to 0 just before and read
     just after; every step must have launched ``engine`` once and no other
     kernel, or the kernels as ``expect`` ({name: launches}, the others 0)
-    says.  -> {kernel name: launches}."""
+    says.  With ``profile`` the run is traced (torch.profiler, CUDA
+    activity) and the kernel's device time per vector step is printed
+    beside all kernels' and the wall time per vector step.
+    -> {kernel name: launches}."""
+    import contextlib
+
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity
 
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
     from tensorrl_qas_tpu_torch.train import cli
@@ -1147,11 +1248,27 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
             e.step.psi0_launches = 0
         for k in tape_kernels:
             k.launches = 0
-        summary = cli.run([
-            "--config", config, "--experiment_name", family,
-            "--vector", str(n_env), "--total_steps",
-            str(n_env * vector_steps), "--results_path", out + "/",
-            *extra])
+        tracer = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+                  if profile else contextlib.nullcontext())
+        with tracer:
+            summary = cli.run([
+                "--config", config, "--experiment_name", family,
+                "--vector", str(n_env), "--total_steps",
+                str(n_env * vector_steps), "--results_path", out + "/",
+                *extra])
+            torch.cuda.synchronize()
+        trace = {}
+        if profile:
+            dev_us = device_us_by_name(tracer)
+            kernel_ms = sum(v for k, v in dev_us.items()
+                            if engine.name in k) / 1e3 / vector_steps
+            all_ms = sum(dev_us.values()) / 1e3 / vector_steps
+            wall_ms = 1e3 * n_env / summary["steps_per_sec"]
+            trace = {"profiled_wall_ms_per_vector_step": f"{wall_ms:.3f}",
+                     "kernel_device_ms_per_vector_step": f"{kernel_ms:.4f}",
+                     "all_device_ms_per_vector_step": f"{all_ms:.4f}",
+                     "kernel_share_of_step": f"{kernel_ms / wall_ms:.4f}",
+                     "device_busy_share": f"{all_ms / wall_ms:.4f}"}
         launches = {e.name: e.launches() for e in variants}
         launches.update({k.__name__: k.launches for k in tape_kernels})
         run_dir = os.path.join(out, family, config)
@@ -1180,7 +1297,7 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
                                    3),
              best_step_error_Ha=f"{summary['best_step_error']:.6e}",
              warm_start_gap_Ha=f"{summary['warm_start_gap']:.6e}",
-             episodes=summary["episodes"], launches=launches,
+             episodes=summary["episodes"], launches=launches, **trace,
              checks=checks)
         if not all(checks.values()):
             raise AssertionError(f"{label} checks failed: {checks}")
@@ -1208,7 +1325,8 @@ class Builds:
         infos = {name: self.futures.pop(name).result() for name in names}
         for name, info in infos.items():
             for ln in info["log"].splitlines():
-                if "registers" in ln or "spill" in ln or "smem" in ln:
+                if any(k in ln for k in ("registers", "spill", "smem",
+                                         "Function properties")):
                     print(f"  ptxas {name}: {ln.strip()}", flush=True)
         if not self.futures:
             self.pool.shutdown()
@@ -1269,14 +1387,17 @@ def class_split(engine):
          kernel_ms_iters0=ms0, swaps_per_pass=swaps)
 
 
-def split_only(v2, v2n):
-    """``--split``: the split phase, the split by gate class (where the
-    checkout's v2 has the register kernel, i.e. a ``swap_schedule``), then
-    v2 at the trainable capacities and v2n at 12q LiH timed the same way,
-    so that two checkouts run in one call compare on one card."""
+def split_only(v1, v2, v2n):
+    """``--split``: the v1 and v2 split phases, the split by gate class
+    (where the checkout's v2 has the register kernel, i.e. a
+    ``swap_schedule``), v2 at the trainable capacities and v2n at 12q LiH
+    timed the same way, then the 8q fixed and trainable trainers traced
+    (the v1 kernel's share of a vector step), so that two checkouts run in
+    one call compare on one card."""
     from tensorrl_qas_tpu_torch.ops import fused_adam2d
 
-    split_phase(v2)
+    split_v1(v1)
+    split_v2(v2)
     if hasattr(fused_adam2d, "swap_schedule"):
         class_split(v2)
     else:
@@ -1291,6 +1412,10 @@ def split_only(v2, v2n):
             lambda: engine.step(*case.args, iters=ITERS, lr=LR,
                                 **case.noise_kw), warmup=2, reps=10))
     done("split compare", t0, kernel_ms=ms)
+    trainer_phase(v1, V1_CONFIG, V1_ENVS, V1_STEPS, "trainer v1",
+                  profile=True)
+    trainer_phase(v1, V1_CONFIG, V1_ENVS, T_STEPS, "trainer v1 trainable",
+                  family=TRAINABLE, profile=True)
 
 
 def main(argv=()) -> int:
@@ -1310,19 +1435,22 @@ def main(argv=()) -> int:
 
     v1, v1n, v2, v2n, v1p, v2p = engines()
     if "--split" in argv:
-        Builds(("fused_adam_v2",)).wait("fused_adam_v2")
-        split_only(v2, v2n)
+        Builds(("fused_adam_v1", "fused_adam_v2")).wait("fused_adam_v1",
+                                                        "fused_adam_v2")
+        split_only(v1, v2, v2n)
         watchdog.cancel()
         return 0
     builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
     builds.wait("fused_adam_v1")
     results = {}
     results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
+    split_v1(v1)
     results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
-                                            V1_STEPS, "trainer v1")[v1.name]
+                                            V1_STEPS, "trainer v1",
+                                            profile=True)[v1.name]
     builds.wait("fused_adam_v2", "apply_tape")
     results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
-    split_phase(v2)
+    split_v2(v2)
     sweep_phase(v2)
     results[v2]["launches"] = trainer_phase(v2, V2_CONFIG, V2_ENVS,
                                             V2_STEPS, "trainer v2")[v2.name]
@@ -1354,7 +1482,8 @@ def main(argv=()) -> int:
                                    long_check=False, family=TRAINABLE)
     for family, label in ((TRAINABLE, "trainer v1 trainable"),
                           (STRUCTURE, "trainer v1 StructureRL")):
-        trainer_phase(v1, V1_CONFIG, V1_ENVS, T_STEPS, label, family=family)
+        trainer_phase(v1, V1_CONFIG, V1_ENVS, T_STEPS, label, family=family,
+                      profile=family == TRAINABLE)
     results[v1p]["launches"] = trainer_phase(
         v1p, V1_CONFIG, V1_ENVS, T_STEPS, "trainer v1p", BLOCK_COORD,
         family=TRAINABLE)[v1p.name]

@@ -5,7 +5,7 @@ For each env e of a batch, with S optimizer starts:
 
     for it in range(iters):                     # Adam over the OLD tape
         psi  = tape_old(x) psi0                 # (S, D)
-        Hpsi = psi @ H^T
+        Hpsi = sum_f W_f * psi[i ^ f]           # flip-group planes
         E    = Re<psi|H psi> / <psi|psi>        # best-iterate tracking
         dx   = adjoint sweep, lambda = 2 conj(H psi), masked by `active`
         x    = adam(x, dx)
@@ -14,15 +14,16 @@ For each env e of a batch, with S optimizer starts:
 
 ``fused_adam_step`` launches the CUDA kernel ``csrc/fused_adam_v1.cu`` on
 CUDA tensors and runs ``fused_adam_step_reference``, the plain PyTorch
-version of the same arithmetic, on CPU tensors.  Layouts follow the JAX
-reference's public function: tapes (E, G) int32, map_idx (E, R) int32,
-p0re/p0im (1, D) shared by the envs or (E, D) one per env, hre_t/him_t
-(D, D) planes of H^T, starts (E, S, R), active (E, 1, R); returns x_opt
-(E, R) and e_new (E,).  G (tape capacity) and R (angle capacity) are
+version of the same arithmetic, on CPU tensors.  Layouts: tapes (E, G)
+int32, map_idx (E, R) int32, p0re/p0im (1, D) shared by the envs or (E,
+D) one per env, wre/wim (G_f, D) flip-group planes of H and flips (G_f,)
+int32 (``ops/fused_adam2d.py:pauli_flip_groups``; the v2 kernel takes the
+same operands), starts (E, S, R), active (E, 1, R); returns x_opt (E, R)
+and e_new (E,).  G (tape capacity) and R (angle capacity) are
 independent: tapes that embed a warm-start circuit carry more gates than
-angles.  The plain step
-itself (``fused_step_plain``) takes any H operator; ``ops/fused_adam2d.py``
-runs it with flip-grouped Pauli planes.
+angles.  The JAX v1 kernel takes dense (D, D) planes of H^T instead; the
+plain step itself (``fused_step_plain``) takes any H operator, so the CPU
+tests hold it with ``dense_h`` against that kernel.
 
 ``noise=(p1, p2)`` with ``seeds`` (E, 2) int32 is the depolarizing-
 trajectory variant (the JAX kernel's ``noise=``): after every gate of the
@@ -58,6 +59,8 @@ _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 MAX_SMEM_BYTES = 232448  # H100: shared memory one block may use
+MAX_QUBITS = 9           # the v1 kernel's largest qubit count
+DEFAULT_REG_BITS = 3     # register bits of a kernel thread up to 8 qubits
 
 
 # -- plain PyTorch version -------------------------------------------------
@@ -194,6 +197,23 @@ def dense_h(hre_t, him_t):
     return apply
 
 
+def flip_h(wre, wim, flips):
+    """H psi through flip-group planes, summed in group order (the order
+    both kernels follow)."""
+    col = torch.arange(wre.shape[-1], device=wre.device)
+    perms = [col ^ f for f in flips.tolist()]
+
+    def apply(re, im):
+        hre = torch.zeros_like(re)
+        him = torch.zeros_like(im)
+        for wr, wi, perm in zip(wre, wim, perms):
+            pre, pim = re.index_select(-1, perm), im.index_select(-1, perm)
+            hre = hre + wr * pre - wi * pim
+            him = him + wr * pim + wi * pre
+        return hre, him
+    return apply
+
+
 def _h_energy(re, im, h_apply):
     """(H psi planes, Rayleigh quotient per row); sums in float64."""
     hre, him = h_apply(re, im)
@@ -241,9 +261,9 @@ def fused_step_plain(old_arrs, new_arrs, map_idx, p0re, p0im, h_apply,
                      seeds=None, draw=None, enew_tag=None):
     """The fused step in plain PyTorch for any H operator
     ``h_apply(re, im) -> (H psi re, H psi im)`` on (E, S, D) planes: the
-    arithmetic of both kernels (dense H here, flip groups in
-    ``ops/fused_adam2d.py``), vectorized over envs and starts.  Any float
-    dtype; the CPU parity path runs it in float64.
+    arithmetic of both kernels (which take ``flip_h``), vectorized over
+    envs and starts.  Any float dtype; the CPU parity path runs it in
+    float64.
 
     ``noise=(p1, p2)`` and ``seeds`` (E, 2) draw the depolarizing errors
     of ``sim/noise.py:depolarizing_draw`` (module docstring); ``draw``
@@ -304,12 +324,12 @@ def fused_step_plain(old_arrs, new_arrs, map_idx, p0re, p0im, h_apply,
 
 
 def fused_adam_step_reference(old_arrs, new_arrs, map_idx, p0re, p0im,
-                              hre_t, him_t, starts, active, *, iters: int,
-                              lr: float, **noise):
-    """Plain PyTorch version of the v1 kernel (dense H^T planes);
+                              wre, wim, flips, starts, active, *,
+                              iters: int, lr: float, **noise):
+    """Plain PyTorch version of both kernels (flip-group planes);
     ``noise``: the noise keywords of ``fused_step_plain``."""
     return fused_step_plain(old_arrs, new_arrs, map_idx, p0re, p0im,
-                            dense_h(hre_t, him_t), starts, active,
+                            flip_h(wre, wim, flips), starts, active,
                             iters=iters, lr=lr, **noise)
 
 
@@ -328,8 +348,8 @@ def plain_results(args, *, iters: int, lr: float,
     """Results of the fused step on ``args`` that the plain version
     ``step`` gives within float32 rounding: in float32 (first, the
     centre), in float64, and in float32 with every entry of the H planes
-    (``args[5]`` and ``args[6]``: dense H^T planes for v1, flip-group
-    planes for ``fused_adam2d.fused_adam_step2d_reference``) scaled by
+    (``args[5]`` and ``args[6]``: the flip-group planes of both kernels,
+    the dense ones of the composed engine's two-operand form) scaled by
     1 + u 2^-23 (u uniform in [-1, 1], N_PERTURBED draws), which stands in
     for the rounding of another summation order.  ``noise``: the noise
     keywords of ``fused_step_plain`` (every run draws the same errors).
@@ -429,12 +449,16 @@ def _library():
     """The kernel's library (built at first use) with its C signatures."""
     from tensorrl_qas_tpu_torch.ops.build import load
 
-    lib = load("fused_adam_v1")
+    return bind(load("fused_adam_v1"))
+
+
+def bind(lib):
+    """Set the C signatures of the v1 kernel's library ``lib``."""
     lib.fused_adam_v1_launch.argtypes = (
-        [_PTR] * 18 + [_I32] * 7 + [_F32, _F64, _F64]
+        [_PTR] * 20 + [_I32] * 11 + [_F32, _F64, _F64]
         + [_F32] * 3 + [_U32] * 2 + [_PTR])
     lib.fused_adam_v1_launch.restype = _I32
-    lib.fused_adam_v1_smem_bytes.argtypes = [_I32] * 5
+    lib.fused_adam_v1_smem_bytes.argtypes = [_I32] * 9
     lib.fused_adam_v1_smem_bytes.restype = ctypes.c_size_t
     lib.fused_adam_v1_error_string.argtypes = [_I32]
     lib.fused_adam_v1_error_string.restype = ctypes.c_char_p
@@ -528,54 +552,124 @@ def launch(lib, kernel, *args):
                            f"({msg})")
 
 
-def _check_inputs(ints, floats, map_idx, p0re, hre_t, starts, active):
-    dims = check_step_inputs("fused_adam_step", ints, map_idx, floats,
-                             starts, active)
+def check_flip_inputs(name, ints, floats, map_idx, flips, starts, active,
+                      qubits):
+    """A kernel's own checks (``qubits`` = (least, most) qubit count, the
+    flip-group planes ``floats[2:4]`` and ``flips``) before those both
+    kernels share (``check_step_inputs``).  -> (E, S, G, R, n, G_f)."""
+    p0re, _, wre, wim = floats[:4]
     d = p0re.shape[-1]
-    if hre_t.shape != (d, d):
-        raise ValueError("fused_adam_step: H^T planes must be (D, D)")
-    return dims
+    n = d.bit_length() - 1
+    if d != 1 << n or not qubits[0] <= n <= qubits[1]:
+        raise ValueError(f"{name}: D = {d} is not 2^n for "
+                         f"{qubits[0]} <= n <= {qubits[1]}")
+    if flips.device != starts.device or not flips.is_contiguous():
+        raise ValueError(f"{name}: flips must be contiguous, on "
+                         f"{starts.device}")
+    if flips.dtype != torch.int32:
+        raise TypeError(f"{name}: flips must be int32")
+    n_groups = flips.numel()
+    if wre.shape != (n_groups, d) or wim.shape != (n_groups, d):
+        raise ValueError(f"{name}: W planes must be (G_f, D) and flips "
+                         "(G_f,)")
+    dims = check_step_inputs(name, ints, map_idx, floats, starts, active)
+    if bool(((flips < 0) | (flips >= d)).any()):
+        raise ValueError(f"{name}: flips must lie in [0, {d})")
+    return (*dims, n_groups)
 
 
-def fused_adam_step(old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t,
-                    starts, active, *, iters: int, lr: float, noise=None,
-                    seeds=None):
+def group_layout(n: int, n_starts: int, reg_bits: int = 0):
+    """How the kernel's CTA holds an env's starts (twin of the kernel's
+    ``make_dims``): each start is a group of 2^lanes threads holding
+    2^rb amplitudes each, the low ``lanes`` logical qubits on the lane
+    bits and the others on the register bits; ``groups`` groups a CTA
+    (at most 256 threads) take the starts in ``rounds``.  ``reg_bits`` 0
+    picks rb = 4 at 9 qubits (a group must stay within one warp) and
+    DEFAULT_REG_BITS below.
+    -> (rb, lanes, threads per group, groups, rounds)."""
+    rb = reg_bits or (4 if n > 8 else DEFAULT_REG_BITS)
+    if rb not in (3, 4) or n - rb > 5:
+        raise ValueError(f"fused_adam_step: {1 << rb} amplitudes a thread "
+                         f"cannot hold {n} qubits in one warp a start")
+    lanes = max(n - rb, 0)
+    cap = 256 >> lanes
+    rounds = -(-n_starts // cap)
+    return rb, lanes, 1 << lanes, -(-n_starts // rounds), rounds
+
+
+def _check_inputs(ints, floats, map_idx, flips, starts, active):
+    """-> (E, S, G, R, n, G_f); 1 <= n <= 9."""
+    return check_flip_inputs("fused_adam_step", ints, floats, map_idx,
+                             flips, starts, active, (1, MAX_QUBITS))
+
+
+def fused_adam_step(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
+                    flips, starts, active, *, iters: int, lr: float,
+                    noise=None, seeds=None):
     """Fused env step: the CUDA kernel for CUDA tensors, the plain
     PyTorch version for CPU tensors.  See the module docstring for the
-    layouts and ``noise`` / ``seeds``.  ``fused_adam_step.launches`` counts
-    kernel launches, ``fused_adam_step.noise_launches`` those of the noise
-    variant and ``fused_adam_step.psi0_launches`` those with per-env psi0
-    planes among them."""
+    layouts and ``noise`` / ``seeds``.  ``fused_adam_step.launches``
+    counts kernel launches, ``fused_adam_step.noise_launches`` those of
+    the noise variant and ``fused_adam_step.psi0_launches`` those with
+    per-env psi0 planes among them."""
     if starts.device.type == "cpu":
         return fused_adam_step_reference(
-            old_arrs, new_arrs, map_idx, p0re, p0im, hre_t, him_t, starts,
-            active, iters=iters, lr=lr, noise=noise, seeds=seeds)
+            old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
+            starts, active, iters=iters, lr=lr, noise=noise, seeds=seeds)
     if starts.device.type != "cuda":
         raise ValueError(f"fused_adam_step: no kernel for device "
                          f"{starts.device}")
-    ints = (*old_arrs, *new_arrs)
-    floats = (p0re, p0im, hre_t, him_t, starts, active)
-    n_env, s_n, g, r, n = _check_inputs(ints, floats, map_idx, p0re, hre_t,
-                                        starts, active)
-    seeds_ptr, thr1, thr2 = noise_args("fused_adam_step", noise, seeds,
-                                       n_env, starts.device)
-    lib = _library()
-    check_smem("fused_adam_step",
-               lib.fused_adam_v1_smem_bytes(s_n, g, r, n, noise is not None),
-               "env")
-    x_opt = torch.empty((n_env, r), dtype=torch.float32, device=starts.device)
-    e_new = torch.empty((n_env,), dtype=torch.float32, device=starts.device)
-    stride = psi0_stride(p0re)
-    stream = torch.cuda.current_stream(starts.device).cuda_stream
-    launch(lib, "fused_adam_v1",
-           *(t.data_ptr() for t in ints), map_idx.data_ptr(),
-           *(t.data_ptr() for t in floats), seeds_ptr, x_opt.data_ptr(),
-           e_new.data_ptr(), n_env, s_n, g, r, n, stride, int(iters),
-           float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS, thr1, thr2, stream)
+    stride, x_opt, e_new = run_kernel(
+        _library(), old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
+        starts, active, iters=iters, lr=lr, noise=noise, seeds=seeds,
+        stream=torch.cuda.current_stream(starts.device).cuda_stream)
     fused_adam_step.launches += 1
     fused_adam_step.noise_launches += noise is not None
     fused_adam_step.psi0_launches += stride != 0
     return x_opt, e_new
+
+
+def run_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
+               flips, starts, active, *, iters, lr, noise, seeds, stream,
+               reg_bits=0, w_smem=None):
+    """Check the inputs and launch the v1 kernel of ``lib`` (bound by
+    ``bind``) on ``stream``, uncounted (tests and measurements call it
+    directly); ``reg_bits`` (3 or 4) sets the amplitudes a thread holds,
+    2^reg_bits (0: ``group_layout``'s choice); ``w_smem`` None reads the W
+    planes into shared memory where they fit.
+    -> (psi0 stride, x_opt, e_new)."""
+    name = "fused_adam_step"
+    ints = (*old_arrs, *new_arrs)
+    floats = (p0re, p0im, wre, wim, starts, active)
+    n_env, s_n, g, r, n, n_groups = _check_inputs(ints, floats, map_idx,
+                                                  flips, starts, active)
+    dev = starts.device
+    seeds_ptr, thr1, thr2 = noise_args(name, noise, seeds, n_env, dev)
+    # the groups whose imaginary plane is not zero (none for a real H),
+    # numbered: the kernel keeps and reads only those planes
+    cplx = (wim != 0).any(dim=1)
+    wim_at = torch.where(cplx, torch.cumsum(cplx.int(), 0) - 1,
+                         -1).to(torch.int32)
+    n_cplx = int(cplx.sum())
+    rb = group_layout(n, s_n, reg_bits)[0]
+    sizes = [lib.fused_adam_v1_smem_bytes(s_n, g, r, n, n_groups, n_cplx,
+                                          noise is not None, rb, w)
+             for w in (0, 1)]
+    if w_smem is None:
+        w_smem = sizes[1] <= MAX_SMEM_BYTES
+    check_smem(name, sizes[w_smem], "env")
+    x_opt = torch.empty((n_env, r), dtype=torch.float32, device=dev)
+    e_new = torch.empty((n_env,), dtype=torch.float32, device=dev)
+    stride = psi0_stride(p0re)
+    launch(lib, "fused_adam_v1",
+           *(t.data_ptr() for t in ints), map_idx.data_ptr(),
+           p0re.data_ptr(), p0im.data_ptr(), wre.data_ptr(), wim.data_ptr(),
+           flips.data_ptr(), wim_at.data_ptr(), starts.data_ptr(),
+           active.data_ptr(), seeds_ptr, x_opt.data_ptr(), e_new.data_ptr(),
+           n_env, s_n, g, r, n, n_groups, n_cplx, rb, int(w_smem),
+           stride, int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS,
+           thr1, thr2, stream)
+    return stride, x_opt, e_new
 
 
 fused_adam_step.launches = 0

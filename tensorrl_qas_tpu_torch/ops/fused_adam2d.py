@@ -70,30 +70,9 @@ def pauli_flip_groups(pauli, offset: float = 0.0, dtype=np.float32):
     return wre, wim, np.asarray(groups, dtype=np.int32)
 
 
-def flip_h(wre, wim, flips):
-    """H psi through flip-group planes, summed in group order."""
-    col = torch.arange(wre.shape[-1], device=wre.device)
-    perms = [col ^ f for f in flips.tolist()]
-
-    def apply(re, im):
-        hre = torch.zeros_like(re)
-        him = torch.zeros_like(im)
-        for wr, wi, perm in zip(wre, wim, perms):
-            pre, pim = re.index_select(-1, perm), im.index_select(-1, perm)
-            hre = hre + wr * pre - wi * pim
-            him = him + wr * pim + wi * pre
-        return hre, him
-    return apply
-
-
-def fused_adam_step2d_reference(old_arrs, new_arrs, map_idx, p0re, p0im,
-                                wre, wim, flips, starts, active, *,
-                                iters: int, lr: float, **noise):
-    """Plain PyTorch version of the v2 kernel (flip-group planes);
-    ``noise``: the noise keywords of ``fused_adam.fused_step_plain``."""
-    return fused_adam.fused_step_plain(
-        old_arrs, new_arrs, map_idx, p0re, p0im, flip_h(wre, wim, flips),
-        starts, active, iters=iters, lr=lr, **noise)
+# the plain PyTorch version of the v2 kernel: the plain step both kernels
+# share (flip-group planes)
+fused_adam_step2d_reference = fused_adam.fused_adam_step_reference
 
 
 # -- the register layout of the kernel (7 <= n <= 12) ------------------------
@@ -178,30 +157,10 @@ def _library():
 
 
 def _check_inputs(ints, floats, map_idx, flips, starts, active):
-    """The v2 kernel's own checks (7 <= n <= 18, the flip-group planes)
-    before those both kernels share (``fused_adam.check_step_inputs``).
-    -> (E, S, G, R, n, G_f)."""
-    name = "fused_adam_step2d"
-    p0re, _, wre, wim = floats[:4]
-    d = p0re.shape[-1]
-    n = d.bit_length() - 1
-    if d != 1 << n or not MIN_QUBITS <= n <= MAX_QUBITS:
-        raise ValueError(f"{name}: D = {d} is not 2^n for "
-                         f"{MIN_QUBITS} <= n <= {MAX_QUBITS}")
-    if flips.device != starts.device or not flips.is_contiguous():
-        raise ValueError(f"{name}: flips must be contiguous, on "
-                         f"{starts.device}")
-    if flips.dtype != torch.int32:
-        raise TypeError(f"{name}: flips must be int32")
-    n_groups = flips.numel()
-    if wre.shape != (n_groups, d) or wim.shape != (n_groups, d):
-        raise ValueError(f"{name}: W planes must be (G_f, D) and flips "
-                         "(G_f,)")
-    dims = fused_adam.check_step_inputs(name, ints, map_idx, floats, starts,
-                                        active)
-    if bool(((flips < 0) | (flips >= d)).any()):
-        raise ValueError(f"{name}: flips must lie in [0, {d})")
-    return (*dims, n_groups)
+    """-> (E, S, G, R, n, G_f); 7 <= n <= 18."""
+    return fused_adam.check_flip_inputs(
+        "fused_adam_step2d", ints, floats, map_idx, flips, starts, active,
+        (MIN_QUBITS, MAX_QUBITS))
 
 
 def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,

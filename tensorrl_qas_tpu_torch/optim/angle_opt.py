@@ -54,11 +54,11 @@ from tensorrl_qas_tpu_torch.ops.fused_adam import (
     _h_energy,
     check_gate_kinds,
     dense_h,
+    flip_h,
     fused_adam_step,
 )
 from tensorrl_qas_tpu_torch.ops.fused_adam2d import (
     MAX_QUBITS,
-    flip_h,
     fused_adam_step2d,
     pauli_flip_groups,
 )
@@ -218,10 +218,11 @@ class AngleOptimizer:
         """The engine for this problem and tapes of these gate kinds:
         'composed' for the su4 gate set (``enable_2q``), shot noise and
         ``n_traj > 1`` (reference ``optim/angle_opt.py:283-287, 690-693``),
-        at most 16 qubits; else the fused 'v1' (dense H^T planes) for
-        D <= 512, 'v2' (flip groups) for 1024 <= D <= 2^18.  Larger
-        problems, and RXX/RYY/RZZ gates without ``enable_2q``, raise
-        ValueError here, before any H operand is built."""
+        at most 16 qubits; else the fused 'v1' for D <= 512, 'v2' for
+        1024 <= D <= 2^18 (both take the flip-group planes,
+        ``w_planes``).  Larger problems, and RXX/RYY/RZZ gates without
+        ``enable_2q``, raise ValueError here, before any H operand is
+        built."""
         n = self.pauli.n_qubits
         if (self.enable_2q or self.noise_mode == "shot"
                 or (self.noise_mode == "depolarizing" and self.n_traj > 1)):
@@ -240,7 +241,7 @@ class AngleOptimizer:
 
     def h_planes(self):
         """(hre_t, him_t): real and imaginary planes of (H - offset I)^T,
-        (D, D)."""
+        (D, D): the composed engine's H psi up to 9 qubits."""
         if self._h_planes is None:
             ht = self.pauli.to_dense().T
             ht -= self.offset * np.eye(ht.shape[0])
@@ -468,14 +469,12 @@ class AngleOptimizer:
                     dtype=torch.int32, device=dev))
             else:
                 old, new = (self._quench(arrs, p) for arrs in (old, new))
-        if engine == "v1":
-            step, h_ops = fused_adam_step, self.h_planes()
-        else:
-            step, h_ops = fused_adam_step2d, self.w_planes()
+        step = fused_adam_step if engine == "v1" else fused_adam_step2d
         x_opt, e_new = step(
             old, new, ints(map_idx_b), p0re, p0im,
-            *h_ops, starts.contiguous(), active[:, None, :].contiguous(),
-            iters=self.iters, lr=self.lr, **noise)
+            *self.w_planes(), starts.contiguous(),
+            active[:, None, :].contiguous(), iters=self.iters, lr=self.lr,
+            **noise)
         return (x_opt.cpu().numpy(),
                 e_new.cpu().numpy().astype(np.float64) + self.offset,
                 self.iters * self.n_starts)

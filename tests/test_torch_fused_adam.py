@@ -1,9 +1,10 @@
 """The fused Adam env step of the PyTorch port (ops/fused_adam.py) against
 the JAX package's v1 kernel and XLA path.
 
-- Plain version vs ``fused_adam_step_pallas(..., interpret=True)`` at 3
-  qubits in float32: within 1e-5 (same arithmetic, different f32 rounding
-  and summation order over 5 Adam iterations).
+- Plain step vs ``fused_adam_step_pallas(..., interpret=True)`` at 3
+  qubits in float32, both with dense H^T planes (``dense_h``; the port's
+  kernel takes flip-group planes): within 1e-5 (same arithmetic,
+  different f32 rounding and summation order over 5 Adam iterations).
 - Plain version vs the XLA path (``use_pallas=False``) at 5 qubits in
   float64/complex128: within 1e-10, with the JAX starts injected.
 """
@@ -104,10 +105,10 @@ def test_plain_version_matches_pallas_v1_interpret():
     def t32(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32)
 
-    xt, et = fused_adam.fused_adam_step_reference(
+    xt, et = fused_adam.fused_step_plain(
         _ints(old), _ints(new), torch.as_tensor(maps), t32(psi0.real[None]),
-        t32(psi0.imag[None]), t32(ht.real), t32(ht.imag), t32(starts),
-        t32(active), iters=iters, lr=0.1)
+        t32(psi0.imag[None]), fused_adam.dense_h(t32(ht.real), t32(ht.imag)),
+        t32(starts), t32(active), iters=iters, lr=0.1)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-5)
     np.testing.assert_allclose(et.numpy(), np.asarray(ej), atol=1e-5)
 
@@ -135,13 +136,12 @@ def test_plain_version_matches_xla_path_complex128():
 
     opt_t = AngleOptimizer(load_problem_torch("heisenberg", n).pauli,
                            iters=12, n_starts=4, lr=0.1, device="cpu")
-    hre_t, him_t = opt_t.h_planes()
     p0 = torch.as_tensor(psi0)
     xt, et = fused_adam.fused_adam_step(
         _ints(old), _ints(new), torch.as_tensor(maps),
-        p0.real[None].contiguous(), p0.imag[None].contiguous(), hre_t, him_t,
-        torch.as_tensor(starts), torch.as_tensor(active[:, None, :]),
-        iters=12, lr=0.1)
+        p0.real[None].contiguous(), p0.imag[None].contiguous(),
+        *opt_t.w_planes(), torch.as_tensor(starts),
+        torch.as_tensor(active[:, None, :]), iters=12, lr=0.1)
     np.testing.assert_allclose(xt.numpy(), xj, atol=1e-10)
     np.testing.assert_allclose(et.numpy() + opt_t.offset, ej, atol=1e-10)
 
@@ -154,10 +154,12 @@ def test_wrapper_dispatch_and_launch_count():
     rng = np.random.default_rng(2)
     old, new, maps, x0, n_rots = _random_batch(rng, n, n_env, cap)
     d = 1 << n
+    # H = Z on qubit 0: one flip group (f = 0)
     args = (_ints(old), _ints(new), torch.as_tensor(maps),
-            torch.zeros(1, d), torch.zeros(1, d), torch.eye(d),
-            torch.zeros(d, d), torch.zeros(n_env, 2, cap),
-            torch.ones(n_env, 1, cap))
+            torch.zeros(1, d), torch.zeros(1, d),
+            1.0 - 2.0 * (torch.arange(d) & 1).float()[None],
+            torch.zeros(1, d), torch.zeros(1, dtype=torch.int32),
+            torch.zeros(n_env, 2, cap), torch.ones(n_env, 1, cap))
     before = fused_adam.fused_adam_step.launches
     x, e = fused_adam.fused_adam_step(*args, iters=2, lr=0.1)
     assert x.shape == (n_env, cap) and e.shape == (n_env,)
@@ -167,14 +169,23 @@ def test_wrapper_dispatch_and_launch_count():
     with pytest.raises(ValueError, match="no kernel"):
         fused_adam.fused_adam_step(*meta, iters=2, lr=0.1)
     ints = (*args[0], *args[1])
-    floats = args[3:]
+    floats = (*args[3:7], *args[8:])
+
+    def check(ints=ints, floats=floats, flips=args[7], starts=args[8]):
+        return fused_adam._check_inputs(
+            ints, (*floats[:4], starts, floats[5]), args[2], flips, starts,
+            args[9])
+
     with pytest.raises(TypeError, match="float32"):
-        fused_adam._check_inputs(ints, (*floats[:-1], floats[-1].double()),
-                                 args[2], args[3], args[5], args[7], args[8])
-    # more starts than one H psi block (8) are taken in blocks
-    dims = fused_adam._check_inputs(ints, floats, args[2], args[3], args[5],
-                                    torch.zeros(n_env, 16, cap), args[8])
-    assert dims[1] == 16
+        check(floats=(*floats[:-1], floats[-1].double()))
+    with pytest.raises(TypeError, match="int32"):
+        check(flips=args[7].long())
+    # any number of starts: the kernel takes them in rounds of groups
+    assert check(starts=torch.zeros(n_env, 16, cap))[1] == 16
+    big = tuple(torch.zeros(1, 1024) for _ in range(2))
+    with pytest.raises(ValueError, match="1 <= n <= 9"):
+        check(floats=(*big, torch.zeros(1, 1024), torch.zeros(1, 1024),
+                      *floats[4:]))
     seeds = torch.zeros(n_env, 2, dtype=torch.int32)
     assert fused_adam.noise_args("fused_adam_step", None, None, n_env,
                                  seeds.device) == (None, 0, 0)
@@ -186,8 +197,7 @@ def test_wrapper_dispatch_and_launch_count():
     bad_kind = tuple(a.clone() for a in ints)
     bad_kind[0][0, 0] = int(GateKind.RXX)
     with pytest.raises(ValueError, match="RXX"):
-        fused_adam._check_inputs(bad_kind, floats, args[2], args[3], args[5],
-                                 args[7], args[8])
+        check(ints=bad_kind)
 
 
 def test_agreement_accepts_the_plain_version_and_rejects_wrong_results():
@@ -199,7 +209,8 @@ def test_agreement_accepts_the_plain_version_and_rejects_wrong_results():
     n, n_env, cap = 5, 6, 10
     rng = np.random.default_rng(3)
     old, new, maps, x0, n_rots = _random_batch(rng, n, n_env, cap)
-    ht = load_problem_torch("heisenberg", n).pauli.to_dense().T
+    w_planes = AngleOptimizer(load_problem_torch("heisenberg", n).pauli,
+                              device="cpu").w_planes()
     psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
     psi0 /= np.linalg.norm(psi0)
     f32 = dict(dtype=torch.float32)
@@ -211,8 +222,7 @@ def test_agreement_accepts_the_plain_version_and_rejects_wrong_results():
     args = (_ints(old), _ints(new), torch.as_tensor(maps),
             torch.as_tensor(psi0.real[None], **f32),
             torch.as_tensor(psi0.imag[None], **f32),
-            torch.as_tensor(np.ascontiguousarray(ht.real), **f32),
-            torch.as_tensor(np.ascontiguousarray(ht.imag), **f32),
+            *(w.float() for w in w_planes[:2]), w_planes[2],
             starts.contiguous(), active[:, None, :].contiguous())
     ref = fused_adam.plain_results(args, iters=3, lr=0.1)
     assert len(ref) == 6
@@ -223,11 +233,11 @@ def test_agreement_accepts_the_plain_version_and_rejects_wrong_results():
     ok, _, _ = fused_adam.agreement(args, ref, x, e, tol=1e-5)
     assert bool((~ok)[torch.as_tensor(n_rots) >= 4].all())
     ry = (args[0][0] == int(GateKind.RY)) & (args[0][3] >= 0)
-    keep = torch.ones_like(args[8])
+    keep = torch.ones_like(args[9])
     for env, g in ry.nonzero().tolist():
         keep[env, 0, args[0][3][env, g]] = 0.0
     x, e = fused_adam.fused_adam_step_reference(
-        *args[:8], (args[8] * keep).contiguous(), iters=3, lr=0.1)
+        *args[:9], (args[9] * keep).contiguous(), iters=3, lr=0.1)
     ok, _, _ = fused_adam.agreement(args, ref, x, e, tol=1e-5)
     assert torch.equal(~ok, ry.any(dim=1))      # every env with an RY angle
 
@@ -255,8 +265,9 @@ def test_operands_from_jax_match_the_port():
 
 
 def test_optimizer_takes_sixteen_starts():
-    """More starts than one H psi block of the kernel (8): the optimizer
-    steps with 16, and the winner is chosen over all of them at once --
+    """Sixteen starts (the kernel takes them in one CTA, in rounds where
+    its thread cap requires): the optimizer steps with 16, and the winner
+    is chosen over all of them at once --
     x_opt is the result of the start whose best old-tape energy is least
     (each start's Adam run is independent of the others)."""
     n, n_env, cap = 5, 2, 8
@@ -278,7 +289,7 @@ def test_optimizer_takes_sixteen_starts():
     starts = make_multistarts(torch.as_tensor(x0), active, 16, 4, 0.1, gen)
     head = (_ints(old), _ints(new), torch.as_tensor(maps),
             psi0.real[None].contiguous(), psi0.imag[None].contiguous(),
-            *opt.h_planes())
+            *opt.w_planes())
     ident = torch.arange(cap, dtype=torch.int32).repeat(n_env, 1)
     singles, energies = [], []
     for s in range(16):

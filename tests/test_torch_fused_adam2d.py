@@ -185,8 +185,10 @@ def test_plain_v2_equals_plain_v1_float64():
         x0[:, None, :] + 0.2 * rng.normal(size=(n_env, s_n, cap))) * active
     common = (_ints(old), _ints(new), torch.as_tensor(maps),
               p0.real[None].contiguous(), p0.imag[None].contiguous())
-    x1, e1 = fused_adam.fused_adam_step(
-        *common, *opt.h_planes(), starts, active, iters=6, lr=0.1)
+    # the dense H^T planes of the JAX v1 kernel through the plain step
+    x1, e1 = fused_adam.fused_step_plain(
+        *common, fused_adam.dense_h(*opt.h_planes()), starts, active,
+        iters=6, lr=0.1)
     x2, e2 = fused_adam2d.fused_adam_step2d(
         *common, *opt.w_planes(), starts, active, iters=6, lr=0.1)
     np.testing.assert_allclose(x2.numpy(), x1.numpy(), atol=1e-10)

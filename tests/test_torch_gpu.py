@@ -1,5 +1,6 @@
-"""The CUDA fused Adam kernels (v1: dense H, v2: flip-group H) against
-their plain PyTorch versions, on the card.  Marked ``gpu``; on a host
+"""The CUDA fused Adam kernels (v1 up to 9 qubits, v2 from 7; both take
+flip-group planes of H) against their plain PyTorch versions, on the
+card.  Marked ``gpu``; on a host
 without a CUDA card each test skips itself (decided inside the test, so
 every worker collects the same tests).  Run on the card's host, which
 has no JAX for the root conftest.py, with:
@@ -18,7 +19,12 @@ shared memory) and 16 (Heisenberg, state in the global workspace) -- the
 first design; at 12 also with every target and control on the qubits
 that start on warp bits, and with 3 starts.  Two v2 launches agree bit
 for bit at 12 and 13 qubits, as do p = 0 and the noiseless kernel, and
-identical psi0 rows and the shared plane.
+identical psi0 rows and the shared plane.  v1 is held at 4, 5, 8 and 9
+qubits with 3, 8 and 16 starts (groups of a thread, of a few lanes and of
+a warp a start; 16 starts at 9 qubits take two rounds), at 8 and 16
+amplitudes a thread, and with a Pauli sum of D complex flip groups whose
+planes do not fit in shared memory; at 8 qubits at both widths a
+repeated launch, p = 0 and identical psi0 rows are bit for bit.
 
 The noise variants (``noise=(p1, p2)``, seeds per env) are held to the
 same rule against their plain versions under the same Philox draws; the
@@ -139,7 +145,7 @@ def _inputs(dev, n=8, n_env=16, n_starts=8, cap=20, seed=0):
     """v1 arguments at 8-qubit H2O (other n: a random Pauli sum)."""
     head, tail = _tapes(dev, n, n_env, n_starts, cap, seed)
     pauli = load_problem("H2O", n, H2O).pauli if n == 8 else _pauli(n)
-    return (*head, *AngleOptimizer(pauli, device=dev).h_planes(), *tail)
+    return (*head, *AngleOptimizer(pauli, device=dev).w_planes(), *tail)
 
 
 def _pauli(n):
@@ -185,15 +191,108 @@ def test_check_rejects_a_wrong_kernel_result(fault):
     wrong = list(args)
     if fault == "drop_ry":
         kinds, slots = args[0][0], args[0][3]
-        keep = torch.ones_like(args[8])
+        keep = torch.ones_like(args[9])
         for e, g in ((kinds == int(GateKind.RY))
                      & (slots >= 0)).nonzero().tolist():
             keep[e, 0, slots[e, g]] = 0.0
-        wrong[8] = (args[8] * keep).contiguous()
+        wrong[9] = (args[9] * keep).contiguous()
     xk, ek = fused_adam.fused_adam_step(*wrong, iters=3, lr=lr)
     ref = fused_adam.plain_results(args, iters=3, lr=0.1)
     ok, _, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5)
     assert not bool(ok.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_starts", [3, 8, 16])
+@pytest.mark.parametrize("n", [4, 5, 8, 9])
+def test_v1_kernel_across_qubits_and_starts(n, n_starts):
+    """Groups of one thread's registers and two lanes (4q), four lanes
+    (5q) and a warp (8 and 9q) a start; 16 starts at 9 qubits take two
+    rounds of 8 groups."""
+    dev = _card()
+    args = _inputs(dev, n=n, n_env=8, n_starts=n_starts, cap=16)
+    ok, strict, _ = _held_to_plain(fused_adam.fused_adam_step,
+                                   fused_adam.fused_adam_step_reference,
+                                   args)
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+
+
+def _v1_at(reg_bits):
+    """The v1 kernel with 2^reg_bits amplitudes a thread, through
+    ``run_kernel`` on the current stream (uncounted)."""
+    def step(*args, iters, lr, noise=None, seeds=None):
+        return fused_adam.run_kernel(
+            fused_adam._library(), *args, iters=iters, lr=lr, noise=noise,
+            seeds=seeds, reg_bits=reg_bits,
+            stream=torch.cuda.current_stream().cuda_stream)[1:]
+    return step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reg_bits", [3, 4])
+def test_v1_kernel_at_both_register_widths(reg_bits):
+    dev = _card()
+    args = _inputs(dev)
+    xk, ek = _v1_at(reg_bits)(*args, iters=3, lr=0.1)
+    ref = fused_adam.plain_results(args, iters=3, lr=0.1)
+    ok, strict, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5)
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+
+
+def _all_flips_pauli(n, seed=5):
+    """A Hermitian Pauli sum with every flip mask f, each group complex
+    (f > 0: a term with one Y among its flipped qubits beside one with X
+    only): 2^(n+1) - 1 planes of W, 523 KB at 8 qubits."""
+    rng = np.random.default_rng(seed)
+    strings = []
+    for f in range(1 << n):
+        for with_y in (False, True):
+            s = [("X" if (f >> q) & 1 else rng.choice(["I", "Z"]))
+                 for q in range(n)]
+            if with_y and f:
+                s[(f & -f).bit_length() - 1] = "Y"
+            strings.append("".join(s))
+    return PauliSum.from_strings(strings, rng.normal(size=len(strings)), n)
+
+
+@pytest.mark.gpu
+def test_v1_kernel_reads_w_from_global_memory():
+    dev = _card()
+    n, n_env, s_n, cap = 8, 4, 8, 16
+    head, tail = _tapes(dev, n, n_env, s_n, cap, 2)
+    wre, wim, flips = AngleOptimizer(_all_flips_pauli(n),
+                                     device=dev).w_planes()
+    n_cplx = int((wim != 0).any(dim=1).sum())
+    assert flips.numel() == 1 << n and n_cplx == (1 << n) - 1
+    smem = fused_adam._library().fused_adam_v1_smem_bytes(
+        s_n, cap, cap, n, flips.numel(), n_cplx, 0,
+        fused_adam.group_layout(n, s_n)[0], 1)
+    assert smem > fused_adam.MAX_SMEM_BYTES
+    args = (*head, wre, wim, flips, *tail)
+    ok, strict, _ = _held_to_plain(fused_adam.fused_adam_step,
+                                   fused_adam.fused_adam_step_reference,
+                                   args)
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reg_bits", [3, 4])
+def test_v1_bit_for_bit_at_8_qubits(reg_bits):
+    """A repeated launch, the noise variant at p = 0 and identical (E, D)
+    psi0 rows give the noiseless shared launch bit for bit."""
+    dev = _card()
+    args = _inputs(dev)
+    step = _v1_at(reg_bits)
+    kw = dict(iters=5, lr=0.1)
+    x0, e0 = step(*args, **kw)
+    n_env = args[-1].shape[0]
+    rows = (*args[:3], *(p.expand(n_env, -1).contiguous()
+                         for p in args[3:5]), *args[5:])
+    runs = [step(*args, **kw),
+            step(*args, noise=(0.0, 0.0), seeds=_seeds(dev, n_env), **kw),
+            step(*rows, **kw)]
+    for x, e in runs:
+        assert torch.equal(x, x0) and torch.equal(e, e0)
 
 
 @pytest.mark.gpu
@@ -402,7 +501,7 @@ def test_noise_kernel_trajectories_match_kraus_at_5_qubits():
     _, e_new = fused_adam.fused_adam_step(
         arrs, arrs, torch.arange(4, dtype=torch.int32, device=dev)
         .repeat(n_env, 1).contiguous(), psi0.real[None].contiguous(),
-        psi0.imag[None].contiguous(), *opt.h_planes(),
+        psi0.imag[None].contiguous(), *opt.w_planes(),
         x0.repeat(n_env, 1, 1).contiguous(),
         torch.ones(n_env, 1, 4, device=dev), iters=1, lr=0.0, noise=p,
         seeds=_seeds(dev, n_env, seed=9))
@@ -482,9 +581,7 @@ def _trainable(dev, config, n_env, noisy=False):
     g, r = env.tape_capacity, env.rot_capacity
     head, tail = _tapes(dev, env.num_qubits, n_env, 8, g, 0,
                         prefix=env._tape(env.state), rot_cap=r)
-    h_ops = (env.optimizer.h_planes() if env.num_qubits < 10
-             else env.optimizer.w_planes())
-    return (g, r), (*head, *h_ops, *tail)
+    return (g, r), (*head, *env.optimizer.w_planes(), *tail)
 
 
 @pytest.mark.gpu

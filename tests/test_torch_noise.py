@@ -176,9 +176,10 @@ def test_plain_noisy_v1_with_zero_draws_matches_pallas_interpret():
     args = (_ints(old), _ints(new), torch.as_tensor(maps),
             _t32(psi0.real[None]), _t32(psi0.imag[None]), _t32(ht.real),
             _t32(ht.imag), _t32(starts), _t32(active))
-    xt, et = fused_adam.fused_adam_step_reference(
-        *args, iters=iters, lr=0.1, noise=NOISE,
-        seeds=torch.as_tensor(seeds), draw=_zero_draw)
+    # the JAX kernel takes dense H^T planes: the plain step with dense_h
+    xt, et = fused_adam.fused_step_plain(
+        *args[:5], fused_adam.dense_h(*args[5:7]), *args[7:], iters=iters,
+        lr=0.1, noise=NOISE, seeds=torch.as_tensor(seeds), draw=_zero_draw)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-5)
     np.testing.assert_allclose(et.numpy(), np.asarray(ej), atol=1e-5)
 
@@ -227,13 +228,11 @@ def test_noisy_step_at_p0_is_the_noiseless_step(engine):
     paulis = ["".join(rng.choice(list("IXYZ"), size=n)) for _ in range(12)]
     opt = AngleOptimizer(PauliSum.from_strings(paulis, rng.normal(size=12),
                                                n), device="cpu")
-    if engine == "v1":
-        step, h_ops = fused_adam.fused_adam_step, opt.h_planes()
-    else:
-        step, h_ops = fused_adam2d.fused_adam_step2d, opt.w_planes()
+    step = (fused_adam.fused_adam_step if engine == "v1"
+            else fused_adam2d.fused_adam_step2d)
     args = (_ints(old), _ints(new), torch.as_tensor(maps),
             torch.as_tensor(psi0.real[None]), torch.as_tensor(psi0.imag[None]),
-            *h_ops, torch.as_tensor(starts, dtype=torch.float64),
+            *opt.w_planes(), torch.as_tensor(starts, dtype=torch.float64),
             torch.as_tensor(active, dtype=torch.float64))
     x0, e0 = step(*args, iters=5, lr=0.1)
     xp, ep = step(*args, iters=5, lr=0.1, noise=(0.0, 0.0),
@@ -272,7 +271,7 @@ def test_plain_step_trajectories_match_kraus():
     seeds = torch.randint(0, 2**31 - 1, (n_env, 2), dtype=torch.int32,
                           generator=torch.Generator().manual_seed(3))
     _, e_new = fused_adam.fused_adam_step(
-        arrs, arrs, maps, psi0.real[None], psi0.imag[None], *opt.h_planes(),
+        arrs, arrs, maps, psi0.real[None], psi0.imag[None], *opt.w_planes(),
         x0, torch.ones(n_env, 1, r, dtype=torch.float64), iters=1, lr=0.0,
         noise=p, seeds=seeds)
     es = e_new.numpy() + opt.offset

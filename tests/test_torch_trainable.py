@@ -290,7 +290,7 @@ def _v1_args(n_env=3, n_starts=2, n=5, cap=12, seed=0):
                                                        cap)))) * active
     psi = torch.as_tensor(np.stack([_psi(rng, n) for _ in range(n_env)]))
     return ((_ints(old), _ints(new), torch.as_tensor(maps)), psi,
-            opt.h_planes(), (starts, active))
+            opt.w_planes(), (starts, active))
 
 
 def _with_psi0(head, psi, h_ops, tail):
@@ -380,7 +380,7 @@ def test_kernel_input_checks_take_per_env_psi0():
 
     def check(p):
         planes = (p.real.float().contiguous(), p.imag.float().contiguous())
-        floats = (*planes, *(t.float() for t in h_ops),
+        floats = (*planes, *(t.float() for t in h_ops[:2]),
                   *(t.float().contiguous() for t in tail))
         return fused_adam.check_step_inputs("fused_adam_step", ints,
                                             head[2], floats, floats[4],
