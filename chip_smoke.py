@@ -8,15 +8,21 @@ the composed engine with the su4 gate set and with shot noise.
     python3 chip_smoke.py
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.)
 
+The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
+cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.)
+and in its first design at 17-18.
+
 Phases, one line each with its seconds:
 
 1. device     -- a CUDA card must be present (no CPU fallback); prints
                  ``nvidia-smi --query-gpu=name,power.limit``.
 2. build      -- compiles every kernel with nvcc into build/, one nvcc per
                  source, all started together at the outset, and prints
-                 ptxas' register / shared-memory / spill lines; the v1
-                 phases wait only for v1, so the v2 source (the longest
-                 build) compiles while they run.
+                 ptxas' register / shared-memory / spill lines.  The tape
+                 kernels build in seconds, so the composed engine's phases
+                 (19.-21.) run first, while the fused kernels compile; the
+                 v1 phases then wait only for v1, so the v2 source (the
+                 longest build) compiles while they run.
 3. kernel v1  -- the v1 kernel (fused_adam_v1) against its plain
                  PyTorch version at the 8-qubit main path's shapes (E = 128
                  envs, S = 8 starts, G = R = 26, D = 256, the H2O
@@ -27,15 +33,17 @@ Phases, one line each with its seconds:
                  version's own float32 noise (ops/fused_adam.py:agreement);
                  e_new also against the eager complex128 simulator; two
                  deliberately wrong kernel results must fail the same
-                 check; then the kernel's and the plain version's times,
-                 and its bound with H psi over the flip groups and, as
-                 the first v1 kernel counted it, as a dense product.
-3b. split v1  -- where a v1 launch's time goes: 100 iterations at the 8q
-                 shapes with every gate kNone (the fixed part), at G = 13
-                 and G = 26 (the cost of a tape slot), at the trainable
-                 capacity (G = 172, R = 151) and at 5q Heisenberg (E =
-                 64); then the 8q fixed and trainable shapes at 8 and 16
-                 amplitudes a thread (``reg_bits``).
+                 check; then the kernel's and the plain version's times
+                 (the plain version's: its float32 run in the
+                 100-iteration check), and its bound with H psi over the
+                 flip groups and, as the first v1 kernel counted it, as a
+                 dense product.
+3b. split v1  -- (``--split`` only) where a v1 launch's time goes: 100
+                 iterations at the 8q shapes with every gate kNone (the
+                 fixed part), at G = 13 and G = 26 (the cost of a tape
+                 slot), at the trainable capacity (G = 172, R = 151) and at
+                 5q Heisenberg (E = 64); then the 8q fixed and trainable
+                 shapes at 8 and 16 amplitudes a thread (``reg_bits``).
 4. trainer v1 -- the CLI's vectorized trainer on configs/TensorRL_fixed/
                  H2O8q_TNbond2.cfg with 128 env replicas for 20 vector
                  steps, results in a temporary directory outside the
@@ -49,23 +57,44 @@ Phases, one line each with its seconds:
                  116, D = 4096, 84 flip groups), with the same oracle,
                  controls and timing; then a 3-iteration sweep over the
                  rest of the 10-18-qubit band: H2O 10q (E = 64), Heisenberg
-                 14q (E = 8, the first size with its state in global
-                 memory), 16q (E = 4) and 18q (E = 2).
-5b. split      -- where a v2 launch's time goes: 100 iterations at the 12q
-                 LiH shapes with every gate kNone (also with 2 of the 16
-                 envs), at half and at the full tape capacity (the cost of
-                 a tape slot), and at 10q H2O (E = 64) and 14q Heisenberg
-                 (E = 8).  With ``--split`` the script runs only 3b. and
-                 this phase, a split by gate class (synthetic tapes of one
-                 gate class each, at 100 and 0 iterations, with the swaps
-                 the schedule puts in), v2 at the trainable capacities and
-                 v2n timed the same way, and the two traced v1 trainers,
-                 and prints no result lines.
+                 14q (E = 64, the 14q trainer's shape) and 16q (E = 4) --
+                 the cluster kernel, with the controls, every launch
+                 through it -- and 18q (E = 2, the first design, its state
+                 in global memory).
+5b. split      -- (``--split`` only) where a v2 launch's time goes: 100
+                 iterations at the 12q LiH shapes with every gate kNone
+                 (also with 2 of the 16 envs), at half and at the full
+                 tape capacity (the cost of a tape slot), and at 10q H2O
+                 (E = 64) and 14q Heisenberg (E = 8); the 13-18q band (13q
+                 chain E = 8, 14q E = 8 and 64, 16q E = 4 and 16: the
+                 cluster kernel; 18q E = 2: the first design) with kernel
+                 ms, device ms and bounds.  With ``--split`` the
+                 script runs only 3b. and this phase, a split by gate class
+                 (synthetic tapes of one gate class each, at 100 and 0
+                 iterations, with the swaps the schedule puts in), v2 at
+                 the trainable capacities and v2n timed the same way, and
+                 the two traced v1 trainers, and prints no result lines.
 6. trainer v2 -- the trainer on configs/TensorRL_fixed/LIH12q_TNbond2.cfg
                  with 16 replicas for 80 vector steps (1,280 env steps, so
                  that the replay buffer passes batch 1000 and replay runs);
                  checks the outputs, that the replay ran and that every env
                  step went through fused_adam_v2.
+6b. kernel v2 cluster -- the cluster kernel (fused_adam_v2_cluster) at 14q
+                 Heisenberg (E = 8, S = 8, G = R = 46, clusters of 4 CTAs)
+                 held to its plain version at 3 iterations with the two
+                 controls (100 iterations in 22. when the time allows),
+                 every launch through the cluster kernel, and its times
+                 and bound; ``cudaOccupancyMaxActiveClusters`` at C = 2-16;
+                 at 13 qubits on an open Heisenberg chain built from its
+                 Pauli strings (no config ships for 13q; E = 8, G = R = 46,
+                 clusters of 2) with the controls; at 14q two launches bit
+                 for bit, the noise variant at p = 0 against the noiseless
+                 kernel, identical psi0 rows against the shared plane.
+6c. trainer v2 14q -- the trainer on configs/TensorRL_fixed/
+                 heisenberg_14q_TNbond2.cfg with 64 replicas for 20 vector
+                 steps (n_step 5: 64 x 16 transitions pass batch 1000 and
+                 replay runs), traced; every step through the cluster
+                 kernel.
 7. kernel v1 5q -- the v1 kernel below 8 qubits (the CLI's default config,
                  heisenberg_5q_TNbond2, E = 64) at 3 iterations, with the
                  controls.
@@ -93,7 +122,8 @@ Phases, one line each with its seconds:
                  vector steps, every step through the v1 noise variant.
 12. kernel v2n -- the v2 noise variant at LiH 12q (E = 16, S = 8, G = R =
                  116) at 3 iterations with the three controls and its
-                 times, then at 14q (E = 8, state in the workspace).
+                 times, then at 14q (E = 8, the cluster kernel, with the
+                 three controls).
 13. trainer v2n -- the trainer on LIH12q_TNbond2 with --noise depolarizing,
                  16 replicas, 20 vector steps, every step through the v2
                  noise variant.
@@ -145,12 +175,13 @@ Phases, one line each with its seconds:
                  replicas, 12 vector steps each: every vector step launches
                  B3f iters + 2 times and B3b iters times, and no fused
                  kernel.
-22. the 100-iteration checks of 8. and 12., each when enough of the
-                 deadline is left (``LONG_MIN_LEFT_S``).
+22. the 100-iteration checks of 6b., 8. and 12., each when enough of
+                 the deadline is left (``LONG_MIN_LEFT_S``).
 
 The line before the last is a JSON object with one entry per kernel
-variant (v1, v1 noise, v2, v2 noise, v1 and v2 per-env psi0, the tape
-kernels' forward and adjoint); the last line is {"ok": true, "device":
+variant (v1, v1 noise, v2, v2 noise, the v2 cluster kernel, v1 and v2
+per-env psi0, the tape kernels' forward and adjoint); the last line is
+{"ok": true, "device":
 {...}}.  Any failure, or passing the deadline, exits non-zero without that
 line.
 
@@ -210,12 +241,31 @@ TOL_P0 = 1e-6            # noise variant at p = 0 vs the noiseless kernel
 # the optional 100-iteration checks of the noise variants (run last, in
 # this order) run when this much of the deadline is left, about twice
 # what they took on the H100: v1n's 67-101 s, v2n's 92 s
-LONG_MIN_LEFT_S = {"fused_adam_v1_noise": 200, "fused_adam_v2_noise": 300}
-# the split phase's shapes besides 12q LiH: both state bands of v2
+LONG_MIN_LEFT_S = {"fused_adam_v2_cluster": 90, "fused_adam_v1_noise": 200,
+                   "fused_adam_v2_noise": 300}
+# the split phase's shapes besides 12q LiH: 10q and 14q (the cluster
+# kernel)
 SPLIT_SHAPES = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8))
-# the rest of the band at 3 iterations: (config, envs)
-SWEEP = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8),
+# the cluster kernel (13-16 qubits, a cluster of 2^(n - 12) CTAs a start):
+# checked and timed at 14q Heisenberg with E = 8, and its trainer with 64
+# replicas (root bench.py's ROWS[14]) for 20 vector steps: with n_step 5 a
+# replica's first transition enters the buffer at its 5th step, so 64 x 16
+# > 1000 and replay runs (16 steps would leave 768)
+V2C_CONFIG, V2C_ENVS, V2C_TRAINER_ENVS, V2C_STEPS = (
+    "heisenberg_14q_TNbond2", 8, 64, 20)
+# the rest of the band at 3 iterations: (config, envs); 14q (at the 14q
+# trainer's 64 replicas) and 16q run the cluster kernel (held with the
+# controls), 18q the first design
+SWEEP = (("H2O10q_TNbond2", 64), (V2C_CONFIG, V2C_TRAINER_ENVS),
          ("heisenberg_16q_TNbond2", 4), ("heisenberg_18q_TNbond2", 2))
+# no config ships for 13 qubits: an open Heisenberg chain from its Pauli
+# strings at the 14q config's capacity (clusters of 2 CTAs)
+CHAIN_QUBITS, CHAIN_ENVS, CHAIN_CAP = 13, 8, 46
+# --split: the 13-18q band, (config or None for the 13q chain, envs): the
+# cluster kernel at 13-16q, the first design at 18q
+BAND_SPLIT = ((None, 8), ("heisenberg_14q_TNbond2", 8),
+              ("heisenberg_14q_TNbond2", 64), ("heisenberg_16q_TNbond2", 4),
+              ("heisenberg_16q_TNbond2", 16), ("heisenberg_18q_TNbond2", 2))
 TOL_ITERS3 = 1e-5        # x_opt and e_new after 3 Adam iterations
 TOL_ITERS100 = 1e-4      # e_new (Ha) after 100 iterations: f32 summation
 #                          order perturbs the Adam trajectories
@@ -342,13 +392,23 @@ class Engine(NamedTuple):
     def launches(self) -> int:
         """This variant's launches since the wrapper's counts were set to
         0 (a launch that were noisy and per-env would count in both of
-        those and make the plain count negative: none is expected)."""
+        those and make the plain count negative: none is expected).  The
+        cluster kernel's launches (13-16 qubits) count among v2's too."""
         if self.variant == "noise":
             return self.step.noise_launches
         if self.variant == "psi0":
             return self.step.psi0_launches
+        if self.variant == "cluster":
+            return self.step.cluster_launches
         return (self.step.launches - self.step.noise_launches
                 - self.step.psi0_launches)
+
+    def reset(self):
+        """Set the wrapper's launch counts to 0."""
+        for key in ("launches", "noise_launches", "psi0_launches",
+                    "cluster_launches"):
+            if hasattr(self.step, key):
+                setattr(self.step, key, 0)
 
 
 # the TPU kernel each (source, variant) replaces
@@ -364,6 +424,8 @@ REPLACES = {
                      "(_make_kernel, noise=(p1, p2))",
     ("v2", "psi0"): "tensorrl_qas_tpu/ops/pallas_opt2d.py:646 "
                     "(_make_kernel, per_env_psi0=True)",
+    ("v2", "cluster"): "tensorrl_qas_tpu/ops/pallas_opt2d.py:160 "
+                       "(_make_kernel at 13-16 qubits, call :854)",
     ("tape", "fwd"): "tensorrl_qas_tpu/ops/pallas_apply.py:473 "
                      "(_fwd_kernel, via _call_fwd :559)",
     ("tape", "bwd"): "tensorrl_qas_tpu/ops/pallas_apply.py:502 "
@@ -381,23 +443,27 @@ COMPOSED = Engine(
 
 
 def engines():
-    """(v1, v1 noise, v2, v2 noise, v1 per-env psi0, v2 per-env psi0).
-    Both kernels take the flip-group planes."""
+    """(v1, v1 noise, v2, v2 noise, v1 per-env psi0, v2 per-env psi0, v2
+    cluster).  Both kernels take the flip-group planes; "v2 cluster" is
+    v2's wrapper counted by its cluster kernel's launches (13-16 qubits)."""
     from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
 
     v2 = fused_adam2d._library
     out = {}
-    for variant in ("", "noise", "psi0"):
+    for variant in ("", "noise", "psi0", "cluster"):
         suffix = f"_{variant}" if variant else ""
         noise = variant == "noise"
-        out["v1" + variant] = Engine(
-            name="fused_adam_v1" + suffix, replaces=REPLACES["v1", variant],
-            source="tensorrl_qas_tpu_torch/csrc/fused_adam_v1.cu",
-            step=fused_adam.fused_adam_step, variant=variant,
-            plain=fused_adam.fused_adam_step_reference,
-            h_ops=lambda opt: opt.w_planes(),
-            smem_bytes=lambda case, noise=noise: v1_smem_bytes(case, noise),
-            h_flops=flip_h_flops)
+        if variant != "cluster":
+            out["v1" + variant] = Engine(
+                name="fused_adam_v1" + suffix,
+                replaces=REPLACES["v1", variant],
+                source="tensorrl_qas_tpu_torch/csrc/fused_adam_v1.cu",
+                step=fused_adam.fused_adam_step, variant=variant,
+                plain=fused_adam.fused_adam_step_reference,
+                h_ops=lambda opt: opt.w_planes(),
+                smem_bytes=lambda case, noise=noise: v1_smem_bytes(case,
+                                                                   noise),
+                h_flops=flip_h_flops)
         out["v2" + variant] = Engine(
             name="fused_adam_v2" + suffix, replaces=REPLACES["v2", variant],
             source="tensorrl_qas_tpu_torch/csrc/fused_adam_v2.cu",
@@ -409,7 +475,7 @@ def engines():
                                               case.args[7].numel(), noise),
             h_flops=flip_h_flops)
     return tuple(out[k] for k in ("v1", "v1noise", "v2", "v2noise",
-                                  "v1psi0", "v2psi0"))
+                                  "v1psi0", "v2psi0", "v2cluster"))
 
 
 def flip_h_flops(case):
@@ -448,10 +514,13 @@ class Case:
     ``gate_set='su4'``: the su4 env's capacities and su4 tapes; the
     composed engine's noisy settings set ``noise_kw`` to their seed and
     ``has_oracle`` to False afterwards.  ``caps=(G, R)`` overrides the
-    env's capacities."""
+    env's capacities.  ``pauli`` (a PauliSum, with ``caps``) stands in for
+    a config: that Hamiltonian on its own, noiseless."""
 
     def __init__(self, engine, config, n_env, family=FIXED,
-                 gate_set="cnot", caps=None):
+                 gate_set="cnot", caps=None, pauli=None):
+        import types
+
         import numpy as np
         import torch
 
@@ -459,27 +528,36 @@ class Case:
             CircuitEnv,
             EnvConfig,
         )
-        from tensorrl_qas_tpu_torch.optim.angle_opt import make_multistarts
+        from tensorrl_qas_tpu_torch.optim.angle_opt import (
+            AngleOptimizer,
+            make_multistarts,
+        )
         from tensorrl_qas_tpu_torch.train.config import get_config
 
         dev = torch.device("cuda")
         in_state = family != FIXED
-        conf = get_config(family, f"{config}.cfg")
-        conf["env"]["gate_set"] = gate_set
-        env = CircuitEnv(EnvConfig.from_conf(
-            conf, tn_placement="in_state" if in_state else "fixed",
-            noise_mode="depolarizing" if engine.noise else "none",
-            device="cuda"))
-        self.n = n = env.num_qubits
-        self.g, self.r = g, r = caps or (env.tape_capacity,
-                                         env.rot_capacity)
         self.n_env = n_env
-        self.prob = env.problem
-        self.opt = env.optimizer
         prefix = None
-        if in_state:
-            env.reset()
-            prefix = env._tape(env.state)
+        if pauli is not None:
+            self.n = n = pauli.n_qubits
+            self.g, self.r = g, r = caps
+            self.prob = types.SimpleNamespace(pauli=pauli)
+            self.opt = AngleOptimizer(pauli, device=dev)
+        else:
+            conf = get_config(family, f"{config}.cfg")
+            conf["env"]["gate_set"] = gate_set
+            env = CircuitEnv(EnvConfig.from_conf(
+                conf, tn_placement="in_state" if in_state else "fixed",
+                noise_mode="depolarizing" if engine.noise else "none",
+                device="cuda"))
+            self.n = n = env.num_qubits
+            self.g, self.r = g, r = caps or (env.tape_capacity,
+                                             env.rot_capacity)
+            self.prob = env.problem
+            self.opt = env.optimizer
+            if in_state:
+                env.reset()
+                prefix = env._tape(env.state)
         rng = np.random.default_rng(1234)
         self.has_oracle = True
         self.old, self.new, self.maps, x0, n_rots = draw_batch(
@@ -600,8 +678,22 @@ def check_kernel(engine, case, label, iters, tol, controls=()):
     kw = case.noise_kw
     xk, ek = engine.step(*case.args, iters=iters, lr=LR, **kw)
     torch.cuda.synchronize()
+    plain_ms = []
+
+    def plain(*args, **kwargs):
+        # the first call is the plain float32 run on case.args: timed
+        if plain_ms:
+            return engine.plain(*args, **kwargs)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = engine.plain(*args, **kwargs)
+        b.record()
+        b.synchronize()
+        plain_ms.append(a.elapsed_time(b))
+        return out
     ref = fused_adam.plain_results(case.args, iters=iters, lr=LR,
-                                   step=engine.plain, **kw)
+                                   step=plain, **kw)
     env_ok, _, stats = fused_adam.agreement(
         case.args, ref, xk, ek, tol=tol, check_x=iters == 3,
         step=engine.plain, iters=iters, **kw)
@@ -627,7 +719,8 @@ def check_kernel(engine, case, label, iters, tol, controls=()):
           and (oracle <= TOL_ORACLE or not case.has_oracle)
           and bool(torch.isfinite(ek).all())
           and bool(torch.isfinite(xk).all()))
-    info = dict(tol=tol, **stats, oracle_max_abs_err=f"{oracle:.3e}")
+    info = dict(tol=tol, **stats, oracle_max_abs_err=f"{oracle:.3e}",
+                plain_float32_ms=f"{plain_ms[0]:.4f}")
     if controls:
         info["controls_envs_flagged"] = caught
     done(f"{label} iters={iters}", t0, **info, ok=ok)
@@ -636,7 +729,7 @@ def check_kernel(engine, case, label, iters, tol, controls=()):
             f"{label} disagrees with its plain version at iters={iters}: "
             f"envs failing {(~env_ok).nonzero().flatten().tolist()}, "
             f"oracle {oracle:.3e}")
-    return stats
+    return {**stats, "plain_ms": plain_ms[0]}
 
 
 def tape_flops(tape, dim, table):
@@ -750,11 +843,28 @@ def device_us_by_name(prof):
     return out
 
 
-def time_kernel(engine, case, label, time_plain=True):
+def bound(engine, case):
+    """(operations, bytes, bound ms, bound_by) of one 100-iteration step
+    on a case's inputs: the larger of its operations at the f32 peak and
+    its bytes (inputs read once, outputs written once) at the HBM rate."""
+    kw = case.noise_kw
+    flops = flop_count(case, engine.h_flops(case))
+    seeds = [kw["seeds"]] if kw else []
+    tensors = [t for a in (*case.args, *seeds)
+               for t in (a if isinstance(a, tuple) else (a,))]
+    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
+              + case.n_env * (case.r + 1) * 4)
+    t_ops, t_bytes = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (flops, nbytes, 1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_kernel(engine, case, label, time_plain=True, plain_ms=None):
     """Kernel ms (median of CUDA events), plain ms (one call, unless
-    ``time_plain`` is False), and the bound: the larger of this batch's
-    operations at the f32 peak and its bytes (inputs read once, outputs
-    written once) at the HBM rate."""
+    ``time_plain`` is False; ``plain_ms`` is one already measured on the
+    same call), and the bound: the larger of this batch's operations at
+    the f32 peak and its bytes (inputs read once, outputs written once)
+    at the HBM rate."""
     t0 = phase(f"{label} timing")
     kw = case.noise_kw
     k_ms = time_cuda(lambda: engine.step(*case.args, iters=ITERS, lr=LR,
@@ -764,19 +874,11 @@ def time_kernel(engine, case, label, time_plain=True):
         extra["noiseless_kernel_same_inputs_ms"] = "{:.4f}".format(time_cuda(
             lambda: engine.step(*case.args, iters=ITERS, lr=LR), warmup=1,
             reps=10))
-    p_ms = None
-    if time_plain:
+    p_ms = plain_ms
+    if time_plain and p_ms is None:
         p_ms = time_cuda(lambda: engine.plain(*case.args, iters=ITERS,
                                               lr=LR, **kw), warmup=0, reps=1)
-    flops = flop_count(case, engine.h_flops(case))
-    seeds = [kw["seeds"]] if kw else []
-    tensors = [t for a in (*case.args, *seeds)
-               for t in (a if isinstance(a, tuple) else (a,))]
-    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
-              + case.n_env * (case.r + 1) * 4)
-    bound_ms = 1e3 * max(flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S)
-    bound_by = ("operations" if flops / FP32_PEAK_FLOPS
-                >= nbytes / HBM_BYTES_PER_S else "bytes")
+    flops, nbytes, bound_ms, bound_by = bound(engine, case)
     # the same bound with H psi counted as a dense complex D x D product,
     # as the first v1 kernel's bounds were
     dense_ms = 1e3 * max(flop_count(case, 8 << (2 * case.n))
@@ -795,7 +897,9 @@ def time_kernel(engine, case, label, time_plain=True):
 def kernel_phase(engine, config, n_env, label, long_check=True,
                  family=FIXED, time_plain=True):
     """Both iteration counts (the 100-iteration one unless
-    ``long_check`` is False) with the controls, then the timing."""
+    ``long_check`` is False) with the controls, then the timing (the
+    plain version's time, where the 100-iteration check ran, that of its
+    float32 run there: the same call)."""
     case = Case(engine, config, n_env, family)
     print(f"[{label}] {family}{config}: E={n_env} G={case.g} R={case.r} "
           f"D={1 << case.n} psi0 rows={len(case.psi0)}", flush=True)
@@ -805,8 +909,10 @@ def kernel_phase(engine, config, n_env, label, long_check=True,
             continue
         stats[iters] = check_kernel(engine, case, label, iters, tol,
                                     case.controls())
+    long = stats.get(ITERS, {})
     return {"max_abs_err": stats[max(stats)]["e_new_max_abs_err"],
-            **time_kernel(engine, case, label, time_plain)}, case
+            **time_kernel(engine, case, label, time_plain,
+                          long.get("plain_ms"))}, case
 
 
 def split_phase(engine, config, n_env, others=(), few=None):
@@ -891,16 +997,127 @@ def split_v2(v2):
                        tuple((c, e, FIXED) for c, e in SPLIT_SHAPES), few=2)
 
 
+def cluster_size(n):
+    """CTAs a start takes at n qubits in the cluster kernel (0: another
+    kernel runs it)."""
+    from tensorrl_qas_tpu_torch.ops import fused_adam2d
+
+    return fused_adam2d._library().fused_adam_v2_cluster_size(n)
+
+
+def split_band(v2):
+    """``--split``: v2 across the 13-18q band (``BAND_SPLIT``: the 13q
+    chain, 14q at E = 8 and 64, 16q at E = 4 and 16 -- the cluster kernel
+    -- and 18q at E = 2 -- the first design) at 100 iterations, kernel ms
+    (CUDA events), device ms (profiler) and the bound, so that a parent
+    checkout, whose first design runs all of these shapes, compares with
+    this one in the same call."""
+    t0 = phase("split 13-18q band")
+    ms, dev, bounds = {}, {}, {}
+    for config, n_env in BAND_SPLIT:
+        case = (chain_case(v2, n_env) if config is None
+                else Case(v2, config, n_env))
+        key = f"{config or f'{CHAIN_QUBITS}q chain'} E={n_env} G={case.g}"
+
+        def run():
+            return v2.step(*case.args, iters=ITERS, lr=LR)
+        ms[key] = f"{time_cuda(run, warmup=1, reps=5):.4f}"
+        d = device_ms(run, v2.name, reps=3)
+        dev[key] = "not measured" if d is None else f"{d:.4f}"
+        _, _, b_ms, b_by = bound(v2, case)
+        bounds[key] = f"{b_ms:.4f} ({b_by})"
+    done("split 13-18q band", t0, iters=ITERS, S=STARTS, kernel_ms=ms,
+         device_ms=dev, bound_ms=bounds)
+
+
 def sweep_phase(engine, sweep=SWEEP):
+    """3 iterations over the band; where the cluster kernel runs, with
+    the controls and its launch count checked."""
     for config, n_env in sweep:
         case = Case(engine, config, n_env)
-        check_kernel(engine, case, f"sweep {config} E={n_env}", 3,
-                     TOL_ITERS3)
+        size = cluster_size(case.n)
+        check_cluster(engine, case, f"sweep {config} E={n_env}", 3,
+                      TOL_ITERS3, case.controls() if size else (), size)
 
 
-def p0_phase(engine, noisy, config, n_env):
+def check_cluster(engine, case, label, iters, tol, controls, size):
+    """``check_kernel``, and where ``size`` > 0 every launch of it (the
+    controls' too) through the cluster kernel of ``size`` CTAs a start."""
+    if not size:
+        return check_kernel(engine, case, label, iters, tol, controls)
+    step = engine.step
+    before = (step.launches, step.cluster_launches)
+    stats = check_kernel(engine, case, f"{label} C={size}", iters, tol,
+                         controls)
+    runs = step.launches - before[0]
+    if step.cluster_launches - before[1] != runs:
+        raise AssertionError(f"{label}: {runs} launches, "
+                             f"{step.cluster_launches - before[1]} through "
+                             "the cluster kernel")
+    return stats
+
+
+def heisenberg_chain(n):
+    """The open Heisenberg chain on n qubits from its Pauli strings: XX,
+    YY and ZZ on each bond, weight 1."""
+    import numpy as np
+
+    from tensorrl_qas_tpu_torch.sim.expectation import PauliSum
+
+    strings = []
+    for i in range(n - 1):
+        for a in "XYZ":
+            word = ["I"] * n
+            word[i] = word[i + 1] = a
+            strings.append("".join(word))
+    return PauliSum.from_strings(strings, np.ones(len(strings)), n)
+
+
+def chain_case(engine, n_env):
+    return Case(engine, None, n_env, caps=(CHAIN_CAP, CHAIN_CAP),
+                pauli=heisenberg_chain(CHAIN_QUBITS))
+
+
+def cluster_phase(v2, v2n, v2p, v2c):
+    """The cluster kernel: at 14q Heisenberg (E = 8) held to its plain
+    version with the controls, then timed; its occupancy at C = 2-16; at
+    13q on the open chain (C = 2) with the controls; at 14q two launches
+    bit for bit, p = 0 against the noiseless kernel, identical psi0 rows
+    against the shared plane.  -> (kernels-line entry, 14q case)."""
+    from tensorrl_qas_tpu_torch.ops import fused_adam2d
+
+    case = Case(v2c, V2C_CONFIG, V2C_ENVS)
+    size = cluster_size(case.n)
+    print(f"[kernel v2 cluster] {FIXED}{V2C_CONFIG}: E={V2C_ENVS} G={case.g} "
+          f"R={case.r} D={1 << case.n} C={size}", flush=True)
+    stats = check_cluster(v2c, case, "kernel v2 cluster", 3, TOL_ITERS3,
+                          case.controls(), size)
+    entry = {"max_abs_err": stats["e_new_max_abs_err"],
+             **time_kernel(v2c, case, "kernel v2 cluster")}
+    t0 = phase("cluster occupancy")
+    lib = fused_adam2d._library()
+    occ = {}
+    for n in (13, 14, 15, 16):
+        # Heisenberg's n flip groups (n - 1 bonds and the diagonal)
+        smem = lib.fused_adam_v2_smem_bytes(case.g, case.r, n, n, 0)
+        occ[f"C={cluster_size(n)}"] = {
+            "smem_bytes_per_cta": smem,
+            "max_active_clusters": lib.fused_adam_v2_cluster_occupancy(
+                n, smem)}
+    done("cluster occupancy", t0, G=case.g, R=case.r, occupancy=occ)
+    chain = chain_case(v2c, CHAIN_ENVS)
+    check_cluster(v2c, chain, f"kernel v2 cluster {CHAIN_QUBITS}q chain "
+                  f"E={CHAIN_ENVS}", 3, TOL_ITERS3, chain.controls(),
+                  cluster_size(CHAIN_QUBITS))
+    p0_phase(v2, v2n, V2C_CONFIG, V2C_ENVS, repeat_bit_for_bit=True)
+    psi0_rows_phase(v2, v2p, case)
+    return entry, case
+
+
+def p0_phase(engine, noisy, config, n_env, repeat_bit_for_bit=False):
     """The noise variant at p1 = p2 = 0 against the noiseless kernel on
-    the same inputs, at 100 iterations."""
+    the same inputs, at 100 iterations; with ``repeat_bit_for_bit`` two
+    noiseless launches must also agree bit for bit."""
     import torch
 
     t0 = phase(f"p=0 {noisy.name}")
@@ -912,16 +1129,16 @@ def p0_phase(engine, noisy, config, n_env):
                         seeds=seeds)
     torch.cuda.synchronize()
     err = max(float((xp - x0).abs().max()), float((ep - e0).abs().max()))
-    ok = err <= TOL_P0
+    repeat = bool(torch.equal(x1, x0) and torch.equal(e1, e0))
+    ok = err <= TOL_P0 and (repeat or not repeat_bit_for_bit)
     done(f"p=0 {noisy.name}", t0, config=config, n_env=n_env,
          max_abs_diff=f"{err:.3e}",
          bit_for_bit=bool(torch.equal(xp, x0) and torch.equal(ep, e0)),
-         noiseless_repeat_bit_for_bit=bool(torch.equal(x1, x0)
-                                           and torch.equal(e1, e0)),
-         ok=ok)
+         noiseless_repeat_bit_for_bit=repeat, ok=ok)
     if not ok:
         raise AssertionError(f"{noisy.name} at p = 0 differs from the "
-                             f"noiseless kernel by {err:.3e}")
+                             f"noiseless kernel by {err:.3e}, or two "
+                             f"noiseless launches differ ({repeat=})")
 
 
 def psi0_rows_phase(engine, per_env, case):
@@ -1243,9 +1460,7 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
         t0 = phase(label)
         torch.cuda.reset_peak_memory_stats()
         for e in variants:
-            e.step.launches = 0
-            e.step.noise_launches = 0
-            e.step.psi0_launches = 0
+            e.reset()
         for k in tape_kernels:
             k.launches = 0
         tracer = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
@@ -1388,7 +1603,8 @@ def class_split(engine):
 
 
 def split_only(v1, v2, v2n):
-    """``--split``: the v1 and v2 split phases, the split by gate class
+    """``--split``: the v1 and v2 split phases, the 13-18q band, the
+    split by gate class
     (where the checkout's v2 has the register kernel, i.e. a
     ``swap_schedule``), v2 at the trainable capacities and v2n at 12q LiH
     timed the same way, then the 8q fixed and trainable trainers traced
@@ -1398,6 +1614,7 @@ def split_only(v1, v2, v2n):
 
     split_v1(v1)
     split_v2(v2)
+    split_band(v2)
     if hasattr(fused_adam2d, "swap_schedule"):
         class_split(v2)
     else:
@@ -1418,6 +1635,28 @@ def split_only(v1, v2, v2n):
                   family=TRAINABLE, profile=True)
 
 
+def composed_phases():
+    """The composed engine: its tape kernels, its step in three settings,
+    and the su4 and shot-noise trainers, each vector step iters + 2
+    forward and iters adjoint launches.  -> the kernels line's tape
+    entries (the 8q shapes)."""
+    tape = {}
+    for n, n_env in TAPE_SHAPES:
+        entries = tape_phase(n, n_env, TAPE_CAP, f"kernel tape {n}q")
+        tape = tape or entries
+    for mode in ("su4", "shot", "traj4"):
+        composed_phase(mode)
+    per_step = {"apply_tape_fwd": COMPOSED_STEPS * (ITERS + 2),
+                "apply_tape_bwd": COMPOSED_STEPS * ITERS}
+    launches = trainer_phase(COMPOSED, V1_CONFIG, V1_ENVS, COMPOSED_STEPS,
+                             "trainer su4", SU4_ARGS, expect=per_step)
+    for key in ("fwd", "bwd"):
+        tape[key]["launches"] = launches[f"apply_tape_{key}"]
+    trainer_phase(COMPOSED, RESTRICTED_CONFIG, V1_ENVS, COMPOSED_STEPS,
+                  "trainer restricted", expect=per_step)
+    return tape
+
+
 def main(argv=()) -> int:
     watchdog = threading.Timer(DEADLINE_S, _expire)
     watchdog.daemon = True
@@ -1433,7 +1672,7 @@ def main(argv=()) -> int:
     done("device", t0, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    v1, v1n, v2, v2n, v1p, v2p = engines()
+    v1, v1n, v2, v2n, v1p, v2p, v2c = engines()
     if "--split" in argv:
         Builds(("fused_adam_v1", "fused_adam_v2")).wait("fused_adam_v1",
                                                         "fused_adam_v2")
@@ -1441,19 +1680,27 @@ def main(argv=()) -> int:
         watchdog.cancel()
         return 0
     builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
+    # the tape kernels build in seconds: the composed engine's phases run
+    # while nvcc builds the fused kernels
+    builds.wait("apply_tape")
+    tape = composed_phases()
     builds.wait("fused_adam_v1")
     results = {}
     results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
-    split_v1(v1)
     results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
                                             V1_STEPS, "trainer v1",
                                             profile=True)[v1.name]
-    builds.wait("fused_adam_v2", "apply_tape")
+    builds.wait("fused_adam_v2")
     results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
-    split_v2(v2)
     sweep_phase(v2)
     results[v2]["launches"] = trainer_phase(v2, V2_CONFIG, V2_ENVS,
                                             V2_STEPS, "trainer v2")[v2.name]
+    # the cluster kernel (13-16 qubits) and the 14q trainer through it
+    results[v2c], case_v2c = cluster_phase(v2, v2n, v2p, v2c)
+    results[v2c]["launches"] = trainer_phase(
+        v2c, V2C_CONFIG, V2C_TRAINER_ENVS, V2C_STEPS, "trainer v2 14q",
+        expect={v2.name: V2C_STEPS, v2c.name: V2C_STEPS},
+        profile=True)[v2c.name]
     small = Case(v1, *V1_SMALL)
     check_kernel(v1, small, f"kernel v1 {V1_SMALL[0]} E={V1_SMALL[1]}", 3,
                  TOL_ITERS3, small.controls())
@@ -1480,10 +1727,11 @@ def main(argv=()) -> int:
     psi0_rows_phase(v1, v1p, case)
     results[v1p], _ = kernel_phase(v1p, V1_CONFIG, V1_ENVS, "kernel v1p",
                                    long_check=False, family=TRAINABLE)
+    # untraced (--split traces the trainable trainer): tracing it here took
+    # more of the deadline than its training
     for family, label in ((TRAINABLE, "trainer v1 trainable"),
                           (STRUCTURE, "trainer v1 StructureRL")):
-        trainer_phase(v1, V1_CONFIG, V1_ENVS, T_STEPS, label, family=family,
-                      profile=family == TRAINABLE)
+        trainer_phase(v1, V1_CONFIG, V1_ENVS, T_STEPS, label, family=family)
     results[v1p]["launches"] = trainer_phase(
         v1p, V1_CONFIG, V1_ENVS, T_STEPS, "trainer v1p", BLOCK_COORD,
         family=TRAINABLE)[v1p.name]
@@ -1497,31 +1745,15 @@ def main(argv=()) -> int:
         v2p, V2_CONFIG, V2_ENVS, T_STEPS, "trainer v2p", BLOCK_COORD,
         expect_replay=False, family=TRAINABLE)[v2p.name]
 
-    # the composed engine: its tape kernels, its step in three settings,
-    # and the su4 and shot-noise trainers, each vector step iters + 2
-    # forward and iters adjoint launches
-    tape = {}
-    for n, n_env in TAPE_SHAPES:
-        entries = tape_phase(n, n_env, TAPE_CAP, f"kernel tape {n}q")
-        tape = tape or entries          # the kernels line: the 8q shapes
-    for mode in ("su4", "shot", "traj4"):
-        composed_phase(mode)
-    per_step = {"apply_tape_fwd": COMPOSED_STEPS * (ITERS + 2),
-                "apply_tape_bwd": COMPOSED_STEPS * ITERS}
-    launches = trainer_phase(COMPOSED, V1_CONFIG, V1_ENVS, COMPOSED_STEPS,
-                             "trainer su4", SU4_ARGS, expect=per_step)
-    for key in ("fwd", "bwd"):
-        tape[key]["launches"] = launches[f"apply_tape_{key}"]
-    trainer_phase(COMPOSED, RESTRICTED_CONFIG, V1_ENVS, COMPOSED_STEPS,
-                  "trainer restricted", expect=per_step)
-
-    for engine, case in ((v1n, case_v1n), (v2n, case_v2n)):
+    for engine, case, label in ((v2c, case_v2c, "kernel v2 cluster"),
+                                (v1n, case_v1n, "kernel v1n"),
+                                (v2n, case_v2n, "kernel v2n")):
         left = DEADLINE_S - (time.perf_counter() - t_start)
         need = LONG_MIN_LEFT_S[engine.name]
-        label = "kernel " + ("v1n" if engine is v1n else "v2n")
         if left >= need:
-            stats = check_kernel(engine, case, label, ITERS, TOL_ITERS100,
-                                 case.controls())
+            size = cluster_size(case.n) if engine is v2c else 0
+            stats = check_cluster(engine, case, label, ITERS, TOL_ITERS100,
+                                  case.controls(), size)
             results[engine]["max_abs_err"] = stats["e_new_max_abs_err"]
         else:
             print(f"[{label} iters={ITERS}] skipped: {left:.0f} s of the "

@@ -65,17 +65,47 @@
 // where it is not zero (the wrapper's wim_any: never for a real H).  At
 // 13 qubits an adjoint gate needs more than the 128 registers a thread of
 // 512 may have (ptxas spilled, as it did with 256 threads of 32
-// amplitudes), so 13 qubits keeps the first design below.
+// amplitudes), so from 13 qubits a start takes more than one CTA.
 //
-// First design (fused_adam_v2_kernel, 13 <= n <= 18): psi and lambda (16
-// D bytes) live in shared memory at 13 qubits and in the CTA's slice of a
-// global workspace above (256 KB to 4 MB a start), reached through L2.  A
-// gate pairs amplitude i0 (target bit 0) with i1 = i0 | 2^t; each of 512
+// Cluster kernel (13 <= n <= 16, fused_adam_v2_cluster_kernel).  A start
+// is one thread-block cluster of C = 2^(n - 12) CTAs, each the register
+// kernel's 256 threads x 16 amplitudes of psi and lambda in registers: the
+// physical bits are 4 register, 5 lane and 3 warp bits, and above them
+// n - 12 cluster bits, the CTA's rank in its cluster.  The same schedule
+// (build_schedule) runs over the cluster bits as over warp bits: a gate
+// target on a cluster bit is first swapped with a register bit through
+// distributed shared memory -- each thread writes the half of its
+// amplitudes whose register bit differs from its rank bit into the
+// partner CTA's buffer (map_shared_rank), one cluster barrier, and reads
+// its own buffer (double-buffered, apart from the warp swaps' buffers).  A
+// control on a cluster bit is CTA-uniform: the CTA whose rank bit is clear
+// skips the gate, the other runs it uncontrolled.  An error Pauli on a
+// cluster bit is a sign (Z) or an exchange of the whole slice with the
+// partner CTA (X, Y).  H psi: each CTA puts its slice of psi in its own
+// shared memory (at register * 256 + thread, conflict-free), one cluster
+// barrier, and each thread sums W_f[i] psi[i ^ f] over its amplitudes,
+// reading psi[i ^ f] at the physical flip of f (a per-group xor, pflip)
+// from its own CTA or, where f flips a cluster bit, from the owning CTA's
+// shared memory.  Energy partials and the angle gradients are summed in
+// each CTA in the register kernel's fixed order, then over the ranks in
+// rank order: every CTA pushes its partials into every CTA's shared
+// memory, one cluster barrier, and every CTA sums the same numbers in the
+// same order, so all of them take the same Adam step and the launch stays
+// deterministic.  Rank 0 writes the start's best and bumps the env's
+// arrival counter; the flag goes to the cluster's CTAs over distributed
+// shared memory, and the last cluster of the env does the tail with all of
+// its CTAs.  At 17-18 qubits a start would need 32 or 64 CTAs, more than a
+// cluster holds (16), so those sizes keep the first design.
+//
+// First design (fused_adam_v2_kernel, 17 <= n <= 18): psi and lambda (16
+// D bytes) live in the CTA's slice of a global workspace (2 or 4 MB a
+// start), reached through L2.  A gate pairs amplitude i0 (target bit 0)
+// with i1 = i0 | 2^t; each of 512
 // threads owns whole pairs, so a gate updates in place and ends with a
 // barrier; H psi is one pass in which thread i sums W_f[i] psi[i ^ f];
 // gradient rows are warp shuffles plus a fixed-order sum by thread 0.
 //
-// Both kernels: the W planes (read-only, shared by every CTA: 2.75 MB at
+// All three kernels: the W planes (read-only, shared by every CTA: 2.75 MB at
 // 12-qubit LiH, 37.7 MB at 18-qubit Heisenberg) are read through __ldg from
 // L2; energy sums are block reductions in double; all amplitude arithmetic
 // is f32 FMA: no tensor-core TF32 or bf16, whose rounding exceeds the
@@ -87,7 +117,8 @@
 // mid-episode tapes) that is ~14 MFLOP per start per iteration, ~180 GFLOP
 // per launch for E = 16, S = 8, 100 iterations: about 2.7 ms at the card's
 // 67 TFLOP/s f32 rate; the inputs are a few MB, so operations bound it.
-// One CTA per start is one SM per start: the register kernel's gate chain
+// One CTA per start is one SM per start (a cluster of 2^(n - 12) SMs from
+// 13 qubits): the register kernel's gate chain
 // is bound by that SM's instruction issue (a gate's FMAs, and the register
 // moves that merging its switch cases takes), H psi by the SM's
 // shared-memory and L1 traffic (psi's partners and W, 48 KB a group at 12
@@ -117,12 +148,24 @@
 // capacities: 244 gates and 211 angles for 12-qubit LiH in trainable
 // mode, where the tapes embed the warm-start circuit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "gates.cuh"
 #include "philox.cuh"
 #include "regs.cuh"
+
+// The register kernel's and the first design's launches and the dynamic
+// shared memory go through these two macros, so that
+// tests/cuda_emu/cuda_runtime.h, which defines both (and emulates the
+// cluster launch), can run this source on the host.
+#ifndef KERNEL_LAUNCH
+#define KERNEL_LAUNCH(kernel, grid, block, bytes, stream, ...) \
+  kernel<<<grid, block, bytes, stream>>>(__VA_ARGS__)
+#define DYNAMIC_SHARED(name) \
+  extern __shared__ __align__(16) unsigned char name[]
+#endif
 
 namespace {
 
@@ -132,13 +175,23 @@ using namespace regs;
 constexpr int kThreads = 512;             // threads of a first-design CTA
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxQubits = 18;
-// Largest qubit count whose psi and lambda (16 D bytes) the first design
-// keeps in shared memory; above it they live in the global workspace.
+// Dead code: the first design's shared-memory state (psi and lambda, 16 D
+// bytes, up to this many qubits) is never taken, since the routing gives
+// the first design only 17-18 qubits.  It is kept for the code the
+// compiler makes there: while the state pointer may point into shared
+// memory, the state's loads and stores stay generic.  Removed, the 18q
+// kernel measured 6% slower on the H100 (3.6% with its spills gone, 1.5%
+// with the pointer kept generic by other means):
+// scripts/torch_first_design_variants.py.
 constexpr int kSmemStateMaxQubits = 13;
 // Largest qubit count of the register kernel (at 13 qubits its adjoint
 // needs more than the 128 registers a thread of 512 may have, and 256
-// threads of 32 amplitudes spill too: 13 qubits keeps the first design).
+// threads of 32 amplitudes spill too: from 13 qubits a start is a cluster).
 constexpr int kRegMaxQubits = 12;
+// The cluster kernel's band: 2^(n - 12) CTAs a start, at most 16 CTAs in a
+// cluster (more than 8 is a non-portable size, which the H100 takes).
+constexpr int kClusterMinQubits = 13;
+constexpr int kClusterMaxQubits = 16;
 
 // -- register kernel (7 <= n <= 12) ------------------------------------------
 
@@ -146,6 +199,11 @@ constexpr int kRegMaxQubits = 12;
 // qubits, 256 at 12).
 constexpr int kRegBits = 4;
 constexpr int kRegThreads = 256;
+// The first cluster bit: 4 register, 5 lane and 3 warp bits below it.
+constexpr int kClusterBit = 12;
+constexpr int kMaxCluster = 1 << (kClusterMaxQubits - kClusterBit);
+
+namespace cg = cooperative_groups;
 
 // One op of a schedule, (x, y) = (bits, gate): bits 0-3 the gate kind or
 // kSwapOp, 4-8 the target's physical bit (a swap: its register bit), 9-13
@@ -188,7 +246,27 @@ struct RegShared {
   int* map1;       //   ... and end of the schedule
   int* sched;      // 4 kMaxQubits: build_schedule's scratch
   int* nops;       // 1: ops in the schedule
+  // cluster kernel only (null / unused in the register kernel):
+  double* cred;    // 2 kMaxCluster: every rank's energy partials
+  float* cbuf;     // 4 D: two buffers the partner CTA writes a swap into
+  float* cdx;      // C x R: every rank's angle-gradient partials
+  int* pflip;      // G_f: each group's flip in the storage of H psi
 };
+
+// Where a CTA sits in its start's cluster: its rank (0 in the register
+// kernel) and its first thread's index among the start's threads.
+struct Cl {
+  int rank;
+  int gt0;
+};
+
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+
+// The same shared-memory object in the CTA of rank r of this cluster.
+template <class T>
+__device__ __forceinline__ T* at_rank(T* p, int r) {
+  return cg::this_cluster().map_shared_rank(p, (unsigned)r);
+}
 
 // Logical index of register j of thread tid under `map` (physical bit ->
 // logical qubit).
@@ -281,6 +359,24 @@ __device__ void build_schedule(const Tape& tape, int G, int n, int RB,
   *nops = c;
 }
 
+// Each group's flip as the xor it makes in the cluster kernel's storage of
+// psi for H psi (amplitude j of thread t of a CTA at j * 256 + t) under
+// the schedule's end map, the xor of the rank above bit 16; by the thread
+// that built the schedule.
+__device__ void physical_flips(const RegShared& sh, int n_groups, int n) {
+  constexpr int kLocal = (1 << kClusterBit) - 1;
+  constexpr int kRegs = (1 << kRegBits) - 1;
+  for (int f = 0; f < n_groups; ++f) {
+    const int fl = sh.flips[f];
+    int pf = 0;
+    for (int b = 0; b < n; ++b)
+      if ((fl >> sh.map1[b]) & 1) pf |= 1 << b;
+    const int loc = pf & kLocal;
+    sh.pflip[f] = ((loc & kRegs) << (kClusterBit - kRegBits)) |
+                  (loc >> kRegBits) | ((pf >> kClusterBit) << 16);
+  }
+}
+
 // Each gate's 2x2 entries at the iterate x into coef (the caller's next
 // barrier publishes them).
 __device__ __forceinline__ void gate_coefs(const RegShared& sh,
@@ -341,9 +437,9 @@ template <int RB>
 __device__ __forceinline__ void load_psi0(Amps<RB>& s, const RegShared& sh,
                                           const float* __restrict__ p0re,
                                           const float* __restrict__ p0im,
-                                          int n) {
+                                          int n, const Cl& cl) {
   int idx[1 << RB];
-  logical_indices<RB>(sh.map0, n, threadIdx.x, idx);
+  logical_indices<RB>(sh.map0, n, cl.gt0 + threadIdx.x, idx);
 #pragma unroll
   for (int j = 0; j < (1 << RB); ++j) {
     s.pr[j] = __ldg(p0re + idx[j]);
@@ -444,15 +540,144 @@ __device__ __forceinline__ void swap_bits(Amps<RB>& s, int a, int b,
   WITH_REG_BIT(a, (reg_swap<RB, A, kLambda>(s, b - RB, buf)));
 }
 
+// The trade of register bit A with cluster bit cb: as reg_swap, with the
+// partner the same thread of the CTA across bit cb, which takes the sent
+// half into its own `buf` (2 D floats) through distributed shared memory.
+template <int RB, int A, bool kLambda>
+__device__ __forceinline__ void cluster_reg_swap(Amps<RB>& s, int cb,
+                                                 const Cl& cl, float* buf) {
+  constexpr int P = 1 << (RB - 1);
+  const int beta = (cl.rank >> cb) & 1;
+  float4* out = reinterpret_cast<float4*>(at_rank(buf, cl.rank ^ (1 << cb)));
+  const float4* in = reinterpret_cast<const float4*>(buf);
+  float v[P];
+  sent_half<RB, A>(s.pr, beta, v);
+  trade<P>(v, out, 0);
+  sent_half<RB, A>(s.pi, beta, v);
+  trade<P>(v, out, 1);
+  if (kLambda) {
+    sent_half<RB, A>(s.lr, beta, v);
+    trade<P>(v, out, 2);
+    sent_half<RB, A>(s.li, beta, v);
+    trade<P>(v, out, 3);
+  }
+  cluster_sync();
+  const int tid = threadIdx.x;
+  take<P>(v, in, 0, tid);
+  put_half<RB, A>(s.pr, beta, v);
+  take<P>(v, in, 1, tid);
+  put_half<RB, A>(s.pi, beta, v);
+  if (kLambda) {
+    take<P>(v, in, 2, tid);
+    put_half<RB, A>(s.lr, beta, v);
+    take<P>(v, in, 3, tid);
+    put_half<RB, A>(s.li, beta, v);
+  }
+}
+
+// A swap op of the schedule: register bit a with the warp bit b through
+// the CTA's `region` (buffer `parity`), or, in the cluster kernel, with
+// the cluster bit b through the partner's `cbuf` (buffer `cparity`).  The
+// two kinds keep their own double buffers: a CTA may run on to its next
+// warp swap while its partner still reads the last cluster swap.
+template <int RB, bool kCl, bool kLambda>
+__device__ __forceinline__ void swap_op(Amps<RB>& s, const RegShared& sh,
+                                        int a, int b, int D, const Cl& cl,
+                                        int& parity, int& cparity) {
+  if (kCl && b >= kClusterBit) {
+    float* buf = sh.cbuf + cparity * 2 * D;
+    WITH_REG_BIT(a, (cluster_reg_swap<RB, A, kLambda>(
+                        s, b - kClusterBit, cl, buf)));
+    cparity ^= 1;
+    return;
+  }
+  swap_bits<RB, kLambda>(s, a, b, sh.region + parity * 2 * D);
+  parity ^= 1;
+}
+
+// Pauli k on cluster bit cb: Z a sign on the CTA whose rank bit is set; X
+// and Y the whole slice (psi, and lambda with kAdjoint) exchanged with the
+// partner CTA through its `cbuf` (4 D floats, both swap buffers: cluster
+// barriers before and after, as pauli's around a warp bit's exchange).
+template <int RB, bool kAdjoint>
+__device__ __forceinline__ void cluster_pauli(Amps<RB>& s, int k, int cb,
+                                              const RegShared& sh,
+                                              const Cl& cl) {
+  constexpr int J = 1 << RB;
+  const int beta = (cl.rank >> cb) & 1;
+  if (k == kZ) {
+    if (beta) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        s.pr[j] = -s.pr[j];
+        s.pi[j] = -s.pi[j];
+        if (kAdjoint) {
+          s.lr[j] = -s.lr[j];
+          s.li[j] = -s.li[j];
+        }
+      }
+    }
+    return;
+  }
+  float4* out = reinterpret_cast<float4*>(at_rank(sh.cbuf,
+                                                  cl.rank ^ (1 << cb)));
+  const float4* in = reinterpret_cast<const float4*>(sh.cbuf);
+  cluster_sync();                         // the last exchange's reads are done
+  trade<J>(s.pr, out, 0);
+  trade<J>(s.pi, out, 1);
+  if (kAdjoint) {
+    trade<J>(s.lr, out, 2);
+    trade<J>(s.li, out, 3);
+  }
+  cluster_sync();
+  const int tid = threadIdx.x;
+  float qr[J], qi[J];
+  take<J>(qr, in, 0, tid);
+  take<J>(qi, in, 1, tid);
+#pragma unroll
+  for (int j = 0; j < J; ++j) pauli_one<false>(k, beta, s.pr[j], s.pi[j],
+                                               qr[j], qi[j]);
+  if (kAdjoint) {
+    take<J>(qr, in, 2, tid);
+    take<J>(qi, in, 3, tid);
+#pragma unroll
+    for (int j = 0; j < J; ++j) pauli_one<true>(k, beta, s.lr[j], s.li[j],
+                                                qr[j], qi[j]);
+  }
+  cluster_sync();                         // ... and this one's
+}
+
+// Pauli k on physical bit `pos` of either kernel (see pauli).
+template <int RB, bool kCl, bool kAdjoint>
+__device__ __forceinline__ void any_pauli(Amps<RB>& s, int k, int pos,
+                                          const RegShared& sh, int D,
+                                          unsigned mask, const Cl& cl) {
+  if (kCl && pos >= kClusterBit) {
+    cluster_pauli<RB, kAdjoint>(s, k, pos - kClusterBit, sh, cl);
+    return;
+  }
+  pauli<RB, kAdjoint>(s, k, pos, sh.region, D, mask);
+}
+
+// Whether this CTA runs a gate whose control sits on physical bit q, and
+// the case it runs: a control on a cluster bit is CTA-uniform, so the CTA
+// whose rank bit is set runs the gate uncontrolled and the other skips it.
+template <bool kCl>
+__device__ __forceinline__ bool gate_runs(int& c, int q, const Cl& cl) {
+  if (!kCl || q < kClusterBit) return true;
+  c -= 5;                                 // gate_case without the control
+  return (cl.rank >> (q - kClusterBit)) & 1;
+}
+
 // psi <- tape(x) psi along the schedule, each gate followed by its drawn
 // errors in the noise variant.  The next op and its entries are read
 // before the current one runs.
-template <int RB>
+template <int RB, bool kCl>
 __device__ __forceinline__ void forward_reg(Amps<RB>& s, const RegShared& sh,
-                                            int D, bool noise,
-                                            unsigned mask) {
+                                            int D, bool noise, unsigned mask,
+                                            const Cl& cl) {
   const int nops = *sh.nops;
-  int parity = 0;
+  int parity = 0, cparity = 0;
   int2 next = nops > 0 ? sh.ops[0] : make_int2(kSwapOp, 0);
   Coef next_u = load_coef(sh, next.y);
   int e_at = 0;                           // the next listed error op
@@ -466,16 +691,17 @@ __device__ __forceinline__ void forward_reg(Amps<RB>& s, const RegShared& sh,
     }
     const int k = op_kind(op.x), p = op_p(op.x), q = op_q(op.x);
     if (k == kSwapOp) {
-      swap_bits<RB, false>(s, p, q, sh.region + parity * 2 * D);
-      parity ^= 1;
+      swap_op<RB, kCl, false>(s, sh, p, q, D, cl, parity, cparity);
       continue;
     }
-    gate_fwd<RB>(s, u, op_case(op.x), p, q, mask);
+    int c = op_case(op.x);
+    if (gate_runs<kCl>(c, q, cl)) gate_fwd<RB>(s, u, c, p, q, mask);
     if (i == e_op) {                      // block-uniform
       const int et = sh.err_t[op.y], ec = sh.err_c[op.y];
       // no control: the error falls on qubit 0, a lane bit for good
       if (et) pauli<RB, false>(s, et, p, sh.region, D, mask);
-      if (ec) pauli<RB, false>(s, ec, q >= 0 ? q : RB, sh.region, D, mask);
+      if (ec)
+        any_pauli<RB, kCl, false>(s, ec, q >= 0 ? q : RB, sh, D, mask, cl);
       e_op = sh.err_ops[++e_at];
     }
   }
@@ -559,19 +785,117 @@ __device__ __forceinline__ void h_energy_reg(Amps<RB>& s, const RegShared& sh,
   __syncthreads();
 }
 
+// The cluster kernel's H psi: lambda <- 2 conj(H psi) for this thread's
+// amplitudes, scal[0] <- Re<psi|H psi> / <psi|psi>, in every CTA of the
+// start.  Each CTA puts its slice of psi in `region` (amplitude j of
+// thread t at j * T + t: a warp's lanes on consecutive float2s), one
+// cluster barrier publishes the slices, and psi[i ^ f] is read at the
+// group's storage xor (pflip) in this CTA or, where f flips a cluster bit,
+// in the CTA of rank `rank ^ (pflip >> 16)`.  W is read from L2 at the
+// logical indices (stride 2^n).  The CTA's energy partials (the register
+// kernel's fixed order) go to every CTA's `cred`; after a cluster barrier
+// each CTA sums them in rank order.
+template <int RB>
+__device__ __forceinline__ void h_energy_cl(Amps<RB>& s, const RegShared& sh,
+                                            const float* __restrict__ wre,
+                                            const float* __restrict__ wim,
+                                            int n_groups, int n, int C,
+                                            unsigned mask, const Cl& cl) {
+  constexpr int J = 1 << RB;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const size_t dim = (size_t)1 << n;
+  int idx[J];
+  logical_indices<RB>(sh.map1, n, cl.gt0 + tid, idx);
+  float2* x2 = reinterpret_cast<float2*>(sh.region);
+  __syncthreads();                        // the last warp swap's reads are done
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    x2[j * T + tid] = make_float2(s.pr[j], s.pi[j]);
+    s.lr[j] = 0.f;
+    s.li[j] = 0.f;
+  }
+  cluster_sync();                         // every CTA's slice is in place
+  for (int f = 0; f < n_groups; ++f) {
+    const int pf = sh.pflip[f];
+    const int fx = pf & 0xffff, fr = pf >> 16;
+    const float2* src = fr ? at_rank(x2, cl.rank ^ fr) : x2;
+    const float* wr = wre + (size_t)f * dim;
+    if (sh.wim_any[f]) {
+      const float* wi = wim + (size_t)f * dim;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float a = __ldg(wr + idx[j]), b = __ldg(wi + idx[j]);
+        const float2 p = src[(j * T + tid) ^ fx];
+        s.lr[j] = fmaf(a, p.x, s.lr[j]);
+        s.lr[j] = fmaf(-b, p.y, s.lr[j]);
+        s.li[j] = fmaf(a, p.y, s.li[j]);
+        s.li[j] = fmaf(b, p.x, s.li[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float a = __ldg(wr + idx[j]);
+        const float2 p = src[(j * T + tid) ^ fx];
+        s.lr[j] = fmaf(a, p.x, s.lr[j]);
+        s.li[j] = fmaf(a, p.y, s.li[j]);
+      }
+    }
+  }
+  double raw = 0.0, nn = 0.0;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const float pr = s.pr[j], pi = s.pi[j];
+    raw += (double)pr * s.lr[j] + (double)pi * s.li[j];
+    nn += (double)pr * pr + (double)pi * pi;
+    s.lr[j] = 2.f * s.lr[j];
+    s.li[j] = -2.f * s.li[j];
+  }
+  const int warps = T >> 5;
+  raw = warp_sum(raw, mask, 32);
+  nn = warp_sum(nn, mask, 32);
+  const int lane = tid & 31, warp = tid >> 5;
+  if (lane == 0) {
+    sh.red[2 * warp] = raw;
+    sh.red[2 * warp + 1] = nn;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double a = 0.0, b = 0.0;
+    for (int w = 0; w < warps; ++w) {
+      a += sh.red[2 * w];
+      b += sh.red[2 * w + 1];
+    }
+    for (int c = 0; c < C; ++c) {
+      double* to = at_rank(sh.cred, c);
+      to[2 * cl.rank] = a;
+      to[2 * cl.rank + 1] = b;
+    }
+  }
+  cluster_sync();                         // every rank's partials are in
+  if (tid == 0) {
+    double a = 0.0, b = 0.0;
+    for (int c = 0; c < C; ++c) {
+      a += sh.cred[2 * c];
+      b += sh.cred[2 * c + 1];
+    }
+    sh.scal[0] = (float)(a / b);
+  }
+  __syncthreads();
+}
+
 // Adjoint sweep: the schedule backwards; each gate's drawn errors are
 // undone first in the noise variant; lane 0 of each warp writes the warp's
 // part of gate g's gradient row to gpart[g * warps + warp].  The next op
 // and its entries are read before the current one runs.
-template <int RB>
+template <int RB, bool kCl>
 __device__ __forceinline__ void backward_reg(Amps<RB>& s, const RegShared& sh,
-                                             int D, bool noise,
-                                             unsigned mask) {
+                                             int D, bool noise, unsigned mask,
+                                             const Cl& cl) {
   const int tid = threadIdx.x, T = blockDim.x;
   const int width = T < 32 ? T : 32, warps = (T + 31) >> 5;
   const int lane = tid & 31, warp = tid >> 5;
   const int nops = *sh.nops;
-  int parity = 0;
+  int parity = 0, cparity = 0;
   int2 next = nops > 0 ? sh.ops[nops - 1] : make_int2(kSwapOp, 0);
   Coef next_u = load_coef(sh, next.y);
   int e_at = 0;                           // the last listed error op
@@ -587,17 +911,19 @@ __device__ __forceinline__ void backward_reg(Amps<RB>& s, const RegShared& sh,
     }
     const int k = op_kind(op.x), p = op_p(op.x), q = op_q(op.x);
     if (k == kSwapOp) {
-      swap_bits<RB, true>(s, p, q, sh.region + parity * 2 * D);
-      parity ^= 1;
+      swap_op<RB, kCl, true>(s, sh, p, q, D, cl, parity, cparity);
       continue;
     }
     if (i == e_op) {                      // block-uniform
       const int et = sh.err_t[op.y], ec = sh.err_c[op.y];
       if (et) pauli<RB, true>(s, et, p, sh.region, D, mask);
-      if (ec) pauli<RB, true>(s, ec, q >= 0 ? q : RB, sh.region, D, mask);
+      if (ec)
+        any_pauli<RB, kCl, true>(s, ec, q >= 0 ? q : RB, sh, D, mask, cl);
       e_op = e_at > 0 ? sh.err_ops[--e_at] : -1;
     }
-    float gp = gate_adj<RB>(s, u, op_case(op.x), p, q, mask);
+    int c = op_case(op.x);
+    float gp = 0.f;
+    if (gate_runs<kCl>(c, q, cl)) gp = gate_adj<RB>(s, u, c, p, q, mask);
     if (op.x & kGradBit) {                // block-uniform branch
       if (width == 32) {
 #pragma unroll
@@ -621,62 +947,85 @@ __device__ __forceinline__ void track_best_reg(const RegShared& sh, int R) {
   __syncthreads();
 }
 
+// CTAs of one start: 1 in the register kernel, 2^(n - 12) in the cluster
+// kernel, 0 where the first design runs (17-18 qubits).
+int cluster_size(int n) {
+  if (n <= kRegMaxQubits) return 1;
+  return n >= kClusterMinQubits && n <= kClusterMaxQubits
+             ? 1 << (n - kClusterBit)
+             : 0;
+}
+
 size_t reg_smem_bytes(int G, int R, int n, int n_groups, bool noise) {
-  const size_t D = (size_t)1 << n;
+  const int C = cluster_size(n);
+  const size_t D = ((size_t)1 << n) / C;  // amplitudes a CTA holds
   const size_t warps = ((D >> kRegBits) + 31) / 32;
+  const size_t cl = C > 1 ? sizeof(double) * 2 * kMaxCluster +
+                                sizeof(float) * (4 * D + (size_t)C * R) +
+                                sizeof(int) * n_groups
+                          : 0;
   return sizeof(double) * 2 * kWarps + sizeof(float4) * 2 * G +
          sizeof(int2) * 2 * G + sizeof(float) * 4 * D +
          sizeof(float) * (4 * (size_t)R + 2 + G * warps) +
          sizeof(int) * ((size_t)(noise ? 13 : 9) * G + (noise ? 1 : 0) +
                         2 * R + 2 * n_groups + 2 +
-                        6 * kMaxQubits + 1);
+                        6 * kMaxQubits + 1) +
+         cl;
 }
 
-template <int RB>
-__global__ void __launch_bounds__(kRegThreads)
-fused_adam_v2_reg_kernel(Tape old_g, Tape new_g,
-                         const int* __restrict__ map_idx,
-                         const float* __restrict__ p0re,
-                         const float* __restrict__ p0im,
-                         const float* __restrict__ wre,
-                         const float* __restrict__ wim,
-                         const int* __restrict__ flips,
-                         const int* __restrict__ wim_any,
-                         const float* __restrict__ starts,
-                         const float* __restrict__ active,
-                         const int* __restrict__ seeds,
-                         float* __restrict__ x_opt, float* __restrict__ e_new,
-                         float* best_x, float* best_e, unsigned int* arrived,
-                         int S, int G, int R, int n, int n_groups,
-                         int psi0_stride, int iters, float lr, double b1,
-                         double b2, float omb1, float omb2, float eps,
-                         unsigned thr1, unsigned thr2) {
-  extern __shared__ __align__(16) unsigned char smem_reg[];
+// The register kernel (kCl false: one CTA a start) and the cluster kernel
+// (kCl true: a start is the cluster of C CTAs this CTA belongs to); see
+// the header.  In the cluster kernel every CTA keeps its own copy of the
+// iterate, Adam's moments and the best iterate, and takes the same steps.
+template <int RB, bool kCl>
+__device__ __forceinline__ void fused_adam_v2_body(
+    unsigned char* smem_reg, Tape old_g, Tape new_g,
+    const int* __restrict__ map_idx, const float* __restrict__ p0re,
+    const float* __restrict__ p0im, const float* __restrict__ wre,
+    const float* __restrict__ wim, const int* __restrict__ flips,
+    const int* __restrict__ wim_any, const float* __restrict__ starts,
+    const float* __restrict__ active, const int* __restrict__ seeds,
+    float* __restrict__ x_opt, float* __restrict__ e_new, float* best_x,
+    float* best_e, unsigned int* arrived, int S, int G, int R, int n,
+    int n_groups, int psi0_stride, int iters, float lr, double b1, double b2,
+    float omb1, float omb2, float eps, unsigned thr1, unsigned thr2) {
   const bool noise = seeds != nullptr;
   const int tid = threadIdx.x, T = blockDim.x;
-  const int D = T << RB;
+  const int D = T << RB;                  // amplitudes a CTA holds
   const int warps = (T + 31) >> 5;
   const unsigned mask = T >= 32 ? 0xffffffffu : (1u << T) - 1u;
-  const int e = blockIdx.x / S;
-  const int row = blockIdx.x;             // e * S + s
+  int C = 1;                              // CTAs a start
+  Cl cl = {0, 0};
+  if constexpr (kCl) {
+    C = 1 << (n - kClusterBit);
+    cl.rank = (int)cg::this_cluster().block_rank();
+    cl.gt0 = cl.rank * T;
+  }
+  const int row = blockIdx.x / C;         // e * S + s
+  const int e = row / S;
+  const bool lead = cl.rank == 0;         // writes the start's results
   const float* p0r = p0re + (size_t)e * psi0_stride;   // this env's psi0
   const float* p0i = p0im + (size_t)e * psi0_stride;
   RegShared sh;
   unsigned char* b = smem_reg;
   sh.red = reinterpret_cast<double*>(b);
   b += sizeof(double) * 2 * kWarps;
+  sh.cred = reinterpret_cast<double*>(b);
+  b += kCl ? sizeof(double) * 2 * kMaxCluster : 0;
   sh.coef = reinterpret_cast<float4*>(b);
   b += sizeof(float4) * 2 * G;
   sh.ops = reinterpret_cast<int2*>(b);
   b += sizeof(int2) * 2 * G;
   float* f = reinterpret_cast<float*>(b);
   sh.region = f; f += 4 * D;
+  sh.cbuf = f; f += kCl ? 4 * D : 0;
   sh.x = f; f += R;
   sh.m = f; f += R;
   sh.v = f; f += R;
   sh.bx = f; f += R;
   sh.scal = f; f += 2;
   sh.gpart = f; f += G * warps;
+  sh.cdx = f; f += kCl ? C * R : 0;
   int* ip = reinterpret_cast<int*>(f);
   int* tapes[8];
 #pragma unroll
@@ -695,7 +1044,8 @@ fused_adam_v2_reg_kernel(Tape old_g, Tape new_g,
   sh.map0 = ip; ip += kMaxQubits;
   sh.map1 = ip; ip += kMaxQubits;
   sh.sched = ip; ip += 4 * kMaxQubits;
-  sh.nops = ip;
+  sh.nops = ip; ip += 1;
+  sh.pflip = ip;
 
   const int* src[8] = {old_g.kind, old_g.tq, old_g.cq, old_g.slot,
                        new_g.kind, new_g.tq, new_g.cq, new_g.slot};
@@ -728,10 +1078,14 @@ fused_adam_v2_reg_kernel(Tape old_g, Tape new_g,
     }
     sh.slot_first[r] = head;
   }
-  if (tid == 0)
+  if (tid == 0) {
     build_schedule(sh.old_tape, G, n, RB, reinterpret_cast<int*>(sh.gpart),
                    sh.sched, sh.ops, sh.map0, sh.map1, sh.nops);
-  __syncthreads();
+    if (kCl) physical_flips(sh, n_groups, n);
+  }
+  // in the cluster kernel also: every CTA of the cluster runs before any
+  // reaches into another's shared memory
+  if constexpr (kCl) cluster_sync(); else __syncthreads();
 
   Amps<RB> s;
   // b^t as a running product in double from the exact rates: the bias
@@ -748,22 +1102,43 @@ fused_adam_v2_reg_kernel(Tape old_g, Tape new_g,
       list_errors(sh);
       __syncthreads();
     }
-    load_psi0<RB>(s, sh, p0r, p0i, n);
-    forward_reg<RB>(s, sh, D, noise, mask);
-    h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
+    load_psi0<RB>(s, sh, p0r, p0i, n, cl);
+    forward_reg<RB, kCl>(s, sh, D, noise, mask, cl);
+    if constexpr (kCl)
+      h_energy_cl<RB>(s, sh, wre, wim, n_groups, n, C, mask, cl);
+    else
+      h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
     track_best_reg(sh, R);
-    backward_reg<RB>(s, sh, D, noise, mask);
+    backward_reg<RB, kCl>(s, sh, D, noise, mask, cl);
     __syncthreads();
+    if constexpr (kCl) {
+      // this CTA's gradient rows (the register kernel's order), to every
+      // CTA of the cluster
+      for (int r = tid; r < R; r += T) {
+        float dx = 0.f;
+        for (int g = sh.slot_first[r]; g >= 0; g = sh.gate_next[g]) {
+          float acc = 0.f;
+          for (int w = 0; w < warps; ++w) acc += sh.gpart[g * warps + w];
+          dx += acc;
+        }
+        for (int c = 0; c < C; ++c) at_rank(sh.cdx, c)[cl.rank * R + r] = dx;
+      }
+      cluster_sync();
+    }
     b1t *= b1;
     b2t *= b2;
     const float bc1 = (float)(1.0 - b1t);
     const float bc2 = (float)(1.0 - b2t);
     for (int r = tid; r < R; r += T) {
       float dx = 0.f;
-      for (int g = sh.slot_first[r]; g >= 0; g = sh.gate_next[g]) {
-        float acc = 0.f;
-        for (int w = 0; w < warps; ++w) acc += sh.gpart[g * warps + w];
-        dx += acc;
+      if constexpr (kCl) {
+        for (int c = 0; c < C; ++c) dx += sh.cdx[c * R + r];
+      } else {
+        for (int g = sh.slot_first[r]; g >= 0; g = sh.gate_next[g]) {
+          float acc = 0.f;
+          for (int w = 0; w < warps; ++w) acc += sh.gpart[g * warps + w];
+          dx += acc;
+        }
       }
       const float gr = dx * active[(size_t)e * R + r];
       const float mm = b1f * sh.m[r] + omb1 * gr;
@@ -785,21 +1160,33 @@ fused_adam_v2_reg_kernel(Tape old_g, Tape new_g,
     list_errors(sh);
     __syncthreads();
   }
-  load_psi0<RB>(s, sh, p0r, p0i, n);
-  forward_reg<RB>(s, sh, D, noise, mask);
-  h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
+  load_psi0<RB>(s, sh, p0r, p0i, n, cl);
+  forward_reg<RB, kCl>(s, sh, D, noise, mask, cl);
+  if constexpr (kCl)
+    h_energy_cl<RB>(s, sh, wre, wim, n_groups, n, C, mask, cl);
+  else
+    h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
   track_best_reg(sh, R);
 
-  for (int r = tid; r < R; r += T) best_x[(size_t)row * R + r] = sh.bx[r];
-  if (tid == 0) best_e[row] = sh.scal[1];
+  if (lead) {
+    for (int r = tid; r < R; r += T) best_x[(size_t)row * R + r] = sh.bx[r];
+    if (tid == 0) best_e[row] = sh.scal[1];
+  }
   __threadfence();                        // publish before arriving
   __syncthreads();
-  if (tid == 0) sh.flag[0] =
-      atomicAdd(&arrived[e], 1u) == (unsigned int)(S - 1);
-  __syncthreads();
+  if (tid == 0 && lead) {
+    const int last = atomicAdd(&arrived[e], 1u) == (unsigned int)(S - 1);
+    if constexpr (kCl) {                  // the flag to every CTA
+      for (int c = 0; c < C; ++c) at_rank(sh.flag, c)[0] = last;
+    } else {
+      sh.flag[0] = last;
+    }
+  }
+  if constexpr (kCl) cluster_sync(); else __syncthreads();
   if (!sh.flag[0]) return;
 
-  // last CTA of env e: the other starts' results are visible (L1 bypassed)
+  // last start of env e: the other starts' results are visible (L1
+  // bypassed)
   __threadfence();
   if (tid == 0) {                         // first minimum, as argmin
     int bs = 0;
@@ -817,7 +1204,7 @@ fused_adam_v2_reg_kernel(Tape old_g, Tape new_g,
   const size_t best_row = (size_t)e * S + sh.flag[1];
   for (int r = tid; r < R; r += T) {
     const float xo = __ldcg(best_x + best_row * R + r);
-    x_opt[(size_t)e * R + r] = xo;
+    if (lead) x_opt[(size_t)e * R + r] = xo;
     sh.bx[r] = xo;
   }
   __syncthreads();
@@ -827,9 +1214,11 @@ fused_adam_v2_reg_kernel(Tape old_g, Tape new_g,
   }
   __syncthreads();
 
-  if (tid == 0)
+  if (tid == 0) {
     build_schedule(sh.new_tape, G, n, RB, reinterpret_cast<int*>(sh.gpart),
                    sh.sched, sh.ops, sh.map0, sh.map1, sh.nops);
+    if (kCl) physical_flips(sh, n_groups, n);
+  }
   if (noise)                              // a fresh realization for e_new
     draw_errors_reg(sh, sh.new_tape, G, seeds, e, iters + 1, thr1, thr2);
   gate_coefs(sh, sh.new_tape, sh.x, G);
@@ -838,13 +1227,49 @@ fused_adam_v2_reg_kernel(Tape old_g, Tape new_g,
     list_errors(sh);
     __syncthreads();
   }
-  load_psi0<RB>(s, sh, p0r, p0i, n);
-  forward_reg<RB>(s, sh, D, noise, mask);
-  h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
-  if (tid == 0) e_new[e] = sh.scal[0];
+  load_psi0<RB>(s, sh, p0r, p0i, n, cl);
+  forward_reg<RB, kCl>(s, sh, D, noise, mask, cl);
+  if constexpr (kCl)
+    h_energy_cl<RB>(s, sh, wre, wim, n_groups, n, C, mask, cl);
+  else
+    h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
+  if (tid == 0 && lead) e_new[e] = sh.scal[0];
 }
 
-// -- first design (13 <= n <= 18) --------------------------------------------
+#define FUSED_ADAM_V2_PARAMS                                                 \
+  Tape old_g, Tape new_g, const int* __restrict__ map_idx,                 \
+      const float* __restrict__ p0re, const float* __restrict__ p0im,      \
+      const float* __restrict__ wre, const float* __restrict__ wim,        \
+      const int* __restrict__ flips, const int* __restrict__ wim_any,      \
+      const float* __restrict__ starts, const float* __restrict__ active,  \
+      const int* __restrict__ seeds, float* __restrict__ x_opt,            \
+      float* __restrict__ e_new, float *best_x, float *best_e,             \
+      unsigned int *arrived, int S, int G, int R, int n, int n_groups,     \
+      int psi0_stride, int iters, float lr, double b1, double b2,          \
+      float omb1, float omb2, float eps, unsigned thr1, unsigned thr2
+#define FUSED_ADAM_V2_ARGS                                                   \
+  old_g, new_g, map_idx, p0re, p0im, wre, wim, flips, wim_any, starts,     \
+      active, seeds, x_opt, e_new, best_x, best_e, arrived, S, G, R, n,    \
+      n_groups, psi0_stride, iters, lr, b1, b2, omb1, omb2, eps, thr1, thr2
+
+// 7 <= n <= 12: one CTA of 2^(n - 4) threads a start, grid E x S.
+template <int RB>
+__global__ void __launch_bounds__(kRegThreads)
+fused_adam_v2_reg_kernel(FUSED_ADAM_V2_PARAMS) {
+  DYNAMIC_SHARED(smem_reg);
+  fused_adam_v2_body<RB, false>(smem_reg, FUSED_ADAM_V2_ARGS);
+}
+
+// 13 <= n <= 16: a cluster of 2^(n - 12) CTAs of 256 threads a start,
+// grid E x S x 2^(n - 12), launched with the cluster dimension.
+template <int RB>
+__global__ void __launch_bounds__(kRegThreads, 1)
+fused_adam_v2_cluster_kernel(FUSED_ADAM_V2_PARAMS) {
+  DYNAMIC_SHARED(smem_cl);
+  fused_adam_v2_body<RB, true>(smem_cl, FUSED_ADAM_V2_ARGS);
+}
+
+// -- first design (17 <= n <= 18) --------------------------------------------
 
 struct Shared {
   double* red;   // 2 * kWarps energy partials
@@ -1087,7 +1512,8 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
                      int psi0_stride, int iters, float lr, double b1,
                      double b2, float omb1, float omb2, float eps,
                      unsigned thr1, unsigned thr2) {
-  extern __shared__ double smem[];
+  DYNAMIC_SHARED(smem_fd);
+  double* smem = reinterpret_cast<double*>(smem_fd);
   const bool noise = seeds != nullptr;
   const int D = 1 << n;
   const int e = blockIdx.x / S;
@@ -1098,7 +1524,7 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
   sh.red = smem;
   float* f = reinterpret_cast<float*>(smem + 2 * kWarps);
   float* state = f;
-  if (work == nullptr) {
+  if (work == nullptr) {                  // dead (kSmemStateMaxQubits)
     f += 4 * D;
   } else {
     state = work + (size_t)row * 4 * D;
@@ -1229,37 +1655,51 @@ fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
 
 bool state_in_smem(int n) { return n <= kSmemStateMaxQubits; }
 
+// Whether the first design runs at n qubits with its state in the global
+// workspace.
+bool uses_workspace(int n) {
+  return cluster_size(n) == 0 && !state_in_smem(n);
+}
+
 size_t smem_bytes(int G, int R, int n, int n_groups, bool noise) {
-  if (n <= kRegMaxQubits) return reg_smem_bytes(G, R, n, n_groups, noise);
+  if (cluster_size(n) > 0) return reg_smem_bytes(G, R, n, n_groups, noise);
   const size_t state = state_in_smem(n) ? (size_t)4 << n : 0;
   return sizeof(double) * 2 * kWarps +
          sizeof(float) * (state + (size_t)7 * R + 2 + 2 * kWarps) +
          sizeof(int) * ((size_t)(noise ? 10 : 8) * G + R + n_groups + 2);
 }
 
-// Launch the register kernel.
-cudaError_t launch_reg(const Tape& old_g, const Tape& new_g,
-                       const int* map_idx, const float* p0re,
-                       const float* p0im, const float* wre, const float* wim,
-                       const int* flips, const int* wim_any,
-                       const float* starts, const float* active,
-                       const int* seeds, float* x_opt,
-                       float* e_new, float* best_x, float* best_e,
-                       unsigned int* arrived, int E, int S, int G, int R,
-                       int n, int n_groups, int psi0_stride, int iters,
-                       float lr, double b1, double b2, float omb1, float omb2,
-                       float eps, unsigned thr1, unsigned thr2, size_t bytes,
-                       cudaStream_t stream) {
+// The cluster kernel's launch configuration: E x S clusters of C CTAs.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+};
+
+void cluster_config(ClusterLaunch& l, int clusters, int C, size_t bytes,
+                    cudaStream_t stream) {
+  l.cfg = cudaLaunchConfig_t{};
+  l.cfg.gridDim = dim3(clusters * C, 1, 1);
+  l.cfg.blockDim = dim3(kRegThreads, 1, 1);
+  l.cfg.dynamicSmemBytes = bytes;
+  l.cfg.stream = stream;
+  l.attr[0].id = cudaLaunchAttributeClusterDimension;
+  l.attr[0].val.clusterDim.x = C;
+  l.attr[0].val.clusterDim.y = 1;
+  l.attr[0].val.clusterDim.z = 1;
+  l.cfg.attrs = l.attr;
+  l.cfg.numAttrs = 1;
+}
+
+// The cluster kernel's attributes for `bytes` of dynamic shared memory a
+// CTA and clusters of C CTAs (more than 8 is a non-portable size).
+cudaError_t cluster_attributes(int C, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_adam_v2_reg_kernel<kRegBits>,
+      fused_adam_v2_cluster_kernel<kRegBits>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  fused_adam_v2_reg_kernel<kRegBits>
-      <<<E * S, 1 << (n - kRegBits), bytes, stream>>>(
-      old_g, new_g, map_idx, p0re, p0im, wre, wim, flips, wim_any, starts,
-      active, seeds, x_opt, e_new, best_x, best_e, arrived, S, G, R, n,
-      n_groups, psi0_stride, iters, lr, b1, b2, omb1, omb2, eps, thr1, thr2);
-  return cudaGetLastError();
+  if (err != cudaSuccess || C <= 8) return err;
+  return cudaFuncSetAttribute(fused_adam_v2_cluster_kernel<kRegBits>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
 }
 
 }  // namespace
@@ -1273,10 +1713,45 @@ size_t fused_adam_v2_smem_bytes(int G, int R, int n, int n_groups,
   return smem_bytes(G, R, n, n_groups, noise != 0);
 }
 
-// Floats of global workspace for psi and lambda of E x S starts: 0 up to
-// 13 qubits (registers, or shared memory at 13).
+// CTAs a start takes at n qubits when the cluster kernel runs it (13 <= n
+// <= 16: 2^(n - 12)), else 0 (the register kernel, or the first design).
+int fused_adam_v2_cluster_size(int n) {
+  return n > kRegMaxQubits ? cluster_size(n) : 0;
+}
+
+// How many clusters of the cluster kernel at n qubits, each CTA with
+// `bytes` of dynamic shared memory, the card can hold at once
+// (cudaOccupancyMaxActiveClusters); 0 when none fits, or minus a CUDA
+// error code.
+int fused_adam_v2_cluster_occupancy(int n, size_t bytes) {
+  const int C = fused_adam_v2_cluster_size(n);
+  if (C < 2) return -(int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  // the attribute at the card's limit, so that the query, not the
+  // attribute, judges `bytes`
+  if (err == cudaSuccess) err = cluster_attributes(C, (size_t)optin);
+  int clusters = 0;
+  if (err == cudaSuccess) {
+    ClusterLaunch l;
+    cluster_config(l, 1, C, bytes, nullptr);
+    err = cudaOccupancyMaxActiveClusters(
+        &clusters, fused_adam_v2_cluster_kernel<kRegBits>, &l.cfg);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();                   // not sticky for the next launch
+    return -(int)err;
+  }
+  return clusters;
+}
+
+// Floats of global workspace for psi and lambda of E x S starts: the
+// first design's from 14 qubits (17-18 qubits as routed), else 0.
 size_t fused_adam_v2_workspace_floats(int E, int S, int n) {
-  return state_in_smem(n) ? 0 : (size_t)E * S * 4 << n;
+  return uses_workspace(n) ? (size_t)E * S * 4 << n : 0;
 }
 
 const char* fused_adam_v2_error_string(int code) {
@@ -1291,8 +1766,11 @@ const char* fused_adam_v2_error_string(int code) {
 // (after rotations) and thr2 (after CX) out of 2^24.  psi0_stride is 0
 // for (1, D) psi0 planes shared by the envs, D for (E, D) planes.  b1 and
 // b2 are Adam's exact rates.  wim_any (G_f int32): 1 where a group's
-// imaginary plane has a non-zero entry (the register kernel skips the
-// others; the first design reads every plane).
+// imaginary plane has a non-zero entry (the register and cluster kernels
+// skip the others; the first design reads every plane).  The kernel by
+// n: the register kernel up to 12 qubits, the cluster kernel from 13 to
+// 16 (fused_adam_v2_cluster_size; the caller checks
+// fused_adam_v2_cluster_occupancy first), the first design at 17-18.
 int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
                          const int* oslot, const int* nkind, const int* ntq,
                          const int* ncq, const int* nslot, const int* map_idx,
@@ -1308,27 +1786,51 @@ int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
                          float eps, unsigned thr1, unsigned thr2,
                          void* stream) {
   if (E < 1 || S < 1 || G < 1 || R < 1 || n < 7 || n > kMaxQubits ||
-      n_groups < 1 || iters < 0 || (work == nullptr) != state_in_smem(n) ||
+      n_groups < 1 || iters < 0 || (work == nullptr) == uses_workspace(n) ||
       (psi0_stride != 0 && psi0_stride != 1 << n))
     return (int)cudaErrorInvalidValue;
   const Tape old_g = {okind, otq, ocq, oslot};
   const Tape new_g = {nkind, ntq, ncq, nslot};
   const size_t bytes = smem_bytes(G, R, n, n_groups, seeds != nullptr);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= kRegMaxQubits)
-    return (int)launch_reg(
-        old_g, new_g, map_idx, p0re, p0im, wre, wim, flips, wim_any, starts,
-        active, seeds, x_opt, e_new, best_x, best_e, arrived, E, S, G, R, n,
-        n_groups, psi0_stride, iters, lr, b1, b2, omb1, omb2, eps, thr1,
-        thr2, bytes, st);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_adam_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  const int C = cluster_size(n);
+  cudaError_t err;
+  if (C == 1) {                           // the register kernel
+    err = cudaFuncSetAttribute(fused_adam_v2_reg_kernel<kRegBits>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    KERNEL_LAUNCH(fused_adam_v2_reg_kernel<kRegBits>, E * S,
+                  1 << (n - kRegBits), bytes, st, old_g, new_g, map_idx,
+                  p0re, p0im, wre, wim, flips, wim_any, starts, active, seeds,
+                  x_opt, e_new, best_x, best_e, arrived, S, G, R, n, n_groups,
+                  psi0_stride, iters, lr, b1, b2, omb1, omb2, eps, thr1,
+                  thr2);
+    return (int)cudaGetLastError();
+  }
+  if (C > 1) {                            // the cluster kernel
+    err = cluster_attributes(C, bytes);
+    if (err != cudaSuccess) return (int)err;
+    ClusterLaunch l;
+    cluster_config(l, E * S, C, bytes, st);
+    err = cudaLaunchKernelEx(&l.cfg, fused_adam_v2_cluster_kernel<kRegBits>,
+                             old_g, new_g, map_idx, p0re, p0im, wre, wim,
+                             flips, wim_any, starts, active, seeds, x_opt,
+                             e_new, best_x, best_e, arrived, S, G, R, n,
+                             n_groups, psi0_stride, iters, lr, b1, b2, omb1,
+                             omb2, eps, thr1, thr2);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  err = cudaFuncSetAttribute(fused_adam_v2_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_adam_v2_kernel<<<E * S, kThreads, bytes, st>>>(
-      old_g, new_g, map_idx, p0re, p0im, wre, wim, flips, starts, active,
-      seeds, x_opt, e_new, best_x, best_e, arrived, work, S, G, R, n,
-      n_groups, psi0_stride, iters, lr, b1, b2, omb1, omb2, eps, thr1, thr2);
+  KERNEL_LAUNCH(fused_adam_v2_kernel, E * S, kThreads, bytes, st, old_g,
+                new_g, map_idx, p0re, p0im, wre, wim, flips, starts, active,
+                seeds, x_opt, e_new, best_x, best_e, arrived, work, S, G, R,
+                n, n_groups, psi0_stride, iters, lr, b1, b2, omb1, omb2, eps,
+                thr1, thr2);
   return (int)cudaGetLastError();
 }
 

@@ -13,11 +13,13 @@ precomputed on the host by ``pauli_flip_groups``: 84 groups for 12-qubit
 LiH instead of a dense (4096, 4096) matrix.
 
 ``fused_adam_step2d`` launches the CUDA kernel ``csrc/fused_adam_v2.cu``
-on CUDA tensors -- for 7 <= n <= 12 with psi in registers, laid out as
-``register_layout`` says and moved as ``swap_schedule`` (the plain twin of
-the kernel's schedule) says; from 13 with psi in shared memory (13) or a
-global workspace -- and runs ``fused_adam_step2d_reference``, the plain
-PyTorch version of the same arithmetic, on CPU tensors.  Layouts: tapes
+on CUDA tensors -- for 7 <= n <= 16 with psi in registers, one CTA a
+start up to 12 qubits and a thread-block cluster of 2^(n - 12) CTAs a
+start from 13 (``cluster_size``), laid out as ``register_layout`` says and
+moved as ``swap_schedule`` (the plain twin of the kernel's schedule) says;
+at 17 and 18 with psi in a global workspace -- and runs
+``fused_adam_step2d_reference``, the plain PyTorch version of the same
+arithmetic, on CPU tensors.  Layouts: tapes
 (E, G) int32, map_idx (E, R) int32, p0re/p0im (1, D) shared or (E, D)
 one per env (the JAX kernel's ``per_env_psi0``, which takes (E, D / 128,
 128) blocks), wre/wim (G_f, D) flip-group planes, flips (G_f,) int32,
@@ -75,20 +77,25 @@ def pauli_flip_groups(pauli, offset: float = 0.0, dtype=np.float32):
 fused_adam_step2d_reference = fused_adam.fused_adam_step_reference
 
 
-# -- the register layout of the kernel (7 <= n <= 12) ------------------------
+# -- the register layout of the kernel (7 <= n <= 16) ------------------------
 
 SWAP = -1                # the gate index of a swap in a schedule
+CLUSTER_BIT = 12         # the first cluster bit: 4 register, 5 lane, 3 warp
 
 
 def register_layout(n: int):
-    """(r, lanes, warps): how the kernel's CTA holds the 2^n amplitudes of
-    one start for 7 <= n <= 12.  Amplitude p of the physical order lives
-    in thread p >> r, register p & (2^r - 1): physical bits [0, r) pick
-    the register, the next ``lanes`` bits the lane of the warp, the rest
-    the warp (2^(n - r) threads, 256 at 12 qubits)."""
+    """(r, lanes, warps, ranks): how the kernel holds the 2^n amplitudes of
+    one start for 7 <= n <= 16.  Amplitude p of the physical order lives
+    in register p & (2^r - 1) of the start's thread p >> r: physical bits
+    [0, r) pick the register, the next ``lanes`` bits the lane of the
+    warp, the next ``warps`` bits the warp of the CTA (2^(n - r) threads,
+    256 at 12 qubits), and from 13 qubits the top ``ranks`` bits (bit 12
+    up) the CTA's rank in the start's cluster of 2^ranks CTAs of 256
+    threads."""
     r = 4
     lanes = min(5, n - r)
-    return r, lanes, n - r - lanes
+    warps = min(3, n - r - lanes)
+    return r, lanes, warps, n - r - lanes - warps
 
 
 def swap_schedule(kind, tq, cq, n: int):
@@ -96,16 +103,17 @@ def swap_schedule(kind, tq, cq, n: int):
     sits while one tape runs.  Lane bits hold logical qubits 0..lanes-1
     for good.  The registers start with the first r distinct targets among
     the other qubits (in tape order, then the lowest unused), the warp
-    bits with the rest in increasing order.  A gate whose target sits on
-    a warp bit is preceded by a swap of that bit with the register whose
-    qubit is next used as a target furthest ahead (Belady; ties: the
-    lowest register).  Controls are predicates on any bit and never move.
+    and cluster bits (the bits above the lanes) with the rest in
+    increasing order.  A gate whose target sits on a warp or cluster bit
+    is preceded by a swap of that bit with the register whose qubit is
+    next used as a target furthest ahead (Belady; ties: the lowest
+    register).  Controls are predicates on any bit and never move.
 
     ``kind``, ``tq``, ``cq``: one tape's (G,) arrays.  -> (map0, ops,
     map1): the logical qubit at each physical bit before and after the
     tape, and the ops in order, (g, target bit, control bit or -1) for
-    gate g and (SWAP, register bit, warp bit) for a swap."""
-    r, lanes, _ = register_layout(n)
+    gate g and (SWAP, register bit, warp or cluster bit) for a swap."""
+    r, lanes, _, _ = register_layout(n)
     kind, tq, cq = (np.asarray(a).tolist() for a in (kind, tq, cq))
     g_n = len(kind)
     live = [g for g in range(g_n) if kind[g] != 0]
@@ -128,6 +136,18 @@ def swap_schedule(kind, tq, cq, n: int):
     return map0, ops, list(occ)
 
 
+def storage_flip(flip: int, phys_map) -> tuple[int, int]:
+    """Twin of the kernel's ``physical_flips`` for one flip group, under
+    ``phys_map`` (the logical qubit at each physical bit, the schedule's
+    end map): (the xor the group's flip f makes in a CTA's storage of psi
+    for H psi -- amplitude j of thread t at j * 256 + t --, the xor it
+    makes in the CTA's rank).  psi[i ^ f] of an amplitude is read at the
+    first in the CTA of the second."""
+    pf = sum(1 << b for b, q in enumerate(phys_map) if (flip >> q) & 1)
+    loc = pf & ((1 << CLUSTER_BIT) - 1)
+    return ((loc & 15) << 8) | (loc >> 4), pf >> CLUSTER_BIT
+
+
 # -- CUDA kernel -------------------------------------------------------------
 
 _I32 = ctypes.c_int
@@ -137,12 +157,8 @@ _F64 = ctypes.c_double
 _PTR = ctypes.c_void_p
 
 
-@functools.cache
-def _library():
-    """The kernel's library (built at first use) with its C signatures."""
-    from tensorrl_qas_tpu_torch.ops.build import load
-
-    lib = load("fused_adam_v2")
+def bind(lib):
+    """Set the C signatures of the v2 kernel's library ``lib``."""
     lib.fused_adam_v2_launch.argtypes = (
         [_PTR] * 24 + [_I32] * 8 + [_F32, _F64, _F64]
         + [_F32] * 3 + [_U32] * 2 + [_PTR])
@@ -151,9 +167,21 @@ def _library():
     lib.fused_adam_v2_smem_bytes.restype = ctypes.c_size_t
     lib.fused_adam_v2_workspace_floats.argtypes = [_I32] * 3
     lib.fused_adam_v2_workspace_floats.restype = ctypes.c_size_t
+    lib.fused_adam_v2_cluster_size.argtypes = [_I32]
+    lib.fused_adam_v2_cluster_size.restype = _I32
+    lib.fused_adam_v2_cluster_occupancy.argtypes = [_I32, ctypes.c_size_t]
+    lib.fused_adam_v2_cluster_occupancy.restype = _I32
     lib.fused_adam_v2_error_string.argtypes = [_I32]
     lib.fused_adam_v2_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library():
+    """The kernel's library (built at first use) with its C signatures."""
+    from tensorrl_qas_tpu_torch.ops.build import load
+
+    return bind(load("fused_adam_v2"))
 
 
 def _check_inputs(ints, floats, map_idx, flips, starts, active):
@@ -163,23 +191,38 @@ def _check_inputs(ints, floats, map_idx, flips, starts, active):
         (MIN_QUBITS, MAX_QUBITS))
 
 
-def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
-                      flips, starts, active, *, iters: int, lr: float,
-                      noise=None, seeds=None):
-    """Fused env step with flip-group planes: the CUDA kernel for CUDA
-    tensors, the plain PyTorch version for CPU tensors.  See the module
-    docstring for the layouts and ``noise`` / ``seeds``.
-    ``fused_adam_step2d.launches`` counts kernel launches,
-    ``fused_adam_step2d.noise_launches`` those of the noise variant and
-    ``fused_adam_step2d.psi0_launches`` those with per-env psi0 planes
-    among them."""
-    if starts.device.type == "cpu":
-        return fused_adam_step2d_reference(
-            old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
-            starts, active, iters=iters, lr=lr, noise=noise, seeds=seeds)
-    if starts.device.type != "cuda":
-        raise ValueError(f"fused_adam_step2d: no kernel for device "
-                         f"{starts.device}")
+# (library, n, smem, device) -> the clusters check_clusters found (>= 1)
+_clusters: dict = {}
+
+
+def check_clusters(lib, n: int, smem: int, device=None) -> int:
+    """Clusters of the cluster kernel at ``n`` qubits, each CTA with
+    ``smem`` bytes of dynamic shared memory, that the card (``device``,
+    the current one when None) can hold at once; raises when it can hold
+    none (no fallback to another kernel).  A count found once per shape
+    is kept, so that a step after the first asks the CUDA runtime nothing."""
+    key = (lib, n, smem, device)
+    if key in _clusters:
+        return _clusters[key]
+    clusters = lib.fused_adam_v2_cluster_occupancy(n, smem)
+    if clusters < 1:
+        size = lib.fused_adam_v2_cluster_size(n)
+        why = (f"CUDA error {-clusters} "
+               f"({lib.fused_adam_v2_error_string(-clusters).decode()})"
+               if clusters < 0 else "none fits")
+        raise RuntimeError(
+            f"fused_adam_step2d: no cluster of {size} CTAs with {smem} B of "
+            f"shared memory each can be scheduled at {n} qubits: {why}")
+    _clusters[key] = clusters
+    return clusters
+
+
+def run_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
+               flips, starts, active, *, iters, lr, noise, seeds, stream):
+    """Check the inputs and launch the v2 kernel of ``lib`` (bound by
+    ``bind``) on ``stream``, uncounted (the host emulation's tests call it
+    directly).  -> (psi0 stride, CTAs a start in the cluster kernel or 0
+    for the other kernels, x_opt, e_new)."""
     ints = (*old_arrs, *new_arrs)
     floats = (p0re, p0im, wre, wim, starts, active)
     n_env, s_n, g, r, n, n_groups = _check_inputs(ints, floats, map_idx,
@@ -187,11 +230,11 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     dev = starts.device
     seeds_ptr, thr1, thr2 = fused_adam.noise_args(
         "fused_adam_step2d", noise, seeds, n_env, dev)
-    lib = _library()
-    fused_adam.check_smem(
-        "fused_adam_step2d",
-        lib.fused_adam_v2_smem_bytes(g, r, n, n_groups, noise is not None),
-        "start")
+    smem = lib.fused_adam_v2_smem_bytes(g, r, n, n_groups, noise is not None)
+    fused_adam.check_smem("fused_adam_step2d", smem, "CTA")
+    size = lib.fused_adam_v2_cluster_size(n)
+    if size:
+        check_clusters(lib, n, smem, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     x_opt = torch.empty((n_env, r), **f32)
     e_new = torch.empty((n_env,), **f32)
@@ -203,7 +246,6 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     stride = fused_adam.psi0_stride(p0re)
     # the groups whose imaginary plane is not zero (none for a real H)
     wim_any = (wim != 0).any(dim=1).to(torch.int32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     fused_adam.launch(
         lib, "fused_adam_v2", *(t.data_ptr() for t in ints),
         map_idx.data_ptr(), p0re.data_ptr(), p0im.data_ptr(), wre.data_ptr(),
@@ -214,12 +256,40 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
         None if work is None else work.data_ptr(), n_env, s_n, g, r, n,
         n_groups, stride, int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2,
         EPS, thr1, thr2, stream)
+    return stride, size, x_opt, e_new
+
+
+def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
+                      flips, starts, active, *, iters: int, lr: float,
+                      noise=None, seeds=None):
+    """Fused env step with flip-group planes: the CUDA kernel for CUDA
+    tensors, the plain PyTorch version for CPU tensors.  See the module
+    docstring for the layouts and ``noise`` / ``seeds``.
+    ``fused_adam_step2d.launches`` counts kernel launches,
+    ``fused_adam_step2d.noise_launches`` those of the noise variant,
+    ``fused_adam_step2d.psi0_launches`` those with per-env psi0 planes and
+    ``fused_adam_step2d.cluster_launches`` those of the cluster kernel
+    (13-16 qubits) among them."""
+    if starts.device.type == "cpu":
+        return fused_adam_step2d_reference(
+            old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
+            starts, active, iters=iters, lr=lr, noise=noise, seeds=seeds)
+    if starts.device.type != "cuda":
+        raise ValueError(f"fused_adam_step2d: no kernel for device "
+                         f"{starts.device}")
+    stream = torch.cuda.current_stream(starts.device).cuda_stream
+    stride, size, x_opt, e_new = run_kernel(
+        _library(), old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
+        starts, active, iters=iters, lr=lr, noise=noise, seeds=seeds,
+        stream=stream)
     fused_adam_step2d.launches += 1
     fused_adam_step2d.noise_launches += noise is not None
     fused_adam_step2d.psi0_launches += stride != 0
+    fused_adam_step2d.cluster_launches += size > 0
     return x_opt, e_new
 
 
 fused_adam_step2d.launches = 0
 fused_adam_step2d.noise_launches = 0
 fused_adam_step2d.psi0_launches = 0
+fused_adam_step2d.cluster_launches = 0

@@ -8,7 +8,9 @@
   qubits in float32, 3 Adam iterations: within 1e-5 (f32 rounding and
   summation order; the port works on H - c0 I and adds c0 back).
 - Plain v2 step vs the XLA path (``use_pallas=False``) in complex128 with
-  the JAX starts injected: within 1e-10 at 7 and 8 qubits.
+  the JAX starts injected: within 1e-10 at 7 and 8 qubits, and at 13 (the
+  Heisenberg chain: the cluster kernel's band, whose card check holds the
+  kernel to this plain step).
 - Plain v2 step vs plain v1 step (dense H) at 8-qubit H2O in float64:
   within 1e-10.
 - Engine choice: v1 up to 9 qubits, v2 from 10 to 18, nothing above, and
@@ -67,14 +69,25 @@ def _random_paulis(n, n_terms, seed):
 
 
 def _problem(name):
-    if name == "heisenberg7":
-        return _heisenberg(7)
+    if name.startswith("heisenberg"):
+        return _heisenberg(int(name[len("heisenberg"):]))
     return (load_jax("H2O", 8, H2O).pauli, load_problem("H2O", 8, H2O).pauli)
 
 
 def _psi(rng, n):
     psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
     return psi0 / np.linalg.norm(psi0)
+
+
+@pytest.fixture
+def one_thread():
+    """Torch on one thread for the test: the xdist workers share the
+    host's cores, and a parallel region of a busy pool waits on threads
+    the other workers keep descheduled."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("name", ["heisenberg7", "h2o8"])
@@ -153,16 +166,22 @@ def _xla_reference(ps_j, psi0, old, new, maps, x0, n_rots, *, iters, s_n,
         active[:, None, :])
 
 
-@pytest.mark.parametrize("name", ["heisenberg7", "h2o8"])
-def test_plain_version_matches_xla_path_complex128(name):
+# (envs, starts) of the XLA-path parity cases (13 qubits: fewer, as the
+# XLA path's cost grows with the state)
+XLA_SIZES = {"heisenberg13": (1, 2)}
+
+
+@pytest.mark.parametrize("name", ["heisenberg7", "h2o8", "heisenberg13"])
+def test_plain_version_matches_xla_path_complex128(name, one_thread):
     ps_j, ps_t = _problem(name)
-    n, n_env, cap, iters = ps_t.n_qubits, 2, 12, 8
+    (n_env, s_n), cap, iters = XLA_SIZES.get(name, (2, 4)), 12, 8
+    n = ps_t.n_qubits
     rng = np.random.default_rng(n)
     old, new, maps, x0, n_rots = _random_batch(rng, n, n_env, cap)
     psi0 = _psi(rng, n)
     xj, ej, starts, active = _xla_reference(
-        ps_j, psi0, old, new, maps, x0, n_rots, iters=iters, s_n=4, key=5)
-    opt = AngleOptimizer(ps_t, iters=iters, n_starts=4, device="cpu")
+        ps_j, psi0, old, new, maps, x0, n_rots, iters=iters, s_n=s_n, key=5)
+    opt = AngleOptimizer(ps_t, iters=iters, n_starts=s_n, device="cpu")
     p0 = torch.as_tensor(psi0)
     xt, et = fused_adam2d.fused_adam_step2d(
         _ints(old), _ints(new), torch.as_tensor(maps),

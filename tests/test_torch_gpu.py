@@ -14,12 +14,16 @@ instead lie within the plain version's own float32 noise
 (``ops/fused_adam.py:agreement``, the rule chip_smoke.py applies);
 deliberately wrong kernel results must fail that rule.  The v2 kernel is
 held to the same rule at 7, 10, 11 (a random Pauli sum) and 12 qubits
-(LiH) -- the register kernel -- and at 13 (a random Pauli sum, state in
-shared memory) and 16 (Heisenberg, state in the global workspace) -- the
-first design; at 12 also with every target and control on the qubits
-that start on warp bits, and with 3 starts.  Two v2 launches agree bit
-for bit at 12 and 13 qubits, as do p = 0 and the noiseless kernel, and
-identical psi0 rows and the shared plane.  v1 is held at 4, 5, 8 and 9
+(LiH) -- the register kernel, one CTA a start -- and at 13 (a random
+Pauli sum, and the open Heisenberg chain), 14 and 16 (Heisenberg) -- the
+cluster kernel, a cluster of 2, 4 and 16 CTAs a start, every launch
+counted as its -- and at 17 (a random Pauli sum) -- the first design; at
+12 also with every target and control on the qubits that start on warp
+bits, and with 3 starts.  Two v2 launches agree bit for bit at 12, 13
+and 14 qubits, as do p = 0 and the noiseless kernel, and identical psi0
+rows and the shared plane; the noise variant is held at 12 and 14.  A
+cluster that cannot be scheduled (more shared memory than a CTA may have)
+raises.  v1 is held at 4, 5, 8 and 9
 qubits with 3, 8 and 16 starts (groups of a thread, of a few lanes and of
 a warp a start; 16 starts at 9 qubits take two rounds), at 8 and 16
 amplitudes a thread, and with a Pauli sum of D complex flip groups whose
@@ -148,21 +152,31 @@ def _inputs(dev, n=8, n_env=16, n_starts=8, cap=20, seed=0):
     return (*head, *AngleOptimizer(pauli, device=dev).w_planes(), *tail)
 
 
-def _pauli(n):
+def _pauli(n, chain=False):
     if n == 12:
         return load_problem("LIH", 12, LIH).pauli
-    if n == 16:
-        return load_problem("heisenberg", 16).pauli
+    if n in (14, 16):
+        return load_problem("heisenberg", n).pauli
+    if chain:                           # the open Heisenberg chain
+        strings = []
+        for i in range(n - 1):
+            for a in "XYZ":
+                word = ["I"] * n
+                word[i] = word[i + 1] = a
+                strings.append("".join(word))
+        return PauliSum.from_strings(strings, np.ones(len(strings)), n)
     rng = np.random.default_rng(n)
     paulis = ["I" * n] + ["".join(rng.choice(list("IXYZ"), size=n))
                           for _ in range(40)]
     return PauliSum.from_strings(paulis, rng.normal(size=41), n)
 
 
-def _inputs2d(dev, n, n_env=4, n_starts=8, cap=30, seed=0, qubits=None):
+def _inputs2d(dev, n, n_env=4, n_starts=8, cap=30, seed=0, qubits=None,
+              chain=False):
     """v2 arguments: flip-group planes of H - c0 I."""
     head, tail = _tapes(dev, n, n_env, n_starts, cap, seed, qubits=qubits)
-    return (*head, *AngleOptimizer(_pauli(n), device=dev).w_planes(), *tail)
+    return (*head, *AngleOptimizer(_pauli(n, chain), device=dev).w_planes(),
+            *tail)
 
 
 @pytest.mark.gpu
@@ -306,12 +320,15 @@ def test_kernel_rejects_two_qubit_rotations():
         fused_adam.fused_adam_step(*args, iters=1, lr=0.1)
 
 
-# the v2 cases: n qubits (the register kernel up to 13, the workspace one
-# at 16), plus at 12 qubits every target and control on the qubits that
-# start on warp bits (5..11: a swap before most gates) and 3 starts
-V2_CASES = {f"{n}q": dict(n=n) for n in (7, 10, 11, 12, 13, 16)}
+# the v2 cases: n qubits (the register kernel up to 12, the cluster kernel
+# from 13 to 16, the first design at 17), plus at 12 qubits every target
+# and control on the qubits that start on warp bits (5..11: a swap before
+# most gates) and 3 starts, and the 13-qubit Heisenberg chain
+V2_CASES = {f"{n}q": dict(n=n) for n in (7, 10, 11, 12, 13, 14, 16)}
 V2_CASES["12q warp qubits"] = dict(n=12, qubits=range(5, 12))
 V2_CASES["12q S=3"] = dict(n=12, n_starts=3)
+V2_CASES["13q chain"] = dict(n=13, chain=True)
+V2_CASES["17q"] = dict(n=17, n_env=2)
 
 
 @pytest.mark.gpu
@@ -319,10 +336,13 @@ V2_CASES["12q S=3"] = dict(n=12, n_starts=3)
 def test_kernel2d_matches_plain_version(case):
     dev = _card()
     args = _inputs2d(dev, **V2_CASES[case])
-    before = fused_adam2d.fused_adam_step2d.launches
-    xk, ek = fused_adam2d.fused_adam_step2d(*args, iters=3, lr=0.1)
+    step = fused_adam2d.fused_adam_step2d
+    before = (step.launches, step.cluster_launches)
+    xk, ek = step(*args, iters=3, lr=0.1)
     torch.cuda.synchronize()
-    assert fused_adam2d.fused_adam_step2d.launches == before + 1
+    n = V2_CASES[case]["n"]
+    assert (step.launches, step.cluster_launches) == (
+        before[0] + 1, before[1] + (13 <= n <= 16))
     plain = fused_adam2d.fused_adam_step2d_reference
     ref = fused_adam.plain_results(args, iters=3, lr=0.1, step=plain)
     ok, strict, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5,
@@ -369,11 +389,11 @@ NOISE = (0.1, 0.2)
 
 def _engine(name):
     """(wrapper, plain version, argument builder) of one kernel: "v1",
-    "v2" (12 qubits) or "v2 13q"."""
+    "v2" (12 qubits) or "v2 <n>q"."""
     if name == "v1":
         return (fused_adam.fused_adam_step,
                 fused_adam.fused_adam_step_reference, _inputs)
-    n = 13 if name == "v2 13q" else 12
+    n = int(name.split()[1][:-1]) if " " in name else 12
     return (fused_adam2d.fused_adam_step2d,
             fused_adam2d.fused_adam_step2d_reference,
             lambda dev, **kw: _inputs2d(dev, n, **kw))
@@ -408,7 +428,7 @@ def _held_to_plain(step, plain, args, iters=3, **noise):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["v1", "v2"])
+@pytest.mark.parametrize("name", ["v1", "v2", "v2 14q"])
 def test_noise_kernel_matches_plain_version(name):
     dev = _card()
     step, plain, build = _engine(name)
@@ -422,7 +442,7 @@ def test_noise_kernel_matches_plain_version(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q"])
+@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q", "v2 14q"])
 def test_kernel_is_deterministic(name):
     """Gradient rows are summed in a fixed order: two launches on the same
     inputs agree bit for bit."""
@@ -435,7 +455,7 @@ def test_kernel_is_deterministic(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q"])
+@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q", "v2 14q"])
 def test_noise_kernel_at_p0_is_the_noiseless_kernel(name):
     dev = _card()
     step, _, build = _engine(name)
@@ -444,6 +464,22 @@ def test_noise_kernel_at_p0_is_the_noiseless_kernel(name):
     xp, ep = step(*args, iters=5, lr=0.1, noise=(0.0, 0.0),
                   seeds=_seeds(dev, args[-1].shape[0]))
     assert (xp - x0).abs().max() <= 1e-6 and (ep - e0).abs().max() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [13, 14, 15, 16])
+def test_cluster_kernel_raises_when_no_cluster_fits(n):
+    """The cluster kernel's CTAs at the main path's shared memory fit on
+    the card; asking for more than a CTA may have leaves no cluster that
+    can be scheduled, and the wrapper's check raises (no fallback)."""
+    _card()
+    lib = fused_adam2d._library()
+    size = lib.fused_adam_v2_cluster_size(n)
+    assert size == 1 << (n - 12)
+    smem = lib.fused_adam_v2_smem_bytes(46, 46, n, n, 0)
+    assert fused_adam2d.check_clusters(lib, n, smem) >= 1
+    with pytest.raises(RuntimeError, match=f"no cluster of {size} CTAs"):
+        fused_adam2d.check_clusters(lib, n, 300_000)
 
 
 @pytest.mark.gpu

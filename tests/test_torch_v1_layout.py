@@ -331,14 +331,14 @@ EMU = pathlib.Path(__file__).resolve().parent / "cuda_emu"
 def emulated_v1(tmp_path_factory):
     """csrc/fused_adam_v1.cu compiled by the host's C++ compiler against
     tests/cuda_emu/cuda_runtime.h (a launch runs its blocks one after
-    another, a thread per CUDA thread), bound like the card's library."""
+    another, a fiber per CUDA thread), bound like the card's library."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
     out = tmp_path_factory.mktemp("emu")
     lib = out / "libfused_adam_v1_emu.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-fPIC", "-shared",
-                    "-pthread", "-w", "-x", "c++", f"-I{EMU}", f"-I{CSRC}",
+                    "-w", "-x", "c++", f"-I{EMU}", f"-I{CSRC}",
                     "-o", str(lib), str(CSRC / "fused_adam_v1.cu")],
                    check=True, capture_output=True, timeout=300)
     return fused_adam.bind(ctypes.CDLL(str(lib)))

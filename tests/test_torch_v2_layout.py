@@ -1,4 +1,4 @@
-"""The register layout of the v2 kernel (7 <= n <= 12), emulated in numpy.
+"""The register layout of the v2 kernel (7 <= n <= 16), emulated in numpy.
 
 ``csrc/fused_adam_v2.cu:fused_adam_v2_reg_kernel`` keeps 2^r amplitudes of
 psi (and of lambda in the adjoint) in each thread's registers and maps the
@@ -21,6 +21,22 @@ simulator (``sim/apply.py``, errors woven into the tape) and the gradient
 against the eager adjoint (``sim/adjoint.py``), both to 1e-12 (float64
 arithmetic in another order); the adjoint returns psi0 to 1e-12 and ends on
 the map the forward began with (exact).
+
+From 13 to 16 qubits a start is a cluster of 2^(n - 12) CTAs
+(``fused_adam_v2_cluster_kernel``): the bits above the 3 warp bits are the
+CTA's rank.  ``ClusterLayout`` holds (ranks, threads, registers) arrays
+and moves data as that kernel does: a swap of a register bit with a
+cluster bit sends each thread's half to the same thread of the partner
+CTA, a control on a cluster bit is CTA-uniform (the CTA whose rank bit is
+clear skips the gate, the other runs it uncontrolled), an X or Y error on
+a cluster bit exchanges the whole slice with the partner CTA, H psi reads
+psi[i ^ f] from each CTA's storage (amplitude j of thread t at j * 256 +
+t) at ``storage_flip``'s xor, in the CTA of rank ``rank ^ rank xor``, and
+the gradient rows and energy are summed in each CTA, then over the ranks.
+Held at 13, 14 and 16 qubits to the eager simulator and adjoint in
+complex128, 1e-12: psi after the forward, lambda, the angle gradients and
+psi0 after the adjoint, on tapes with swaps through cluster bits, controls
+on cluster bits and X, Y and Z errors on cluster bits.
 """
 
 import numpy as np
@@ -29,8 +45,11 @@ import torch
 
 from tensorrl_qas_tpu_torch.circuits.tape import GateKind
 from tensorrl_qas_tpu_torch.ops.fused_adam2d import (
+    CLUSTER_BIT,
     SWAP,
+    pauli_flip_groups,
     register_layout,
+    storage_flip,
     swap_schedule,
 )
 from tensorrl_qas_tpu_torch.optim.angle_opt import extend_tape_arrays
@@ -53,7 +72,7 @@ def _random_case(n, n_gates, seed):
     rng = np.random.default_rng(seed)
     kind, tq, cq, slot = [], [], [], []
     n_slots = 0
-    r, lanes, warps = register_layout(n)
+    r, lanes, warps, _ = register_layout(n)
     if warps:
         # rotations on the first r non-lane qubits (the registers' start)
         # and a CX controlled from qubit n - 1, on a warp bit then
@@ -67,6 +86,14 @@ def _random_case(n, n_gates, seed):
         tq.append(0)
         cq.append(n - 1)
         slot.append(-1)
+    if n > CLUSTER_BIT:
+        # two more CX controlled from qubit n - 1, on a cluster bit then
+        # (gates 4-6 carry the X, Y and Z errors of the cluster tests)
+        for t in (1, 2):
+            kind.append(_CX)
+            tq.append(t)
+            cq.append(n - 1)
+            slot.append(-1)
     for _ in range(n_gates):
         k = int(rng.integers(1, 9))                    # RX .. H
         t = int(rng.integers(n))
@@ -107,7 +134,7 @@ class Layout:
 
     def __init__(self, n):
         self.n = n
-        self.r, self.lanes, self.warps = register_layout(n)
+        self.r, self.lanes, self.warps, self.ranks = register_layout(n)
         self.threads = 1 << (n - self.r)
         self.p = np.arange(1 << n).reshape(self.threads, 1 << self.r)
 
@@ -178,8 +205,8 @@ class Layout:
             else:
                 q0, q1 = a0, -a1
             own = np.where(beta == 0, q0, q1)
-            gp = 0.5 * np.sum(np.where(on, own.real * lam.imag
-                                       + own.imag * lam.real, 0.0))
+            gp = self.row_sum(0.5 * np.where(on, own.real * lam.imag
+                                             + own.imag * lam.real, 0.0))
         (u00, u01), (u10, u11) = u
         c = np.conj
         pa = np.where(beta == 0, c(u00) * a + c(u10) * q,
@@ -189,6 +216,10 @@ class Layout:
 
     def _on(self, cp):
         return np.ones(self.p.shape, bool) if cp < 0 else self.bit(cp) == 1
+
+    def row_sum(self, terms):
+        """A gate's gradient row from its per-amplitude terms."""
+        return np.sum(terms)
 
 
 def _emulate(n, arrs, kt, kc, x, psi0, pauli):
@@ -241,6 +272,167 @@ def _emulate(n, arrs, kt, kc, x, psi0, pauli):
     return out, grad, back, (map0, end_fwd, cur, map1), ops
 
 
+class ClusterLayout(Layout):
+    """A start's amplitudes in the cluster kernel as (ranks, 256, 16)
+    complex arrays: amplitude p of the physical order at [p >> 12, (p >>
+    4) & 255, p & 15] (CTA rank, thread, register).  The (threads,
+    registers) methods of ``Layout`` apply to a CTA's rows; a cluster bit
+    moves data between CTAs."""
+
+    T = 256
+
+    def __init__(self, n):
+        super().__init__(n)
+        self.n_ranks = 1 << self.ranks
+        self.threads = self.T             # a CTA's, for Layout.swap
+        self.p = self.p.reshape(self.n_ranks, self.T, 1 << self.r)
+
+    def partner(self, a, pos):
+        if pos < CLUSTER_BIT:
+            if pos < self.r:
+                return a[..., np.arange(a.shape[-1]) ^ (1 << pos)]
+            return a[:, np.arange(self.T) ^ (1 << (pos - self.r)), :]
+        return a[np.arange(self.n_ranks) ^ (1 << (pos - CLUSTER_BIT))]
+
+    def swap(self, a, reg, bit):
+        """A warp bit: ``Layout.swap`` in each CTA.  A cluster bit: each
+        thread sends its amplitudes whose register bit ``reg`` differs
+        from its CTA's rank bit to the same thread of the partner CTA,
+        into the same registers."""
+        if bit < CLUSTER_BIT:
+            return np.stack([Layout.swap(self, c, reg, bit) for c in a])
+        cb = bit - CLUSTER_BIT
+        rank = np.arange(self.n_ranks)
+        beta = (rank >> cb) & 1
+        k = np.arange(1 << (self.r - 1))
+        j0 = ((k >> reg) << (reg + 1)) | (k & ((1 << reg) - 1))
+        sent = np.where(beta[:, None] == 1, j0, j0 | (1 << reg))
+        out = a.copy()
+        for c in rank:
+            out[c][:, sent[c]] = a[c ^ (1 << cb)][:, sent[c ^ (1 << cb)]]
+        return out
+
+    def _on(self, cp):
+        on = super()._on(cp)
+        if cp >= CLUSTER_BIT:          # CTA-uniform: skip or run uncontrolled
+            assert (on == on[:, :1, :1]).all()
+        return on
+
+    def row_sum(self, terms):
+        """Summed in each CTA, then over the ranks in order."""
+        return float(sum(np.sum(c) for c in terms))
+
+    def h_psi(self, a, end_map, planes):
+        """H psi as the kernel reads it: each CTA's slice of psi at j * 256
+        + t, psi[i ^ f] at the group's storage xor in the CTA of rank
+        ``rank ^ rank xor``, W at the logical indices."""
+        store = a.transpose(0, 2, 1).reshape(self.n_ranks, -1)
+        st = (np.arange(1 << self.r)[None, :] * self.T
+              + np.arange(self.T)[:, None])
+        idx = self.logical(end_map)
+        h = np.zeros_like(a)
+        for flip, w in planes:
+            fx, fr = storage_flip(int(flip), end_map)
+            src = store[np.arange(self.n_ranks) ^ fr]
+            h += w[idx] * src[:, st ^ fx]
+        return h
+
+
+def _emulate_cluster(n, arrs, kt, kc, x, psi0, pauli):
+    """``_emulate`` on ``ClusterLayout`` with the kernel's H psi ->
+    (psi, lambda, gradient, psi after the adjoint (all logical), maps,
+    the schedule)."""
+    kind, _, _, slot = arrs
+    lay = ClusterLayout(n)
+    map0, ops, map1 = swap_schedule(*arrs[:3], n)
+    u = {g: np.asarray([[complex(v) for v in row] for row in (m[:2], m[2:])])
+         for g in range(len(kind)) if kind[g]
+         for m in [gate_matrix(int(kind[g]), torch.tensor(
+             float(x[slot[g]]) if slot[g] >= 0 else 0.0,
+             dtype=torch.float64))]}
+    cur = list(map0)
+    psi = psi0[lay.logical(cur)]
+    for g, p, q in ops:
+        if g == SWAP:
+            psi = lay.swap(psi, p, q)
+            cur[p], cur[q] = cur[q], cur[p]
+            continue
+        psi = lay.gate(psi, u[g], p, q)
+        if kt[g]:
+            psi = lay.pauli(psi, kt[g], p)
+        if kc[g]:
+            psi = lay.pauli(psi, kc[g], q if q >= 0 else lay.r)
+    idx = lay.logical(cur)
+    out = np.empty(1 << n, complex)
+    out[idx] = psi
+    wre, wim, flips = pauli_flip_groups(pauli, 0.0, np.float64)
+    h = lay.h_psi(psi, cur, list(zip(flips, wre + 1j * wim)))
+    lam = 2.0 * np.conj(h)
+    lam_logical = np.empty(1 << n, complex)
+    lam_logical[idx] = lam
+    grad = np.zeros_like(x)
+    for g, p, q in reversed(ops):
+        if g == SWAP:
+            psi, lam = lay.swap(psi, p, q), lay.swap(lam, p, q)
+            cur[p], cur[q] = cur[q], cur[p]
+            continue
+        for k, pos in ((kt[g], p), (kc[g], q if q >= 0 else lay.r)):
+            if k:
+                psi = lay.pauli(psi, k, pos)
+                lam = lay.pauli(lam, k, pos, transpose=True)
+        has = slot[g] >= 0 and kind[g] in (_RX, _RY, _RZ)
+        psi, lam, gp = lay.gate_adj(psi, lam, u[g], int(kind[g]), p, q, has)
+        if has:
+            grad[slot[g]] += gp
+    back = np.empty(1 << n, complex)
+    back[lay.logical(cur)] = psi
+    return out, lam_logical, grad, back, (map0, map1, cur), ops
+
+
+@pytest.fixture
+def one_thread():
+    """Torch on one thread for the test: the xdist workers share the
+    host's cores, and a parallel region of a busy pool waits on threads
+    the other workers keep descheduled."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("n", [13, 14, 16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cluster_layout_matches_the_eager_simulator(n, seed, one_thread):
+    arrs, kt, kc, x, psi0, pauli = _random_case(n, 48, seed)
+    # X, Y and Z on the control of the three CX controlled from qubit
+    # n - 1, which sits on a cluster bit then
+    kc[4:7] = (_X, _Y, _Z)
+    psi, lam, grad, back, maps, ops = _emulate_cluster(n, arrs, kt, kc, x,
+                                                       psi0, pauli)
+    ext = extend_tape_arrays(tuple(torch.as_tensor(a) for a in arrs),
+                             torch.as_tensor(kt), torch.as_tensor(kc))
+    want = apply_tape(torch.as_tensor(psi0), *ext, torch.as_tensor(x))
+    assert np.abs(psi - want.numpy()).max() <= TOL
+    w, f, sm, ip = pauli.tensors("cpu", torch.complex128)
+    h = apply_pauli_sum(want, w, f, sm, ip).numpy()
+    assert np.abs(lam - 2.0 * np.conj(h)).max() <= TOL
+    xt = torch.tensor(x, requires_grad=True)
+    adjoint_energy(torch.as_tensor(psi0), *ext, xt, w, f, sm,
+                   ip).backward()
+    assert np.abs(grad - xt.grad.numpy()).max() <= TOL
+    assert np.abs(back - psi0).max() <= TOL
+    map0, map1, end_adj = maps
+    assert end_adj == map0
+    # the tape went through cluster bits: swaps of a register with a
+    # cluster bit, controls on one (with the three errors), and H psi
+    # reading partners in another CTA
+    assert any(g == SWAP and q >= CLUSTER_BIT for g, _, q in ops)
+    ctl = [g for g, _, q in ops if g != SWAP and q >= CLUSTER_BIT]
+    assert {4, 5, 6} <= set(ctl)
+    wre, _, flips = pauli_flip_groups(pauli)
+    assert any(storage_flip(int(fl), map1)[1] for fl in flips)
+
+
 @pytest.mark.parametrize("n", [7, 10, 11, 12])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_mapped_layout_matches_the_eager_simulator(n, seed):
@@ -259,7 +451,7 @@ def test_mapped_layout_matches_the_eager_simulator(n, seed):
     assert end_fwd == map1 and end_adj == map0
     # the tape reached every qubit class it can: gate targets on register
     # and lane bits, controls on every class, swaps once warp bits exist
-    r, lanes, warps = register_layout(n)
+    r, lanes, warps, _ = register_layout(n)
     gates = [(p, q) for g, p, q in ops if g != SWAP]
     assert {p < r for p, _ in gates} == {True, False}
     assert all(p < r + lanes for p, _ in gates)
@@ -272,11 +464,22 @@ def test_mapped_layout_matches_the_eager_simulator(n, seed):
 @pytest.mark.parametrize("n", [7, 8, 9, 10, 11, 12])
 def test_register_layout_covers_the_state(n):
     """2^r registers of 2^(n - r) threads hold the state; at most 256
-    threads a CTA; lane bits fill a warp once there are 32 threads."""
-    r, lanes, warps = register_layout(n)
-    assert r + lanes + warps == n
+    threads a CTA; lane bits fill a warp once there are 32 threads; no
+    cluster bits up to 12 qubits."""
+    r, lanes, warps, ranks = register_layout(n)
+    assert r + lanes + warps == n and ranks == 0
     assert 1 << (n - r) <= 256
     assert lanes == min(5, n - r) and warps >= 0
+
+
+@pytest.mark.parametrize("n", [13, 14, 15, 16])
+def test_cluster_layout_covers_the_state(n):
+    """From 13 qubits: 16 registers x 32 lanes x 8 warps a CTA (256
+    threads, the register kernel's CTA at 12 qubits) and n - 12 cluster
+    bits from bit 12 up: 2 to 16 CTAs, at most what a cluster holds."""
+    r, lanes, warps, ranks = register_layout(n)
+    assert (r, lanes, warps) == (4, 5, 3) and r + lanes + warps == CLUSTER_BIT
+    assert ranks == n - CLUSTER_BIT and 2 <= 1 << ranks <= 16
 
 
 def test_schedule_evicts_the_register_used_furthest_ahead():
