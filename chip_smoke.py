@@ -6,7 +6,9 @@ TensorRL-fixed, TensorRL-trainable and StructureRL families, and through
 the composed engine with the su4 gate set and with shot noise.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --split     # the split phases alone (3b., 5b.)
+    python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
+                                      # and the tape kernels' by gate class)
+    python3 chip_smoke.py --composed  # the composed engine's alone (19.-21.)
 
 The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
 cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.)
@@ -18,9 +20,10 @@ Phases, one line each with its seconds:
                  ``nvidia-smi --query-gpu=name,power.limit``.
 2. build      -- compiles every kernel with nvcc into build/, one nvcc per
                  source, all started together at the outset, and prints
-                 ptxas' register / shared-memory / spill lines.  The tape
-                 kernels build in seconds, so the composed engine's phases
-                 (19.-21.) run first, while the fused kernels compile; the
+                 ptxas' register / shared-memory / spill lines.  The
+                 composed engine's phases (19.-21.) run first: the plain
+                 references of 20. while nvcc builds the tape kernels
+                 (~15-25 s), the rest while the fused kernels compile; the
                  v1 phases then wait only for v1, so the v2 source (the
                  longest build) compiles while they run.
 3. kernel v1  -- the v1 kernel (fused_adam_v1) against its plain
@@ -156,8 +159,12 @@ Phases, one line each with its seconds:
                  class is hit, numpy seed 1234): forward planes within 1e-5,
                  psi0 cotangents and angle gradients within 1e-4; RYY's sign
                  flipped and RZZ's gradient dropped must fail; two launches
-                 bit for bit; then both kernels' and plain versions' times,
-                 and the same at 12 (E = 16) and 13 qubits (E = 8).
+                 bit for bit; then both kernels' times (CUDA events over 20
+                 launches back to back, and the profiler's device time)
+                 beside their bounds and plain versions', and at 8 qubits
+                 the first design's times; the same
+                 at 5 and 9 qubits (E = 64) -- the register kernels -- and
+                 at 12 (E = 16) and 13 (E = 8) -- the first design.
 20. composed su4 / shot / traj4 -- the composed step (AngleOptimizer
                  through the tape kernels against itself on their plain
                  versions, ops/fused_adam.py:agreement, 3 iterations, the
@@ -168,13 +175,21 @@ Phases, one line each with its seconds:
                  for bit the noiseless composed step); depolarizing noise
                  over 4 trajectories at H2O8q_TNbond2_noise's; the third
                  control of the noisy ones is a result under other draws.
-                 Then one 100-iteration composed step timed.
+                 In each setting the step's CUDA graph (ComposedGraph)
+                 against the eager kernel path at 3 iterations, bit for bit,
+                 on two batches through one capture (then the first batch
+                 again), each call's launches counted.  Then one
+                 100-iteration su4 step: the graph's first call (warm-up
+                 and capture) apart, its replays' ms and the eager path's,
+                 the launches a step by the counters and by the profiler in
+                 a traced replay, and that replay's device time.
 21. trainers su4 / restricted -- the CLI's trainer on H2O8q_TNbond2
                  --gate_set su4 and on H2O8q_TNbond2_noise_restricted (shot
                  noise and the hexagon topology inferred from the name), 128
-                 replicas, 12 vector steps each: every vector step launches
-                 B3f iters + 2 times and B3b iters times, and no fused
-                 kernel.
+                 replicas, 12 vector steps each, every step one replay of
+                 the composed step's graph (the first its warm-up and
+                 capture): every vector step launches B3f iters + 2 times
+                 and B3b iters times, and no fused kernel.
 22. the 100-iteration checks of 6b., 8. and 12., each when enough of
                  the deadline is left (``LONG_MIN_LEFT_S``).
 
@@ -223,10 +238,13 @@ KRAUS_ENVS, KRAUS_P = 4096, (0.15, 0.25)
 # composed engine's phases needed the time)
 T_STEPS, BLOCK_COORD = 12, ("--block_coord", "3")
 # the composed engine: tape kernels at the su4 8q shapes (the su4 config's
-# capacity G = R = 30, E = 128) and at 12 and 13 qubits (E = 16, 8); its
-# step at 3 iterations in three settings; two trainers with 128 replicas
+# capacity G = R = 30, E = 128) and at 5 and 9 qubits (E = 64: groups of
+# 4 lanes, a warp at 16 amplitudes a thread) -- the register kernels --
+# and at 12 and 13 qubits (E = 16, 8; the first design); its step at 3
+# iterations in three settings, eagerly and as a graph; two trainers with
+# 128 replicas
 SU4_ARGS = ("--gate_set", "su4")
-TAPE_SHAPES = ((8, 128), (12, 16), (13, 8))
+TAPE_SHAPES = ((8, 128), (5, 64), (9, 64), (12, 16), (13, 8))
 TAPE_CAP = 30            # G = R of H2O8q_TNbond2 with the su4 warm start
 RESTRICTED_CONFIG = "H2O8q_TNbond2_noise_restricted"
 NOISY_CONFIG = "H2O8q_TNbond2_noise"
@@ -518,7 +536,7 @@ class Case:
     a config: that Hamiltonian on its own, noiseless."""
 
     def __init__(self, engine, config, n_env, family=FIXED,
-                 gate_set="cnot", caps=None, pauli=None):
+                 gate_set="cnot", caps=None, pauli=None, seed=1234):
         import types
 
         import numpy as np
@@ -558,7 +576,7 @@ class Case:
             if in_state:
                 env.reset()
                 prefix = env._tape(env.state)
-        rng = np.random.default_rng(1234)
+        rng = np.random.default_rng(seed)
         self.has_oracle = True
         self.old, self.new, self.maps, x0, n_rots = draw_batch(
             rng, n_env, g, r, n, prefix, gate_set)
@@ -665,19 +683,13 @@ class Case:
         return err
 
 
-def check_kernel(engine, case, label, iters, tol, controls=()):
-    """One kernel call held against the plain version's float32 runs
-    (``agreement``, under the same noise draws for a noise variant), the
-    eager simulator and the controls; raises on any disagreement.  Returns
-    the agreement statistics."""
+def plain_reference(engine, case, iters):
+    """The plain version's float32 runs on a case (``plain_results``) and
+    the first run's ms; needs no kernel."""
     import torch
 
     from tensorrl_qas_tpu_torch.ops import fused_adam
 
-    t0 = phase(f"{label} iters={iters}")
-    kw = case.noise_kw
-    xk, ek = engine.step(*case.args, iters=iters, lr=LR, **kw)
-    torch.cuda.synchronize()
     plain_ms = []
 
     def plain(*args, **kwargs):
@@ -693,7 +705,25 @@ def check_kernel(engine, case, label, iters, tol, controls=()):
         plain_ms.append(a.elapsed_time(b))
         return out
     ref = fused_adam.plain_results(case.args, iters=iters, lr=LR,
-                                   step=plain, **kw)
+                                   step=plain, **case.noise_kw)
+    return ref, plain_ms[0]
+
+
+def check_kernel(engine, case, label, iters, tol, controls=(), ref=None):
+    """One kernel call held against the plain version's float32 runs
+    (``agreement``, under the same noise draws for a noise variant; ``ref``
+    from ``plain_reference`` when already run), the eager simulator and
+    the controls; raises on any disagreement.  Returns the agreement
+    statistics."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam
+
+    t0 = phase(f"{label} iters={iters}")
+    kw = case.noise_kw
+    xk, ek = engine.step(*case.args, iters=iters, lr=LR, **kw)
+    torch.cuda.synchronize()
+    ref, plain_ms = ref or plain_reference(engine, case, iters)
     env_ok, _, stats = fused_adam.agreement(
         case.args, ref, xk, ek, tol=tol, check_x=iters == 3,
         step=engine.plain, iters=iters, **kw)
@@ -720,7 +750,7 @@ def check_kernel(engine, case, label, iters, tol, controls=()):
           and bool(torch.isfinite(ek).all())
           and bool(torch.isfinite(xk).all()))
     info = dict(tol=tol, **stats, oracle_max_abs_err=f"{oracle:.3e}",
-                plain_float32_ms=f"{plain_ms[0]:.4f}")
+                plain_float32_ms=f"{plain_ms:.4f}")
     if controls:
         info["controls_envs_flagged"] = caught
     done(f"{label} iters={iters}", t0, **info, ok=ok)
@@ -729,7 +759,7 @@ def check_kernel(engine, case, label, iters, tol, controls=()):
             f"{label} disagrees with its plain version at iters={iters}: "
             f"envs failing {(~env_ok).nonzero().flatten().tolist()}, "
             f"oracle {oracle:.3e}")
-    return {**stats, "plain_ms": plain_ms[0]}
+    return {**stats, "plain_ms": plain_ms}
 
 
 def tape_flops(tape, dim, table):
@@ -1323,13 +1353,21 @@ def tape_phase(n, n_env, cap, label):
     tape_np = tuple(a.cpu().numpy() for a in tape)
     plane_bytes = planes[0].numel() * 4
     in_bytes = sum(a.numel() * 4 for a in (*tape, angles))
+    lib = at._library()
+    # beside the main path's kernels (the register kernels up to 9 qubits)
+    # at 8 qubits: the first design (launched here only, uncounted)
+    others = {}
+    if n == 8:
+        others = {"first design": at.DESIGN_FIRST}
     runs = {
-        "fwd": (lambda: at.apply_tape_fwd(*planes, *tape, angles,
-                                          tapes_checked=True),
+        "fwd": (lambda d=at.DESIGN_MAIN: at.run_fwd(
+                    lib, *planes, tape, angles, design=d,
+                    stream=at._stream(angles.device)),
                 lambda: at.apply_tape_fwd_plain(*planes, *tape, angles),
                 fwd_flops_t, 4 * plane_bytes + in_bytes, err_f),
-        "bwd": (lambda: at.apply_tape_bwd(*out, *cot, *tape, angles,
-                                          tapes_checked=True),
+        "bwd": (lambda d=at.DESIGN_MAIN: at.run_bwd(
+                    lib, *out, *cot, tape, angles, design=d,
+                    stream=at._stream(angles.device)),
                 lambda: at.apply_tape_bwd_plain(*out, *cot, *tape, angles),
                 bwd_flops_t, 6 * plane_bytes + in_bytes
                 + angles.numel() * 4, err_b)}
@@ -1337,40 +1375,95 @@ def tape_phase(n, n_env, cap, label):
     for key, (kernel, plain, table, nbytes, err) in runs.items():
         flops = float(STARTS * tape_flops(tape_np, 1 << n, table).sum())
         k_ms = time_back_to_back(kernel)
-        dev_ms = device_ms(kernel, f"apply_tape_{key}_kernel")
+        dev_ms = device_ms(kernel, f"apply_tape_{key}")
         p_ms = time_cuda(plain, warmup=0, reps=1)
         t_ops, t_bytes = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
         entries[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": 1e3 * max(t_ops, t_bytes),
                         "bound_by": "operations" if t_ops >= t_bytes
                         else "bytes"}
+        extra = ""
+        for name, design in others.items():
+            o_ms = time_back_to_back(lambda: kernel(design))
+            o_dev = device_ms(lambda: kernel(design), f"apply_tape_{key}")
+            extra += (f"; {name} {o_ms:.4f} ms (device "
+                      f"{_ms_or_not(o_dev)})")
         info[key] = (f"kernel {k_ms:.4f} ms (back to back; profiler "
-                     f"device time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+                     f"device time {_ms_or_not(dev_ms)}){extra}, "
                      f"plain {p_ms:.4f} ms, bound "
                      f"{entries[key]['bound_ms']:.6f} ms "
                      f"({entries[key]['bound_by']}; {flops / 1e6:.3f} "
                      f"MFLOP, {nbytes / 1e6:.3f} MB)")
-    lib = at._library()
-    done(f"{label} timing", t0, **info,
-         dynamic_smem_bytes_per_cta=(lib.apply_tape_fwd_smem_bytes(cap, cap,
-                                                                   n),
-                                     lib.apply_tape_bwd_smem_bytes(cap, cap,
-                                                                   n)),
+    kernels = ("register kernel" if n <= lib.apply_tape_reg_max_qubits()
+               else "first design")
+    done(f"{label} timing", t0, kernels=kernels, **info,
+         dynamic_smem_bytes_per_cta=tuple(
+             f(STARTS, cap, cap, n, at.DESIGN_MAIN)
+             for f in (lib.apply_tape_fwd_smem_bytes,
+                       lib.apply_tape_bwd_smem_bytes)),
          library_ms="n/a (no single PyTorch call computes a tape)")
     return entries
 
 
-def composed_phase(mode):
-    """The composed step through the tape kernels against itself on their
-    plain versions (``check_kernel`` at 3 iterations, with controls) in
-    one of the three settings; for shot noise also n_shots = 0 against
-    the noiseless composed step, bit for bit; for su4 one 100-iteration
-    step timed."""
+def _ms_or_not(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def graph_phase(opt, cases, mode):
+    """The composed step's CUDA graph (``ComposedGraph``) against the eager
+    kernel path (``_fused_step_composed``) at 3 iterations, bit for bit,
+    on the cases' batches in turn through one capture (the first call the
+    warm-up, the next ones replays, the last on the first batch again),
+    under other noise seeds each call; each call's tape-kernel launches
+    counted (iters + 2 forward, iters adjoint)."""
     import torch
 
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import ComposedGraph
+
+    t0 = phase(f"composed {mode} graph")
+    graph = ComposedGraph(opt)
+    h_apply = opt._h_apply(torch.float32)
+    bits, launches = [], []
+    for i, case in enumerate((*cases, cases[0])):
+        args = (*case.args[:5], *case.args[-2:])
+        seed = NOISE_SEED + i
+        before = (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches)
+        xg, eg = graph(*args, iters=3, lr=LR, seed=seed)
+        torch.cuda.synchronize()
+        launches.append((at.apply_tape_fwd.launches - before[0],
+                         at.apply_tape_bwd.launches - before[1]))
+        xe, ee = opt._fused_step_composed(*args[:5], h_apply, *args[5:],
+                                          iters=3, lr=LR, seed=seed)
+        bits.append(bool(torch.equal(xg, xe) and torch.equal(eg, ee)))
+    ok = all(bits) and graph.captures == 1 and all(
+        n == (5, 3) for n in launches)
+    done(f"composed {mode} graph", t0, batches=len(cases),
+         bit_for_bit=bits, captures=graph.captures,
+         launches_per_call=launches, ok=ok)
+    if not ok:
+        raise AssertionError(f"composed {mode}: the graph differs from the "
+                             "eager kernel path or miscounts its launches")
+
+
+def kernel_launches(prof, key):
+    """Device kernel events whose names contain ``key`` in a finished
+    torch.profiler trace."""
+    import torch
+
+    return sum(1 for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == torch.autograd.DeviceType.CUDA
+               and key in ev.name())
+
+
+def composed_setup(mode):
+    """One of the three composed settings' inputs, optimizer and engine,
+    and its plain versions' 3-iteration reference (``plain_reference``,
+    which needs no kernel, so it runs while nvcc builds them).
+    -> (mode, case, opt, engine, reference)."""
     from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
 
+    phase(f"composed {mode} setup")
     config, gate_set, kw = {
         "su4": (V1_CONFIG, "su4", dict(enable_2q=True)),
         "shot": (RESTRICTED_CONFIG, "cnot",
@@ -1384,14 +1477,31 @@ def composed_phase(mode):
                              f"phase assumed {TAPE_CAP}")
     print(f"[composed {mode}] {config} {gate_set}: E={V1_ENVS} G={case.g} "
           f"R={case.r} D={1 << case.n} {kw}", flush=True)
-    pauli = case.prob.pauli
-    engine = COMPOSED.with_optimizer(AngleOptimizer(pauli, device="cuda",
-                                                    **kw))
+    case.other = Case(COMPOSED, config, V1_ENVS, gate_set=gate_set,
+                      seed=4321)
+    opt = AngleOptimizer(case.prob.pauli, device="cuda", **kw)
+    engine = COMPOSED.with_optimizer(opt)
     if mode != "su4":
         case.noise_kw = {"seed": NOISE_SEED}
         case.has_oracle = False
+    return mode, case, opt, engine, plain_reference(engine, case, 3)
+
+
+def composed_phase(mode, case, opt, engine, ref):
+    """The composed step through the tape kernels against itself on their
+    plain versions (``check_kernel`` at 3 iterations, with controls) in
+    one of the three settings, then its CUDA graph against the eager
+    kernel path on two batches (``graph_phase``); for shot noise also
+    n_shots = 0 against the noiseless composed step, bit for bit; for su4
+    one 100-iteration step timed as a graph and eagerly."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
+
     check_kernel(engine, case, f"composed {mode}", 3, TOL_ITERS3,
-                 case.controls())
+                 case.controls(), ref=ref)
+    graph_phase(opt, (case, case.other), mode)
+    pauli = case.prob.pauli
     if mode == "shot":
         t0 = phase("composed shot n_shots=0")
         zero = COMPOSED.with_optimizer(AngleOptimizer(
@@ -1405,31 +1515,61 @@ def composed_phase(mode):
             raise AssertionError("shot mode at n_shots = 0 differs from "
                                  "the noiseless composed step")
     if mode == "su4":
-        t0 = phase("composed su4 timing")
-        before = (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches)
-        ms = time_cuda(lambda: engine.step(*case.args, iters=ITERS, lr=LR),
-                       warmup=1, reps=3)
-        per = tuple((k.launches - b) // 4 for k, b in
-                    zip((at.apply_tape_fwd, at.apply_tape_bwd), before))
-        # where a step's time goes: device time by kernel under the
-        # profiler (which slows the host) against the step's wall time
-        from torch.profiler import ProfilerActivity, profile
+        composed_timing(opt, engine, case)
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            engine.step(*case.args, iters=ITERS, lr=LR)
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t1)
-        dev = {e.key: e.self_device_time_total / 1e3
-               for e in prof.key_averages() if e.self_device_time_total}
-        tape_ms = sum(v for k, v in dev.items() if "apply_tape" in k)
-        done("composed su4 timing", t0, iters=ITERS,
-             step_ms=f"{ms:.4f}", launches_per_step={"fwd": per[0],
-                                                     "bwd": per[1]},
-             profiled_step_wall_ms=f"{wall:.2f}",
-             device_ms_tape_kernels=f"{tape_ms:.3f}",
-             device_ms_all_kernels=f"{sum(dev.values()):.3f}",
-             device_kernels=len(dev))
+
+def composed_timing(opt, engine, case):
+    """One 100-iteration su4 step: the graph's first call (warm-up and
+    capture) apart, then its replays and the eager kernel path timed, the
+    launches a step by the counters and, in a traced replay, by the
+    profiler, and the traced replay's device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import ComposedGraph
+
+    t0 = phase("composed su4 timing")
+    counters = (at.apply_tape_fwd, at.apply_tape_bwd)
+    args = (*case.args[:5], *case.args[-2:])
+    graph = ComposedGraph(opt)
+    t1 = time.perf_counter()
+    graph(*args, iters=ITERS, lr=LR)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t1
+    before = [k.launches for k in counters]
+    graph_ms = time_cuda(lambda: graph(*args, iters=ITERS, lr=LR),
+                         warmup=1, reps=5)
+    per = [(k.launches - b) // 6 for k, b in zip(counters, before)]
+    eager_ms = time_cuda(lambda: engine.step(*case.args, iters=ITERS,
+                                             lr=LR), warmup=1, reps=3)
+    # a replay traced: device time by kernel and the launches the
+    # profiler sees, against the counters' (the profiler slows the host)
+    before = [k.launches for k in counters]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        graph(*args, iters=ITERS, lr=LR)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t1)
+    counted = [k.launches - b for k, b in zip(counters, before)]
+    seen = [kernel_launches(prof, f"apply_tape_{key}")
+            for key in ("fwd", "bwd")]
+    dev = device_us_by_name(prof)
+    tape_ms = sum(v for k, v in dev.items() if "apply_tape" in k) / 1e3
+    ok = (per == counted == seen == [ITERS + 2, ITERS]
+          and graph.captures == 1)
+    done("composed su4 timing", t0, iters=ITERS,
+         graph_step_ms=f"{graph_ms:.4f}", eager_step_ms=f"{eager_ms:.4f}",
+         first_call_warmup_and_capture_s=f"{capture_s:.3f}",
+         launches_per_step={"counters": per, "traced replay counters":
+                            counted, "traced replay profiler": seen},
+         profiled_step_wall_ms=f"{wall:.2f}",
+         device_ms_tape_kernels=f"{tape_ms:.3f}",
+         device_ms_all_kernels=f"{sum(dev.values()) / 1e3:.3f}",
+         device_kernels=len(dev), ok=ok)
+    if not ok:
+        raise AssertionError("composed su4 timing: the launches a step "
+                             "disagree between counters and profiler")
 
 
 def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
@@ -1602,6 +1742,63 @@ def class_split(engine):
          kernel_ms_iters0=ms0, swaps_per_pass=swaps)
 
 
+# synthetic su4 tapes for the tape kernels' split at 8 qubits (lane bits
+# hold qubits 0..4, register bits qubits 5..7): label -> the (kind,
+# target, second qubit or control) cycle every env's tape repeats
+TAPE_PATTERNS = {
+    "none": [],
+    "RY registers": [("RY", q, -1) for q in (5, 6, 7)],
+    "RY lanes": [("RY", q, -1) for q in range(5)],
+    "CX lane control": [("CX", 5 + q % 3, q) for q in range(5)],
+    "RXX registers": [("RXX", 5, 6), ("RXX", 6, 7), ("RXX", 5, 7)],
+    "RXX lanes": [("RXX", q, (q + 1) % 5) for q in range(5)],
+    "RXX lane-register": [("RXX", q, 5 + q % 3) for q in range(5)],
+    "RZZ": [("RZZ", q, (q + 3) % 8) for q in range(8)],
+}
+
+
+def split_tape():
+    """Where a register tape kernel's launch goes, at the su4 8-qubit
+    shapes (E = 128, S = 8, G = R = 30): tapes of one gate class each
+    (``TAPE_PATTERNS``; "none": every gate kNone, the fixed part of a
+    launch) beside the random su4 tapes of 19., each kernel's
+    back-to-back ms and profiler device ms."""
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    t0 = phase("split tape")
+    n_env = V1_ENVS
+    planes, random_tape, angles, cot = draw_tape_batch(
+        np.random.default_rng(1234), n_env, STARTS, TAPE_CAP, 8)
+    tapes = {"random su4": random_tape}
+    for label, pattern in TAPE_PATTERNS.items():
+        arrs = np.zeros((4, TAPE_CAP), np.int32)
+        arrs[2:] = -1
+        for g in range(TAPE_CAP if pattern else 0):
+            k, t, c = pattern[g % len(pattern)]
+            arrs[:, g] = (int(GateKind[k]), t, c, g if k != "CX" else -1)
+        tapes[label] = tuple(torch.as_tensor(np.repeat(a[None], n_env, 0),
+                                             device="cuda") for a in arrs)
+    lib = at._library()
+    stream = at._stream(angles.device)
+
+    def times(tape):
+        out = at.run_fwd(lib, *planes, tape, angles, stream=stream)
+        runs = {"fwd": lambda: at.run_fwd(lib, *planes, tape, angles,
+                                          stream=stream),
+                "bwd": lambda: at.run_bwd(lib, *out, *cot, tape, angles,
+                                          stream=stream)}
+        return {key: f"{time_back_to_back(fn):.4f} / "
+                     f"{_ms_or_not(device_ms(fn, f'apply_tape_{key}'))}"
+                for key, fn in runs.items()}
+    ms = {label: times(tape) for label, tape in tapes.items()}
+    done("split tape", t0, gates=TAPE_CAP, E=n_env, S=STARTS,
+         back_to_back_ms_and_device_ms=ms)
+
+
 def split_only(v1, v2, v2n):
     """``--split``: the v1 and v2 split phases, the 13-18q band, the
     split by gate class
@@ -1635,17 +1832,20 @@ def split_only(v1, v2, v2n):
                   family=TRAINABLE, profile=True)
 
 
-def composed_phases():
-    """The composed engine: its tape kernels, its step in three settings,
-    and the su4 and shot-noise trainers, each vector step iters + 2
-    forward and iters adjoint launches.  -> the kernels line's tape
-    entries (the 8q shapes)."""
+def composed_phases(builds):
+    """The composed engine: its step's inputs and plain references in
+    three settings while nvcc builds (``builds``), then its tape kernels,
+    its step's checks, and the su4 and shot-noise trainers, each vector
+    step iters + 2 forward and iters adjoint launches.  -> the kernels
+    line's tape entries (the 8q shapes)."""
+    setups = [composed_setup(mode) for mode in ("su4", "shot", "traj4")]
+    builds.wait("apply_tape")
     tape = {}
     for n, n_env in TAPE_SHAPES:
         entries = tape_phase(n, n_env, TAPE_CAP, f"kernel tape {n}q")
         tape = tape or entries
-    for mode in ("su4", "shot", "traj4"):
-        composed_phase(mode)
+    for setup in setups:
+        composed_phase(*setup)
     per_step = {"apply_tape_fwd": COMPOSED_STEPS * (ITERS + 2),
                 "apply_tape_bwd": COMPOSED_STEPS * ITERS}
     launches = trainer_phase(COMPOSED, V1_CONFIG, V1_ENVS, COMPOSED_STEPS,
@@ -1673,17 +1873,23 @@ def main(argv=()) -> int:
          count=torch.cuda.device_count())
 
     v1, v1n, v2, v2n, v1p, v2p, v2c = engines()
+    if "--composed" in argv:
+        composed_phases(Builds(("apply_tape",)))
+        watchdog.cancel()
+        return 0
     if "--split" in argv:
-        Builds(("fused_adam_v1", "fused_adam_v2")).wait("fused_adam_v1",
-                                                        "fused_adam_v2")
+        builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
+        builds.wait("apply_tape")
+        split_tape()
+        builds.wait("fused_adam_v1", "fused_adam_v2")
         split_only(v1, v2, v2n)
         watchdog.cancel()
         return 0
     builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
-    # the tape kernels build in seconds: the composed engine's phases run
-    # while nvcc builds the fused kernels
-    builds.wait("apply_tape")
-    tape = composed_phases()
+    # the composed engine's phases go first: their plain references while
+    # nvcc builds the tape kernels (~15-25 s), the rest while it builds the
+    # fused kernels
+    tape = composed_phases(builds)
     builds.wait("fused_adam_v1")
     results = {}
     results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
@@ -1766,7 +1972,9 @@ def main(argv=()) -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None}
         for e, r in results.items()] + [{
-        "name": f"apply_tape_{key}", "route": "cuda", "source": TAPE_SOURCE,
+        "name": f"apply_tape_{key} (register kernel at 1-9 qubits, first "
+                "design at 10-16; numbers at 8)",
+        "route": "cuda", "source": TAPE_SOURCE,
         "replaces": REPLACES["tape", key], "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -164,19 +164,28 @@ def apply_tape_bwd_plain(ore, oim, gre, gim, kind, tq, cq, slot, angles):
 _I32 = ctypes.c_int
 _PTR = ctypes.c_void_p
 
+# ``design`` of a launch: the register kernels up to 9 qubits and the first
+# design above (what the wrappers launch), or the first design at any
+# qubit count (to time it against the register kernels)
+DESIGN_MAIN, DESIGN_FIRST = 0, 1
+
 
 @functools.cache
 def _library():
     """The kernels' library (built at first use) with its C signatures."""
     from tensorrl_qas_tpu_torch.ops.build import load
 
-    lib = load("apply_tape")
-    lib.apply_tape_fwd_launch.argtypes = [_PTR] * 9 + [_I32] * 5 + [_PTR]
-    lib.apply_tape_bwd_launch.argtypes = [_PTR] * 13 + [_I32] * 5 + [_PTR]
+    return bind(load("apply_tape"))
+
+
+def bind(lib):
+    """Set the C signatures of the tape kernels' library ``lib``."""
+    lib.apply_tape_fwd_launch.argtypes = [_PTR] * 9 + [_I32] * 6 + [_PTR]
+    lib.apply_tape_bwd_launch.argtypes = [_PTR] * 13 + [_I32] * 6 + [_PTR]
     for fn in (lib.apply_tape_fwd_launch, lib.apply_tape_bwd_launch):
         fn.restype = _I32
     for fn in (lib.apply_tape_fwd_smem_bytes, lib.apply_tape_bwd_smem_bytes):
-        fn.argtypes = [_I32] * 3
+        fn.argtypes = [_I32] * 5
         fn.restype = ctypes.c_size_t
     lib.apply_tape_error_string.argtypes = [_I32]
     lib.apply_tape_error_string.restype = ctypes.c_char_p
@@ -236,6 +245,55 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _dims(plane, tape, angles):
+    """(E, S, G, R, n) of a launch's inputs."""
+    n_env, s_n, r = angles.shape
+    return n_env, s_n, tape[0].shape[-1], r, plane.shape[-1].bit_length() - 1
+
+
+def run_fwd(lib, re, im, tape, angles, *, design=DESIGN_MAIN, stream=None):
+    """One B3f launch of ``lib`` on checked inputs (the wrapper's, or a
+    timing's with another ``design``; not counted) -> (ore, oim)."""
+    n_env, s_n, g, r, n = _dims(re, tape, angles)
+    check_smem("apply_tape_fwd",
+               lib.apply_tape_fwd_smem_bytes(s_n, g, r, n, design), "CTA")
+    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    launch(lib, "apply_tape_fwd", *(t.data_ptr() for t in tape),
+           angles.data_ptr(), re.data_ptr(), im.data_ptr(), ore.data_ptr(),
+           oim.data_ptr(), n_env, s_n, g, r, n, design, stream)
+    return ore, oim
+
+
+def run_bwd(lib, ore, oim, gre, gim, tape, angles, *, psi0_grad=True,
+            design=DESIGN_MAIN, stream=None):
+    """One B3b launch of ``lib`` on checked inputs (not counted) -> (dre,
+    dim, dang); without ``psi0_grad`` the register kernels write no psi0
+    cotangents and (None, None, dang) is returned."""
+    n_env, s_n, g, r, n = _dims(ore, tape, angles)
+    check_smem("apply_tape_bwd",
+               lib.apply_tape_bwd_smem_bytes(s_n, g, r, n, design), "CTA")
+    skip = (not psi0_grad and design != DESIGN_FIRST
+            and n <= lib.apply_tape_reg_max_qubits())
+    dre, dim = ((None, None) if skip else
+                (torch.empty_like(ore), torch.empty_like(oim)))
+    dang = torch.empty_like(angles)
+    # the first design above 13 qubits keeps psi in this workspace (lambda
+    # in dre / dim)
+    first = design == DESIGN_FIRST or n > lib.apply_tape_reg_max_qubits()
+    work = (torch.empty((n_env, s_n, 2, 1 << n), dtype=torch.float32,
+                        device=angles.device)
+            if first and n > lib.apply_tape_smem_state_max_qubits()
+            else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    launch(lib, "apply_tape_bwd", *(t.data_ptr() for t in tape),
+           angles.data_ptr(), ore.data_ptr(), oim.data_ptr(), gre.data_ptr(),
+           gim.data_ptr(), ptr(dre), ptr(dim), dang.data_ptr(), ptr(work),
+           n_env, s_n, g, r, n, design, stream)
+    return (dre, dim, dang) if psi0_grad else (None, None, dang)
+
+
 def apply_tape_fwd(re, im, kind, tq, cq, slot, angles, *,
                    tapes_checked: bool = False):
     """B3f: the CUDA kernel for CUDA tensors, the plain version for CPU
@@ -248,49 +306,32 @@ def apply_tape_fwd(re, im, kind, tq, cq, slot, angles, *,
         raise ValueError(f"apply_tape_fwd: no kernel for device "
                          f"{angles.device}")
     tape = (kind, tq, cq, slot)
-    n_env, s_n, g, r, n = _check("apply_tape_fwd", (re, im), tape, angles,
-                                 tapes_checked)
-    lib = _library()
-    check_smem("apply_tape_fwd", lib.apply_tape_fwd_smem_bytes(g, r, n),
-               "(env, start) row")
-    ore, oim = torch.empty_like(re), torch.empty_like(im)
-    launch(lib, "apply_tape_fwd", *(t.data_ptr() for t in tape),
-           angles.data_ptr(), re.data_ptr(), im.data_ptr(), ore.data_ptr(),
-           oim.data_ptr(), n_env, s_n, g, r, n, _stream(angles.device))
+    _check("apply_tape_fwd", (re, im), tape, angles, tapes_checked)
+    out = run_fwd(_library(), re, im, tape, angles,
+                  stream=_stream(angles.device))
     apply_tape_fwd.launches += 1
-    return ore, oim
+    return out
 
 
 def apply_tape_bwd(ore, oim, gre, gim, kind, tq, cq, slot, angles, *,
-                   tapes_checked: bool = False):
+                   tapes_checked: bool = False, psi0_grad: bool = True):
     """B3b: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors; -> (dre, dim, dang).  Counts launches in
-    ``apply_tape_bwd.launches``."""
+    tensors; -> (dre, dim, dang), (None, None, dang) without
+    ``psi0_grad``.  Counts launches in ``apply_tape_bwd.launches``."""
     if angles.device.type == "cpu":
-        return apply_tape_bwd_plain(ore, oim, gre, gim, kind, tq, cq, slot,
-                                    angles)
+        dre, dim, dang = apply_tape_bwd_plain(ore, oim, gre, gim, kind, tq,
+                                              cq, slot, angles)
+        return (dre, dim, dang) if psi0_grad else (None, None, dang)
     if angles.device.type != "cuda":
         raise ValueError(f"apply_tape_bwd: no kernel for device "
                          f"{angles.device}")
     tape = (kind, tq, cq, slot)
-    n_env, s_n, g, r, n = _check("apply_tape_bwd", (ore, oim, gre, gim),
-                                 tape, angles, tapes_checked)
-    lib = _library()
-    check_smem("apply_tape_bwd", lib.apply_tape_bwd_smem_bytes(g, r, n),
-               "(env, start) row")
-    dre, dim = torch.empty_like(ore), torch.empty_like(oim)
-    dang = torch.empty_like(angles)
-    # above 13 qubits psi lives in this workspace (lambda in dre / dim)
-    work = (torch.empty((n_env, s_n, 2, 1 << n), dtype=torch.float32,
-                        device=angles.device)
-            if n > lib.apply_tape_smem_state_max_qubits() else None)
-    launch(lib, "apply_tape_bwd", *(t.data_ptr() for t in tape),
-           angles.data_ptr(), ore.data_ptr(), oim.data_ptr(), gre.data_ptr(),
-           gim.data_ptr(), dre.data_ptr(), dim.data_ptr(), dang.data_ptr(),
-           None if work is None else work.data_ptr(), n_env, s_n, g, r, n,
-           _stream(angles.device))
+    _check("apply_tape_bwd", (ore, oim, gre, gim), tape, angles,
+           tapes_checked)
+    out = run_bwd(_library(), ore, oim, gre, gim, tape, angles,
+                  psi0_grad=psi0_grad, stream=_stream(angles.device))
     apply_tape_bwd.launches += 1
-    return dre, dim, dang
+    return out
 
 
 apply_tape_fwd.launches = 0
@@ -321,13 +362,19 @@ class ApplyTape(torch.autograd.Function):
         ore, oim, kind, tq, cq, slot, angles = ctx.saved_tensors
         gre = torch.zeros_like(ore) if gre is None else gre.contiguous()
         gim = torch.zeros_like(oim) if gim is None else gim.contiguous()
+        # the psi0 cotangents only where someone reads them (the composed
+        # engine's psi0 planes carry no gradient)
+        psi0_grad = any(ctx.needs_input_grad[:2])
         if ctx.plain:
             dre, dim, dang = apply_tape_bwd_plain(ore, oim, gre, gim, kind,
                                                   tq, cq, slot, angles)
         else:
             dre, dim, dang = apply_tape_bwd(ore, oim, gre, gim, kind, tq, cq,
                                             slot, angles,
-                                            tapes_checked=ctx.tapes_checked)
+                                            tapes_checked=ctx.tapes_checked,
+                                            psi0_grad=psi0_grad)
+        if not psi0_grad:
+            dre = dim = None
         return dre, dim, None, None, None, None, dang, None, None
 
 

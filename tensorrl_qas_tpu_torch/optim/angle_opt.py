@@ -37,7 +37,10 @@ depolarizing noise averaged over ``n_traj > 1`` trajectories (re-drawn
 every Adam iteration whatever ``noise_resample`` says, as in the JAX
 package).  Each Adam iteration is one forward and one adjoint launch of
 the tape kernels (``ops/apply_tape.py``), with the energy's H psi as a
-matrix product between them.
+matrix product between them.  On the card the whole step (100 iterations,
+the re-check, the argmin, the remap and e_new) replays as one CUDA graph
+(``ComposedGraph``), the counterpart of the JAX package's ``lax.scan``
+under ``jit``; calling ``_fused_step_composed`` runs it eagerly.
 """
 
 from __future__ import annotations
@@ -213,6 +216,7 @@ class AngleOptimizer:
         self.enable_2q = enable_2q
         self._h_planes = None
         self._w_planes = None
+        self._graph = None
 
     def _pick_engine(self, *kinds) -> str:
         """The engine for this problem and tapes of these gate kinds:
@@ -311,20 +315,58 @@ class AngleOptimizer:
         return torch.Generator(device=self.device).manual_seed(
             (seed << 20) + tag)
 
-    def _composed_energy(self, x, tape, re0, im0, h_apply, plain, gen):
+    def _noisy(self) -> bool:
+        """Whether the composed engine draws noise: depolarizing, or shot
+        noise with shots."""
+        return (self.noise_mode == "depolarizing"
+                or (self.noise_mode == "shot" and self.n_shots > 0))
+
+    def _draw_noise(self, gen, kind, e_n: int, s_n: int):
+        """One tag's noise realization, drawn from ``gen``: depolarizing,
+        the (k_t, k_c) of ``n_traj`` realizations of the (E, G) tapes
+        ``kind``; shot noise, the (E, S) float64 offsets (eps @ w)
+        n_shots^-1/2, eps standard normal per (env, start, Pauli term)."""
+        if self.noise_mode == "depolarizing":
+            return self._sample_noise_kinds(kind, self.n_traj, gen)
+        w = self.pauli_t[0].double()
+        eps = torch.randn((e_n, s_n, w.shape[0]), generator=gen,
+                          dtype=torch.float64, device=kind.device)
+        return (eps @ w) * self.n_shots ** -0.5
+
+    def predraw_noise(self, old_kind, new_kind, e_n: int, s_n: int, *,
+                      iters: int, seed: int, enew_tag: int | None = None):
+        """Every realization a composed step seeded with ``seed`` draws,
+        in its order: Adam iterations 0 .. iters - 1 and the re-check on
+        ``old_kind``'s tapes, then e_new (tag ``enew_tag``, default iters
+        + 1, one start) on ``new_kind``'s; the same generators and calls
+        as the step's own draws, so a step fed them (``draws``) gives the
+        same result bit for bit.  None without noise."""
+        if not self._noisy():
+            return None
+        tags = [*range(iters + 1), iters + 1 if enew_tag is None
+                else enew_tag]
+        return [self._draw_noise(self._noise_generator(seed, tag),
+                                 new_kind if at > iters else old_kind, e_n,
+                                 1 if at > iters else s_n)
+                for at, tag in enumerate(tags)]
+
+    def _composed_energy(self, x, tape, re0, im0, h_apply, plain, gen,
+                         noise=None):
         """(E, S) energies of H - offset I at angles x (E, S, R) of the
         (E, G) int32 tapes from psi0 planes re0 / im0 ((1 or E, 1, D)):
         one forward launch (``ApplyTape``, differentiable in x), then the
-        Rayleigh quotient with float64 sums.  Depolarizing: the mean over
-        ``n_traj`` realizations drawn from ``gen``, stacked along the env
-        axis (still one launch); shot noise: plus (eps @ w) n_shots^-1/2
-        per (env, start), eps standard normal per Pauli term drawn from
-        ``gen`` in float64, on the value only."""
+        Rayleigh quotient with float64 sums.  ``noise`` is the tag's
+        realization (``_draw_noise``), drawn from ``gen`` when not given:
+        depolarizing, the mean over the ``n_traj`` realizations, stacked
+        along the env axis (still one launch); shot noise, plus its
+        offsets, on the value only."""
         e_n, s_n, _ = x.shape
+        if noise is None and gen is not None and self._noisy():
+            noise = self._draw_noise(gen, tape[0], e_n, s_n)
         t_n = 1
         if self.noise_mode == "depolarizing":
             t_n = self.n_traj
-            kt, kc = self._sample_noise_kinds(tape[0], t_n, gen)
+            kt, kc = noise
             tape = tuple(
                 a.reshape(t_n * e_n, -1).to(torch.int32).contiguous()
                 for a in extend_tape_arrays(
@@ -336,17 +378,14 @@ class AngleOptimizer:
                                           tapes_checked=True)
         _, _, ev = _h_energy(ore, oim, h_apply)
         ev = ev.view(t_n, e_n, s_n).mean(0)
-        if self.noise_mode == "shot" and self.n_shots:
-            w = self.pauli_t[0].double()
-            eps = torch.randn((e_n, s_n, w.shape[0]), generator=gen,
-                              dtype=torch.float64, device=ev.device)
-            ev = ev + ((eps @ w) * self.n_shots ** -0.5).to(ev.dtype)
+        if self.noise_mode == "shot" and noise is not None:
+            ev = ev + noise.to(ev.dtype)
         return ev
 
     def _fused_step_composed(self, old, new, map_idx, p0re, p0im, h_apply,
                              starts, active, *, iters: int, lr: float,
                              seed: int = 0, enew_tag: int | None = None,
-                             plain: bool = False):
+                             plain: bool = False, draws=None):
         """The composed engine (reference ``_fused_step_pallas``,
         ``optim/angle_opt.py:580-671``), in the fused step's layout: (E, G)
         int32 tapes ``old`` / ``new`` (checked with ``check_tapes``),
@@ -359,21 +398,26 @@ class AngleOptimizer:
         ``new`` at x_opt remapped by ``map_idx`` (map -1 -> 0), S = 1.
         Adam's bias corrections are computed in float64.  Noise is drawn
         at tags (``_noise_generator``: ``seed``; ``enew_tag`` replaces
-        e_new's tag ``iters + 1``).  The forward kernel takes (E, S, D)
-        planes either way, so per-env psi0 (su4 with block-coordinate
-        mode) costs nothing here (the JAX package runs that case on XLA,
-        ``optim/angle_opt.py:818-822``).  ``plain`` runs the kernels'
-        plain versions on any device (the card check's reference).
+        e_new's tag ``iters + 1``), or read from ``draws``, the step's
+        realizations in order (``predraw_noise``: the same values, bit for
+        bit; a captured graph reads them from its buffers).  The forward
+        kernel takes (E, S, D) planes either way, so per-env psi0 (su4
+        with block-coordinate mode) costs nothing here (the JAX package
+        runs that case on XLA, ``optim/angle_opt.py:818-822``).
+        ``plain`` runs the kernels' plain versions on any device (the card
+        check's reference).
         Returns (x_opt (E, R), e_new (E,)) of H - offset I."""
         dtype = starts.dtype
         re0, im0 = (p.to(dtype).reshape(-1, 1, p.shape[-1])
                     for p in (p0re, p0im))
-        noisy = self.noise_mode != "none"
+        noisy = self._noisy()
 
-        def energy(x, tape, tag):
-            gen = self._noise_generator(seed, tag) if noisy else None
+        def energy(x, tape, tag, at):
+            noise = None if draws is None else draws[at]
+            gen = (self._noise_generator(seed, tag)
+                   if noisy and draws is None else None)
             return self._composed_energy(x, tape, re0, im0, h_apply, plain,
-                                         gen)
+                                         gen, noise)
 
         x = starts.clone()
         m = torch.zeros_like(x)
@@ -384,7 +428,7 @@ class AngleOptimizer:
         for it in range(iters):
             xg = x.detach().requires_grad_()
             with torch.enable_grad():
-                ev = energy(xg, old, it)
+                ev = energy(xg, old, it, it)
                 g, = torch.autograd.grad(ev.sum(), xg)
             ev = ev.detach()
             g = g * active
@@ -397,7 +441,7 @@ class AngleOptimizer:
             x = x - lr * (m / (1 - B1 ** t)) / (
                 torch.sqrt(v / (1 - B2 ** t)) + EPS)
         with torch.no_grad():
-            ev = energy(x, old, iters)
+            ev = energy(x, old, iters, iters)
             better = ev < be
             bx = torch.where(better[..., None], x, bx)
             be = torch.where(better, ev, be)
@@ -407,14 +451,16 @@ class AngleOptimizer:
             x_new = torch.where(mi >= 0, x_opt.gather(1, mi.clamp(min=0)),
                                 0.0)
             e_new = energy(x_new[:, None, :], new,
-                           iters + 1 if enew_tag is None else enew_tag)
+                           iters + 1 if enew_tag is None else enew_tag,
+                           iters + 1)
         return x_opt, e_new[:, 0]
 
     def fused_step_batch(self, psi0, old_arrs_b, x0_b, n_active_b,
                          new_arrs_b, map_idx_b):
         """One env step for B env replicas in one device call (the fused
         engines) or one forward and one adjoint launch per Adam iteration
-        (the composed engine).
+        (the composed engine; on the card one replay of its graph,
+        ``composed_graph``).
 
         psi0: complex tensor on the optimizer's device, (D,) shared by the
         batch or (B, D) one per env (block-coordinate trainable mode);
@@ -453,10 +499,15 @@ class AngleOptimizer:
                 tape_ops.check_tapes(*tape, self.pauli.n_qubits, r)
             seed = int(torch.randint(0, 2**31 - 1, (1,),
                                      generator=self.generator, device=dev))
-            x_opt, e_new = self._fused_step_composed(
-                old, new, ints(map_idx_b), p0re, p0im,
-                self._h_apply(self.rdtype), starts, active[:, None, :],
-                iters=self.iters, lr=self.lr, seed=seed)
+            args = (old, new, ints(map_idx_b), p0re, p0im)
+            kw = dict(iters=self.iters, lr=self.lr, seed=seed)
+            if dev.type == "cuda":
+                x_opt, e_new = self.composed_graph()(
+                    *args, starts, active[:, None, :], **kw)
+            else:
+                x_opt, e_new = self._fused_step_composed(
+                    *args, self._h_apply(self.rdtype), starts,
+                    active[:, None, :], **kw)
             return (x_opt.cpu().numpy(),
                     e_new.cpu().numpy().astype(np.float64) + self.offset,
                     self.iters * self.n_starts)
@@ -478,6 +529,139 @@ class AngleOptimizer:
         return (x_opt.cpu().numpy(),
                 e_new.cpu().numpy().astype(np.float64) + self.offset,
                 self.iters * self.n_starts)
+
+    def composed_graph(self) -> "ComposedGraph":
+        """This optimizer's graph of the composed step (made at first
+        use)."""
+        if self._graph is None:
+            self._graph = ComposedGraph(self)
+        return self._graph
+
+
+class ComposedGraph:
+    """The composed step (``AngleOptimizer._fused_step_composed``) as one
+    CUDA graph per shape key, the port's counterpart of the JAX package's
+    ``lax.scan`` under ``jit``: 100 Adam iterations, each a B3f launch,
+    the energy, the autograd adjoint (B3b) and the Adam update, then the
+    re-check, the argmin, the remap and e_new, replayed with one host
+    call.
+
+    Call it as the step (without ``h_apply``, the optimizer's own
+    ``_h_apply``).  The first call at a key copies its inputs into static
+    buffers, runs the step eagerly on them on a side stream -- the
+    warm-up capture needs, whose result it returns -- and captures the
+    same step on the same buffers.  Every later call at that key copies
+    its inputs (the tapes, the map, the psi0 planes, the starts, active)
+    and its noise realizations into the buffers, replays the graph and
+    returns clones of its outputs.  The realizations are drawn before the
+    replay by ``predraw_noise`` (host generators would be frozen into a
+    graph), so a replay gives the eager kernel path's x_opt and e_new bit
+    for bit under every noise mode.  The key: E, S, G, R, D, psi0 rows,
+    iters, lr, dtype, noise mode, n_traj, n_shots.  A replay launches
+    kernels without the wrappers' Python, so it adds the tape-kernel
+    launches its capture recorded to their counters.  A capture or a
+    replay that fails raises: nothing falls back to the eager loop."""
+
+    def __init__(self, opt: AngleOptimizer):
+        self.opt = opt
+        self.entries = {}
+        self.captures = 0
+
+    def key(self, old, p0re, starts, iters: int, lr: float):
+        o = self.opt
+        return (*starts.shape, old[0].shape[-1], *p0re.shape, iters,
+                float(lr), starts.dtype, o.noise_mode, o.n_traj, o.n_shots)
+
+    def __call__(self, old, new, map_idx, p0re, p0im, starts, active, *,
+                 iters: int, lr: float, seed: int = 0,
+                 enew_tag: int | None = None):
+        inputs = (*old, *new, map_idx, p0re, p0im, starts, active)
+        reals = self.opt.predraw_noise(old[0], new[0], *starts.shape[:2],
+                                       iters=iters, seed=seed,
+                                       enew_tag=enew_tag)
+        key = self.key(old, p0re, starts, iters, lr)
+        entry = self.entries.get(key)
+        if entry is not None:
+            entry["load"](inputs, reals)
+            return tuple(t.clone() for t in entry["replay"]())
+        static = [t.clone() for t in inputs]
+        noise = _noise_buffers(reals, iters)
+        h_apply = self.opt._h_apply(starts.dtype)
+
+        def run():
+            o_, n_ = static[:4], static[4:8]
+            return self.opt._fused_step_composed(
+                o_, n_, *static[8:11], h_apply, *static[11:], iters=iters,
+                lr=lr, draws=None if noise is None else noise["draws"])
+
+        def load(inputs, reals):
+            for dst, src in zip(static, inputs):
+                dst.copy_(src)
+            if noise is not None:
+                noise["fill"](reals)
+        first, replay = self._record(run)
+        self.entries[key] = {"load": load, "replay": replay,
+                             "keep": (static, noise, h_apply)}
+        self.captures += 1
+        return first
+
+    def _record(self, run):
+        """``run`` eagerly on a side stream (the warm-up), then captured:
+        -> (the warm-up's outputs, a function that replays the graph and
+        returns its static outputs)."""
+        dev = self.opt.device
+        if dev.type != "cuda":
+            raise ValueError(f"ComposedGraph: CUDA graphs need a CUDA "
+                             f"device, not {dev}")
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            first = run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        first = tuple(t.clone() for t in first)
+        counters = (tape_ops.apply_tape_fwd, tape_ops.apply_tape_bwd)
+        before = [k.launches for k in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run()
+        # a capture records its launches without running them
+        per_replay = [k.launches - b for k, b in zip(counters, before)]
+        for k, b in zip(counters, before):
+            k.launches = b
+
+        def replay():
+            graph.replay()
+            for k, n in zip(counters, per_replay):
+                k.launches += n
+            return out
+        return first, replay
+
+
+def _noise_buffers(reals, iters: int):
+    """Static buffers for a step's pre-drawn realizations (``reals``, as
+    ``predraw_noise`` returns them; None without noise): {"draws": the
+    per-tag views a captured step reads, "fill": copies new realizations
+    in}.  Depolarizing: (iters + 2, n_traj, E, G) k_t and k_c; shot noise:
+    (iters + 2, E, S) offsets, e_new's in column 0 of the last row."""
+    if reals is None:
+        return None
+    if isinstance(reals[0], tuple):
+        bufs = [torch.stack([r[i] for r in reals]) for i in (0, 1)]
+        draws = [(bufs[0][a], bufs[1][a]) for a in range(iters + 2)]
+
+        def fill(reals):
+            for i, buf in enumerate(bufs):
+                torch.stack([r[i] for r in reals], out=buf)
+    else:
+        buf = torch.zeros((iters + 2, *reals[0].shape),
+                          dtype=reals[0].dtype, device=reals[0].device)
+        draws = [buf[a] for a in range(iters + 1)] + [buf[iters + 1, :, :1]]
+
+        def fill(reals):
+            buf[:iters + 1].copy_(torch.stack(reals[:-1]))
+            draws[-1].copy_(reals[-1])
+        fill(reals)
+    return {"draws": draws, "fill": fill}
 
 
 def composed_step(opt: AngleOptimizer, plain: bool = False):

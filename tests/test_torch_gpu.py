@@ -48,15 +48,20 @@ and G != R: v1 at H2O 8q (G = 172, R = 151; noisy at the _noise config),
 v2 at LiH 12q (G = 244, R = 211).
 
 The composed engine's tape kernels (B3f forward, B3b adjoint,
-``ops/apply_tape.py``) are held to their plain versions at 5, 8, 10, 12,
-13 (state in shared memory) and 14 qubits (global memory): forward
-planes within 1e-5, the psi0 cotangents and angle gradients within 1e-4
-(float32 row sums in another order); RYY's sign flipped and RZZ's
-gradient dropped must exceed them; two launches agree bit for bit;
-more than 16 qubits is refused.  The composed step (``AngleOptimizer``
-through the kernels against itself on the plain versions, 3 iterations,
-``agreement``) runs for su4 tapes, shot noise (1024 shots) and
-depolarizing noise over 4 trajectories, under the same tagged draws."""
+``ops/apply_tape.py``) are held to their plain versions at 1-9 qubits
+(the register kernels) and at 10, 12, 13 (the first design, state in
+shared memory) and 14 qubits (global memory): forward planes within 1e-5,
+the psi0 cotangents and angle gradients within 1e-4 (float32 row sums in
+another order); RYY's sign flipped and RZZ's gradient dropped must exceed
+them; two launches agree bit for bit; the first design forced at 1, 5, 8
+and 9 qubits meets the same tolerances; more than 16
+qubits is refused; the register kernels show no spills in ptxas' report.
+The composed step (``AngleOptimizer`` through the kernels against itself
+on the plain versions, 3 iterations, ``agreement``) runs for su4 tapes,
+shot noise (1024 shots) and depolarizing noise over 4 trajectories, under
+the same tagged draws; its CUDA graph (``ComposedGraph``) gives the eager
+kernel path's result bit for bit on three batches through one capture,
+the second on other tapes, and counts each replay's launches."""
 
 import numpy as np
 import pytest
@@ -666,6 +671,8 @@ def _tape_case(dev, n, n_env=8, s_n=4, n_gates=30, seed=0):
     rng = np.random.default_rng(seed)
     pool = (*SU4, GateKind.CX, GateKind.H, GateKind.Y, GateKind.X,
             GateKind.Z)
+    if n == 1:                          # one qubit: no pairs
+        pool = (*SU4[3:], GateKind.H, GateKind.Y, GateKind.X, GateKind.Z)
     g_cap = n_gates + 2
     arrs = [np.zeros((n_env, g_cap), np.int32) for _ in range(2)]
     arrs += [np.full((n_env, g_cap), -1, np.int32) for _ in range(2)]
@@ -675,7 +682,7 @@ def _tape_case(dev, n, n_env=8, s_n=4, n_gates=30, seed=0):
             k = pool[g % len(pool)] if g < len(pool) else \
                 pool[int(rng.integers(len(pool)))]
             t = int(rng.integers(n))
-            c = int((t + 1 + rng.integers(n - 1)) % n)
+            c = int((t + 1 + rng.integers(n - 1)) % n) if n > 1 else -1
             ctrl = k in (GateKind.CX, *SU4[:3]) or (
                 k == GateKind.RY and g % 5 == 0)
             arrs[0][e, g], arrs[1][e, g] = int(k), t
@@ -702,11 +709,12 @@ def _max_err(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [5, 8, 10, 12, 13, 14])
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 13, 14])
 def test_tape_kernels_match_plain_versions(n):
-    """B3f and B3b against their plain versions (state in shared memory up
-    to 13 qubits, in global memory at 14); two wrong results must fail
-    the same tolerances: RYY's sign flipped, RZZ's gradient dropped."""
+    """B3f and B3b against their plain versions (the register kernels up
+    to 9 qubits; the first design's state in shared memory up to 13
+    qubits, in global memory at 14); two wrong results must fail the same
+    tolerances: RYY's sign flipped, RZZ's gradient dropped."""
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
 
     dev = _card()
@@ -737,7 +745,50 @@ def test_tape_kernels_match_plain_versions(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [8, 14])
+@pytest.mark.parametrize("n", [1, 5, 8, 9])
+def test_register_tape_kernels_variants(n):
+    """The register kernels at 1 qubit (no pairs) and beside their
+    variants: the adjoint without psi0 cotangents gives the same angle
+    gradients, and the first design forced at the same width meets the
+    plain versions' tolerances."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    dev = _card()
+    planes, tape, angles, cot = _tape_case(dev, n, seed=2)
+    lib = at._library()
+    out = at.run_fwd(lib, *planes, tape, angles)
+    grads = at.run_bwd(lib, *out, *cot, tape, angles)
+    out_p = at.apply_tape_fwd_plain(*planes, *tape, angles)
+    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *tape, angles)
+    assert _max_err(out, out_p) <= TOL_FWD
+    assert _max_err(grads, grads_p) <= TOL_BWD
+    lean = at.run_bwd(lib, *out, *cot, tape, angles, psi0_grad=False)
+    assert torch.equal(lean[2], grads[2])
+    first = at.run_fwd(lib, *planes, tape, angles, design=at.DESIGN_FIRST)
+    first_g = at.run_bwd(lib, *first, *cot, tape, angles,
+                         design=at.DESIGN_FIRST)
+    torch.cuda.synchronize()
+    assert _max_err(first, out_p) <= TOL_FWD
+    assert _max_err(first_g, grads_p) <= TOL_BWD
+
+
+@pytest.mark.gpu
+def test_register_tape_kernels_do_not_spill():
+    """ptxas' report of the tape kernels' build: 0 bytes of spills in
+    every register kernel."""
+    from tensorrl_qas_tpu_torch.ops.build import build
+
+    _card()
+    lines = build("apply_tape")["log"].splitlines()
+    reports = [(ln, nxt) for ln, nxt in zip(lines, lines[1:])
+               if "Function properties for" in ln and "reg_kernel" in ln]
+    assert len(reports) == 4              # fwd and bwd at RB = 3 and 4
+    for ln, nxt in reports:
+        assert "0 bytes spill stores, 0 bytes spill loads" in nxt, ln
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [5, 8, 9, 14])
 def test_tape_kernels_are_deterministic(n):
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
 
@@ -833,3 +884,34 @@ def test_composed_step_kernels_match_plain_versions(mode):
     wrong, _, _ = fused_adam.agreement(args, ref, xw, ew, tol=1e-5,
                                        step=plain, iters=3, **noise)
     assert not bool(wrong.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["su4", "shot", "traj4"])
+def test_composed_graph_replays_the_eager_kernel_path(mode):
+    """The composed step's CUDA graph against the eager kernel path, bit
+    for bit, on three batches through one capture (the first the warm-up,
+    the second a replay on other tapes, the third a replay on the first
+    batch's), each replay adding its 5 / 3 launches to the counters."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    dev = _card()
+    kw = {"su4": dict(enable_2q=True),
+          "shot": dict(noise_mode="shot", n_shots=1024),
+          "traj4": dict(noise_mode="depolarizing", n_traj=4)}[mode]
+    batches = [_composed_args(dev, su4=mode == "su4", seed=s)
+               for s in (0, 1)]
+    opt = AngleOptimizer(batches[0][0], device=dev, **kw)
+    graph = opt.composed_graph()
+    h_apply = opt._h_apply(torch.float32)
+    for i, (b, seed) in enumerate(((0, 11), (1, 12), (0, 13))):
+        args = batches[b][1]
+        before = (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches)
+        xg, eg = graph(*args, iters=3, lr=0.1, seed=seed)
+        torch.cuda.synchronize()
+        assert (at.apply_tape_fwd.launches - before[0],
+                at.apply_tape_bwd.launches - before[1]) == (5, 3), i
+        xe, ee = opt._fused_step_composed(*args[:5], h_apply, *args[5:],
+                                          iters=3, lr=0.1, seed=seed)
+        assert torch.equal(xg, xe) and torch.equal(eg, ee), i
+    assert graph.captures == 1
