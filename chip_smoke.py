@@ -9,10 +9,13 @@ the composed engine with the su4 gate set and with shot noise.
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
                                       # and the tape kernels' by gate class)
     python3 chip_smoke.py --composed  # the composed engine's alone (19.-21.)
+    python3 chip_smoke.py --band      # the 13-18q band's split alone (in
+                                      # 5b.), to compare two checkouts
 
 The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
 cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.)
-and in its first design at 17-18.
+and in 2^(n - 12) CTAs in clusters that trade through global memory at
+17-18 (the group kernel, 6d.-6e.).
 
 Phases, one line each with its seconds:
 
@@ -61,18 +64,19 @@ Phases, one line each with its seconds:
                  controls and timing; then a 3-iteration sweep over the
                  rest of the 10-18-qubit band: H2O 10q (E = 64), Heisenberg
                  14q (E = 64, the 14q trainer's shape) and 16q (E = 4) --
-                 the cluster kernel, with the controls, every launch
-                 through it -- and 18q (E = 2, the first design, its state
-                 in global memory).
+                 the cluster kernel -- and the 17q open Heisenberg chain
+                 and 18q Heisenberg (E = 2) -- the group kernel --, with
+                 the controls, every launch through the band's kernel.
 5b. split      -- (``--split`` only) where a v2 launch's time goes: 100
                  iterations at the 12q LiH shapes with every gate kNone
                  (also with 2 of the 16 envs), at half and at the full
                  tape capacity (the cost of a tape slot), and at 10q H2O
                  (E = 64) and 14q Heisenberg (E = 8); the 13-18q band (13q
                  chain E = 8, 14q E = 8 and 64, 16q E = 4 and 16: the
-                 cluster kernel; 18q E = 2: the first design) with kernel
-                 ms, device ms and bounds.  With ``--split`` the
-                 script runs only 3b. and this phase, a split by gate class
+                 cluster kernel; 17q chain and 18q E = 2: the group kernel)
+                 with kernel ms, device ms and bounds, and the group kernel
+                 there in clusters of 2, 4, 8 and 16 CTAs.  With ``--split``
+                 the script runs only 3b. and this phase, a split by gate class
                  (synthetic tapes of one gate class each, at 100 and 0
                  iterations, with the swaps the schedule puts in), v2 at
                  the trainable capacities and v2n timed the same way, and
@@ -98,6 +102,23 @@ Phases, one line each with its seconds:
                  steps (n_step 5: 64 x 16 transitions pass batch 1000 and
                  replay runs), traced; every step through the cluster
                  kernel.
+6d. kernel v2 group -- the group kernel (fused_adam_v2_group) at 18q
+                 Heisenberg (E = 2, S = 8, G = R = 46, 64 CTAs a start in
+                 clusters of 2) held to its plain version at 3 iterations
+                 with the two controls (100 iterations in 22. when the time
+                 allows), every launch through the group kernel, and its
+                 times and bound; ``cudaOccupancyMaxActiveClusters`` at
+                 17q and 18q for clusters of 2-16; at the 18q trainer's
+                 shape (E = 8, S = 4) and on the 17q open chain (E = 2, 32
+                 CTAs a start) with the controls; the noise variant at the
+                 trainer's shape with the three; at 18q two launches bit
+                 for bit, p = 0 against the noiseless kernel, identical
+                 psi0 rows against the shared plane.
+6e. trainer v2 18q -- the trainer on configs/TensorRL_fixed/
+                 heisenberg_18q_TNbond2.cfg with 8 replicas (the config's
+                 n_starts = 4) for 20 vector steps, traced; every step
+                 through the group kernel; replay does not start (8 x 16
+                 transitions < batch 1000).
 7. kernel v1 5q -- the v1 kernel below 8 qubits (the CLI's default config,
                  heisenberg_5q_TNbond2, E = 64) at 3 iterations, with the
                  controls.
@@ -190,12 +211,13 @@ Phases, one line each with its seconds:
                  the composed step's graph (the first its warm-up and
                  capture): every vector step launches B3f iters + 2 times
                  and B3b iters times, and no fused kernel.
-22. the 100-iteration checks of 6b., 8. and 12., each when enough of
-                 the deadline is left (``LONG_MIN_LEFT_S``).
+22. the 100-iteration checks of 6b., 6d., 8. and 12., each when enough
+                 of the deadline is left (``LONG_MIN_LEFT_S``).
 
 The line before the last is a JSON object with one entry per kernel
-variant (v1, v1 noise, v2, v2 noise, the v2 cluster kernel, v1 and v2
-per-env psi0, the tape kernels' forward and adjoint); the last line is
+variant (v1, v1 noise, v2, v2 noise, the v2 cluster and group kernels,
+v1 and v2 per-env psi0, the tape kernels' forward and adjoint); the last
+line is
 {"ok": true, "device":
 {...}}.  Any failure, or passing the deadline, exits non-zero without that
 line.
@@ -259,8 +281,8 @@ TOL_P0 = 1e-6            # noise variant at p = 0 vs the noiseless kernel
 # the optional 100-iteration checks of the noise variants (run last, in
 # this order) run when this much of the deadline is left, about twice
 # what they took on the H100: v1n's 67-101 s, v2n's 92 s
-LONG_MIN_LEFT_S = {"fused_adam_v2_cluster": 90, "fused_adam_v1_noise": 200,
-                   "fused_adam_v2_noise": 300}
+LONG_MIN_LEFT_S = {"fused_adam_v2_cluster": 90, "fused_adam_v2_group": 110,
+                   "fused_adam_v1_noise": 200, "fused_adam_v2_noise": 300}
 # the split phase's shapes besides 12q LiH: 10q and 14q (the cluster
 # kernel)
 SPLIT_SHAPES = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8))
@@ -271,19 +293,30 @@ SPLIT_SHAPES = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8))
 # > 1000 and replay runs (16 steps would leave 768)
 V2C_CONFIG, V2C_ENVS, V2C_TRAINER_ENVS, V2C_STEPS = (
     "heisenberg_14q_TNbond2", 8, 64, 20)
-# the rest of the band at 3 iterations: (config, envs); 14q (at the 14q
-# trainer's 64 replicas) and 16q run the cluster kernel (held with the
-# controls), 18q the first design
+# the rest of the band at 3 iterations: (config, or the qubits of an open
+# Heisenberg chain, envs); 14q (at the 14q trainer's 64 replicas) and 16q
+# run the cluster kernel, 17q and 18q the group kernel (held with the
+# controls, every launch through the band's kernel)
+V2G_CONFIG = "heisenberg_18q_TNbond2"
 SWEEP = (("H2O10q_TNbond2", 64), (V2C_CONFIG, V2C_TRAINER_ENVS),
-         ("heisenberg_16q_TNbond2", 4), ("heisenberg_18q_TNbond2", 2))
-# no config ships for 13 qubits: an open Heisenberg chain from its Pauli
-# strings at the 14q config's capacity (clusters of 2 CTAs)
+         ("heisenberg_16q_TNbond2", 4), (17, 2), (V2G_CONFIG, 2))
+# no config ships for 13 or 17 qubits: an open Heisenberg chain from its
+# Pauli strings at the 14q config's capacity (clusters of 2 CTAs at 13q)
 CHAIN_QUBITS, CHAIN_ENVS, CHAIN_CAP = 13, 8, 46
-# --split: the 13-18q band, (config or None for the 13q chain, envs): the
-# cluster kernel at 13-16q, the first design at 18q
-BAND_SPLIT = ((None, 8), ("heisenberg_14q_TNbond2", 8),
+# --split: the 13-18q band, (config or chain qubits, envs): the cluster
+# kernel at 13-16q, the group kernel at 17-18q
+BAND_SPLIT = ((CHAIN_QUBITS, 8), ("heisenberg_14q_TNbond2", 8),
               ("heisenberg_14q_TNbond2", 64), ("heisenberg_16q_TNbond2", 4),
-              ("heisenberg_16q_TNbond2", 16), ("heisenberg_18q_TNbond2", 2))
+              ("heisenberg_16q_TNbond2", 16), (17, 2), (V2G_CONFIG, 2))
+# the group kernel (17-18 qubits, a start of 2^(n - 12) CTAs in clusters
+# that trade through global memory): checked and timed at 18q Heisenberg
+# with E = 2 (S = 8), checked at the 18q trainer's shape (E = 8, the
+# config's n_starts = 4) and on the 17q chain (E = 2); its trainer with 8
+# replicas (root bench.py's ROWS[18]) for 20 vector steps, too few for
+# replay to start (8 x 16 transitions < batch 1000; the 14q trainer runs
+# it); --split times its cluster sizes against each other
+V2G_ENVS, V2G_TRAINER_ENVS, V2G_STARTS, V2G_STEPS = 2, 8, 4, 20
+GROUP_CLUSTERS = (2, 4, 8, 16)
 TOL_ITERS3 = 1e-5        # x_opt and e_new after 3 Adam iterations
 TOL_ITERS100 = 1e-4      # e_new (Ha) after 100 iterations: f32 summation
 #                          order perturbs the Adam trajectories
@@ -411,20 +444,22 @@ class Engine(NamedTuple):
         """This variant's launches since the wrapper's counts were set to
         0 (a launch that were noisy and per-env would count in both of
         those and make the plain count negative: none is expected).  The
-        cluster kernel's launches (13-16 qubits) count among v2's too."""
+        cluster kernel's launches (13-16 qubits) and the group kernel's
+        (17-18) count among v2's too."""
         if self.variant == "noise":
             return self.step.noise_launches
         if self.variant == "psi0":
             return self.step.psi0_launches
-        if self.variant == "cluster":
-            return self.step.cluster_launches
+        if self.variant in ("cluster", "group"):
+            # 0 in a checkout from before that kernel (--split's parent)
+            return getattr(self.step, f"{self.variant}_launches", 0)
         return (self.step.launches - self.step.noise_launches
                 - self.step.psi0_launches)
 
     def reset(self):
         """Set the wrapper's launch counts to 0."""
         for key in ("launches", "noise_launches", "psi0_launches",
-                    "cluster_launches"):
+                    "cluster_launches", "group_launches"):
             if hasattr(self.step, key):
                 setattr(self.step, key, 0)
 
@@ -444,6 +479,8 @@ REPLACES = {
                     "(_make_kernel, per_env_psi0=True)",
     ("v2", "cluster"): "tensorrl_qas_tpu/ops/pallas_opt2d.py:160 "
                        "(_make_kernel at 13-16 qubits, call :854)",
+    ("v2", "group"): "tensorrl_qas_tpu/ops/pallas_opt2d.py:160 "
+                     "(_make_kernel at 17-18 qubits, call :854)",
     ("tape", "fwd"): "tensorrl_qas_tpu/ops/pallas_apply.py:473 "
                      "(_fwd_kernel, via _call_fwd :559)",
     ("tape", "bwd"): "tensorrl_qas_tpu/ops/pallas_apply.py:502 "
@@ -462,16 +499,17 @@ COMPOSED = Engine(
 
 def engines():
     """(v1, v1 noise, v2, v2 noise, v1 per-env psi0, v2 per-env psi0, v2
-    cluster).  Both kernels take the flip-group planes; "v2 cluster" is
-    v2's wrapper counted by its cluster kernel's launches (13-16 qubits)."""
+    cluster, v2 group).  Both kernels take the flip-group planes; "v2
+    cluster" and "v2 group" are v2's wrapper counted by its cluster
+    kernel's launches (13-16 qubits) and its group kernel's (17-18)."""
     from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
 
     v2 = fused_adam2d._library
     out = {}
-    for variant in ("", "noise", "psi0", "cluster"):
+    for variant in ("", "noise", "psi0", "cluster", "group"):
         suffix = f"_{variant}" if variant else ""
         noise = variant == "noise"
-        if variant != "cluster":
+        if variant not in ("cluster", "group"):
             out["v1" + variant] = Engine(
                 name="fused_adam_v1" + suffix,
                 replaces=REPLACES["v1", variant],
@@ -493,7 +531,8 @@ def engines():
                                               case.args[7].numel(), noise),
             h_flops=flip_h_flops)
     return tuple(out[k] for k in ("v1", "v1noise", "v2", "v2noise",
-                                  "v1psi0", "v2psi0", "v2cluster"))
+                                  "v1psi0", "v2psi0", "v2cluster",
+                                  "v2group"))
 
 
 def flip_h_flops(case):
@@ -533,10 +572,12 @@ class Case:
     composed engine's noisy settings set ``noise_kw`` to their seed and
     ``has_oracle`` to False afterwards.  ``caps=(G, R)`` overrides the
     env's capacities.  ``pauli`` (a PauliSum, with ``caps``) stands in for
-    a config: that Hamiltonian on its own, noiseless."""
+    a config: that Hamiltonian on its own, noiseless.  ``n_starts``: the
+    starts an env (S)."""
 
     def __init__(self, engine, config, n_env, family=FIXED,
-                 gate_set="cnot", caps=None, pauli=None, seed=1234):
+                 gate_set="cnot", caps=None, pauli=None, seed=1234,
+                 n_starts=STARTS):
         import types
 
         import numpy as np
@@ -554,7 +595,7 @@ class Case:
 
         dev = torch.device("cuda")
         in_state = family != FIXED
-        self.n_env = n_env
+        self.n_env, self.s = n_env, n_starts
         prefix = None
         if pauli is not None:
             self.n = n = pauli.n_qubits
@@ -593,8 +634,9 @@ class Case:
         active = (torch.arange(r, device=dev)[None, :]
                   < torch.as_tensor(n_rots, device=dev)[:, None]).float()
         gen = torch.Generator(device=dev).manual_seed(7)
-        starts = make_multistarts(torch.as_tensor(x0, **f32), active, STARTS,
-                                  STARTS // 4, 0.1, gen).contiguous()
+        starts = make_multistarts(torch.as_tensor(x0, **f32), active,
+                                  n_starts, n_starts // 4, 0.1,
+                                  gen).contiguous()
         self.args = (tuple(ints(a) for a in self.old),
                      tuple(ints(a) for a in self.new), ints(self.maps),
                      torch.as_tensor(self.psi0.real, **f32),
@@ -808,13 +850,13 @@ def flop_count(case, h_flops):
     rot = (GateKind.RX, GateKind.RY, GateKind.RZ)
     dim = 1 << case.n
     fwd, bwd = gate_tables()
-    evals = (ITERS + 1) * STARTS          # iterations and the final check
+    evals = (ITERS + 1) * case.s          # iterations and the final check
     n_rot = np.isin(case.old[0], rot).sum(axis=1)
     per_env = (evals * tape_flops(case.old, dim, fwd)
-               + ITERS * STARTS * tape_flops(case.old, dim, bwd)
+               + ITERS * case.s * tape_flops(case.old, dim, bwd)
                + tape_flops(case.new, dim, fwd)
                + (evals + 1) * (h_flops + dim * 8)
-               + ITERS * STARTS * (dim * 2 + n_rot * 12))
+               + ITERS * case.s * (dim * 2 + n_rot * 12))
     return float(per_env.sum())
 
 
@@ -1027,27 +1069,53 @@ def split_v2(v2):
                        tuple((c, e, FIXED) for c, e in SPLIT_SHAPES), few=2)
 
 
-def cluster_size(n):
-    """CTAs a start takes at n qubits in the cluster kernel (0: another
-    kernel runs it)."""
+def band(n):
+    """(the v2 kernel that runs n qubits -- "cluster" at 13-16, "group" at
+    17-18, None below --, CTAs in one of its clusters)."""
     from tensorrl_qas_tpu_torch.ops import fused_adam2d
 
-    return fused_adam2d._library().fused_adam_v2_cluster_size(n)
+    lib = fused_adam2d._library()
+    if not hasattr(lib, "fused_adam_v2_group_band"):
+        # a checkout from before the group kernel (--split's parent)
+        size = lib.fused_adam_v2_cluster_size(n)
+        return ("cluster" if size else None), size
+    size = lib.fused_adam_v2_cluster_size(n, 0)
+    if not size:
+        return None, 0
+    return ("group" if lib.fused_adam_v2_group_band(n) else "cluster"), size
+
+
+def band_case(engine, config, n_env, **kw):
+    """A Case of ``config``, or of the open Heisenberg chain on that many
+    qubits (an int) at CHAIN_CAP."""
+    if isinstance(config, int):
+        return chain_case(engine, n_env, config, **kw)
+    return Case(engine, config, n_env, **kw)
+
+
+def band_label(config):
+    return f"{config}q chain" if isinstance(config, int) else config
 
 
 def split_band(v2):
     """``--split``: v2 across the 13-18q band (``BAND_SPLIT``: the 13q
     chain, 14q at E = 8 and 64, 16q at E = 4 and 16 -- the cluster kernel
-    -- and 18q at E = 2 -- the first design) at 100 iterations, kernel ms
-    (CUDA events), device ms (profiler) and the bound, so that a parent
-    checkout, whose first design runs all of these shapes, compares with
-    this one in the same call."""
+    -- and the 17q chain and 18q at E = 2 -- the group kernel) at 100
+    iterations, kernel ms (CUDA events), device ms (profiler) and the
+    bound, so that a parent checkout compares with this one in the same
+    call; then the group kernel at 17q and 18q in clusters of 2, 4, 8 and
+    16 CTAs (``run_kernel``'s ``group_cluster``, uncounted), kernel ms and
+    how many clusters the card holds."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam2d
+
     t0 = phase("split 13-18q band")
-    ms, dev, bounds = {}, {}, {}
+    ms, dev, bounds, cases = {}, {}, {}, {}
     for config, n_env in BAND_SPLIT:
-        case = (chain_case(v2, n_env) if config is None
-                else Case(v2, config, n_env))
-        key = f"{config or f'{CHAIN_QUBITS}q chain'} E={n_env} G={case.g}"
+        case = band_case(v2, config, n_env)
+        key = f"{band_label(config)} E={n_env} G={case.g}"
+        cases[key] = case
 
         def run():
             return v2.step(*case.args, iters=ITERS, lr=LR)
@@ -1058,32 +1126,55 @@ def split_band(v2):
         bounds[key] = f"{b_ms:.4f} ({b_by})"
     done("split 13-18q band", t0, iters=ITERS, S=STARTS, kernel_ms=ms,
          device_ms=dev, bound_ms=bounds)
+    lib = fused_adam2d._library()
+    if not hasattr(lib, "fused_adam_v2_group_band"):
+        print("[split group clusters] skipped: no group kernel in this "
+              "checkout", flush=True)
+        return
+    t0 = phase("split group clusters")
+    stream = torch.cuda.current_stream().cuda_stream
+    by = {}
+    for key, case in cases.items():
+        if band(case.n)[0] != "group":
+            continue
+        smem = lib.fused_adam_v2_smem_bytes(case.g, case.r, case.n,
+                                            case.args[7].numel(), 0)
+        for size in GROUP_CLUSTERS:
+            held = lib.fused_adam_v2_cluster_occupancy(case.n, smem, size)
+            k_ms = time_cuda(lambda: fused_adam2d.run_kernel(
+                lib, *case.args, iters=ITERS, lr=LR, noise=None, seeds=None,
+                stream=stream, group_cluster=size), warmup=1, reps=5)
+            by[f"{key} C={size}"] = f"{k_ms:.4f} ms, {held} clusters at once"
+    done("split group clusters", t0, iters=ITERS, S=STARTS, kernel_ms=by)
 
 
 def sweep_phase(engine, sweep=SWEEP):
-    """3 iterations over the band; where the cluster kernel runs, with
-    the controls and its launch count checked."""
+    """3 iterations over the band; where the cluster or group kernel
+    runs, with the controls and its launch count checked."""
     for config, n_env in sweep:
-        case = Case(engine, config, n_env)
-        size = cluster_size(case.n)
-        check_cluster(engine, case, f"sweep {config} E={n_env}", 3,
-                      TOL_ITERS3, case.controls() if size else (), size)
+        case = band_case(engine, config, n_env)
+        check_band(engine, case, f"sweep {band_label(config)} E={n_env}", 3,
+                   TOL_ITERS3,
+                   case.controls() if band(case.n)[0] else ())
 
 
-def check_cluster(engine, case, label, iters, tol, controls, size):
-    """``check_kernel``, and where ``size`` > 0 every launch of it (the
-    controls' too) through the cluster kernel of ``size`` CTAs a start."""
-    if not size:
+def check_band(engine, case, label, iters, tol, controls):
+    """``check_kernel``, and, where the cluster or group kernel runs
+    (``band``), every launch of it (the controls' too) through that
+    kernel."""
+    kind, size = band(case.n)
+    if not kind:
         return check_kernel(engine, case, label, iters, tol, controls)
     step = engine.step
-    before = (step.launches, step.cluster_launches)
-    stats = check_kernel(engine, case, f"{label} C={size}", iters, tol,
-                         controls)
+    count = f"{kind}_launches"
+    before = (step.launches, getattr(step, count))
+    stats = check_kernel(engine, case, f"{label} {kind} C={size}", iters,
+                         tol, controls)
     runs = step.launches - before[0]
-    if step.cluster_launches - before[1] != runs:
+    if getattr(step, count) - before[1] != runs:
         raise AssertionError(f"{label}: {runs} launches, "
-                             f"{step.cluster_launches - before[1]} through "
-                             "the cluster kernel")
+                             f"{getattr(step, count) - before[1]} through "
+                             f"the {kind} kernel")
     return stats
 
 
@@ -1103,9 +1194,9 @@ def heisenberg_chain(n):
     return PauliSum.from_strings(strings, np.ones(len(strings)), n)
 
 
-def chain_case(engine, n_env):
+def chain_case(engine, n_env, n=CHAIN_QUBITS, **kw):
     return Case(engine, None, n_env, caps=(CHAIN_CAP, CHAIN_CAP),
-                pauli=heisenberg_chain(CHAIN_QUBITS))
+                pauli=heisenberg_chain(n), **kw)
 
 
 def cluster_phase(v2, v2n, v2p, v2c):
@@ -1117,11 +1208,10 @@ def cluster_phase(v2, v2n, v2p, v2c):
     from tensorrl_qas_tpu_torch.ops import fused_adam2d
 
     case = Case(v2c, V2C_CONFIG, V2C_ENVS)
-    size = cluster_size(case.n)
     print(f"[kernel v2 cluster] {FIXED}{V2C_CONFIG}: E={V2C_ENVS} G={case.g} "
-          f"R={case.r} D={1 << case.n} C={size}", flush=True)
-    stats = check_cluster(v2c, case, "kernel v2 cluster", 3, TOL_ITERS3,
-                          case.controls(), size)
+          f"R={case.r} D={1 << case.n} C={band(case.n)[1]}", flush=True)
+    stats = check_band(v2c, case, "kernel v2 cluster", 3, TOL_ITERS3,
+                       case.controls())
     entry = {"max_abs_err": stats["e_new_max_abs_err"],
              **time_kernel(v2c, case, "kernel v2 cluster")}
     t0 = phase("cluster occupancy")
@@ -1130,16 +1220,58 @@ def cluster_phase(v2, v2n, v2p, v2c):
     for n in (13, 14, 15, 16):
         # Heisenberg's n flip groups (n - 1 bonds and the diagonal)
         smem = lib.fused_adam_v2_smem_bytes(case.g, case.r, n, n, 0)
-        occ[f"C={cluster_size(n)}"] = {
+        occ[f"C={band(n)[1]}"] = {
             "smem_bytes_per_cta": smem,
             "max_active_clusters": lib.fused_adam_v2_cluster_occupancy(
-                n, smem)}
+                n, smem, 0)}
     done("cluster occupancy", t0, G=case.g, R=case.r, occupancy=occ)
     chain = chain_case(v2c, CHAIN_ENVS)
-    check_cluster(v2c, chain, f"kernel v2 cluster {CHAIN_QUBITS}q chain "
-                  f"E={CHAIN_ENVS}", 3, TOL_ITERS3, chain.controls(),
-                  cluster_size(CHAIN_QUBITS))
+    check_band(v2c, chain, f"kernel v2 cluster {CHAIN_QUBITS}q chain "
+               f"E={CHAIN_ENVS}", 3, TOL_ITERS3, chain.controls())
     p0_phase(v2, v2n, V2C_CONFIG, V2C_ENVS, repeat_bit_for_bit=True)
+    psi0_rows_phase(v2, v2p, case)
+    return entry, case
+
+
+def group_phase(v2, v2n, v2p, v2g):
+    """The group kernel (17-18 qubits): at 18q Heisenberg (E = 2, S = 8)
+    held to its plain version with the controls, then timed; how many
+    clusters of 2-16 CTAs the card holds at 17q and 18q; at the 18q
+    trainer's shape (E = 8, S = 4) and on the 17q chain (E = 2) with the
+    controls; the noise variant at the trainer's shape with its three;
+    at 18q two launches bit for bit, p = 0 against the noiseless kernel,
+    identical psi0 rows against the shared plane.  -> (kernels-line
+    entry, the E = 2 case)."""
+    from tensorrl_qas_tpu_torch.ops import fused_adam2d
+
+    case = Case(v2g, V2G_CONFIG, V2G_ENVS)
+    print(f"[kernel v2 group] {FIXED}{V2G_CONFIG}: E={V2G_ENVS} G={case.g} "
+          f"R={case.r} D={1 << case.n} CTAs a start="
+          f"{1 << (case.n - 12)} C={band(case.n)[1]}", flush=True)
+    stats = check_band(v2g, case, "kernel v2 group", 3, TOL_ITERS3,
+                       case.controls())
+    entry = {"max_abs_err": stats["e_new_max_abs_err"],
+             **time_kernel(v2g, case, "kernel v2 group")}
+    t0 = phase("group occupancy")
+    lib = fused_adam2d._library()
+    occ = {}
+    for n in (17, 18):
+        # Heisenberg's n flip groups (n - 1 bonds and the diagonal)
+        smem = lib.fused_adam_v2_smem_bytes(case.g, case.r, n, n, 0)
+        occ[f"{n}q"] = {"smem_bytes_per_cta": smem, **{
+            f"C={c}": lib.fused_adam_v2_cluster_occupancy(n, smem, c)
+            for c in GROUP_CLUSTERS}}
+    done("group occupancy", t0, G=case.g, R=case.r, clusters_at_once=occ)
+    for label, c in (
+            (f"kernel v2 group E={V2G_TRAINER_ENVS} S={V2G_STARTS}",
+             Case(v2g, V2G_CONFIG, V2G_TRAINER_ENVS, n_starts=V2G_STARTS)),
+            (f"kernel v2 group 17q chain E={V2G_ENVS}",
+             chain_case(v2g, V2G_ENVS, 17)),
+            (f"kernel v2n group E={V2G_TRAINER_ENVS} S={V2G_STARTS}",
+             Case(v2n, V2G_CONFIG, V2G_TRAINER_ENVS, n_starts=V2G_STARTS))):
+        check_band(v2n if "v2n" in label else v2g, c, label, 3, TOL_ITERS3,
+                   c.controls())
+    p0_phase(v2, v2n, V2G_CONFIG, V2G_ENVS, repeat_bit_for_bit=True)
     psi0_rows_phase(v2, v2p, case)
     return entry, case
 
@@ -1872,9 +2004,14 @@ def main(argv=()) -> int:
     done("device", t0, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    v1, v1n, v2, v2n, v1p, v2p, v2c = engines()
+    v1, v1n, v2, v2n, v1p, v2p, v2c, v2g = engines()
     if "--composed" in argv:
         composed_phases(Builds(("apply_tape",)))
+        watchdog.cancel()
+        return 0
+    if "--band" in argv:
+        Builds(("fused_adam_v2",)).wait("fused_adam_v2")
+        split_band(v2)
         watchdog.cancel()
         return 0
     if "--split" in argv:
@@ -1907,6 +2044,15 @@ def main(argv=()) -> int:
         v2c, V2C_CONFIG, V2C_TRAINER_ENVS, V2C_STEPS, "trainer v2 14q",
         expect={v2.name: V2C_STEPS, v2c.name: V2C_STEPS},
         profile=True)[v2c.name]
+    # the group kernel (17-18 qubits) and the 18q trainer through it
+    results[v2g], case_v2g = group_phase(v2, v2n, v2p, v2g)
+    print(f"[trainer v2 18q] replay is not reached: {V2G_TRAINER_ENVS} "
+          f"replicas x {V2G_STEPS - 4} transitions < batch 1000 (the 14q "
+          "trainer runs it)", flush=True)
+    results[v2g]["launches"] = trainer_phase(
+        v2g, V2G_CONFIG, V2G_TRAINER_ENVS, V2G_STEPS, "trainer v2 18q",
+        expect={v2.name: V2G_STEPS, v2g.name: V2G_STEPS},
+        expect_replay=False, profile=True)[v2g.name]
     small = Case(v1, *V1_SMALL)
     check_kernel(v1, small, f"kernel v1 {V1_SMALL[0]} E={V1_SMALL[1]}", 3,
                  TOL_ITERS3, small.controls())
@@ -1952,14 +2098,14 @@ def main(argv=()) -> int:
         expect_replay=False, family=TRAINABLE)[v2p.name]
 
     for engine, case, label in ((v2c, case_v2c, "kernel v2 cluster"),
+                                (v2g, case_v2g, "kernel v2 group"),
                                 (v1n, case_v1n, "kernel v1n"),
                                 (v2n, case_v2n, "kernel v2n")):
         left = DEADLINE_S - (time.perf_counter() - t_start)
         need = LONG_MIN_LEFT_S[engine.name]
         if left >= need:
-            size = cluster_size(case.n) if engine is v2c else 0
-            stats = check_cluster(engine, case, label, ITERS, TOL_ITERS100,
-                                  case.controls(), size)
+            stats = check_band(engine, case, label, ITERS, TOL_ITERS100,
+                               case.controls())
             results[engine]["max_abs_err"] = stats["e_new_max_abs_err"]
         else:
             print(f"[{label} iters={ITERS}] skipped: {left:.0f} s of the "

@@ -23,8 +23,8 @@
 // the first start of least energy as x_opt, remaps it onto the new tape
 // (x_new[j] = x_opt[map[j]], map -1 -> 0) and computes e_new = E(new tape,
 // x_new), so an env step is one launch.  Adam's starts are independent
-// until the argmin, so each start gets a CTA of its own: 128 CTAs on 132
-// SMs at 12 qubits, E = 16, S = 8.
+// until the argmin, so each start gets a CTA of its own up to 12 qubits:
+// 128 CTAs on 132 SMs at 12 qubits, E = 16, S = 8; 2^(n - 12) CTAs above.
 //
 // Register kernel (7 <= n <= 12, fused_adam_v2_reg_kernel).  Every thread
 // holds 16 amplitudes of psi, and of lambda in the adjoint, in registers:
@@ -94,16 +94,37 @@
 // deterministic.  Rank 0 writes the start's best and bumps the env's
 // arrival counter; the flag goes to the cluster's CTAs over distributed
 // shared memory, and the last cluster of the env does the tail with all of
-// its CTAs.  At 17-18 qubits a start would need 32 or 64 CTAs, more than a
-// cluster holds (16), so those sizes keep the first design.
+// its CTAs.
 //
-// First design (fused_adam_v2_kernel, 17 <= n <= 18): psi and lambda (16
-// D bytes) live in the CTA's slice of a global workspace (2 or 4 MB a
-// start), reached through L2.  A gate pairs amplitude i0 (target bit 0)
-// with i1 = i0 | 2^t; each of 512
-// threads owns whole pairs, so a gate updates in place and ends with a
-// barrier; H psi is one pass in which thread i sums W_f[i] psi[i ^ f];
-// gradient rows are warp shuffles plus a fixed-order sum by thread 0.
+// Group kernel (17 <= n <= 18, fused_adam_v2_group_kernel).  A start would
+// need 32 or 64 CTAs, more than a cluster holds (16), and no cluster holds
+// an 18-qubit start's psi and lambda (4 MB) on chip.  So a start is 2^(n -
+// 12) of the same register CTAs in clusters of kGroupCluster (2; the
+// launch may ask for up to 16): the rank's low bits are cluster bits, as
+// in the cluster kernel, the bits above them group bits, whose exchanges
+// go through the start slot's area in global memory (L2-resident: 6 MB a
+// start at 18 qubits) behind a start-wide barrier, an arrive counter with
+// release / acquire ordering that only grows (group_sync).  A swap through
+// a group bit writes the CTA's half into the partner's inbox (double-
+// buffered apart from the warp and cluster swaps), one barrier, and reads
+// its own inbox; an X or Y error on a group bit trades whole slices the
+// same way; a control on one is CTA-uniform, as on a cluster bit.  The
+// schedule (build_schedule with `top`, the first group bit) starts the
+// group bits with the qubits targeted last and, at a swap through one,
+// sends out the qubit below them used furthest ahead, taking a warp or
+// cluster swap first where that qubit is not in a register; the op marks
+// the swap (kGroupSwap).  H psi: where a flip reaches a group bit
+// (kFarFlip), every CTA also writes its slice to global memory, one
+// barrier, and such a group reads the partner's slice there.  Energy
+// partials and angle gradients go to global memory, one barrier, and every
+// CTA sums all the start's ranks in rank order, so launches repeat bit for
+// bit.  A barrier over CTAs that are not all resident would hang, so the
+// launch puts on the card only as many starts as it holds whole
+// (`slots`, from cudaOccupancyMaxActiveClusters: 66 clusters of 2 on the
+// H100, two 18-qubit starts or four 17-qubit ones), slot w walks starts
+// w, w + slots, ... in order, and a barrier that waits implausibly long
+// traps.  The argmin, the remap and e_new are the cluster kernel's, done
+// by the slot whose start of the env arrives last.
 //
 // All three kernels: the W planes (read-only, shared by every CTA: 2.75 MB at
 // 12-qubit LiH, 37.7 MB at 18-qubit Heisenberg) are read through __ldg from
@@ -117,8 +138,8 @@
 // mid-episode tapes) that is ~14 MFLOP per start per iteration, ~180 GFLOP
 // per launch for E = 16, S = 8, 100 iterations: about 2.7 ms at the card's
 // 67 TFLOP/s f32 rate; the inputs are a few MB, so operations bound it.
-// One CTA per start is one SM per start (a cluster of 2^(n - 12) SMs from
-// 13 qubits): the register kernel's gate chain
+// One CTA per start is one SM per start (2^(n - 12) SMs from 13 qubits):
+// the register kernel's gate chain
 // is bound by that SM's instruction issue (a gate's FMAs, and the register
 // moves that merging its switch cases takes), H psi by the SM's
 // shared-memory and L1 traffic (psi's partners and W, 48 KB a group at 12
@@ -156,15 +177,24 @@
 #include "philox.cuh"
 #include "regs.cuh"
 
-// The register kernel's and the first design's launches and the dynamic
-// shared memory go through these two macros, so that
-// tests/cuda_emu/cuda_runtime.h, which defines both (and emulates the
-// cluster launch), can run this source on the host.
+// The register kernel's launch and the dynamic shared memory go through
+// these two macros, so that tests/cuda_emu/cuda_runtime.h, which defines
+// both (and emulates the cluster launch), can run this source on the host.
 #ifndef KERNEL_LAUNCH
 #define KERNEL_LAUNCH(kernel, grid, block, bytes, stream, ...) \
   kernel<<<grid, block, bytes, stream>>>(__VA_ARGS__)
 #define DYNAMIC_SHARED(name) \
   extern __shared__ __align__(16) unsigned char name[]
+// the start of the dynamic shared memory, from any device function
+extern __shared__ __align__(16) unsigned char fused_adam_v2_smem[];
+#define SHARED_BASE() fused_adam_v2_smem
+#endif
+
+// The largest cluster a start may take (16 on the H100, where more than 8
+// is a non-portable size).  The host tests compile the source with 2, so
+// that the group kernel runs from 14 qubits with 1 group bit.
+#ifndef FUSED_ADAM_V2_MAX_CLUSTER
+#define FUSED_ADAM_V2_MAX_CLUSTER 16
 #endif
 
 namespace {
@@ -172,26 +202,21 @@ namespace {
 using namespace gates;
 using namespace regs;
 
-constexpr int kThreads = 512;             // threads of a first-design CTA
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxQubits = 18;
-// Dead code: the first design's shared-memory state (psi and lambda, 16 D
-// bytes, up to this many qubits) is never taken, since the routing gives
-// the first design only 17-18 qubits.  It is kept for the code the
-// compiler makes there: while the state pointer may point into shared
-// memory, the state's loads and stores stay generic.  Removed, the 18q
-// kernel measured 6% slower on the H100 (3.6% with its spills gone, 1.5%
-// with the pointer kept generic by other means):
-// scripts/torch_first_design_variants.py.
-constexpr int kSmemStateMaxQubits = 13;
 // Largest qubit count of the register kernel (at 13 qubits its adjoint
 // needs more than the 128 registers a thread of 512 may have, and 256
 // threads of 32 amplitudes spill too: from 13 qubits a start is a cluster).
 constexpr int kRegMaxQubits = 12;
-// The cluster kernel's band: 2^(n - 12) CTAs a start, at most 16 CTAs in a
-// cluster (more than 8 is a non-portable size, which the H100 takes).
+constexpr int kMaxCluster = FUSED_ADAM_V2_MAX_CLUSTER;
+__host__ __device__ constexpr int log2_of(int c) {
+  return c > 1 ? 1 + log2_of(c / 2) : 0;
+}
+// The cluster kernel's band: 2^(n - 12) CTAs a start, one cluster; the
+// group kernel's above it: 2^(n - 12) CTAs a start in clusters of
+// kGroupCluster (or the launch's group_cluster).
 constexpr int kClusterMinQubits = 13;
-constexpr int kClusterMaxQubits = 16;
+constexpr int kClusterMaxQubits = 12 + log2_of(kMaxCluster);
+constexpr int kGroupCluster = 2 < kMaxCluster ? 2 : kMaxCluster;
 
 // -- register kernel (7 <= n <= 12) ------------------------------------------
 
@@ -201,18 +226,21 @@ constexpr int kRegBits = 4;
 constexpr int kRegThreads = 256;
 // The first cluster bit: 4 register, 5 lane and 3 warp bits below it.
 constexpr int kClusterBit = 12;
-constexpr int kMaxCluster = 1 << (kClusterMaxQubits - kClusterBit);
+constexpr int kRegWarps = kRegThreads / 32;
 
 namespace cg = cooperative_groups;
 
 // One op of a schedule, (x, y) = (bits, gate): bits 0-3 the gate kind or
 // kSwapOp, 4-8 the target's physical bit (a swap: its register bit), 9-13
-// the control's physical bit + 1 (0: none; a swap: its warp bit + 1), bit
-// 14 set when the gate has an angle gradient, 15-19 the gate's case (its
+// the control's physical bit + 1 (0: none; a swap: its warp, cluster or
+// group bit + 1), bit 14 set when the gate has an angle gradient (a swap:
+// when it goes through a group bit), 15-19 the gate's case (its
 // form, whether it has a control, and its target's register bit or 4 for a
 // lane bit: gate_case); y the gate's tape index (0 for a swap).
 constexpr int kSwapOp = 15;
 constexpr int kGradBit = 1 << 14;
+constexpr int kGroupSwap = 1 << 14;     // a swap through a group bit
+constexpr int kFarFlip = 1 << 30;       // pflip: a flip reaching a group bit
 
 __device__ __forceinline__ int op_kind(int x) { return x & 15; }
 __device__ __forceinline__ int op_p(int x) { return (x >> 4) & 31; }
@@ -220,9 +248,9 @@ __device__ __forceinline__ int op_q(int x) { return ((x >> 9) & 31) - 1; }
 __device__ __forceinline__ int op_case(int x) { return (x >> 15) & 31; }
 
 struct RegShared {
-  double* red;     // 2 * kWarps energy partials
+  double* red;     // 2 * kRegWarps energy partials
   float4* coef;    // 2 G: each gate's 2x2 entries at the current angles
-  int2* ops;       // 2 G: the schedule of the current tape
+  int2* ops;       // ops_capacity(G): the schedule of the current tape
   float* region;   // 4 D: two swap buffers; psi at logical indices for
                    // H psi; a Pauli's exchange on a warp bit
   float* x;        // R: iterate
@@ -253,12 +281,40 @@ struct RegShared {
   int* pflip;      // G_f: each group's flip in the storage of H psi
 };
 
-// Where a CTA sits in its start's cluster: its rank (0 in the register
-// kernel) and its first thread's index among the start's threads.
+// Where a CTA sits in its start: its rank among the start's CTAs (the
+// physical bits from 12 up; 0 in the register kernel).  Its rank in its
+// cluster (crank) and its first thread's index among the start's threads
+// (gt0) follow from it and the hardware's indices, and are not kept.
 struct Cl {
   int rank;
-  int gt0;
 };
+
+__device__ __forceinline__ int gt0(const Cl& cl) {
+  return cl.rank * (int)blockDim.x;
+}
+
+__device__ __forceinline__ int crank() {
+  return (int)cg::this_cluster().block_rank();
+}
+
+// The group kernel's start of `ctas` CTAs spans clusters: the rank's low
+// `cbits` bits are the cluster rank (cluster bits), the bits above them
+// the group bits; `xg` is the start slot's exchange area in global memory
+// (group_area_floats), `bar` its barrier counter, and thread 0 counts the
+// barriers it passed.  At the start of the dynamic shared memory, ahead of
+// the body's, so that it takes no registers through the gate chain.
+struct GroupSh {
+  float* xg;
+  unsigned int* bar;
+  unsigned int passed;
+  int cbits;
+  int ctas;
+};
+constexpr int kGroupShBytes = 32;
+
+__device__ __forceinline__ GroupSh& group_sh() {
+  return *reinterpret_cast<GroupSh*>(SHARED_BASE());
+}
 
 __device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
 
@@ -295,11 +351,16 @@ __device__ __forceinline__ void logical_indices(const int* map, int n,
 }
 
 // The schedule of `tape` (see the header; twin: ops/fused_adam2d.py:
-// swap_schedule), by one thread.  `after` is G ints of scratch, `work`
-// 4 kMaxQubits.
+// swap_schedule), by one thread.  Physical bits from `top` up are group
+// bits (n: none), whose swaps go through global memory: they start with
+// the qubits whose first target comes last, and a swap through one sends
+// out the qubit below them that is next a target furthest ahead, taking a
+// warp or cluster swap into the evicted register first where that qubit
+// is not in a register.  `after` is G ints of scratch, `work` 4
+// kMaxQubits; ops holds up to 3 G.
 __device__ void build_schedule(const Tape& tape, int G, int n, int RB,
-                               int* after, int* work, int2* ops, int* map0,
-                               int* map1, int* nops) {
+                               int top, int* after, int* work, int2* ops,
+                               int* map0, int* map1, int* nops) {
   const int lanes = n - RB < 5 ? n - RB : 5;
   int* first = work;
   int* occ = work + kMaxQubits;
@@ -322,9 +383,20 @@ __device__ void build_schedule(const Tape& tape, int G, int n, int RB,
     placed |= 1u << best;
   }
   for (int l = 0; l < lanes; ++l) occ[RB + l] = l;
+  unsigned late = 0;                        // the group bits' qubits
+  for (int k = top; k < n; ++k) {
+    int best = -1;
+    for (int q = lanes; q < n; ++q)
+      if (!(((placed | late) >> q) & 1) &&
+          (best < 0 || first[q] >= first[best]))
+        best = q;
+    late |= 1u << best;
+  }
   int w = RB + lanes;
   for (int q = lanes; q < n; ++q)
-    if (!((placed >> q) & 1)) occ[w++] = q;
+    if (!(((placed | late) >> q) & 1)) occ[w++] = q;
+  for (int q = lanes; q < n; ++q)
+    if ((late >> q) & 1) occ[w++] = q;
   for (int p = 0; p < n; ++p) {
     pos[occ[p]] = p;
     map0[p] = occ[p];
@@ -339,8 +411,24 @@ __device__ void build_schedule(const Tape& tape, int G, int n, int RB,
       int a = 0;
       for (int b = 1; b < RB; ++b)
         if (nu[occ[b]] > nu[occ[a]]) a = b;
-      const int b = pos[t], qa = occ[a];
-      ops[c++] = make_int2(kSwapOp | (a << 4) | ((b + 1) << 9), 0);
+      const int b = pos[t];
+      if (b >= top) {                       // a group bit: the coldest out
+        int v = -1;
+        for (int p = RB + lanes; p < top; ++p)
+          if (v < 0 || nu[occ[p]] > nu[occ[v]]) v = p;
+        if (v >= 0 && nu[occ[v]] > nu[occ[a]]) {
+          const int qa = occ[a], qv = occ[v];
+          ops[c++] = make_int2(kSwapOp | (a << 4) | ((v + 1) << 9), 0);
+          occ[a] = qv;
+          occ[v] = qa;
+          pos[qv] = a;
+          pos[qa] = v;
+        }
+      }
+      const int qa = occ[a];
+      ops[c++] = make_int2(kSwapOp | (a << 4) | ((b + 1) << 9) |
+                               (b >= top ? kGroupSwap : 0),
+                           0);
       occ[a] = t;
       occ[b] = qa;
       pos[t] = a;
@@ -361,9 +449,11 @@ __device__ void build_schedule(const Tape& tape, int G, int n, int RB,
 
 // Each group's flip as the xor it makes in the cluster kernel's storage of
 // psi for H psi (amplitude j of thread t of a CTA at j * 256 + t) under
-// the schedule's end map, the xor of the rank above bit 16; by the thread
-// that built the schedule.
-__device__ void physical_flips(const RegShared& sh, int n_groups, int n) {
+// the schedule's end map, the xor of the rank above bit 16, and bit 30 set
+// where it reaches a group bit (from `top` up); by the thread that built
+// the schedule.
+__device__ void physical_flips(const RegShared& sh, int n_groups, int n,
+                               int top) {
   constexpr int kLocal = (1 << kClusterBit) - 1;
   constexpr int kRegs = (1 << kRegBits) - 1;
   for (int f = 0; f < n_groups; ++f) {
@@ -373,7 +463,8 @@ __device__ void physical_flips(const RegShared& sh, int n_groups, int n) {
       if ((fl >> sh.map1[b]) & 1) pf |= 1 << b;
     const int loc = pf & kLocal;
     sh.pflip[f] = ((loc & kRegs) << (kClusterBit - kRegBits)) |
-                  (loc >> kRegBits) | ((pf >> kClusterBit) << 16);
+                  (loc >> kRegBits) | ((pf >> kClusterBit) << 16) |
+                  ((pf >> top) != 0 ? kFarFlip : 0);
   }
 }
 
@@ -382,6 +473,7 @@ __device__ void physical_flips(const RegShared& sh, int n_groups, int n) {
 __device__ __forceinline__ void gate_coefs(const RegShared& sh,
                                            const Tape& tape, const float* x,
                                            int G) {
+#pragma unroll 1
   for (int g = threadIdx.x; g < G; g += blockDim.x) {
     const int k = tape.kind[g], sl = tape.slot[g];
     float s = 0.f, c = 1.f;
@@ -404,6 +496,7 @@ __device__ __forceinline__ void draw_errors_reg(
     const int* __restrict__ seeds, int e, int tag, unsigned thr1,
     unsigned thr2) {
   const unsigned k0 = (unsigned)seeds[2 * e], k1 = (unsigned)seeds[2 * e + 1];
+#pragma unroll 1
   for (int g = threadIdx.x; g < G; g += blockDim.x)
     philox::error_kinds(tape.kind[g], g, tag, k0, k1, thr1, thr2,
                         sh.err_t[g], sh.err_c[g]);
@@ -439,7 +532,7 @@ __device__ __forceinline__ void load_psi0(Amps<RB>& s, const RegShared& sh,
                                           const float* __restrict__ p0im,
                                           int n, const Cl& cl) {
   int idx[1 << RB];
-  logical_indices<RB>(sh.map0, n, cl.gt0 + threadIdx.x, idx);
+  logical_indices<RB>(sh.map0, n, gt0(cl) + threadIdx.x, idx);
 #pragma unroll
   for (int j = 0; j < (1 << RB); ++j) {
     s.pr[j] = __ldg(p0re + idx[j]);
@@ -548,7 +641,7 @@ __device__ __forceinline__ void cluster_reg_swap(Amps<RB>& s, int cb,
                                                  const Cl& cl, float* buf) {
   constexpr int P = 1 << (RB - 1);
   const int beta = (cl.rank >> cb) & 1;
-  float4* out = reinterpret_cast<float4*>(at_rank(buf, cl.rank ^ (1 << cb)));
+  float4* out = reinterpret_cast<float4*>(at_rank(buf, crank() ^ (1 << cb)));
   const float4* in = reinterpret_cast<const float4*>(buf);
   float v[P];
   sent_half<RB, A>(s.pr, beta, v);
@@ -575,15 +668,178 @@ __device__ __forceinline__ void cluster_reg_swap(Amps<RB>& s, int cb,
   }
 }
 
+// -- the group kernel's exchange through global memory ----------------------
+
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+#if defined(__CUDA_ARCH__)
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+#else
+  return *static_cast<const volatile unsigned int*>(p);
+#endif
+}
+
+// Spins a barrier waits at most (x 64 ns and more) before it traps: the
+// launch puts on the card only as many starts as it can hold whole, so a
+// wait this long is a residency fault, which fails the launch.
+constexpr unsigned int kSpinLimit = 1u << 26;
+
+// The start-wide barrier of the group kernel: every CTA of the start
+// arrives on the slot's counter (release) and waits until all have
+// (acquire), the pattern of a cooperative grid barrier, after which the
+// CTA's loads see what the others stored before arriving; the counter
+// only grows (generation g ends at g x C), so it is never reset within a
+// launch.
+__device__ __forceinline__ void group_sync(const Cl& cl) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    GroupSh& g = group_sh();
+    const unsigned int target = ++g.passed * (unsigned int)g.ctas;
+    __threadfence();
+    atomicAdd(g.bar, 1u);
+    unsigned int spins = 0;
+    while (ld_acquire(g.bar) < target) {
+      if (++spins == kSpinLimit) __trap();
+      __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The areas of a start slot's exchange (floats, for C CTAs of D
+// amplitudes): C inboxes of 4 D (a swap's two buffers of 2 D, or the 4 D
+// of a Pauli's whole-slice exchange), C slices of psi for H psi (2 D,
+// float2), C energy partials (2 doubles), C x R gradient partials, a flag.
+__host__ __device__ __forceinline__ size_t group_area_floats(int C, int D,
+                                                             int R) {
+  return ((size_t)C * (6 * (size_t)D + 4 + R) + 4 + 3) & ~(size_t)3;
+}
+// (offsets in 32 bits: under 2^22 floats at 18 qubits)
+__device__ __forceinline__ float* inbox(int r, int D) {
+  return group_sh().xg + r * 4 * D;
+}
+__device__ __forceinline__ float2* group_psi(int C, int D) {
+  return reinterpret_cast<float2*>(group_sh().xg + C * 4 * D);
+}
+__device__ __forceinline__ double* group_red(int C, int D) {
+  return reinterpret_cast<double*>(group_sh().xg + C * 6 * D);
+}
+__device__ __forceinline__ float* group_dx(int C, int D) {
+  return group_sh().xg + C * (6 * D + 4);
+}
+__device__ __forceinline__ int* group_flag(int C, int D, int R) {
+  return reinterpret_cast<int*>(group_dx(C, D) + C * R);
+}
+
+// The trade of register bit A with group bit gb (a bit of the rank above
+// the cluster bits): as cluster_reg_swap, through the partner CTA's inbox
+// in global memory (buffer `parity`) and one start-wide barrier.
+template <int RB, int A, bool kLambda>
+__device__ __forceinline__ void group_reg_swap(Amps<RB>& s, int gb,
+                                               const Cl& cl, int D,
+                                               int parity) {
+  constexpr int P = 1 << (RB - 1);
+  const int beta = (cl.rank >> gb) & 1;
+  float4* out = reinterpret_cast<float4*>(
+      inbox(cl.rank ^ (1 << gb), D) + parity * 2 * D);
+  const float4* in =
+      reinterpret_cast<const float4*>(inbox(cl.rank, D) + parity * 2 * D);
+  float v[P];
+  sent_half<RB, A>(s.pr, beta, v);
+  trade<P>(v, out, 0);
+  sent_half<RB, A>(s.pi, beta, v);
+  trade<P>(v, out, 1);
+  if (kLambda) {
+    sent_half<RB, A>(s.lr, beta, v);
+    trade<P>(v, out, 2);
+    sent_half<RB, A>(s.li, beta, v);
+    trade<P>(v, out, 3);
+  }
+  group_sync(cl);
+  const int tid = threadIdx.x;
+  take<P>(v, in, 0, tid);
+  put_half<RB, A>(s.pr, beta, v);
+  take<P>(v, in, 1, tid);
+  put_half<RB, A>(s.pi, beta, v);
+  if (kLambda) {
+    take<P>(v, in, 2, tid);
+    put_half<RB, A>(s.lr, beta, v);
+    take<P>(v, in, 3, tid);
+    put_half<RB, A>(s.li, beta, v);
+  }
+}
+
+// Pauli k on group bit gb: as cluster_pauli, the X or Y exchange through
+// the partner's inbox (4 D floats) and start-wide barriers.
+template <int RB, bool kAdjoint>
+__device__ __forceinline__ void group_pauli(Amps<RB>& s, int k, int gb,
+                                            const Cl& cl, int D) {
+  constexpr int J = 1 << RB;
+  const int beta = (cl.rank >> gb) & 1;
+  if (k == kZ) {
+    if (beta) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        s.pr[j] = -s.pr[j];
+        s.pi[j] = -s.pi[j];
+        if (kAdjoint) {
+          s.lr[j] = -s.lr[j];
+          s.li[j] = -s.li[j];
+        }
+      }
+    }
+    return;
+  }
+  float4* out = reinterpret_cast<float4*>(inbox(cl.rank ^ (1 << gb), D));
+  const float4* in = reinterpret_cast<const float4*>(inbox(cl.rank, D));
+  group_sync(cl);                      // the last exchange's reads are done
+  trade<J>(s.pr, out, 0);
+  trade<J>(s.pi, out, 1);
+  if (kAdjoint) {
+    trade<J>(s.lr, out, 2);
+    trade<J>(s.li, out, 3);
+  }
+  group_sync(cl);
+  const int tid = threadIdx.x;
+  float qr[J], qi[J];
+  take<J>(qr, in, 0, tid);
+  take<J>(qi, in, 1, tid);
+#pragma unroll
+  for (int j = 0; j < J; ++j) pauli_one<false>(k, beta, s.pr[j], s.pi[j],
+                                               qr[j], qi[j]);
+  if (kAdjoint) {
+    take<J>(qr, in, 2, tid);
+    take<J>(qi, in, 3, tid);
+#pragma unroll
+    for (int j = 0; j < J; ++j) pauli_one<true>(k, beta, s.lr[j], s.li[j],
+                                                qr[j], qi[j]);
+  }
+  group_sync(cl);                      // ... and this one's
+}
+
 // A swap op of the schedule: register bit a with the warp bit b through
 // the CTA's `region` (buffer `parity`), or, in the cluster kernel, with
-// the cluster bit b through the partner's `cbuf` (buffer `cparity`).  The
-// two kinds keep their own double buffers: a CTA may run on to its next
-// warp swap while its partner still reads the last cluster swap.
-template <int RB, bool kCl, bool kLambda>
+// the cluster bit b through the partner's `cbuf` (buffer `cparity`), or,
+// in the group kernel, with the group bit b through the partner's inbox
+// in global memory (buffer `gparity`).  The kinds keep their own double
+// buffers: a CTA may run on to its next warp swap while its partner still
+// reads the last cluster swap, and to its next cluster swap while a CTA
+// of another cluster still reads the last group swap.
+template <int RB, bool kCl, bool kGrp, bool kLambda>
 __device__ __forceinline__ void swap_op(Amps<RB>& s, const RegShared& sh,
-                                        int a, int b, int D, const Cl& cl,
-                                        int& parity, int& cparity) {
+                                        int x, int D, const Cl& cl,
+                                        int& parity, int& cparity,
+                                        int& gparity) {
+  const int a = op_p(x), b = op_q(x);
+  if (kGrp && (x & kGroupSwap)) {
+    WITH_REG_BIT(a, (group_reg_swap<RB, A, kLambda>(
+                        s, b - kClusterBit, cl, D, gparity)));
+    gparity ^= 1;
+    return;
+  }
   if (kCl && b >= kClusterBit) {
     float* buf = sh.cbuf + cparity * 2 * D;
     WITH_REG_BIT(a, (cluster_reg_swap<RB, A, kLambda>(
@@ -620,7 +876,7 @@ __device__ __forceinline__ void cluster_pauli(Amps<RB>& s, int k, int cb,
     return;
   }
   float4* out = reinterpret_cast<float4*>(at_rank(sh.cbuf,
-                                                  cl.rank ^ (1 << cb)));
+                                                  crank() ^ (1 << cb)));
   const float4* in = reinterpret_cast<const float4*>(sh.cbuf);
   cluster_sync();                         // the last exchange's reads are done
   trade<J>(s.pr, out, 0);
@@ -647,11 +903,15 @@ __device__ __forceinline__ void cluster_pauli(Amps<RB>& s, int k, int cb,
   cluster_sync();                         // ... and this one's
 }
 
-// Pauli k on physical bit `pos` of either kernel (see pauli).
-template <int RB, bool kCl, bool kAdjoint>
+// Pauli k on physical bit `pos` of any kernel (see pauli).
+template <int RB, bool kCl, bool kGrp, bool kAdjoint>
 __device__ __forceinline__ void any_pauli(Amps<RB>& s, int k, int pos,
                                           const RegShared& sh, int D,
                                           unsigned mask, const Cl& cl) {
+  if (kGrp && pos >= kClusterBit + group_sh().cbits) {
+    group_pauli<RB, kAdjoint>(s, k, pos - kClusterBit, cl, D);
+    return;
+  }
   if (kCl && pos >= kClusterBit) {
     cluster_pauli<RB, kAdjoint>(s, k, pos - kClusterBit, sh, cl);
     return;
@@ -672,12 +932,12 @@ __device__ __forceinline__ bool gate_runs(int& c, int q, const Cl& cl) {
 // psi <- tape(x) psi along the schedule, each gate followed by its drawn
 // errors in the noise variant.  The next op and its entries are read
 // before the current one runs.
-template <int RB, bool kCl>
+template <int RB, bool kCl, bool kGrp>
 __device__ __forceinline__ void forward_reg(Amps<RB>& s, const RegShared& sh,
                                             int D, bool noise, unsigned mask,
                                             const Cl& cl) {
   const int nops = *sh.nops;
-  int parity = 0, cparity = 0;
+  int parity = 0, cparity = 0, gparity = 0;
   int2 next = nops > 0 ? sh.ops[0] : make_int2(kSwapOp, 0);
   Coef next_u = load_coef(sh, next.y);
   int e_at = 0;                           // the next listed error op
@@ -691,7 +951,8 @@ __device__ __forceinline__ void forward_reg(Amps<RB>& s, const RegShared& sh,
     }
     const int k = op_kind(op.x), p = op_p(op.x), q = op_q(op.x);
     if (k == kSwapOp) {
-      swap_op<RB, kCl, false>(s, sh, p, q, D, cl, parity, cparity);
+      swap_op<RB, kCl, kGrp, false>(s, sh, op.x, D, cl, parity, cparity,
+                                    gparity);
       continue;
     }
     int c = op_case(op.x);
@@ -701,7 +962,8 @@ __device__ __forceinline__ void forward_reg(Amps<RB>& s, const RegShared& sh,
       // no control: the error falls on qubit 0, a lane bit for good
       if (et) pauli<RB, false>(s, et, p, sh.region, D, mask);
       if (ec)
-        any_pauli<RB, kCl, false>(s, ec, q >= 0 ? q : RB, sh, D, mask, cl);
+        any_pauli<RB, kCl, kGrp, false>(s, ec, q >= 0 ? q : RB, sh, D, mask,
+                                        cl);
       e_op = sh.err_ops[++e_at];
     }
   }
@@ -785,61 +1047,87 @@ __device__ __forceinline__ void h_energy_reg(Amps<RB>& s, const RegShared& sh,
   __syncthreads();
 }
 
-// The cluster kernel's H psi: lambda <- 2 conj(H psi) for this thread's
-// amplitudes, scal[0] <- Re<psi|H psi> / <psi|psi>, in every CTA of the
-// start.  Each CTA puts its slice of psi in `region` (amplitude j of
-// thread t at j * T + t: a warp's lanes on consecutive float2s), one
+// W_f psi[i ^ f] added into lambda for group f, psi read from `src` at
+// the storage xor fx (this CTA's or another's slice, in shared or global
+// memory).
+template <int RB>
+__device__ __forceinline__ void h_group(Amps<RB>& s, const float2* src,
+                                        int fx, const float* wr,
+                                        const float* wi,
+                                        const int (&idx)[1 << RB]) {
+  constexpr int J = 1 << RB;
+  const int tid = threadIdx.x, T = blockDim.x;
+  if (wi != nullptr) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float a = __ldg(wr + idx[j]), b = __ldg(wi + idx[j]);
+      const float2 p = src[(j * T + tid) ^ fx];
+      s.lr[j] = fmaf(a, p.x, s.lr[j]);
+      s.lr[j] = fmaf(-b, p.y, s.lr[j]);
+      s.li[j] = fmaf(a, p.y, s.li[j]);
+      s.li[j] = fmaf(b, p.x, s.li[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float a = __ldg(wr + idx[j]);
+      const float2 p = src[(j * T + tid) ^ fx];
+      s.lr[j] = fmaf(a, p.x, s.lr[j]);
+      s.li[j] = fmaf(a, p.y, s.li[j]);
+    }
+  }
+}
+
+// The cluster and group kernels' H psi: lambda <- 2 conj(H psi) for this
+// thread's amplitudes, scal[0] <- Re<psi|H psi> / <psi|psi>, in every CTA
+// of the start.  Each CTA puts its slice of psi in `region` (amplitude j
+// of thread t at j * T + t: a warp's lanes on consecutive float2s), one
 // cluster barrier publishes the slices, and psi[i ^ f] is read at the
 // group's storage xor (pflip) in this CTA or, where f flips a cluster bit,
-// in the CTA of rank `rank ^ (pflip >> 16)`.  W is read from L2 at the
-// logical indices (stride 2^n).  The CTA's energy partials (the register
-// kernel's fixed order) go to every CTA's `cred`; after a cluster barrier
+// in the CTA of rank `rank ^ (pflip >> 16)`.  In the group kernel, where a
+// flip reaches a group bit, the slices also go to global memory (one
+// start-wide barrier) and such a group reads the partner's there, from
+// L2.  W is read from L2 at the logical indices (stride 2^n).  The CTA's
+// energy partials (the register kernel's fixed order) go to every CTA's
+// `cred` (the group kernel: to global memory, one start-wide barrier);
 // each CTA sums them in rank order.
-template <int RB>
+template <int RB, bool kGrp>
 __device__ __forceinline__ void h_energy_cl(Amps<RB>& s, const RegShared& sh,
                                             const float* __restrict__ wre,
                                             const float* __restrict__ wim,
                                             int n_groups, int n, int C,
                                             unsigned mask, const Cl& cl) {
   constexpr int J = 1 << RB;
-  const int tid = threadIdx.x, T = blockDim.x;
+  const int tid = threadIdx.x, T = blockDim.x, D = T << RB;
   const size_t dim = (size_t)1 << n;
   int idx[J];
-  logical_indices<RB>(sh.map1, n, cl.gt0 + tid, idx);
+  logical_indices<RB>(sh.map1, n, gt0(cl) + tid, idx);
   float2* x2 = reinterpret_cast<float2*>(sh.region);
+  // the group kernel: whether a flip reaches a group bit
+  bool remote = false;
+  if (kGrp)
+    for (int f = 0; f < n_groups; ++f)
+      remote |= (sh.pflip[f] & kFarFlip) != 0;
+  float2* gx = kGrp ? group_psi(C, D) : nullptr;
   __syncthreads();                        // the last warp swap's reads are done
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     x2[j * T + tid] = make_float2(s.pr[j], s.pi[j]);
+    if (kGrp && remote)
+      gx[cl.rank * D + j * T + tid] = make_float2(s.pr[j], s.pi[j]);
     s.lr[j] = 0.f;
     s.li[j] = 0.f;
   }
   cluster_sync();                         // every CTA's slice is in place
+  if (kGrp && remote) group_sync(cl);
   for (int f = 0; f < n_groups; ++f) {
     const int pf = sh.pflip[f];
-    const int fx = pf & 0xffff, fr = pf >> 16;
-    const float2* src = fr ? at_rank(x2, cl.rank ^ fr) : x2;
+    const int fx = pf & 0xffff, fr = (pf & ~kFarFlip) >> 16;
     const float* wr = wre + (size_t)f * dim;
-    if (sh.wim_any[f]) {
-      const float* wi = wim + (size_t)f * dim;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const float a = __ldg(wr + idx[j]), b = __ldg(wi + idx[j]);
-        const float2 p = src[(j * T + tid) ^ fx];
-        s.lr[j] = fmaf(a, p.x, s.lr[j]);
-        s.lr[j] = fmaf(-b, p.y, s.lr[j]);
-        s.li[j] = fmaf(a, p.y, s.li[j]);
-        s.li[j] = fmaf(b, p.x, s.li[j]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const float a = __ldg(wr + idx[j]);
-        const float2 p = src[(j * T + tid) ^ fx];
-        s.lr[j] = fmaf(a, p.x, s.lr[j]);
-        s.li[j] = fmaf(a, p.y, s.li[j]);
-      }
-    }
+    const float* wi = sh.wim_any[f] ? wim + (size_t)f * dim : nullptr;
+    const float2* src = kGrp && (pf & kFarFlip) ? gx + (cl.rank ^ fr) * D
+                        : fr ? at_rank(x2, crank() ^ fr) : x2;
+    h_group<RB>(s, src, fx, wr, wi, idx);
   }
   double raw = 0.0, nn = 0.0;
 #pragma unroll
@@ -859,24 +1147,32 @@ __device__ __forceinline__ void h_energy_cl(Amps<RB>& s, const RegShared& sh,
     sh.red[2 * warp + 1] = nn;
   }
   __syncthreads();
+  double* gred = kGrp ? group_red(C, D) : nullptr;
   if (tid == 0) {
     double a = 0.0, b = 0.0;
     for (int w = 0; w < warps; ++w) {
       a += sh.red[2 * w];
       b += sh.red[2 * w + 1];
     }
-    for (int c = 0; c < C; ++c) {
-      double* to = at_rank(sh.cred, c);
-      to[2 * cl.rank] = a;
-      to[2 * cl.rank + 1] = b;
+    if (kGrp) {
+      gred[2 * cl.rank] = a;
+      gred[2 * cl.rank + 1] = b;
+    } else {
+      for (int c = 0; c < C; ++c) {
+        double* to = at_rank(sh.cred, c);
+        to[2 * cl.rank] = a;
+        to[2 * cl.rank + 1] = b;
+      }
     }
   }
-  cluster_sync();                         // every rank's partials are in
+  // every rank's partials are in (and, the group kernel, every CTA's
+  // reads of the others' slices done)
+  if (kGrp) group_sync(cl); else cluster_sync();
   if (tid == 0) {
     double a = 0.0, b = 0.0;
     for (int c = 0; c < C; ++c) {
-      a += sh.cred[2 * c];
-      b += sh.cred[2 * c + 1];
+      a += kGrp ? gred[2 * c] : sh.cred[2 * c];
+      b += kGrp ? gred[2 * c + 1] : sh.cred[2 * c + 1];
     }
     sh.scal[0] = (float)(a / b);
   }
@@ -887,7 +1183,7 @@ __device__ __forceinline__ void h_energy_cl(Amps<RB>& s, const RegShared& sh,
 // undone first in the noise variant; lane 0 of each warp writes the warp's
 // part of gate g's gradient row to gpart[g * warps + warp].  The next op
 // and its entries are read before the current one runs.
-template <int RB, bool kCl>
+template <int RB, bool kCl, bool kGrp>
 __device__ __forceinline__ void backward_reg(Amps<RB>& s, const RegShared& sh,
                                              int D, bool noise, unsigned mask,
                                              const Cl& cl) {
@@ -895,7 +1191,7 @@ __device__ __forceinline__ void backward_reg(Amps<RB>& s, const RegShared& sh,
   const int width = T < 32 ? T : 32, warps = (T + 31) >> 5;
   const int lane = tid & 31, warp = tid >> 5;
   const int nops = *sh.nops;
-  int parity = 0, cparity = 0;
+  int parity = 0, cparity = 0, gparity = 0;
   int2 next = nops > 0 ? sh.ops[nops - 1] : make_int2(kSwapOp, 0);
   Coef next_u = load_coef(sh, next.y);
   int e_at = 0;                           // the last listed error op
@@ -911,14 +1207,16 @@ __device__ __forceinline__ void backward_reg(Amps<RB>& s, const RegShared& sh,
     }
     const int k = op_kind(op.x), p = op_p(op.x), q = op_q(op.x);
     if (k == kSwapOp) {
-      swap_op<RB, kCl, true>(s, sh, p, q, D, cl, parity, cparity);
+      swap_op<RB, kCl, kGrp, true>(s, sh, op.x, D, cl, parity, cparity,
+                                   gparity);
       continue;
     }
     if (i == e_op) {                      // block-uniform
       const int et = sh.err_t[op.y], ec = sh.err_c[op.y];
       if (et) pauli<RB, true>(s, et, p, sh.region, D, mask);
       if (ec)
-        any_pauli<RB, kCl, true>(s, ec, q >= 0 ? q : RB, sh, D, mask, cl);
+        any_pauli<RB, kCl, kGrp, true>(s, ec, q >= 0 ? q : RB, sh, D, mask,
+                                       cl);
       e_op = e_at > 0 ? sh.err_ops[--e_at] : -1;
     }
     int c = op_case(op.x);
@@ -941,45 +1239,71 @@ __device__ __forceinline__ void backward_reg(Amps<RB>& s, const RegShared& sh,
 __device__ __forceinline__ void track_best_reg(const RegShared& sh, int R) {
   const bool better = sh.scal[0] < sh.scal[1];
   if (better)
+#pragma unroll 1
     for (int r = threadIdx.x; r < R; r += blockDim.x) sh.bx[r] = sh.x[r];
   __syncthreads();
   if (threadIdx.x == 0 && better) sh.scal[1] = sh.scal[0];
   __syncthreads();
 }
 
+// Ops a schedule may hold (up to 3 a gate: a warp or cluster swap, a group
+// swap and the gate), even, so that what follows stays 16-byte aligned.
+__host__ __device__ __forceinline__ int ops_capacity(int G) {
+  return (3 * G + 1) & ~1;
+}
+
 // CTAs of one start: 1 in the register kernel, 2^(n - 12) in the cluster
-// kernel, 0 where the first design runs (17-18 qubits).
-int cluster_size(int n) {
-  if (n <= kRegMaxQubits) return 1;
-  return n >= kClusterMinQubits && n <= kClusterMaxQubits
-             ? 1 << (n - kClusterBit)
-             : 0;
+// and group kernels.
+int start_ctas(int n) {
+  return n <= kRegMaxQubits ? 1 : 1 << (n - kClusterBit);
+}
+
+// Whether the group kernel runs n qubits.
+bool in_group_band(int n) { return n > kClusterMaxQubits; }
+
+// CTAs of one cluster: 1 in the register kernel, a start in the cluster
+// kernel, `group_cluster` (kGroupCluster when 0) in the group kernel.
+int cluster_size(int n, int group_cluster) {
+  if (!in_group_band(n)) return start_ctas(n);
+  return group_cluster > 0 ? group_cluster : kGroupCluster;
 }
 
 size_t reg_smem_bytes(int G, int R, int n, int n_groups, bool noise) {
-  const int C = cluster_size(n);
+  const int C = start_ctas(n);
   const size_t D = ((size_t)1 << n) / C;  // amplitudes a CTA holds
   const size_t warps = ((D >> kRegBits) + 31) / 32;
+  // the group kernel sums over the start in global memory
+  const size_t sums = in_group_band(n) ? 0 : (size_t)C * R;
   const size_t cl = C > 1 ? sizeof(double) * 2 * kMaxCluster +
-                                sizeof(float) * (4 * D + (size_t)C * R) +
+                                sizeof(float) * (4 * D + sums) +
                                 sizeof(int) * n_groups
                           : 0;
-  return sizeof(double) * 2 * kWarps + sizeof(float4) * 2 * G +
-         sizeof(int2) * 2 * G + sizeof(float) * 4 * D +
+  const size_t group = in_group_band(n) ? kGroupShBytes : 0;
+  return sizeof(double) * 2 * kRegWarps + sizeof(float4) * 2 * G +
+         sizeof(int2) * ops_capacity(G) + sizeof(float) * 4 * D +
          sizeof(float) * (4 * (size_t)R + 2 + G * warps) +
          sizeof(int) * ((size_t)(noise ? 13 : 9) * G + (noise ? 1 : 0) +
                         2 * R + 2 * n_groups + 2 +
                         6 * kMaxQubits + 1) +
-         cl;
+         cl + group;
 }
 
-// The register kernel (kCl false: one CTA a start) and the cluster kernel
-// (kCl true: a start is the cluster of C CTAs this CTA belongs to); see
-// the header.  In the cluster kernel every CTA keeps its own copy of the
-// iterate, Adam's moments and the best iterate, and takes the same steps.
-template <int RB, bool kCl>
+// The register kernel (kCl false: one CTA a start), the cluster kernel
+// (kCl true: a start is the cluster of C CTAs this CTA belongs to) and the
+// group kernel (kGrp true as well: a start of C CTAs in clusters of
+// 2^cbits), for start `row` = e * S + s; see the header.  In the
+// cluster and group kernels every CTA keeps its own copy of the iterate,
+// Adam's moments and the best iterate, and takes the same steps.
+// The first group bit: n (none) outside the group kernel.
+template <bool kGrp>
+__device__ __forceinline__ int first_group_bit(int n) {
+  return kGrp ? kClusterBit + group_sh().cbits : n;
+}
+
+template <int RB, bool kCl, bool kGrp>
 __device__ __forceinline__ void fused_adam_v2_body(
-    unsigned char* smem_reg, Tape old_g, Tape new_g,
+    unsigned char* smem_reg, int row0, int step, int rows, const Cl& cl,
+    Tape old_g, Tape new_g,
     const int* __restrict__ map_idx, const float* __restrict__ p0re,
     const float* __restrict__ p0im, const float* __restrict__ wre,
     const float* __restrict__ wim, const int* __restrict__ flips,
@@ -994,28 +1318,18 @@ __device__ __forceinline__ void fused_adam_v2_body(
   const int D = T << RB;                  // amplitudes a CTA holds
   const int warps = (T + 31) >> 5;
   const unsigned mask = T >= 32 ? 0xffffffffu : (1u << T) - 1u;
-  int C = 1;                              // CTAs a start
-  Cl cl = {0, 0};
-  if constexpr (kCl) {
-    C = 1 << (n - kClusterBit);
-    cl.rank = (int)cg::this_cluster().block_rank();
-    cl.gt0 = cl.rank * T;
-  }
-  const int row = blockIdx.x / C;         // e * S + s
-  const int e = row / S;
+  const int C = kCl ? 1 << (n - kClusterBit) : 1;   // CTAs a start
   const bool lead = cl.rank == 0;         // writes the start's results
-  const float* p0r = p0re + (size_t)e * psi0_stride;   // this env's psi0
-  const float* p0i = p0im + (size_t)e * psi0_stride;
   RegShared sh;
   unsigned char* b = smem_reg;
   sh.red = reinterpret_cast<double*>(b);
-  b += sizeof(double) * 2 * kWarps;
+  b += sizeof(double) * 2 * kRegWarps;
   sh.cred = reinterpret_cast<double*>(b);
   b += kCl ? sizeof(double) * 2 * kMaxCluster : 0;
   sh.coef = reinterpret_cast<float4*>(b);
   b += sizeof(float4) * 2 * G;
   sh.ops = reinterpret_cast<int2*>(b);
-  b += sizeof(int2) * 2 * G;
+  b += sizeof(int2) * ops_capacity(G);
   float* f = reinterpret_cast<float*>(b);
   sh.region = f; f += 4 * D;
   sh.cbuf = f; f += kCl ? 4 * D : 0;
@@ -1025,7 +1339,7 @@ __device__ __forceinline__ void fused_adam_v2_body(
   sh.bx = f; f += R;
   sh.scal = f; f += 2;
   sh.gpart = f; f += G * warps;
-  sh.cdx = f; f += kCl ? C * R : 0;
+  sh.cdx = f; f += kCl && !kGrp ? C * R : 0;
   int* ip = reinterpret_cast<int*>(f);
   int* tapes[8];
 #pragma unroll
@@ -1047,55 +1361,138 @@ __device__ __forceinline__ void fused_adam_v2_body(
   sh.nops = ip; ip += 1;
   sh.pflip = ip;
 
-  const int* src[8] = {old_g.kind, old_g.tq, old_g.cq, old_g.slot,
-                       new_g.kind, new_g.tq, new_g.cq, new_g.slot};
+  // one start after another: slot w of the group kernel runs starts w,
+  // w + step, ... below rows; the other kernels run start row0 alone
+  int row = row0;
+  do {
+    const int e = row / S;
+    const float* p0r = p0re + (size_t)e * psi0_stride;   // this env's psi0
+    const float* p0i = p0im + (size_t)e * psi0_stride;
+    const int* src[8] = {old_g.kind, old_g.tq, old_g.cq, old_g.slot,
+                         new_g.kind, new_g.tq, new_g.cq, new_g.slot};
 #pragma unroll
-  for (int a = 0; a < 8; ++a)             // constant indices: no stack
-    for (int g = tid; g < G; g += T) tapes[a][g] = src[a][(size_t)e * G + g];
-  for (int r = tid; r < R; r += T) {
-    sh.map[r] = map_idx[(size_t)e * R + r];
-    const float x0 = starts[(size_t)row * R + r];
-    sh.x[r] = x0;
-    sh.bx[r] = x0;
-    sh.m[r] = 0.f;
-    sh.v[r] = 0.f;
-  }
-  for (int q = tid; q < n_groups; q += T) {
-    sh.flips[q] = flips[q];
-    sh.wim_any[q] = wim_any[q];
-  }
-  if (tid == 0) sh.scal[1] = INFINITY;
-  __syncthreads();
-  // the gates whose gradient feeds each angle, last gate first
-  for (int r = tid; r < R; r += T) {
-    int head = -1;
-    for (int g = 0; g < G; ++g) {
-      const int k = sh.old_tape.kind[g];
-      if (sh.old_tape.slot[g] == r && (k == kRX || k == kRY || k == kRZ)) {
-        sh.gate_next[g] = head;
-        head = g;
-      }
+    for (int a = 0; a < 8; ++a)           // constant indices: no stack
+      for (int g = tid; g < G; g += T)
+        tapes[a][g] = src[a][(size_t)e * G + g];
+    // the other loops over a CTA's threads stay rolled (one pass or two
+    // at the shapes here): unrolled, their trip counts were kept in
+    // registers across the group kernel's starts, and spilled
+#pragma unroll 1
+    for (int r = tid; r < R; r += T) {
+      sh.map[r] = map_idx[(size_t)e * R + r];
+      const float x0 = starts[(size_t)row * R + r];
+      sh.x[r] = x0;
+      sh.bx[r] = x0;
+      sh.m[r] = 0.f;
+      sh.v[r] = 0.f;
     }
-    sh.slot_first[r] = head;
-  }
-  if (tid == 0) {
-    build_schedule(sh.old_tape, G, n, RB, reinterpret_cast<int*>(sh.gpart),
-                   sh.sched, sh.ops, sh.map0, sh.map1, sh.nops);
-    if (kCl) physical_flips(sh, n_groups, n);
-  }
-  // in the cluster kernel also: every CTA of the cluster runs before any
-  // reaches into another's shared memory
-  if constexpr (kCl) cluster_sync(); else __syncthreads();
+#pragma unroll 1
+    for (int q = tid; q < n_groups; q += T) {
+      sh.flips[q] = flips[q];
+      sh.wim_any[q] = wim_any[q];
+    }
+    if (tid == 0) sh.scal[1] = INFINITY;
+    __syncthreads();
+    // the gates whose gradient feeds each angle, last gate first
+#pragma unroll 1
+    for (int r = tid; r < R; r += T) {
+      int head = -1;
+      for (int g = 0; g < G; ++g) {
+        const int k = sh.old_tape.kind[g];
+        if (sh.old_tape.slot[g] == r && (k == kRX || k == kRY || k == kRZ)) {
+          sh.gate_next[g] = head;
+          head = g;
+        }
+      }
+      sh.slot_first[r] = head;
+    }
+    if (tid == 0) {
+      build_schedule(sh.old_tape, G, n, RB, first_group_bit<kGrp>(n),
+                     reinterpret_cast<int*>(sh.gpart), sh.sched, sh.ops,
+                     sh.map0, sh.map1, sh.nops);
+      if (kCl) physical_flips(sh, n_groups, n, first_group_bit<kGrp>(n));
+    }
+    // in the cluster kernel also: every CTA of the cluster runs before any
+    // reaches into another's shared memory
+    if constexpr (kCl) cluster_sync(); else __syncthreads();
 
-  Amps<RB> s;
-  // b^t as a running product in double from the exact rates: the bias
-  // corrections are then the plain version's 1 - b^t rounded once to
-  // float (1.f - powf(0.999f, t) is off by 1.3e-5 relative at t = 1,
-  // since 0.999f = 0.99900001)
-  double b1t = 1.0, b2t = 1.0;
-  const float b1f = (float)b1, b2f = (float)b2;
-  for (int it = 0; it < iters; ++it) {
-    if (noise) draw_errors_reg(sh, sh.old_tape, G, seeds, e, it, thr1, thr2);
+    Amps<RB> s;
+    // b^t as a running product in double from the exact rates: the bias
+    // corrections are then the plain version's 1 - b^t rounded once to
+    // float (1.f - powf(0.999f, t) is off by 1.3e-5 relative at t = 1,
+    // since 0.999f = 0.99900001)
+    double b1t = 1.0, b2t = 1.0;
+    const float b1f = (float)b1, b2f = (float)b2;
+    for (int it = 0; it < iters; ++it) {
+      if (noise) draw_errors_reg(sh, sh.old_tape, G, seeds, e, it, thr1, thr2);
+      gate_coefs(sh, sh.old_tape, sh.x, G);
+      __syncthreads();
+      if (noise) {
+        list_errors(sh);
+        __syncthreads();
+      }
+      load_psi0<RB>(s, sh, p0r, p0i, n, cl);
+      forward_reg<RB, kCl, kGrp>(s, sh, D, noise, mask, cl);
+      if constexpr (kCl)
+        h_energy_cl<RB, kGrp>(s, sh, wre, wim, n_groups, n, C, mask, cl);
+      else
+        h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
+      track_best_reg(sh, R);
+      backward_reg<RB, kCl, kGrp>(s, sh, D, noise, mask, cl);
+      __syncthreads();
+      if constexpr (kCl) {
+        // this CTA's gradient rows (the register kernel's order), to every
+        // CTA of the cluster (the group kernel: to global memory)
+        float* gdx = kGrp ? group_dx(C, D) : nullptr;
+#pragma unroll 1
+        for (int r = tid; r < R; r += T) {
+          float dx = 0.f;
+          for (int g = sh.slot_first[r]; g >= 0; g = sh.gate_next[g]) {
+            float acc = 0.f;
+            for (int w = 0; w < warps; ++w) acc += sh.gpart[g * warps + w];
+            dx += acc;
+          }
+          if (kGrp)
+            gdx[cl.rank * R + r] = dx;
+          else
+            for (int c = 0; c < C; ++c)
+              at_rank(sh.cdx, c)[cl.rank * R + r] = dx;
+        }
+        if (kGrp) group_sync(cl); else cluster_sync();
+      }
+      b1t *= b1;
+      b2t *= b2;
+      const float bc1 = (float)(1.0 - b1t);
+      const float bc2 = (float)(1.0 - b2t);
+#pragma unroll 1
+      for (int r = tid; r < R; r += T) {
+        float dx = 0.f;
+        if constexpr (kGrp) {
+          const float* gdx = group_dx(C, D);
+          for (int c = 0; c < C; ++c) dx += gdx[c * R + r];
+        } else if constexpr (kCl) {
+          for (int c = 0; c < C; ++c) dx += sh.cdx[c * R + r];
+        } else {
+          for (int g = sh.slot_first[r]; g >= 0; g = sh.gate_next[g]) {
+            float acc = 0.f;
+            for (int w = 0; w < warps; ++w) acc += sh.gpart[g * warps + w];
+            dx += acc;
+          }
+        }
+        const float gr = dx * active[(size_t)e * R + r];
+        const float mm = b1f * sh.m[r] + omb1 * gr;
+        const float vv = b2f * sh.v[r] + omb2 * gr * gr;
+        const float mhat = mm / bc1;
+        const float vhat = vv / bc2;
+        sh.x[r] = sh.x[r] - lr * mhat / (sqrtf(vhat) + eps);
+        sh.m[r] = mm;
+        sh.v[r] = vv;
+      }
+      __syncthreads();
+    }
+
+    // the final iterate may beat the tracked best
+    if (noise) draw_errors_reg(sh, sh.old_tape, G, seeds, e, iters, thr1, thr2);
     gate_coefs(sh, sh.old_tape, sh.x, G);
     __syncthreads();
     if (noise) {
@@ -1103,137 +1500,95 @@ __device__ __forceinline__ void fused_adam_v2_body(
       __syncthreads();
     }
     load_psi0<RB>(s, sh, p0r, p0i, n, cl);
-    forward_reg<RB, kCl>(s, sh, D, noise, mask, cl);
+    forward_reg<RB, kCl, kGrp>(s, sh, D, noise, mask, cl);
     if constexpr (kCl)
-      h_energy_cl<RB>(s, sh, wre, wim, n_groups, n, C, mask, cl);
+      h_energy_cl<RB, kGrp>(s, sh, wre, wim, n_groups, n, C, mask, cl);
     else
       h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
     track_best_reg(sh, R);
-    backward_reg<RB, kCl>(s, sh, D, noise, mask, cl);
-    __syncthreads();
-    if constexpr (kCl) {
-      // this CTA's gradient rows (the register kernel's order), to every
-      // CTA of the cluster
-      for (int r = tid; r < R; r += T) {
-        float dx = 0.f;
-        for (int g = sh.slot_first[r]; g >= 0; g = sh.gate_next[g]) {
-          float acc = 0.f;
-          for (int w = 0; w < warps; ++w) acc += sh.gpart[g * warps + w];
-          dx += acc;
-        }
-        for (int c = 0; c < C; ++c) at_rank(sh.cdx, c)[cl.rank * R + r] = dx;
-      }
-      cluster_sync();
+
+    if (lead) {
+#pragma unroll 1
+      for (int r = tid; r < R; r += T) best_x[(size_t)row * R + r] = sh.bx[r];
+      if (tid == 0) best_e[row] = sh.scal[1];
     }
-    b1t *= b1;
-    b2t *= b2;
-    const float bc1 = (float)(1.0 - b1t);
-    const float bc2 = (float)(1.0 - b2t);
-    for (int r = tid; r < R; r += T) {
-      float dx = 0.f;
-      if constexpr (kCl) {
-        for (int c = 0; c < C; ++c) dx += sh.cdx[c * R + r];
+    __threadfence();                        // publish before arriving
+    __syncthreads();
+    int* gflag = kGrp ? group_flag(C, D, R) : nullptr;
+    if (tid == 0 && lead) {
+      const int last = atomicAdd(&arrived[e], 1u) == (unsigned int)(S - 1);
+      if constexpr (kGrp) {                 // the flag to every CTA
+        *gflag = last;
+      } else if constexpr (kCl) {
+        for (int c = 0; c < C; ++c) at_rank(sh.flag, c)[0] = last;
       } else {
-        for (int g = sh.slot_first[r]; g >= 0; g = sh.gate_next[g]) {
-          float acc = 0.f;
-          for (int w = 0; w < warps; ++w) acc += sh.gpart[g * warps + w];
-          dx += acc;
+        sh.flag[0] = last;
+      }
+    }
+    if constexpr (kGrp) {
+      group_sync(cl);
+      if (tid == 0) sh.flag[0] = *gflag;
+      __syncthreads();
+    } else if constexpr (kCl) {
+      cluster_sync();
+    } else {
+      __syncthreads();
+    }
+    if (!sh.flag[0]) continue;
+
+    // last start of env e: the other starts' results are visible (L1
+    // bypassed)
+    __threadfence();
+    if (tid == 0) {                         // first minimum, as argmin
+      int bs = 0;
+      float be = __ldcg(best_e + (size_t)e * S);
+      for (int s2 = 1; s2 < S; ++s2) {
+        const float v = __ldcg(best_e + (size_t)e * S + s2);
+        if (v < be) {
+          be = v;
+          bs = s2;
         }
       }
-      const float gr = dx * active[(size_t)e * R + r];
-      const float mm = b1f * sh.m[r] + omb1 * gr;
-      const float vv = b2f * sh.v[r] + omb2 * gr * gr;
-      const float mhat = mm / bc1;
-      const float vhat = vv / bc2;
-      sh.x[r] = sh.x[r] - lr * mhat / (sqrtf(vhat) + eps);
-      sh.m[r] = mm;
-      sh.v[r] = vv;
+      sh.flag[1] = bs;
     }
     __syncthreads();
-  }
-
-  // the final iterate may beat the tracked best
-  if (noise) draw_errors_reg(sh, sh.old_tape, G, seeds, e, iters, thr1, thr2);
-  gate_coefs(sh, sh.old_tape, sh.x, G);
-  __syncthreads();
-  if (noise) {
-    list_errors(sh);
-    __syncthreads();
-  }
-  load_psi0<RB>(s, sh, p0r, p0i, n, cl);
-  forward_reg<RB, kCl>(s, sh, D, noise, mask, cl);
-  if constexpr (kCl)
-    h_energy_cl<RB>(s, sh, wre, wim, n_groups, n, C, mask, cl);
-  else
-    h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
-  track_best_reg(sh, R);
-
-  if (lead) {
-    for (int r = tid; r < R; r += T) best_x[(size_t)row * R + r] = sh.bx[r];
-    if (tid == 0) best_e[row] = sh.scal[1];
-  }
-  __threadfence();                        // publish before arriving
-  __syncthreads();
-  if (tid == 0 && lead) {
-    const int last = atomicAdd(&arrived[e], 1u) == (unsigned int)(S - 1);
-    if constexpr (kCl) {                  // the flag to every CTA
-      for (int c = 0; c < C; ++c) at_rank(sh.flag, c)[0] = last;
-    } else {
-      sh.flag[0] = last;
+    const size_t best_row = (size_t)e * S + sh.flag[1];
+#pragma unroll 1
+    for (int r = tid; r < R; r += T) {
+      const float xo = __ldcg(best_x + best_row * R + r);
+      if (lead) x_opt[(size_t)e * R + r] = xo;
+      sh.bx[r] = xo;
     }
-  }
-  if constexpr (kCl) cluster_sync(); else __syncthreads();
-  if (!sh.flag[0]) return;
-
-  // last start of env e: the other starts' results are visible (L1
-  // bypassed)
-  __threadfence();
-  if (tid == 0) {                         // first minimum, as argmin
-    int bs = 0;
-    float be = __ldcg(best_e + (size_t)e * S);
-    for (int s2 = 1; s2 < S; ++s2) {
-      const float v = __ldcg(best_e + (size_t)e * S + s2);
-      if (v < be) {
-        be = v;
-        bs = s2;
-      }
-    }
-    sh.flag[1] = bs;
-  }
-  __syncthreads();
-  const size_t best_row = (size_t)e * S + sh.flag[1];
-  for (int r = tid; r < R; r += T) {
-    const float xo = __ldcg(best_x + best_row * R + r);
-    if (lead) x_opt[(size_t)e * R + r] = xo;
-    sh.bx[r] = xo;
-  }
-  __syncthreads();
-  for (int r = tid; r < R; r += T) {
-    const int mj = sh.map[r];
-    sh.x[r] = mj >= 0 ? sh.bx[mj] : 0.f;  // x_new
-  }
-  __syncthreads();
-
-  if (tid == 0) {
-    build_schedule(sh.new_tape, G, n, RB, reinterpret_cast<int*>(sh.gpart),
-                   sh.sched, sh.ops, sh.map0, sh.map1, sh.nops);
-    if (kCl) physical_flips(sh, n_groups, n);
-  }
-  if (noise)                              // a fresh realization for e_new
-    draw_errors_reg(sh, sh.new_tape, G, seeds, e, iters + 1, thr1, thr2);
-  gate_coefs(sh, sh.new_tape, sh.x, G);
-  __syncthreads();
-  if (noise) {
-    list_errors(sh);
     __syncthreads();
-  }
-  load_psi0<RB>(s, sh, p0r, p0i, n, cl);
-  forward_reg<RB, kCl>(s, sh, D, noise, mask, cl);
-  if constexpr (kCl)
-    h_energy_cl<RB>(s, sh, wre, wim, n_groups, n, C, mask, cl);
-  else
-    h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
-  if (tid == 0 && lead) e_new[e] = sh.scal[0];
+#pragma unroll 1
+    for (int r = tid; r < R; r += T) {
+      const int mj = sh.map[r];
+      sh.x[r] = mj >= 0 ? sh.bx[mj] : 0.f;  // x_new
+    }
+    __syncthreads();
+
+    if (tid == 0) {
+      build_schedule(sh.new_tape, G, n, RB, first_group_bit<kGrp>(n),
+                     reinterpret_cast<int*>(sh.gpart), sh.sched, sh.ops,
+                     sh.map0, sh.map1, sh.nops);
+      if (kCl) physical_flips(sh, n_groups, n, first_group_bit<kGrp>(n));
+    }
+    if (noise)                              // a fresh realization for e_new
+      draw_errors_reg(sh, sh.new_tape, G, seeds, e, iters + 1, thr1, thr2);
+    gate_coefs(sh, sh.new_tape, sh.x, G);
+    __syncthreads();
+    if (noise) {
+      list_errors(sh);
+      __syncthreads();
+    }
+    load_psi0<RB>(s, sh, p0r, p0i, n, cl);
+    forward_reg<RB, kCl, kGrp>(s, sh, D, noise, mask, cl);
+    if constexpr (kCl)
+      h_energy_cl<RB, kGrp>(s, sh, wre, wim, n_groups, n, C, mask, cl);
+    else
+      h_energy_reg<RB>(s, sh, wre, wim, n_groups, n, mask);
+    if (tid == 0 && lead) e_new[e] = sh.scal[0];
+  } while (kGrp && (row += step) < rows);
 }
 
 #define FUSED_ADAM_V2_PARAMS                                                 \
@@ -1257,7 +1612,9 @@ template <int RB>
 __global__ void __launch_bounds__(kRegThreads)
 fused_adam_v2_reg_kernel(FUSED_ADAM_V2_PARAMS) {
   DYNAMIC_SHARED(smem_reg);
-  fused_adam_v2_body<RB, false>(smem_reg, FUSED_ADAM_V2_ARGS);
+  const Cl cl = {0};
+  fused_adam_v2_body<RB, false, false>(smem_reg, blockIdx.x, 1, 0, cl,
+                                       FUSED_ADAM_V2_ARGS);
 }
 
 // 13 <= n <= 16: a cluster of 2^(n - 12) CTAs of 256 threads a start,
@@ -1266,410 +1623,47 @@ template <int RB>
 __global__ void __launch_bounds__(kRegThreads, 1)
 fused_adam_v2_cluster_kernel(FUSED_ADAM_V2_PARAMS) {
   DYNAMIC_SHARED(smem_cl);
-  fused_adam_v2_body<RB, true>(smem_cl, FUSED_ADAM_V2_ARGS);
+  const int C = 1 << (n - kClusterBit);
+  const int rank = (int)cg::this_cluster().block_rank();
+  const Cl cl = {rank};
+  fused_adam_v2_body<RB, true, false>(smem_cl, blockIdx.x / C, 1, 0, cl,
+                                      FUSED_ADAM_V2_ARGS);
 }
 
-// -- first design (17 <= n <= 18) --------------------------------------------
-
-struct Shared {
-  double* red;   // 2 * kWarps energy partials
-  float* pre;    // D: psi (shared memory or global workspace)
-  float* pim;
-  float* lre;    // D: lambda
-  float* lim;
-  float* x;      // R: iterate
-  float* m;
-  float* v;
-  float* bx;     // best iterate
-  float* dx;     // gradient
-  float* ct;     // cos(x / 2)
-  float* st;     // sin(x / 2)
-  float* scal;   // [0] current energy, [1] best energy
-  float* gpart;  // 2 x kWarps gradient partials (double-buffered)
-  Tape old_tape;
-  Tape new_tape;
-  int* map;      // R
-  int* flips;    // G_f
-  int* flag;     // [0] last CTA of its env, [1] best start
-  int* err_t;    // G error kinds on the target (noise variant)
-  int* err_c;    // G error kinds on the control
-};
-
-// Error kinds of every gate of `tape` at `tag` into err_t / err_c; the
-// caller's next barrier publishes them.
-__device__ void draw_errors(const Shared& sh, const Tape& tape, int G,
-                            const int* __restrict__ seeds, int e, int tag,
-                            unsigned thr1, unsigned thr2) {
-  const unsigned k0 = (unsigned)seeds[2 * e], k1 = (unsigned)seeds[2 * e + 1];
-  for (int g = threadIdx.x; g < G; g += kThreads)
-    philox::error_kinds(tape.kind[g], g, tag, k0, k1, thr1, thr2,
-                        sh.err_t[g], sh.err_c[g]);
-}
-
-// Pauli k on qubit q: on psi (forward), or, with kAdjoint, undone on psi
-// and transposed onto lambda.
-template <bool kAdjoint>
-__device__ void error_pass(const Shared& sh, int k, int q, int n) {
-  const int half = 1 << (n - 1);
-  for (int p = threadIdx.x; p < half; p += kThreads) {
-    const int i0 = pair_low(p, q);
-    const int i1 = i0 | (1 << q);
-    philox::pauli_pair<false>(k, sh.pre[i0], sh.pim[i0], sh.pre[i1],
-                              sh.pim[i1]);
-    if (kAdjoint)
-      philox::pauli_pair<true>(k, sh.lre[i0], sh.lim[i0], sh.lre[i1],
-                               sh.lim[i1]);
-  }
-  __syncthreads();
-}
-
-// Both error Paulis of gate g (block-uniform: they live in shared memory).
-template <bool kAdjoint>
-__device__ void gate_errors(const Shared& sh, int g, int t, int c, int n) {
-  if (sh.err_t[g]) error_pass<kAdjoint>(sh, sh.err_t[g], t, n);
-  if (sh.err_c[g]) error_pass<kAdjoint>(sh, sh.err_c[g], c < 0 ? 0 : c, n);
-}
-
-// psi <- psi0, trig table of x, dx <- 0.
-__device__ void begin_pass(const Shared& sh, const float* __restrict__ p0re,
-                           const float* __restrict__ p0im, int D, int R) {
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    sh.pre[i] = __ldg(p0re + i);
-    sh.pim[i] = __ldg(p0im + i);
-  }
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    float s, c;
-    sincosf(0.5f * sh.x[r], &s, &c);
-    sh.st[r] = s;
-    sh.ct[r] = c;
-    sh.dx[r] = 0.f;
-  }
-  __syncthreads();
-}
-
-// psi <- tape(x) psi, each gate followed by its drawn errors in the noise
-// variant.
-__device__ void forward(const Shared& sh, const Tape& tape, int G, int n,
-                        bool noise) {
-  const int half = 1 << (n - 1);
-  for (int g = 0; g < G; ++g) {
-    const int k = tape.kind[g];
-    if (k == kNone) continue;
-    const int t = tape.tq[g], c = tape.cq[g], sl = tape.slot[g];
-    const Coef u = sl >= 0 ? gate_coef(k, sh.ct[sl], sh.st[sl])
-                           : gate_coef(k, 1.f, 0.f);
-    for (int p = threadIdx.x; p < half; p += kThreads) {
-      const int i0 = pair_low(p, t);
-      if (c >= 0 && !((i0 >> c) & 1)) continue;
-      const int i1 = i0 | (1 << t);
-      const float a0r = sh.pre[i0], a0i = sh.pim[i0];
-      const float a1r = sh.pre[i1], a1i = sh.pim[i1];
-      float b0r, b0i, b1r, b1i;
-      cmul2(u.u00r, u.u00i, a0r, a0i, u.u01r, u.u01i, a1r, a1i, b0r, b0i);
-      cmul2(u.u10r, u.u10i, a0r, a0i, u.u11r, u.u11i, a1r, a1i, b1r, b1i);
-      sh.pre[i0] = b0r;
-      sh.pim[i0] = b0i;
-      sh.pre[i1] = b1r;
-      sh.pim[i1] = b1i;
-    }
-    __syncthreads();
-    if (noise) gate_errors<false>(sh, g, t, c, n);
-  }
-}
-
-// lambda <- 2 conj(H psi); scal[0] <- Re<psi|H psi> / <psi|psi>.
-__device__ void h_energy(const Shared& sh, const float* __restrict__ wre,
-                         const float* __restrict__ wim, int n_groups, int D) {
-  double raw = 0.0, nn = 0.0;
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    float hr = 0.f, hi = 0.f;
-    for (int f = 0; f < n_groups; ++f) {
-      const int j = i ^ sh.flips[f];
-      const float wr = __ldg(wre + (size_t)f * D + i);
-      const float wi = __ldg(wim + (size_t)f * D + i);
-      const float pr = sh.pre[j], pi = sh.pim[j];
-      hr = fmaf(wr, pr, hr);
-      hr = fmaf(-wi, pi, hr);
-      hi = fmaf(wr, pi, hi);
-      hi = fmaf(wi, pr, hi);
-    }
-    const float pr = sh.pre[i], pi = sh.pim[i];
-    sh.lre[i] = 2.f * hr;
-    sh.lim[i] = -2.f * hi;
-    raw += (double)pr * hr + (double)pi * hi;
-    nn += (double)pr * pr + (double)pi * pi;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    raw += __shfl_xor_sync(0xffffffffu, raw, off);
-    nn += __shfl_xor_sync(0xffffffffu, nn, off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    sh.red[2 * warp] = raw;
-    sh.red[2 * warp + 1] = nn;
-  }
-  __syncthreads();
+// 17 <= n <= 18: a start of 2^(n - 12) CTAs of 256 threads in clusters of
+// the launch's cluster dimension; the grid holds `slots` starts (no more
+// than the card holds at once, whole), and slot w runs starts w, w +
+// slots, ... of the `rows` = E x S in order.  `xchg` holds each slot's
+// exchange area, `arrived` the E env counters and then each slot's
+// barrier counter.
+template <int RB>
+__global__ void __launch_bounds__(kRegThreads, 1)
+fused_adam_v2_group_kernel(FUSED_ADAM_V2_PARAMS, float* xchg, int slots,
+                           int rows) {
+  DYNAMIC_SHARED(smem_grp);
+  const int C = 1 << (n - kClusterBit);
+  const int slot = blockIdx.x / C;
+  const int rank = blockIdx.x % C;
+  GroupSh* gs = &group_sh();
   if (threadIdx.x == 0) {
-    double a = 0.0, b = 0.0;
-    for (int w = 0; w < kWarps; ++w) {
-      a += sh.red[2 * w];
-      b += sh.red[2 * w + 1];
-    }
-    sh.scal[0] = (float)(a / b);
+    const int D = blockDim.x << RB;
+    gs->xg = xchg + slot * group_area_floats(C, D, R);
+    gs->bar = arrived + rows / S + slot;
+    gs->passed = 0;
+    gs->cbits = log2_of((int)cg::this_cluster().num_blocks());
+    gs->ctas = C;
   }
   __syncthreads();
-}
-
-// Keep the better of (x, E) and (bx, best E).
-__device__ void track_best(const Shared& sh, int R) {
-  const bool better = sh.scal[0] < sh.scal[1];
-  if (better)
-    for (int r = threadIdx.x; r < R; r += kThreads) sh.bx[r] = sh.x[r];
-  __syncthreads();
-  if (threadIdx.x == 0 && better) sh.scal[1] = sh.scal[0];
-  __syncthreads();
-}
-
-// Adjoint sweep over the tape: undo each gate on psi (U^H), carry lambda
-// back (U^T), and add 1/2 Im[(P psi)^T lambda] into dx[slot]; in the noise
-// variant each gate's drawn errors are undone first.  A gradient row is
-// summed in a fixed order (warp shuffles, then thread 0 over the warps),
-// so the kernel is deterministic; the warp partials alternate between two
-// buffers, which lets thread 0 sum gate g's while the others start on the
-// next gate.
-__device__ void backward(const Shared& sh, const Tape& tape, int G, int n,
-                         bool noise) {
-  const int half = 1 << (n - 1);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int parity = 0;
-  for (int g = G - 1; g >= 0; --g) {
-    const int k = tape.kind[g];
-    if (k == kNone) continue;
-    const int t = tape.tq[g], c = tape.cq[g], sl = tape.slot[g];
-    if (noise) gate_errors<true>(sh, g, t, c, n);
-    float* gbuf = sh.gpart + parity * kWarps;
-    parity ^= 1;
-    const bool has_grad = sl >= 0 && (k == kRX || k == kRY || k == kRZ);
-    const Coef u = sl >= 0 ? gate_coef(k, sh.ct[sl], sh.st[sl])
-                           : gate_coef(k, 1.f, 0.f);
-    float gp = 0.f;
-    for (int p = threadIdx.x; p < half; p += kThreads) {
-      const int i0 = pair_low(p, t);
-      if (c >= 0 && !((i0 >> c) & 1)) continue;
-      const int i1 = i0 | (1 << t);
-      const float a0r = sh.pre[i0], a0i = sh.pim[i0];
-      const float a1r = sh.pre[i1], a1i = sh.pim[i1];
-      const float l0r = sh.lre[i0], l0i = sh.lim[i0];
-      const float l1r = sh.lre[i1], l1i = sh.lim[i1];
-      if (has_grad) {
-        float q0r, q0i, q1r, q1i;
-        generator(k, a0r, a0i, a1r, a1i, q0r, q0i, q1r, q1i);
-        gp += 0.5f * (q0r * l0i + q0i * l0r + q1r * l1i + q1i * l1r);
-      }
-      float b0r, b0i, b1r, b1i;           // U^H (a0, a1)
-      cmul2(u.u00r, -u.u00i, a0r, a0i, u.u10r, -u.u10i, a1r, a1i, b0r, b0i);
-      cmul2(u.u01r, -u.u01i, a0r, a0i, u.u11r, -u.u11i, a1r, a1i, b1r, b1i);
-      float m0r, m0i, m1r, m1i;           // U^T (l0, l1)
-      cmul2(u.u00r, u.u00i, l0r, l0i, u.u10r, u.u10i, l1r, l1i, m0r, m0i);
-      cmul2(u.u01r, u.u01i, l0r, l0i, u.u11r, u.u11i, l1r, l1i, m1r, m1i);
-      sh.pre[i0] = b0r;
-      sh.pim[i0] = b0i;
-      sh.pre[i1] = b1r;
-      sh.pim[i1] = b1i;
-      sh.lre[i0] = m0r;
-      sh.lim[i0] = m0i;
-      sh.lre[i1] = m1r;
-      sh.lim[i1] = m1i;
-    }
-    if (has_grad) {                       // block-uniform branch
-      for (int off = 16; off > 0; off >>= 1)
-        gp += __shfl_xor_sync(0xffffffffu, gp, off);
-      if (lane == 0) gbuf[warp] = gp;
-    }
-    __syncthreads();
-    if (has_grad && threadIdx.x == 0) {
-      float acc = 0.f;
-      for (int w = 0; w < kWarps; ++w) acc += gbuf[w];
-      sh.dx[sl] += acc;
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_adam_v2_kernel(Tape old_g, Tape new_g, const int* __restrict__ map_idx,
-                     const float* __restrict__ p0re,
-                     const float* __restrict__ p0im,
-                     const float* __restrict__ wre,
-                     const float* __restrict__ wim,
-                     const int* __restrict__ flips,
-                     const float* __restrict__ starts,
-                     const float* __restrict__ active,
-                     const int* __restrict__ seeds,
-                     float* __restrict__ x_opt, float* __restrict__ e_new,
-                     float* best_x, float* best_e, unsigned int* arrived,
-                     float* work, int S, int G, int R, int n, int n_groups,
-                     int psi0_stride, int iters, float lr, double b1,
-                     double b2, float omb1, float omb2, float eps,
-                     unsigned thr1, unsigned thr2) {
-  DYNAMIC_SHARED(smem_fd);
-  double* smem = reinterpret_cast<double*>(smem_fd);
-  const bool noise = seeds != nullptr;
-  const int D = 1 << n;
-  const int e = blockIdx.x / S;
-  const int row = blockIdx.x;             // e * S + s
-  const float* p0r = p0re + (size_t)e * psi0_stride;   // this env's psi0
-  const float* p0i = p0im + (size_t)e * psi0_stride;
-  Shared sh;
-  sh.red = smem;
-  float* f = reinterpret_cast<float*>(smem + 2 * kWarps);
-  float* state = f;
-  if (work == nullptr) {                  // dead (kSmemStateMaxQubits)
-    f += 4 * D;
-  } else {
-    state = work + (size_t)row * 4 * D;
-  }
-  sh.pre = state;
-  sh.pim = state + D;
-  sh.lre = state + 2 * D;
-  sh.lim = state + 3 * D;
-  sh.x = f; f += R;
-  sh.m = f; f += R;
-  sh.v = f; f += R;
-  sh.bx = f; f += R;
-  sh.dx = f; f += R;
-  sh.ct = f; f += R;
-  sh.st = f; f += R;
-  sh.scal = f; f += 2;
-  sh.gpart = f; f += 2 * kWarps;
-  int* ip = reinterpret_cast<int*>(f);
-  int* tapes[8];
-  for (int a = 0; a < 8; ++a) { tapes[a] = ip; ip += G; }
-  sh.old_tape = {tapes[0], tapes[1], tapes[2], tapes[3]};
-  sh.new_tape = {tapes[4], tapes[5], tapes[6], tapes[7]};
-  sh.map = ip; ip += R;
-  sh.flips = ip; ip += n_groups;
-  sh.flag = ip; ip += 2;
-  sh.err_t = ip; ip += noise ? G : 0;
-  sh.err_c = ip;
-
-  const int* src[8] = {old_g.kind, old_g.tq, old_g.cq, old_g.slot,
-                       new_g.kind, new_g.tq, new_g.cq, new_g.slot};
-  for (int idx = threadIdx.x; idx < 8 * G; idx += kThreads)
-    tapes[idx / G][idx % G] = src[idx / G][(size_t)e * G + idx % G];
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    sh.map[r] = map_idx[(size_t)e * R + r];
-    const float x0 = starts[(size_t)row * R + r];
-    sh.x[r] = x0;
-    sh.bx[r] = x0;
-    sh.m[r] = 0.f;
-    sh.v[r] = 0.f;
-  }
-  for (int q = threadIdx.x; q < n_groups; q += kThreads)
-    sh.flips[q] = flips[q];
-  if (threadIdx.x == 0) sh.scal[1] = INFINITY;
-  __syncthreads();
-
-  // b^t as a running product in double from the exact rates: the bias
-  // corrections are then the plain version's 1 - b^t rounded once to
-  // float (1.f - powf(0.999f, t) is off by 1.3e-5 relative at t = 1,
-  // since 0.999f = 0.99900001)
-  double b1t = 1.0, b2t = 1.0;
-  const float b1f = (float)b1, b2f = (float)b2;
-  for (int it = 0; it < iters; ++it) {
-    if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, it, thr1, thr2);
-    begin_pass(sh, p0r, p0i, D, R);
-    forward(sh, sh.old_tape, G, n, noise);
-    h_energy(sh, wre, wim, n_groups, D);
-    track_best(sh, R);
-    backward(sh, sh.old_tape, G, n, noise);
-    b1t *= b1;
-    b2t *= b2;
-    const float bc1 = (float)(1.0 - b1t);
-    const float bc2 = (float)(1.0 - b2t);
-    for (int r = threadIdx.x; r < R; r += kThreads) {
-      const float gr = sh.dx[r] * active[(size_t)e * R + r];
-      const float mm = b1f * sh.m[r] + omb1 * gr;
-      const float vv = b2f * sh.v[r] + omb2 * gr * gr;
-      const float mhat = mm / bc1;
-      const float vhat = vv / bc2;
-      sh.x[r] = sh.x[r] - lr * mhat / (sqrtf(vhat) + eps);
-      sh.m[r] = mm;
-      sh.v[r] = vv;
-    }
-    __syncthreads();
-  }
-
-  // the final iterate may beat the tracked best
-  if (noise) draw_errors(sh, sh.old_tape, G, seeds, e, iters, thr1, thr2);
-  begin_pass(sh, p0r, p0i, D, R);
-  forward(sh, sh.old_tape, G, n, noise);
-  h_energy(sh, wre, wim, n_groups, D);
-  track_best(sh, R);
-
-  for (int r = threadIdx.x; r < R; r += kThreads)
-    best_x[(size_t)row * R + r] = sh.bx[r];
-  if (threadIdx.x == 0) best_e[row] = sh.scal[1];
-  __threadfence();                        // publish before arriving
-  __syncthreads();
-  if (threadIdx.x == 0) sh.flag[0] =
-      atomicAdd(&arrived[e], 1u) == (unsigned int)(S - 1);
-  __syncthreads();
-  if (!sh.flag[0]) return;
-
-  // last CTA of env e: the other starts' results are visible (L1 bypassed)
-  __threadfence();
-  if (threadIdx.x == 0) {                 // first minimum, as argmin
-    int b = 0;
-    float be = __ldcg(best_e + (size_t)e * S);
-    for (int s = 1; s < S; ++s) {
-      const float v = __ldcg(best_e + (size_t)e * S + s);
-      if (v < be) {
-        be = v;
-        b = s;
-      }
-    }
-    sh.flag[1] = b;
-  }
-  __syncthreads();
-  const size_t best_row = (size_t)e * S + sh.flag[1];
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    const float xo = __ldcg(best_x + best_row * R + r);
-    x_opt[(size_t)e * R + r] = xo;
-    sh.bx[r] = xo;
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    const int mj = sh.map[r];
-    sh.x[r] = mj >= 0 ? sh.bx[mj] : 0.f;  // x_new
-  }
-  __syncthreads();
-
-  if (noise)                              // a fresh realization for e_new
-    draw_errors(sh, sh.new_tape, G, seeds, e, iters + 1, thr1, thr2);
-  begin_pass(sh, p0r, p0i, D, R);
-  forward(sh, sh.new_tape, G, n, noise);
-  h_energy(sh, wre, wim, n_groups, D);
-  if (threadIdx.x == 0) e_new[e] = sh.scal[0];
-}
-
-bool state_in_smem(int n) { return n <= kSmemStateMaxQubits; }
-
-// Whether the first design runs at n qubits with its state in the global
-// workspace.
-bool uses_workspace(int n) {
-  return cluster_size(n) == 0 && !state_in_smem(n);
+  const Cl cl = {rank};
+  fused_adam_v2_body<RB, true, true>(smem_grp + kGroupShBytes, slot, slots,
+                                     rows, cl, FUSED_ADAM_V2_ARGS);
 }
 
 size_t smem_bytes(int G, int R, int n, int n_groups, bool noise) {
-  if (cluster_size(n) > 0) return reg_smem_bytes(G, R, n, n_groups, noise);
-  const size_t state = state_in_smem(n) ? (size_t)4 << n : 0;
-  return sizeof(double) * 2 * kWarps +
-         sizeof(float) * (state + (size_t)7 * R + 2 + 2 * kWarps) +
-         sizeof(int) * ((size_t)(noise ? 10 : 8) * G + R + n_groups + 2);
+  return reg_smem_bytes(G, R, n, n_groups, noise);
 }
 
-// The cluster kernel's launch configuration: E x S clusters of C CTAs.
+// The launch configuration of `clusters` clusters of C CTAs.
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
@@ -1690,16 +1684,44 @@ void cluster_config(ClusterLaunch& l, int clusters, int C, size_t bytes,
   l.cfg.numAttrs = 1;
 }
 
-// The cluster kernel's attributes for `bytes` of dynamic shared memory a
-// CTA and clusters of C CTAs (more than 8 is a non-portable size).
-cudaError_t cluster_attributes(int C, size_t bytes) {
+// A cluster or group kernel's attributes for `bytes` of dynamic shared
+// memory a CTA and clusters of C CTAs (more than 8 is a non-portable
+// size).
+template <class K>
+cudaError_t cluster_attributes(K kernel, int C, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_adam_v2_cluster_kernel<kRegBits>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess || C <= 8) return err;
-  return cudaFuncSetAttribute(fused_adam_v2_cluster_kernel<kRegBits>,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed,
-                              1);
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+template <class K>
+int occupancy(K kernel, int C, size_t bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  // the attribute at the card's limit, so that the query, not the
+  // attribute, judges `bytes`
+  if (err == cudaSuccess) err = cluster_attributes(kernel, C, (size_t)optin);
+  int clusters = 0;
+  if (err == cudaSuccess) {
+    ClusterLaunch l;
+    cluster_config(l, 1, C, bytes, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &l.cfg);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();                   // not sticky for the next launch
+    return -(int)err;
+  }
+  return clusters;
+}
+
+bool valid_group_cluster(int n, int c) {
+  return c == 0 || (c >= 2 && c <= kMaxCluster && (c & (c - 1)) == 0 &&
+                    c <= start_ctas(n));
 }
 
 }  // namespace
@@ -1713,45 +1735,42 @@ size_t fused_adam_v2_smem_bytes(int G, int R, int n, int n_groups,
   return smem_bytes(G, R, n, n_groups, noise != 0);
 }
 
-// CTAs a start takes at n qubits when the cluster kernel runs it (13 <= n
-// <= 16: 2^(n - 12)), else 0 (the register kernel, or the first design).
-int fused_adam_v2_cluster_size(int n) {
-  return n > kRegMaxQubits ? cluster_size(n) : 0;
+// CTAs a start takes at n qubits: 1 up to 12 (the register kernel),
+// 2^(n - 12) above (the cluster kernel up to 16, the group kernel at 17
+// and 18).
+int fused_adam_v2_start_ctas(int n) { return start_ctas(n); }
+
+// CTAs of one cluster of the kernel that runs n qubits, 0 for the register
+// kernel; `group_cluster` (0: the default, kGroupCluster) sets it for the
+// group kernel.
+int fused_adam_v2_cluster_size(int n, int group_cluster) {
+  return n > kRegMaxQubits ? cluster_size(n, group_cluster) : 0;
 }
 
-// How many clusters of the cluster kernel at n qubits, each CTA with
+// 1 where the group kernel runs n qubits.
+int fused_adam_v2_group_band(int n) { return in_group_band(n) ? 1 : 0; }
+
+// How many clusters of the kernel that runs n qubits (clusters of
+// fused_adam_v2_cluster_size(n, group_cluster) CTAs), each CTA with
 // `bytes` of dynamic shared memory, the card can hold at once
 // (cudaOccupancyMaxActiveClusters); 0 when none fits, or minus a CUDA
 // error code.
-int fused_adam_v2_cluster_occupancy(int n, size_t bytes) {
-  const int C = fused_adam_v2_cluster_size(n);
-  if (C < 2) return -(int)cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  // the attribute at the card's limit, so that the query, not the
-  // attribute, judges `bytes`
-  if (err == cudaSuccess) err = cluster_attributes(C, (size_t)optin);
-  int clusters = 0;
-  if (err == cudaSuccess) {
-    ClusterLaunch l;
-    cluster_config(l, 1, C, bytes, nullptr);
-    err = cudaOccupancyMaxActiveClusters(
-        &clusters, fused_adam_v2_cluster_kernel<kRegBits>, &l.cfg);
-  }
-  if (err != cudaSuccess) {
-    cudaGetLastError();                   // not sticky for the next launch
-    return -(int)err;
-  }
-  return clusters;
+int fused_adam_v2_cluster_occupancy(int n, size_t bytes, int group_cluster) {
+  if (n <= kRegMaxQubits || n > kMaxQubits ||
+      !valid_group_cluster(n, group_cluster))
+    return -(int)cudaErrorInvalidValue;
+  const int C = cluster_size(n, group_cluster);
+  if (in_group_band(n))
+    return occupancy(fused_adam_v2_group_kernel<kRegBits>, C, bytes);
+  return occupancy(fused_adam_v2_cluster_kernel<kRegBits>, C, bytes);
 }
 
-// Floats of global workspace for psi and lambda of E x S starts: the
-// first design's from 14 qubits (17-18 qubits as routed), else 0.
-size_t fused_adam_v2_workspace_floats(int E, int S, int n) {
-  return uses_workspace(n) ? (size_t)E * S * 4 << n : 0;
+// Floats of global exchange the group kernel takes for `slots` starts at
+// once with R angles at n qubits, 0 for the other kernels.
+size_t fused_adam_v2_exchange_floats(int n, int R, int slots) {
+  if (!in_group_band(n)) return 0;
+  const int C = start_ctas(n);
+  return (size_t)slots * group_area_floats(C, (1 << n) / C, R);
 }
 
 const char* fused_adam_v2_error_string(int code) {
@@ -1760,17 +1779,20 @@ const char* fused_adam_v2_error_string(int code) {
 
 // Returns cudaGetLastError() after the launch (0 on success); the kernel
 // runs asynchronously on `stream`.  best_x (E, S, R) and best_e (E, S) are
-// scratch; arrived (E,) must be zero; work is null or holds
-// fused_adam_v2_workspace_floats(E, S, n) floats.  A non-null `seeds`
-// (E x 2 int32) launches the noise variant with fire thresholds thr1
-// (after rotations) and thr2 (after CX) out of 2^24.  psi0_stride is 0
-// for (1, D) psi0 planes shared by the envs, D for (E, D) planes.  b1 and
-// b2 are Adam's exact rates.  wim_any (G_f int32): 1 where a group's
-// imaginary plane has a non-zero entry (the register and cluster kernels
-// skip the others; the first design reads every plane).  The kernel by
-// n: the register kernel up to 12 qubits, the cluster kernel from 13 to
-// 16 (fused_adam_v2_cluster_size; the caller checks
-// fused_adam_v2_cluster_occupancy first), the first design at 17-18.
+// scratch; arrived (E,) must be zero, (E + slots,) in the group kernel
+// (each slot's barrier counter after the env counters).  A non-null
+// `seeds` (E x 2 int32) launches the noise variant with fire thresholds
+// thr1 (after rotations) and thr2 (after CX) out of 2^24.  psi0_stride is
+// 0 for (1, D) psi0 planes shared by the envs, D for (E, D) planes.  b1
+// and b2 are Adam's exact rates.  wim_any (G_f int32): 1 where a group's
+// imaginary plane has a non-zero entry (the kernels skip the others).
+// The kernel by n: the register kernel up to 12 qubits, the cluster
+// kernel from 13 to 16, the group kernel at 17-18 (the caller checks
+// fused_adam_v2_cluster_occupancy first for both); the group kernel takes
+// `xchg` (fused_adam_v2_exchange_floats(n, R, slots) floats), `slots`
+// (how many starts the card holds at once, by that occupancy) and
+// `group_cluster` (0: kGroupCluster), which the other kernels leave null
+// and 0.
 int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
                          const int* oslot, const int* nkind, const int* ntq,
                          const int* ncq, const int* nslot, const int* map_idx,
@@ -1780,22 +1802,24 @@ int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
                          const float* active, const int* seeds, float* x_opt,
                          float* e_new,
                          float* best_x, float* best_e, unsigned int* arrived,
-                         float* work, int E, int S, int G, int R, int n,
-                         int n_groups, int psi0_stride, int iters, float lr,
-                         double b1, double b2, float omb1, float omb2,
-                         float eps, unsigned thr1, unsigned thr2,
-                         void* stream) {
+                         float* xchg, int slots, int group_cluster, int E,
+                         int S, int G, int R, int n, int n_groups,
+                         int psi0_stride, int iters, float lr, double b1,
+                         double b2, float omb1, float omb2, float eps,
+                         unsigned thr1, unsigned thr2, void* stream) {
+  const bool group = in_group_band(n);
   if (E < 1 || S < 1 || G < 1 || R < 1 || n < 7 || n > kMaxQubits ||
-      n_groups < 1 || iters < 0 || (work == nullptr) == uses_workspace(n) ||
+      n_groups < 1 || iters < 0 || (xchg != nullptr) != group ||
+      (group ? slots < 1 : slots != 0) ||
+      !valid_group_cluster(n, group ? group_cluster : 0) ||
       (psi0_stride != 0 && psi0_stride != 1 << n))
     return (int)cudaErrorInvalidValue;
   const Tape old_g = {okind, otq, ocq, oslot};
   const Tape new_g = {nkind, ntq, ncq, nslot};
   const size_t bytes = smem_bytes(G, R, n, n_groups, seeds != nullptr);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int C = cluster_size(n);
   cudaError_t err;
-  if (C == 1) {                           // the register kernel
+  if (n <= kRegMaxQubits) {               // the register kernel
     err = cudaFuncSetAttribute(fused_adam_v2_reg_kernel<kRegBits>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
@@ -1808,10 +1832,12 @@ int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
                   thr2);
     return (int)cudaGetLastError();
   }
-  if (C > 1) {                            // the cluster kernel
-    err = cluster_attributes(C, bytes);
+  const int C = start_ctas(n), size = cluster_size(n, group_cluster);
+  ClusterLaunch l;
+  if (!group) {                           // the cluster kernel
+    err = cluster_attributes(fused_adam_v2_cluster_kernel<kRegBits>, C,
+                             bytes);
     if (err != cudaSuccess) return (int)err;
-    ClusterLaunch l;
     cluster_config(l, E * S, C, bytes, st);
     err = cudaLaunchKernelEx(&l.cfg, fused_adam_v2_cluster_kernel<kRegBits>,
                              old_g, new_g, map_idx, p0re, p0im, wre, wim,
@@ -1822,15 +1848,19 @@ int fused_adam_v2_launch(const int* okind, const int* otq, const int* ocq,
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
-  err = cudaFuncSetAttribute(fused_adam_v2_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+  // the group kernel: no more starts at once than there are
+  const int held = slots < E * S ? slots : E * S;
+  err = cluster_attributes(fused_adam_v2_group_kernel<kRegBits>, size,
+                           bytes);
   if (err != cudaSuccess) return (int)err;
-  KERNEL_LAUNCH(fused_adam_v2_kernel, E * S, kThreads, bytes, st, old_g,
-                new_g, map_idx, p0re, p0im, wre, wim, flips, starts, active,
-                seeds, x_opt, e_new, best_x, best_e, arrived, work, S, G, R,
-                n, n_groups, psi0_stride, iters, lr, b1, b2, omb1, omb2, eps,
-                thr1, thr2);
+  cluster_config(l, held * (C / size), size, bytes, st);
+  err = cudaLaunchKernelEx(&l.cfg, fused_adam_v2_group_kernel<kRegBits>,
+                           old_g, new_g, map_idx, p0re, p0im, wre, wim, flips,
+                           wim_any, starts, active, seeds, x_opt, e_new,
+                           best_x, best_e, arrived, S, G, R, n, n_groups,
+                           psi0_stride, iters, lr, b1, b2, omb1, omb2, eps,
+                           thr1, thr2, xchg, held, E * S);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -13,13 +13,14 @@ precomputed on the host by ``pauli_flip_groups``: 84 groups for 12-qubit
 LiH instead of a dense (4096, 4096) matrix.
 
 ``fused_adam_step2d`` launches the CUDA kernel ``csrc/fused_adam_v2.cu``
-on CUDA tensors -- for 7 <= n <= 16 with psi in registers, one CTA a
-start up to 12 qubits and a thread-block cluster of 2^(n - 12) CTAs a
-start from 13 (``cluster_size``), laid out as ``register_layout`` says and
-moved as ``swap_schedule`` (the plain twin of the kernel's schedule) says;
-at 17 and 18 with psi in a global workspace -- and runs
-``fused_adam_step2d_reference``, the plain PyTorch version of the same
-arithmetic, on CPU tensors.  Layouts: tapes
+on CUDA tensors, psi in registers at every width: one CTA a start up to
+12 qubits, 2^(n - 12) CTAs a start above -- one thread-block cluster up
+to 16 qubits, at 17 and 18 a group of clusters that trade through global
+memory (``start_ctas``, ``cluster_size``) -- laid out as
+``register_layout`` says and moved as ``swap_schedule`` (the plain twin
+of the kernel's schedule) says; it runs ``fused_adam_step2d_reference``,
+the plain PyTorch version of the same arithmetic, on CPU tensors.
+Layouts: tapes
 (E, G) int32, map_idx (E, R) int32, p0re/p0im (1, D) shared or (E, D)
 one per env (the JAX kernel's ``per_env_psi0``, which takes (E, D / 128,
 128) blocks), wre/wim (G_f, D) flip-group planes, flips (G_f,) int32,
@@ -77,7 +78,7 @@ def pauli_flip_groups(pauli, offset: float = 0.0, dtype=np.float32):
 fused_adam_step2d_reference = fused_adam.fused_adam_step_reference
 
 
-# -- the register layout of the kernel (7 <= n <= 16) ------------------------
+# -- the register layout of the kernel --------------------------------------
 
 SWAP = -1                # the gate index of a swap in a schedule
 CLUSTER_BIT = 12         # the first cluster bit: 4 register, 5 lane, 3 warp
@@ -85,20 +86,21 @@ CLUSTER_BIT = 12         # the first cluster bit: 4 register, 5 lane, 3 warp
 
 def register_layout(n: int):
     """(r, lanes, warps, ranks): how the kernel holds the 2^n amplitudes of
-    one start for 7 <= n <= 16.  Amplitude p of the physical order lives
-    in register p & (2^r - 1) of the start's thread p >> r: physical bits
-    [0, r) pick the register, the next ``lanes`` bits the lane of the
-    warp, the next ``warps`` bits the warp of the CTA (2^(n - r) threads,
-    256 at 12 qubits), and from 13 qubits the top ``ranks`` bits (bit 12
-    up) the CTA's rank in the start's cluster of 2^ranks CTAs of 256
-    threads."""
+    one start.  Amplitude p of the physical order lives in register p &
+    (2^r - 1) of the start's thread p >> r: physical bits [0, r) pick the
+    register, the next ``lanes`` bits the lane of the warp, the next
+    ``warps`` bits the warp of the CTA (2^(n - r) threads, 256 at 12
+    qubits), and from 13 qubits the top ``ranks`` bits (bit 12 up) the
+    CTA's rank among the start's 2^ranks CTAs of 256 threads: up to 16
+    qubits one cluster, at 17 and 18 a group of clusters, whose rank bits
+    above the cluster's are the group bits."""
     r = 4
     lanes = min(5, n - r)
     warps = min(3, n - r - lanes)
     return r, lanes, warps, n - r - lanes - warps
 
 
-def swap_schedule(kind, tq, cq, n: int):
+def swap_schedule(kind, tq, cq, n: int, top: int | None = None):
     """Twin of the kernel's ``build_schedule``: where each logical qubit
     sits while one tape runs.  Lane bits hold logical qubits 0..lanes-1
     for good.  The registers start with the first r distinct targets among
@@ -109,11 +111,21 @@ def swap_schedule(kind, tq, cq, n: int):
     next used as a target furthest ahead (Belady; ties: the lowest
     register).  Controls are predicates on any bit and never move.
 
+    Physical bits from ``top`` up (None: none) are group bits, whose swaps
+    go through global memory and cost most: they start with the qubits
+    whose first target comes last (the rest below them in increasing
+    order), and a swap through one sends out the qubit below the group
+    bits that is next a target furthest ahead -- where that qubit sits on
+    a warp or cluster bit and is used later than every register's, a swap
+    of it into the evicted register comes first.
+
     ``kind``, ``tq``, ``cq``: one tape's (G,) arrays.  -> (map0, ops,
     map1): the logical qubit at each physical bit before and after the
     tape, and the ops in order, (g, target bit, control bit or -1) for
-    gate g and (SWAP, register bit, warp or cluster bit) for a swap."""
+    gate g and (SWAP, register bit, warp, cluster or group bit) for a
+    swap."""
     r, lanes, _, _ = register_layout(n)
+    top = n if top is None else top
     kind, tq, cq = (np.asarray(a).tolist() for a in (kind, tq, cq))
     g_n = len(kind)
     live = [g for g in range(g_n) if kind[g] != 0]
@@ -121,16 +133,28 @@ def swap_schedule(kind, tq, cq, n: int):
     for g in reversed(live):
         after[g], first[tq[g]] = first[tq[g]], g
     rest = sorted(range(lanes, n), key=lambda q: (first[q], q))
-    occ = rest[:r] + list(range(lanes)) + sorted(rest[r:])
+    others = rest[r:]
+    late = others[len(others) - (n - top):]     # the last to be targeted
+    occ = (rest[:r] + list(range(lanes))
+           + sorted(q for q in others if q not in late) + sorted(late))
     pos = {q: p for p, q in enumerate(occ)}
     map0, ops, next_use = list(occ), [], list(first)
+
+    def swap(a, b):
+        qa, qb = occ[a], occ[b]
+        ops.append((SWAP, a, b))
+        occ[a], occ[b], pos[qb], pos[qa] = qb, qa, a, b
+
     for g in live:
         t = tq[g]
         if pos[t] >= r + lanes:
             a = max(range(r), key=lambda a: (next_use[occ[a]], -a))
-            b, qa = pos[t], occ[a]
-            ops.append((SWAP, a, b))
-            occ[a], occ[b], pos[t], pos[qa] = t, qa, a, b
+            if pos[t] >= top and top > r + lanes:
+                v = max(range(r + lanes, top),
+                        key=lambda v: (next_use[occ[v]], -v))
+                if next_use[occ[v]] > next_use[occ[a]]:
+                    swap(a, v)
+            swap(a, pos[t])
         ops.append((g, pos[t], pos[cq[g]] if cq[g] >= 0 else -1))
         next_use[t] = after[g]
     return map0, ops, list(occ)
@@ -160,16 +184,21 @@ _PTR = ctypes.c_void_p
 def bind(lib):
     """Set the C signatures of the v2 kernel's library ``lib``."""
     lib.fused_adam_v2_launch.argtypes = (
-        [_PTR] * 24 + [_I32] * 8 + [_F32, _F64, _F64]
+        [_PTR] * 24 + [_I32] * 10 + [_F32, _F64, _F64]
         + [_F32] * 3 + [_U32] * 2 + [_PTR])
     lib.fused_adam_v2_launch.restype = _I32
     lib.fused_adam_v2_smem_bytes.argtypes = [_I32] * 5
     lib.fused_adam_v2_smem_bytes.restype = ctypes.c_size_t
-    lib.fused_adam_v2_workspace_floats.argtypes = [_I32] * 3
-    lib.fused_adam_v2_workspace_floats.restype = ctypes.c_size_t
-    lib.fused_adam_v2_cluster_size.argtypes = [_I32]
+    lib.fused_adam_v2_exchange_floats.argtypes = [_I32] * 3
+    lib.fused_adam_v2_exchange_floats.restype = ctypes.c_size_t
+    lib.fused_adam_v2_start_ctas.argtypes = [_I32]
+    lib.fused_adam_v2_start_ctas.restype = _I32
+    lib.fused_adam_v2_cluster_size.argtypes = [_I32, _I32]
     lib.fused_adam_v2_cluster_size.restype = _I32
-    lib.fused_adam_v2_cluster_occupancy.argtypes = [_I32, ctypes.c_size_t]
+    lib.fused_adam_v2_group_band.argtypes = [_I32]
+    lib.fused_adam_v2_group_band.restype = _I32
+    lib.fused_adam_v2_cluster_occupancy.argtypes = [_I32, ctypes.c_size_t,
+                                                    _I32]
     lib.fused_adam_v2_cluster_occupancy.restype = _I32
     lib.fused_adam_v2_error_string.argtypes = [_I32]
     lib.fused_adam_v2_error_string.restype = ctypes.c_char_p
@@ -191,38 +220,48 @@ def _check_inputs(ints, floats, map_idx, flips, starts, active):
         (MIN_QUBITS, MAX_QUBITS))
 
 
-# (library, n, smem, device) -> the clusters check_clusters found (>= 1)
+# (library, n, smem, device, group cluster) -> the clusters check_clusters
+# found (>= 1)
 _clusters: dict = {}
 
 
-def check_clusters(lib, n: int, smem: int, device=None) -> int:
-    """Clusters of the cluster kernel at ``n`` qubits, each CTA with
-    ``smem`` bytes of dynamic shared memory, that the card (``device``,
-    the current one when None) can hold at once; raises when it can hold
-    none (no fallback to another kernel).  A count found once per shape
-    is kept, so that a step after the first asks the CUDA runtime nothing."""
-    key = (lib, n, smem, device)
+def check_clusters(lib, n: int, smem: int, device=None,
+                   group_cluster: int = 0) -> int:
+    """Clusters of the kernel that runs ``n`` qubits (13-16: the cluster
+    kernel; 17-18: the group kernel in clusters of ``group_cluster`` CTAs,
+    0 for its default), each CTA with ``smem`` bytes of dynamic shared
+    memory, that the card (``device``, the current one when None) can hold
+    at once; raises when it can hold none, or, in the group kernel, not
+    the clusters of one whole start (no fallback to another kernel).  A
+    count found once per shape is kept, so that a step after the first
+    asks the CUDA runtime nothing."""
+    key = (lib, n, smem, device, group_cluster)
     if key in _clusters:
         return _clusters[key]
-    clusters = lib.fused_adam_v2_cluster_occupancy(n, smem)
-    if clusters < 1:
-        size = lib.fused_adam_v2_cluster_size(n)
+    clusters = lib.fused_adam_v2_cluster_occupancy(n, smem, group_cluster)
+    size = lib.fused_adam_v2_cluster_size(n, group_cluster)
+    per_start = lib.fused_adam_v2_start_ctas(n) // max(size, 1)
+    if clusters < per_start:
         why = (f"CUDA error {-clusters} "
                f"({lib.fused_adam_v2_error_string(-clusters).decode()})"
-               if clusters < 0 else "none fits")
+               if clusters < 0 else f"{clusters} fit at once"
+               if clusters else "none fits")
         raise RuntimeError(
-            f"fused_adam_step2d: no cluster of {size} CTAs with {smem} B of "
-            f"shared memory each can be scheduled at {n} qubits: {why}")
+            f"fused_adam_step2d: a start at {n} qubits takes {per_start} "
+            f"cluster(s) of {size} CTAs with {smem} B of shared memory "
+            f"each, and the card cannot hold them at once: {why}")
     _clusters[key] = clusters
     return clusters
 
 
 def run_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
-               flips, starts, active, *, iters, lr, noise, seeds, stream):
+               flips, starts, active, *, iters, lr, noise, seeds, stream,
+               group_cluster=0):
     """Check the inputs and launch the v2 kernel of ``lib`` (bound by
-    ``bind``) on ``stream``, uncounted (the host emulation's tests call it
-    directly).  -> (psi0 stride, CTAs a start in the cluster kernel or 0
-    for the other kernels, x_opt, e_new)."""
+    ``bind``) on ``stream``, uncounted (the host emulation's tests and the
+    split's cluster-size comparison call it directly; ``group_cluster``
+    sets the group kernel's cluster size, 0 its default).  -> (psi0
+    stride, CTAs a start, whether the group kernel ran, x_opt, e_new)."""
     ints = (*old_arrs, *new_arrs)
     floats = (p0re, p0im, wre, wim, starts, active)
     n_env, s_n, g, r, n, n_groups = _check_inputs(ints, floats, map_idx,
@@ -232,17 +271,23 @@ def run_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
         "fused_adam_step2d", noise, seeds, n_env, dev)
     smem = lib.fused_adam_v2_smem_bytes(g, r, n, n_groups, noise is not None)
     fused_adam.check_smem("fused_adam_step2d", smem, "CTA")
-    size = lib.fused_adam_v2_cluster_size(n)
-    if size:
-        check_clusters(lib, n, smem, dev)
+    ctas = lib.fused_adam_v2_start_ctas(n)
+    group = bool(lib.fused_adam_v2_group_band(n))
+    slots, cluster = 0, group_cluster if group else 0
+    if ctas > 1:
+        clusters = check_clusters(lib, n, smem, dev, cluster)
+        # the starts the card holds at once, whole
+        slots = (clusters * lib.fused_adam_v2_cluster_size(n, cluster)
+                 // ctas if group else 0)
     f32 = dict(dtype=torch.float32, device=dev)
     x_opt = torch.empty((n_env, r), **f32)
     e_new = torch.empty((n_env,), **f32)
     best_x = torch.empty((n_env, s_n, r), **f32)
     best_e = torch.empty((n_env, s_n), **f32)
-    arrived = torch.zeros((n_env,), dtype=torch.int32, device=dev)
-    n_work = lib.fused_adam_v2_workspace_floats(n_env, s_n, n)
-    work = torch.empty((n_work,), **f32) if n_work else None
+    # the env counters, then the group kernel's barrier counters
+    arrived = torch.zeros((n_env + slots,), dtype=torch.int32, device=dev)
+    n_xchg = lib.fused_adam_v2_exchange_floats(n, r, min(slots, n_env * s_n))
+    xchg = torch.empty((n_xchg,), **f32) if n_xchg else None
     stride = fused_adam.psi0_stride(p0re)
     # the groups whose imaginary plane is not zero (none for a real H)
     wim_any = (wim != 0).any(dim=1).to(torch.int32)
@@ -252,11 +297,11 @@ def run_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
         wim.data_ptr(), flips.data_ptr(), wim_any.data_ptr(),
         starts.data_ptr(), active.data_ptr(), seeds_ptr, x_opt.data_ptr(),
         e_new.data_ptr(), best_x.data_ptr(), best_e.data_ptr(),
-        arrived.data_ptr(),
-        None if work is None else work.data_ptr(), n_env, s_n, g, r, n,
-        n_groups, stride, int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2,
-        EPS, thr1, thr2, stream)
-    return stride, size, x_opt, e_new
+        arrived.data_ptr(), None if xchg is None else xchg.data_ptr(),
+        min(slots, n_env * s_n), cluster, n_env, s_n, g, r, n, n_groups,
+        stride, int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS, thr1,
+        thr2, stream)
+    return stride, ctas, group, x_opt, e_new
 
 
 def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
@@ -267,9 +312,10 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     docstring for the layouts and ``noise`` / ``seeds``.
     ``fused_adam_step2d.launches`` counts kernel launches,
     ``fused_adam_step2d.noise_launches`` those of the noise variant,
-    ``fused_adam_step2d.psi0_launches`` those with per-env psi0 planes and
+    ``fused_adam_step2d.psi0_launches`` those with per-env psi0 planes,
     ``fused_adam_step2d.cluster_launches`` those of the cluster kernel
-    (13-16 qubits) among them."""
+    (13-16 qubits) and ``fused_adam_step2d.group_launches`` those of the
+    group kernel (17-18) among them."""
     if starts.device.type == "cpu":
         return fused_adam_step2d_reference(
             old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
@@ -278,14 +324,15 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
         raise ValueError(f"fused_adam_step2d: no kernel for device "
                          f"{starts.device}")
     stream = torch.cuda.current_stream(starts.device).cuda_stream
-    stride, size, x_opt, e_new = run_kernel(
+    stride, ctas, group, x_opt, e_new = run_kernel(
         _library(), old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
         starts, active, iters=iters, lr=lr, noise=noise, seeds=seeds,
         stream=stream)
     fused_adam_step2d.launches += 1
     fused_adam_step2d.noise_launches += noise is not None
     fused_adam_step2d.psi0_launches += stride != 0
-    fused_adam_step2d.cluster_launches += size > 0
+    fused_adam_step2d.cluster_launches += ctas > 1 and not group
+    fused_adam_step2d.group_launches += group
     return x_opt, e_new
 
 
@@ -293,3 +340,4 @@ fused_adam_step2d.launches = 0
 fused_adam_step2d.noise_launches = 0
 fused_adam_step2d.psi0_launches = 0
 fused_adam_step2d.cluster_launches = 0
+fused_adam_step2d.group_launches = 0

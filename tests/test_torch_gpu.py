@@ -17,13 +17,15 @@ held to the same rule at 7, 10, 11 (a random Pauli sum) and 12 qubits
 (LiH) -- the register kernel, one CTA a start -- and at 13 (a random
 Pauli sum, and the open Heisenberg chain), 14 and 16 (Heisenberg) -- the
 cluster kernel, a cluster of 2, 4 and 16 CTAs a start, every launch
-counted as its -- and at 17 (a random Pauli sum) -- the first design; at
-12 also with every target and control on the qubits that start on warp
-bits, and with 3 starts.  Two v2 launches agree bit for bit at 12, 13
+counted as its -- and at 17 and 18 (random Pauli sums) -- the group
+kernel, a start of 32 and 64 CTAs in clusters that trade through global
+memory; at 12 also with every target and control on the qubits that start
+on warp bits, and with 3 starts.  Two v2 launches agree bit for bit at 12, 13
 and 14 qubits, as do p = 0 and the noiseless kernel, and identical psi0
 rows and the shared plane; the noise variant is held at 12 and 14.  A
 cluster that cannot be scheduled (more shared memory than a CTA may have)
-raises.  v1 is held at 4, 5, 8 and 9
+raises, as does a group kernel's start that the card cannot hold whole;
+ptxas reports no spills in the v2 kernels.  v1 is held at 4, 5, 8 and 9
 qubits with 3, 8 and 16 starts (groups of a thread, of a few lanes and of
 a warp a start; 16 starts at 9 qubits take two rounds), at 8 and 16
 amplitudes a thread, and with a Pauli sum of D complex flip groups whose
@@ -326,14 +328,15 @@ def test_kernel_rejects_two_qubit_rotations():
 
 
 # the v2 cases: n qubits (the register kernel up to 12, the cluster kernel
-# from 13 to 16, the first design at 17), plus at 12 qubits every target
-# and control on the qubits that start on warp bits (5..11: a swap before
-# most gates) and 3 starts, and the 13-qubit Heisenberg chain
+# from 13 to 16, the group kernel at 17 and 18), plus at 12 qubits every
+# target and control on the qubits that start on warp bits (5..11: a swap
+# before most gates) and 3 starts, and the 13-qubit Heisenberg chain
 V2_CASES = {f"{n}q": dict(n=n) for n in (7, 10, 11, 12, 13, 14, 16)}
 V2_CASES["12q warp qubits"] = dict(n=12, qubits=range(5, 12))
 V2_CASES["12q S=3"] = dict(n=12, n_starts=3)
 V2_CASES["13q chain"] = dict(n=13, chain=True)
 V2_CASES["17q"] = dict(n=17, n_env=2)
+V2_CASES["18q"] = dict(n=18, n_env=2)
 
 
 @pytest.mark.gpu
@@ -342,12 +345,12 @@ def test_kernel2d_matches_plain_version(case):
     dev = _card()
     args = _inputs2d(dev, **V2_CASES[case])
     step = fused_adam2d.fused_adam_step2d
-    before = (step.launches, step.cluster_launches)
+    before = (step.launches, step.cluster_launches, step.group_launches)
     xk, ek = step(*args, iters=3, lr=0.1)
     torch.cuda.synchronize()
     n = V2_CASES[case]["n"]
-    assert (step.launches, step.cluster_launches) == (
-        before[0] + 1, before[1] + (13 <= n <= 16))
+    assert (step.launches, step.cluster_launches, step.group_launches) == (
+        before[0] + 1, before[1] + (13 <= n <= 16), before[2] + (n >= 17))
     plain = fused_adam2d.fused_adam_step2d_reference
     ref = fused_adam.plain_results(args, iters=3, lr=0.1, step=plain)
     ok, strict, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5,
@@ -472,18 +475,23 @@ def test_noise_kernel_at_p0_is_the_noiseless_kernel(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [13, 14, 15, 16])
+@pytest.mark.parametrize("n", [13, 14, 15, 16, 17, 18])
 def test_cluster_kernel_raises_when_no_cluster_fits(n):
-    """The cluster kernel's CTAs at the main path's shared memory fit on
-    the card; asking for more than a CTA may have leaves no cluster that
-    can be scheduled, and the wrapper's check raises (no fallback)."""
+    """The cluster (13-16q) and group (17-18q) kernels' CTAs at the main
+    path's shared memory fit on the card, a group kernel's start whole;
+    asking for more than a CTA may have leaves no cluster that can be
+    scheduled, and the wrapper's check raises (no fallback)."""
     _card()
     lib = fused_adam2d._library()
-    size = lib.fused_adam_v2_cluster_size(n)
-    assert size == 1 << (n - 12)
+    size = lib.fused_adam_v2_cluster_size(n, 0)
+    per_start = lib.fused_adam_v2_start_ctas(n) // size
+    assert size * per_start == 1 << (n - 12)
+    assert (per_start > 1) == (n >= 17) == bool(
+        lib.fused_adam_v2_group_band(n))
     smem = lib.fused_adam_v2_smem_bytes(46, 46, n, n, 0)
-    assert fused_adam2d.check_clusters(lib, n, smem) >= 1
-    with pytest.raises(RuntimeError, match=f"no cluster of {size} CTAs"):
+    assert fused_adam2d.check_clusters(lib, n, smem) >= per_start
+    match = rf"takes {per_start} cluster\(s\) of {size} CTAs"
+    with pytest.raises(RuntimeError, match=match):
         fused_adam2d.check_clusters(lib, n, 300_000)
 
 
@@ -770,6 +778,23 @@ def test_register_tape_kernels_variants(n):
     torch.cuda.synchronize()
     assert _max_err(first, out_p) <= TOL_FWD
     assert _max_err(first_g, grads_p) <= TOL_BWD
+
+
+@pytest.mark.gpu
+def test_v2_kernels_do_not_spill():
+    """ptxas' report of the v2 build: 0 bytes of spills in the register,
+    cluster and group kernels."""
+    from tensorrl_qas_tpu_torch.ops.build import build
+
+    _card()
+    lines = build("fused_adam_v2")["log"].splitlines()
+    reports = [(ln, nxt) for ln, nxt in zip(lines, lines[1:])
+               if "Function properties for" in ln and "fused_adam_v2_" in ln]
+    names = " ".join(ln for ln, _ in reports)
+    for kernel in ("reg_kernel", "cluster_kernel", "group_kernel"):
+        assert kernel in names, names
+    for ln, nxt in reports:
+        assert "0 bytes spill stores, 0 bytes spill loads" in nxt, ln
 
 
 @pytest.mark.gpu

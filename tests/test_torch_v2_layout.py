@@ -1,4 +1,4 @@
-"""The register layout of the v2 kernel (7 <= n <= 16), emulated in numpy.
+"""The register layout of the v2 kernel (7 <= n <= 18), emulated in numpy.
 
 ``csrc/fused_adam_v2.cu:fused_adam_v2_reg_kernel`` keeps 2^r amplitudes of
 psi (and of lambda in the adjoint) in each thread's registers and maps the
@@ -37,6 +37,17 @@ Held at 13, 14 and 16 qubits to the eager simulator and adjoint in
 complex128, 1e-12: psi after the forward, lambda, the angle gradients and
 psi0 after the adjoint, on tapes with swaps through cluster bits, controls
 on cluster bits and X, Y and Z errors on cluster bits.
+
+At 17 and 18 qubits (``fused_adam_v2_group_kernel``) the rank bits above
+a cluster's are group bits, which move data as cluster bits do (through
+global memory); only the schedule differs (``swap_schedule``'s ``top``):
+the same layout holds at 17 and 18 qubits on tapes through group bits,
+every gate's target sits on a register or lane bit when it runs, swaps
+through group bits are counted apart and are fewer than the plain
+schedule puts through the same bits, the group bits start with the
+qubits targeted last, and a swap through one sends out the coldest qubit
+below them.  A control may sit on a group bit: CTA-uniform, it costs no
+swap.
 """
 
 import numpy as np
@@ -338,13 +349,15 @@ class ClusterLayout(Layout):
         return h
 
 
-def _emulate_cluster(n, arrs, kt, kc, x, psi0, pauli):
+def _emulate_cluster(n, arrs, kt, kc, x, psi0, pauli, top=None):
     """``_emulate`` on ``ClusterLayout`` with the kernel's H psi ->
     (psi, lambda, gradient, psi after the adjoint (all logical), maps,
-    the schedule)."""
+    the schedule); ``top``: the first group bit (the group kernel moves
+    data across a group bit as across a cluster bit, through global
+    memory; only its schedule differs)."""
     kind, _, _, slot = arrs
     lay = ClusterLayout(n)
-    map0, ops, map1 = swap_schedule(*arrs[:3], n)
+    map0, ops, map1 = swap_schedule(*arrs[:3], n, top)
     u = {g: np.asarray([[complex(v) for v in row] for row in (m[:2], m[2:])])
          for g in range(len(kind)) if kind[g]
          for m in [gate_matrix(int(kind[g]), torch.tensor(
@@ -431,6 +444,146 @@ def test_cluster_layout_matches_the_eager_simulator(n, seed, one_thread):
     assert {4, 5, 6} <= set(ctl)
     wre, _, flips = pauli_flip_groups(pauli)
     assert any(storage_flip(int(fl), map1)[1] for fl in flips)
+
+
+@pytest.mark.parametrize("n, top", [(17, 13), (18, 16)])
+def test_group_layout_matches_the_eager_simulator(n, top, one_thread):
+    """The group kernel's schedule (group bits from ``top`` up) on the
+    cluster layout at 17 and 18 qubits, held like the cluster kernel's:
+    the tape (every non-lane qubit targeted) goes through group bits --
+    swaps of a register with one, controls on one, each with an X, Y or Z
+    error there, and H psi reading partners across them."""
+    arrs, kt, kc, x, psi0, pauli = _random_case(n, 48, 0)
+    kind, tq, cq, slot = arrs
+    # every non-lane qubit a target, so that group bits hold targets
+    extra = np.arange(5, n, dtype=np.int32)
+    arrs = (np.concatenate([kind, np.full_like(extra, _RY)]),
+            np.concatenate([tq, extra]),
+            np.concatenate([cq, np.full_like(extra, -1)]),
+            np.concatenate([slot, np.full_like(extra, -1)]))
+    kt = np.concatenate([kt, np.zeros_like(extra)])
+    kc = np.concatenate([kc, np.zeros_like(extra)])
+    _, ops, _ = swap_schedule(*arrs[:3], n, top)
+    on_group = [g for g, _, q in ops if g != SWAP and q >= top]
+    assert len(on_group) >= 3
+    kc[on_group[:3]] = (_X, _Y, _Z)
+    psi, lam, grad, back, maps, ops = _emulate_cluster(
+        n, arrs, kt, kc, x, psi0, pauli, top)
+    ext = extend_tape_arrays(tuple(torch.as_tensor(a) for a in arrs),
+                             torch.as_tensor(kt), torch.as_tensor(kc))
+    want = apply_tape(torch.as_tensor(psi0), *ext, torch.as_tensor(x))
+    assert np.abs(psi - want.numpy()).max() <= TOL
+    w, f, sm, ip = pauli.tensors("cpu", torch.complex128)
+    h = apply_pauli_sum(want, w, f, sm, ip).numpy()
+    assert np.abs(lam - 2.0 * np.conj(h)).max() <= TOL
+    xt = torch.tensor(x, requires_grad=True)
+    adjoint_energy(torch.as_tensor(psi0), *ext, xt, w, f, sm,
+                   ip).backward()
+    assert np.abs(grad - xt.grad.numpy()).max() <= TOL
+    assert np.abs(back - psi0).max() <= TOL
+    map0, map1, end_adj = maps
+    assert end_adj == map0
+    assert any(g == SWAP and q >= top for g, _, q in ops)
+    _, _, flips = pauli_flip_groups(pauli)
+    assert any(storage_flip(int(fl), map1)[1] >> (top - CLUSTER_BIT)
+               for fl in flips)
+
+
+def _draw_tape(rng, n, cap):
+    """A mid-episode tape as the trainers' kernel checks draw them: 40%
+    CX (a random control), else RX, RY or RZ, on random qubits."""
+    kind, tq, cq = [], [], []
+    for _ in range(cap):
+        if rng.random() < 0.4:
+            c = int(rng.integers(n))
+            kind.append(_CX)
+            tq.append(int((c + 1 + rng.integers(n - 1)) % n))
+            cq.append(c)
+        else:
+            kind.append(int(rng.integers(_RX, _RZ + 1)))
+            tq.append(int(rng.integers(n)))
+            cq.append(-1)
+    return kind, tq, cq
+
+
+@pytest.mark.parametrize("n, top", [(17, 13), (17, 16), (18, 13), (18, 16)])
+def test_group_schedule_keeps_targets_off_the_group_bits(n, top):
+    """At 17 and 18 qubits with group bits from ``top`` up (clusters of 2
+    or 16 CTAs): every gate's target sits on a register or lane bit when
+    it runs, every swap trades a register with a bit above the lanes, and
+    swaps through a group bit -- counted apart from those through warp and
+    cluster bits -- are fewer than the schedule that treats every bit
+    above the lanes alike puts through the same bits, over 40 random
+    46-gate tapes.  A control may sit on a group bit (CTA-uniform, as on a
+    cluster bit): it costs no swap."""
+    r, lanes, _, _ = register_layout(n)
+    rng = np.random.default_rng(n + top)
+    counts = {"warp": 0, "cluster": 0, "group": 0, "plain group": 0,
+              "group controls": 0}
+    for _ in range(40):
+        kind, tq, cq = _draw_tape(rng, n, 46)
+        map0, ops, map1 = swap_schedule(kind, tq, cq, n, top)
+        assert sorted(map0) == sorted(map1) == list(range(n))
+        for g, p, q in ops:
+            if g == SWAP:
+                assert p < r and q >= r + lanes
+                counts["warp" if q < CLUSTER_BIT else "cluster" if q < top
+                       else "group"] += 1
+            else:
+                assert p < r + lanes and map_at(map0, ops, g)[p] == tq[g]
+                counts["group controls"] += q >= top
+        _, plain, _ = swap_schedule(kind, tq, cq, n)
+        counts["plain group"] += sum(g == SWAP and q >= top
+                                     for g, _, q in plain)
+    assert 0 < counts["group"] < counts["plain group"]
+    assert counts["group controls"] > 0
+
+
+def map_at(map0, ops, gate):
+    """The logical qubit at each physical bit when ``gate`` runs."""
+    cur = list(map0)
+    for g, p, q in ops:
+        if g == gate:
+            return cur
+        if g == SWAP:
+            cur[p], cur[q] = cur[q], cur[p]
+    raise AssertionError(f"gate {gate} not in the schedule")
+
+
+def test_group_bits_start_with_the_qubits_targeted_last():
+    """14 qubits, group bit 13 (clusters of 2): registers start with the
+    first four targets, the group bit with the qubit whose first target
+    comes last (never: last of all; ties: the highest), the warp and
+    cluster bits with the rest in increasing order."""
+    n, top = 14, 13
+    tq = [5, 6, 7, 8, 9, 13, 12, 10, 11]
+    kind = [_RX] * len(tq)
+    map0, _, _ = swap_schedule(kind, tq, [-1] * len(tq), n, top)
+    assert map0[:4] == [5, 6, 7, 8] and map0[4:9] == [0, 1, 2, 3, 4]
+    assert map0[9:] == [9, 10, 12, 13, 11]
+    tq = [5, 6, 7, 8, 9]
+    map0, _, _ = swap_schedule([_RX] * 5, tq, [-1] * 5, n, top)
+    assert map0[9:] == [9, 10, 11, 12, 13]
+
+
+def test_group_swap_sends_out_the_coldest_qubit_below_the_group_bits():
+    """14 qubits, group bit 13: qubit 11, targeted last of the non-lane
+    qubits, starts there.  When gate 12 targets it, every register qubit
+    (5-8) is used again at gates 13-16 and warp-bit qubits 9, 10, 12 and
+    13 never are: a warp swap first brings the coldest of them (ties: the
+    lowest bit) into the Belady register, and the group swap sends it out
+    -- one swap through the group bit in all, where sending the register's
+    qubit 8 out would take a second to bring it back at gate 16."""
+    n, top = 14, 13
+    tq = [5, 6, 7, 8, 9, 10, 12, 13, 5, 6, 7, 8, 11, 5, 6, 7, 8]
+    kind = [_RX] * len(tq)
+    map0, ops, _ = swap_schedule(kind, tq, [-1] * len(tq), n, top)
+    assert map0[13] == 11
+    at = ops.index((12, 3, -1))
+    assert ops[at - 2:at] == [(SWAP, 3, 9), (SWAP, 3, 13)]
+    assert map_at(map0, ops, 12)[13] not in tq[12:]
+    assert sum(g == SWAP and q >= top for g, _, q in ops) == 1
+    assert (SWAP, 0, 9) in ops[at:]            # qubit 8 back: a warp swap
 
 
 @pytest.mark.parametrize("n", [7, 10, 11, 12])
