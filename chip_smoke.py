@@ -9,6 +9,9 @@ the composed engine with the su4 gate set and with shot noise.
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
                                       # and the tape kernels' by gate class)
     python3 chip_smoke.py --composed  # the composed engine's alone (19.-21.)
+    python3 chip_smoke.py --tape      # B3f / B3b at 8 and 10-16 qubits
+                                      # through the wrappers alone, to
+                                      # compare two checkouts
     python3 chip_smoke.py --band      # the 13-18q band's split alone (in
                                       # 5b.), to compare two checkouts
 
@@ -25,10 +28,13 @@ Phases, one line each with its seconds:
                  source, all started together at the outset, and prints
                  ptxas' register / shared-memory / spill lines.  The
                  composed engine's phases (19.-21.) run first: the plain
-                 references of 20. while nvcc builds the tape kernels
-                 (~15-25 s), the rest while the fused kernels compile; the
-                 v1 phases then wait only for v1, so the v2 source (the
-                 longest build) compiles while they run.
+                 references of 20., and then the plain versions'
+                 100-iteration times of 8., 12., 16. and 18.'s timings
+                 (``plain_prefetch``, as many as fit), while nvcc builds
+                 the tape kernels (~45 s), the rest while the fused
+                 kernels compile; the v1 phases then wait only for v1, so
+                 the v2 source (the longest build) compiles while they
+                 run.
 3. kernel v1  -- the v1 kernel (fused_adam_v1) against its plain
                  PyTorch version at the 8-qubit main path's shapes (E = 128
                  envs, S = 8 starts, G = R = 26, D = 256, the H2O
@@ -182,10 +188,16 @@ Phases, one line each with its seconds:
                  flipped and RZZ's gradient dropped must fail; two launches
                  bit for bit; then both kernels' times (CUDA events over 20
                  launches back to back, and the profiler's device time)
-                 beside their bounds and plain versions', and at 8 qubits
-                 the first design's times; the same
-                 at 5 and 9 qubits (E = 64) -- the register kernels -- and
-                 at 12 (E = 16) and 13 (E = 8) -- the first design.
+                 beside their bounds and plain versions'; the same at 5
+                 and 9 qubits (E = 64) -- the register kernels -- and at
+                 12 (E = 16, G = R = 30 and the 12q su4 trainer's capacity)
+                 and 14 (E = 64, clusters of 4) -- the wide kernels, which
+                 read a schedule (its kernel held to its twin word for
+                 word, and timed) -- both also on tapes woven with error
+                 Paulis, X / Y on controls that sit on warp and cluster
+                 bits, under the noiseless tapes' schedule; at 10 (E = 64),
+                 13 (E = 8, clusters of 2) and 16 (E = 4, clusters of 16) at
+                 the end, when the deadline leaves ``TAPE_MIN_LEFT_S``.
 20. composed su4 / shot / traj4 -- the composed step (AngleOptimizer
                  through the tape kernels against itself on their plain
                  versions, ops/fused_adam.py:agreement, 3 iterations, the
@@ -204,13 +216,19 @@ Phases, one line each with its seconds:
                  and capture) apart, its replays' ms and the eager path's,
                  the launches a step by the counters and by the profiler in
                  a traced replay, and that replay's device time.
-21. trainers su4 / restricted -- the CLI's trainer on H2O8q_TNbond2
-                 --gate_set su4 and on H2O8q_TNbond2_noise_restricted (shot
-                 noise and the hexagon topology inferred from the name), 128
-                 replicas, 12 vector steps each, every step one replay of
-                 the composed step's graph (the first its warm-up and
+21. trainers su4 / restricted / su4 12q -- the CLI's trainer on
+                 H2O8q_TNbond2 --gate_set su4 and on
+                 H2O8q_TNbond2_noise_restricted (shot noise and the hexagon
+                 topology inferred from the name), 128 replicas, and on
+                 LIH12q_TNbond2 --gate_set su4 with 16 replicas (the wide
+                 kernels; replay is not reached: 16 x 8 transitions <
+                 batch 1000), 12 vector steps each, every step one replay
+                 of the composed step's graph (the first its warm-up and
                  capture): every vector step launches B3f iters + 2 times
-                 and B3b iters times, and no fused kernel.
+                 and B3b iters times (at 12q also the schedule kernel
+                 twice), and no fused kernel; the 12q trainer traced: wall
+                 and device ms a vector step, B3f's, B3b's and the energy's
+                 ops by kernel name, the card's busy share.
 22. the 100-iteration checks of 6b., 6d., 8. and 12., each when enough
                  of the deadline is left (``LONG_MIN_LEFT_S``).
 
@@ -261,13 +279,21 @@ KRAUS_ENVS, KRAUS_P = 4096, (0.15, 0.25)
 T_STEPS, BLOCK_COORD = 12, ("--block_coord", "3")
 # the composed engine: tape kernels at the su4 8q shapes (the su4 config's
 # capacity G = R = 30, E = 128) and at 5 and 9 qubits (E = 64: groups of
-# 4 lanes, a warp at 16 amplitudes a thread) -- the register kernels --
-# and at 12 and 13 qubits (E = 16, 8; the first design); its step at 3
-# iterations in three settings, eagerly and as a graph; two trainers with
-# 128 replicas
+# 4 lanes, a warp at 16 amplitudes a thread) -- the register kernels --,
+# at 12 qubits (E = 16; also at the 12q su4 trainer's capacity, whose
+# numbers go into the kernels line) and 14 (E = 64, clusters of 4), both
+# also on woven tapes, and, when the deadline leaves the time, at 10 (E =
+# 64), 13 (E = 8, clusters of 2) and 16 (E = 4, clusters of 16) -- the
+# wide kernels; its step at 3 iterations in three settings, eagerly and as
+# a graph; three trainers: su4 and restricted at 8q with 128 replicas, su4
+# at 12q LiH with 16 (root bench.py's ROWS[12])
 SU4_ARGS = ("--gate_set", "su4")
-TAPE_SHAPES = ((8, 128), (5, 64), (9, 64), (12, 16), (13, 8))
+TAPE_SHAPES = ((8, 128), (5, 64), (9, 64), (12, 16), (14, 64))
+TAPE_OPTIONAL = ((10, 64), (13, 8), (16, 4))
+TAPE_WOVEN = (12, 14)    # also on tapes woven with error Paulis
+TAPE_MIN_LEFT_S = 60     # an optional tape phase: ~10-20 s of the deadline
 TAPE_CAP = 30            # G = R of H2O8q_TNbond2 with the su4 warm start
+SU4_12_CONFIG, SU4_12_ENVS = "LIH12q_TNbond2", 16
 RESTRICTED_CONFIG = "H2O8q_TNbond2_noise_restricted"
 NOISY_CONFIG = "H2O8q_TNbond2_noise"
 # 12: the fewest vector steps with which the 8q replay runs (20 before the
@@ -486,6 +512,9 @@ REPLACES = {
     ("tape", "bwd"): "tensorrl_qas_tpu/ops/pallas_apply.py:502 "
                      "(_bwd_kernel, via _call_bwd :576, the custom_vjp of "
                      "apply_tape_pallas_ri)",
+    ("tape", "schedule"): "tensorrl_qas_tpu/ops/pallas_apply.py:473 and :502 "
+                          "(the tape reads of _fwd_kernel and _bwd_kernel, "
+                          "as a schedule both kernels of a step read)",
 }
 TAPE_SOURCE = "tensorrl_qas_tpu_torch/csrc/apply_tape.cu"
 # the composed engine: a step of many tape-kernel launches, held like a
@@ -967,11 +996,12 @@ def time_kernel(engine, case, label, time_plain=True, plain_ms=None):
 
 
 def kernel_phase(engine, config, n_env, label, long_check=True,
-                 family=FIXED, time_plain=True):
+                 family=FIXED, time_plain=True, plain_ms=None):
     """Both iteration counts (the 100-iteration one unless
     ``long_check`` is False) with the controls, then the timing (the
     plain version's time, where the 100-iteration check ran, that of its
-    float32 run there: the same call)."""
+    float32 run there, else ``plain_ms`` when ``plain_prefetch`` took
+    it: the same call, the same inputs)."""
     case = Case(engine, config, n_env, family)
     print(f"[{label}] {family}{config}: E={n_env} G={case.g} R={case.r} "
           f"D={1 << case.n} psi0 rows={len(case.psi0)}", flush=True)
@@ -984,7 +1014,28 @@ def kernel_phase(engine, config, n_env, label, long_check=True,
     long = stats.get(ITERS, {})
     return {"max_abs_err": stats[max(stats)]["e_new_max_abs_err"],
             **time_kernel(engine, case, label, time_plain,
-                          long.get("plain_ms"))}, case
+                          long.get("plain_ms", plain_ms))}, case
+
+
+def plain_prefetch(specs, ready):
+    """The plain versions' 100-iteration times of the timing phases whose
+    check runs 3 iterations only (``specs``: (engine, config, envs,
+    family), their ``kernel_phase`` arguments, so the same inputs), taken
+    while nvcc builds the tape kernels, one after another until
+    ``ready()``: no kernel is needed, and the script would wait for the
+    build instead.  -> {engine name: ms}."""
+    out = {}
+    for engine, config, n_env, family in specs:
+        if ready():
+            break
+        t0 = phase(f"plain prefetch {engine.name}")
+        case = Case(engine, config, n_env, family)
+        out[engine.name] = time_cuda(
+            lambda: engine.plain(*case.args, iters=ITERS, lr=LR,
+                                 **case.noise_kw), warmup=0, reps=1)
+        done(f"plain prefetch {engine.name}", t0,
+             plain_ms=f"{out[engine.name]:.4f}")
+    return out
 
 
 def split_phase(engine, config, n_env, others=(), few=None):
@@ -1428,11 +1479,23 @@ def draw_tape_batch(rng, n_env, s_n, cap, n):
             (torch.as_tensor(lam[0], **f32), torch.as_tensor(lam[1], **f32)))
 
 
-def tape_phase(n, n_env, cap, label):
+def tape_kernels_label(n):
+    """Which tape kernels run n qubits."""
+    if n <= 9:
+        return "register kernel"
+    if n <= 12:
+        return f"wide kernel, {1 << (12 - n)} register row(s) a CTA"
+    return f"wide kernel, clusters of {1 << (n - 12)} CTAs"
+
+
+def tape_phase(n, n_env, cap, label, woven=False):
     """B3f and B3b against their plain versions on one random batch, the
-    two controls, a repeat bit for bit, then their times and bounds.
-    -> {"fwd": entry, "bwd": entry} of the kernels line (without
-    launches)."""
+    two controls, a repeat bit for bit, then their times and bounds; from
+    10 qubits under a schedule built once, as a composed step builds it
+    (the schedule kernel held to its twin word for word, and timed), and
+    with ``woven`` also on the batch's tapes woven with error Paulis
+    (``woven_phase``).  -> {"fwd": entry, "bwd": entry} of the kernels
+    line (without launches), and "schedule" from 10 qubits."""
     import numpy as np
     import torch
 
@@ -1442,8 +1505,10 @@ def tape_phase(n, n_env, cap, label):
     t0 = phase(label)
     planes, tape, angles, cot = draw_tape_batch(
         np.random.default_rng(1234), n_env, STARTS, cap, n)
-    out = at.apply_tape_fwd(*planes, *tape, angles)
-    grads = at.apply_tape_bwd(*out, *cot, *tape, angles)
+    sched = at.tape_schedule(*tape, n, cap)       # None below 10 qubits
+    kw = dict(schedule=sched)
+    out = at.apply_tape_fwd(*planes, *tape, angles, **kw)
+    grads = at.apply_tape_bwd(*out, *cot, *tape, angles, **kw)
     torch.cuda.synchronize()
     out_p = at.apply_tape_fwd_plain(*planes, *tape, angles)
     grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *tape, angles)
@@ -1457,84 +1522,145 @@ def tape_phase(n, n_env, cap, label):
     flip = torch.ones_like(angles)
     flip[e_idx.expand_as(ryy)[ryy >= 0], :, ryy[ryy >= 0].long()] = -1.0
     wrong_f = max_err(at.apply_tape_fwd(*planes, *tape,
-                                        (angles * flip).contiguous()),
+                                        (angles * flip).contiguous(), **kw),
                       out_p)
     rzz = torch.where(kind == int(GateKind.RZZ), slot, -1)
     dang = grads[2].clone()
     dang[e_idx.expand_as(rzz)[rzz >= 0], :, rzz[rzz >= 0].long()] = 0.0
     wrong_b = max_err((dang,), (grads_p[2],))
-    out2 = at.apply_tape_fwd(*planes, *tape, angles)
-    grads2 = at.apply_tape_bwd(*out2, *cot, *tape, angles)
+    out2 = at.apply_tape_fwd(*planes, *tape, angles, **kw)
+    grads2 = at.apply_tape_bwd(*out2, *cot, *tape, angles, **kw)
     bit = all(torch.equal(a, b) for a, b in zip((*out, *grads),
                                                 (*out2, *grads2)))
+    sched_err = 0.0
+    if sched is not None:
+        twin = torch.as_tensor(at.tape_schedule_plain(*tape, n, cap))
+        sched_err = float((sched.cpu() - twin).abs().max())
     ok = (err_f <= TOL_FWD and err_b <= TOL_BWD
           and wrong_f > 10 * TOL_FWD and wrong_b > 10 * TOL_BWD and bit
+          and sched_err == 0.0
           and all(bool(torch.isfinite(t).all()) for t in (*out, *grads)))
     done(label, t0, E=n_env, S=STARTS, G=cap, R=cap, D=1 << n,
+         kernels=tape_kernels_label(n),
          fwd_max_abs_err=f"{err_f:.3e}", bwd_max_abs_err=f"{err_b:.3e}",
          tol=(TOL_FWD, TOL_BWD),
          controls={"RYY sign flipped": f"{wrong_f:.3e}",
                    "RZZ gradient dropped": f"{wrong_b:.3e}"},
-         repeat_bit_for_bit=bit, ok=ok)
+         repeat_bit_for_bit=bit,
+         schedule_vs_twin="n/a" if sched is None else sched_err, ok=ok)
     if not ok:
         raise AssertionError(f"{label}: the tape kernels disagree with "
                              "their plain versions or a control passed")
+    if woven:
+        woven_phase(n, planes, tape, angles, cot, sched, f"{label} woven")
 
     t0 = phase(f"{label} timing")
     fwd_flops_t, bwd_flops_t = gate_tables()
     tape_np = tuple(a.cpu().numpy() for a in tape)
     plane_bytes = planes[0].numel() * 4
-    in_bytes = sum(a.numel() * 4 for a in (*tape, angles))
+    tape_bytes = sum(a.numel() * 4 for a in tape)
+    in_bytes = tape_bytes + angles.numel() * 4
     lib = at._library()
-    # beside the main path's kernels (the register kernels up to 9 qubits)
-    # at 8 qubits: the first design (launched here only, uncounted)
-    others = {}
-    if n == 8:
-        others = {"first design": at.DESIGN_FIRST}
+    stream = at._stream(angles.device)
+    # the main path's launches: one schedule a step, read by every launch
     runs = {
-        "fwd": (lambda d=at.DESIGN_MAIN: at.run_fwd(
-                    lib, *planes, tape, angles, design=d,
-                    stream=at._stream(angles.device)),
+        "fwd": (lambda: at.run_fwd(lib, *planes, tape, angles,
+                                   schedule=sched, stream=stream),
                 lambda: at.apply_tape_fwd_plain(*planes, *tape, angles),
-                fwd_flops_t, 4 * plane_bytes + in_bytes, err_f),
-        "bwd": (lambda d=at.DESIGN_MAIN: at.run_bwd(
-                    lib, *out, *cot, tape, angles, design=d,
-                    stream=at._stream(angles.device)),
+                STARTS * tape_flops(tape_np, 1 << n, fwd_flops_t).sum(),
+                4 * plane_bytes + in_bytes, err_f),
+        "bwd": (lambda: at.run_bwd(lib, *out, *cot, tape, angles,
+                                   schedule=sched, stream=stream),
                 lambda: at.apply_tape_bwd_plain(*out, *cot, *tape, angles),
-                bwd_flops_t, 6 * plane_bytes + in_bytes
-                + angles.numel() * 4, err_b)}
+                STARTS * tape_flops(tape_np, 1 << n, bwd_flops_t).sum(),
+                6 * plane_bytes + in_bytes + angles.numel() * 4, err_b)}
+    if sched is not None:
+        # integer work only: bound by its bytes (the tapes in, the rows out)
+        runs["schedule"] = (
+            lambda: at.run_schedule(lib, tape, n, cap, stream=stream),
+            lambda: at.tape_schedule_plain(*tape, n, cap), 0.0,
+            tape_bytes + sched.numel() * 4, sched_err)
     entries, info = {}, {}
-    for key, (kernel, plain, table, nbytes, err) in runs.items():
-        flops = float(STARTS * tape_flops(tape_np, 1 << n, table).sum())
+    for key, (kernel, plain, flops, nbytes, err) in runs.items():
         k_ms = time_back_to_back(kernel)
         dev_ms = device_ms(kernel, f"apply_tape_{key}")
         p_ms = time_cuda(plain, warmup=0, reps=1)
-        t_ops, t_bytes = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+        t_ops = float(flops) / FP32_PEAK_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S
         entries[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": 1e3 * max(t_ops, t_bytes),
                         "bound_by": "operations" if t_ops >= t_bytes
-                        else "bytes"}
-        extra = ""
-        for name, design in others.items():
-            o_ms = time_back_to_back(lambda: kernel(design))
-            o_dev = device_ms(lambda: kernel(design), f"apply_tape_{key}")
-            extra += (f"; {name} {o_ms:.4f} ms (device "
-                      f"{_ms_or_not(o_dev)})")
+                        else "bytes", "device_ms": dev_ms}
         info[key] = (f"kernel {k_ms:.4f} ms (back to back; profiler "
-                     f"device time {_ms_or_not(dev_ms)}){extra}, "
+                     f"device time {_ms_or_not(dev_ms)}), "
                      f"plain {p_ms:.4f} ms, bound "
                      f"{entries[key]['bound_ms']:.6f} ms "
                      f"({entries[key]['bound_by']}; {flops / 1e6:.3f} "
                      f"MFLOP, {nbytes / 1e6:.3f} MB)")
-    kernels = ("register kernel" if n <= lib.apply_tape_reg_max_qubits()
-               else "first design")
-    done(f"{label} timing", t0, kernels=kernels, **info,
+    done(f"{label} timing", t0, kernels=tape_kernels_label(n), **info,
          dynamic_smem_bytes_per_cta=tuple(
-             f(STARTS, cap, cap, n, at.DESIGN_MAIN)
+             f(STARTS, cap, cap, n, 1)
              for f in (lib.apply_tape_fwd_smem_bytes,
                        lib.apply_tape_bwd_smem_bytes)),
          library_ms="n/a (no single PyTorch call computes a tape)")
     return entries
+
+
+def woven_phase(n, planes, tape, angles, cot, sched, label):
+    """B3f and B3b on the batch's tapes woven with error Paulis
+    (``extend_tape_arrays``: X, Y or Z on a third of the rotations'
+    targets, X or Y on every second qubit and control, wherever the
+    schedule leaves them) under the noiseless tapes' schedule (weave 3),
+    against the plain versions on the woven tapes; the errors must act,
+    and some must fall on warp bits (and, in a cluster, on cluster bits)."""
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import extend_tape_arrays
+
+    t0 = phase(label)
+    rng = np.random.default_rng(4321)
+    kind, _, cq, _ = (a.cpu().numpy() for a in tape)
+    rot = np.isin(kind, [int(GateKind.RX), int(GateKind.RY),
+                         int(GateKind.RZ)])
+    kt = np.where(rot & (rng.random(kind.shape) < 1 / 3),
+                  rng.integers(int(GateKind.X), int(GateKind.Z) + 1,
+                               kind.shape), 0)
+    kc = np.where(cq >= 0, rng.integers(int(GateKind.X), int(GateKind.Y)
+                                        + 1, kind.shape), 0)
+    dev = tape[0].device
+    woven = tuple(a.to(torch.int32).contiguous() for a in extend_tape_arrays(
+        tape, torch.as_tensor(kt, device=dev),
+        torch.as_tensor(kc, device=dev)))
+    kw = dict(schedule=sched, weave=3)
+    out = at.apply_tape_fwd(*planes, *woven, angles, **kw)
+    grads = at.apply_tape_bwd(*out, *cot, *woven, angles, **kw)
+    torch.cuda.synchronize()
+    out_p = at.apply_tape_fwd_plain(*planes, *woven, angles)
+    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *woven, angles)
+    clean = at.apply_tape_fwd_plain(*planes, *tape, angles)
+
+    def max_err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+    err_f, err_b = max_err(out, out_p), max_err(grads, grads_p)
+    acts = max_err(out, clean)
+    where = {"register": 0, "lane": 0, "warp": 0, "cluster": 0}
+    for e, row in enumerate(sched.cpu().numpy()):
+        for k, _, b, g in at.schedule_ops(row)[0]:
+            if k != at.SWAP_OP and kc[e, g]:
+                where["register" if b < 4 else "lane" if b < 9
+                      else "warp" if b < 12 else "cluster"] += 1
+    ok = (err_f <= TOL_FWD and err_b <= TOL_BWD and acts > 100 * TOL_FWD
+          and where["warp"] > 0 and (n <= 12 or where["cluster"] > 0))
+    done(label, t0, errors={"targets": int((kt > 0).sum()),
+                            "controls and second qubits by bit": where},
+         fwd_max_abs_err=f"{err_f:.3e}", bwd_max_abs_err=f"{err_b:.3e}",
+         tol=(TOL_FWD, TOL_BWD), errors_act=f"{acts:.3e}", ok=ok)
+    if not ok:
+        raise AssertionError(f"{label}: the tape kernels on woven tapes "
+                             "disagree with their plain versions")
 
 
 def _ms_or_not(ms):
@@ -1725,7 +1851,7 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
     from tensorrl_qas_tpu_torch.train import cli
 
     variants = engines()
-    tape_kernels = (at.apply_tape_fwd, at.apply_tape_bwd)
+    tape_kernels = (at.apply_tape_fwd, at.apply_tape_bwd, at.tape_schedule)
     expect = expect or {engine.name: vector_steps}
     out = tempfile.mkdtemp(prefix="trlqas_smoke_")
     try:
@@ -1756,6 +1882,10 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
                      "all_device_ms_per_vector_step": f"{all_ms:.4f}",
                      "kernel_share_of_step": f"{kernel_ms / wall_ms:.4f}",
                      "device_busy_share": f"{all_ms / wall_ms:.4f}"}
+            if engine is COMPOSED:
+                trace = {"profiled_wall_ms_per_vector_step":
+                         f"{wall_ms:.3f}",
+                         **trainer_split(tracer, vector_steps, wall_ms)}
         launches = {e.name: e.launches() for e in variants}
         launches.update({k.__name__: k.launches for k in tape_kernels})
         run_dir = os.path.join(out, family, config)
@@ -1806,6 +1936,10 @@ class Builds:
         self.pool = concurrent.futures.ThreadPoolExecutor(len(names))
         self.futures = {name: self.pool.submit(build, name)
                         for name in names}
+
+    def ready(self, name):
+        """Whether the build of ``name`` has ended (not yet waited for)."""
+        return self.futures[name].done()
 
     def wait(self, *names):
         t0 = phase("build " + " ".join(names))
@@ -1964,18 +2098,79 @@ def split_only(v1, v2, v2n):
                   family=TRAINABLE, profile=True)
 
 
-def composed_phases(builds):
+def su4_capacity(config):
+    """(G, R) the su4 env gives ``config`` (fixed placement)."""
+    from tensorrl_qas_tpu_torch.envs.circuit_env import CircuitEnv, EnvConfig
+    from tensorrl_qas_tpu_torch.train.config import get_config
+
+    conf = get_config(FIXED, f"{config}.cfg")
+    conf["env"]["gate_set"] = "su4"
+    env = CircuitEnv(EnvConfig.from_conf(conf, tn_placement="fixed",
+                                         noise_mode="none", device="cuda"))
+    return env.tape_capacity, env.rot_capacity
+
+
+def kernel_family(name):
+    """A device kernel's name without its template arguments and
+    parameters (``void at::native::reduce_kernel<...>(...)`` ->
+    ``at::native::reduce_kernel``), so that its instances sum together."""
+    base = name[5:] if name.startswith("void ") else name
+    base = base.replace("(anonymous namespace)::", "")
+    return base.split("<")[0].split("(")[0].strip()
+
+
+def trainer_split(prof, vector_steps, wall_ms):
+    """A traced composed trainer's device time a vector step by kernel:
+    B3f, B3b, the schedule, and the rest (the composed step's energy and
+    Adam ops, the env's and the agent's) by kernel family, largest
+    first."""
+    per = {}
+    for k, v in device_us_by_name(prof).items():
+        key = kernel_family(k)
+        per[key] = per.get(key, 0.0) + v / 1e3 / vector_steps
+    groups = {key: sum(v for k, v in per.items() if f"apply_tape_{key}" in k)
+              for key in ("fwd", "bwd", "schedule")}
+    rest = sorted(((v, k) for k, v in per.items() if "apply_tape" not in k),
+                  reverse=True)
+    total = sum(per.values())
+    return {"device_ms_per_vector_step": {
+                "B3f": f"{groups['fwd']:.4f}", "B3b": f"{groups['bwd']:.4f}",
+                "schedule": f"{groups['schedule']:.4f}",
+                "other kernels": f"{sum(v for v, _ in rest):.4f}",
+                "all": f"{total:.4f}"},
+            "other kernels by family (ms a vector step, top 10)": {
+                k: f"{v:.4f}" for v, k in rest[:10]},
+            "other kernel families": len(rest),
+            "device_busy_share": f"{total / wall_ms:.4f}"}
+
+
+def composed_phases(builds, optional=True, idle=None):
     """The composed engine: its step's inputs and plain references in
     three settings while nvcc builds (``builds``), then its tape kernels,
-    its step's checks, and the su4 and shot-noise trainers, each vector
-    step iters + 2 forward and iters adjoint launches.  -> the kernels
-    line's tape entries (the 8q shapes)."""
+    its step's checks, and the su4 and shot-noise trainers at 8q and the
+    su4 trainer at 12q, each vector step iters + 2 forward and iters
+    adjoint launches (at 12q also two schedule launches).  ``optional``:
+    the tape phases of ``TAPE_OPTIONAL`` too (else they are left to
+    ``optional_tape_phases``).  ``idle(ready)`` runs while the tape
+    kernels build (``ready()``: whether they have).  -> the kernels line's
+    tape entries: the 8q shapes (register kernels) and the 12q su4
+    trainer's (wide kernels)."""
     setups = [composed_setup(mode) for mode in ("su4", "shot", "traj4")]
+    g12, r12 = su4_capacity(SU4_12_CONFIG)
+    if g12 != r12:
+        raise AssertionError(f"12q su4 capacities {g12, r12}: the tape "
+                             "phase takes G = R")
+    if idle is not None:
+        idle(lambda: builds.ready("apply_tape"))
     builds.wait("apply_tape")
     tape = {}
-    for n, n_env in TAPE_SHAPES:
-        entries = tape_phase(n, n_env, TAPE_CAP, f"kernel tape {n}q")
-        tape = tape or entries
+    shapes = TAPE_SHAPES + (TAPE_OPTIONAL if optional else ())
+    for n, n_env in shapes:
+        entries = tape_phase(n, n_env, TAPE_CAP, f"kernel tape {n}q",
+                             woven=n in TAPE_WOVEN)
+        tape.setdefault("reg", entries)
+    tape["wide"] = tape_phase(12, SU4_12_ENVS, g12,
+                              f"kernel tape 12q G={g12}")
     for setup in setups:
         composed_phase(*setup)
     per_step = {"apply_tape_fwd": COMPOSED_STEPS * (ITERS + 2),
@@ -1983,10 +2178,70 @@ def composed_phases(builds):
     launches = trainer_phase(COMPOSED, V1_CONFIG, V1_ENVS, COMPOSED_STEPS,
                              "trainer su4", SU4_ARGS, expect=per_step)
     for key in ("fwd", "bwd"):
-        tape[key]["launches"] = launches[f"apply_tape_{key}"]
+        tape["reg"][key]["launches"] = launches[f"apply_tape_{key}"]
     trainer_phase(COMPOSED, RESTRICTED_CONFIG, V1_ENVS, COMPOSED_STEPS,
                   "trainer restricted", expect=per_step)
+    print(f"[trainer su4 12q] replay is not reached: {SU4_12_ENVS} replicas "
+          f"x {COMPOSED_STEPS - 4} transitions < batch 1000 (the 8q "
+          "trainers run it)", flush=True)
+    launches = trainer_phase(
+        COMPOSED, SU4_12_CONFIG, SU4_12_ENVS, COMPOSED_STEPS,
+        "trainer su4 12q", SU4_ARGS, expect_replay=False, profile=True,
+        expect={**per_step, "tape_schedule": 2 * COMPOSED_STEPS})
+    for key in ("fwd", "bwd"):
+        tape["wide"][key]["launches"] = launches[f"apply_tape_{key}"]
+    tape["wide"]["schedule"]["launches"] = launches["tape_schedule"]
     return tape
+
+
+def optional_tape_phases(t_start):
+    """The tape phases of ``TAPE_OPTIONAL`` (10, 13 and 16 qubits), each
+    when ``TAPE_MIN_LEFT_S`` of the deadline is left."""
+    for n, n_env in TAPE_OPTIONAL:
+        left = DEADLINE_S - (time.perf_counter() - t_start)
+        if left >= TAPE_MIN_LEFT_S:
+            tape_phase(n, n_env, TAPE_CAP, f"kernel tape {n}q")
+        else:
+            print(f"[kernel tape {n}q] skipped: {left:.0f} s of the "
+                  f"deadline left (< {TAPE_MIN_LEFT_S})", flush=True)
+
+
+def tape_compare():
+    """``--tape``: B3f and B3b at 8 qubits (E = 128) and 10-16 (the tape
+    phases' shapes) through the checkout's own wrappers (from 10 qubits
+    under a schedule built once where the checkout has one), so that two
+    checkouts compare on one card in one call: CUDA events over 20
+    launches back to back and the profiler's device time; the adjoint
+    without psi0 cotangents, as the composed step runs it."""
+    import numpy as np
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    t0 = phase("tape compare")
+    ms = {}
+    for n, n_env in ((8, 128), (10, 64), (12, 16), (13, 8), (14, 64),
+                     (16, 4)):
+        planes, tape, angles, cot = draw_tape_batch(
+            np.random.default_rng(1234), n_env, STARTS, TAPE_CAP, n)
+        kw = {}
+        if hasattr(at, "tape_schedule"):
+            kw["schedule"] = at.tape_schedule(*tape, n, TAPE_CAP)
+        out = at.apply_tape_fwd(*planes, *tape, angles, **kw)
+
+        def fwd():
+            return at.apply_tape_fwd(*planes, *tape, angles,
+                                     tapes_checked=True, **kw)
+
+        def bwd():
+            return at.apply_tape_bwd(*out, *cot, *tape, angles,
+                                     tapes_checked=True, psi0_grad=False,
+                                     **kw)
+        ms[f"{n}q E={n_env}"] = {
+            key: f"{time_back_to_back(fn):.4f} / "
+                 f"{_ms_or_not(device_ms(fn, f'apply_tape_{key}'))}"
+            for key, fn in (("fwd", fwd), ("bwd", bwd))}
+    done("tape compare", t0, S=STARTS, G=TAPE_CAP, R=TAPE_CAP,
+         back_to_back_ms_and_device_ms=ms)
 
 
 def main(argv=()) -> int:
@@ -2009,6 +2264,11 @@ def main(argv=()) -> int:
         composed_phases(Builds(("apply_tape",)))
         watchdog.cancel()
         return 0
+    if "--tape" in argv:
+        Builds(("apply_tape",)).wait("apply_tape")
+        tape_compare()
+        watchdog.cancel()
+        return 0
     if "--band" in argv:
         Builds(("fused_adam_v2",)).wait("fused_adam_v2")
         split_band(v2)
@@ -2023,10 +2283,18 @@ def main(argv=()) -> int:
         watchdog.cancel()
         return 0
     builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
-    # the composed engine's phases go first: their plain references while
-    # nvcc builds the tape kernels (~15-25 s), the rest while it builds the
-    # fused kernels
-    tape = composed_phases(builds)
+    # the composed engine's phases go first: their plain references, and
+    # then the plain times of later timing phases, while nvcc builds the
+    # tape kernels (~45 s), the rest while it builds the fused kernels; its
+    # optional tape phases last
+    prefetch = ((v2p, V2_CONFIG, V2_ENVS, TRAINABLE),
+                (v1p, V1_CONFIG, V1_ENVS, TRAINABLE),
+                (v2n, V2_CONFIG, V2_ENVS, FIXED),
+                (v1n, V1N_CONFIG, V1_ENVS, FIXED))
+    plain_ms = {}
+    tape = composed_phases(
+        builds, optional=False,
+        idle=lambda ready: plain_ms.update(plain_prefetch(prefetch, ready)))
     builds.wait("fused_adam_v1")
     results = {}
     results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
@@ -2058,14 +2326,16 @@ def main(argv=()) -> int:
                  TOL_ITERS3, small.controls())
 
     results[v1n], case_v1n = kernel_phase(v1n, V1N_CONFIG, V1_ENVS,
-                                          "kernel v1n", long_check=False)
+                                          "kernel v1n", long_check=False,
+                                          plain_ms=plain_ms.get(v1n.name))
     p0_phase(v1, v1n, V1N_CONFIG, V1_ENVS)
     p0_phase(v2, v2n, V2_CONFIG, V2_ENVS)
     kraus_phase(v1n)
     results[v1n]["launches"] = trainer_phase(
         v1n, V1N_CONFIG, V1_ENVS, V1_STEPS, "trainer v1n")[v1n.name]
     results[v2n], case_v2n = kernel_phase(v2n, V2_CONFIG, V2_ENVS,
-                                          "kernel v2n", long_check=False)
+                                          "kernel v2n", long_check=False,
+                                          plain_ms=plain_ms.get(v2n.name))
     sweep_phase(v2n, V2N_SWEEP)
     results[v2n]["launches"] = trainer_phase(
         v2n, V2_CONFIG, V2_ENVS, V2N_STEPS, "trainer v2n",
@@ -2078,7 +2348,8 @@ def main(argv=()) -> int:
                            time_plain=False)
     psi0_rows_phase(v1, v1p, case)
     results[v1p], _ = kernel_phase(v1p, V1_CONFIG, V1_ENVS, "kernel v1p",
-                                   long_check=False, family=TRAINABLE)
+                                   long_check=False, family=TRAINABLE,
+                                   plain_ms=plain_ms.get(v1p.name))
     # untraced (--split traces the trainable trainer): tracing it here took
     # more of the deadline than its training
     for family, label in ((TRAINABLE, "trainer v1 trainable"),
@@ -2092,11 +2363,13 @@ def main(argv=()) -> int:
                            time_plain=False)
     psi0_rows_phase(v2, v2p, case)
     results[v2p], _ = kernel_phase(v2p, V2_CONFIG, V2_ENVS, "kernel v2p",
-                                   long_check=False, family=TRAINABLE)
+                                   long_check=False, family=TRAINABLE,
+                                   plain_ms=plain_ms.get(v2p.name))
     results[v2p]["launches"] = trainer_phase(
         v2p, V2_CONFIG, V2_ENVS, T_STEPS, "trainer v2p", BLOCK_COORD,
         expect_replay=False, family=TRAINABLE)[v2p.name]
 
+    optional_tape_phases(t_start)
     for engine, case, label in ((v2c, case_v2c, "kernel v2 cluster"),
                                 (v2g, case_v2g, "kernel v2 group"),
                                 (v1n, case_v1n, "kernel v1n"),
@@ -2118,14 +2391,18 @@ def main(argv=()) -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None}
         for e, r in results.items()] + [{
-        "name": f"apply_tape_{key} (register kernel at 1-9 qubits, first "
-                "design at 10-16; numbers at 8)",
+        "name": f"apply_tape_{key} ({label})",
         "route": "cuda", "source": TAPE_SOURCE,
         "replaces": REPLACES["tape", key], "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None}
-        for key, r in tape.items()]}
+        for band, label in (
+            ("reg", "register kernel at 1-9 qubits; numbers at 8, launches "
+                    "from the 8q su4 trainer"),
+            ("wide", "wide kernels at 10-16 qubits; numbers at 12, the 12q "
+                     "su4 trainer's shapes and launches"))
+        for key, r in tape[band].items()]}
     done("total", t_start)
     print(f"card: {smi}", flush=True)
     print(json.dumps(kernels), flush=True)

@@ -36,14 +36,19 @@ cannot: the su4 gate set's RXX/RYY/RZZ (``enable_2q``), shot noise, and
 depolarizing noise averaged over ``n_traj > 1`` trajectories (re-drawn
 every Adam iteration whatever ``noise_resample`` says, as in the JAX
 package).  Each Adam iteration is one forward and one adjoint launch of
-the tape kernels (``ops/apply_tape.py``), with the energy's H psi as a
-matrix product between them.  On the card the whole step (100 iterations,
-the re-check, the argmin, the remap and e_new) replays as one CUDA graph
-(``ComposedGraph``), the counterpart of the JAX package's ``lax.scan``
-under ``jit``; calling ``_fused_step_composed`` runs it eagerly.
+the tape kernels (``ops/apply_tape.py``), with the energy's H psi between
+them: a matrix product up to 9 qubits, one gather over the flip groups
+above (``flip_h_batched``).  From 10 qubits the kernels read a schedule of
+each tape, built once per step (``tape_schedule``).  On the card the whole
+step (100 iterations, the re-check, the argmin, the remap and e_new)
+replays as one CUDA graph (``ComposedGraph``), the counterpart of the JAX
+package's ``lax.scan`` under ``jit``; calling ``_fused_step_composed``
+runs it eagerly.
 """
 
 from __future__ import annotations
+
+import gc
 
 import numpy as np
 import torch
@@ -57,7 +62,6 @@ from tensorrl_qas_tpu_torch.ops.fused_adam import (
     _h_energy,
     check_gate_kinds,
     dense_h,
-    flip_h,
     fused_adam_step,
 )
 from tensorrl_qas_tpu_torch.ops.fused_adam2d import (
@@ -155,6 +159,59 @@ def operands2d_from_jax(wre, wim, flips, psi0_re, psi0_im, n_qubits: int,
             + 1j * np.asarray(psi0_im).reshape(d))
     return ((*planes, torch.as_tensor(flips, device=dev)),
             torch.as_tensor(psi0, dtype=complex_dtype(dev), device=dev))
+
+
+class _FlipGroupH(torch.autograd.Function):
+    """(re, im, wre, wim, wtre, wtim, idx, real) -> (hre, him): H psi over
+    flip-group planes in one gather, hre[i] + i him[i] = sum_f (wre_f[i] +
+    i wim_f[i]) psi[i ^ f], idx the concatenated permutations i ^ f (G_f
+    D), the sum over the group axis; ``real``: every wim is zero.  Its
+    backward is the same gather of the cotangent through the transposed
+    planes (wt_f[i] = w_f[i ^ f]; for a Hermitian H the planes themselves),
+    so that no index_add with colliding indices (atomics, not bit for bit
+    from run to run) enters the step."""
+
+    @staticmethod
+    def forward(ctx, re, im, wre, wim, wtre, wtim, idx, real):
+        ctx.save_for_backward(wtre, wtim, idx)
+        ctx.real = real
+        return _gather_h(re, im, wre, wim, idx, real)
+
+    @staticmethod
+    def backward(ctx, ghre, ghim):
+        wtre, wtim, idx = ctx.saved_tensors
+        dre, dim = _gather_h(ghre.contiguous(), ghim.contiguous(), wtre,
+                             -wtim, idx, ctx.real)
+        return dre, dim, None, None, None, None, None, None
+
+
+def _gather_h(re, im, wre, wim, idx, real):
+    g_f, d = wre.shape
+    pre = re.index_select(-1, idx).unflatten(-1, (g_f, d))
+    pim = im.index_select(-1, idx).unflatten(-1, (g_f, d))
+    if real:
+        return (pre * wre).sum(-2), (pim * wre).sum(-2)
+    return ((pre * wre - pim * wim).sum(-2),
+            (pim * wre + pre * wim).sum(-2))
+
+
+def flip_h_batched(wre, wim, flips):
+    """H psi through flip-group planes (G_f, D) as one gather of the
+    concatenated permutations, a product with the W planes and a sum over
+    the group axis (``_FlipGroupH``): the composed energy's H psi above 9
+    qubits, a handful of kernels where ``ops/fused_adam.py:flip_h`` (the
+    fused kernels' plain versions, whose group order they follow) takes
+    about ten per group."""
+    d = wre.shape[-1]
+    col = torch.arange(d, device=wre.device)
+    perm = col[None, :] ^ flips.to(col.dtype)[:, None]     # (G_f, D)
+    idx = perm.reshape(-1)
+    wtre, wtim = (w.gather(1, perm) for w in (wre, wim))
+    real = not bool((wim != 0).any())
+
+    def apply(re, im):
+        return _FlipGroupH.apply(re, im, wre, wim, wtre, wtim, idx, real)
+    return apply
 
 
 class AngleOptimizer:
@@ -293,11 +350,12 @@ class AngleOptimizer:
 
     def _h_apply(self, dtype):
         """H - offset I on (..., D) planes of ``dtype``: the dense H^T
-        planes up to 9 qubits, the flip-group planes above."""
+        planes up to 9 qubits, the flip-group planes in one gather above
+        (``flip_h_batched``)."""
         if self.pauli.n_qubits <= 9:
             return dense_h(*(p.to(dtype) for p in self.h_planes()))
         wre, wim, flips = self.w_planes()
-        return flip_h(wre.to(dtype), wim.to(dtype), flips)
+        return flip_h_batched(wre.to(dtype), wim.to(dtype), flips)
 
     def _sample_noise_kinds(self, kind, n_traj: int, generator):
         """``n_traj`` depolarizing realizations (k_t, k_c), each
@@ -351,20 +409,22 @@ class AngleOptimizer:
                 for at, tag in enumerate(tags)]
 
     def _composed_energy(self, x, tape, re0, im0, h_apply, plain, gen,
-                         noise=None):
+                         noise=None, schedule=None):
         """(E, S) energies of H - offset I at angles x (E, S, R) of the
         (E, G) int32 tapes from psi0 planes re0 / im0 ((1 or E, 1, D)):
-        one forward launch (``ApplyTape``, differentiable in x), then the
-        Rayleigh quotient with float64 sums.  ``noise`` is the tag's
+        one forward launch (``ApplyTape``, differentiable in x; from 10
+        qubits reading ``schedule``, the tapes' ``tape_schedule``), then
+        the Rayleigh quotient with float64 sums.  ``noise`` is the tag's
         realization (``_draw_noise``), drawn from ``gen`` when not given:
         depolarizing, the mean over the ``n_traj`` realizations, stacked
-        along the env axis (still one launch); shot noise, plus its
-        offsets, on the value only."""
+        along the env axis (still one launch, on the woven tapes under the
+        same schedule); shot noise, plus its offsets, on the value only."""
         e_n, s_n, _ = x.shape
         if noise is None and gen is not None and self._noisy():
             noise = self._draw_noise(gen, tape[0], e_n, s_n)
-        t_n = 1
+        t_n, weave = 1, 1
         if self.noise_mode == "depolarizing":
+            weave = 3
             t_n = self.n_traj
             kt, kc = noise
             tape = tuple(
@@ -375,7 +435,8 @@ class AngleOptimizer:
         d = re0.shape[-1]
         re, im = (p.expand(e_n, s_n, d).repeat(t_n, 1, 1) for p in (re0, im0))
         ore, oim = tape_ops.apply_tape_ri(re, im, *tape, x, plain=plain,
-                                          tapes_checked=True)
+                                          tapes_checked=True,
+                                          schedule=schedule, weave=weave)
         _, _, ev = _h_energy(ore, oim, h_apply)
         ev = ev.view(t_n, e_n, s_n).mean(0)
         if self.noise_mode == "shot" and noise is not None:
@@ -396,11 +457,14 @@ class AngleOptimizer:
         by ``active``), tracking every start's best iterate by its (noisy)
         energy; a final re-check of x; x_opt = the best start; e_new on
         ``new`` at x_opt remapped by ``map_idx`` (map -1 -> 0), S = 1.
-        Adam's bias corrections are computed in float64.  Noise is drawn
-        at tags (``_noise_generator``: ``seed``; ``enew_tag`` replaces
-        e_new's tag ``iters + 1``), or read from ``draws``, the step's
-        realizations in order (``predraw_noise``: the same values, bit for
-        bit; a captured graph reads them from its buffers).  The forward
+        Adam's bias corrections are computed in float64.  From 10 qubits
+        the kernels read each tape's schedule, built once here
+        (``tape_schedule``: one launch for ``old``, one for ``new``).
+        Noise is drawn at tags (``_noise_generator``: ``seed``;
+        ``enew_tag`` replaces e_new's tag ``iters + 1``), or read from
+        ``draws``, the step's realizations in order (``predraw_noise``: the
+        same values, bit for bit; a captured graph reads them from its
+        buffers).  The forward
         kernel takes (E, S, D) planes either way, so per-env psi0 (su4
         with block-coordinate mode) costs nothing here (the JAX package
         runs that case on XLA, ``optim/angle_opt.py:818-822``).
@@ -411,13 +475,17 @@ class AngleOptimizer:
         re0, im0 = (p.to(dtype).reshape(-1, 1, p.shape[-1])
                     for p in (p0re, p0im))
         noisy = self._noisy()
+        n, r = self.pauli.n_qubits, starts.shape[-1]
 
-        def energy(x, tape, tag, at):
+        def schedule(tape):
+            return None if plain else tape_ops.tape_schedule(*tape, n, r)
+
+        def energy(x, tape, tag, at, sched):
             noise = None if draws is None else draws[at]
             gen = (self._noise_generator(seed, tag)
                    if noisy and draws is None else None)
             return self._composed_energy(x, tape, re0, im0, h_apply, plain,
-                                         gen, noise)
+                                         gen, noise, sched)
 
         x = starts.clone()
         m = torch.zeros_like(x)
@@ -425,10 +493,11 @@ class AngleOptimizer:
         bx = x.clone()
         be = torch.full(x.shape[:2], float("inf"), dtype=dtype,
                         device=x.device)
+        sched_old = schedule(old)
         for it in range(iters):
             xg = x.detach().requires_grad_()
             with torch.enable_grad():
-                ev = energy(xg, old, it, it)
+                ev = energy(xg, old, it, it, sched_old)
                 g, = torch.autograd.grad(ev.sum(), xg)
             ev = ev.detach()
             g = g * active
@@ -441,7 +510,7 @@ class AngleOptimizer:
             x = x - lr * (m / (1 - B1 ** t)) / (
                 torch.sqrt(v / (1 - B2 ** t)) + EPS)
         with torch.no_grad():
-            ev = energy(x, old, iters, iters)
+            ev = energy(x, old, iters, iters, sched_old)
             better = ev < be
             bx = torch.where(better[..., None], x, bx)
             be = torch.where(better, ev, be)
@@ -452,7 +521,7 @@ class AngleOptimizer:
                                 0.0)
             e_new = energy(x_new[:, None, :], new,
                            iters + 1 if enew_tag is None else enew_tag,
-                           iters + 1)
+                           iters + 1, schedule(new))
         return x_opt, e_new[:, 0]
 
     def fused_step_batch(self, psi0, old_arrs_b, x0_b, n_active_b,
@@ -558,9 +627,10 @@ class ComposedGraph:
     graph), so a replay gives the eager kernel path's x_opt and e_new bit
     for bit under every noise mode.  The key: E, S, G, R, D, psi0 rows,
     iters, lr, dtype, noise mode, n_traj, n_shots.  A replay launches
-    kernels without the wrappers' Python, so it adds the tape-kernel
-    launches its capture recorded to their counters.  A capture or a
-    replay that fails raises: nothing falls back to the eager loop."""
+    kernels without the wrappers' Python, so it adds the launches its
+    capture recorded to the tape kernels' and the schedule's counters.  A
+    capture or a replay that fails raises: nothing falls back to the eager
+    loop."""
 
     def __init__(self, opt: AngleOptimizer):
         self.opt = opt
@@ -619,11 +689,24 @@ class ComposedGraph:
             first = run()
         torch.cuda.current_stream(dev).wait_stream(side)
         first = tuple(t.clone() for t in first)
-        counters = (tape_ops.apply_tape_fwd, tape_ops.apply_tape_bwd)
+        counters = (tape_ops.apply_tape_fwd, tape_ops.apply_tape_bwd,
+                    tape_ops.tape_schedule)
         before = [k.launches for k in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = run()
+        # a dead graph in a reference cycle (another optimizer's: an
+        # optimizer and its ComposedGraph point at each other) that the
+        # cyclic collector frees inside this capture would destroy its CUDA
+        # graph there, which a capture forbids, and invalidate it: collect
+        # before the capture, and not during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = run()
+        finally:
+            if collecting:
+                gc.enable()
         # a capture records its launches without running them
         per_replay = [k.launches - b for k, b in zip(counters, before)]
         for k, b in zip(counters, before):
@@ -668,13 +751,15 @@ def composed_step(opt: AngleOptimizer, plain: bool = False):
     """``opt``'s composed engine as a function of the fused step's
     arguments, ``step(old, new, map_idx, p0re, p0im, *h_ops, starts,
     active, *, iters, lr, seed=0, enew_tag=None)`` with the dense H^T
-    planes (two H operands) or the flip-group planes and flips (three), so
-    that ``ops/fused_adam.py:plain_results`` and ``agreement`` hold the
-    kernels (``plain=False``) to the plain versions (``plain=True``)."""
+    planes (two H operands) or the flip-group planes and flips (three, in
+    one gather: ``flip_h_batched``), so that ``ops/fused_adam.py:
+    plain_results`` and ``agreement`` hold the kernels (``plain=False``)
+    to the plain versions (``plain=True``)."""
     def step(old, new, map_idx, p0re, p0im, *rest, iters, lr, seed=0,
              enew_tag=None):
         *h_ops, starts, active = rest
-        h_apply = dense_h(*h_ops) if len(h_ops) == 2 else flip_h(*h_ops)
+        h_apply = (dense_h(*h_ops) if len(h_ops) == 2
+                   else flip_h_batched(*h_ops))
         return opt._fused_step_composed(
             old, new, map_idx, p0re, p0im, h_apply, starts, active,
             iters=iters, lr=lr, seed=seed, enew_tag=enew_tag, plain=plain)

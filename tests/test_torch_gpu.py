@@ -51,19 +51,21 @@ v2 at LiH 12q (G = 244, R = 211).
 
 The composed engine's tape kernels (B3f forward, B3b adjoint,
 ``ops/apply_tape.py``) are held to their plain versions at 1-9 qubits
-(the register kernels) and at 10, 12, 13 (the first design, state in
-shared memory) and 14 qubits (global memory): forward planes within 1e-5,
-the psi0 cotangents and angle gradients within 1e-4 (float32 row sums in
-another order); RYY's sign flipped and RZZ's gradient dropped must exceed
-them; two launches agree bit for bit; the first design forced at 1, 5, 8
-and 9 qubits meets the same tolerances; more than 16
-qubits is refused; the register kernels show no spills in ptxas' report.
+(the register kernels) and at 10-16 (the wide kernels: register rows up
+to 12 qubits, a cluster of 2^(n - 12) CTAs a row above, reading the
+schedule kernel's rows, which equal its twin's): forward planes within
+1e-5, the psi0 cotangents and angle gradients within 1e-4 (float32 row
+sums in another order); RYY's sign flipped and RZZ's gradient dropped must
+exceed them; two launches agree bit for bit; woven tapes (error Paulis,
+weave 3) under their gates' schedule at 12 and 14 qubits; more than 16
+qubits is refused; no tape kernel spills in ptxas' report.
 The composed step (``AngleOptimizer`` through the kernels against itself
 on the plain versions, 3 iterations, ``agreement``) runs for su4 tapes,
 shot noise (1024 shots) and depolarizing noise over 4 trajectories, under
-the same tagged draws; its CUDA graph (``ComposedGraph``) gives the eager
-kernel path's result bit for bit on three batches through one capture,
-the second on other tapes, and counts each replay's launches."""
+the same tagged draws, at 8-qubit H2O and at 12-qubit LiH; its CUDA graph
+(``ComposedGraph``) gives the eager kernel path's result bit for bit on
+three batches through one capture, the second on other tapes, and
+counts each replay's launches."""
 
 import numpy as np
 import pytest
@@ -717,12 +719,13 @@ def _max_err(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 13, 14])
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14,
+                               15, 16])
 def test_tape_kernels_match_plain_versions(n):
     """B3f and B3b against their plain versions (the register kernels up
-    to 9 qubits; the first design's state in shared memory up to 13
-    qubits, in global memory at 14); two wrong results must fail the same
-    tolerances: RYY's sign flipped, RZZ's gradient dropped."""
+    to 9 qubits, the wide kernels' register rows at 10-12 and clusters of
+    2-16 CTAs at 13-16); two wrong results must fail the same tolerances:
+    RYY's sign flipped, RZZ's gradient dropped."""
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
 
     dev = _card()
@@ -753,12 +756,12 @@ def test_tape_kernels_match_plain_versions(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 5, 8, 9])
+@pytest.mark.parametrize("n", [1, 5, 8, 9, 10, 12, 14])
 def test_register_tape_kernels_variants(n):
-    """The register kernels at 1 qubit (no pairs) and beside their
-    variants: the adjoint without psi0 cotangents gives the same angle
-    gradients, and the first design forced at the same width meets the
-    plain versions' tolerances."""
+    """The register and wide kernels at 1 qubit (no pairs) and beside
+    their variants: the adjoint without psi0 cotangents gives the same
+    angle gradients; from 10 qubits the schedule kernel's rows equal its
+    twin's, and a launch given them equals one that builds its own."""
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
 
     dev = _card()
@@ -772,12 +775,51 @@ def test_register_tape_kernels_variants(n):
     assert _max_err(grads, grads_p) <= TOL_BWD
     lean = at.run_bwd(lib, *out, *cot, tape, angles, psi0_grad=False)
     assert torch.equal(lean[2], grads[2])
-    first = at.run_fwd(lib, *planes, tape, angles, design=at.DESIGN_FIRST)
-    first_g = at.run_bwd(lib, *first, *cot, tape, angles,
-                         design=at.DESIGN_FIRST)
+    if n >= at.WIDE_MIN_QUBITS:
+        r = angles.shape[-1]
+        before = at.tape_schedule.launches
+        sched = at.tape_schedule(*tape, n, r)
+        assert at.tape_schedule.launches == before + 1
+        assert np.array_equal(sched.cpu().numpy(),
+                              at.tape_schedule_plain(*tape, n, r))
+        again = at.run_fwd(lib, *planes, tape, angles, schedule=sched)
+        assert all(torch.equal(a, b) for a, b in zip(again, out))
     torch.cuda.synchronize()
-    assert _max_err(first, out_p) <= TOL_FWD
-    assert _max_err(first_g, grads_p) <= TOL_BWD
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [12, 14])
+def test_wide_tape_kernels_on_woven_tapes(n):
+    """Tapes woven with error Paulis (``extend_tape_arrays``: X / Y on
+    every CX's control, anywhere, and on targets at random) under their
+    gates' schedule (weave 3), against the plain versions on the woven
+    tapes, where the errors are gates."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import extend_tape_arrays
+
+    dev = _card()
+    planes, tape, angles, cot = _tape_case(dev, n, n_env=4, seed=3)
+    rng = np.random.default_rng(n)
+    kind = tape[0].cpu().numpy()
+    is_cx = kind == int(GateKind.CX)
+    live = (kind >= int(GateKind.RX)) & (kind <= int(GateKind.CX))
+    kt = np.where(live & (rng.random(kind.shape) < 0.5),
+                  rng.integers(5, 8, kind.shape), 0)
+    kc = np.where(is_cx, rng.integers(5, 7, kind.shape), 0)
+    woven = tuple(a.to(torch.int32).contiguous() for a in extend_tape_arrays(
+        tape, torch.as_tensor(kt, device=dev),
+        torch.as_tensor(kc, device=dev)))
+    sched = at.tape_schedule(*tape, n, angles.shape[-1])
+    out = at.apply_tape_fwd(*planes, *woven, angles, schedule=sched,
+                            weave=3)
+    grads = at.apply_tape_bwd(*out, *cot, *woven, angles, schedule=sched,
+                              weave=3)
+    out_p = at.apply_tape_fwd_plain(*planes, *woven, angles)
+    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *woven, angles)
+    assert _max_err(out, out_p) <= TOL_FWD
+    assert _max_err(grads, grads_p) <= TOL_BWD
+    clean = at.apply_tape_fwd_plain(*planes, *tape, angles)
+    assert _max_err(out, clean) > 100 * TOL_FWD      # the errors act
 
 
 @pytest.mark.gpu
@@ -800,20 +842,25 @@ def test_v2_kernels_do_not_spill():
 @pytest.mark.gpu
 def test_register_tape_kernels_do_not_spill():
     """ptxas' report of the tape kernels' build: 0 bytes of spills in
-    every register kernel."""
+    every kernel: the register kernels (fwd and bwd at RB = 3 and 4), the
+    wide kernels (fwd and bwd, register rows and clusters) and the
+    schedule kernel."""
     from tensorrl_qas_tpu_torch.ops.build import build
 
     _card()
     lines = build("apply_tape")["log"].splitlines()
     reports = [(ln, nxt) for ln, nxt in zip(lines, lines[1:])
-               if "Function properties for" in ln and "reg_kernel" in ln]
-    assert len(reports) == 4              # fwd and bwd at RB = 3 and 4
+               if "Function properties for" in ln and "apply_tape" in ln]
+    names = " ".join(ln for ln, _ in reports)
+    assert sum("reg_kernel" in ln for ln, _ in reports) == 4, names
+    assert sum("wide_kernel" in ln for ln, _ in reports) == 4, names
+    assert "schedule_kernel" in names
     for ln, nxt in reports:
         assert "0 bytes spill stores, 0 bytes spill loads" in nxt, ln
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [5, 8, 9, 14])
+@pytest.mark.parametrize("n", [5, 8, 9, 11, 14, 16])
 def test_tape_kernels_are_deterministic(n):
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
 
@@ -837,10 +884,11 @@ def test_tape_kernels_refuse_more_than_sixteen_qubits():
         at.apply_tape_fwd(*planes, *tape, angles)
 
 
-def _composed_args(dev, n_env=16, s_n=4, su4=True, seed=0):
-    """Fused-step arguments at 8-qubit H2O for the composed engine: su4
-    tapes (RXX/RYY/RZZ/RX/RY/RZ) or CNOT-set ones, identity angle map."""
-    head, tail = _tapes(dev, 8, n_env, s_n, 30, seed)
+def _composed_args(dev, n_env=16, s_n=4, su4=True, seed=0, n=8):
+    """Fused-step arguments at 8-qubit H2O (or 12-qubit LiH) for the
+    composed engine: su4 tapes (RXX/RYY/RZZ/RX/RY/RZ) or CNOT-set ones,
+    identity angle map."""
+    head, tail = _tapes(dev, n, n_env, s_n, 30, seed)
     if su4:
         rng = np.random.default_rng(seed)
         old, new = head[0], head[1]
@@ -850,7 +898,7 @@ def _composed_args(dev, n_env=16, s_n=4, su4=True, seed=0):
                                 dtype=torch.int32, device=dev)
         two_q = kinds >= int(GateKind.RXX)
         partner = (old[1] + 1 + torch.as_tensor(
-            rng.integers(7, size=tuple(old[0].shape)), device=dev)) % 8
+            rng.integers(n - 1, size=tuple(old[0].shape)), device=dev)) % n
         kind = torch.where(live, kinds, 0).int()
         cq = torch.where(live & two_q, partner, -1).int()
         slot = torch.where(live, torch.cumsum(live.int(), 1) - 1, -1).int()
@@ -874,7 +922,8 @@ def _composed_args(dev, n_env=16, s_n=4, su4=True, seed=0):
                                  torch.Generator(device=dev).manual_seed(1)
                                  ).contiguous(),
                 active[:, None, :].contiguous())
-    pauli = load_problem("H2O", 8, H2O).pauli
+    pauli = (load_problem("H2O", 8, H2O) if n == 8
+             else load_problem("LIH", 12, LIH)).pauli
     return pauli, (*head, *tail)
 
 
@@ -909,6 +958,46 @@ def test_composed_step_kernels_match_plain_versions(mode):
     wrong, _, _ = fused_adam.agreement(args, ref, xw, ew, tol=1e-5,
                                        step=plain, iters=3, **noise)
     assert not bool(wrong.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["su4", "traj4"])
+def test_composed_step_at_twelve_qubits(mode):
+    """The composed engine at 12-qubit LiH (the wide kernels under each
+    tape's schedule, built once a step; depolarizing trajectories on woven
+    tapes; H psi over the flip groups in one gather) against itself on the
+    plain versions by ``agreement`` at 3 iterations; its graph replays the
+    eager kernel path bit for bit, each call 5 B3f, 3 B3b and 2 schedule
+    launches."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import composed_step
+
+    dev = _card()
+    pauli, args = _composed_args(dev, n_env=4, su4=mode == "su4", n=12)
+    kw = {"su4": dict(enable_2q=True),
+          "traj4": dict(noise_mode="depolarizing", n_traj=4)}[mode]
+    opt = AngleOptimizer(pauli, device=dev, **kw)
+    fargs = (*args[:5], *opt.w_planes(), *args[5:])
+    noise = {} if mode == "su4" else {"seed": 11}
+    kernel, plain = composed_step(opt), composed_step(opt, plain=True)
+    xk, ek = kernel(*fargs, iters=3, lr=0.1, **noise)
+    ref = fused_adam.plain_results(fargs, iters=3, lr=0.1, step=plain,
+                                   **noise)
+    ok, strict, _ = fused_adam.agreement(fargs, ref, xk, ek, tol=1e-5,
+                                         step=plain, iters=3, **noise)
+    assert bool(ok.all()) and strict.float().mean() > 0.5
+    counters = (at.apply_tape_fwd, at.apply_tape_bwd, at.tape_schedule)
+    graph = opt.composed_graph()
+    h_apply = opt._h_apply(torch.float32)
+    for seed in (11, 12):
+        before = [k.launches for k in counters]
+        xg, eg = graph(*args, iters=3, lr=0.1, seed=seed)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(counters, before)] == [5, 3,
+                                                                      2]
+        xe, ee = opt._fused_step_composed(*args[:5], h_apply, *args[5:],
+                                          iters=3, lr=0.1, seed=seed)
+        assert torch.equal(xg, xe) and torch.equal(ee, eg)
 
 
 @pytest.mark.gpu

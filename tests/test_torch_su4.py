@@ -38,12 +38,15 @@ from tensorrl_qas_tpu.optim.angle_opt import AngleOptimizer as OptJax
 from tensorrl_qas_tpu.sim.apply import apply_tape as apply_tape_jax
 from tensorrl_qas_tpu.sim.apply import zero_state as zero_state_jax
 from tensorrl_qas_tpu.sim.expectation import PauliSum as PauliSumJax
+from tensorrl_qas_tpu.sim.expectation import pauli_expectation as pexp_jax
 from tensorrl_qas_tpu_torch.agents.dqn import make_agent
 from tensorrl_qas_tpu_torch.circuits.qasm import load_circuit_tape
 from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
 from tensorrl_qas_tpu_torch.envs.circuit_env import CircuitEnv, EnvConfig
+from tensorrl_qas_tpu_torch.ops.fused_adam import _h_energy, flip_h
 from tensorrl_qas_tpu_torch.optim.angle_opt import (
     AngleOptimizer,
+    flip_h_batched,
     make_multistarts,
 )
 from tensorrl_qas_tpu_torch.problems.hamiltonians import (
@@ -145,10 +148,16 @@ def _torch_kinds(draws, p1, p2):
     return sample
 
 
-@pytest.mark.parametrize("mode", ["su4", "shot", "traj2"])
-def test_composed_step_matches_jax_pallas_interpret(mode):
-    n, n_env, s_n, cap, iters = 4, 3, 3, 10, 3
-    rng = np.random.default_rng({"su4": 1, "shot": 2, "traj2": 3}[mode])
+@pytest.mark.parametrize(
+    "mode, n", [(m, n) for n in (4, 10) for m in ("su4", "shot", "traj2")],
+    ids=[f"{m}{'' if n == 4 else f'-{n}q'}" for n in (4, 10)
+         for m in ("su4", "shot", "traj2")])
+def test_composed_step_matches_jax_pallas_interpret(mode, n):
+    """At 4 qubits (H psi through the dense planes) and at 10 (through the
+    flip groups in one gather, ``flip_h_batched``)."""
+    n_env, s_n, cap, iters = 3, 3, 10, 3
+    rng = np.random.default_rng({"su4": 1, "shot": 2, "traj2": 3}[mode]
+                                + (n > 4) * 10)
     old, new, maps, x0, n_rots = _batch(
         rng, n, n_env, cap, SU4_KINDS if mode == "su4" else CNOT_KINDS)
     psi0 = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
@@ -191,6 +200,46 @@ def test_composed_step_matches_jax_pallas_interpret(mode):
     np.testing.assert_allclose(e_t.double().numpy() + opt_t.offset,
                                np.asarray(e_j), atol=TOL_F32)
     assert float(np.abs(x_t.numpy() - x0).max()) > 0.05   # Adam moved x
+
+
+def test_batched_flip_h_matches_flip_h_and_jax():
+    """The composed energy's H psi above 9 qubits (one gather over the flip
+    groups, ``flip_h_batched``) against the fused kernels' plain group loop
+    (``flip_h``) in float64, products and the autograd backward within
+    1e-12, and its Rayleigh quotient (plus the identity weight) against
+    the JAX package's ``pauli_expectation`` within 1e-10; for a complex and
+    a real H."""
+    n = 10
+    rng = np.random.default_rng(7)
+    d = 1 << n
+    for seed, k in ((5, 30), (6, 20)):
+        ps_t, ps_j = _pauli(n, seed=seed, k=k)
+        if seed == 6:                     # real: an even count of Y
+            strings = ["I" * n] + ["".join(rng.choice(list("IXZ"), size=n))
+                                   for _ in range(k)]
+            weights = np.concatenate([[0.3], rng.normal(size=k)])
+            ps_t = PauliSum.from_strings(strings, weights, n)
+            ps_j = PauliSumJax.from_strings(strings, weights, n)
+        opt = AngleOptimizer(ps_t, device="cpu")
+        wre, wim, flips = opt.w_planes()
+        assert wre.dtype == torch.float64
+        assert bool((wim != 0).any()) == (seed == 5)
+        psi = rng.normal(size=(3, 2, d)) + 1j * rng.normal(size=(3, 2, d))
+        re = torch.as_tensor(psi.real).requires_grad_()
+        im = torch.as_tensor(psi.imag).requires_grad_()
+        outs, grads = [], []
+        for h in (flip_h_batched(wre, wim, flips), flip_h(wre, wim, flips)):
+            hre, him, ev = _h_energy(re, im, h)
+            g = torch.autograd.grad((ev.sum() + (hre * 0.3 - him).sum()),
+                                    (re, im))
+            outs.append((hre.detach(), him.detach(), ev.detach()))
+            grads.append(g)
+        for a, b in zip((*outs[0], *grads[0]), (*outs[1], *grads[1])):
+            assert float((a - b).abs().max()) <= 1e-12
+        ej = np.asarray(pexp_jax(jnp.asarray(psi),
+                                 *ps_j.device_arrays(jnp.complex128)))
+        np.testing.assert_allclose(outs[0][2].numpy() + opt.offset, ej,
+                                   atol=1e-10, rtol=0)
 
 
 def _one_tape(n):
