@@ -3,7 +3,10 @@ Adam env step, noiseless, with depolarizing noise and with a psi0 per env,
 the composed engine's tape kernels (forward B3f, adjoint B3b), and the
 vectorized trainer through each of the six fused-kernel variants, in the
 TensorRL-fixed, TensorRL-trainable and StructureRL families, and through
-the composed engine with the su4 gate set and with shot noise.
+the composed engine with the su4 gate set and with shot noise; the
+sequential trainer (the CLI without --vector) with Adam, through both
+fused kernels at E = 1, and with COBYLA, on csim and, under noise,
+through B3f.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
@@ -14,6 +17,8 @@ the composed engine with the su4 gate set and with shot noise.
                                       # compare two checkouts
     python3 chip_smoke.py --band      # the 13-18q band's split alone (in
                                       # 5b.), to compare two checkouts
+    python3 chip_smoke.py --plain-modes  # the plain version's time with
+                                      # and without autograd's bookkeeping
 
 The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
 cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.)
@@ -25,11 +30,12 @@ Phases, one line each with its seconds:
 1. device     -- a CUDA card must be present (no CPU fallback); prints
                  ``nvidia-smi --query-gpu=name,power.limit``.
 2. build      -- compiles every kernel with nvcc into build/, one nvcc per
-                 source, all started together at the outset, and prints
+                 source, and csim (the COBYLA cost's host engine) with
+                 g++, all started together at the outset, and prints
                  ptxas' register / shared-memory / spill lines.  The
                  composed engine's phases (19.-21.) run first: the plain
                  references of 20., and then the plain versions'
-                 100-iteration times of 8., 12., 16. and 18.'s timings
+                 100-iteration references (timed) of 18., 16., 12. and 8.
                  (``plain_prefetch``, as many as fit), while nvcc builds
                  the tape kernels (~45 s), the rest while the fused
                  kernels compile; the v1 phases then wait only for v1, so
@@ -40,10 +46,11 @@ Phases, one line each with its seconds:
                  envs, S = 8 starts, G = R = 26, D = 256, the H2O
                  Hamiltonian, tapes drawn from a numpy seed): iters = 3
                  (x_opt, where float32 determines it, and e_new within
-                 1e-5) and iters = 100 (e_new within 1e-4 Ha), or, where
-                 float32 rounding decides the result, within the plain
-                 version's own float32 noise (ops/fused_adam.py:agreement);
-                 e_new also against the eager complex128 simulator; two
+                 1e-5), or, where float32 rounding decides the result,
+                 within the plain version's own float32 noise
+                 (ops/fused_adam.py:agreement), and iters = 100 (e_new
+                 within 1e-4 Ha of the plain version's float32 run); e_new
+                 also against the eager complex128 simulator; two
                  deliberately wrong kernel results must fail the same
                  check; then the kernel's and the plain version's times
                  (the plain version's: its float32 run in the
@@ -68,11 +75,10 @@ Phases, one line each with its seconds:
                  rule at the 12-qubit LiH shapes (E = 16, S = 8, G = R =
                  116, D = 4096, 84 flip groups), with the same oracle,
                  controls and timing; then a 3-iteration sweep over the
-                 rest of the 10-18-qubit band: H2O 10q (E = 64), Heisenberg
+                 rest of the 10-16-qubit band: H2O 10q (E = 64), Heisenberg
                  14q (E = 64, the 14q trainer's shape) and 16q (E = 4) --
-                 the cluster kernel -- and the 17q open Heisenberg chain
-                 and 18q Heisenberg (E = 2) -- the group kernel --, with
-                 the controls, every launch through the band's kernel.
+                 the cluster kernel, with the controls, every launch
+                 through it (17q and 18q: 6d.).
 5b. split      -- (``--split`` only) where a v2 launch's time goes: 100
                  iterations at the 12q LiH shapes with every gate kNone
                  (also with 2 of the 16 envs), at half and at the full
@@ -94,9 +100,9 @@ Phases, one line each with its seconds:
                  step went through fused_adam_v2.
 6b. kernel v2 cluster -- the cluster kernel (fused_adam_v2_cluster) at 14q
                  Heisenberg (E = 8, S = 8, G = R = 46, clusters of 4 CTAs)
-                 held to its plain version at 3 iterations with the two
-                 controls (100 iterations in 22. when the time allows),
-                 every launch through the cluster kernel, and its times
+                 held to its plain version at 3 and 100 iterations with
+                 the two controls, every launch through the cluster
+                 kernel, and its times
                  and bound; ``cudaOccupancyMaxActiveClusters`` at C = 2-16;
                  at 13 qubits on an open Heisenberg chain built from its
                  Pauli strings (no config ships for 13q; E = 8, G = R = 46,
@@ -110,9 +116,9 @@ Phases, one line each with its seconds:
                  kernel.
 6d. kernel v2 group -- the group kernel (fused_adam_v2_group) at 18q
                  Heisenberg (E = 2, S = 8, G = R = 46, 64 CTAs a start in
-                 clusters of 2) held to its plain version at 3 iterations
-                 with the two controls (100 iterations in 22. when the time
-                 allows), every launch through the group kernel, and its
+                 clusters of 2) held to its plain version at 3 and 100
+                 iterations with the two controls, every launch through
+                 the group kernel, and its
                  times and bound; ``cudaOccupancyMaxActiveClusters`` at
                  17q and 18q for clusters of 2-16; at the 18q trainer's
                  shape (E = 8, S = 4) and on the 17q open chain (E = 2, 32
@@ -131,8 +137,7 @@ Phases, one line each with its seconds:
 8. kernel v1n -- the noise variant of v1 at the noise config's shapes
                  (H2O8q_TNbond2_noise: E = 128, S = 8, G = R = 46, p1 = 0.01,
                  p2 = 0.05, seeds per env) against its plain version under
-                 the same Philox draws, as in 3. at 3 iterations (100 in
-                 19.), its e_new against the
+                 the same Philox draws, as in 3., its e_new against the
                  eager simulator on the tape with the drawn errors woven in;
                  a third control, the noiseless kernel's result, must be
                  flagged in most envs at 3 iterations; then its times and
@@ -151,7 +156,8 @@ Phases, one line each with its seconds:
                  noise inferred from the name) with 128 replicas for 20
                  vector steps, every step through the v1 noise variant.
 12. kernel v2n -- the v2 noise variant at LiH 12q (E = 16, S = 8, G = R =
-                 116) at 3 iterations with the three controls and its
+                 116) at 3 and 100 iterations with the three controls and
+                 its
                  times, then at 14q (E = 8, the cluster kernel, with the
                  three controls).
 13. trainer v2n -- the trainer on LIH12q_TNbond2 with --noise depolarizing,
@@ -161,19 +167,21 @@ Phases, one line each with its seconds:
                  capacities (E = 128, G = 172 gates, R = 151 angles; every
                  tape opens with the embedded warm start) at 3 iterations
                  with the controls, and its time (the plain version is
-                 timed in 16.).
+                 timed in 16.); 3 iterations only.
 15. rows v1p  -- v1 launched with (E, D) psi0 planes whose rows all equal
                  the shared plane gives the shared launch bit for bit (100
                  iterations).
 16. kernel v1p -- v1 with a random psi0 per env (block-coordinate mode's
                  input) at the same shapes, held to its plain version at 3
-                 iterations with three controls (the third: every env given
-                 the first env's psi0), and its and the plain version's
-                 times.
+                 iterations with three controls (the third: every env
+                 given the first env's psi0), and its and the plain
+                 version's times (at 100 iterations the trainable tapes'
+                 float32 trajectories part: no 100-iteration check).
 17. trainers v1 trainable / StructureRL / v1p -- the trainer on the
                  TensorRL_trainable/ and StructureRL/ H2O8q_TNbond2 configs
-                 (128 replicas, 12 vector steps), through v1 with shared
-                 psi0, then on the trainable config with --block_coord 3,
+                 (128 replicas, 6 vector steps, too few for replay),
+                 through v1 with shared psi0, then on the trainable config
+                 with --block_coord 3 (12 vector steps: replay runs),
                  every step through v1 with per-env psi0.
 18. kernel v2 trainable, rows v2p, kernel v2p, trainer v2p -- 14.-17. for
                  v2 at TensorRL_trainable/LIH12q_TNbond2 (E = 16, G = 244,
@@ -190,14 +198,14 @@ Phases, one line each with its seconds:
                  launches back to back, and the profiler's device time)
                  beside their bounds and plain versions'; the same at 5
                  and 9 qubits (E = 64) -- the register kernels -- and at
-                 12 (E = 16, G = R = 30 and the 12q su4 trainer's capacity)
-                 and 14 (E = 64, clusters of 4) -- the wide kernels, which
-                 read a schedule (its kernel held to its twin word for
-                 word, and timed) -- both also on tapes woven with error
-                 Paulis, X / Y on controls that sit on warp and cluster
-                 bits, under the noiseless tapes' schedule; at 10 (E = 64),
-                 13 (E = 8, clusters of 2) and 16 (E = 4, clusters of 16) at
-                 the end, when the deadline leaves ``TAPE_MIN_LEFT_S``.
+                 10 (E = 64), 12 (E = 16, G = R = 30 and the 12q su4
+                 trainer's capacity), 13 (E = 8, clusters of 2), 14 (E =
+                 64, clusters of 4) and 16 (E = 4, clusters of 16) -- the
+                 wide kernels, which read a schedule (its kernel held to
+                 its twin word for word, and timed) --, at 12 and 14 also
+                 on tapes woven with error Paulis, X / Y on controls that
+                 sit on warp and cluster bits, under the noiseless tapes'
+                 schedule.
 20. composed su4 / shot / traj4 -- the composed step (AngleOptimizer
                  through the tape kernels against itself on their plain
                  versions, ops/fused_adam.py:agreement, 3 iterations, the
@@ -229,15 +237,39 @@ Phases, one line each with its seconds:
                  twice), and no fused kernel; the 12q trainer traced: wall
                  and device ms a vector step, B3f's, B3b's and the energy's
                  ops by kernel name, the card's busy share.
-22. the 100-iteration checks of 6b., 6d., 8. and 12., each when enough
-                 of the deadline is left (``LONG_MIN_LEFT_S``).
+22. sequential cobyla 8q / cobyla noisy 8q -- (after 21.) the CLI
+                 without --vector on H2O8q_TNbond2 with --optim cobyla, an
+                 episode of 10 steps: every cost evaluation on csim on the
+                 host, no kernel launched; nfev a step, ms a step and
+                 csim's us an evaluation; then on H2O8q_TNbond2_noise, an
+                 episode of 6 steps: one B3f launch each cost evaluation
+                 (launches = nfev > 0), no other kernel; the noisy cost
+                 (``kernel_energy_fn``) against the eager complex128
+                 simulator on the same 12 woven draws within 1e-5, a
+                 dropped error Pauli and a shifted angle exceeding it; its
+                 wall and B3f device ms an evaluation beside csim's.
+23. sequential v1 -- (after 4.) the CLI without --vector on H2O8q_TNbond2
+                 for two episodes with a greedy test after the second
+                 (--test_every 1), traced: one v1 launch at E = 1 every
+                 env step (train and test), no other kernel; wall ms a
+                 step and the kernel's device ms of it.  Then v1 at E = 1
+                 against its plain version at 3 iterations with the
+                 controls of 3., and its time.
+24. kernel v2 E=1 / sequential v2 12q -- (after 6.) v2 at E = 1 (12q LiH)
+                 at 3 iterations with the controls, and its time; the CLI
+                 without --vector on LIH12q_TNbond2 for 6 Adam steps (one
+                 v2 launch each) and 2 COBYLA steps (no kernel); the noisy
+                 cost check of 22. at 12q, with csim's ms an evaluation
+                 beside B3f's device ms an evaluation on the same tape.
 
 The line before the last is a JSON object with one entry per kernel
 variant (v1, v1 noise, v2, v2 noise, the v2 cluster and group kernels,
 v1 and v2 per-env psi0, the tape kernels' forward and adjoint); the last
 line is
 {"ok": true, "device":
-{...}}.  Any failure, or passing the deadline, exits non-zero without that
+{...}}.  Any failure, or passing the deadline (``DEADLINE_S``: the
+watchdog's message and exit 124; where the watchdog's thread cannot run,
+SIGALRM ``HARD_DEADLINE_MARGIN_S`` later), exits non-zero without that
 line.
 
 Every kernel check and timing runs at the tape capacities that the
@@ -252,16 +284,19 @@ import concurrent.futures
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import traceback
 from typing import Callable, NamedTuple
 
 sys.dont_write_bytecode = True      # write nothing into the checkout
 
 DEADLINE_S = 600
+HARD_DEADLINE_MARGIN_S = 30   # SIGALRM ends the process this much later
 STARTS, ITERS, LR = 8, 100, 0.1
 FIXED, TRAINABLE = "TensorRL_fixed/", "TensorRL_trainable/"
 STRUCTURE = "StructureRL/"
@@ -277,21 +312,35 @@ KRAUS_ENVS, KRAUS_P = 4096, (0.15, 0.25)
 # steps, the fewest with which the 8q trainers' replay runs (20 before the
 # composed engine's phases needed the time)
 T_STEPS, BLOCK_COORD = 12, ("--block_coord", "3")
+# the untraced trainable and StructureRL trainers: 6 vector steps, too
+# few for replay (the fixed 8q trainers and trainer v1p run it), so that
+# the sequential phases fit the deadline
+T_FAMILY_STEPS = 6
+# the sequential trainer (the CLI without --vector): H2O8q_TNbond2 for two
+# episodes with a greedy test after the second, every step the v1 kernel
+# at E = 1; one COBYLA episode (csim on the host: no kernel); COBYLA on
+# H2O8q_TNbond2_noise for an episode of a few steps, every cost evaluation
+# one B3f launch; LiH 12q for a few Adam steps (the v2 kernel at E = 1)
+# and two COBYLA steps.  Episodes of k steps: --num_layers = the warm
+# start's depth + k
+SEQ_ARGS = ("--episodes", "2", "--test_every", "1")
+COBYLA_ARGS = ("--optim", "cobyla")
+SEQ_COBYLA_STEPS, SEQ_NOISY_STEPS = 10, 6
+SEQ_V2_STEPS, SEQ_V2_COBYLA_STEPS = 6, 2
+CSIM_EVALS, COST_DRAWS, DROP_CANDIDATES = 200, 12, 8
 # the composed engine: tape kernels at the su4 8q shapes (the su4 config's
 # capacity G = R = 30, E = 128) and at 5 and 9 qubits (E = 64: groups of
 # 4 lanes, a warp at 16 amplitudes a thread) -- the register kernels --,
-# at 12 qubits (E = 16; also at the 12q su4 trainer's capacity, whose
-# numbers go into the kernels line) and 14 (E = 64, clusters of 4), both
-# also on woven tapes, and, when the deadline leaves the time, at 10 (E =
-# 64), 13 (E = 8, clusters of 2) and 16 (E = 4, clusters of 16) -- the
-# wide kernels; its step at 3 iterations in three settings, eagerly and as
+# at 10 (E = 64), 12 (E = 16; also at the 12q su4 trainer's capacity,
+# whose numbers go into the kernels line), 13 (E = 8, clusters of 2), 14
+# (E = 64, clusters of 4) and 16 (E = 4, clusters of 16) -- the wide
+# kernels --, at 12 and 14 also on woven tapes; its step at 3 iterations in three settings, eagerly and as
 # a graph; three trainers: su4 and restricted at 8q with 128 replicas, su4
 # at 12q LiH with 16 (root bench.py's ROWS[12])
 SU4_ARGS = ("--gate_set", "su4")
-TAPE_SHAPES = ((8, 128), (5, 64), (9, 64), (12, 16), (14, 64))
-TAPE_OPTIONAL = ((10, 64), (13, 8), (16, 4))
+TAPE_SHAPES = ((8, 128), (5, 64), (9, 64), (10, 64), (12, 16), (13, 8),
+               (14, 64), (16, 4))
 TAPE_WOVEN = (12, 14)    # also on tapes woven with error Paulis
-TAPE_MIN_LEFT_S = 60     # an optional tape phase: ~10-20 s of the deadline
 TAPE_CAP = 30            # G = R of H2O8q_TNbond2 with the su4 warm start
 SU4_12_CONFIG, SU4_12_ENVS = "LIH12q_TNbond2", 16
 RESTRICTED_CONFIG = "H2O8q_TNbond2_noise_restricted"
@@ -304,11 +353,6 @@ TOL_FWD = 1e-5           # B3f planes vs plain: float32 gate arithmetic
 TOL_BWD = 1e-4           # B3b cotangents and angle gradients: float32 row
 #                          sums in another order
 TOL_P0 = 1e-6            # noise variant at p = 0 vs the noiseless kernel
-# the optional 100-iteration checks of the noise variants (run last, in
-# this order) run when this much of the deadline is left, about twice
-# what they took on the H100: v1n's 67-101 s, v2n's 92 s
-LONG_MIN_LEFT_S = {"fused_adam_v2_cluster": 90, "fused_adam_v2_group": 110,
-                   "fused_adam_v1_noise": 200, "fused_adam_v2_noise": 300}
 # the split phase's shapes besides 12q LiH: 10q and 14q (the cluster
 # kernel)
 SPLIT_SHAPES = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8))
@@ -319,13 +363,13 @@ SPLIT_SHAPES = (("H2O10q_TNbond2", 64), ("heisenberg_14q_TNbond2", 8))
 # > 1000 and replay runs (16 steps would leave 768)
 V2C_CONFIG, V2C_ENVS, V2C_TRAINER_ENVS, V2C_STEPS = (
     "heisenberg_14q_TNbond2", 8, 64, 20)
-# the rest of the band at 3 iterations: (config, or the qubits of an open
-# Heisenberg chain, envs); 14q (at the 14q trainer's 64 replicas) and 16q
-# run the cluster kernel, 17q and 18q the group kernel (held with the
-# controls, every launch through the band's kernel)
+# the rest of the band at 3 iterations: (config, envs); 14q (at the 14q
+# trainer's 64 replicas) and 16q run the cluster kernel (held with the
+# controls, every launch through it); 17q and 18q at E = 2 are the group
+# phase's
 V2G_CONFIG = "heisenberg_18q_TNbond2"
 SWEEP = (("H2O10q_TNbond2", 64), (V2C_CONFIG, V2C_TRAINER_ENVS),
-         ("heisenberg_16q_TNbond2", 4), (17, 2), (V2G_CONFIG, 2))
+         ("heisenberg_16q_TNbond2", 4))
 # no config ships for 13 or 17 qubits: an open Heisenberg chain from its
 # Pauli strings at the 14q config's capacity (clusters of 2 CTAs at 13q)
 CHAIN_QUBITS, CHAIN_ENVS, CHAIN_CAP = 13, 8, 46
@@ -351,6 +395,13 @@ TOL_ITERS100 = 1e-4      # e_new (Ha) after 100 iterations: f32 summation
 # version's own float32 noise (ops/fused_adam.py:agreement); two
 # deliberately wrong kernel results show that the check rejects errors.
 TOL_ORACLE = 1e-4        # kernel e_new vs the complex128 eager simulator
+# At ITERS iterations the plain version's float32 run alone is the
+# reference (plain_reference; at 3 iterations also its float64 run and the
+# runs with the H planes rounded differently): x_opt is not compared
+# there, and every env's e_new has agreed with that run well inside
+# TOL_ITERS100 (at most 1.8e-6) in every logged check, so an env must
+# agree strictly (a single run spans no band of float32 noise); the
+# complex128 oracle stays.  That run is also the plain version's time.
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, non-tensor-core float32
 HBM_BYTES_PER_S = 3.35e12
 
@@ -358,8 +409,9 @@ _phase = ["start"]
 
 
 def _expire():
-    print(f"DEADLINE: {DEADLINE_S} s passed in phase {_phase[0]!r}",
-          flush=True)
+    # os.write: the main thread may hold sys.stdout's lock
+    os.write(1, f"DEADLINE: {DEADLINE_S} s passed in phase "
+                f"{_phase[0]!r}\n".encode())
     os._exit(124)
 
 
@@ -526,11 +578,28 @@ COMPOSED = Engine(
     h_flops=lambda case: 8 << (2 * case.n))
 
 
+def without_autograd(fn):
+    """``fn`` under ``torch.inference_mode``: the fused step's plain
+    version takes its gradients by hand (an adjoint sweep), so autograd's
+    bookkeeping would only add host time to each of its many small
+    operations; the same kernels run in the same order."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        import torch
+
+        with torch.inference_mode():
+            return fn(*args, **kwargs)
+    return run
+
+
 def engines():
     """(v1, v1 noise, v2, v2 noise, v1 per-env psi0, v2 per-env psi0, v2
     cluster, v2 group).  Both kernels take the flip-group planes; "v2
     cluster" and "v2 group" are v2's wrapper counted by its cluster
-    kernel's launches (13-16 qubits) and its group kernel's (17-18)."""
+    kernel's launches (13-16 qubits) and its group kernel's (17-18).
+    Their plain versions run ``without_autograd``."""
     from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
 
     v2 = fused_adam2d._library
@@ -544,7 +613,7 @@ def engines():
                 replaces=REPLACES["v1", variant],
                 source="tensorrl_qas_tpu_torch/csrc/fused_adam_v1.cu",
                 step=fused_adam.fused_adam_step, variant=variant,
-                plain=fused_adam.fused_adam_step_reference,
+                plain=without_autograd(fused_adam.fused_adam_step_reference),
                 h_ops=lambda opt: opt.w_planes(),
                 smem_bytes=lambda case, noise=noise: v1_smem_bytes(case,
                                                                    noise),
@@ -553,7 +622,7 @@ def engines():
             name="fused_adam_v2" + suffix, replaces=REPLACES["v2", variant],
             source="tensorrl_qas_tpu_torch/csrc/fused_adam_v2.cu",
             step=fused_adam2d.fused_adam_step2d, variant=variant,
-            plain=fused_adam2d.fused_adam_step2d_reference,
+            plain=without_autograd(fused_adam2d.fused_adam_step2d_reference),
             h_ops=lambda opt: opt.w_planes(),
             smem_bytes=lambda case, noise=noise:
                 v2().fused_adam_v2_smem_bytes(case.g, case.r, case.n,
@@ -755,8 +824,9 @@ class Case:
 
 
 def plain_reference(engine, case, iters):
-    """The plain version's float32 runs on a case (``plain_results``) and
-    the first run's ms; needs no kernel."""
+    """The plain version's runs on a case (``plain_results``; at ``ITERS``
+    iterations its float32 run alone) and the first run's ms; needs no
+    kernel."""
     import torch
 
     from tensorrl_qas_tpu_torch.ops import fused_adam
@@ -775,8 +845,11 @@ def plain_reference(engine, case, iters):
         b.synchronize()
         plain_ms.append(a.elapsed_time(b))
         return out
-    ref = fused_adam.plain_results(case.args, iters=iters, lr=LR,
-                                   step=plain, **case.noise_kw)
+    if iters == ITERS:
+        ref = [plain(*case.args, iters=iters, lr=LR, **case.noise_kw)]
+    else:
+        ref = fused_adam.plain_results(case.args, iters=iters, lr=LR,
+                                       step=plain, **case.noise_kw)
     return ref, plain_ms[0]
 
 
@@ -795,9 +868,10 @@ def check_kernel(engine, case, label, iters, tol, controls=(), ref=None):
     xk, ek = engine.step(*case.args, iters=iters, lr=LR, **kw)
     torch.cuda.synchronize()
     ref, plain_ms = ref or plain_reference(engine, case, iters)
+    cache = {}      # ref's float64 energies, shared with the controls
     env_ok, _, stats = fused_adam.agreement(
         case.args, ref, xk, ek, tol=tol, check_x=iters == 3,
-        step=engine.plain, iters=iters, **kw)
+        step=engine.plain, iters=iters, cache=cache, **kw)
     oracle = (case.oracle_error(xk, ek, range(0, case.n_env,
                                               max(1, case.n_env // 8)),
                                 iters)
@@ -808,7 +882,7 @@ def check_kernel(engine, case, label, iters, tol, controls=(), ref=None):
         c_ok, _, _ = fused_adam.agreement(case.args, ref, xc, ec, tol=tol,
                                           check_x=iters == 3,
                                           step=engine.plain, iters=iters,
-                                          **kw)
+                                          cache=cache, **kw)
         flagged = int((~c_ok).sum())
         caught[name] = f"{flagged}/{case.n_env}"
         if iters in required and (flagged == 0
@@ -996,13 +1070,15 @@ def time_kernel(engine, case, label, time_plain=True, plain_ms=None):
 
 
 def kernel_phase(engine, config, n_env, label, long_check=True,
-                 family=FIXED, time_plain=True, plain_ms=None):
+                 family=FIXED, time_plain=True, pre=None):
     """Both iteration counts (the 100-iteration one unless
     ``long_check`` is False) with the controls, then the timing (the
-    plain version's time, where the 100-iteration check ran, that of its
-    float32 run there, else ``plain_ms`` when ``plain_prefetch`` took
-    it: the same call, the same inputs)."""
-    case = Case(engine, config, n_env, family)
+    plain version's time that of its 100-iteration float32 run: the
+    check's, else ``pre``'s, else one taken there).  ``pre``: (case, its
+    100-iteration reference and the reference's ms) from
+    ``plain_prefetch``, the same inputs."""
+    case, ref = (pre[0], pre[1:]) if pre else (
+        Case(engine, config, n_env, family), None)
     print(f"[{label}] {family}{config}: E={n_env} G={case.g} R={case.r} "
           f"D={1 << case.n} psi0 rows={len(case.psi0)}", flush=True)
     stats = {}
@@ -1010,31 +1086,31 @@ def kernel_phase(engine, config, n_env, label, long_check=True,
         if iters == ITERS and not long_check:
             continue
         stats[iters] = check_kernel(engine, case, label, iters, tol,
-                                    case.controls())
-    long = stats.get(ITERS, {})
+                                    case.controls(),
+                                    ref=ref if iters == ITERS else None)
+    plain_ms = stats[ITERS]["plain_ms"] if ITERS in stats else (
+        ref[1] if ref else None)
     return {"max_abs_err": stats[max(stats)]["e_new_max_abs_err"],
-            **time_kernel(engine, case, label, time_plain,
-                          long.get("plain_ms", plain_ms))}, case
+            **time_kernel(engine, case, label, time_plain, plain_ms)}, case
 
 
 def plain_prefetch(specs, ready):
-    """The plain versions' 100-iteration times of the timing phases whose
-    check runs 3 iterations only (``specs``: (engine, config, envs,
-    family), their ``kernel_phase`` arguments, so the same inputs), taken
-    while nvcc builds the tape kernels, one after another until
-    ``ready()``: no kernel is needed, and the script would wait for the
-    build instead.  -> {engine name: ms}."""
+    """The plain versions' 100-iteration references (their float32 runs,
+    timed: ``plain_reference``) of later kernel phases (``specs``:
+    (engine, config, envs, family), their ``kernel_phase`` arguments, so
+    the same inputs), taken while nvcc builds the tape kernels, one after
+    another until ``ready()``: no kernel is needed, and the script would
+    wait for the build instead.  -> {engine name: (case, reference,
+    ms)}."""
     out = {}
     for engine, config, n_env, family in specs:
         if ready():
             break
         t0 = phase(f"plain prefetch {engine.name}")
         case = Case(engine, config, n_env, family)
-        out[engine.name] = time_cuda(
-            lambda: engine.plain(*case.args, iters=ITERS, lr=LR,
-                                 **case.noise_kw), warmup=0, reps=1)
+        out[engine.name] = (case, *plain_reference(engine, case, ITERS))
         done(f"plain prefetch {engine.name}", t0,
-             plain_ms=f"{out[engine.name]:.4f}")
+             plain_ms=f"{out[engine.name][2]:.4f}")
     return out
 
 
@@ -1261,10 +1337,13 @@ def cluster_phase(v2, v2n, v2p, v2c):
     case = Case(v2c, V2C_CONFIG, V2C_ENVS)
     print(f"[kernel v2 cluster] {FIXED}{V2C_CONFIG}: E={V2C_ENVS} G={case.g} "
           f"R={case.r} D={1 << case.n} C={band(case.n)[1]}", flush=True)
-    stats = check_band(v2c, case, "kernel v2 cluster", 3, TOL_ITERS3,
+    check_band(v2c, case, "kernel v2 cluster", 3, TOL_ITERS3,
+               case.controls())
+    stats = check_band(v2c, case, "kernel v2 cluster", ITERS, TOL_ITERS100,
                        case.controls())
     entry = {"max_abs_err": stats["e_new_max_abs_err"],
-             **time_kernel(v2c, case, "kernel v2 cluster")}
+             **time_kernel(v2c, case, "kernel v2 cluster",
+                           plain_ms=stats["plain_ms"])}
     t0 = phase("cluster occupancy")
     lib = fused_adam2d._library()
     occ = {}
@@ -1299,10 +1378,13 @@ def group_phase(v2, v2n, v2p, v2g):
     print(f"[kernel v2 group] {FIXED}{V2G_CONFIG}: E={V2G_ENVS} G={case.g} "
           f"R={case.r} D={1 << case.n} CTAs a start="
           f"{1 << (case.n - 12)} C={band(case.n)[1]}", flush=True)
-    stats = check_band(v2g, case, "kernel v2 group", 3, TOL_ITERS3,
+    check_band(v2g, case, "kernel v2 group", 3, TOL_ITERS3,
+               case.controls())
+    stats = check_band(v2g, case, "kernel v2 group", ITERS, TOL_ITERS100,
                        case.controls())
     entry = {"max_abs_err": stats["e_new_max_abs_err"],
-             **time_kernel(v2g, case, "kernel v2 group")}
+             **time_kernel(v2g, case, "kernel v2 group",
+                           plain_ms=stats["plain_ms"])}
     t0 = phase("group occupancy")
     lib = fused_adam2d._library()
     occ = {}
@@ -1923,19 +2005,341 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
         shutil.rmtree(out, ignore_errors=True)
 
 
+def episode_layers(config, steps):
+    """--num_layers for an episode of ``steps`` env steps on ``config``
+    (TensorRL-fixed): the warm start's depth + steps."""
+    from tensorrl_qas_tpu_torch.circuits.qasm import load_circuit_tape
+    from tensorrl_qas_tpu_torch.problems.hamiltonians import (
+        resolve_warmstart_qasm,
+    )
+    from tensorrl_qas_tpu_torch.train.config import get_config
+
+    conf = get_config(FIXED, f"{config}.cfg")
+    env, prob = conf["env"], conf["problem"]
+    qasm = resolve_warmstart_qasm(prob["ham_type"], env["num_qubits"],
+                                  env["tn_bond"], prob.get("geometry", ""),
+                                  prob.get("mapping", "jordan_wigner"))
+    return str(load_circuit_tape(qasm).depth() + steps)
+
+
+def sequential_phase(config, label, extra=(), expect=None, profile=False):
+    """The CLI without --vector (the sequential trainer) on
+    TensorRL_fixed/``config`` with ``extra`` flags, every kernel's launch
+    count set to 0 just before and read just after; ``expect(summary)``
+    gives the launches ({kernel name: n}, every other kernel 0).  Checks
+    the reference-schema outputs (one record a step, one event an
+    episode) and finite errors; prints wall ms a step (train and test
+    steps, host clock around the training, which ends in a host read),
+    nfev a step, and with ``profile`` (torch.profiler, CUDA activity) the
+    device ms a step by kernel.  -> (summary, launches, per-step records
+    of the train episodes)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.train import cli
+
+    variants = engines()
+    tape_kernels = (at.apply_tape_fwd, at.apply_tape_bwd, at.tape_schedule)
+    out = tempfile.mkdtemp(prefix="trlqas_smoke_")
+    try:
+        t0 = phase(label)
+        for e in variants:
+            e.reset()
+        for k in tape_kernels:
+            k.launches = 0
+        tracer = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+                  if profile else contextlib.nullcontext())
+        with tracer:
+            summary = cli.run(["--config", config, "--experiment_name",
+                               FIXED, "--results_path", out + "/", *extra])
+            torch.cuda.synchronize()
+        launches = {e.name: e.launches() for e in variants}
+        launches.update({k.__name__: k.launches for k in tape_kernels})
+        want = expect(summary)
+        run_dir = os.path.join(out, FIXED, config)
+        stats = np.load(os.path.join(run_dir, "summary_0.npy"),
+                        allow_pickle=True).item()
+        with open(os.path.join(run_dir, "events_0.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        records = list(stats["train"].values())
+        steps = summary["steps"] + summary["test_steps"]
+        nfev = [n for rec in records for n in rec["nfev"]]
+        errors = [e for mode in ("train", "test")
+                  for rec in stats[mode].values() for e in rec["errors"]]
+        checks = {
+            "launches as expected": all(
+                n == want.get(k, 0) for k, n in launches.items()),
+            "summary schema": set(stats) == {"train", "test"},
+            "a record a step": all(
+                len(rec[key]) == len(rec["actions"])
+                for rec in records for key in ("errors", "nfev", "opt_ang",
+                                               "reward", "time")),
+            "an event an episode": (
+                [ev["episode"] for ev in events]
+                == list(range(summary["episodes"]))),
+            "finite errors": bool(np.isfinite(errors).all()),
+        }
+        trace = {}
+        if profile:
+            dev_us = device_us_by_name(tracer)
+            ms = {name: sum(v for k, v in dev_us.items() if name in k)
+                  / 1e3 / steps for name in want if want[name]}
+            all_ms = sum(dev_us.values()) / 1e3 / steps
+            wall_ms = 1e3 * summary["wall_s"] / steps
+            trace = {"profiled_wall_ms_per_step": f"{wall_ms:.3f}",
+                     "kernel_device_ms_per_step": {
+                         k: f"{v:.4f}" for k, v in ms.items()},
+                     "kernel_share_of_step": {
+                         k: f"{v / wall_ms:.4f}" for k, v in ms.items()},
+                     "all_device_ms_per_step": f"{all_ms:.4f}"}
+        done(label, t0, episodes=summary["episodes"],
+             test_episodes=summary["test_episodes"],
+             env_steps=f"{summary['steps']} train + "
+                       f"{summary['test_steps']} test",
+             wall_ms_per_step=f"{1e3 * summary['wall_s'] / steps:.3f}",
+             nfev_per_step=f"{np.mean(nfev):.2f}",
+             nfev_max=max(nfev), steps_with_nfev=int(np.count_nonzero(nfev)),
+             best_error_Ha=f"{summary['best_error']:.6e}",
+             launches=launches, **trace, checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"{label} checks failed: {checks}")
+        return summary, launches, records
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def seq_case(config, noise_mode="none", seed=1234):
+    """A sequential env's optimizer (COBYLA, ``noise_mode``), its warm-start
+    psi0 and a random mid-episode tape at its capacity (numpy ``seed``):
+    the inputs of the COBYLA cost timings and checks."""
+    import numpy as np
+
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
+    from tensorrl_qas_tpu_torch.envs.circuit_env import CircuitEnv, EnvConfig
+    from tensorrl_qas_tpu_torch.train.config import get_config
+
+    conf = get_config(FIXED, f"{config}.cfg")
+    env = CircuitEnv(EnvConfig.from_conf(
+        conf, tn_placement="fixed", noise_mode=noise_mode,
+        optim_alg="cobyla", device="cuda"))
+    rng = np.random.default_rng(seed)
+    n, cap = env.num_qubits, env.tape_capacity
+    tape = GateTape(n, cap, env.rot_capacity)
+    for _ in range(cap - 1):
+        t = int(rng.integers(n))
+        if rng.random() < 0.4:
+            tape.add(GateKind.CX, t, int((t + 1 + rng.integers(n - 1)) % n))
+        else:
+            tape.add(GateKind(int(rng.integers(1, 4))), t,
+                     angle=float(rng.normal()))
+    return env.optimizer, env.psi0, tape
+
+
+def csim_us(opt, psi0, tape):
+    """csim's microseconds per COBYLA cost evaluation (the noiseless cost:
+    ``cobyla_cost``'s host energy, psi0 and tape copied once), median of
+    5 runs of ``CSIM_EVALS`` evaluations at 8 qubits, 2^(8 - n) times as
+    many at n (at least 10)."""
+    energy = opt.csim().energy_fn(psi0, *tape.arrays())
+    x = tape.x0()
+    evals = max(10, CSIM_EVALS >> max(0, opt.pauli.n_qubits - 8))
+    runs = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        for _ in range(evals):
+            energy(x)
+        runs.append(1e6 * (time.perf_counter() - t1) / evals)
+    return sorted(runs)[2]
+
+
+def noisy_cost_phase(config, label):
+    """The noisy COBYLA cost on the card (``kernel_energy_fn``: one B3f
+    launch an evaluation on the tape woven with that evaluation's draw)
+    against the eager complex128 simulator on the same draws
+    (``plain_energy``), ``COST_DRAWS`` draws within ``TOL_FWD``; two
+    wrong results must exceed it: the fired error Pauli whose loss moves
+    the energy most dropped, and the last rotation's angle shifted by 0.1
+    rad.  Then per evaluation: wall ms (the host read included), B3f's
+    device ms (profiler) and bound, and the eager simulator's ms; with
+    csim's ms on the same tape beside them.  -> {timings}."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import extend_tape_arrays
+
+    t0 = phase(label)
+    opt, psi0, tape = seq_case(config, "depolarizing")
+    r = tape.rot_capacity
+    energy = opt.kernel_energy_fn(psi0, tape.arrays(), r)
+    kind = torch.as_tensor(tape.kind, dtype=torch.int32,
+                           device="cuda").reshape(1, -1)
+    x = tape.x0()
+    gen = torch.Generator(device="cuda").manual_seed(NOISE_SEED)
+    draws = [opt._draw_noise(gen, kind, 1, 1) for _ in range(COST_DRAWS)]
+    before = at.apply_tape_fwd.launches
+    got = [energy(x, d) for d in draws]
+    launched = at.apply_tape_fwd.launches - before
+    t1 = time.perf_counter()
+    want = [opt.plain_energy(psi0, tape.arrays(), x, d) for d in draws]
+    eager_ms = 1e3 * (time.perf_counter() - t1) / len(draws)
+    err = max(abs(a - b) for a, b in zip(got, want))
+    # of the fired errors of the first draws (at least DROP_CANDIDATES of
+    # them), the one whose loss moves the energy most (an error can leave
+    # it unchanged)
+    drops = []
+    for noise, ref in zip(draws, want):
+        if len(drops) >= DROP_CANDIDATES:
+            break
+        for which, k in enumerate(noise):
+            for pos in (k != 0).nonzero().tolist():
+                cut = [noise[0].clone(), noise[1].clone()]
+                cut[which][tuple(pos)] = 0
+                moved = abs(opt.plain_energy(psi0, tape.arrays(), x, cut)
+                            - ref)
+                drops.append((moved, cut, ref))
+    if not drops:
+        raise AssertionError(f"{label}: no error fired in {COST_DRAWS} "
+                             "draws")
+    _, worst, ref = max(drops, key=lambda d: d[0])
+    shifted = x.copy()
+    shifted[tape.n_rots - 1] += 0.1
+    controls = {"error Pauli dropped": abs(energy(x, worst) - ref),
+                "angle shifted": abs(energy(shifted, draws[0]) - want[0])}
+    # per evaluation: wall (a fresh draw, the launch, the host read) and
+    # the B3f launch's device time, beside its bound on the first draw's
+    # woven row (planes in and out, the woven tape and the angles once;
+    # its gates' operations, error Paulis none)
+    wall_ms = time_cuda(lambda: energy(x), warmup=2, reps=20)
+    b3f_ms = device_ms(lambda: energy(x), "apply_tape_fwd", reps=20)
+    host_us = csim_us(opt, psi0, tape)
+    woven = extend_tape_arrays(
+        tuple(torch.as_tensor(a, device="cuda").reshape(1, 1, -1)
+              for a in tape.arrays()), *draws[0])
+    woven = [a.reshape(1, -1).cpu().numpy() for a in woven]
+    dim = 1 << opt.pauli.n_qubits
+    flops = float(tape_flops(woven, dim, gate_tables()[0]).sum())
+    nbytes = 4 * (4 * dim + 4 * woven[0].size + r)
+    b3f_bound = 1e3 * max(flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S)
+    ok = (err <= TOL_FWD and launched == COST_DRAWS
+          and all(v > TOL_FWD for v in controls.values()))
+    fired = sum(bool(((kt != 0) | (kc != 0)).any()) for kt, kc in draws)
+    done(label, t0, n=opt.pauli.n_qubits, G=tape.capacity, R=r,
+         draws=COST_DRAWS, draws_with_errors=fired,
+         max_abs_err_vs_eager=f"{err:.3e}", tol=TOL_FWD,
+         b3f_launches=launched,
+         controls={k: f"{v:.3e}" for k, v in controls.items()},
+         eval_wall_ms=f"{wall_ms:.4f}",
+         b3f_device_ms_per_eval=_ms_or_not(b3f_ms),
+         b3f_bound_ms=f"{b3f_bound:.3e}",
+         eager_complex128_ms_per_eval=f"{eager_ms:.3f}",
+         csim_us_per_eval_same_tape=f"{host_us:.1f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"{label}: the card's cost disagrees with "
+                             f"the eager one ({err:.3e}), or a control "
+                             f"passed: {controls}")
+    return {"max_abs_err": err, "eval_wall_ms": wall_ms,
+            "b3f_device_ms": b3f_ms, "b3f_bound_ms": b3f_bound,
+            "csim_us": host_us}
+
+
+def cobyla_phases():
+    """The sequential trainer under COBYLA at 8 qubits (needs csim and the
+    tape kernels, no fused kernel): a noiseless episode of
+    ``SEQ_COBYLA_STEPS`` steps, whose costs run on the host (csim; no
+    kernel launch), and one of ``SEQ_NOISY_STEPS`` steps under
+    depolarizing noise, every cost evaluation one B3f launch; then the
+    noisy cost against the eager simulator with its controls.  -> B3f's
+    launches in the noisy run."""
+    summary, _, _ = sequential_phase(
+        V1_CONFIG, "sequential cobyla 8q",
+        COBYLA_ARGS + ("--episodes", "1", "--num_layers",
+                       episode_layers(V1_CONFIG, SEQ_COBYLA_STEPS)),
+        expect=lambda s: {})
+    opt, psi0, tape = seq_case(V1_CONFIG)
+    t0 = phase("csim 8q")
+    done("csim 8q", t0, G=tape.capacity,
+         csim_us_per_eval=f"{csim_us(opt, psi0, tape):.1f}",
+         run_ms_per_eval=f"{1e3 * summary['wall_s'] / summary['nfev']:.3f}"
+         if summary["nfev"] else "no evaluation")
+    summary, launches, _ = sequential_phase(
+        V1N_CONFIG, "cobyla noisy 8q",
+        COBYLA_ARGS + ("--episodes", "1", "--num_layers",
+                       episode_layers(V1N_CONFIG, SEQ_NOISY_STEPS)),
+        expect=lambda s: {"apply_tape_fwd": s["nfev"]})
+    if summary["nfev"] == 0:
+        raise AssertionError("cobyla noisy 8q: no cost evaluation ran")
+    print(f"[cobyla noisy 8q] nfev {summary['nfev']} = B3f launches "
+          f"{launches['apply_tape_fwd']}", flush=True)
+    noisy_cost_phase(V1N_CONFIG, "cobyla noisy cost 8q")
+    return launches["apply_tape_fwd"]
+
+
+def sequential_v1_phases(v1):
+    """The sequential trainer with Adam at 8q (every env step, train and
+    greedy test, one v1 launch at E = 1, traced), and v1 at E = 1 against
+    its plain version at 3 iterations with the controls, and timed (the
+    plain version untimed).  -> (v1's launches in the run, its E = 1
+    timing)."""
+    _, launches, _ = sequential_phase(
+        V1_CONFIG, "sequential v1", SEQ_ARGS, profile=True,
+        expect=lambda s: {v1.name: s["steps"] + s["test_steps"]})
+    case = Case(v1, V1_CONFIG, 1)
+    check_kernel(v1, case, "kernel v1 E=1", 3, TOL_ITERS3, case.controls())
+    timing = time_kernel(v1, case, "kernel v1 E=1", time_plain=False)
+    return launches[v1.name], timing
+
+
+def sequential_v2_phases(v2):
+    """v2 at E = 1 (12q LiH) against its plain version at 3 iterations with
+    the controls, and timed; the sequential trainer on LIH12q_TNbond2 for
+    ``SEQ_V2_STEPS`` Adam steps (one v2 launch each) and
+    ``SEQ_V2_COBYLA_STEPS`` COBYLA steps (no kernel); csim's ms per
+    evaluation at 12q beside B3f's device ms per noisy evaluation on the
+    same tape.  -> (v2's launches in the run, its E = 1 timing, the
+    12q cost timings)."""
+    case = Case(v2, V2_CONFIG, 1)
+    check_kernel(v2, case, "kernel v2 E=1", 3, TOL_ITERS3, case.controls())
+    timing = time_kernel(v2, case, "kernel v2 E=1", time_plain=False)
+    _, launches, _ = sequential_phase(
+        V2_CONFIG, "sequential v2 12q",
+        ("--episodes", "1", "--num_layers",
+         episode_layers(V2_CONFIG, SEQ_V2_STEPS)),
+        expect=lambda s: {v2.name: s["steps"]})
+    sequential_phase(
+        V2_CONFIG, "sequential cobyla 12q",
+        COBYLA_ARGS + ("--episodes", "1", "--num_layers",
+                       episode_layers(V2_CONFIG, SEQ_V2_COBYLA_STEPS)),
+        expect=lambda s: {})
+    cost = noisy_cost_phase(V2_CONFIG, "cobyla noisy cost 12q")
+    print(f"[cobyla 12q] csim {cost['csim_us'] / 1e3:.3f} ms per "
+          "evaluation on the host; B3f "
+          f"{_ms_or_not(cost['b3f_device_ms'])} of device time per "
+          f"noisy evaluation ({cost['eval_wall_ms']:.4f} ms of wall) on "
+          "the same tape", flush=True)
+    return launches[v2.name], timing, cost
+
+
 class Builds:
-    """One nvcc per kernel source, all started together when made;
+    """One nvcc per kernel source (and one g++ per ``host`` source: csim),
+    all started together when made;
     ``wait(*names)`` blocks until those sources are built (a failed build
     raises there) and prints their ptxas lines, so that a long build runs
     while the phases that do not need it do."""
 
-    def __init__(self, names):
-        from tensorrl_qas_tpu_torch.ops.build import build
+    def __init__(self, names, host=()):
+        from tensorrl_qas_tpu_torch.ops.build import build, build_host
 
         self.t0 = time.perf_counter()
-        self.pool = concurrent.futures.ThreadPoolExecutor(len(names))
+        self.pool = concurrent.futures.ThreadPoolExecutor(len(names)
+                                                          + len(host))
         self.futures = {name: self.pool.submit(build, name)
                         for name in names}
+        self.futures.update({name: self.pool.submit(build_host, name)
+                             for name in host})
 
     def ready(self, name):
         """Whether the build of ``name`` has ended (not yet waited for)."""
@@ -2144,14 +2548,13 @@ def trainer_split(prof, vector_steps, wall_ms):
             "device_busy_share": f"{total / wall_ms:.4f}"}
 
 
-def composed_phases(builds, optional=True, idle=None):
+def composed_phases(builds, idle=None):
     """The composed engine: its step's inputs and plain references in
     three settings while nvcc builds (``builds``), then its tape kernels,
     its step's checks, and the su4 and shot-noise trainers at 8q and the
     su4 trainer at 12q, each vector step iters + 2 forward and iters
-    adjoint launches (at 12q also two schedule launches).  ``optional``:
-    the tape phases of ``TAPE_OPTIONAL`` too (else they are left to
-    ``optional_tape_phases``).  ``idle(ready)`` runs while the tape
+    adjoint launches (at 12q also two schedule launches).  ``idle(ready)``
+    runs while the tape
     kernels build (``ready()``: whether they have).  -> the kernels line's
     tape entries: the 8q shapes (register kernels) and the 12q su4
     trainer's (wide kernels)."""
@@ -2164,8 +2567,7 @@ def composed_phases(builds, optional=True, idle=None):
         idle(lambda: builds.ready("apply_tape"))
     builds.wait("apply_tape")
     tape = {}
-    shapes = TAPE_SHAPES + (TAPE_OPTIONAL if optional else ())
-    for n, n_env in shapes:
+    for n, n_env in TAPE_SHAPES:
         entries = tape_phase(n, n_env, TAPE_CAP, f"kernel tape {n}q",
                              woven=n in TAPE_WOVEN)
         tape.setdefault("reg", entries)
@@ -2192,18 +2594,6 @@ def composed_phases(builds, optional=True, idle=None):
         tape["wide"][key]["launches"] = launches[f"apply_tape_{key}"]
     tape["wide"]["schedule"]["launches"] = launches["tape_schedule"]
     return tape
-
-
-def optional_tape_phases(t_start):
-    """The tape phases of ``TAPE_OPTIONAL`` (10, 13 and 16 qubits), each
-    when ``TAPE_MIN_LEFT_S`` of the deadline is left."""
-    for n, n_env in TAPE_OPTIONAL:
-        left = DEADLINE_S - (time.perf_counter() - t_start)
-        if left >= TAPE_MIN_LEFT_S:
-            tape_phase(n, n_env, TAPE_CAP, f"kernel tape {n}q")
-        else:
-            print(f"[kernel tape {n}q] skipped: {left:.0f} s of the "
-                  f"deadline left (< {TAPE_MIN_LEFT_S})", flush=True)
 
 
 def tape_compare():
@@ -2244,10 +2634,42 @@ def tape_compare():
          back_to_back_ms_and_device_ms=ms)
 
 
+def plain_modes(v1, v2):
+    """``--plain-modes``: the plain version's 100-iteration time at v1's
+    and v2's main shapes (the timing phases' inputs) with autograd's
+    bookkeeping (grad mode, as before ``without_autograd``) and without
+    it, in the order grad, inference, inference, grad."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam
+
+    t0 = phase("plain modes")
+    ms = {}
+    for engine, config, n_env in ((v1, V1_CONFIG, V1_ENVS),
+                                  (v2, V2_CONFIG, V2_ENVS)):
+        case = Case(engine, config, n_env)
+        for mode in ("grad", "inference", "inference", "grad"):
+            ctx = (torch.enable_grad if mode == "grad"
+                   else torch.inference_mode)
+
+            def run():
+                with ctx():
+                    fused_adam.fused_adam_step_reference(
+                        *case.args, iters=ITERS, lr=LR)
+            ms.setdefault(f"{engine.name} {mode}", []).append(
+                f"{time_cuda(run, warmup=0, reps=1):.1f}")
+    done("plain modes", t0, plain_ms=ms)
+
+
 def main(argv=()) -> int:
     watchdog = threading.Timer(DEADLINE_S, _expire)
     watchdog.daemon = True
     watchdog.start()
+    # and, should the watchdog's thread never run (a call that holds the
+    # GIL, a write that blocks), the kernel ends the process: SIGALRM's
+    # default action
+    signal.signal(signal.SIGALRM, signal.SIG_DFL)
+    signal.alarm(DEADLINE_S + HARD_DEADLINE_MARGIN_S)
     t_start = t0 = phase("device")
     import torch
 
@@ -2269,6 +2691,10 @@ def main(argv=()) -> int:
         tape_compare()
         watchdog.cancel()
         return 0
+    if "--plain-modes" in argv:
+        plain_modes(v1, v2)
+        watchdog.cancel()
+        return 0
     if "--band" in argv:
         Builds(("fused_adam_v2",)).wait("fused_adam_v2")
         split_band(v2)
@@ -2282,38 +2708,44 @@ def main(argv=()) -> int:
         split_only(v1, v2, v2n)
         watchdog.cancel()
         return 0
-    builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
+    builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"),
+                    host=("csim",))
     # the composed engine's phases go first: their plain references, and
     # then the plain times of later timing phases, while nvcc builds the
-    # tape kernels (~45 s), the rest while it builds the fused kernels; its
-    # optional tape phases last
+    # tape kernels (~45 s), the rest while it builds the fused kernels
     prefetch = ((v2p, V2_CONFIG, V2_ENVS, TRAINABLE),
                 (v1p, V1_CONFIG, V1_ENVS, TRAINABLE),
                 (v2n, V2_CONFIG, V2_ENVS, FIXED),
                 (v1n, V1N_CONFIG, V1_ENVS, FIXED))
-    plain_ms = {}
+    pre = {}
     tape = composed_phases(
-        builds, optional=False,
-        idle=lambda ready: plain_ms.update(plain_prefetch(prefetch, ready)))
+        builds, idle=lambda ready: pre.update(plain_prefetch(prefetch, ready)))
+    # the sequential trainer under COBYLA: csim, and B3f under noise
+    builds.wait("csim")
+    seq = {"apply_tape_fwd (cobyla noisy 8q)": cobyla_phases()}
     builds.wait("fused_adam_v1")
     results = {}
     results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
     results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
                                             V1_STEPS, "trainer v1",
                                             profile=True)[v1.name]
+    seq[f"{v1.name} (sequential v1)"], _ = sequential_v1_phases(v1)
     builds.wait("fused_adam_v2")
     results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
     sweep_phase(v2)
     results[v2]["launches"] = trainer_phase(v2, V2_CONFIG, V2_ENVS,
                                             V2_STEPS, "trainer v2")[v2.name]
+    seq[f"{v2.name} (sequential v2 12q)"], _, _ = sequential_v2_phases(v2)
+    print(f"[sequential] launches on the sequential paths: {seq}",
+          flush=True)
     # the cluster kernel (13-16 qubits) and the 14q trainer through it
-    results[v2c], case_v2c = cluster_phase(v2, v2n, v2p, v2c)
+    results[v2c], _ = cluster_phase(v2, v2n, v2p, v2c)
     results[v2c]["launches"] = trainer_phase(
         v2c, V2C_CONFIG, V2C_TRAINER_ENVS, V2C_STEPS, "trainer v2 14q",
         expect={v2.name: V2C_STEPS, v2c.name: V2C_STEPS},
         profile=True)[v2c.name]
     # the group kernel (17-18 qubits) and the 18q trainer through it
-    results[v2g], case_v2g = group_phase(v2, v2n, v2p, v2g)
+    results[v2g], _ = group_phase(v2, v2n, v2p, v2g)
     print(f"[trainer v2 18q] replay is not reached: {V2G_TRAINER_ENVS} "
           f"replicas x {V2G_STEPS - 4} transitions < batch 1000 (the 14q "
           "trainer runs it)", flush=True)
@@ -2325,17 +2757,15 @@ def main(argv=()) -> int:
     check_kernel(v1, small, f"kernel v1 {V1_SMALL[0]} E={V1_SMALL[1]}", 3,
                  TOL_ITERS3, small.controls())
 
-    results[v1n], case_v1n = kernel_phase(v1n, V1N_CONFIG, V1_ENVS,
-                                          "kernel v1n", long_check=False,
-                                          plain_ms=plain_ms.get(v1n.name))
+    results[v1n], _ = kernel_phase(v1n, V1N_CONFIG, V1_ENVS, "kernel v1n",
+                                   pre=pre.get(v1n.name))
     p0_phase(v1, v1n, V1N_CONFIG, V1_ENVS)
     p0_phase(v2, v2n, V2_CONFIG, V2_ENVS)
     kraus_phase(v1n)
     results[v1n]["launches"] = trainer_phase(
         v1n, V1N_CONFIG, V1_ENVS, V1_STEPS, "trainer v1n")[v1n.name]
-    results[v2n], case_v2n = kernel_phase(v2n, V2_CONFIG, V2_ENVS,
-                                          "kernel v2n", long_check=False,
-                                          plain_ms=plain_ms.get(v2n.name))
+    results[v2n], _ = kernel_phase(v2n, V2_CONFIG, V2_ENVS, "kernel v2n",
+                                   pre=pre.get(v2n.name))
     sweep_phase(v2n, V2N_SWEEP)
     results[v2n]["launches"] = trainer_phase(
         v2n, V2_CONFIG, V2_ENVS, V2N_STEPS, "trainer v2n",
@@ -2347,14 +2777,20 @@ def main(argv=()) -> int:
                            long_check=False, family=TRAINABLE,
                            time_plain=False)
     psi0_rows_phase(v1, v1p, case)
+    # the trainable families at 3 iterations only: their 100-iteration
+    # trajectories part in float32 (3 of 128 envs 5.7e-3 Ha off the plain
+    # version's float32 run, at the kernel's own x_opt exact to 1.4e-7),
+    # and the band of runs that would show it costs ~6 plain runs
     results[v1p], _ = kernel_phase(v1p, V1_CONFIG, V1_ENVS, "kernel v1p",
                                    long_check=False, family=TRAINABLE,
-                                   plain_ms=plain_ms.get(v1p.name))
+                                   pre=pre.get(v1p.name))
     # untraced (--split traces the trainable trainer): tracing it here took
-    # more of the deadline than its training
+    # more of the deadline than its training; T_FAMILY_STEPS, too few for
+    # replay (trainer v1p runs it in the trainable family)
     for family, label in ((TRAINABLE, "trainer v1 trainable"),
                           (STRUCTURE, "trainer v1 StructureRL")):
-        trainer_phase(v1, V1_CONFIG, V1_ENVS, T_STEPS, label, family=family)
+        trainer_phase(v1, V1_CONFIG, V1_ENVS, T_FAMILY_STEPS, label,
+                      family=family, expect_replay=False)
     results[v1p]["launches"] = trainer_phase(
         v1p, V1_CONFIG, V1_ENVS, T_STEPS, "trainer v1p", BLOCK_COORD,
         family=TRAINABLE)[v1p.name]
@@ -2364,25 +2800,10 @@ def main(argv=()) -> int:
     psi0_rows_phase(v2, v2p, case)
     results[v2p], _ = kernel_phase(v2p, V2_CONFIG, V2_ENVS, "kernel v2p",
                                    long_check=False, family=TRAINABLE,
-                                   plain_ms=plain_ms.get(v2p.name))
+                                   pre=pre.get(v2p.name))
     results[v2p]["launches"] = trainer_phase(
         v2p, V2_CONFIG, V2_ENVS, T_STEPS, "trainer v2p", BLOCK_COORD,
         expect_replay=False, family=TRAINABLE)[v2p.name]
-
-    optional_tape_phases(t_start)
-    for engine, case, label in ((v2c, case_v2c, "kernel v2 cluster"),
-                                (v2g, case_v2g, "kernel v2 group"),
-                                (v1n, case_v1n, "kernel v1n"),
-                                (v2n, case_v2n, "kernel v2n")):
-        left = DEADLINE_S - (time.perf_counter() - t_start)
-        need = LONG_MIN_LEFT_S[engine.name]
-        if left >= need:
-            stats = check_band(engine, case, label, ITERS, TOL_ITERS100,
-                               case.controls())
-            results[engine]["max_abs_err"] = stats["e_new_max_abs_err"]
-        else:
-            print(f"[{label} iters={ITERS}] skipped: {left:.0f} s of the "
-                  f"deadline left (< {need})", flush=True)
 
     kernels = {"kernels": [{
         "name": e.name, "route": "cuda", "source": e.source,
@@ -2418,5 +2839,11 @@ if __name__ == "__main__":
         code = main(sys.argv[1:])
     except BaseException:
         print(f"FAILED in phase {_phase[0]!r}", flush=True)
-        raise
-    sys.exit(code)
+        traceback.print_exc()
+        code = 1
+    # leave without the interpreter's teardown (joining threads, releasing
+    # the CUDA context, graphs and profiler state), whose hang would keep
+    # the process past its deadline after its result is out
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

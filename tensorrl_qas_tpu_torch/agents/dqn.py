@@ -11,7 +11,8 @@ agents (``agents/DeepQ.py:14-155``, ``agents/DeepQNstep.py:13-55``):
   flagged as demonstrations (zero without demonstrations),
 - hard target-net sync every ``update_target_net`` replays,
 - epsilon decay per replay call,
-- uniform or n-step replay, resident on the agent's device.
+- uniform, prioritized (``priotitized_replay``, one-step agents only, as
+  in the JAX package) or n-step replay, resident on the agent's device.
 
 The network's matrix products run on cuBLAS through ``nn.Linear``; no
 hand-written kernel is involved.
@@ -27,6 +28,7 @@ import torch
 from tensorrl_qas_tpu_torch import as_device
 from tensorrl_qas_tpu_torch.agents.replay import (
     DeviceReplay,
+    PrioritizedReplayMemory,
     restore_rng,
     rng_state_json,
 )
@@ -35,7 +37,7 @@ from tensorrl_qas_tpu_torch.models.qnet import QNetwork
 
 
 class DQN:
-    """Double DQN with uniform replay."""
+    """Double DQN with uniform or prioritized replay."""
 
     n_step_key = None      # config key of the n-step horizon, if any
 
@@ -52,8 +54,11 @@ class DQN:
         self.epsilon_decay = agent_c["epsilon_decay"]
         self.update_target_net = agent_c["update_target_net"]
         self.with_angles = int(agent_c.get("angles", 0))
-        if int(agent_c.get("priotitized_replay", 0)):
-            raise NotImplementedError("prioritized replay is not ported yet")
+        # the reference's memory reset (read by the sequential driver)
+        self.memory_reset_switch = agent_c.get("memory_reset_switch", False)
+        self.memory_reset_threshold = agent_c.get("memory_reset_threshold",
+                                                  False)
+        self.memory_reset_counter = 0 if self.memory_reset_switch else False
 
         # observation size: strip the angle block, optionally append the
         # energy and threshold scalars (reference ``DeepQ.py:43-46``); the
@@ -93,9 +98,18 @@ class DQN:
         self.demo_margin = float(agent_c.get("demo_margin", 0.8))
         self.demo_lambda = float(agent_c.get("demo_lambda", 1.0))
         n_step = int(agent_c[self.n_step_key]) if self.n_step_key else 0
-        self.memory = DeviceReplay(agent_c["memory_size"], self.state_size,
-                                   seed=seed + 1, n_step=n_step,
-                                   gamma=self.gamma, device=self.device)
+        self.prioritized_replay = (bool(int(agent_c.get("priotitized_replay",
+                                                        0)))
+                                   and not n_step)
+        if self.prioritized_replay:
+            self.memory = PrioritizedReplayMemory(
+                agent_c["memory_size"], self.state_size, seed=seed + 1,
+                device=self.device)
+        else:
+            self.memory = DeviceReplay(agent_c["memory_size"],
+                                       self.state_size, seed=seed + 1,
+                                       n_step=n_step, gamma=self.gamma,
+                                       device=self.device)
 
     # -- acting --------------------------------------------------------------
 
@@ -106,6 +120,20 @@ class DQN:
         q = q.masked_fill(torch.as_tensor(masks, device=self.device),
                           -torch.inf)
         return torch.argmax(q, dim=1).cpu().numpy()
+
+    def act(self, state: np.ndarray, illegal: list[int]):
+        """epsilon-greedy with illegal-action masking for one state
+        (reference ``DeepQ.py:76-89``), on ``act_batch``'s generator:
+        -> (action, explored)."""
+        if self.rng.random() <= self.epsilon:
+            a = int(self.rng.integers(self.action_size))
+            while a in illegal:
+                a = int(self.rng.integers(self.action_size))
+            return a, True
+        mask = np.zeros((1, self.action_size), dtype=bool)
+        if illegal:
+            mask[0, np.asarray(illegal, dtype=np.int64)] = True
+        return int(self._greedy(np.asarray(state)[None], mask)[0]), False
 
     def act_batch(self, states: np.ndarray, illegal: list[list[int]]):
         """epsilon-greedy with illegal-action masking (reference
@@ -134,32 +162,47 @@ class DQN:
 
     # -- learning ---------------------------------------------------------
 
-    def _batch(self, batch_size: int):
-        idx = torch.as_tensor(self.memory.sample_indices(batch_size),
-                              device=self.device)
-        return tuple(buf[idx] for buf in self.memory.buffers())
-
-    def loss(self, states, actions, rewards, next_states, dones, demos):
-        """Double-DQN SmoothL1 loss plus the DQfD margin term."""
+    def loss(self, states, actions, rewards, next_states, dones, demos,
+             weights=None):
+        """Double-DQN SmoothL1 loss plus the DQfD margin term; with
+        importance ``weights`` (prioritized replay) the loss of the
+        weighted Q values against the weighted targets, as the JAX package
+        weighs them.  -> (loss, |TD error| (B,), detached)."""
         q = self.model(states)
         q_sa = q.gather(1, actions[:, None])[:, 0]
         with torch.no_grad():
             a_star = torch.argmax(self.model(next_states), dim=1)
             q_next = self.target(next_states).gather(1, a_star[:, None])[:, 0]
             target = rewards + self.gamma * q_next * (1.0 - dones)
-        loss = torch.nn.functional.smooth_l1_loss(q_sa, target)
+        if weights is None:
+            loss = torch.nn.functional.smooth_l1_loss(q_sa, target)
+        else:
+            loss = torch.nn.functional.smooth_l1_loss(q_sa * weights,
+                                                      target * weights)
         onehot = torch.nn.functional.one_hot(actions, q.shape[1]).to(q.dtype)
         sup = torch.max(q + self.demo_margin * (1.0 - onehot), dim=1).values
-        return loss + self.demo_lambda * torch.mean(demos * (sup - q_sa))
+        loss = loss + self.demo_lambda * torch.mean(demos * (sup - q_sa))
+        return loss, (target - q_sa).detach().abs()
 
     def replay(self, batch_size: int, fetch_loss: bool = True):
         if self.step_counter % self.update_target_net == 0:
             self.target.load_state_dict(self.model.state_dict())
         self.step_counter += 1
-        loss = self.loss(*self._batch(batch_size))
+        weights = None
+        if self.prioritized_replay:
+            idx, w = self.memory.sample_weighted(batch_size,
+                                                 frame_idx=self.step_counter)
+            weights = torch.as_tensor(w, device=self.device)
+        else:
+            idx = self.memory.sample_indices(batch_size)
+        at = torch.as_tensor(idx, device=self.device)
+        loss, td = self.loss(*(buf[at] for buf in self.memory.buffers()),
+                             weights=weights)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
+        if self.prioritized_replay:
+            self.memory.update_priorities(idx, td.cpu().numpy())
         if self.epsilon > self.epsilon_min:
             self.epsilon = max(self.epsilon * self.epsilon_decay,
                                self.epsilon_min)

@@ -5,7 +5,8 @@ transitions accumulate in a small host list and are flushed in one
 scatter before sampling, and the train step gathers its batch on the
 device by index, so the (batch, state) tensors never cross the host
 boundary.  n-step reward folding happens at push time
-(``agents/DeepQNstep.py:59-99``).  Prioritized replay is not ported yet.
+(``agents/DeepQNstep.py:59-99``).  ``PrioritizedReplayMemory`` adds
+alpha-prioritized sampling with importance weights on the same ring.
 """
 
 from __future__ import annotations
@@ -193,3 +194,72 @@ class DeviceReplay:
         restore_rng(self.rng, d["rng_state"])
         self.window, self._windows = _unfold_windows_pickle(
             d["fold_windows"], max(self.n_step, 1))
+
+
+class PrioritizedReplayMemory(DeviceReplay):
+    """alpha-prioritized sampling with beta-annealed importance weights
+    (reference ``agents/DeepQ.py:186-262``; the JAX package's
+    ``PrioritizedReplayMemory``, ``agents/replay.py:119-170``) on the
+    device ring of ``DeviceReplay``, without n-step folding.  The
+    priorities stay on the host (one scalar a slot); a transition enters
+    with the largest priority so far (1 in an empty buffer) when it is
+    flushed to the ring, and the learner writes |TD error| + epsilon back
+    (``update_priorities``)."""
+
+    def __init__(self, capacity: int, state_size: int, seed: int = 0,
+                 alpha: float = 0.6, beta_start: float = 0.4,
+                 beta_frames: int = 100000, device="cpu"):
+        super().__init__(capacity, state_size, seed=seed, device=device)
+        self.alpha = alpha
+        self.beta_start = beta_start
+        self.beta_frames = beta_frames
+
+    def _alloc(self):
+        super()._alloc()
+        self.priorities = np.zeros(self.capacity, dtype=np.float32)
+
+    def flush(self) -> None:
+        k = len(self._pending)
+        if k:
+            idx = (self.position + np.arange(k)) % self.capacity
+            self.priorities[idx] = (self.priorities[: self.size].max()
+                                    if self.size else 1.0)
+        super().flush()
+
+    def sample_weighted(self, batch_size: int, frame_idx: int = 0):
+        """-> (idx (B,), importance weights (B,) float32, at most 1):
+        P(i) ~ priority_i^alpha, weights (N P(i))^-beta with beta annealed
+        from ``beta_start`` to 1 over ``beta_frames`` replay steps."""
+        self.flush()
+        probs = self.priorities[: self.size] ** self.alpha
+        probs = probs / probs.sum()
+        idx = self.rng.choice(self.size, size=batch_size, p=probs)
+        beta = min(1.0, self.beta_start
+                   + frame_idx * (1.0 - self.beta_start) / self.beta_frames)
+        weights = (self.size * probs[idx]) ** (-beta)
+        return idx, (weights / weights.max()).astype(np.float32)
+
+    def sample(self, batch_size: int, frame_idx: int = 0):
+        """-> (idx, (states, actions, rewards, next_states, dones) on the
+        device, weights)."""
+        idx, weights = self.sample_weighted(batch_size, frame_idx)
+        at = torch.as_tensor(idx, device=self.device)
+        batch = tuple(buf[at] for buf in self.buffers()[:5])
+        return idx, batch, weights
+
+    def update_priorities(self, idx, td_errors, epsilon: float = 1e-5):
+        self.flush()
+        self.priorities[idx] = (np.abs(np.asarray(td_errors)).reshape(-1)
+                                + epsilon)
+
+    def state_dict(self):
+        d = super().state_dict()
+        d["priorities"] = self.priorities[: self.size].copy()
+        return d
+
+    def load_state_dict(self, d):
+        super().load_state_dict(d)
+        if "priorities" in d:
+            self.priorities[: self.size] = np.asarray(d["priorities"])
+        else:                 # a checkpoint of uniform replay: neutral start
+            self.priorities[: self.size] = 1.0

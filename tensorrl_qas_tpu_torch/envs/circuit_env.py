@@ -1,7 +1,8 @@
 """The RL circuit-construction environment.
 
-Port of ``tensorrl_qas_tpu/envs/circuit_env.py`` for multi-start Adam, in
-both warm-start placements:
+Port of ``tensorrl_qas_tpu/envs/circuit_env.py``, with the per-step angle
+optimizer the config names (multi-start Adam, or the reference's COBYLA
+with ``optim_alg='cobyla'``), in both warm-start placements:
 
 - ``tn_placement='fixed'`` (TensorRL-fixed): the tensor-network warm-start
   circuit is compiled once into the initial statevector (reference
@@ -25,8 +26,14 @@ CNOTs (``SU4StateTensor``, reference ``environments/VQAs/
 VQE_qulacs_su4.py``); every su4 gate is parametric, and su4 runs
 noiseless only, as in the JAX package.  The fixed placement's psi0 is the
 su4-basis warm start with its two-qubit rotations applied (the JAX env
-drops them there: ROADMAP.md, C).  Sharding and COBYLA are not ported yet
-and are refused by ``CircuitEnv``.
+drops them there: ROADMAP.md, C).  Sharding is not ported yet.
+
+The reference's configs all name COBYLA; ``EnvConfig.from_conf`` maps
+them onto multi-start Adam, as the JAX package does, unless the caller
+passes ``optim_alg='cobyla'``.  ``CircuitEnv.step`` then runs
+``AngleOptimizer.optimize`` (COBYLA on the pre-action tape) and the
+post-action energy at the remapped angles; ``VectorCircuitEnv`` takes
+Adam only, as in the JAX package.
 
 Step semantics follow the reference, including its ordering
 (``environment_qulacs.py:169-267``): the per-step angle optimizer runs on
@@ -97,7 +104,7 @@ class EnvConfig:
     # 0/1 = off (joint optimization every step, the reference's)
     block_coord_k: int = 0
     optim_method: str | None = "scipy_each_step"
-    optim_alg: str = "adam"
+    optim_alg: str = "adam"               # 'adam' | 'cobyla' (reference)
     global_iters: int = 100
     n_starts: int = 8
     adam_lr: float = 0.1
@@ -175,10 +182,9 @@ def _check_supported(cfg: EnvConfig) -> None:
     if cfg.gate_set not in ("cnot", "su4"):
         raise ValueError(f"gate_set must be 'cnot' or 'su4', got "
                          f"{cfg.gate_set!r}")
-    if cfg.optim_alg != "adam":
-        raise NotImplementedError(
-            f"optim_alg={cfg.optim_alg!r} is not ported yet (only 'adam'; "
-            "ROADMAP.md, A5)")
+    if cfg.optim_alg not in ("adam", "cobyla"):
+        raise ValueError(f"optim_alg must be 'adam' or 'cobyla', got "
+                         f"{cfg.optim_alg!r}")
     if cfg.gate_set == "su4" and cfg.noise_mode != "none":
         raise NotImplementedError(
             "su4 gate set is noiseless-only (as in the reference, whose su4 "
@@ -191,9 +197,10 @@ def _check_supported(cfg: EnvConfig) -> None:
 
 
 def make_optimizer(cfg: EnvConfig, pauli, device, seed: int):
-    """The env's angle optimizer: Adam settings and noise from ``cfg``;
-    p1/p2 are the reference's 0.01 / 0.05 (``VQE_qulacs_noise.py:32,45``)
-    unless ``noise_values`` gives two values."""
+    """The env's angle optimizer: its method (``optim_alg``), Adam settings
+    and noise from ``cfg``; p1/p2 are the reference's 0.01 / 0.05
+    (``VQE_qulacs_noise.py:32,45``) unless ``noise_values`` gives two
+    values."""
     p1, p2 = (cfg.noise_values[:2] if len(cfg.noise_values) >= 2
               else (0.01, 0.05))
     return AngleOptimizer(
@@ -201,7 +208,8 @@ def make_optimizer(cfg: EnvConfig, pauli, device, seed: int):
         lr=cfg.adam_lr, restart_scale=cfg.restart_scale, device=device,
         seed=seed, noise_mode=cfg.noise_mode, noise_p1=p1, noise_p2=p2,
         n_shots=cfg.n_shots, n_traj=cfg.n_traj,
-        noise_resample=cfg.noise_resample, enable_2q=cfg.gate_set == "su4")
+        noise_resample=cfg.noise_resample, enable_2q=cfg.gate_set == "su4",
+        method=cfg.optim_alg)
 
 
 def bc_prefix_states(envs) -> None:
@@ -358,9 +366,22 @@ class CircuitEnv:
     def _tape(self, state: StateTensor):
         return state.to_tape(self.tape_capacity, self.rot_capacity)
 
-    def _energy_of_state(self, state: StateTensor) -> float:
+    def _energy_of_state(self, state: StateTensor,
+                         energies: dict | None = None) -> float:
+        """The state's energy; ``energies`` (noiseless only, where the
+        energy is a function of psi0, tape and angles) keeps it by those
+        inputs for replicas that share an optimizer."""
         tape = self._tape(state)
-        return self.optimizer.energy(self.psi0, tape.arrays(), tape.x0())
+        arrays, x0 = tape.arrays(), tape.x0()
+        if energies is None or self.optimizer.noise_mode != "none":
+            return self.optimizer.energy(self.psi0, arrays, x0)
+        key = (id(self.optimizer),
+               self.psi0.detach().cpu().numpy().tobytes(),
+               *(np.ascontiguousarray(a).tobytes() for a in arrays),
+               x0.tobytes())
+        if key not in energies:
+            energies[key] = self.optimizer.energy(self.psi0, arrays, x0)
+        return energies[key]
 
     def _observation(self, state: StateTensor) -> np.ndarray:
         return state.observation(bool(self.cfg.state_with_angles))
@@ -380,7 +401,8 @@ class CircuitEnv:
 
     # -- API ---------------------------------------------------------------
 
-    def reset(self) -> np.ndarray:
+    def reset(self, energies: dict | None = None) -> np.ndarray:
+        """A new episode; ``energies``: see ``_energy_of_state``."""
         cfg = self.cfg
         state_cls = SU4StateTensor if cfg.gate_set == "su4" else StateTensor
         self.state = state_cls(cfg.num_layers, cfg.num_qubits)
@@ -414,7 +436,7 @@ class CircuitEnv:
             self.curriculum_dict[self.current_prob])
         self.done_threshold = copy.deepcopy(
             self.curriculum.get_current_threshold())
-        self.prev_energy = self._energy_of_state(self.state)
+        self.prev_energy = self._energy_of_state(self.state, energies)
         return self._observation(self.state)
 
     def illegal_action_new(self) -> list[int]:
@@ -472,21 +494,26 @@ class CircuitEnv:
         return (old_arrs, old_tape.x0(), old_tape.n_rots, new_arrs, map_idx)
 
     def step_finish(self, x_opt, energy, nfev, train_flag: bool = True):
-        """Apply the device results; compute reward, done and curriculum."""
+        """Apply the optimizer's results (x_opt None: no per-step
+        optimization, the angles stay); compute reward, done and
+        curriculum."""
         old_state, next_state, old_tape = self._pending
         self._pending = None
-        opt_angles = np.asarray(x_opt)[: old_tape.n_rots].copy()
-        if self._bc_frozen:
-            # the masked prefix's angles saw no gradient, but the start
-            # perturbation moved them in the returned vector: keep the
-            # embedded block's angles as they were
-            opt_angles[: self._bc_n_rots] = old_tape.x0()[: self._bc_n_rots]
-        elif self._bc_active():
-            # a joint step moved the prefix angles: drop the cached state
-            self._bc_cache = None
-        old_state.set_rot_angles(opt_angles)
-        next_state.thetas = old_state.thetas
-        self.opt_ang_save = opt_angles
+        if x_opt is not None:
+            opt_angles = np.asarray(x_opt)[: old_tape.n_rots].copy()
+            if self._bc_frozen:
+                # the masked prefix's angles saw no gradient, but the start
+                # perturbation moved them in the returned vector: keep the
+                # embedded block's angles as they were
+                opt_angles[: self._bc_n_rots] = \
+                    old_tape.x0()[: self._bc_n_rots]
+            elif self._bc_active():
+                # a joint step moved the prefix angles: drop the cached
+                # state
+                self._bc_cache = None
+            old_state.set_rot_angles(opt_angles)
+            next_state.thetas = old_state.thetas
+            self.opt_ang_save = opt_angles
         self.state = next_state
 
         self.energy = energy
@@ -513,13 +540,28 @@ class CircuitEnv:
         return self._observation(self.state), float(rwd), done
 
     def step(self, action, train_flag: bool = True):
-        """One step of this env alone: the fused step on a batch of one."""
+        """One step of this env alone (reference ``envs/circuit_env.py:
+        636-670``): with Adam the fused step (a batch of one); with COBYLA
+        ``optimize`` on the pre-action tape, then the energy of the
+        post-action tape at the remapped angles; with no per-step
+        optimization configured (``optim_method``), that energy at the
+        remapped angles of the state."""
         old_arrs, x0, n_rots, new_arrs, map_idx = self.step_begin(action)
-        x_opt, e_new, nfev = self.optimizer.fused_step_batch(
-            self.step_psi0(), tuple(a[None] for a in old_arrs), x0[None],
-            np.asarray([n_rots]), tuple(a[None] for a in new_arrs),
-            map_idx[None])
-        return self.step_finish(x_opt[0], float(e_new[0]), nfev, train_flag)
+        opt = self.optimizer
+        psi0 = self.step_psi0()
+        x_opt, nfev = None, 0
+        if self.cfg.optim_method == "scipy_each_step":
+            if self.cfg.optim_alg == "adam":
+                x_opt, energy, nfev = opt.fused_step(psi0, old_arrs, x0,
+                                                     n_rots, new_arrs,
+                                                     map_idx)
+                return self.step_finish(x_opt, energy, nfev, train_flag)
+            x_opt, _, nfev = opt.optimize(psi0, old_arrs, x0, n_rots)
+        x = x0 if x_opt is None else x_opt
+        x_new = np.where(map_idx >= 0, np.asarray(x)[np.maximum(map_idx, 0)],
+                         0.0)
+        energy = opt.energy(psi0, new_arrs, x_new)
+        return self.step_finish(x_opt, energy, nfev, train_flag)
 
     def reward_fn(self, energy: float) -> float:
         """Reference ``incremental_with_fixed_ends``

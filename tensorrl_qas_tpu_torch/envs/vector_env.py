@@ -54,7 +54,9 @@ class VectorCircuitEnv:
         return self.envs[0].num_layers
 
     def reset_all(self) -> np.ndarray:
-        return np.stack([e.reset() for e in self.envs])
+        # the replicas start from one state: its energy is taken once
+        energies = {}
+        return np.stack([e.reset(energies) for e in self.envs])
 
     def illegal_actions(self) -> list[list[int]]:
         return [e.illegal_action_new() for e in self.envs]

@@ -369,7 +369,7 @@ def plain_results(args, *, iters: int, lr: float,
 
 def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True,
               step=fused_adam_step_reference, iters: int | None = None,
-              **noise):
+              cache: dict | None = None, **noise):
     """Per-env verdict on a float32 result (x_opt, e_new) of the fused step
     on ``args``, held against ``ref = plain_results(args, ..., step=step)``.
 
@@ -392,6 +392,10 @@ def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True,
     ``optim/angle_opt.py:composed_step``), every float64 energy is taken
     under e_new's realization (tag ``iters + 1``: ``iters`` is then
     required).
+
+    ``cache``: a dict kept across calls on the same ``args`` and ``ref``
+    (a result and its controls), which then take the float64 energies of
+    ``ref``'s runs from the first.
 
     Returns (ok (E,) bool, strict (E,) bool, stats dict).
     """
@@ -416,7 +420,11 @@ def agreement(args, ref, x_opt, e_new, *, tol: float, check_x: bool = True,
     strict = (e_dev <= tol) & ((x_dev <= tol) | (not check_x))
     ident = torch.arange(x_opt.shape[1], dtype=torch.int32,
                          device=x_opt.device).expand_as(x_opt).contiguous()
-    e_old = torch.stack([energy64(x, args64[0], ident) for x in xs])
+    e_old = None if cache is None else cache.get("e_old")
+    if e_old is None:
+        e_old = torch.stack([energy64(x, args64[0], ident) for x in xs])
+        if cache is not None:
+            cache["e_old"] = e_old
     e_old_k = energy64(x_opt, args64[0], ident)
     e_k = e_new.double()
     in_noise = ((e_k >= es.amin(0) - tol) & (e_k <= es.amax(0) + tol)

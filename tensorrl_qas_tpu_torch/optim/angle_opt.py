@@ -44,6 +44,14 @@ step (100 iterations, the re-check, the argmin, the remap and e_new)
 replays as one CUDA graph (``ComposedGraph``), the counterpart of the JAX
 package's ``lax.scan`` under ``jit``; calling ``_fused_step_composed``
 runs it eagerly.
+
+``method='cobyla'`` is the reference's own protocol (``optimize``): scipy's
+COBYLA, the optimizer the reference calls, over the live angles of one
+tape, ``iters`` its maxiter.  Its noiseless cost is csim's float64
+energy on the host (``native``), no device round trip per iterate; under
+depolarizing or shot noise each evaluation draws a fresh realization and
+runs one forward launch of the tape kernel (B3f) on the card
+(``kernel_energy_fn``), the eager simulator on the CPU.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import numpy as np
 import torch
 
 from tensorrl_qas_tpu_torch import as_device, complex_dtype, real_dtype
+from tensorrl_qas_tpu_torch.native import CsimEngine
 from tensorrl_qas_tpu_torch.ops import apply_tape as tape_ops
 from tensorrl_qas_tpu_torch.ops.fused_adam import (
     B1,
@@ -77,6 +86,7 @@ from tensorrl_qas_tpu_torch.sim.noise import (
     shot_noise,
 )
 
+METHODS = ("adam", "cobyla")
 NOISE_MODES = ("none", "depolarizing", "shot")
 NOISE_RESAMPLE = ("iter", "step")
 
@@ -215,11 +225,14 @@ def flip_h_batched(wre, wim, flips):
 
 
 class AngleOptimizer:
-    """Multi-start Adam angle optimizer bound to one problem.
+    """Per-step angle optimizer bound to one problem.
 
     Args:
       pauli: the problem's ``PauliSum``.
-      iters: Adam iterations per env step (config ``global_iters``).
+      method: 'adam' (multi-start Adam on the device) or 'cobyla' (the
+        reference's scipy COBYLA, ``optimize``).
+      iters: Adam iterations per env step, or COBYLA's maxiter (config
+        ``global_iters``).
       n_starts: starts per env.
       lr: Adam learning rate.
       restart_scale: stddev of the Gaussian start perturbation.
@@ -242,7 +255,11 @@ class AngleOptimizer:
                  seed: int = 0, noise_mode: str = "none",
                  noise_p1: float = 0.01, noise_p2: float = 0.05,
                  n_shots: int = 0, n_traj: int = 1,
-                 noise_resample: str = "iter", enable_2q: bool = False):
+                 noise_resample: str = "iter", enable_2q: bool = False,
+                 method: str = "adam"):
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, got "
+                             f"{method!r}")
         if noise_mode not in NOISE_MODES:
             raise ValueError(f"noise_mode must be one of {NOISE_MODES}, "
                              f"got {noise_mode!r}")
@@ -252,6 +269,7 @@ class AngleOptimizer:
         if n_traj < 1:
             raise ValueError(f"n_traj must be at least 1, got {n_traj}")
         self.pauli = pauli
+        self.method = method
         self.iters = iters
         self.n_starts = n_starts
         self.fresh_starts = n_starts // 4
@@ -274,6 +292,7 @@ class AngleOptimizer:
         self._h_planes = None
         self._w_planes = None
         self._graph = None
+        self._csim = None
 
     def _pick_engine(self, *kinds) -> str:
         """The engine for this problem and tapes of these gate kinds:
@@ -598,6 +617,137 @@ class AngleOptimizer:
         return (x_opt.cpu().numpy(),
                 e_new.cpu().numpy().astype(np.float64) + self.offset,
                 self.iters * self.n_starts)
+
+    def fused_step(self, psi0, old_tape_arrays, x0, n_active_old: int,
+                   new_tape_arrays, map_idx):
+        """One env's step (reference ``optim/angle_opt.py:476-496``): the
+        fused step on a batch of one.  (G,) tapes, x0 and map_idx (R,).
+        Returns (x_opt (R,) numpy, e_new float, nfev)."""
+        def one(arrs):
+            return tuple(np.asarray(a)[None] for a in arrs)
+        x_opt, e_new, nfev = self.fused_step_batch(
+            psi0, one(old_tape_arrays), np.asarray(x0)[None],
+            np.asarray([n_active_old]), one(new_tape_arrays),
+            np.asarray(map_idx)[None])
+        return x_opt[0], float(e_new[0]), nfev
+
+    def optimize(self, psi0, tape_arrays, x0, n_active: int):
+        """Optimize the first ``n_active`` angles of x0 (R,) on one tape
+        from psi0 ((D,) complex on the optimizer's device); reference
+        ``optim/angle_opt.py:840-896``.  Returns (x (R,) numpy, energy
+        float, nfev).
+
+        'adam': the fused step with this tape as both the old and the new
+        tape and the identity map, so e_new is the energy at x_opt.
+        'cobyla': ``scipy.optimize.minimize(method='COBYLA')`` from the
+        first ``n_active`` entries of x0 (float64) with maxiter ``iters``
+        on ``cobyla_cost``; with no live angle it returns x0 at once (nfev
+        0); the energy is ``energy`` at the result."""
+        if self.method == "adam":
+            ident = np.arange(len(x0), dtype=np.int32)
+            return self.fused_step(psi0, tape_arrays, x0, n_active,
+                                   tape_arrays, ident)
+        import scipy.optimize
+
+        x0 = np.array(x0, dtype=np.float64)
+        if n_active == 0:
+            return x0, self.energy(psi0, tape_arrays, x0), 0
+        res = scipy.optimize.minimize(
+            self.cobyla_cost(psi0, tape_arrays, x0, n_active),
+            x0=x0[:n_active], method="COBYLA",
+            options={"maxiter": self.iters})
+        x = x0.copy()
+        x[:n_active] = res["x"]
+        return x, self.energy(psi0, tape_arrays, x), int(res["nfev"])
+
+    def csim(self) -> CsimEngine:
+        """This problem's host engine (``native``, built at first use)."""
+        if self._csim is None:
+            self._csim = CsimEngine(self.pauli)
+        return self._csim
+
+    def cobyla_cost(self, psi0, tape_arrays, x0, n_active: int):
+        """COBYLA's cost: the energy of the (G,) tape from psi0 as a function
+        of the first ``n_active`` angles, the others held at x0's.
+        Noiseless, csim's float64 ``tape_energy`` on the host (psi0 and the
+        tape copied there once, here); with depolarizing or shot noise, a
+        fresh realization every evaluation: on CUDA one B3f launch
+        (``kernel_energy_fn``), on the CPU the eager simulator
+        (``energy``)."""
+        xa = np.array(x0, dtype=np.float64)
+        if self.noise_mode == "none":
+            energy = self.csim().energy_fn(psi0, *tape_arrays)
+        elif self.device.type == "cuda":
+            energy = self.kernel_energy_fn(psi0, tape_arrays, len(xa))
+        else:
+            def energy(x):
+                return self.energy(psi0, tape_arrays, x)
+
+        def cost(xs):
+            xa[:n_active] = xs
+            return energy(xa)
+        return cost
+
+    def kernel_energy_fn(self, psi0, tape_arrays, r: int):
+        """The energy of one (G,) tape with ``r`` angles from psi0 through
+        the tape kernel, as a function ``energy(x, noise=None) -> float`` of
+        its angles (R,): one forward launch (B3f, no adjoint) on the tape
+        woven with the realization ``noise`` (``_draw_noise`` at E = S = 1:
+        depolarizing, (k_t, k_c) of ``n_traj`` realizations, laid out as
+        the composed engine lays them out; shot noise, the offset), drawn
+        from the optimizer's generator when not given; then the Rayleigh
+        quotient of H - offset I (``_h_apply``), plus the offset.  The
+        tape is checked and, from 10 qubits, its schedule built once, here;
+        more than ``ops/apply_tape.py:MAX_QUBITS`` qubits raise (ROADMAP.md,
+        A6).  On CPU tensors the launch is the kernel's plain version."""
+        n = self.pauli.n_qubits
+        if n > tape_ops.MAX_QUBITS:
+            raise ValueError(f"no tape kernel for {n} qubits (at most "
+                             f"{tape_ops.MAX_QUBITS}; ROADMAP.md, A6)")
+        dev = self.device
+        tape = tuple(torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                                     device=dev).reshape(1, -1)
+                     for a in tape_arrays)
+        tape_ops.check_tapes(*tape, n, r)
+        schedule = tape_ops.tape_schedule(*tape, n, r)
+        p0 = psi0.reshape(1, 1, -1)
+        re0 = p0.real.to(self.rdtype).contiguous()
+        im0 = p0.imag.to(self.rdtype).contiguous()
+        h_apply = self._h_apply(self.rdtype)
+
+        def energy(x, noise=None) -> float:
+            xt = torch.as_tensor(np.asarray(x), dtype=self.rdtype,
+                                 device=dev).reshape(1, 1, r)
+            gen = self.generator if noise is None else None
+            with torch.no_grad():
+                ev = self._composed_energy(xt, tape, re0, im0, h_apply,
+                                           False, gen, noise, schedule)
+            return float(ev[0, 0]) + self.offset
+        return energy
+
+    def plain_energy(self, psi0, tape_arrays, x, noise=None) -> float:
+        """``kernel_energy_fn``'s energy by the eager simulator in
+        complex128 on the optimizer's device, under the same realization
+        ``noise`` (none: the noiseless energy): the check of the kernel
+        path."""
+        dev = self.device
+        tape = tuple(torch.as_tensor(np.asarray(a), device=dev).reshape(1, -1)
+                     for a in tape_arrays)
+        rows, shift = [tuple(a[0] for a in tape)], 0.0
+        if noise is not None and self.noise_mode == "depolarizing":
+            kt, kc = noise
+            t_n = kt.shape[0]
+            woven = extend_tape_arrays(
+                tuple(a.expand(t_n, 1, -1) for a in tape), kt, kc)
+            rows = [tuple(a[t, 0] for a in woven) for t in range(t_n)]
+        elif noise is not None:
+            shift = float(noise.reshape(-1)[0])
+        psi0 = psi0.to(torch.complex128)
+        x = torch.as_tensor(np.asarray(x), dtype=torch.float64, device=dev)
+        pauli = self.pauli.tensors(dev, torch.complex128)
+        es = [float(pauli_expectation(apply_tape(psi0, *row, x), *pauli))
+              for row in rows]
+        return float(np.mean(es)) + shift
 
     def composed_graph(self) -> "ComposedGraph":
         """This optimizer's graph of the composed step (made at first

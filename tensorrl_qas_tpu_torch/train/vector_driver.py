@@ -6,7 +6,8 @@ kernel launch, all B transitions enter the shared replay buffer, and one
 replay train step runs.  Learning dynamics differ from the reference's
 sequential episode loop only in the data-collection ratio (B transitions
 per replay instead of 1), controllable via ``replays_per_iter``.
-Demonstration seeding (the JAX package's ``--demo``) is not ported yet.
+Demonstration seeding (``collect_demo_transitions``, the CLI's ``--demo``)
+pre-fills the replay buffer with a known gate list's transitions.
 """
 
 from __future__ import annotations
@@ -31,6 +32,60 @@ def modify_states(states: np.ndarray, venv: VectorCircuitEnv, conf: dict):
     if cols:
         states = np.concatenate([states] + cols, axis=1)
     return states
+
+
+def collect_demo_transitions(cfg, conf, gates, extra_rotation: bool = True):
+    """Replay a gate list through a fresh 1-replica vectorized env and
+    return ([(state, action_id, reward, next_state, done), ...], the
+    final error); the JAX package's function of this name.
+
+    Demonstration seeding (DQfD-style, beyond the reference): a known-good
+    gate sequence (e.g. a structure-search champion), each gate (kind,
+    target, control) with kind 1-3 a rotation axis and 4 a CNOT, becomes
+    real env transitions with the trainer's observation pipeline, for
+    pre-filling the replay buffer.  ``extra_rotation`` appends one trailing
+    rotation action when the budget allows: the env optimizes the
+    pre-action circuit (reference ordering), so the whole demonstration
+    circuit is optimized, and its energy recorded, only on the step after
+    its last gate."""
+    from tensorrl_qas_tpu_torch.circuits.actions import action_dictionary
+
+    venv1 = VectorCircuitEnv(cfg, n_envs=1)
+    n = cfg.num_qubits
+    adict = action_dictionary(n, cfg.topology, gate_set=cfg.gate_set)
+    inv = {tuple(v): k for k, v in adict.items()}
+    acts4 = [[c, (t - c) % n, n, 0] if k == 4 else [n, 0, t, k]
+             for (k, t, c) in gates]
+    if extra_rotation and len(acts4) < venv1.envs[0].num_layers_termination:
+        # skipped when the action space has no rotation actions (the
+        # restricted hexagon table strips them)
+        if (n, 0, 0, 3) in inv:
+            acts4.append([n, 0, 0, 3])
+    states = modify_states(venv1.reset_all(), venv1, conf)
+    out = []
+    for a4 in acts4:
+        aid = inv.get(tuple(a4))
+        if aid is None:
+            raise ValueError(f"demo action {a4} not in the action "
+                             f"dictionary (topology={cfg.topology})")
+        nxt, rwd, dn, _ = venv1.step_all([a4])
+        nxt = modify_states(nxt, venv1, conf)
+        out.append((states[0].copy(), int(aid), float(rwd[0]),
+                    nxt[0].copy(), float(dn[0])))
+        states = nxt
+        if dn[0]:
+            break
+    return out, float(venv1.envs[0].error)
+
+
+def _inject_demo(agent, transitions, copies: int, tag: int = 0):
+    """``copies`` copies of the demonstration transitions into the agent's
+    memory, flagged as demonstrations (the DQfD margin term), each copy
+    folding in its own n-step window."""
+    for c in range(copies):
+        for (s, a, r, ns, d) in transitions:
+            agent.remember(s, a, r, ns, d, env_id=f"demo{tag}.{c}",
+                           is_demo=1.0)
 
 
 class _EpisodeBuffers:
@@ -83,7 +138,9 @@ def train_vectorized(venv: VectorCircuitEnv, agent, conf: dict, seed: int,
                      summary_save_every: int = 200,
                      eps_per_step: bool = True,
                      stop_at_error: float = 0.0,
-                     stop_min_successes: int = 0) -> dict:
+                     stop_min_successes: int = 0,
+                     demo_transitions=None, demo_copies: int = 20,
+                     demo_reinject_every: int = 1500) -> dict:
     """Run vectorized training for a fixed env-step budget.
 
     Produces the same artifact set as the sequential driver: the
@@ -103,6 +160,11 @@ def train_vectorized(venv: VectorCircuitEnv, agent, conf: dict, seed: int,
     the run once ``best_error <= stop_at_error`` AND at least
     ``stop_min_successes`` episodes have terminated in success (reward +5).
     Both conditions must hold; 0.0 disables.
+
+    ``demo_transitions``: demonstration transitions
+    (``collect_demo_transitions``) injected ``demo_copies`` times before
+    training and once more every ``demo_reinject_every`` iterations, so
+    that the ring never evicts them all.
     """
     saver = Saver(output_path, seed)
     if eps_per_step:
@@ -115,6 +177,10 @@ def train_vectorized(venv: VectorCircuitEnv, agent, conf: dict, seed: int,
     batch_size = conf["agent"]["batch_size"]
     b = venv.n_envs
     ep_bufs = _EpisodeBuffers(b)
+    if demo_transitions:
+        _inject_demo(agent, demo_transitions, demo_copies)
+        print(f"demo seeding: {len(demo_transitions)} transitions x "
+              f"{demo_copies} copies into the replay buffer", flush=True)
 
     states = venv.reset_all()
     states = modify_states(states, venv, conf)
@@ -171,6 +237,9 @@ def train_vectorized(venv: VectorCircuitEnv, agent, conf: dict, seed: int,
         states = next_states
         steps += b
         it += 1
+        if (demo_transitions and demo_reinject_every
+                and it % demo_reinject_every == 0):
+            _inject_demo(agent, demo_transitions, 1, tag=it)
         if len(agent.memory) > batch_size:
             if replays_per_iter > 1:
                 loss = agent.replay_burst(batch_size, replays_per_iter)

@@ -200,12 +200,9 @@ def test_wrapper_dispatch_and_launch_count():
         check(ints=bad_kind)
 
 
-def test_agreement_accepts_the_plain_version_and_rejects_wrong_results():
-    """The kernel check (``agreement``) on float32 inputs: the plain
-    version's own result and one computed with the H planes rounded
-    differently agree in every env; a result with Adam's rate off by 1%
-    is rejected in the envs with several angles, and one with the RY
-    angles' gradients dropped in exactly the envs that have RY angles."""
+def _agreement_case():
+    """float32 fused-step inputs at 5 qubits (6 envs, 4 starts, G = R =
+    10, numpy seed 3) and each env's live angle count."""
     n, n_env, cap = 5, 6, 10
     rng = np.random.default_rng(3)
     old, new, maps, x0, n_rots = _random_batch(rng, n, n_env, cap)
@@ -224,23 +221,57 @@ def test_agreement_accepts_the_plain_version_and_rejects_wrong_results():
             torch.as_tensor(psi0.imag[None], **f32),
             *(w.float() for w in w_planes[:2]), w_planes[2],
             starts.contiguous(), active[:, None, :].contiguous())
+    return args, n_rots
+
+
+def _wrong_results(args):
+    """Two wrong results: Adam's rate off by 1%, and the RY angles'
+    gradients dropped; and the envs that have RY angles."""
+    wrong = [fused_adam.fused_adam_step_reference(*args, iters=3, lr=0.101)]
+    ry = (args[0][0] == int(GateKind.RY)) & (args[0][3] >= 0)
+    keep = torch.ones_like(args[9])
+    for env, g in ry.nonzero().tolist():
+        keep[env, 0, args[0][3][env, g]] = 0.0
+    wrong.append(fused_adam.fused_adam_step_reference(
+        *args[:9], (args[9] * keep).contiguous(), iters=3, lr=0.1))
+    return wrong, ry.any(dim=1)
+
+
+def test_agreement_accepts_the_plain_version_and_rejects_wrong_results():
+    """The kernel check (``agreement``) on float32 inputs: the plain
+    version's own result and one computed with the H planes rounded
+    differently agree in every env; a result with Adam's rate off by 1%
+    is rejected in the envs with several angles, and one with the RY
+    angles' gradients dropped in exactly the envs that have RY angles."""
+    args, n_rots = _agreement_case()
     ref = fused_adam.plain_results(args, iters=3, lr=0.1)
     assert len(ref) == 6
     for x, e in (ref[0], ref[-1]):
         ok, _, _ = fused_adam.agreement(args, ref, x, e, tol=1e-5)
         assert bool(ok.all())
-    x, e = fused_adam.fused_adam_step_reference(*args, iters=3, lr=0.101)
+    ((x, e), (x_ry, e_ry)), has_ry = _wrong_results(args)
     ok, _, _ = fused_adam.agreement(args, ref, x, e, tol=1e-5)
     assert bool((~ok)[torch.as_tensor(n_rots) >= 4].all())
-    ry = (args[0][0] == int(GateKind.RY)) & (args[0][3] >= 0)
-    keep = torch.ones_like(args[9])
-    for env, g in ry.nonzero().tolist():
-        keep[env, 0, args[0][3][env, g]] = 0.0
-    x, e = fused_adam.fused_adam_step_reference(
-        *args[:9], (args[9] * keep).contiguous(), iters=3, lr=0.1)
-    ok, _, _ = fused_adam.agreement(args, ref, x, e, tol=1e-5)
-    assert torch.equal(~ok, ry.any(dim=1))      # every env with an RY angle
+    ok, _, _ = fused_adam.agreement(args, ref, x_ry, e_ry, tol=1e-5)
+    assert torch.equal(~ok, has_ry)             # every env with an RY angle
 
+
+def test_agreement_cache_gives_what_no_cache_gives():
+    """``agreement`` with a ``cache`` shared by a result and its controls
+    gives what it gives without one, the float64 energies of the
+    reference's runs computed once (one per run: (runs, envs))."""
+    args, _ = _agreement_case()
+    ref = fused_adam.plain_results(args, iters=3, lr=0.1)
+    wrong, _ = _wrong_results(args)
+    cache = {}
+    for x, e in (ref[-1], *wrong):
+        plain = fused_adam.agreement(args, ref, x, e, tol=1e-5)
+        cached = fused_adam.agreement(args, ref, x, e, tol=1e-5,
+                                      cache=cache)
+        assert torch.equal(plain[0], cached[0])
+        assert torch.equal(plain[1], cached[1])
+        assert plain[2] == cached[2]
+    assert set(cache) == {"e_old"} and cache["e_old"].shape == (6, 6)
 
 def test_operands_from_jax_match_the_port():
     """The JAX v1 operands (H^T planes padded to 128 lanes, psi0 as real

@@ -65,7 +65,15 @@ shot noise (1024 shots) and depolarizing noise over 4 trajectories, under
 the same tagged draws, at 8-qubit H2O and at 12-qubit LiH; its CUDA graph
 (``ComposedGraph``) gives the eager kernel path's result bit for bit on
 three batches through one capture, the second on other tapes, and
-counts each replay's launches."""
+counts each replay's launches.
+
+The sequential trainer: one env step with Adam launches the fused kernel
+once at E = 1 (B1 at 8-qubit H2O, B2 at 12-qubit LiH), and that kernel at
+E = 1 agrees with its plain version; the noisy COBYLA cost
+(``AngleOptimizer.kernel_energy_fn``: one B3f launch an evaluation) equals
+the eager complex128 simulator on the same woven draw within 1e-5 at 8
+and 12 qubits, while a dropped error Pauli or a shifted angle exceeds
+it."""
 
 import numpy as np
 import pytest
@@ -1029,3 +1037,103 @@ def test_composed_graph_replays_the_eager_kernel_path(mode):
                                           iters=3, lr=0.1, seed=seed)
         assert torch.equal(xg, xe) and torch.equal(eg, ee), i
     assert graph.captures == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config,kernel", [
+    ("H2O8q_TNbond2", "fused_adam_step"),
+    ("LIH12q_TNbond2", "fused_adam_step2d")])
+def test_sequential_adam_step_launches_the_fused_kernel_once(config, kernel):
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    _card()
+    conf = get_config("TensorRL_fixed/", f"{config}.cfg")
+    conf["non_local_opt"]["global_iters"] = 5
+    env = CircuitEnv(EnvConfig.from_conf(conf, tn_placement="fixed",
+                                         device="cuda"))
+    env.reset()
+    n = env.num_qubits
+    counters = (fused_adam.fused_adam_step, fused_adam2d.fused_adam_step2d,
+                at.apply_tape_fwd, at.apply_tape_bwd)
+    for action in ((n, 0, 2, 2), (n, 0, 1, 1), (0, 1, n, 0)):
+        before = [c.launches for c in counters]
+        env.step(action)
+        torch.cuda.synchronize()
+        after = [c.launches - b for c, b in zip(counters, before)]
+        assert after == [int(c.__name__ == kernel) for c in counters]
+        assert np.isfinite(env.energy) and env.nfev == 5 * 8
+    # the kernel at E = 1 against its plain version
+    if kernel == "fused_adam_step":
+        step, plain = fused_adam.fused_adam_step, \
+            fused_adam.fused_adam_step_reference
+        args = _inputs(torch.device("cuda"), n_env=1, cap=26)
+    else:
+        step, plain = fused_adam2d.fused_adam_step2d, \
+            fused_adam2d.fused_adam_step2d_reference
+        args = _inputs2d(torch.device("cuda"), 12, n_env=1, cap=116)
+    ok, _, _ = _held_to_plain(step, plain, args)
+    assert bool(ok.all())
+
+
+def _noisy_cost_case(config, seed):
+    """A noisy COBYLA cost on the card: the env's optimizer
+    (depolarizing, method 'cobyla'), its warm-start psi0 and a random
+    mid-episode tape at the env's capacity."""
+    conf = get_config("TensorRL_fixed/", f"{config}.cfg")
+    env = CircuitEnv(EnvConfig.from_conf(
+        conf, tn_placement="fixed", noise_mode="depolarizing",
+        optim_alg="cobyla", device="cuda"))
+    rng = np.random.default_rng(seed)
+    n, cap = env.num_qubits, env.tape_capacity
+    tape = GateTape(n, cap, cap)
+    for _ in range(cap - 1):
+        t = int(rng.integers(n))
+        if rng.random() < 0.4:
+            tape.add(GateKind.CX, t, int((t + 1 + rng.integers(n - 1)) % n))
+        else:
+            tape.add(GateKind(int(rng.integers(1, 4))), t,
+                     angle=float(rng.normal()))
+    return env.optimizer, env.psi0, tape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["H2O8q_TNbond2_noise", "LIH12q_TNbond2"])
+def test_noisy_cobyla_cost_matches_eager_on_the_same_draw(config):
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    _card()
+    opt, psi0, tape = _noisy_cost_case(config, 5)
+    cap = tape.rot_capacity
+    energy = opt.kernel_energy_fn(psi0, tape.arrays(), cap)
+    kind = torch.as_tensor(tape.kind, dtype=torch.int32,
+                           device="cuda").reshape(1, -1)
+    x = tape.x0()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    before = at.apply_tape_fwd.launches
+    draws = [opt._draw_noise(gen, kind, 1, 1) for _ in range(12)]
+    for noise in draws:
+        assert abs(energy(x, noise)
+                   - opt.plain_energy(psi0, tape.arrays(), x, noise)) < 1e-5
+    assert at.apply_tape_fwd.launches == before + len(draws)
+    # a dropped error Pauli: of the fired errors of the first draws (at
+    # least 8), the one whose loss moves the energy most (an error can
+    # leave it unchanged)
+    drops = []
+    for noise in draws:
+        if len(drops) >= 8:
+            break
+        want = opt.plain_energy(psi0, tape.arrays(), x, noise)
+        for which, k in enumerate(noise):
+            for pos in (k != 0).nonzero().tolist():
+                cut = [noise[0].clone(), noise[1].clone()]
+                cut[which][tuple(pos)] = 0
+                moved = abs(opt.plain_energy(psi0, tape.arrays(), x, cut)
+                            - want)
+                drops.append((moved, cut, want))
+    _, worst, want = max(drops, key=lambda d: d[0])
+    assert abs(energy(x, worst) - want) > 1e-5
+    # a shifted angle: the last rotation's, by 0.1 rad
+    shifted = x.copy()
+    shifted[tape.n_rots - 1] += 0.1
+    assert abs(energy(shifted, draws[0]) - opt.plain_energy(
+        psi0, tape.arrays(), x, draws[0])) > 1e-5

@@ -65,3 +65,29 @@ print("ok")
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_sequential_modules_import_without_jax_or_a_build():
+    """The sequential trainer's modules (``native``, ``train/driver.py``,
+    the CLI) import without JAX and without building or loading csim;
+    the port keeps its own copy of csim's source."""
+    script = """
+import sys
+from tensorrl_qas_tpu_torch import native
+from tensorrl_qas_tpu_torch.train import cli, driver
+from tensorrl_qas_tpu_torch.agents.replay import PrioritizedReplayMemory
+from tensorrl_qas_tpu_torch.ops.build import CSRC, host_library_path
+assert native._library.cache_info().currsize == 0
+assert callable(driver.train) and callable(cli.run)
+assert (CSRC / "csim.cpp").exists()
+assert CSRC.parent.name == "tensorrl_qas_tpu_torch"
+assert host_library_path("csim").parent.name == "build"
+banned = ("jax", "jaxlib", "flax", "optax", "tensorrl_qas_tpu", "scipy")
+found = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+assert not found, found
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"

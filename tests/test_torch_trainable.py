@@ -453,3 +453,23 @@ def test_cli_tn_placement_flag_overrides_the_family(tmp_path, monkeypatch):
     assert (cfg.tn_placement, cfg.block_coord_k) == ("in_state", 2)
     assert cli.infer_modes(TRAINABLE, "H2O8q_TNbond2")[0] == "in_state"
     assert cli.infer_modes(STRUCTURE, "H2O8q_TNbond2")[0] == "in_state"
+
+
+@pytest.mark.parametrize("noise_mode", ["none", "depolarizing"])
+def test_reset_all_takes_the_shared_start_energy_once(noise_mode):
+    """The replicas of a vector env start from one embedded warm start:
+    noiseless, ``reset_all`` takes its energy once and hands every
+    replica the value a replica's own evaluation gives; under noise,
+    where each evaluation draws, every replica draws its own."""
+    conf = _conf(TRAINABLE, "heisenberg_5q_TNbond2", 8)
+    venv = VectorCircuitEnv(EnvConfig.from_conf(
+        conf, tn_placement="in_state", noise_mode=noise_mode, seed=3,
+        device="cpu"), n_envs=3)
+    calls = []
+    energy = venv.optimizer.energy
+    venv.optimizer.energy = lambda *a: calls.append(1) or energy(*a)
+    venv.reset_all()
+    assert len(calls) == (1 if noise_mode == "none" else 3)
+    if noise_mode == "none":
+        for env in venv.envs:
+            assert env.prev_energy == env._energy_of_state(env.state)
