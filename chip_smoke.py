@@ -10,20 +10,29 @@ through B3f.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
-                                      # and the tape kernels' by gate class)
+                                      # and the tape kernels' by gate
+                                      # class), and where v1p / v2p part
+                                      # from the plain version at 100
+                                      # iterations
     python3 chip_smoke.py --composed  # the composed engine's alone (19.-21.)
     python3 chip_smoke.py --tape      # B3f / B3b at 8 and 10-16 qubits
                                       # through the wrappers alone, to
                                       # compare two checkouts
     python3 chip_smoke.py --band      # the 13-18q band's split alone (in
                                       # 5b.), to compare two checkouts
+    python3 chip_smoke.py --sweep     # the sweep kernel's phases alone
+                                      # (6f.-6h.), and the 20q trainer in
+                                      # the in_state families
     python3 chip_smoke.py --plain-modes  # the plain version's time with
-                                      # and without autograd's bookkeeping
+                                      # and without autograd's bookkeeping,
+                                      # and its peak memory at 20q
 
 The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
-cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.)
-and in 2^(n - 12) CTAs in clusters that trade through global memory at
-17-18 (the group kernel, 6d.-6e.).
+cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.),
+in 2^(n - 12) CTAs in clusters that trade through global memory at 17-18
+(the group kernel, 6d.-6e.), and at 19-20, where the card cannot hold a
+start, with every start's state in device memory, swept by a cooperative
+grid (the sweep kernel, csrc/fused_adam_v2_sweep.cu, 6f.-6h.).
 
 Phases, one line each with its seconds:
 
@@ -40,7 +49,9 @@ Phases, one line each with its seconds:
                  the tape kernels (~45 s), the rest while the fused
                  kernels compile; the v1 phases then wait only for v1, so
                  the v2 source (the longest build) compiles while they
-                 run.
+                 run: 3., 4., 23., 7., 8., v1's p = 0, 10., 11., 14.-17.
+                 (v1's parts) and the sweep kernel's 6f.-6h., then the v2
+                 phases.
 3. kernel v1  -- the v1 kernel (fused_adam_v1) against its plain
                  PyTorch version at the 8-qubit main path's shapes (E = 128
                  envs, S = 8 starts, G = R = 26, D = 256, the H2O
@@ -128,9 +139,32 @@ Phases, one line each with its seconds:
                  psi0 rows against the shared plane.
 6e. trainer v2 18q -- the trainer on configs/TensorRL_fixed/
                  heisenberg_18q_TNbond2.cfg with 8 replicas (the config's
-                 n_starts = 4) for 20 vector steps, traced; every step
-                 through the group kernel; replay does not start (8 x 16
+                 n_starts = 4) for 8 vector steps, traced; every step
+                 through the group kernel; replay does not start (8 x 4
                  transitions < batch 1000).
+6f. kernel v2 sweep -- the sweep kernel (fused_adam_v2_sweep) at 20q
+                 Heisenberg at the trainer's shape (E = 8, S = 4, G = R =
+                 46, D = 2^20) and on the 19q open chain (E = 2, S = 8)
+                 held to its plain version at 3 iterations with the two
+                 controls; the noise variant (E = 4) with the three, the
+                 per-env psi0 variant at 20q (E = 4) with the three; every
+                 launch through the sweep kernel; the CTAs the card holds
+                 at once (the cooperative grid); at the trainer's shape
+                 two 100-iteration launches bit for bit, kernel ms (CUDA
+                 events), device ms (profiler) and bound; at the
+                 sequential trainer's shape (E = 1) held at 100 iterations
+                 to the plain version's float32 run with the controls, and
+                 timed beside that run.
+6g. trainer v2 20q -- the trainer on configs/TensorRL_fixed/
+                 heisenberg_20q_TNbond2.cfg with 8 replicas (n_starts 4)
+                 for 6 vector steps, traced: every step one sweep kernel
+                 launch, env-steps/s, the kernel's device ms a vector step,
+                 the card's busy share, peak device memory; replay does
+                 not start.
+6h. sequential v2 20q -- the CLI without --vector on
+                 heisenberg_20q_TNbond2 for 2 Adam steps (one sweep kernel
+                 launch at E = 1 each), traced: wall ms a step and the
+                 kernel's share.
 7. kernel v1 5q -- the v1 kernel below 8 qubits (the CLI's default config,
                  heisenberg_5q_TNbond2, E = 64) at 3 iterations, with the
                  controls.
@@ -229,8 +263,9 @@ Phases, one line each with its seconds:
                  H2O8q_TNbond2_noise_restricted (shot noise and the hexagon
                  topology inferred from the name), 128 replicas, and on
                  LIH12q_TNbond2 --gate_set su4 with 16 replicas (the wide
-                 kernels; replay is not reached: 16 x 8 transitions <
-                 batch 1000), 12 vector steps each, every step one replay
+                 kernels; replay is not reached: 16 x 2 transitions <
+                 batch 1000), 12 vector steps each at 8q and 6 at 12q,
+                 every step one replay
                  of the composed step's graph (the first its warm-up and
                  capture): every vector step launches B3f iters + 2 times
                  and B3b iters times (at 12q also the schedule kernel
@@ -263,8 +298,9 @@ Phases, one line each with its seconds:
                  beside B3f's device ms an evaluation on the same tape.
 
 The line before the last is a JSON object with one entry per kernel
-variant (v1, v1 noise, v2, v2 noise, the v2 cluster and group kernels,
-v1 and v2 per-env psi0, the tape kernels' forward and adjoint); the last
+variant (v1, v1 noise, v2, v2 noise, the v2 cluster, group and sweep
+kernels, v1 and v2 per-env psi0, the tape kernels' forward and adjoint);
+the last
 line is
 {"ok": true, "device":
 {...}}.  Any failure, or passing the deadline (``DEADLINE_S``: the
@@ -342,7 +378,7 @@ TAPE_SHAPES = ((8, 128), (5, 64), (9, 64), (10, 64), (12, 16), (13, 8),
                (14, 64), (16, 4))
 TAPE_WOVEN = (12, 14)    # also on tapes woven with error Paulis
 TAPE_CAP = 30            # G = R of H2O8q_TNbond2 with the su4 warm start
-SU4_12_CONFIG, SU4_12_ENVS = "LIH12q_TNbond2", 16
+SU4_12_CONFIG, SU4_12_ENVS, SU4_12_STEPS = "LIH12q_TNbond2", 16, 6
 RESTRICTED_CONFIG = "H2O8q_TNbond2_noise_restricted"
 NOISY_CONFIG = "H2O8q_TNbond2_noise"
 # 12: the fewest vector steps with which the 8q replay runs (20 before the
@@ -385,8 +421,24 @@ BAND_SPLIT = ((CHAIN_QUBITS, 8), ("heisenberg_14q_TNbond2", 8),
 # replicas (root bench.py's ROWS[18]) for 20 vector steps, too few for
 # replay to start (8 x 16 transitions < batch 1000; the 14q trainer runs
 # it); --split times its cluster sizes against each other
-V2G_ENVS, V2G_TRAINER_ENVS, V2G_STARTS, V2G_STEPS = 2, 8, 4, 20
+V2G_ENVS, V2G_TRAINER_ENVS, V2G_STARTS, V2G_STEPS = 2, 8, 4, 8
 GROUP_CLUSTERS = (2, 4, 8, 16)
+# the sweep kernel (19-20 qubits: every start's psi and lambda in device
+# memory, swept by a cooperative grid): checked at 3 iterations at 20q
+# Heisenberg at its trainer's shape (V2S_ENVS = 8 replicas, root bench.py
+# having no 20q row and the 18q row's 8; S = 4, the config's n_starts) and
+# on the 19q open chain (E = 2), with the controls; the noise and per-env
+# psi0 variants at E = V2S_VARIANT_ENVS with their three (the psi0
+# variant's third, env 0's row for every env, can flag only the others);
+# at the trainer's shape two 100-iteration launches bit for bit, and
+# timed; at E = 1 (the sequential trainer's launch) checked at 100
+# iterations against the plain version's float32 run, whose time is the
+# plain time; its trainer for V2S_STEPS vector steps, traced; the
+# sequential trainer for SEQ_V2S_STEPS Adam steps
+V2S_CONFIG = "heisenberg_20q_TNbond2"
+V2S_ENVS, V2S_STARTS, V2S_VARIANT_ENVS, V2S_CHAIN_ENVS = 8, 4, 4, 2
+V2S_STEPS, SEQ_V2S_STEPS = 6, 2
+SWEEP_IN_STATE_STEPS = 2      # --sweep: the in_state 20q trainers
 TOL_ITERS3 = 1e-5        # x_opt and e_new after 3 Adam iterations
 TOL_ITERS100 = 1e-4      # e_new (Ha) after 100 iterations: f32 summation
 #                          order perturbs the Adam trajectories
@@ -522,13 +574,13 @@ class Engine(NamedTuple):
         """This variant's launches since the wrapper's counts were set to
         0 (a launch that were noisy and per-env would count in both of
         those and make the plain count negative: none is expected).  The
-        cluster kernel's launches (13-16 qubits) and the group kernel's
-        (17-18) count among v2's too."""
+        cluster kernel's launches (13-16 qubits), the group kernel's
+        (17-18) and the sweep kernel's (19-20) count among v2's too."""
         if self.variant == "noise":
             return self.step.noise_launches
         if self.variant == "psi0":
             return self.step.psi0_launches
-        if self.variant in ("cluster", "group"):
+        if self.variant in ("cluster", "group", "sweep"):
             # 0 in a checkout from before that kernel (--split's parent)
             return getattr(self.step, f"{self.variant}_launches", 0)
         return (self.step.launches - self.step.noise_launches
@@ -537,7 +589,7 @@ class Engine(NamedTuple):
     def reset(self):
         """Set the wrapper's launch counts to 0."""
         for key in ("launches", "noise_launches", "psi0_launches",
-                    "cluster_launches", "group_launches"):
+                    "cluster_launches", "group_launches", "sweep_launches"):
             if hasattr(self.step, key):
                 setattr(self.step, key, 0)
 
@@ -559,6 +611,10 @@ REPLACES = {
                        "(_make_kernel at 13-16 qubits, call :854)",
     ("v2", "group"): "tensorrl_qas_tpu/ops/pallas_opt2d.py:160 "
                      "(_make_kernel at 17-18 qubits, call :854)",
+    ("v2", "sweep"): "tensorrl_qas_tpu/ops/pallas_opt2d.py:160 "
+                     "(_make_kernel, call :854, at 19-20 qubits, where the "
+                     "JAX package runs it through XLA: "
+                     "tensorrl_qas_tpu/optim/angle_opt.py:500-560)",
     ("tape", "fwd"): "tensorrl_qas_tpu/ops/pallas_apply.py:473 "
                      "(_fwd_kernel, via _call_fwd :559)",
     ("tape", "bwd"): "tensorrl_qas_tpu/ops/pallas_apply.py:502 "
@@ -596,17 +652,31 @@ def without_autograd(fn):
 
 def engines():
     """(v1, v1 noise, v2, v2 noise, v1 per-env psi0, v2 per-env psi0, v2
-    cluster, v2 group).  Both kernels take the flip-group planes; "v2
-    cluster" and "v2 group" are v2's wrapper counted by its cluster
-    kernel's launches (13-16 qubits) and its group kernel's (17-18).
+    cluster, v2 group, v2 sweep).  Both kernels take the flip-group
+    planes; "v2 cluster", "v2 group" and "v2 sweep" are v2's wrapper
+    counted by its cluster kernel's launches (13-16 qubits), its group
+    kernel's (17-18) and its sweep kernel's (19-20, a source of its own).
     Their plain versions run ``without_autograd``."""
     from tensorrl_qas_tpu_torch.ops import fused_adam, fused_adam2d
 
     v2 = fused_adam2d._library
     out = {}
-    for variant in ("", "noise", "psi0", "cluster", "group"):
+    for variant in ("", "noise", "psi0", "cluster", "group", "sweep"):
         suffix = f"_{variant}" if variant else ""
         noise = variant == "noise"
+        if variant == "sweep":
+            out["v2sweep"] = Engine(
+                name="fused_adam_v2_sweep", replaces=REPLACES["v2", variant],
+                source="tensorrl_qas_tpu_torch/csrc/fused_adam_v2_sweep.cu",
+                step=fused_adam2d.fused_adam_step2d, variant=variant,
+                plain=without_autograd(
+                    fused_adam2d.fused_adam_step2d_reference),
+                h_ops=lambda opt: opt.w_planes(),
+                smem_bytes=lambda case:
+                    fused_adam2d._sweep_library().fused_adam_sweep_smem_bytes(
+                        case.g, case.args[7].numel()),
+                h_flops=flip_h_flops)
+            continue
         if variant not in ("cluster", "group"):
             out["v1" + variant] = Engine(
                 name="fused_adam_v1" + suffix,
@@ -630,7 +700,7 @@ def engines():
             h_flops=flip_h_flops)
     return tuple(out[k] for k in ("v1", "v1noise", "v2", "v2noise",
                                   "v1psi0", "v2psi0", "v2cluster",
-                                  "v2group"))
+                                  "v2group", "v2sweep"))
 
 
 def flip_h_flops(case):
@@ -1407,6 +1477,78 @@ def group_phase(v2, v2n, v2p, v2g):
     p0_phase(v2, v2n, V2G_CONFIG, V2G_ENVS, repeat_bit_for_bit=True)
     psi0_rows_phase(v2, v2p, case)
     return entry, case
+
+
+def check_sweep(engine, case, label, iters=3):
+    """``check_kernel`` with the controls, every launch (the controls'
+    too) through the sweep kernel."""
+    step = engine.step
+    before = (step.launches, step.sweep_launches)
+    stats = check_kernel(engine, case, f"{label} sweep", iters,
+                         TOL_ITERS3 if iters == 3 else TOL_ITERS100,
+                         case.controls())
+    runs = (step.launches - before[0], step.sweep_launches - before[1])
+    if runs[0] != runs[1] or not runs[0]:
+        raise AssertionError(f"{label}: {runs[0]} launches, {runs[1]} "
+                             "through the sweep kernel")
+    return stats
+
+
+def sweep_kernel_phase(v2, v2n, v2p, v2s):
+    """The sweep kernel (19-20 qubits): at 20q Heisenberg at the trainer's
+    shape (E = 8, S = 4) and on the 19q chain (E = 2) held to its plain
+    version at 3 iterations with the two controls, the noise and per-env
+    psi0 variants (E = 4) with their three, every launch through the
+    sweep kernel; the CTAs the card holds at once; at the trainer's shape
+    two 100-iteration launches bit for bit, its time, device time and
+    bound; at the sequential trainer's launch (E = 1) held at 100
+    iterations to the plain version's float32 run, with the controls, and
+    timed beside that run.  -> (kernels-line entry, the E = 8 case)."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam2d
+
+    big = Case(v2s, V2S_CONFIG, V2S_ENVS, n_starts=V2S_STARTS)
+    lib = fused_adam2d._sweep_library()
+    smem = lib.fused_adam_sweep_smem_bytes(big.g, big.args[7].numel())
+    print(f"[kernel v2 sweep] {FIXED}{V2S_CONFIG}: G={big.g} R={big.r} "
+          f"D={1 << big.n} chunk={1 << lib.fused_adam_sweep_chunk_bits()} "
+          f"smem={smem} resident_ctas="
+          f"{fused_adam2d.check_residency(lib, smem)}", flush=True)
+    check_sweep(v2s, big, f"kernel v2 20q E={V2S_ENVS} S={V2S_STARTS}")
+    chain = chain_case(v2s, V2S_CHAIN_ENVS, 19)
+    check_sweep(v2s, chain, f"kernel v2 19q chain E={V2S_CHAIN_ENVS}")
+    for engine in (v2n, v2p):
+        check_sweep(engine, Case(engine, V2S_CONFIG, V2S_VARIANT_ENVS,
+                                 n_starts=V2S_STARTS),
+                    f"kernel {engine.name} 20q E={V2S_VARIANT_ENVS} "
+                    f"S={V2S_STARTS}")
+    t0 = phase("sweep repeat")
+    x1, e1 = v2s.step(*big.args, iters=ITERS, lr=LR)
+    x2, e2 = v2s.step(*big.args, iters=ITERS, lr=LR)
+    torch.cuda.synchronize()
+    bit = bool(torch.equal(x1, x2) and torch.equal(e1, e2))
+    done("sweep repeat", t0, E=V2S_ENVS, S=V2S_STARTS, iters=ITERS,
+         bit_for_bit=bit, ok=bit)
+    if not bit:
+        raise AssertionError("two sweep kernel launches differ")
+    t0 = phase("kernel v2 sweep timing")
+    k_ms = time_cuda(lambda: v2s.step(*big.args, iters=ITERS, lr=LR),
+                     warmup=0, reps=3)
+    dev_ms = device_ms(lambda: v2s.step(*big.args, iters=ITERS, lr=LR),
+                       "fused_adam_v2_sweep", reps=2)
+    flops, nbytes, bound_ms, bound_by = bound(v2s, big)
+    done("kernel v2 sweep timing", t0, E=V2S_ENVS, S=V2S_STARTS,
+         kernel_ms=f"{k_ms:.4f}", device_ms=_ms_or_not(dev_ms),
+         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+         gflop=f"{flops / 1e9:.3f}", input_MB=f"{nbytes / 1e6:.1f}",
+         plain_ms="not timed (see E=1)")
+    one = Case(v2s, V2S_CONFIG, 1, n_starts=V2S_STARTS)
+    stats = check_sweep(v2s, one, "kernel v2 20q E=1", iters=ITERS)
+    entry = {"max_abs_err": stats["e_new_max_abs_err"],
+             **time_kernel(v2s, one, "kernel v2 sweep E=1",
+                           plain_ms=stats["plain_ms"])}
+    return entry, big
 
 
 def p0_phase(engine, noisy, config, n_env, repeat_bit_for_bit=False):
@@ -2323,6 +2465,35 @@ def sequential_v2_phases(v2):
     return launches[v2.name], timing, cost
 
 
+def sweep_in_state_trainers(v2, v2p, v2s):
+    """(``--sweep`` only) the 20q trainer in the in_state families, where
+    the warm start rides every tape (G = 388, R = 331): TensorRL-trainable
+    and StructureRL through the sweep kernel with a shared psi0, and
+    block-coordinate mode (K = 3) through its per-env psi0 variant; 2
+    replicas, ``SWEEP_IN_STATE_STEPS`` vector steps each."""
+    steps = SWEEP_IN_STATE_STEPS
+    for family, extra, engine in ((TRAINABLE, (), v2),
+                                  (STRUCTURE, (), v2),
+                                  (TRAINABLE, BLOCK_COORD, v2p)):
+        trainer_phase(v2s, V2S_CONFIG, 2, steps,
+                      f"trainer v2 20q {family}{' '.join(extra)}", extra,
+                      expect_replay=False, family=family,
+                      expect={engine.name: steps, v2s.name: steps})
+
+
+def sequential_v2_sweep_phase(v2, v2s):
+    """The sequential trainer on heisenberg_20q_TNbond2 for
+    ``SEQ_V2S_STEPS`` Adam steps (one sweep kernel launch at E = 1 each),
+    traced: wall ms a step and the kernel's share.  -> the sweep kernel's
+    launches in the run."""
+    _, launches, _ = sequential_phase(
+        V2S_CONFIG, "sequential v2 20q",
+        ("--episodes", "1", "--num_layers",
+         episode_layers(V2S_CONFIG, SEQ_V2S_STEPS)), profile=True,
+        expect=lambda s: {v2.name: s["steps"], v2s.name: s["steps"]})
+    return launches[v2s.name]
+
+
 class Builds:
     """One nvcc per kernel source (and one g++ per ``host`` source: csim),
     all started together when made;
@@ -2469,6 +2640,46 @@ def split_tape():
          back_to_back_ms_and_device_ms=ms)
 
 
+def parting_phase(v1p, v2p):
+    """(``--split`` only) Where the per-env psi0 kernels' 100-iteration
+    results part from the plain version's float32 run: v1p at the 8q
+    trainable shapes (E = 128, G = 172, R = 151) and v2p at the 12q ones
+    (E = 16, G = 244, R = 211), random psi0 rows.  For every env whose
+    kernel e_new differs from the float32 run's by more than
+    TOL_ITERS100, the three e_new (kernel, plain float32, plain float64)
+    and whether the kernel lands above both plain runs; a kernel above in
+    most parted envs would be a fault.  -> {engine name: (parted envs,
+    envs where the kernel is above both)}."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam
+
+    out = {}
+    for engine, config, n_env in ((v1p, V1_CONFIG, V1_ENVS),
+                                  (v2p, V2_CONFIG, V2_ENVS)):
+        t0 = phase(f"parting {engine.name}")
+        case = Case(engine, config, n_env, TRAINABLE)
+        _, ek = engine.step(*case.args, iters=ITERS, lr=LR)
+        e32 = engine.plain(*case.args, iters=ITERS, lr=LR)[1]
+        e64 = engine.plain(*fused_adam._to64(case.args), iters=ITERS,
+                           lr=LR)[1]
+        torch.cuda.synchronize()
+        ek, e32, e64 = (t.double().cpu() for t in (ek, e32, e64))
+        parted = ((ek - e32).abs() > TOL_ITERS100).nonzero().flatten()
+        rows = {int(e): {"kernel": f"{float(ek[e]):.7f}",
+                         "plain_f32": f"{float(e32[e]):.7f}",
+                         "plain_f64": f"{float(e64[e]):.7f}"}
+                for e in parted}
+        above = int(((ek > e32) & (ek > e64))[parted].sum())
+        out[engine.name] = (len(parted), above)
+        done(f"parting {engine.name}", t0, G=case.g, R=case.r, n_env=n_env,
+             envs_parted=len(parted), kernel_above_both=above,
+             f32_vs_f64_max=f"{float((e32 - e64).abs().max()):.3e}",
+             kernel_vs_f64_max=f"{float((ek - e64).abs().max()):.3e}",
+             parted_e_new_Ha=rows)
+    return out
+
+
 def split_only(v1, v2, v2n):
     """``--split``: the v1 and v2 split phases, the 13-18q band, the
     split by gate class
@@ -2584,12 +2795,14 @@ def composed_phases(builds, idle=None):
     trainer_phase(COMPOSED, RESTRICTED_CONFIG, V1_ENVS, COMPOSED_STEPS,
                   "trainer restricted", expect=per_step)
     print(f"[trainer su4 12q] replay is not reached: {SU4_12_ENVS} replicas "
-          f"x {COMPOSED_STEPS - 4} transitions < batch 1000 (the 8q "
+          f"x {SU4_12_STEPS - 4} transitions < batch 1000 (the 8q "
           "trainers run it)", flush=True)
     launches = trainer_phase(
-        COMPOSED, SU4_12_CONFIG, SU4_12_ENVS, COMPOSED_STEPS,
+        COMPOSED, SU4_12_CONFIG, SU4_12_ENVS, SU4_12_STEPS,
         "trainer su4 12q", SU4_ARGS, expect_replay=False, profile=True,
-        expect={**per_step, "tape_schedule": 2 * COMPOSED_STEPS})
+        expect={"apply_tape_fwd": SU4_12_STEPS * (ITERS + 2),
+                "apply_tape_bwd": SU4_12_STEPS * ITERS,
+                "tape_schedule": 2 * SU4_12_STEPS})
     for key in ("fwd", "bwd"):
         tape["wide"][key]["launches"] = launches[f"apply_tape_{key}"]
     tape["wide"]["schedule"]["launches"] = launches["tape_schedule"]
@@ -2661,6 +2874,82 @@ def plain_modes(v1, v2):
     done("plain modes", t0, plain_ms=ms)
 
 
+def _host_peak_bytes(fn):
+    """The resident set's peak while ``fn()`` runs over the one before it
+    (``/proc/self/statm`` read every 5 ms on another thread; torch's CPU
+    operations release the GIL)."""
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    base = rss()
+    peak = [base]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], rss())
+            stop.wait(0.005)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        fn()
+    finally:
+        stop.set()
+        sampler.join()
+    return max(peak[0], rss()) - base
+
+
+def plain_memory(v2s):
+    """``--plain-modes``: the plain version's peak memory at 20 qubits over
+    what its inputs hold, one Adam iteration, at the fixed family's
+    capacities and the in_state families' (the warm start on every tape):
+    on the card (``torch.cuda.max_memory_allocated``) at the trainer's
+    shape (E = 8, S = 4) in float32 and float64 (the check's two
+    dtypes), and on the host at E = 1, S = 2 in float32."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam
+
+    def step(args):
+        with torch.inference_mode():
+            fused_adam.fused_adam_step_reference(*args, iters=1, lr=LR)
+
+    def on_cpu(a):
+        return (tuple(on_cpu(t) for t in a) if isinstance(a, tuple)
+                else a.cpu())
+
+    t0 = phase("plain memory")
+    gib = {}
+    for family in (FIXED, TRAINABLE):
+        case = Case(v2s, V2S_CONFIG, V2S_ENVS, family, n_starts=V2S_STARTS)
+        shape = f"{family}G={case.g} R={case.r}"
+        for dtype in ("float32", "float64"):
+            args = (case.args if dtype == "float32"
+                    else fused_adam._to64(case.args))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                step(args)
+                torch.cuda.synchronize()
+                peak = "{:.3f}".format(
+                    (torch.cuda.max_memory_allocated() - base) / 2**30)
+            except torch.cuda.OutOfMemoryError as exc:
+                peak = f"out of memory ({str(exc).splitlines()[0]})"
+            del args
+            torch.cuda.empty_cache()
+            gib[f"card {shape} E={V2S_ENVS} S={V2S_STARTS} {dtype}"] = peak
+        host = on_cpu(Case(v2s, V2S_CONFIG, 1, family, n_starts=2).args)
+        gib[f"host {shape} E=1 S=2 float32"] = "{:.3f}".format(
+            _host_peak_bytes(lambda: step(host)) / 2**30)
+        del case, host
+    done("plain memory", t0, peak_GiB_over_inputs=gib)
+
+
 def main(argv=()) -> int:
     watchdog = threading.Timer(DEADLINE_S, _expire)
     watchdog.daemon = True
@@ -2681,7 +2970,7 @@ def main(argv=()) -> int:
     done("device", t0, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    v1, v1n, v2, v2n, v1p, v2p, v2c, v2g = engines()
+    v1, v1n, v2, v2n, v1p, v2p, v2c, v2g, v2s = engines()
     if "--composed" in argv:
         composed_phases(Builds(("apply_tape",)))
         watchdog.cancel()
@@ -2693,11 +2982,22 @@ def main(argv=()) -> int:
         return 0
     if "--plain-modes" in argv:
         plain_modes(v1, v2)
+        plain_memory(v2s)
         watchdog.cancel()
         return 0
     if "--band" in argv:
         Builds(("fused_adam_v2",)).wait("fused_adam_v2")
         split_band(v2)
+        watchdog.cancel()
+        return 0
+    if "--sweep" in argv:
+        Builds(("fused_adam_v2_sweep",)).wait("fused_adam_v2_sweep")
+        sweep_kernel_phase(v2, v2n, v2p, v2s)
+        trainer_phase(v2s, V2S_CONFIG, V2S_ENVS, V2S_STEPS, "trainer v2 20q",
+                      expect={v2.name: V2S_STEPS, v2s.name: V2S_STEPS},
+                      expect_replay=False, profile=True)
+        sequential_v2_sweep_phase(v2, v2s)
+        sweep_in_state_trainers(v2, v2p, v2s)
         watchdog.cancel()
         return 0
     if "--split" in argv:
@@ -2706,10 +3006,11 @@ def main(argv=()) -> int:
         split_tape()
         builds.wait("fused_adam_v1", "fused_adam_v2")
         split_only(v1, v2, v2n)
+        parting_phase(v1p, v2p)
         watchdog.cancel()
         return 0
-    builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"),
-                    host=("csim",))
+    builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape",
+                     "fused_adam_v2_sweep"), host=("csim",))
     # the composed engine's phases go first: their plain references, and
     # then the plain times of later timing phases, while nvcc builds the
     # tape kernels (~45 s), the rest while it builds the fused kernels
@@ -2730,6 +3031,55 @@ def main(argv=()) -> int:
                                             V1_STEPS, "trainer v1",
                                             profile=True)[v1.name]
     seq[f"{v1.name} (sequential v1)"], _ = sequential_v1_phases(v1)
+    # what needs no fused_adam_v2 library goes first, while nvcc may still
+    # build that source (the longest build): v1 below 8 qubits, with noise
+    # and at the trainable capacities, and the sweep kernel
+    small = Case(v1, *V1_SMALL)
+    check_kernel(v1, small, f"kernel v1 {V1_SMALL[0]} E={V1_SMALL[1]}", 3,
+                 TOL_ITERS3, small.controls())
+    results[v1n], _ = kernel_phase(v1n, V1N_CONFIG, V1_ENVS, "kernel v1n",
+                                   pre=pre.get(v1n.name))
+    p0_phase(v1, v1n, V1N_CONFIG, V1_ENVS)
+    kraus_phase(v1n)
+    results[v1n]["launches"] = trainer_phase(
+        v1n, V1N_CONFIG, V1_ENVS, V1_STEPS, "trainer v1n")[v1n.name]
+    # in_state placement: the kernels at the trainable capacities (G != R),
+    # their per-env psi0 variants, and the trainers of both families
+    _, case = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1 trainable",
+                           long_check=False, family=TRAINABLE,
+                           time_plain=False)
+    psi0_rows_phase(v1, v1p, case)
+    # the trainable families at 3 iterations only: their 100-iteration
+    # trajectories part in float32 in any implementation (ROADMAP.md, C:
+    # the plain version's float32 and float64 runs part by up to 9.8e-3
+    # Ha at 8q), and the band of runs that would show it costs ~6 plain
+    # runs
+    results[v1p], _ = kernel_phase(v1p, V1_CONFIG, V1_ENVS, "kernel v1p",
+                                   long_check=False, family=TRAINABLE,
+                                   pre=pre.get(v1p.name))
+    # untraced (--split traces the trainable trainer): tracing it here took
+    # more of the deadline than its training; T_FAMILY_STEPS, too few for
+    # replay (trainer v1p runs it in the trainable family)
+    for family, label in ((TRAINABLE, "trainer v1 trainable"),
+                          (STRUCTURE, "trainer v1 StructureRL")):
+        trainer_phase(v1, V1_CONFIG, V1_ENVS, T_FAMILY_STEPS, label,
+                      family=family, expect_replay=False)
+    results[v1p]["launches"] = trainer_phase(
+        v1p, V1_CONFIG, V1_ENVS, T_STEPS, "trainer v1p", BLOCK_COORD,
+        family=TRAINABLE)[v1p.name]
+    # the sweep kernel (19-20 qubits), the 20q trainer and the sequential
+    # trainer at 20q through it
+    builds.wait("fused_adam_v2_sweep")
+    results[v2s], _ = sweep_kernel_phase(v2, v2n, v2p, v2s)
+    print(f"[trainer v2 20q] replay is not reached: {V2S_ENVS} replicas x "
+          f"{V2S_STEPS - 4} transitions < batch 1000", flush=True)
+    results[v2s]["launches"] = trainer_phase(
+        v2s, V2S_CONFIG, V2S_ENVS, V2S_STEPS, "trainer v2 20q",
+        expect={v2.name: V2S_STEPS, v2s.name: V2S_STEPS},
+        expect_replay=False, profile=True)[v2s.name]
+    seq[f"{v2s.name} (sequential v2 20q)"] = sequential_v2_sweep_phase(
+        v2, v2s)
+
     builds.wait("fused_adam_v2")
     results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
     sweep_phase(v2)
@@ -2753,47 +3103,13 @@ def main(argv=()) -> int:
         v2g, V2G_CONFIG, V2G_TRAINER_ENVS, V2G_STEPS, "trainer v2 18q",
         expect={v2.name: V2G_STEPS, v2g.name: V2G_STEPS},
         expect_replay=False, profile=True)[v2g.name]
-    small = Case(v1, *V1_SMALL)
-    check_kernel(v1, small, f"kernel v1 {V1_SMALL[0]} E={V1_SMALL[1]}", 3,
-                 TOL_ITERS3, small.controls())
-
-    results[v1n], _ = kernel_phase(v1n, V1N_CONFIG, V1_ENVS, "kernel v1n",
-                                   pre=pre.get(v1n.name))
-    p0_phase(v1, v1n, V1N_CONFIG, V1_ENVS)
     p0_phase(v2, v2n, V2_CONFIG, V2_ENVS)
-    kraus_phase(v1n)
-    results[v1n]["launches"] = trainer_phase(
-        v1n, V1N_CONFIG, V1_ENVS, V1_STEPS, "trainer v1n")[v1n.name]
     results[v2n], _ = kernel_phase(v2n, V2_CONFIG, V2_ENVS, "kernel v2n",
                                    pre=pre.get(v2n.name))
     sweep_phase(v2n, V2N_SWEEP)
     results[v2n]["launches"] = trainer_phase(
         v2n, V2_CONFIG, V2_ENVS, V2N_STEPS, "trainer v2n",
         extra=("--noise", "depolarizing"), expect_replay=False)[v2n.name]
-
-    # in_state placement: the kernels at the trainable capacities (G != R),
-    # their per-env psi0 variants, and the trainers of both families
-    _, case = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1 trainable",
-                           long_check=False, family=TRAINABLE,
-                           time_plain=False)
-    psi0_rows_phase(v1, v1p, case)
-    # the trainable families at 3 iterations only: their 100-iteration
-    # trajectories part in float32 (3 of 128 envs 5.7e-3 Ha off the plain
-    # version's float32 run, at the kernel's own x_opt exact to 1.4e-7),
-    # and the band of runs that would show it costs ~6 plain runs
-    results[v1p], _ = kernel_phase(v1p, V1_CONFIG, V1_ENVS, "kernel v1p",
-                                   long_check=False, family=TRAINABLE,
-                                   pre=pre.get(v1p.name))
-    # untraced (--split traces the trainable trainer): tracing it here took
-    # more of the deadline than its training; T_FAMILY_STEPS, too few for
-    # replay (trainer v1p runs it in the trainable family)
-    for family, label in ((TRAINABLE, "trainer v1 trainable"),
-                          (STRUCTURE, "trainer v1 StructureRL")):
-        trainer_phase(v1, V1_CONFIG, V1_ENVS, T_FAMILY_STEPS, label,
-                      family=family, expect_replay=False)
-    results[v1p]["launches"] = trainer_phase(
-        v1p, V1_CONFIG, V1_ENVS, T_STEPS, "trainer v1p", BLOCK_COORD,
-        family=TRAINABLE)[v1p.name]
     _, case = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2 trainable",
                            long_check=False, family=TRAINABLE,
                            time_plain=False)
@@ -2804,6 +3120,8 @@ def main(argv=()) -> int:
     results[v2p]["launches"] = trainer_phase(
         v2p, V2_CONFIG, V2_ENVS, T_STEPS, "trainer v2p", BLOCK_COORD,
         expect_replay=False, family=TRAINABLE)[v2p.name]
+    results = {e: results[e] for e in (v1, v2, v2c, v2g, v2s, v1n, v2n, v1p,
+                                       v2p)}
 
     kernels = {"kernels": [{
         "name": e.name, "route": "cuda", "source": e.source,

@@ -59,6 +59,8 @@ _RX, _RY, _RZ = int(GateKind.RX), int(GateKind.RY), int(GateKind.RZ)
 _RXX, _RYY, _RZZ = int(GateKind.RXX), int(GateKind.RYY), int(GateKind.RZZ)
 
 MAX_QUBITS = 16          # the JAX composed path's ceiling (D <= 65536)
+# where the work above that ceiling is queued
+ABOVE_CAP = "ROADMAP.md, A6: the composed engine above 16 qubits"
 WIDE_MIN_QUBITS = 10     # the wide kernels, which read a schedule, from here
 
 
@@ -395,7 +397,7 @@ def _check(name, planes, tape, angles, tapes_checked, schedule, weave):
                          "two, and angles (E, S, R)")
     if n > MAX_QUBITS:
         raise ValueError(f"{name}: {n} qubits; the composed engine takes at "
-                         f"most {MAX_QUBITS} (ROADMAP.md, A6)")
+                         f"most {MAX_QUBITS} ({ABOVE_CAP})")
     g = tape[0].shape[-1]
     if any(t.shape != (n_env, g) for t in tape):
         raise ValueError(f"{name}: tapes must all be (E, G)")

@@ -107,7 +107,11 @@ def check_gate_kinds(*kinds):
 class _Plan:
     """The part of a batch of tapes that does not depend on the angles,
     built once per call: per gate the partner gather index, target-bit and
-    control masks, the generator selectors and the coefficient basis."""
+    control masks, the generator selectors and the coefficient basis.
+    The index and masks are (E, G, D): 3.9 GB of int64 and bool at 20
+    qubits, E = 8, G = 46 (made once a call, so that a gate takes views
+    of them: the plain version's time is mostly the host's cost of its
+    many small operations)."""
 
     def __init__(self, tape, s_n, col, dtype):
         kind, tq, cq, slot = tape                        # (E, G) int64
@@ -120,6 +124,8 @@ class _Plan:
         # positions where every tape holds NONE are exact identities
         self.live = (kind != 0).any(dim=0).nonzero().flatten().tolist()
         self.slot = slot
+        self.has_slot = slot >= 0                        # (E, G)
+        self.slot_idx = slot.clamp(min=0)
         self.partner = colg ^ (1 << t)                   # (E, G, D)
         self.b0 = ((colg >> t) & 1) == 0
         self.act = torch.where(c >= 0, ((colg >> c.clamp(min=0)) & 1) == 1,
@@ -144,17 +150,35 @@ class _Plan:
                 self.b0[:, g, None, :], self.act[:, g, None, :])
 
 
-def _apply_u(re, im, pre, pim, b0, act, coeffs):
+def _u_rows(u):
+    """What ``_apply_u`` selects from, gate by gate: u (8, E, S, G) holds
+    the (re, im) parts of (u00, u01, u10, u11); -> the rows where the
+    target bit is 0 and where it is 1, each a list of G (6, E, S, 1)
+    slices: the diagonal entry d and the partner's f (u00, u01 at bit 0;
+    u11, u10 at bit 1) as (d_re, -d_im, f_re, -f_im, d_im, f_im)."""
+    neg = -u
+    return tuple(torch.stack([u[d], neg[d + 1], u[f], neg[f + 1], u[d + 1],
+                              u[f + 1]]).split(1, dim=-1)
+                 for d, f in ((0, 2), (6, 4)))
+
+
+def _apply_u(re, im, pre, pim, b0, act, rows):
     """One (controlled) 2x2 combine on the re/im planes; pre/pim are the
-    partner amplitudes."""
-    u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i = coeffs
-    dr = torch.where(b0, u00r, u11r)
-    di = torch.where(b0, u00i, u11i)
-    fr = torch.where(b0, u01r, u10r)
-    fi = torch.where(b0, u01i, u10i)
-    nre = dr * re - di * im + fr * pre - fi * pim
-    nim = dr * im + di * re + fr * pim + fi * pre
-    return torch.where(act, nre, re), torch.where(act, nim, im)
+    partner amplitudes, ``rows`` one gate's pair of ``_u_rows`` slices.
+    The terms are added in the order
+      re' = ((d_re re - d_im im) + f_re pre) - f_im pim,
+      im' = ((d_re im + d_im re) + f_re pim) + f_im pre,
+    a - b as a + (-b), as lists (``torch._foreach_*``: one launch a list
+    on the card, where the plain version's time is mostly the host's cost
+    of its launches): the same values, bit for bit, as one operation a
+    term (tests/test_torch_plain_form.py)."""
+    dr, ndi, fr, nfi, di, fi = torch.where(b0, *rows).unbind(0)
+    t = torch._foreach_mul([dr, ndi, fr, nfi, dr, di, fr, fi],
+                           [re, im, pre, pim, im, re, pim, pre])
+    new = torch._foreach_add(t[0::4], t[1::4])
+    torch._foreach_add_(new, t[2::4])
+    torch._foreach_add_(new, t[3::4])
+    return torch.where(act, new[0], re), torch.where(act, new[1], im)
 
 
 def _noise_ops(arrs, seeds, tags, thresholds, draw):
@@ -181,10 +205,11 @@ def _forward(plan, u, re, im, errors=None):
     """psi <- tape(x) psi; u = plan.coeffs(x); ``errors`` the error Paulis
     after each gate ({g: ((kind, qubit), ...)}, see ``_noise_ops``)."""
     errors = errors or {}
+    rows = _u_rows(u)
     for g in plan.live:
         idx, b0, act = plan.gate(g)
         re, im = _apply_u(re, im, re.gather(2, idx), im.gather(2, idx), b0,
-                          act, u[..., g:g + 1].unbind(0))
+                          act, (rows[0][g], rows[1][g]))
         for k, q in errors.get(g, ()):
             re, im = apply_pauli(re, im, k[:, None], q[:, None])
     return re, im
@@ -197,19 +222,43 @@ def dense_h(hre_t, him_t):
     return apply
 
 
+# amplitudes of the largest gathered block of flip_h (64 MB in float32)
+FLIP_BLOCK = 1 << 24
+
+
 def flip_h(wre, wim, flips):
     """H psi through flip-group planes, summed in group order (the order
-    both kernels follow)."""
-    col = torch.arange(wre.shape[-1], device=wre.device)
-    perms = [col ^ f for f in flips.tolist()]
+    both kernels follow; float32 rounding decides some trajectories, so
+    the plain version keeps it): the partners psi[i ^ f] of a block of
+    groups gathered at once (at most FLIP_BLOCK amplitudes), then each
+    group's product added; the imaginary planes enter only where one is
+    not zero (a real H: none, as the kernels skip them; adding its zero
+    products changed no value).  Four operations a group of a real H,
+    where a gather a group took ten: the plain version's time is mostly
+    the host's cost of its operations."""
+    d = wre.shape[-1]
+    col = torch.arange(d, device=wre.device)
+    perm = col[None, :] ^ flips.to(col.dtype)[:, None]      # (G_f, D)
+    real = not bool((wim != 0).any())
 
     def apply(re, im):
+        lead = re.shape[:-1]
+        block = max(1, FLIP_BLOCK // max(1, re[..., 0].numel() * d))
         hre = torch.zeros_like(re)
         him = torch.zeros_like(im)
-        for wr, wi, perm in zip(wre, wim, perms):
-            pre, pim = re.index_select(-1, perm), im.index_select(-1, perm)
-            hre = hre + wr * pre - wi * pim
-            him = him + wr * pim + wi * pre
+        for g0 in range(0, perm.shape[0], block):
+            idx = perm[g0:g0 + block].reshape(-1)
+            pres = re.index_select(-1, idx).view(*lead, -1, d)
+            pims = im.index_select(-1, idx).view(*lead, -1, d)
+            for j in range(pres.shape[-2]):
+                wr, pre, pim = wre[g0 + j], pres[..., j, :], pims[..., j, :]
+                if real:
+                    hre = hre + wr * pre
+                    him = him + wr * pim
+                else:
+                    wi = wim[g0 + j]
+                    hre = hre + wr * pre - wi * pim
+                    him = him + wr * pim + wi * pre
         return hre, him
     return apply
 
@@ -229,14 +278,17 @@ def _backward(plan, u, x, re, im, lre, lim, errors=None):
     errors = errors or {}
     dx = torch.zeros_like(x)
     sel = plan.sel
+    # every gate's entries of U^H (conjugated u00, u10, u01, u11) and of U^T
+    ut = u[[0, 1, 4, 5, 2, 3, 6, 7]]
+    rows_h = _u_rows(ut * torch.tensor([1.0, -1.0] * 4, dtype=u.dtype,
+                                       device=u.device).view(8, 1, 1, 1))
+    rows_t = _u_rows(ut)
     for g in reversed(plan.live):
         for k, q in errors.get(g, ()):
             re, im = apply_pauli(re, im, k[:, None], q[:, None])
             lre, lim = apply_pauli(lre, lim, k[:, None], q[:, None],
                                    transpose=True)
         idx, b0, act = plan.gate(g)
-        u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i = u[..., g:g + 1
-                                                           ].unbind(0)
         sgn = torch.where(b0, 1.0, -1.0).to(re.dtype)
         pre, pim = re.gather(2, idx), im.gather(2, idx)
         rx, ry, rz = (k[..., g:g + 1] for k in sel)
@@ -244,15 +296,13 @@ def _backward(plan, u, x, re, im, lre, lim, errors=None):
         pi = rx * pim - ry * (sgn * pre) + rz * (sgn * im)
         cg = 0.5 * torch.sum(act.to(re.dtype) * (pr * lim + pi * lre),
                              dim=-1)                             # (E, S)
-        slot = plan.slot[:, g]
-        has = (slot >= 0).view(-1, 1)
-        sidx = slot.clamp(min=0).view(-1, 1, 1).expand(*cg.shape, 1)
+        has = plan.has_slot[:, g, None]
+        sidx = plan.slot_idx[:, g, None, None].expand(*cg.shape, 1)
         dx.scatter_add_(2, sidx, torch.where(has, cg, 0.0)[..., None])
-        ch = (u00r, -u00i, u10r, -u10i, u01r, -u01i, u11r, -u11i)  # U^H
-        ct = (u00r, u00i, u10r, u10i, u01r, u01i, u11r, u11i)      # U^T
-        re, im = _apply_u(re, im, pre, pim, b0, act, ch)
+        re, im = _apply_u(re, im, pre, pim, b0, act,
+                          (rows_h[0][g], rows_h[1][g]))            # U^H
         lre, lim = _apply_u(lre, lim, lre.gather(2, idx), lim.gather(2, idx),
-                            b0, act, ct)
+                            b0, act, (rows_t[0][g], rows_t[1][g]))  # U^T
     return dx
 
 

@@ -1,5 +1,5 @@
 """One env step of multi-start Adam angle optimization with a flip-grouped
-Pauli H, fused, for 7 <= n <= 18 qubits.
+Pauli H, fused, for 7 <= n <= 20 qubits.
 
 Counterpart of ``tensorrl_qas_tpu/ops/pallas_opt2d.py`` (the v2 kernel,
 with its noise and per-env psi0 variants).  The step is the one of
@@ -18,8 +18,13 @@ on CUDA tensors, psi in registers at every width: one CTA a start up to
 to 16 qubits, at 17 and 18 a group of clusters that trade through global
 memory (``start_ctas``, ``cluster_size``) -- laid out as
 ``register_layout`` says and moved as ``swap_schedule`` (the plain twin
-of the kernel's schedule) says; it runs ``fused_adam_step2d_reference``,
-the plain PyTorch version of the same arithmetic, on CPU tensors.
+of the kernel's schedule) says.  At 19 and 20 qubits, where the card
+cannot hold a start on chip, it launches ``csrc/fused_adam_v2_sweep.cu``:
+every start's psi and lambda in device memory, swept chunk by chunk by a
+cooperative grid (``check_residency``) along the tape's segments
+(``sweep_segments``, the plain twin of the kernel's).  It runs
+``fused_adam_step2d_reference``, the plain PyTorch version of the same
+arithmetic, on CPU tensors.
 Layouts: tapes
 (E, G) int32, map_idx (E, R) int32, p0re/p0im (1, D) shared or (E, D)
 one per env (the JAX kernel's ``per_env_psi0``, which takes (E, D / 128,
@@ -41,9 +46,10 @@ import torch
 
 from tensorrl_qas_tpu_torch.ops import fused_adam
 from tensorrl_qas_tpu_torch.ops.fused_adam import B1, B2, EPS
-from tensorrl_qas_tpu_torch.utils.bits import parity
 
-MIN_QUBITS, MAX_QUBITS = 7, 18
+MIN_QUBITS, MAX_QUBITS = 7, 20
+SWEEP_MIN_QUBITS = 19     # from here the sweep kernel
+SWEEP_CHUNK_BITS = 12     # its chunk: 2^12 amplitudes
 
 
 def pauli_flip_groups(pauli, offset: float = 0.0, dtype=np.float32):
@@ -61,15 +67,24 @@ def pauli_flip_groups(pauli, offset: float = 0.0, dtype=np.float32):
     wre = np.zeros((len(groups), d), dtype=dtype)
     wim = np.zeros_like(wre)
     for gi, f in enumerate(groups):
-        w = np.zeros(d, dtype=np.complex128)
+        # the real and imaginary parts of sum_k c_k (-1)^parity(i & s_k),
+        # term by term in float64: the same sums as in complex128, without
+        # the complex products that took most of the time at 20 qubits (a
+        # zero part adds nothing)
+        wr = np.zeros(d)
+        wi = np.zeros(d)
         for k in np.nonzero(flips_arr == f)[0]:
-            signs = 1.0 - 2.0 * np.asarray(
-                parity(idx & int(pauli.sign_mask[k])), dtype=np.float64)
-            w += pauli.weights[k] * complex(pauli.iphase[k]) * signs
+            signs = np.where(np.bitwise_count(idx & int(pauli.sign_mask[k]))
+                             & 1, -1.0, 1.0)
+            c = pauli.weights[k] * complex(pauli.iphase[k])
+            if c.real:
+                wr += c.real * signs
+            if c.imag:
+                wi += c.imag * signs
         if f == 0:
-            w -= offset
-        wre[gi] = np.real(w)
-        wim[gi] = np.imag(w)
+            wr -= offset
+        wre[gi] = wr
+        wim[gi] = wi
     return wre, wim, np.asarray(groups, dtype=np.int32)
 
 
@@ -213,11 +228,12 @@ def _library():
     return bind(load("fused_adam_v2"))
 
 
-def _check_inputs(ints, floats, map_idx, flips, starts, active):
-    """-> (E, S, G, R, n, G_f); 7 <= n <= 18."""
+def _check_inputs(ints, floats, map_idx, flips, starts, active,
+                  qubits=(MIN_QUBITS, MAX_QUBITS)):
+    """-> (E, S, G, R, n, G_f); qubits[0] <= n <= qubits[1] (7 and 20)."""
     return fused_adam.check_flip_inputs(
         "fused_adam_step2d", ints, floats, map_idx, flips, starts, active,
-        (MIN_QUBITS, MAX_QUBITS))
+        qubits)
 
 
 # (library, n, smem, device, group cluster) -> the clusters check_clusters
@@ -264,8 +280,9 @@ def run_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     stride, CTAs a start, whether the group kernel ran, x_opt, e_new)."""
     ints = (*old_arrs, *new_arrs)
     floats = (p0re, p0im, wre, wim, starts, active)
-    n_env, s_n, g, r, n, n_groups = _check_inputs(ints, floats, map_idx,
-                                                  flips, starts, active)
+    n_env, s_n, g, r, n, n_groups = _check_inputs(
+        ints, floats, map_idx, flips, starts, active,
+        (MIN_QUBITS, SWEEP_MIN_QUBITS - 1))
     dev = starts.device
     seeds_ptr, thr1, thr2 = fused_adam.noise_args(
         "fused_adam_step2d", noise, seeds, n_env, dev)
@@ -304,6 +321,157 @@ def run_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     return stride, ctas, group, x_opt, e_new
 
 
+# -- the sweep kernel (19-20 qubits) ------------------------------------------
+
+def sweep_segments(kind, tq, cq, n: int,
+                   chunk_bits: int = SWEEP_CHUNK_BITS) -> list[int]:
+    """Twin of the sweep kernel's ``build_segments``: one tape's schedule
+    words, word for word.  Each live gate joins the current segment unless
+    its qubits above qubit 4 would give the segment more than chunk_bits -
+    5 of them; then a new segment starts.  A segment's local qubits are
+    qubits 0..4, its gates' and the lowest others up to chunk_bits; a
+    tape with no live gate has one empty segment.  ``kind``, ``tq``,
+    ``cq``: one tape's (G,) arrays.  -> 3 G + 2 ints: the segments, each
+    segment's first index into the live-gate list and the end, each
+    segment's local-qubit mask, the live gates in tape order; -1 where
+    unused."""
+    kind, tq, cq = (np.asarray(a).tolist() for a in (kind, tq, cq))
+    g_n = len(kind)
+    low = (1 << 5) - 1
+    room = chunk_bits - 5
+
+    def fill(m):
+        for q in range(5, n):
+            if bin(m).count("1") >= chunk_bits:
+                break
+            m |= 1 << q
+        return m
+
+    begin, masks, live, cur = [0], [], [], 0
+    for g in range(g_n):
+        if kind[g] == 0:
+            continue
+        q = (1 << tq[g]) | ((1 << cq[g]) if cq[g] >= 0 else 0)
+        q &= ~low
+        if len(live) > begin[-1] and bin(cur | q).count("1") > room:
+            masks.append(fill(low | cur))
+            begin.append(len(live))
+            cur = 0
+        cur |= q
+        live.append(g)
+    masks.append(fill(low | cur))
+    begin.append(len(live))
+    words = [-1] * (3 * g_n + 2)
+    words[0] = len(masks)
+    words[1:1 + len(begin)] = begin
+    words[g_n + 2:g_n + 2 + len(masks)] = masks
+    words[2 * g_n + 2:2 * g_n + 2 + len(live)] = live
+    return words
+
+
+def bind_sweep(lib):
+    """Set the C signatures of the sweep kernel's library ``lib``."""
+    lib.fused_adam_sweep_launch.argtypes = (
+        [_PTR] * 29 + [_I32] * 9 + [_F32, _F64, _F64] + [_F32] * 3
+        + [_U32] * 2 + [_PTR])
+    lib.fused_adam_sweep_launch.restype = _I32
+    for name in ("min_qubits", "max_qubits", "chunk_bits"):
+        getattr(lib, f"fused_adam_sweep_{name}").argtypes = []
+        getattr(lib, f"fused_adam_sweep_{name}").restype = _I32
+    lib.fused_adam_sweep_smem_bytes.argtypes = [_I32, _I32]
+    lib.fused_adam_sweep_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_adam_sweep_resident_ctas.argtypes = [ctypes.c_size_t]
+    lib.fused_adam_sweep_resident_ctas.restype = _I32
+    lib.fused_adam_sweep_error_string.argtypes = [_I32]
+    lib.fused_adam_sweep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _sweep_library():
+    """The sweep kernel's library (built at first use) with its C
+    signatures."""
+    from tensorrl_qas_tpu_torch.ops.build import load
+
+    return bind_sweep(load("fused_adam_v2_sweep"))
+
+
+# (library, smem, device) -> the CTAs check_residency found (>= 1)
+_resident: dict = {}
+
+
+def check_residency(lib, smem: int, device=None) -> int:
+    """CTAs of the sweep kernel, each with ``smem`` bytes of dynamic shared
+    memory, that the card (``device``, the current one when None) holds at
+    once: the grid of its cooperative launch, whose barriers then wait only
+    on CTAs that run.  Raises when the card holds none (no fallback to
+    another kernel); a count found once per shape is kept."""
+    key = (lib, smem, device)
+    if key in _resident:
+        return _resident[key]
+    ctas = lib.fused_adam_sweep_resident_ctas(smem)
+    if ctas < 1:
+        why = (f"CUDA error {-ctas} "
+               f"({lib.fused_adam_sweep_error_string(-ctas).decode()})"
+               if ctas < 0 else "none fits")
+        raise RuntimeError(
+            f"fused_adam_step2d: the sweep kernel's CTA takes {smem} B of "
+            f"shared memory, and the card cannot hold one: {why}")
+    _resident[key] = ctas
+    return ctas
+
+
+def run_sweep_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
+                     flips, starts, active, *, iters, lr, noise, seeds,
+                     stream):
+    """Check the inputs and launch the sweep kernel of ``lib`` (bound by
+    ``bind_sweep``) on ``stream``, uncounted (the host emulation's tests
+    call it directly), on a grid of as many CTAs as the card holds at
+    once.  -> (psi0 stride, CTAs, x_opt, e_new, the schedule words (2, E,
+    3 G + 2): old tape, new tape)."""
+    ints = (*old_arrs, *new_arrs)
+    floats = (p0re, p0im, wre, wim, starts, active)
+    band = (lib.fused_adam_sweep_min_qubits(),
+            lib.fused_adam_sweep_max_qubits())
+    n_env, s_n, g, r, n, n_groups = _check_inputs(
+        ints, floats, map_idx, flips, starts, active, band)
+    dev = starts.device
+    seeds_ptr, thr1, thr2 = fused_adam.noise_args(
+        "fused_adam_step2d", noise, seeds, n_env, dev)
+    smem = lib.fused_adam_sweep_smem_bytes(g, n_groups)
+    fused_adam.check_smem("fused_adam_step2d", smem, "CTA")
+    ctas = check_residency(lib, smem, dev)
+    rows, d = n_env * s_n, 1 << n
+    chunks = d >> lib.fused_adam_sweep_chunk_bits()
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_opt = torch.empty((n_env, r), **f32)
+    e_new = torch.empty((n_env,), **f32)
+    scratch = dict(
+        psi=torch.empty((rows, d, 2), **f32),
+        lam=torch.empty((rows, d, 2), **f32),
+        adam=torch.empty((rows, 4, r), **f32),
+        best_e=torch.empty((rows,), **f32),
+        gpart=torch.empty((rows, g, chunks), **f32),
+        epart=torch.empty((rows, chunks, 2), dtype=torch.float64,
+                          device=dev),
+        sched=torch.empty((2, n_env, 3 * g + 2), dtype=torch.int32,
+                          device=dev),
+        xnew=torch.empty((n_env, r), **f32),
+        bar=torch.zeros((1,), dtype=torch.int32, device=dev))
+    stride = fused_adam.psi0_stride(p0re)
+    wim_any = (wim != 0).any(dim=1).to(torch.int32)
+    fused_adam.launch(
+        lib, "fused_adam_sweep", *(t.data_ptr() for t in ints),
+        map_idx.data_ptr(), p0re.data_ptr(), p0im.data_ptr(), wre.data_ptr(),
+        wim.data_ptr(), flips.data_ptr(), wim_any.data_ptr(),
+        starts.data_ptr(), active.data_ptr(), seeds_ptr, x_opt.data_ptr(),
+        e_new.data_ptr(), *(t.data_ptr() for t in scratch.values()),
+        min(ctas, rows * chunks), n_env, s_n, g, r, n, n_groups, stride,
+        int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS, thr1, thr2,
+        stream)
+    return stride, ctas, x_opt, e_new, scratch["sched"]
+
+
 def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
                       flips, starts, active, *, iters: int, lr: float,
                       noise=None, seeds=None):
@@ -314,8 +482,9 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     ``fused_adam_step2d.noise_launches`` those of the noise variant,
     ``fused_adam_step2d.psi0_launches`` those with per-env psi0 planes,
     ``fused_adam_step2d.cluster_launches`` those of the cluster kernel
-    (13-16 qubits) and ``fused_adam_step2d.group_launches`` those of the
-    group kernel (17-18) among them."""
+    (13-16 qubits), ``fused_adam_step2d.group_launches`` those of the
+    group kernel (17-18) and ``fused_adam_step2d.sweep_launches`` those of
+    the sweep kernel (19-20) among them."""
     if starts.device.type == "cpu":
         return fused_adam_step2d_reference(
             old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
@@ -324,6 +493,16 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
         raise ValueError(f"fused_adam_step2d: no kernel for device "
                          f"{starts.device}")
     stream = torch.cuda.current_stream(starts.device).cuda_stream
+    if p0re.shape[-1] >= 1 << SWEEP_MIN_QUBITS:
+        stride, _, x_opt, e_new, _ = run_sweep_kernel(
+            _sweep_library(), old_arrs, new_arrs, map_idx, p0re, p0im, wre,
+            wim, flips, starts, active, iters=iters, lr=lr, noise=noise,
+            seeds=seeds, stream=stream)
+        fused_adam_step2d.launches += 1
+        fused_adam_step2d.noise_launches += noise is not None
+        fused_adam_step2d.psi0_launches += stride != 0
+        fused_adam_step2d.sweep_launches += 1
+        return x_opt, e_new
     stride, ctas, group, x_opt, e_new = run_kernel(
         _library(), old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim, flips,
         starts, active, iters=iters, lr=lr, noise=noise, seeds=seeds,
@@ -341,3 +520,4 @@ fused_adam_step2d.noise_launches = 0
 fused_adam_step2d.psi0_launches = 0
 fused_adam_step2d.cluster_launches = 0
 fused_adam_step2d.group_launches = 0
+fused_adam_step2d.sweep_launches = 0

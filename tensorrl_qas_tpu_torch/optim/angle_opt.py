@@ -209,9 +209,9 @@ def flip_h_batched(wre, wim, flips):
     """H psi through flip-group planes (G_f, D) as one gather of the
     concatenated permutations, a product with the W planes and a sum over
     the group axis (``_FlipGroupH``): the composed energy's H psi above 9
-    qubits, a handful of kernels where ``ops/fused_adam.py:flip_h`` (the
-    fused kernels' plain versions, whose group order they follow) takes
-    about ten per group."""
+    qubits, a handful of kernels, with a backward (``ops/fused_adam.py:
+    flip_h``, the fused kernels' plain versions', gathers in blocks and
+    has none)."""
     d = wre.shape[-1]
     col = torch.arange(d, device=wre.device)
     perm = col[None, :] ^ flips.to(col.dtype)[:, None]     # (G_f, D)
@@ -299,7 +299,7 @@ class AngleOptimizer:
         'composed' for the su4 gate set (``enable_2q``), shot noise and
         ``n_traj > 1`` (reference ``optim/angle_opt.py:283-287, 690-693``),
         at most 16 qubits; else the fused 'v1' for D <= 512, 'v2' for
-        1024 <= D <= 2^18 (both take the flip-group planes,
+        1024 <= D <= 2^20 (both take the flip-group planes,
         ``w_planes``).  Larger problems, and RXX/RYY/RZZ gates without
         ``enable_2q``, raise ValueError here, before any H operand is
         built."""
@@ -309,7 +309,7 @@ class AngleOptimizer:
             if n > tape_ops.MAX_QUBITS:
                 raise ValueError(
                     f"no composed engine for {n} qubits (at most "
-                    f"{tape_ops.MAX_QUBITS}; ROADMAP.md, A6)")
+                    f"{tape_ops.MAX_QUBITS}; {tape_ops.ABOVE_CAP})")
             return "composed"
         check_gate_kinds(*kinds)
         if n <= 9:
@@ -317,7 +317,8 @@ class AngleOptimizer:
         if n <= MAX_QUBITS:
             return "v2"
         raise ValueError(f"no fused Adam engine for {n} qubits (at most "
-                         f"{MAX_QUBITS})")
+                         f"{MAX_QUBITS}; ROADMAP.md, A6: more than "
+                         f"{MAX_QUBITS} qubits across devices)")
 
     def h_planes(self):
         """(hre_t, him_t): real and imaginary planes of (H - offset I)^T,
@@ -698,12 +699,13 @@ class AngleOptimizer:
         from the optimizer's generator when not given; then the Rayleigh
         quotient of H - offset I (``_h_apply``), plus the offset.  The
         tape is checked and, from 10 qubits, its schedule built once, here;
-        more than ``ops/apply_tape.py:MAX_QUBITS`` qubits raise (ROADMAP.md,
-        A6).  On CPU tensors the launch is the kernel's plain version."""
+        more than ``ops/apply_tape.py:MAX_QUBITS`` qubits raise (the work
+        ``ops/apply_tape.py:ABOVE_CAP`` names).  On CPU tensors the launch
+        is the kernel's plain version."""
         n = self.pauli.n_qubits
         if n > tape_ops.MAX_QUBITS:
             raise ValueError(f"no tape kernel for {n} qubits (at most "
-                             f"{tape_ops.MAX_QUBITS}; ROADMAP.md, A6)")
+                             f"{tape_ops.MAX_QUBITS}; {tape_ops.ABOVE_CAP})")
         dev = self.device
         tape = tuple(torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                      device=dev).reshape(1, -1)

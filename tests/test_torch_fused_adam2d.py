@@ -13,7 +13,7 @@
   kernel to this plain step).
 - Plain v2 step vs plain v1 step (dense H) at 8-qubit H2O in float64:
   within 1e-10.
-- Engine choice: v1 up to 9 qubits, v2 from 10 to 18, nothing above, and
+- Engine choice: v1 up to 9 qubits, v2 from 10 to 20, nothing above, and
   no fused engine for RXX/RYY/RZZ tapes.
 - ``operands2d_from_jax``: the JAX v2 operands in the port's layout; on
   them the port computes the XLA path's x_opt and e_new to 1e-10.
@@ -215,13 +215,14 @@ def test_plain_v2_equals_plain_v1_float64():
 
 
 @pytest.mark.parametrize("n,engine", [(3, "v1"), (9, "v1"), (10, "v2"),
-                                      (12, "v2"), (18, "v2"), (19, None)])
+                                      (12, "v2"), (18, "v2"), (19, "v2"),
+                                      (20, "v2"), (21, None)])
 def test_engine_choice(n, engine):
     ps = PauliSum.from_strings(["Z" * n, "X" * n], [1.0, 0.5], n)
     opt = AngleOptimizer(ps, device="cpu")
     kinds = np.array([[int(GateKind.RX), int(GateKind.CX), 0]], np.int32)
     if engine is None:
-        with pytest.raises(ValueError, match="no fused Adam engine"):
+        with pytest.raises(ValueError, match="no fused Adam engine.*A6"):
             opt._pick_engine(kinds)
         return
     assert opt._pick_engine(kinds) == engine
@@ -279,7 +280,7 @@ def test_wrapper_checks_and_launch_count():
                               n_env, torch.device("cpu"))
     small = (torch.zeros(1, 64), torch.zeros(1, 64), wre[:, :64].clone(),
              wim[:, :64].clone(), *floats[4:])
-    with pytest.raises(ValueError, match="7 <= n <= 18"):
+    with pytest.raises(ValueError, match="7 <= n <= 20"):
         check(floats=small)
 
 

@@ -19,13 +19,16 @@ Pauli sum, and the open Heisenberg chain), 14 and 16 (Heisenberg) -- the
 cluster kernel, a cluster of 2, 4 and 16 CTAs a start, every launch
 counted as its -- and at 17 and 18 (random Pauli sums) -- the group
 kernel, a start of 32 and 64 CTAs in clusters that trade through global
-memory; at 12 also with every target and control on the qubits that start
-on warp bits, and with 3 starts.  Two v2 launches agree bit for bit at 12, 13
-and 14 qubits, as do p = 0 and the noiseless kernel, and identical psi0
-rows and the shared plane; the noise variant is held at 12 and 14.  A
-cluster that cannot be scheduled (more shared memory than a CTA may have)
-raises, as does a group kernel's start that the card cannot hold whole;
-ptxas reports no spills in the v2 kernels.  v1 is held at 4, 5, 8 and 9
+memory -- and at 19 and 20 (random Pauli sums, complex W planes) -- the
+sweep kernel, every start in device memory, swept by a cooperative grid;
+at 12 also with every target and control on the qubits that start on warp
+bits, and with 3 starts.  Two v2 launches agree bit for bit at 12, 13, 14
+and 20 qubits, as do p = 0 and the noiseless kernel, and identical psi0
+rows and the shared plane; the noise variant is held at 12, 14, 19 and
+20.  A cluster that cannot be scheduled (more shared memory than a CTA
+may have) raises, as does a group kernel's start that the card cannot
+hold whole and a sweep kernel's CTA that fits nowhere; ptxas reports no
+spills in the v2 kernels and the sweep kernel.  v1 is held at 4, 5, 8 and 9
 qubits with 3, 8 and 16 starts (groups of a thread, of a few lanes and of
 a warp a start; 16 starts at 9 qubits take two rounds), at 8 and 16
 amplitudes a thread, and with a Pauli sum of D complex flip groups whose
@@ -47,7 +50,8 @@ memory, then in the workspace); the shared psi0 of row 0 must fail it, and
 identical rows must give the shared launch bit for bit.  Both kernels run
 at the trainable configs' capacities, where the tapes embed the warm start
 and G != R: v1 at H2O 8q (G = 172, R = 151; noisy at the _noise config),
-v2 at LiH 12q (G = 244, R = 211).
+v2 at LiH 12q (G = 244, R = 211) and at Heisenberg 20q (G = 388, R = 331:
+the sweep kernel over some fifty segments a tape).
 
 The composed engine's tape kernels (B3f forward, B3b adjoint,
 ``ops/apply_tape.py``) are held to their plain versions at 1-9 qubits
@@ -68,8 +72,9 @@ three batches through one capture, the second on other tapes, and
 counts each replay's launches.
 
 The sequential trainer: one env step with Adam launches the fused kernel
-once at E = 1 (B1 at 8-qubit H2O, B2 at 12-qubit LiH), and that kernel at
-E = 1 agrees with its plain version; the noisy COBYLA cost
+once at E = 1 (B1 at 8-qubit H2O, B2 at 12-qubit LiH and at 20-qubit
+Heisenberg, the sweep kernel), and that kernel at E = 1 agrees with its
+plain version; the noisy COBYLA cost
 (``AngleOptimizer.kernel_energy_fn``: one B3f launch an evaluation) equals
 the eager complex128 simulator on the same woven draw within 1e-5 at 8
 and 12 qubits, while a dropped error Pauli or a shifted angle exceeds
@@ -347,6 +352,9 @@ V2_CASES["12q S=3"] = dict(n=12, n_starts=3)
 V2_CASES["13q chain"] = dict(n=13, chain=True)
 V2_CASES["17q"] = dict(n=17, n_env=2)
 V2_CASES["18q"] = dict(n=18, n_env=2)
+# the sweep kernel (19-20 qubits): random Pauli sums (complex W planes)
+V2_CASES["19q"] = dict(n=19, n_env=2)
+V2_CASES["20q"] = dict(n=20, n_env=2)
 
 
 @pytest.mark.gpu
@@ -355,12 +363,15 @@ def test_kernel2d_matches_plain_version(case):
     dev = _card()
     args = _inputs2d(dev, **V2_CASES[case])
     step = fused_adam2d.fused_adam_step2d
-    before = (step.launches, step.cluster_launches, step.group_launches)
+    before = (step.launches, step.cluster_launches, step.group_launches,
+              step.sweep_launches)
     xk, ek = step(*args, iters=3, lr=0.1)
     torch.cuda.synchronize()
     n = V2_CASES[case]["n"]
-    assert (step.launches, step.cluster_launches, step.group_launches) == (
-        before[0] + 1, before[1] + (13 <= n <= 16), before[2] + (n >= 17))
+    assert (step.launches, step.cluster_launches, step.group_launches,
+            step.sweep_launches) == (
+        before[0] + 1, before[1] + (13 <= n <= 16),
+        before[2] + (17 <= n <= 18), before[3] + (n >= 19))
     plain = fused_adam2d.fused_adam_step2d_reference
     ref = fused_adam.plain_results(args, iters=3, lr=0.1, step=plain)
     ok, strict, _ = fused_adam.agreement(args, ref, xk, ek, tol=1e-5,
@@ -412,9 +423,10 @@ def _engine(name):
         return (fused_adam.fused_adam_step,
                 fused_adam.fused_adam_step_reference, _inputs)
     n = int(name.split()[1][:-1]) if " " in name else 12
+    envs = dict(n_env=2) if n >= 19 else {}
     return (fused_adam2d.fused_adam_step2d,
             fused_adam2d.fused_adam_step2d_reference,
-            lambda dev, **kw: _inputs2d(dev, n, **kw))
+            lambda dev, **kw: _inputs2d(dev, n, **{**envs, **kw}))
 
 
 def _seeds(dev, n_env, seed=0):
@@ -446,7 +458,7 @@ def _held_to_plain(step, plain, args, iters=3, **noise):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["v1", "v2", "v2 14q"])
+@pytest.mark.parametrize("name", ["v1", "v2", "v2 14q", "v2 19q", "v2 20q"])
 def test_noise_kernel_matches_plain_version(name):
     dev = _card()
     step, plain, build = _engine(name)
@@ -460,7 +472,7 @@ def test_noise_kernel_matches_plain_version(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q", "v2 14q"])
+@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q", "v2 14q", "v2 20q"])
 def test_kernel_is_deterministic(name):
     """Gradient rows are summed in a fixed order: two launches on the same
     inputs agree bit for bit."""
@@ -473,7 +485,7 @@ def test_kernel_is_deterministic(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q", "v2 14q"])
+@pytest.mark.parametrize("name", ["v1", "v2", "v2 13q", "v2 14q", "v2 20q"])
 def test_noise_kernel_at_p0_is_the_noiseless_kernel(name):
     dev = _card()
     step, _, build = _engine(name)
@@ -503,6 +515,23 @@ def test_cluster_kernel_raises_when_no_cluster_fits(n):
     match = rf"takes {per_start} cluster\(s\) of {size} CTAs"
     with pytest.raises(RuntimeError, match=match):
         fused_adam2d.check_clusters(lib, n, 300_000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [46, 388])
+def test_sweep_kernel_residency(g):
+    """The sweep kernel's CTA at the 20q configs' capacities (fixed: G =
+    46; in_state: 388) fits the card at least once an SM, and its
+    cooperative grid is what the card holds at once; asking for more
+    shared memory than a CTA may have leaves none, and the check raises
+    (no fallback)."""
+    _card()
+    lib = fused_adam2d._sweep_library()
+    smem = lib.fused_adam_sweep_smem_bytes(g, 20)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fused_adam2d.check_residency(lib, smem) >= sms
+    with pytest.raises(RuntimeError, match="cannot hold one"):
+        fused_adam2d.check_residency(lib, 300_000)
 
 
 @pytest.mark.gpu
@@ -594,7 +623,7 @@ def _psi0_case(case, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["v1", "v2 12q", "v2 14q"])
+@pytest.mark.parametrize("case", ["v1", "v2 12q", "v2 14q", "v2 20q"])
 def test_per_env_psi0_kernel_matches_plain_version(case):
     dev = _card()
     step, plain, shared = _psi0_case(case, dev)
@@ -613,7 +642,8 @@ def test_per_env_psi0_kernel_matches_plain_version(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["v1", "v2 12q", "v2 13q", "v2 14q"])
+@pytest.mark.parametrize("case", ["v1", "v2 12q", "v2 13q", "v2 14q",
+                                  "v2 20q"])
 def test_per_env_psi0_identical_rows_equal_the_shared_launch(case):
     dev = _card()
     step, _, args = _psi0_case(case, dev)
@@ -644,11 +674,13 @@ def _trainable(dev, config, n_env, noisy=False):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("config, caps", [("H2O8q_TNbond2", (172, 151)),
-                                          ("LIH12q_TNbond2", (244, 211))])
+@pytest.mark.parametrize("config, caps", [
+    ("H2O8q_TNbond2", (172, 151)), ("LIH12q_TNbond2", (244, 211)),
+    ("heisenberg_20q_TNbond2", (388, 331))])
 def test_kernels_at_trainable_capacities_match_plain_version(config, caps):
     dev = _card()
-    got_caps, args = _trainable(dev, config, 8)
+    got_caps, args = _trainable(dev, config,
+                                2 if config.startswith("heisenberg") else 8)
     assert got_caps == caps and args[0][0].shape[1] == caps[0]
     assert args[-1].shape[-1] == caps[1]
     if config.startswith("H2O8q"):
@@ -848,6 +880,19 @@ def test_v2_kernels_do_not_spill():
 
 
 @pytest.mark.gpu
+def test_sweep_kernel_does_not_spill():
+    """ptxas' report of the sweep kernel's build: 0 bytes of spills."""
+    from tensorrl_qas_tpu_torch.ops.build import build
+
+    _card()
+    lines = build("fused_adam_v2_sweep")["log"].splitlines()
+    reports = [(ln, nxt) for ln, nxt in zip(lines, lines[1:])
+               if "Function properties for" in ln and "sweep_kernel" in ln]
+    assert len(reports) == 1, lines
+    assert "0 bytes spill stores, 0 bytes spill loads" in reports[0][1]
+
+
+@pytest.mark.gpu
 def test_register_tape_kernels_do_not_spill():
     """ptxas' report of the tape kernels' build: 0 bytes of spills in
     every kernel: the register kernels (fwd and bwd at RB = 3 and 4), the
@@ -1042,7 +1087,8 @@ def test_composed_graph_replays_the_eager_kernel_path(mode):
 @pytest.mark.gpu
 @pytest.mark.parametrize("config,kernel", [
     ("H2O8q_TNbond2", "fused_adam_step"),
-    ("LIH12q_TNbond2", "fused_adam_step2d")])
+    ("LIH12q_TNbond2", "fused_adam_step2d"),
+    ("heisenberg_20q_TNbond2", "fused_adam_step2d")])
 def test_sequential_adam_step_launches_the_fused_kernel_once(config, kernel):
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
 
@@ -1061,7 +1107,8 @@ def test_sequential_adam_step_launches_the_fused_kernel_once(config, kernel):
         torch.cuda.synchronize()
         after = [c.launches - b for c, b in zip(counters, before)]
         assert after == [int(c.__name__ == kernel) for c in counters]
-        assert np.isfinite(env.energy) and env.nfev == 5 * 8
+        assert np.isfinite(env.energy)
+        assert env.nfev == 5 * env.optimizer.n_starts
     # the kernel at E = 1 against its plain version
     if kernel == "fused_adam_step":
         step, plain = fused_adam.fused_adam_step, \
@@ -1070,9 +1117,13 @@ def test_sequential_adam_step_launches_the_fused_kernel_once(config, kernel):
     else:
         step, plain = fused_adam2d.fused_adam_step2d, \
             fused_adam2d.fused_adam_step2d_reference
-        args = _inputs2d(torch.device("cuda"), 12, n_env=1, cap=116)
+        args = _inputs2d(torch.device("cuda"), n, n_env=1,
+                         n_starts=env.optimizer.n_starts,
+                         cap=env.tape_capacity)
+    before = fused_adam2d.fused_adam_step2d.sweep_launches
     ok, _, _ = _held_to_plain(step, plain, args)
     assert bool(ok.all())
+    assert fused_adam2d.fused_adam_step2d.sweep_launches == before + (n > 18)
 
 
 def _noisy_cost_case(config, seed):
