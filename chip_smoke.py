@@ -6,7 +6,9 @@ TensorRL-fixed, TensorRL-trainable and StructureRL families, and through
 the composed engine with the su4 gate set and with shot noise; the
 sequential trainer (the CLI without --vector) with Adam, through both
 fused kernels at E = 1, and with COBYLA, on csim and, under noise,
-through B3f.
+through B3f; the tensor-network warm start (stages 0 and 1, the data tool
+with its circuit fit on the card) of the 8q H2O, 12q LiH and 20q
+Heisenberg trainers, which then train from it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
@@ -26,6 +28,10 @@ through B3f.
     python3 chip_smoke.py --plain-modes  # the plain version's time with
                                       # and without autograd's bookkeeping,
                                       # and its peak memory at 20q
+    python3 chip_smoke.py --warm-start  # the warm-start phases alone (25.),
+                                      # and the 20q fit's ms an iteration
+                                      # with its bricks one at a time and
+                                      # in runs
 
 The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
 cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.),
@@ -139,8 +145,8 @@ Phases, one line each with its seconds:
                  psi0 rows against the shared plane.
 6e. trainer v2 18q -- the trainer on configs/TensorRL_fixed/
                  heisenberg_18q_TNbond2.cfg with 8 replicas (the config's
-                 n_starts = 4) for 8 vector steps, traced; every step
-                 through the group kernel; replay does not start (8 x 4
+                 n_starts = 4) for 4 vector steps, traced; every step
+                 through the group kernel; replay does not start (8 x 0
                  transitions < batch 1000).
 6f. kernel v2 sweep -- the sweep kernel (fused_adam_v2_sweep) at 20q
                  Heisenberg at the trainer's shape (E = 8, S = 4, G = R =
@@ -187,7 +193,7 @@ Phases, one line each with its seconds:
                  samples differ; e_new equals the plain version's within
                  1e-5.
 11. trainer v1n -- the CLI's trainer on H2O8q_TNbond2_noise (depolarizing
-                 noise inferred from the name) with 128 replicas for 20
+                 noise inferred from the name) with 128 replicas for 12
                  vector steps, every step through the v1 noise variant.
 12. kernel v2n -- the v2 noise variant at LiH 12q (E = 16, S = 8, G = R =
                  116) at 3 and 100 iterations with the three controls and
@@ -195,7 +201,7 @@ Phases, one line each with its seconds:
                  times, then at 14q (E = 8, the cluster kernel, with the
                  three controls).
 13. trainer v2n -- the trainer on LIH12q_TNbond2 with --noise depolarizing,
-                 16 replicas, 20 vector steps, every step through the v2
+                 16 replicas, 10 vector steps, every step through the v2
                  noise variant.
 14. kernel v1 trainable -- v1 at configs/TensorRL_trainable/H2O8q_TNbond2's
                  capacities (E = 128, G = 172 gates, R = 151 angles; every
@@ -213,14 +219,14 @@ Phases, one line each with its seconds:
                  float32 trajectories part: no 100-iteration check).
 17. trainers v1 trainable / StructureRL / v1p -- the trainer on the
                  TensorRL_trainable/ and StructureRL/ H2O8q_TNbond2 configs
-                 (128 replicas, 6 vector steps, too few for replay),
+                 (128 replicas, 4 vector steps, too few for replay),
                  through v1 with shared psi0, then on the trainable config
                  with --block_coord 3 (12 vector steps: replay runs),
                  every step through v1 with per-env psi0.
 18. kernel v2 trainable, rows v2p, kernel v2p, trainer v2p -- 14.-17. for
                  v2 at TensorRL_trainable/LIH12q_TNbond2 (E = 16, G = 244,
                  R = 211), the trainer with --block_coord 3 and 16
-                 replicas for 12 vector steps.
+                 replicas for 6 vector steps.
 19. kernel tape -- the composed engine's forward (B3f) and adjoint (B3b)
                  tape kernels against their plain versions at the su4 8-qubit
                  shapes (E = 128, S = 8, G = R = 30, D = 256; random su4
@@ -263,8 +269,8 @@ Phases, one line each with its seconds:
                  H2O8q_TNbond2_noise_restricted (shot noise and the hexagon
                  topology inferred from the name), 128 replicas, and on
                  LIH12q_TNbond2 --gate_set su4 with 16 replicas (the wide
-                 kernels; replay is not reached: 16 x 2 transitions <
-                 batch 1000), 12 vector steps each at 8q and 6 at 12q,
+                 kernels; replay is not reached: 16 x 0 transitions <
+                 batch 1000), 12 vector steps each at 8q and 4 at 12q,
                  every step one replay
                  of the composed step's graph (the first its warm-up and
                  capture): every vector step launches B3f iters + 2 times
@@ -296,6 +302,26 @@ Phases, one line each with its seconds:
                  v2 launch each) and 2 COBYLA steps (no kernel); the noisy
                  cost check of 22. at 12q, with csim's ms an evaluation
                  beside B3f's device ms an evaluation on the same tape.
+25. warm start -- (after 22., before 3.) tools/generate_data.py
+                 in-process with --device cuda (chi 2, 2 brick layers,
+                 3000 Stiefel-Adam iterations, seed 0: the tool's
+                 defaults) into a temporary data directory, for 8q H2O and
+                 12q LiH (from their shipped npz) and 20q Heisenberg
+                 (npz and qasm): the pipeline's 1e-6 energy round trip,
+                 21 / 33 / 57 CNOTs, e_circuit within 1e-6 Ha of the
+                 shipped warm start's energy (the shipped qasm on the
+                 eager simulator on the card in complex128), each gap
+                 printed, with e_dmrg, the overlap, the gate counts and
+                 depth, the fit's wall s and device ms (CUDA events), the
+                 stages' wall s and the run's peak device memory; then
+                 the 8q fit again with its gradient conjugated (the JAX
+                 convention, through an identity autograd Function around
+                 the parameters), which must miss the shipped energy by
+                 more than 1e-6.  Trainer v1 (4.), trainer v2 (6.) and
+                 trainer v2 20q (6g.) then read that directory first
+                 (prepended to ``DATA_SEARCH_PATHS`` for the phase, which
+                 $TRLQAS_DATA_DIR set now would not reach: the list is
+                 read at import), the warm start resolving there.
 
 The line before the last is a JSON object with one entry per kernel
 variant (v1, v1 noise, v2, v2 noise, the v2 cluster, group and sweep
@@ -317,6 +343,7 @@ in the in_state families plus the warm start's gates and angles).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import shutil
@@ -340,7 +367,7 @@ V1_CONFIG, V1_ENVS, V1_STEPS = "H2O8q_TNbond2", 128, 20
 V2_CONFIG, V2_ENVS, V2_STEPS = "LIH12q_TNbond2", 16, 80
 V1_SMALL = ("heisenberg_5q_TNbond2", 64)      # v1 below 8 qubits
 V1N_CONFIG = "H2O8q_TNbond2_noise"            # noise inferred from the name
-V2N_STEPS = 20
+V2N_STEPS = 10
 V2N_SWEEP = (("heisenberg_14q_TNbond2", 8),)
 KRAUS_ENVS, KRAUS_P = 4096, (0.15, 0.25)
 # in_state placement: the 8q H2O configs with 128 replicas (v1), the 12q
@@ -348,10 +375,14 @@ KRAUS_ENVS, KRAUS_P = 4096, (0.15, 0.25)
 # steps, the fewest with which the 8q trainers' replay runs (20 before the
 # composed engine's phases needed the time)
 T_STEPS, BLOCK_COORD = 12, ("--block_coord", "3")
-# the untraced trainable and StructureRL trainers: 6 vector steps, too
+# the 12q block-coordinate trainer (replay not reached at 16 replicas) and
+# the 8q noisy one (12 steps: replay runs) cut to pay for the warm-start
+# phases
+V2P_STEPS, V1N_STEPS = 6, 12
+# the untraced trainable and StructureRL trainers: 4 vector steps, too
 # few for replay (the fixed 8q trainers and trainer v1p run it), so that
 # the sequential phases fit the deadline
-T_FAMILY_STEPS = 6
+T_FAMILY_STEPS = 4
 # the sequential trainer (the CLI without --vector): H2O8q_TNbond2 for two
 # episodes with a greedy test after the second, every step the v1 kernel
 # at E = 1; one COBYLA episode (csim on the host: no kernel); COBYLA on
@@ -378,7 +409,7 @@ TAPE_SHAPES = ((8, 128), (5, 64), (9, 64), (10, 64), (12, 16), (13, 8),
                (14, 64), (16, 4))
 TAPE_WOVEN = (12, 14)    # also on tapes woven with error Paulis
 TAPE_CAP = 30            # G = R of H2O8q_TNbond2 with the su4 warm start
-SU4_12_CONFIG, SU4_12_ENVS, SU4_12_STEPS = "LIH12q_TNbond2", 16, 6
+SU4_12_CONFIG, SU4_12_ENVS, SU4_12_STEPS = "LIH12q_TNbond2", 16, 4
 RESTRICTED_CONFIG = "H2O8q_TNbond2_noise_restricted"
 NOISY_CONFIG = "H2O8q_TNbond2_noise"
 # 12: the fewest vector steps with which the 8q replay runs (20 before the
@@ -418,10 +449,10 @@ BAND_SPLIT = ((CHAIN_QUBITS, 8), ("heisenberg_14q_TNbond2", 8),
 # that trade through global memory): checked and timed at 18q Heisenberg
 # with E = 2 (S = 8), checked at the 18q trainer's shape (E = 8, the
 # config's n_starts = 4) and on the 17q chain (E = 2); its trainer with 8
-# replicas (root bench.py's ROWS[18]) for 20 vector steps, too few for
-# replay to start (8 x 16 transitions < batch 1000; the 14q trainer runs
+# replicas (root bench.py's ROWS[18]) for 4 vector steps, too few for
+# replay to start (8 x 0 transitions < batch 1000; the 14q trainer runs
 # it); --split times its cluster sizes against each other
-V2G_ENVS, V2G_TRAINER_ENVS, V2G_STARTS, V2G_STEPS = 2, 8, 4, 8
+V2G_ENVS, V2G_TRAINER_ENVS, V2G_STARTS, V2G_STEPS = 2, 8, 4, 4
 GROUP_CLUSTERS = (2, 4, 8, 16)
 # the sweep kernel (19-20 qubits: every start's psi and lambda in device
 # memory, swept by a cooperative grid): checked at 3 iterations at 20q
@@ -439,6 +470,15 @@ V2S_CONFIG = "heisenberg_20q_TNbond2"
 V2S_ENVS, V2S_STARTS, V2S_VARIANT_ENVS, V2S_CHAIN_ENVS = 8, 4, 4, 2
 V2S_STEPS, SEQ_V2S_STEPS = 6, 2
 SWEEP_IN_STATE_STEPS = 2      # --sweep: the in_state 20q trainers
+# the warm start (stages 0 and 1: tools/generate_data.py, the fit on the
+# card in complex128) of the three trainers' configs, with the data tool's
+# defaults, into a temporary data directory that trainer v1, trainer v2 and
+# trainer v2 20q then read in place of the shipped files: (config, CNOTs
+# of the warm start); the molecules' Hamiltonians from their shipped npz
+WARM_STARTS = ((V1_CONFIG, 21), (V2_CONFIG, 33), (V2S_CONFIG, 57))
+WARM_FLAGS = ("--tn_bond", "2", "--layers", "2", "--maxiter", "3000",
+              "--seed", "0")
+TOL_WARM = 1e-6          # e_circuit (Ha) vs the shipped warm start's energy
 TOL_ITERS3 = 1e-5        # x_opt and e_new after 3 Adam iterations
 TOL_ITERS100 = 1e-4      # e_new (Ha) after 100 iterations: f32 summation
 #                          order perturbs the Adam trajectories
@@ -458,6 +498,7 @@ FP32_PEAK_FLOPS = 67e12  # H100 SXM, non-tensor-core float32
 HBM_BYTES_PER_S = 3.35e12
 
 _phase = ["start"]
+_TEMP_DIRS = []          # removed at exit, whatever the outcome
 
 
 def _expire():
@@ -2494,6 +2535,215 @@ def sequential_v2_sweep_phase(v2, v2s):
     return launches[v2s.name]
 
 
+def warm_problem(config):
+    """(ham_type, qubits, geometry, mapping) of TensorRL_fixed/``config``."""
+    from tensorrl_qas_tpu_torch.train.config import get_config
+
+    conf = get_config(FIXED, f"{config}.cfg")
+    prob = conf["problem"]
+    return (prob["ham_type"], conf["env"]["num_qubits"],
+            prob.get("geometry", ""), prob.get("mapping", "jordan_wigner"))
+
+
+def warm_start_phase(out_dir):
+    """The data tool (``tools/generate_data.py``, in-process, ``--device
+    cuda``) for each of WARM_STARTS into ``out_dir``: the pipeline's own
+    1e-6 round trip, the CNOT count, and e_circuit within TOL_WARM of the
+    shipped warm start's energy (the shipped qasm on the eager simulator
+    on the card in complex128); the fit's wall and device time and the
+    peak device memory of the run.  -> {config: (result, shipped energy,
+    Pauli strings, weights)}."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.circuits.qasm import load_circuit_tape
+    from tensorrl_qas_tpu_torch.problems.hamiltonians import (
+        resolve_warmstart_qasm,
+    )
+    from tensorrl_qas_tpu_torch.sim.expectation import PauliSum
+    from tensorrl_qas_tpu_torch.tn.pipeline import (
+        ROUND_TRIP_TOL,
+        tape_energy,
+    )
+    from tensorrl_qas_tpu_torch.tools import generate_data
+
+    out = {}
+    for config, cnots in WARM_STARTS:
+        label = f"warm start {config}"
+        t0 = phase(label)
+        ham, n, geom, mapping = warm_problem(config)
+        flags = ["--ham", ham, "--qubits", str(n), "--geometry", geom,
+                 "--mapping", mapping, *WARM_FLAGS, "--out", out_dir,
+                 "--device", "cuda"]
+        if ham != "heisenberg":
+            flags += ["--from-npz", resolve_npz(ham, n, geom, mapping)]
+        shipped = resolve_warmstart_qasm(ham, n, 2, geom, mapping)
+        torch.cuda.reset_peak_memory_stats()
+        res = generate_data.run(flags)["result"]
+        peak = torch.cuda.max_memory_allocated()
+        paulis, weights, _ = generate_data.problem_terms(
+            generate_data.build_parser().parse_args(flags))
+        ps = PauliSum.from_strings(paulis, weights, n)
+        e_shipped = tape_energy(load_circuit_tape(shipped), ps, "cuda")
+        gap = abs(res.e_circuit - e_shipped)
+        t = res.timings
+        checks = {
+            "round trip": abs(res.e_circuit - res.e_fit) <= ROUND_TRIP_TOL,
+            f"{cnots} CNOTs": res.cnot_count == cnots,
+            "shipped energy": gap <= TOL_WARM,
+        }
+        done(label, t0, qubits=n, e_dmrg=f"{res.e_dmrg:.12f}",
+             e_exact=res.e_exact, e_circuit=f"{res.e_circuit:.12f}",
+             round_trip_Ha=f"{abs(res.e_circuit - res.e_fit):.3e}",
+             e_shipped=f"{e_shipped:.12f}", gap_to_shipped_Ha=f"{gap:.3e}",
+             tol=TOL_WARM, overlap=f"{res.overlap:.9f}",
+             cnots=res.cnot_count, rotations=res.rotation_count,
+             depth=res.depth, fit_wall_s=f"{t['fit_s']:.3f}",
+             fit_device_ms=f"{t['fit_device_ms']:.1f}",
+             fit_device_ms_per_iteration=(
+                 f"{t['fit_device_ms'] / int(WARM_FLAGS[5]):.4f}"),
+             stages_s={k: round(v, 3) for k, v in t.items()
+                       if k.endswith("_s")},
+             peak_device_GiB=round(peak / 2**30, 3), checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"{label} checks failed: {checks}")
+        out[config] = (res, e_shipped, paulis, weights)
+    return out
+
+
+def warm_start_control(warm):
+    """The wrong-result control: the 8q H2O fit once more, the same DMRG
+    state, start and settings, with its gradient conjugated (the JAX
+    convention, which the port must not follow) by an identity autograd
+    Function around the parameters; its fitted circuit's energy must miss
+    the shipped warm start's by more than TOL_WARM."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.sim.expectation import (
+        PauliSum,
+        pauli_expectation,
+    )
+    from tensorrl_qas_tpu_torch.tn import circuit_fit as cf
+    from tensorrl_qas_tpu_torch.tn.dmrg import gs_dmrg
+    from tensorrl_qas_tpu_torch.tn.mpo import mpo_from_paulis
+    from tensorrl_qas_tpu_torch.tn.stiefel import StiefelAdam
+
+    class ConjugatedGradient(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g.conj()
+
+    t0 = phase("warm start control")
+    res, e_shipped, paulis, weights = warm[V1_CONFIG]
+    n = len(paulis[0])
+    ps = PauliSum.from_strings(paulis, weights, n)
+    _, mps = gs_dmrg(mpo_from_paulis(paulis, weights), chi=2, max_sweeps=6,
+                     seed=0)
+    target = cf.target_state(mps, "cuda")
+    pairs = cf.brickwork_pairs(n, 2)
+    params0 = torch.as_tensor(cf.initial_params(len(pairs), seed=0),
+                              dtype=cf.DTYPE, device="cuda")
+    loss = cf.overlap_loss(target, pairs, n)
+    opt = StiefelAdam(lr=1e-2, maxiter=int(WARM_FLAGS[5]))
+    params = opt.minimize(lambda p: loss(ConjugatedGradient.apply(p)),
+                          params0)
+    with torch.no_grad():
+        e_ctrl = float(pauli_expectation(
+            cf.circuit_state(params, pairs, n),
+            *ps.tensors("cuda", cf.DTYPE)))
+        overlap = 1.0 - float(loss(params))
+    gap = abs(e_ctrl - e_shipped)
+    done("warm start control", t0, e_fit_conjugated=f"{e_ctrl:.9f}",
+         overlap=f"{overlap:.6f}", gap_to_shipped_Ha=f"{gap:.3e}",
+         tol=TOL_WARM, fails_the_check=gap > TOL_WARM,
+         e_circuit_unconjugated=f"{res.e_circuit:.9f}")
+    if not gap > TOL_WARM:
+        raise AssertionError("the conjugated-gradient fit passed the "
+                             "shipped-energy check")
+
+
+def warm_start_bricks():
+    """(``--warm-start``) the 20q fit's device ms an iteration with its
+    bricks applied one at a time and in runs of BRICKS_PER_PRODUCT on
+    disjoint pairs (``tn/circuit_fit.py:_chain``): CUDA events around
+    fits of 100 and 400 iterations from the same start, their difference
+    over 300 (warm-up and capture cancel)."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.problems.hamiltonians import (
+        heisenberg_hamiltonian,
+    )
+    from tensorrl_qas_tpu_torch.tn import circuit_fit as cf
+    from tensorrl_qas_tpu_torch.tn.dmrg import gs_dmrg
+    from tensorrl_qas_tpu_torch.tn.mpo import mpo_from_paulis
+
+    t0 = phase("warm start bricks")
+    _, mps = gs_dmrg(mpo_from_paulis(*heisenberg_hamiltonian(20)), chi=2,
+                     seed=0)
+    runs, out = cf.BRICKS_PER_PRODUCT, {}
+    try:
+        for k in (1, runs):
+            cf.BRICKS_PER_PRODUCT = k
+            span = {}
+            for iters in (100, 400):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                cf.fit_mps_to_circuit(mps, 2, maxiter=iters, device="cuda")
+                ev[1].record()
+                torch.cuda.synchronize()
+                span[iters] = ev[0].elapsed_time(ev[1])
+            out[f"{k} a product"] = f"{(span[400] - span[100]) / 300:.4f}"
+    finally:
+        cf.BRICKS_PER_PRODUCT = runs
+    done("warm start bricks", t0, qubits=20,
+         fit_device_ms_per_iteration=out)
+
+
+def resolve_npz(ham, n, geom, mapping):
+    from tensorrl_qas_tpu_torch.problems.hamiltonians import (
+        problem_npz_name,
+        resolve_data_file,
+    )
+
+    return resolve_data_file(problem_npz_name(ham, n, geom, mapping))
+
+
+def warm_tempdir():
+    """A temporary data directory for the warm starts, outside the
+    checkout, removed when the script ends."""
+    path = tempfile.mkdtemp(prefix="trlqas_warm_")
+    _TEMP_DIRS.append(path)
+    return path
+
+
+@contextlib.contextmanager
+def warm_data(out_dir, config):
+    """``out_dir`` first on the port's data search path for the block
+    (``DATA_SEARCH_PATHS`` is read from $TRLQAS_DATA_DIR at import, so the
+    variable set now would not be seen), restored after; the config's
+    warm start (and, where the tool wrote one, its npz) must resolve
+    there."""
+    from tensorrl_qas_tpu_torch.problems import hamiltonians as h
+
+    ham, n, geom, mapping = warm_problem(config)
+    h.DATA_SEARCH_PATHS.insert(0, out_dir)
+    try:
+        qasm = h.resolve_warmstart_qasm(ham, n, 2, geom, mapping)
+        npz = resolve_npz(ham, n, geom, mapping)
+        if not qasm.startswith(out_dir) or (
+                ham == "heisenberg" and not npz.startswith(out_dir)):
+            raise AssertionError(f"{config}: the trainer would read "
+                                 f"{qasm} and {npz}, not {out_dir}")
+        print(f"[{config}] trains from {qasm} and {npz}", flush=True)
+        yield
+    finally:
+        h.DATA_SEARCH_PATHS.pop(0)
+
+
+
 class Builds:
     """One nvcc per kernel source (and one g++ per ``host`` source: csim),
     all started together when made;
@@ -3000,6 +3250,11 @@ def main(argv=()) -> int:
         sweep_in_state_trainers(v2, v2p, v2s)
         watchdog.cancel()
         return 0
+    if "--warm-start" in argv:
+        warm_start_control(warm_start_phase(warm_tempdir()))
+        warm_start_bricks()
+        watchdog.cancel()
+        return 0
     if "--split" in argv:
         builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
         builds.wait("apply_tape")
@@ -3024,12 +3279,17 @@ def main(argv=()) -> int:
     # the sequential trainer under COBYLA: csim, and B3f under noise
     builds.wait("csim")
     seq = {"apply_tape_fwd (cobyla noisy 8q)": cobyla_phases()}
+    # the warm starts of the three trainers below (stages 0 and 1 on the
+    # card), which then train from them
+    warm_dir = warm_tempdir()
+    warm_start_control(warm_start_phase(warm_dir))
     builds.wait("fused_adam_v1")
     results = {}
     results[v1], _ = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1")
-    results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
-                                            V1_STEPS, "trainer v1",
-                                            profile=True)[v1.name]
+    with warm_data(warm_dir, V1_CONFIG):
+        results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
+                                                V1_STEPS, "trainer v1",
+                                                profile=True)[v1.name]
     seq[f"{v1.name} (sequential v1)"], _ = sequential_v1_phases(v1)
     # what needs no fused_adam_v2 library goes first, while nvcc may still
     # build that source (the longest build): v1 below 8 qubits, with noise
@@ -3042,7 +3302,7 @@ def main(argv=()) -> int:
     p0_phase(v1, v1n, V1N_CONFIG, V1_ENVS)
     kraus_phase(v1n)
     results[v1n]["launches"] = trainer_phase(
-        v1n, V1N_CONFIG, V1_ENVS, V1_STEPS, "trainer v1n")[v1n.name]
+        v1n, V1N_CONFIG, V1_ENVS, V1N_STEPS, "trainer v1n")[v1n.name]
     # in_state placement: the kernels at the trainable capacities (G != R),
     # their per-env psi0 variants, and the trainers of both families
     _, case = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1 trainable",
@@ -3073,18 +3333,21 @@ def main(argv=()) -> int:
     results[v2s], _ = sweep_kernel_phase(v2, v2n, v2p, v2s)
     print(f"[trainer v2 20q] replay is not reached: {V2S_ENVS} replicas x "
           f"{V2S_STEPS - 4} transitions < batch 1000", flush=True)
-    results[v2s]["launches"] = trainer_phase(
-        v2s, V2S_CONFIG, V2S_ENVS, V2S_STEPS, "trainer v2 20q",
-        expect={v2.name: V2S_STEPS, v2s.name: V2S_STEPS},
-        expect_replay=False, profile=True)[v2s.name]
+    with warm_data(warm_dir, V2S_CONFIG):
+        results[v2s]["launches"] = trainer_phase(
+            v2s, V2S_CONFIG, V2S_ENVS, V2S_STEPS, "trainer v2 20q",
+            expect={v2.name: V2S_STEPS, v2s.name: V2S_STEPS},
+            expect_replay=False, profile=True)[v2s.name]
     seq[f"{v2s.name} (sequential v2 20q)"] = sequential_v2_sweep_phase(
         v2, v2s)
 
     builds.wait("fused_adam_v2")
     results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")
     sweep_phase(v2)
-    results[v2]["launches"] = trainer_phase(v2, V2_CONFIG, V2_ENVS,
-                                            V2_STEPS, "trainer v2")[v2.name]
+    with warm_data(warm_dir, V2_CONFIG):
+        results[v2]["launches"] = trainer_phase(
+            v2, V2_CONFIG, V2_ENVS, V2_STEPS, "trainer v2")[v2.name]
+    shutil.rmtree(warm_dir)
     seq[f"{v2.name} (sequential v2 12q)"], _, _ = sequential_v2_phases(v2)
     print(f"[sequential] launches on the sequential paths: {seq}",
           flush=True)
@@ -3118,7 +3381,7 @@ def main(argv=()) -> int:
                                    long_check=False, family=TRAINABLE,
                                    pre=pre.get(v2p.name))
     results[v2p]["launches"] = trainer_phase(
-        v2p, V2_CONFIG, V2_ENVS, T_STEPS, "trainer v2p", BLOCK_COORD,
+        v2p, V2_CONFIG, V2_ENVS, V2P_STEPS, "trainer v2p", BLOCK_COORD,
         expect_replay=False, family=TRAINABLE)[v2p.name]
     results = {e: results[e] for e in (v1, v2, v2c, v2g, v2s, v1n, v2n, v1p,
                                        v2p)}
@@ -3159,6 +3422,8 @@ if __name__ == "__main__":
         print(f"FAILED in phase {_phase[0]!r}", flush=True)
         traceback.print_exc()
         code = 1
+    for path in _TEMP_DIRS:
+        shutil.rmtree(path, ignore_errors=True)
     # leave without the interpreter's teardown (joining threads, releasing
     # the CUDA context, graphs and profiler state), whose hang would keep
     # the process past its deadline after its result is out

@@ -1,14 +1,14 @@
-"""Problem Hamiltonians: loading the reference's .npz corpus.
+"""Problem Hamiltonians and .npz interchange.
 
-Reads the reference's .npz schema verbatim (keys ``hamiltonian`` (dense,
+Reads and writes the reference's .npz schema verbatim (keys ``hamiltonian`` (dense,
 big-endian/kron order), ``eigvals``, ``weights``, ``paulis``,
 ``energy_shift`` — ``dmrg-to-qc/heisenberg_model.py:91-111``,
 ``dmrg-to-qc/making_molecules.py:105-140``) and locates the warm-start
 circuits.  Internally everything is little-endian Pauli-sum form (see
 sim/expectation.py); the stored dense matrix is endianness-converted at
-load time.  The data generators live in the JAX package
-(``tensorrl_qas_tpu/problems/hamiltonians.py``); this copy keeps what the
-port reads.
+load time.  The spin-model generators and the writers are the port's own
+copies of the JAX package's (``problems/hamiltonians.py``); the warm-start
+tool (``tools/generate_data.py``) uses them.
 """
 
 from __future__ import annotations
@@ -56,6 +56,118 @@ class Problem:
         return float(np.max(self.eigvals))
 
 
+def heisenberg_hamiltonian(n: int):
+    """XXX Heisenberg chain + uniform Z field (reference
+    ``dmrg-to-qc/heisenberg_model.py:7-74``): sum_i XX+YY+ZZ + sum_i Z_i.
+
+    Returns (paulis, weights) in the reference string convention.
+    """
+    paulis, weights = [], []
+    for i in range(n - 1):
+        # reference strings index the chain left-to-right from char 0, which
+        # we mirror here: site i of the chain = qubit n-1-i in little-endian.
+        for ch in "XYZ":
+            s = ["I"] * n
+            s[i] = ch
+            s[i + 1] = ch
+            paulis.append("".join(s))
+            weights.append(1.0)
+    for i in range(n):
+        s = ["I"] * n
+        s[i] = "Z"
+        paulis.append("".join(s))
+        weights.append(1.0)
+    return paulis, weights
+
+
+def tfim_hamiltonian(n: int, j: float = 1.0, h: float = 0.05):
+    """Transverse-field Ising chain: -J sum ZZ - h sum X (open chain)."""
+    paulis, weights = [], []
+    for i in range(n - 1):
+        s = ["I"] * n
+        s[i] = "Z"
+        s[i + 1] = "Z"
+        paulis.append("".join(s))
+        weights.append(-j)
+    for i in range(n):
+        s = ["I"] * n
+        s[i] = "X"
+        paulis.append("".join(s))
+        weights.append(-h)
+    return paulis, weights
+
+
+def dense_from_paulis(paulis, weights) -> np.ndarray:
+    """Dense matrix in the reference's kron order (char 0 = MSB)."""
+    n = len(paulis[0])
+    ps = PauliSum.from_strings(paulis, weights, n_qubits=n)
+    dense_le = ps.to_dense()
+    perm = bit_reversal_permutation(n)
+    return dense_le[np.ix_(perm, perm)]
+
+
+def _schema_spectrum(out: dict, paulis, weights, with_dense: bool,
+                     eigvals) -> None:
+    """The ``eigvals`` (and ``hamiltonian``) keys of the schema: the given
+    eigenvalues, or the dense spectrum (and matrix, in kron order)."""
+    if eigvals is not None:
+        out["eigvals"] = np.asarray(eigvals, dtype=np.float64)
+        return
+    n = len(paulis[0])
+    dense_le = PauliSum.from_strings(paulis, weights, n_qubits=n).to_dense()
+    out["eigvals"] = np.linalg.eigvalsh(dense_le)
+    if with_dense:
+        perm = bit_reversal_permutation(n)
+        out["hamiltonian"] = dense_le[np.ix_(perm, perm)]
+
+
+def save_problem_npz(path: str, paulis, weights, energy_shift: float = 0.0,
+                     with_dense: bool = True, eigvals=None,
+                     eigvals_method: str | None = None) -> None:
+    """Emit the reference .npz schema for a Pauli-sum problem.
+
+    ``eigvals``: pass precomputed (possibly partial) eigenvalues for sizes
+    where dense diagonalization is infeasible (n >~ 14; DMRG extremal
+    values suffice — min/max_eig are all the loader consumes, and the
+    schema explicitly allows partial spectra, see load_problem).
+    ``eigvals_method``: provenance of a partial spectrum (e.g. "dmrg_chi8")
+    stored as an extra key so downstream error metrics against min_eig are
+    interpretable; ignored by the reference schema consumers."""
+    out = {
+        "weights": np.asarray(weights, dtype=np.float64),
+        "paulis": np.asarray(paulis),
+        "energy_shift": energy_shift,
+    }
+    if eigvals_method is not None:
+        out["eigvals_method"] = np.asarray(eigvals_method)
+    _schema_spectrum(out, paulis, weights, with_dense, eigvals)
+    np.savez(path, **out)
+
+
+def save_problem_pickle(path: str, paulis, weights,
+                        energy_shift: float = 0.0,
+                        with_dense: bool = True, eigvals=None) -> None:
+    """Emit the reference's ``.p`` pickle twin of the .npz schema.
+
+    The reference's ``making_molecules.py:105-140`` dumps the SAME
+    ``complete_dict`` both ways — ``pickle.dump`` to ``<stem>.p`` and
+    ``np.savez`` to ``<stem>.npz`` — with keys ``hamiltonian`` (dense, in
+    its kron order, char 0 = MSB), ``eigvals`` (real parts), ``weights``,
+    ``paulis`` and ``energy_shift``.  Dense/eigvals follow the same
+    feasibility rules as :func:`save_problem_npz`.
+    """
+    import pickle
+
+    out = {
+        "weights": [float(w) for w in np.asarray(weights, dtype=np.float64)],
+        "paulis": [str(p) for p in paulis],
+        "energy_shift": energy_shift,
+    }
+    _schema_spectrum(out, paulis, weights, with_dense, eigvals)
+    with open(path, "wb") as fh:
+        pickle.dump(out, fh, protocol=pickle.HIGHEST_PROTOCOL)
+
+
 def pauli_decompose(dense_le: np.ndarray, tol: float = 1e-8):
     """Exact Pauli-basis decomposition of a little-endian Hermitian matrix.
 
@@ -94,7 +206,7 @@ def resolve_data_file(relpath: str) -> str:
             return cand
     raise FileNotFoundError(
         f"{relpath} not found under any of {DATA_SEARCH_PATHS}; set "
-        "TRLQAS_DATA_DIR or run scripts/generate_data.py"
+        "TRLQAS_DATA_DIR or run tools/generate_data.py"
     )
 
 
@@ -209,7 +321,7 @@ def resolve_warmstart_qasm(ham_type: str, n_qubits: int, tn_bond: int,
             raise FileNotFoundError(
                 f"gate_set='su4' with tn_placement='in_state' requires "
                 f"an su4-basis warm start ({su4_rel}); generate one with "
-                f"scripts/generate_data.py --basis su4")
+                f"tools/generate_data.py --basis su4")
         return _resolve_qasm_or_qpy(rel)
 
 
@@ -223,4 +335,4 @@ def _resolve_qasm_or_qpy(rel: str) -> str:
             raise FileNotFoundError(
                 f"{rel} (or its .qpy twin) not found under any of "
                 f"{DATA_SEARCH_PATHS}; set TRLQAS_DATA_DIR or run "
-                "scripts/generate_data.py") from None
+                "tools/generate_data.py") from None

@@ -78,7 +78,14 @@ plain version; the noisy COBYLA cost
 (``AngleOptimizer.kernel_energy_fn``: one B3f launch an evaluation) equals
 the eager complex128 simulator on the same woven draw within 1e-5 at 8
 and 12 qubits, while a dropped error Pauli or a shifted angle exceeds
-it."""
+it.
+
+The tensor-network warm start's stage 1 on the card (``tn/``): the 8q H2O
+warm start with its fit on the card (one CUDA graph an iteration) gives
+the CPU's e_circuit and overlap to 1e-8; the graph gives the eager loop's
+loss history and unitaries on the card to 1e-12; ``gs_autodiff`` at 8q on
+the card gives the CPU's energy history to 1e-8; and no tensor the fit or
+``gs_autodiff`` makes on the card is complex64 or float32."""
 
 import numpy as np
 import pytest
@@ -1188,3 +1195,116 @@ def test_noisy_cobyla_cost_matches_eager_on_the_same_draw(config):
     shifted[tape.n_rots - 1] += 0.1
     assert abs(energy(shifted, draws[0]) - opt.plain_energy(
         psi0, tape.arrays(), x, draws[0])) > 1e-5
+
+
+# -- the tensor-network warm start (stage 1 on the card) --------------------
+
+def _h2o_8q_terms():
+    import glob
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    path = glob.glob(str(repo / "data/mol_data/H2O_8q_geom_*.npz"))[0]
+    raw = np.load(path, allow_pickle=True)
+    return ([str(p) for p in raw["paulis"]],
+            np.asarray(np.real(raw["weights"]), dtype=np.float64))
+
+
+@pytest.mark.gpu
+def test_warm_start_on_the_card_matches_the_cpu():
+    """build_warmstart for 8q H2O (chi 2, 2 layers, maxiter 3000): the fit
+    on the card (a CUDA graph an iteration, complex128) gives the CPU's
+    e_circuit and overlap to 1e-8 and the same gate counts."""
+    from tensorrl_qas_tpu_torch.tn.pipeline import build_warmstart
+
+    _card()
+    paulis, weights = _h2o_8q_terms()
+    kw = dict(chi=2, n_layers=2, maxiter=3000, seed=0)
+    card = build_warmstart(paulis, weights, device="cuda", **kw)
+    cpu = build_warmstart(paulis, weights, device="cpu", **kw)
+    assert abs(card.e_circuit - cpu.e_circuit) < 1e-8
+    assert abs(card.overlap - cpu.overlap) < 1e-8
+    assert (card.cnot_count, card.rotation_count) == (cpu.cnot_count,
+                                                      cpu.rotation_count)
+    assert card.timings["fit_device_ms"] > 0
+
+
+@pytest.mark.gpu
+def test_fit_graph_replays_the_eager_fit():
+    """The fit's CUDA graph (one capture, replayed every iteration) and
+    the eager loop on the card give the same loss history and unitaries
+    to 1e-12 over 200 iterations (8q H2O's DMRG state)."""
+    from tensorrl_qas_tpu_torch.tn.circuit_fit import fit_mps_to_circuit
+    from tensorrl_qas_tpu_torch.tn.dmrg import gs_dmrg
+    from tensorrl_qas_tpu_torch.tn.mpo import mpo_from_paulis
+
+    _card()
+    _, mps = gs_dmrg(mpo_from_paulis(*_h2o_8q_terms()), chi=2, seed=0)
+    graph = fit_mps_to_circuit(mps, 2, maxiter=200, device="cuda")
+    eager = fit_mps_to_circuit(mps, 2, maxiter=200, device="cuda",
+                               graph=False)
+    np.testing.assert_allclose(graph[3], eager[3], atol=1e-12, rtol=0)
+    assert abs(graph[2] - eager[2]) < 1e-12
+    assert torch.allclose(graph[0], eager[0], atol=1e-12, rtol=0)
+
+
+@pytest.mark.gpu
+def test_gs_autodiff_on_the_card_matches_the_cpu():
+    """gs_autodiff at 8q (the Heisenberg chain, chi 2, 300 Adam steps):
+    the card's energy history equals the CPU's to 1e-8."""
+    from tensorrl_qas_tpu_torch.problems.hamiltonians import (
+        heisenberg_hamiltonian,
+    )
+    from tensorrl_qas_tpu_torch.tn.autodiff_gs import gs_autodiff
+    from tensorrl_qas_tpu_torch.tn.mpo import mpo_from_paulis
+
+    _card()
+    mpo = mpo_from_paulis(*heisenberg_hamiltonian(8))
+    e_card, _, h_card = gs_autodiff(mpo, chi=2, opt_steps=300, seed=0,
+                                    device="cuda")
+    e_cpu, _, h_cpu = gs_autodiff(mpo, chi=2, opt_steps=300, seed=0,
+                                  device="cpu")
+    np.testing.assert_allclose(h_card, h_cpu, atol=1e-8, rtol=0)
+    assert abs(e_card - e_cpu) < 1e-8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("graph", [True, False])
+def test_stage1_on_the_card_is_double_precision(graph):
+    """Every tensor that the fit (8q H2O, 20 iterations, with and without
+    the CUDA graph) and gs_autodiff (8q, 20 steps) make on the card is
+    complex128, float64, an integer or a bool: none is complex64 or
+    float32 (the trainer's dtype policy is not stage 1's)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from tensorrl_qas_tpu_torch.problems.hamiltonians import (
+        heisenberg_hamiltonian,
+    )
+    from tensorrl_qas_tpu_torch.tn.autodiff_gs import gs_autodiff
+    from tensorrl_qas_tpu_torch.tn.circuit_fit import fit_mps_to_circuit
+    from tensorrl_qas_tpu_torch.tn.dmrg import gs_dmrg
+    from tensorrl_qas_tpu_torch.tn.mpo import mpo_from_paulis
+
+    class Dtypes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.seen.update(t.dtype for t in tree_leaves(out)
+                             if isinstance(t, torch.Tensor) and t.is_cuda)
+            return out
+
+    _card()
+    _, mps = gs_dmrg(mpo_from_paulis(*_h2o_8q_terms()), chi=2, seed=0)
+    mpo = mpo_from_paulis(*heisenberg_hamiltonian(8))
+    with Dtypes() as mode:
+        params, _, _, _ = fit_mps_to_circuit(mps, 2, maxiter=20,
+                                             device="cuda", graph=graph)
+        gs_autodiff(mpo, chi=2, opt_steps=20, seed=0, device="cuda")
+    assert params.dtype == torch.complex128
+    assert {torch.complex128, torch.float64} <= mode.seen
+    assert not mode.seen & {torch.complex64, torch.float32, torch.float16,
+                            torch.bfloat16}, mode.seen
