@@ -8,7 +8,8 @@ sequential trainer (the CLI without --vector) with Adam, through both
 fused kernels at E = 1, and with COBYLA, on csim and, under noise,
 through B3f; the tensor-network warm start (stages 0 and 1, the data tool
 with its circuit fit on the card) of the 8q H2O, 12q LiH and 20q
-Heisenberg trainers, which then train from it.
+Heisenberg trainers, which then train from it; and the multi-device
+path (an (amp, dp) mesh of devices, every shard on this one card) at 20q.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
@@ -32,6 +33,11 @@ Heisenberg trainers, which then train from it.
                                       # and the 20q fit's ms an iteration
                                       # with its bricks one at a time and
                                       # in runs
+    python3 chip_smoke.py --mesh      # the sharded path's phase alone
+                                      # (26.), with the sharded step's
+                                      # timings at 20q and 22q
+    python3 chip_smoke.py --mesh --cards  # the same with the shards on
+                                      # the host's cards in turn
 
 The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
 cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.),
@@ -322,6 +328,39 @@ Phases, one line each with its seconds:
                  (prepended to ``DATA_SEARCH_PATHS`` for the phase, which
                  $TRLQAS_DATA_DIR set now would not reach: the list is
                  read at import), the warm start resolving there.
+26. mesh      -- (after 6h.) the sharded path (``parallel/``,
+                 ``optim/sharded_opt.py``) with every shard on cuda:0
+                 (``mesh_devices``): (a) the 20q Heisenberg warm start's
+                 energy through ``ShardedSimulator.expectation`` on (2 amp
+                 x 4 dp) against the eager simulator on one device, both
+                 complex128, within 1e-10; (b) ``value_and_grad_batched``
+                 at 20q on (4 amp x 2 dp), complex128, 2 rows from the
+                 warm start's state on a 46-gate tape (CNOTs, rotations,
+                 controlled rotations, every fourth target a device bit)
+                 at random angles against the
+                 single-device adjoint (``sim/adjoint.py``), energy and
+                 gradient within 1e-10; an exchange across the wrong
+                 device bit and a psum without amp shard 1 must miss it;
+                 (c) a sharded fused step (complex64, E = 1, S = 4, a
+                 start a dp column, restart_scale 0, 3 iterations) against
+                 the sweep kernel at E = 1 on the same starts
+                 (``agreement``, the kernel's run as reference, 1e-5);
+                 (d) a CircuitEnv and a 2-replica VectorCircuitEnv of the
+                 20q config (TensorRL-fixed) on (2, 4) and a CircuitEnv on
+                 (1, 1), 2 Adam iterations, driven by the DQN agent (cut to
+                 2 x 64 hidden units and 64 replay rows) for 2 steps (1 on
+                 (1, 1)): energies finite and within the spectrum, no
+                 fused kernel launched; (f) ``parallel/dryrun.py:
+                 dryrun_multichip(8, ["cuda:0"] * 8)``; (e) a 22q open
+                 Heisenberg chain on (4 amp x 2 dp) from |0>, (b)'s check
+                 without the controls, with its peak device memory.  With
+                 ``--mesh`` also the sharded path's ms, launches and
+                 device ms an Adam iteration (one adjoint sweep) and a
+                 3-iteration step (20q on (2, 4), 22q on (4, 2),
+                 complex64, 4 starts).  No kernel
+                 of this PR: the sharded path is PyTorch operations, the
+                 port of the JAX package's XLA code, and the kernels line
+                 keeps its entries.
 
 The line before the last is a JSON object with one entry per kernel
 variant (v1, v1 noise, v2, v2 noise, the v2 cluster, group and sweep
@@ -3200,6 +3239,429 @@ def plain_memory(v2s):
     done("plain memory", t0, peak_GiB_over_inputs=gib)
 
 
+# 26. the sharded path (parallel/, optim/sharded_opt.py) on the card, every
+# shard on cuda:0 (a mesh's devices may repeat one): the largest shipped
+# config at full width on (2 amp x 4 dp); the adjoint check on (4 amp x 2
+# dp), whose two device bits give the wrong-bit control another bit
+MESH_CONFIG, MESH_SHAPE, MESH_VAG_SHAPE = V2S_CONFIG, (2, 4), (4, 2)
+MESH_ROWS = 2            # (b) / (e): angle vectors, one a dp column
+MESH_STARTS = 4          # (c): the 20q config's n_starts, one a dp column
+MESH_ITERS = 2           # (d): Adam iterations an env step
+MESH_ENV_STEPS = 2       # (d): steps of each env
+MESH_BIG = 22            # (e): past the fused kernels' 20 qubits
+TOL_MESH = 1e-10         # complex128 sharded vs one device
+
+
+MESH_CARDS = [1]          # --cards: the host's cards the shards cycle over
+
+
+def mesh_devices(mesh_shape):
+    """The shards' devices: cuda:0 for every shard, or with ``--cards``
+    the host's cards in turn (two shards a card on four cards)."""
+    return tuple(f"cuda:{i % MESH_CARDS[0]}"
+                 for i in range(mesh_shape[0] * mesh_shape[1]))
+
+
+def mesh_label(mesh_shape):
+    where = ("cuda:0" if MESH_CARDS[0] == 1
+             else f"{MESH_CARDS[0]} cards in turn")
+    return f"{mesh_shape[0]} amp x {mesh_shape[1]} dp on {where}"
+
+
+def mesh_of(mesh_shape, cls=None):
+    from tensorrl_qas_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    mesh = make_mesh(*mesh_shape, devices=mesh_devices(mesh_shape))
+    return mesh if cls is None else cls(mesh.devices)
+
+
+def faulty_meshes():
+    """Meshes whose collectives are wrong on purpose: an exchange across
+    another device bit than the gate's, and a psum that leaves out amp
+    shard 1.  The check must reject both."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.parallel.mesh import Mesh
+
+    class WrongBit(Mesh):
+        def ppermute(self, blocks, axis, perm):
+            perm = list(perm)
+            m = perm[0][0] ^ perm[0][1]
+            if axis == "amp" and m and not m & (m - 1):
+                other = m << 1 if m << 1 < self.shape["amp"] else m >> 1
+                perm = [(r, r ^ other) for r in range(self.shape["amp"])]
+            return super().ppermute(blocks, axis, perm)
+
+    class DropShard(Mesh):
+        def psum(self, parts, axis):
+            if axis == "amp":
+                parts = [[torch.zeros_like(p) for p in line] if a == 1
+                         else line for a, line in enumerate(parts)]
+            return super().psum(parts, axis)
+
+    return {"exchange across the wrong device bit": WrongBit,
+            "psum without amp shard 1": DropShard}
+
+
+def mesh_config():
+    """The mesh config's problem, its fixed-placement env settings and
+    its warm-start tape."""
+    from tensorrl_qas_tpu_torch.circuits.qasm import load_circuit_tape
+    from tensorrl_qas_tpu_torch.envs.circuit_env import EnvConfig
+    from tensorrl_qas_tpu_torch.problems.hamiltonians import (
+        load_problem,
+        resolve_warmstart_qasm,
+    )
+    from tensorrl_qas_tpu_torch.train.config import get_config
+
+    conf = get_config(FIXED, f"{MESH_CONFIG}.cfg")
+    cfg = EnvConfig.from_conf(conf, tn_placement="fixed", device="cuda")
+    n = cfg.num_qubits
+    prob = load_problem(cfg.ham_type, n, cfg.geometry, cfg.mapping,
+                        keep_dense=False)
+    warm = load_circuit_tape(resolve_warmstart_qasm(
+        cfg.ham_type, n, cfg.tn_bond, cfg.geometry, cfg.mapping))
+    return conf, cfg, prob, warm
+
+
+def mesh_tape(rng, n, cap):
+    """A tape of ``cap`` gates: CNOTs, rotations and controlled rotations
+    over every qubit, every fourth gate's target on one of the two top
+    qubits (device bits on 2 and 4 amp shards)."""
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
+
+    tape = GateTape(n, cap, cap)
+    for g in range(cap):
+        t = int(n - 1 - rng.integers(2)) if g % 4 == 0 else int(
+            rng.integers(n))
+        c = int((t + 1 + rng.integers(n - 1)) % n)
+        u = rng.random()
+        if u < 0.35:
+            tape.add_cx(c, t)
+        else:
+            kind = GateKind(int(rng.integers(1, 4)))
+            tape.add(kind, t, c if u > 0.85 else -1, float(rng.normal()))
+    return tape
+
+
+def mesh_energy_phase(cfg, prob, warm):
+    """(a) The shipped warm start through ShardedSimulator.expectation on
+    (2 amp x 4 dp) against the eager simulator on one device, both
+    complex128 on the card.  -> the warm-start state (one device)."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.parallel.sharded_sim import ShardedSimulator
+    from tensorrl_qas_tpu_torch.sim.apply import apply_tape, zero_state
+    from tensorrl_qas_tpu_torch.sim.expectation import pauli_expectation
+
+    n = cfg.num_qubits
+    t0 = phase("mesh warm start energy")
+    sim = ShardedSimulator(mesh_of(MESH_SHAPE), n, prob.pauli,
+                           dtype=torch.complex128)
+    e_mesh = float(sim.expectation(sim.apply_tape(
+        sim.zero_state(), *warm.arrays(), warm.x0())))
+    psi = apply_tape(zero_state(n, torch.complex128, "cuda"),
+                     *warm.arrays(), warm.x0())
+    e_one = float(pauli_expectation(psi, *prob.pauli.tensors(
+        "cuda", torch.complex128)))
+    err = abs(e_mesh - e_one)
+    ok = err <= TOL_MESH
+    done("mesh warm start energy", t0, config=MESH_CONFIG,
+         mesh=mesh_label(MESH_SHAPE),
+         e_mesh_Ha=f"{e_mesh:.12f}", e_one_device_Ha=f"{e_one:.12f}",
+         abs_err=f"{err:.3e}", tol=TOL_MESH, ok=ok)
+    if not ok:
+        raise AssertionError(f"sharded warm-start energy off by {err:.3e}")
+    return psi
+
+
+def mesh_vag_phase(n, pauli, label, psi0, controls=True):
+    """(b) / (e) value_and_grad_batched in complex128 on (4 amp x 2 dp)
+    from ``psi0`` (a state on the card) at MESH_ROWS angle vectors
+    against the single-device adjoint (``sim/adjoint.py``) a row, energy
+    and gradient within TOL_MESH; with ``controls`` the faulty meshes
+    must miss it.  Prints the peak device memory."""
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.parallel.sharded_sim import (
+        ShardedSimulator,
+        shard_state,
+    )
+    from tensorrl_qas_tpu_torch.sim.adjoint import adjoint_energy
+
+    t0 = phase(label)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(1234)
+    tape = mesh_tape(rng, n, 46)
+    angles = rng.normal(size=(MESH_ROWS, tape.rot_capacity))
+    psi0 = psi0.to(torch.complex128).expand(MESH_ROWS, -1)
+
+    def vag(mesh):
+        sim = ShardedSimulator(mesh, n, pauli, dtype=torch.complex128)
+        ev, gr = sim.value_and_grad_batched(shard_state(psi0, mesh),
+                                            *tape.arrays(), angles)
+        return ev.double(), gr.double()
+
+    t1 = time.perf_counter()
+    ev, gr = vag(mesh_of(MESH_VAG_SHAPE))
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t1
+    sharded_gib = torch.cuda.max_memory_allocated() / 2**30
+    pauli_t = pauli.tensors("cuda", torch.complex128)
+    e_ref, g_ref = [], []
+    for i in range(MESH_ROWS):
+        x = torch.as_tensor(angles[i], device="cuda").requires_grad_(True)
+        e = adjoint_energy(psi0[i], *tape.arrays(), x, *pauli_t)
+        e.backward()
+        e_ref.append(e.detach())
+        g_ref.append(x.grad)
+    e_ref, g_ref = torch.stack(e_ref), torch.stack(g_ref)
+
+    def error(e, g):
+        return max(float((e - e_ref).abs().max()),
+                   float((g - g_ref).abs().max()))
+    err = error(ev, gr)
+    caught = {}
+    if controls:
+        for name, cls in faulty_meshes().items():
+            caught[name] = f"{error(*vag(mesh_of(MESH_VAG_SHAPE, cls))):.3e}"
+    ok = (err <= TOL_MESH and bool(torch.isfinite(gr).all())
+          and all(float(v) > TOL_MESH for v in caught.values()))
+    done(label, t0, n=n, mesh=mesh_label(MESH_VAG_SHAPE), rows=MESH_ROWS,
+         G=tape.n_gates,
+         e_ref_Ha=[f"{float(v):.10f}" for v in e_ref],
+         max_abs_err=f"{err:.3e}", tol=TOL_MESH,
+         controls_max_abs_err=caught, sharded_vag_s=f"{mesh_s:.2f}",
+         sharded_peak_device_GiB=f"{sharded_gib:.3f}",
+         peak_device_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+         card=smi_line(), ok=ok)
+    if not ok:
+        raise AssertionError(f"{label}: sharded vag off by {err:.3e}, "
+                             f"controls {caught}")
+
+
+def mesh_sweep_phase(v2s):
+    """(c) A sharded fused step (complex64, E = 1, S = 4, a start a dp
+    column, restart_scale 0, 3 iterations) on (2 amp x 4 dp) against the
+    sweep kernel at E = 1 on the same starts, by ``agreement`` with the
+    kernel's result as the reference run."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam
+    from tensorrl_qas_tpu_torch.optim.angle_opt import make_multistarts
+    from tensorrl_qas_tpu_torch.optim.sharded_opt import (
+        ShardedAngleOptimizer,
+    )
+
+    t0 = phase("mesh step vs sweep kernel")
+    case = Case(v2s, V2S_CONFIG, 1, n_starts=MESH_STARTS)
+    active = case.args[9][:, 0, :]
+    x0 = case.args[8][:, 0, :]                  # start 0 is the warm start
+    starts = make_multistarts(
+        x0, active, MESH_STARTS, MESH_STARTS // 4, 0.0,
+        torch.Generator(device=x0.device).manual_seed(7)).contiguous()
+    args = (*case.args[:8], starts, case.args[9])
+    before = (v2s.step.launches, v2s.step.sweep_launches)
+    xk, ek = v2s.step(*args, iters=3, lr=LR)
+    swept = (v2s.step.launches - before[0],
+             v2s.step.sweep_launches - before[1])
+    opt = ShardedAngleOptimizer(mesh_of(MESH_SHAPE), case.n,
+                                case.prob.pauli, iters=3,
+                                n_starts=MESH_STARTS, lr=LR,
+                                restart_scale=0.0)
+    psi0 = torch.as_tensor(case.psi0[0], dtype=torch.complex64,
+                           device="cuda")
+    old = tuple(a[0] for a in case.old)
+    new = tuple(a[0] for a in case.new)
+    x_s, e_s, nfev = opt.fused_step(psi0, old, x0[0].cpu().numpy(),
+                                    int(active[0].sum()), new,
+                                    case.maps[0])
+    x_s = torch.as_tensor(x_s, device="cuda")[None]
+    e_s = torch.as_tensor([e_s - case.opt.offset], dtype=torch.float32,
+                          device="cuda")
+    env_ok, strict, stats = fused_adam.agreement(
+        args, [(xk, ek)], x_s, e_s, tol=TOL_ITERS3, step=v2s.plain,
+        iters=3)
+    ok = bool(env_ok.all()) and swept == (1, 1) and nfev == 3 * MESH_STARTS
+    done("mesh step vs sweep kernel", t0, config=V2S_CONFIG,
+         mesh=mesh_label(MESH_SHAPE),
+         G=case.g, R=case.r, S=MESH_STARTS, iters=3,
+         e_new_sharded_Ha=f"{float(e_s[0]):.7f}",
+         e_new_sweep_kernel_Ha=f"{float(ek[0]):.7f}", tol=TOL_ITERS3,
+         strict=bool(strict.all()), **stats, sweep_launches=swept[1], ok=ok)
+    if not ok:
+        raise AssertionError(f"sharded step disagrees with the sweep "
+                             f"kernel: {stats}, launches {swept}")
+
+
+def mesh_env_phase(conf, cfg, prob):
+    """(d) CircuitEnv and a 2-replica VectorCircuitEnv on the mesh config
+    (TensorRL-fixed) with mesh_shape (2, 4), a (1, 1) env too, driven by
+    the DQN agent at MESH_ITERS Adam iterations: finite energies within
+    the config's spectrum, and no fused kernel launched."""
+    import dataclasses
+
+    import numpy as np
+
+    from tensorrl_qas_tpu_torch.agents.dqn import make_agent
+    from tensorrl_qas_tpu_torch.envs.circuit_env import CircuitEnv
+    from tensorrl_qas_tpu_torch.envs.vector_env import VectorCircuitEnv
+    from tensorrl_qas_tpu_torch.optim.sharded_opt import (
+        ShardedAngleOptimizer,
+    )
+    from tensorrl_qas_tpu_torch.train.vector_driver import modify_states
+
+    t0 = phase("mesh envs")
+    # the agent cut as the dry run cuts it: its 5 x 1000 network on the
+    # 34,840-wide 20q state takes ~3.5 s to build on the host (the 20q
+    # trainer phases build it), and the replay buffer to 64 rows (the
+    # config's takes 5.6 GB)
+    conf["agent"]["neurons"] = [64, 64]
+    conf["agent"]["memory_size"] = 64
+    variants = engines()
+    for e in variants:
+        e.reset()
+    base = dataclasses.replace(cfg, global_iters=MESH_ITERS)
+    energies = {}
+    agent = None
+    for label, shape in ((f"env {MESH_SHAPE}", MESH_SHAPE),
+                         ("env (1, 1)", (1, 1))):
+        env = CircuitEnv(dataclasses.replace(
+            base, mesh_shape=shape, mesh_devices=mesh_devices(shape)))
+        if not isinstance(env.optimizer, ShardedAngleOptimizer):
+            raise AssertionError(f"{label}: not on the sharded path")
+        agent = agent or make_agent(conf, env.action_size, env.state_size,
+                                    seed=0, device="cuda")
+        state = env.reset()
+        es = [env.prev_energy]
+        for _ in range(MESH_ENV_STEPS if shape != (1, 1) else 1):
+            a, _ = agent.act(state, env.illegal_action_new())
+            state, _, _ = env.step(agent.translate[a])
+            es.append(env.energy)
+        energies[label] = es
+    venv = VectorCircuitEnv(dataclasses.replace(
+        base, mesh_shape=MESH_SHAPE, mesh_devices=mesh_devices(MESH_SHAPE)),
+        n_envs=2)
+    states = modify_states(venv.reset_all(), venv, conf)
+    es = [[e.prev_energy for e in venv.envs]]
+    for _ in range(MESH_ENV_STEPS):
+        actions, _ = agent.act_batch(states, venv.illegal_actions())
+        nxt, rewards, dones, infos = venv.step_all(
+            [agent.translate[int(a)] for a in actions])
+        nxt = modify_states(nxt, venv, conf)
+        for i in range(venv.n_envs):
+            agent.remember(states[i], int(actions[i]), float(rewards[i]),
+                           nxt[i], float(dones[i]), env_id=i + 1)
+        states = nxt
+        es.append([i["energy"] for i in infos])
+    energies["vector env 2 replicas"] = es
+    flat = np.asarray([v for es in energies.values()
+                       for v in np.ravel(es)])
+    launches = {e.name: e.launches() for e in variants}
+    checks = {"finite": bool(np.isfinite(flat).all()),
+              "within the spectrum": bool(
+                  (flat >= prob.min_eig - 1e-4).all()
+                  and (flat <= prob.max_eig + 1e-4).all()),
+              "no fused kernel": not any(launches.values())}
+    done("mesh envs", t0, config=f"{FIXED}{MESH_CONFIG}",
+         iters=MESH_ITERS, n_starts=venv.optimizer.n_starts,
+         energies_Ha={k: np.round(np.asarray(v), 6).tolist()
+                      for k, v in energies.items()},
+         min_eig=f"{prob.min_eig:.6f}", checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"mesh envs: {checks}")
+
+
+def mesh_timing(n, pauli, shape, label):
+    """The sharded path's time at 4 starts (complex64, a 46-gate tape
+    from |0>): an Adam iteration's sweep (``value_and_grad_batched``; the
+    median of 5 by CUDA events), its launches and device ms (one traced
+    sweep: the busy share is device ms / ms), and a whole 3-iteration
+    fused step (the median of 3) with its launches; the peak device
+    memory."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorrl_qas_tpu_torch.optim.sharded_opt import (
+        ShardedAngleOptimizer,
+    )
+
+    t0 = phase(label)
+    torch.cuda.reset_peak_memory_stats()
+    opt = ShardedAngleOptimizer(mesh_of(shape), n, pauli, iters=3,
+                                n_starts=MESH_STARTS, lr=LR)
+    tape = mesh_tape(np.random.default_rng(7), n, 46)
+    ident = np.arange(tape.rot_capacity, dtype=np.int32)
+    psi0_b = opt._psi0_batched(None)
+    x = torch.as_tensor(np.tile(tape.x0(), (MESH_STARTS, 1)),
+                        dtype=opt.rdtype, device="cuda")
+
+    def sweep():
+        return opt.sim.value_and_grad_batched(psi0_b, *tape.arrays(), x)
+
+    def step():
+        return opt.fused_step(None, tape.arrays(), tape.x0(), tape.n_rots,
+                              tape.arrays(), ident)
+
+    def traced(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == torch.autograd.DeviceType.CUDA]
+        return len(evs), sum(ev.duration_ns() for ev in evs) / 1e6
+
+    iter_ms = time_cuda(sweep, warmup=2, reps=5)
+    step_ms = time_cuda(step, warmup=1, reps=3)
+    launches, dev_ms = traced(sweep)
+    step_launches, step_dev_ms = traced(step)
+    done(label, t0, n=n, mesh=mesh_label(shape),
+         S=MESH_STARTS, G=tape.n_gates, dtype=str(opt.dtype),
+         ms_per_iteration=f"{iter_ms:.2f}",
+         launches_per_iteration=launches,
+         device_ms_per_iteration=f"{dev_ms:.2f}",
+         device_busy_share=f"{dev_ms / iter_ms:.3f}",
+         step_ms_3_iterations=f"{step_ms:.2f}",
+         launches_3_iteration_step=step_launches,
+         device_ms_3_iteration_step=f"{step_dev_ms:.2f}",
+         peak_device_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+         card=smi_line())
+
+
+def mesh_phase(v2s, full=False):
+    """26. The sharded path on the card: (a)-(f), (e) 22 qubits past the
+    fused kernels' cap; with ``full`` (``--mesh``) also the sharded
+    step's timings at 20q and 22q."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_all = phase("mesh")
+    conf, cfg, prob, warm = mesh_config()
+    psi_warm = mesh_energy_phase(cfg, prob, warm)
+    mesh_vag_phase(cfg.num_qubits, prob.pauli,
+                   f"mesh vag {cfg.num_qubits}q", psi_warm)
+    mesh_sweep_phase(v2s)
+    mesh_env_phase(conf, cfg, prob)
+    t0 = phase("mesh dryrun")
+    out = dryrun_multichip(8, list(mesh_devices(MESH_SHAPE)))
+    done("mesh dryrun", t0, mesh=out["mesh"], cards=MESH_CARDS[0])
+    big = heisenberg_chain(MESH_BIG)
+    zero = torch.zeros(1 << MESH_BIG, dtype=torch.complex128, device="cuda")
+    zero[0] = 1.0
+    mesh_vag_phase(MESH_BIG, big, f"mesh vag {MESH_BIG}q", zero,
+                   controls=False)
+    if full:
+        mesh_timing(cfg.num_qubits, prob.pauli, MESH_SHAPE,
+                    f"mesh step timing {cfg.num_qubits}q")
+        mesh_timing(MESH_BIG, big, MESH_VAG_SHAPE,
+                    f"mesh step timing {MESH_BIG}q")
+    torch.cuda.empty_cache()
+    done("mesh", t_all)
+
+
 def main(argv=()) -> int:
     watchdog = threading.Timer(DEADLINE_S, _expire)
     watchdog.daemon = True
@@ -3248,6 +3710,13 @@ def main(argv=()) -> int:
                       expect_replay=False, profile=True)
         sequential_v2_sweep_phase(v2, v2s)
         sweep_in_state_trainers(v2, v2p, v2s)
+        watchdog.cancel()
+        return 0
+    if "--mesh" in argv:
+        if "--cards" in argv:
+            MESH_CARDS[0] = torch.cuda.device_count()
+        Builds(("fused_adam_v2_sweep",)).wait("fused_adam_v2_sweep")
+        mesh_phase(v2s, full=True)
         watchdog.cancel()
         return 0
     if "--warm-start" in argv:
@@ -3340,6 +3809,9 @@ def main(argv=()) -> int:
             expect_replay=False, profile=True)[v2s.name]
     seq[f"{v2s.name} (sequential v2 20q)"] = sequential_v2_sweep_phase(
         v2, v2s)
+    # 26. the sharded path (parallel/) on the card, beside the sweep
+    # kernel it is held to
+    mesh_phase(v2s)
 
     builds.wait("fused_adam_v2")
     results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")

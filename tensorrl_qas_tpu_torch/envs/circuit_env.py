@@ -26,7 +26,14 @@ CNOTs (``SU4StateTensor``, reference ``environments/VQAs/
 VQE_qulacs_su4.py``); every su4 gate is parametric, and su4 runs
 noiseless only, as in the JAX package.  The fixed placement's psi0 is the
 su4-basis warm start with its two-qubit rotations applied (the JAX env
-drops them there: ROADMAP.md, C).  Sharding is not ported yet.
+drops them there: ROADMAP.md, C).
+
+``mesh_shape = (n_amp, n_dp)`` runs the per-step optimizer on the sharded
+path (``optim/sharded_opt.py``): the statevector split over the amp axis
+of a mesh of devices, the starts over dp, past the fused kernels' 20
+qubits; ``mesh_devices`` names the mesh's devices (default: the host's
+CUDA devices, ``parallel/mesh.py:make_mesh``).  As in the JAX package it
+takes noiseless and one-trajectory depolarizing runs, Adam only.
 
 The reference's configs all name COBYLA; ``EnvConfig.from_conf`` maps
 them onto multi-start Adam, as the JAX package does, unless the caller
@@ -63,6 +70,8 @@ from tensorrl_qas_tpu_torch.circuits.tensor_ir import (
 from tensorrl_qas_tpu_torch.envs.curricula import make_curriculum
 from tensorrl_qas_tpu_torch.envs.illegal import IllegalActionTracker
 from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
+from tensorrl_qas_tpu_torch.optim.sharded_opt import ShardedAngleOptimizer
+from tensorrl_qas_tpu_torch.parallel.mesh import make_mesh
 from tensorrl_qas_tpu_torch.problems.hamiltonians import (
     load_problem,
     resolve_warmstart_qasm,
@@ -110,6 +119,11 @@ class EnvConfig:
     adam_lr: float = 0.1
     restart_scale: float = 0.1
     device: str = "cuda"
+    # multi-device: an (n_amp, n_dp) mesh for the amplitude-sharded path
+    # (ShardedAngleOptimizer), and its devices (None: the host's CUDA
+    # devices; a list may repeat one, e.g. ("cpu",) * 8)
+    mesh_shape: tuple | None = None
+    mesh_devices: tuple | None = None
     seed: int = 0
 
     @classmethod
@@ -194,15 +208,38 @@ def _check_supported(cfg: EnvConfig) -> None:
             "block_coord_k requires noise_mode='none': depolarizing/"
             "shot noise must fire on the embedded prefix gates, which "
             "the frozen-prefix transform masks out")
+    if cfg.mesh_shape:
+        if cfg.noise_mode not in ("none", "depolarizing"):
+            raise NotImplementedError(
+                "sharded path supports noise none/depolarizing "
+                "(shot noise is single-chip only)")
+        if cfg.noise_mode == "depolarizing" and cfg.n_traj != 1:
+            raise NotImplementedError(
+                "sharded depolarizing runs single-trajectory "
+                "(n_traj=1), like the mega-kernel path")
+        if cfg.optim_alg != "adam":
+            raise ValueError("mesh_shape runs multi-start Adam only "
+                             f"(optim_alg='adam'), got {cfg.optim_alg!r}")
 
 
 def make_optimizer(cfg: EnvConfig, pauli, device, seed: int):
     """The env's angle optimizer: its method (``optim_alg``), Adam settings
     and noise from ``cfg``; p1/p2 are the reference's 0.01 / 0.05
     (``VQE_qulacs_noise.py:32,45``) unless ``noise_values`` gives two
-    values."""
+    values.  With ``mesh_shape`` the sharded optimizer on a mesh of
+    ``mesh_devices``."""
     p1, p2 = (cfg.noise_values[:2] if len(cfg.noise_values) >= 2
               else (0.01, 0.05))
+    if cfg.mesh_shape:
+        n_amp, n_dp = cfg.mesh_shape
+        mesh = make_mesh(n_amp=n_amp, n_dp=n_dp, devices=cfg.mesh_devices)
+        return ShardedAngleOptimizer(
+            mesh, pauli.n_qubits, pauli, iters=cfg.global_iters,
+            n_starts=cfg.n_starts, lr=cfg.adam_lr,
+            restart_scale=cfg.restart_scale, seed=seed,
+            noise_mode=cfg.noise_mode, noise_p1=p1, noise_p2=p2,
+            noise_resample=cfg.noise_resample,
+            enable_2q=cfg.gate_set == "su4")
     return AngleOptimizer(
         pauli, iters=cfg.global_iters, n_starts=cfg.n_starts,
         lr=cfg.adam_lr, restart_scale=cfg.restart_scale, device=device,
@@ -306,6 +343,8 @@ class CircuitEnv:
 
         self.optimizer = optimizer or make_optimizer(
             cfg, self.problem.pauli, self.device, cfg.seed)
+        # the sharded path's mesh, None on one device
+        self.mesh = getattr(self.optimizer, "mesh", None)
 
         self.curriculum_dict = {
             cfg.ham_type: make_curriculum(cfg.curriculum_type,

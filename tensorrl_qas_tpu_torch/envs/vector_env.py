@@ -3,9 +3,11 @@
 B independent episodes advance together; their per-step device work
 (multi-start angle optimization + post-action energy) is one launch of
 the fused kernel for the whole batch (with a psi0 per replica in
-block-coordinate trainable mode).  Episode bookkeeping stays
-per-replica host logic, and replicas auto-reset on done, so the wrapper
-hands the agent a fixed-width stream of transitions.
+block-coordinate trainable mode); on a mesh (``EnvConfig.mesh_shape``)
+the sharded optimizer runs the replicas one after another, each on the
+whole mesh.  Episode bookkeeping stays per-replica host logic, and
+replicas auto-reset on done, so the wrapper hands the agent a
+fixed-width stream of transitions.
 """
 
 from __future__ import annotations
@@ -29,6 +31,14 @@ class VectorCircuitEnv:
     def __init__(self, cfg: EnvConfig, n_envs: int):
         if cfg.optim_alg != "adam" or cfg.optim_method != "scipy_each_step":
             raise ValueError("VectorCircuitEnv requires the fused adam path")
+        if (cfg.mesh_shape and cfg.block_coord_k > 1
+                and cfg.tn_placement == "in_state"):
+            # each replica's frozen steps start from its own prefix state,
+            # and the sharded optimizer takes one psi0 for all (the JAX
+            # package's broadcasts the (B, D) batch over the starts)
+            raise ValueError(
+                "block_coord_k > 1 on a mesh runs in CircuitEnv only: the "
+                "sharded optimizer takes one psi0 shared by the replicas")
         self.n_envs = n_envs
         first = CircuitEnv(cfg)
         # all replicas share one optimizer (same shapes and problem); its

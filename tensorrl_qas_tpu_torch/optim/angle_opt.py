@@ -108,6 +108,46 @@ def extend_tape_arrays(arrs, kt, kc):
             weave(cq, neg1, neg1), weave(slot, neg1, neg1))
 
 
+def multistart_adam(starts, active, map_idx, iters: int, lr: float,
+                    value_and_grad, energy):
+    """Multi-start Adam keeping each start's best iterate: the loop of the
+    JAX package's ``_fused_step``, shared by the composed engine and the
+    sharded optimizer (``optim/sharded_opt.py``), which differ only in how
+    they evaluate.  starts (E, S, R); each iteration ``value_and_grad(x,
+    it)`` gives the (E, S) energies at x and their gradient, masked here
+    by ``active``; bias-corrected Adam (``B1`` / ``B2`` / ``EPS``); then
+    ``energy(x)`` re-checks the last iterate.  Returns x_opt (E, R), each
+    env's best start, and x_opt remapped by ``map_idx`` (E, R') onto the
+    new tape (map -1 -> 0)."""
+    x = starts
+    m = torch.zeros_like(x)
+    v = torch.zeros_like(x)
+    bx = x.clone()
+    be = torch.full(x.shape[:2], float("inf"), dtype=x.dtype,
+                    device=x.device)
+    for it in range(iters):
+        ev, g = value_and_grad(x, it)
+        g = g * active
+        better = ev < be
+        bx = torch.where(better[..., None], x, bx)
+        be = torch.where(better, ev, be)
+        m = B1 * m + (1 - B1) * g
+        v = B2 * v + (1 - B2) * g * g
+        t = it + 1.0
+        x = x - lr * (m / (1 - B1 ** t)) / (
+            torch.sqrt(v / (1 - B2 ** t)) + EPS)
+    with torch.no_grad():
+        ev = energy(x)
+        better = ev < be
+        bx = torch.where(better[..., None], x, bx)
+        be = torch.where(better, ev, be)
+        best = torch.argmin(be, dim=1)
+        x_opt = bx[torch.arange(x.shape[0], device=x.device), best]
+        mi = map_idx.long()
+        x_new = torch.where(mi >= 0, x_opt.gather(-1, mi.clamp(min=0)), 0.0)
+    return x_opt, x_new
+
+
 def make_multistarts(x0, active, n_starts: int, fresh_starts: int,
                      restart_scale: float, generator: torch.Generator):
     """(E, R) warm starts -> (E, S, R) start batch: start 0 exact, the
@@ -317,8 +357,9 @@ class AngleOptimizer:
         if n <= MAX_QUBITS:
             return "v2"
         raise ValueError(f"no fused Adam engine for {n} qubits (at most "
-                         f"{MAX_QUBITS}; ROADMAP.md, A6: more than "
-                         f"{MAX_QUBITS} qubits across devices)")
+                         f"{MAX_QUBITS}); EnvConfig.mesh_shape runs more on "
+                         "the sharded path (optim/sharded_opt.py), a (1, 1) "
+                         "mesh included")
 
     def h_planes(self):
         """(hre_t, him_t): real and imaginary planes of (H - offset I)^T,
@@ -507,38 +548,19 @@ class AngleOptimizer:
             return self._composed_energy(x, tape, re0, im0, h_apply, plain,
                                          gen, noise, sched)
 
-        x = starts.clone()
-        m = torch.zeros_like(x)
-        v = torch.zeros_like(x)
-        bx = x.clone()
-        be = torch.full(x.shape[:2], float("inf"), dtype=dtype,
-                        device=x.device)
         sched_old = schedule(old)
-        for it in range(iters):
+
+        def value_and_grad(x, it):
             xg = x.detach().requires_grad_()
             with torch.enable_grad():
                 ev = energy(xg, old, it, it, sched_old)
                 g, = torch.autograd.grad(ev.sum(), xg)
-            ev = ev.detach()
-            g = g * active
-            better = ev < be
-            bx = torch.where(better[..., None], x, bx)
-            be = torch.where(better, ev, be)
-            m = B1 * m + (1 - B1) * g
-            v = B2 * v + (1 - B2) * g * g
-            t = it + 1.0
-            x = x - lr * (m / (1 - B1 ** t)) / (
-                torch.sqrt(v / (1 - B2 ** t)) + EPS)
+            return ev.detach(), g
+
+        x_opt, x_new = multistart_adam(
+            starts, active, map_idx, iters, lr, value_and_grad,
+            lambda x: energy(x, old, iters, iters, sched_old))
         with torch.no_grad():
-            ev = energy(x, old, iters, iters, sched_old)
-            better = ev < be
-            bx = torch.where(better[..., None], x, bx)
-            be = torch.where(better, ev, be)
-            best = torch.argmin(be, dim=1)
-            x_opt = bx[torch.arange(x.shape[0], device=x.device), best]
-            mi = map_idx.long()
-            x_new = torch.where(mi >= 0, x_opt.gather(1, mi.clamp(min=0)),
-                                0.0)
             e_new = energy(x_new[:, None, :], new,
                            iters + 1 if enew_tag is None else enew_tag,
                            iters + 1, schedule(new))

@@ -91,3 +91,33 @@ print("ok")
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_sharded_modules_import_without_jax():
+    """The multi-device modules (``parallel/``, ``optim/sharded_opt.py``)
+    import without JAX and without touching a card; a mesh of repeated
+    CPU devices needs none."""
+    script = """
+import sys
+import torch
+from tensorrl_qas_tpu_torch.parallel.mesh import Mesh, make_mesh
+from tensorrl_qas_tpu_torch.parallel.sharded_sim import (
+    ShardedSimulator, shard_state, unshard_state)
+from tensorrl_qas_tpu_torch.parallel.dryrun import dryrun_multichip
+from tensorrl_qas_tpu_torch.optim.sharded_opt import ShardedAngleOptimizer
+from tensorrl_qas_tpu_torch.envs.circuit_env import EnvConfig
+assert EnvConfig.__dataclass_fields__["mesh_shape"].default is None
+assert EnvConfig.__dataclass_fields__["mesh_devices"].default is None
+mesh = make_mesh(2, 4, ["cpu"] * 8)
+assert isinstance(mesh, Mesh) and mesh.lead == torch.device("cpu")
+assert callable(dryrun_multichip) and callable(shard_state)
+assert not torch.cuda.is_initialized()
+banned = ("jax", "jaxlib", "flax", "optax", "tensorrl_qas_tpu")
+found = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+assert not found, found
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"
