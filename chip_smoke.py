@@ -8,8 +8,10 @@ sequential trainer (the CLI without --vector) with Adam, through both
 fused kernels at E = 1, and with COBYLA, on csim and, under noise,
 through B3f; the tensor-network warm start (stages 0 and 1, the data tool
 with its circuit fit on the card) of the 8q H2O, 12q LiH and 20q
-Heisenberg trainers, which then train from it; and the multi-device
-path (an (amp, dp) mesh of devices, every shard on this one card) at 20q.
+Heisenberg trainers, which then train from it; the multi-device
+path (an (amp, dp) mesh of devices, every shard on this one card) at 20q;
+and the composed engine at 17-20 qubits (the sweep tape kernels) with
+the 20q su4 trainer at full width.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
@@ -18,6 +20,14 @@ path (an (amp, dp) mesh of devices, every shard on this one card) at 20q.
                                       # from the plain version at 100
                                       # iterations
     python3 chip_smoke.py --composed  # the composed engine's alone (19.-21.)
+    python3 chip_smoke.py --composed-wide  # the composed engine at 17-20
+                                      # qubits alone (27.), with the timed
+                                      # 100-iteration su4 step at 20q
+    python3 chip_smoke.py --h-psi     # the composed su4 step at 12 and
+                                      # 16q with each H psi of flip-group
+                                      # planes, timed
+    python3 chip_smoke.py --parting-env  # the v1 trainable draw whose env
+                                      # left the agreement band at E = 64
     python3 chip_smoke.py --tape      # B3f / B3b at 8 and 10-16 qubits
                                       # through the wrappers alone, to
                                       # compare two checkouts
@@ -169,7 +179,7 @@ Phases, one line each with its seconds:
                  timed beside that run.
 6g. trainer v2 20q -- the trainer on configs/TensorRL_fixed/
                  heisenberg_20q_TNbond2.cfg with 8 replicas (n_starts 4)
-                 for 6 vector steps, traced: every step one sweep kernel
+                 for 4 vector steps, traced: every step one sweep kernel
                  launch, env-steps/s, the kernel's device ms a vector step,
                  the card's busy share, peak device memory; replay does
                  not start.
@@ -276,7 +286,7 @@ Phases, one line each with its seconds:
                  topology inferred from the name), 128 replicas, and on
                  LIH12q_TNbond2 --gate_set su4 with 16 replicas (the wide
                  kernels; replay is not reached: 16 x 0 transitions <
-                 batch 1000), 12 vector steps each at 8q and 4 at 12q,
+                 batch 1000), 12 vector steps each at 8q and 2 at 12q,
                  every step one replay
                  of the composed step's graph (the first its warm-up and
                  capture): every vector step launches B3f iters + 2 times
@@ -362,9 +372,32 @@ Phases, one line each with its seconds:
                  port of the JAX package's XLA code, and the kernels line
                  keeps its entries.
 
+27. composed 20q -- (after 21.) the sweep tape kernels
+                 (csrc/apply_tape_sweep.cu, 17-20 qubits) against their
+                 plain versions as in 19., on a random 17-qubit batch (E =
+                 2, S = 8, G = R = 46) and at the su4 20q config's
+                 capacities (E = 8, S = 4, G = R = 46), both also woven,
+                 the segment kernel held to ``sweep_segments`` word for
+                 word, and their times and bounds; the composed step at
+                 20q (E = 2, S = 1) in the three settings of 20. with the
+                 controls, each one's CUDA graph against the eager kernel
+                 path bit for bit, shot noise at 0 shots against the
+                 noiseless step; the trainer
+                 on heisenberg_20q_TNbond2 --gate_set su4 with 8 replicas
+                 (the config's 4 starts x 100 iterations) for 2 vector
+                 steps, traced: every vector
+                 step iters + 2 sweep B3f and iters sweep B3b calls and
+                 two segment builds, env-steps/s, the busy share, device
+                 ms by kernel family, peak device memory; the noisy
+                 COBYLA cost of 22. at 20q (csim not timed there).  With
+                 ``--composed-wide`` also a 100-iteration su4 step at 20q
+                 timed as a graph and eagerly, with its device ms by
+                 kernel family, peak memory and the tape kernels' bounds.
+
 The line before the last is a JSON object with one entry per kernel
 variant (v1, v1 noise, v2, v2 noise, the v2 cluster, group and sweep
-kernels, v1 and v2 per-env psi0, the tape kernels' forward and adjoint);
+kernels, v1 and v2 per-env psi0, the tape kernels' forward, adjoint and
+schedule at 1-9, 10-16 and 17-20 qubits);
 the last
 line is
 {"ok": true, "device":
@@ -448,13 +481,24 @@ TAPE_SHAPES = ((8, 128), (5, 64), (9, 64), (10, 64), (12, 16), (13, 8),
                (14, 64), (16, 4))
 TAPE_WOVEN = (12, 14)    # also on tapes woven with error Paulis
 TAPE_CAP = 30            # G = R of H2O8q_TNbond2 with the su4 warm start
-SU4_12_CONFIG, SU4_12_ENVS, SU4_12_STEPS = "LIH12q_TNbond2", 16, 4
+SU4_12_CONFIG, SU4_12_ENVS, SU4_12_STEPS = "LIH12q_TNbond2", 16, 2
 RESTRICTED_CONFIG = "H2O8q_TNbond2_noise_restricted"
 NOISY_CONFIG = "H2O8q_TNbond2_noise"
 # 12: the fewest vector steps with which the 8q replay runs (20 before the
 # v2 register kernel's longer build needed the time)
 COMPOSED_STEPS = 12
 N_SHOTS, N_TRAJ, NOISE_SEED = 1024, 4, 11
+# the composed engine at 17-20 qubits (the sweep tape kernels,
+# csrc/apply_tape_sweep.cu): the tape kernels on a 17-qubit register (no
+# config ships for 17q; E = 2, the 13q chain's capacity) and at the su4
+# 20q config's capacities (E = 8 replicas, S = 4 starts: G = R = 46), both
+# also woven; the composed step at 20q in the three settings, its
+# 3-iteration checks against the plain versions at E = WIDE_CHECK_ENVS
+# (the plain versions' host time at E = 8 would not fit the deadline); the
+# 20q su4 trainer at full width (8 replicas, the config's 4 starts x 100
+# iterations) for WIDE_STEPS vector steps, traced (replay is not reached:
+# 8 x 0 transitions < batch 1000); the noisy COBYLA cost at 20q
+WIDE_CHAIN, WIDE_CHECK_ENVS, WIDE_CHECK_STARTS, WIDE_STEPS = 17, 2, 1, 2
 TOL_FWD = 1e-5           # B3f planes vs plain: float32 gate arithmetic
 TOL_BWD = 1e-4           # B3b cotangents and angle gradients: float32 row
 #                          sums in another order
@@ -507,7 +551,8 @@ GROUP_CLUSTERS = (2, 4, 8, 16)
 # sequential trainer for SEQ_V2S_STEPS Adam steps
 V2S_CONFIG = "heisenberg_20q_TNbond2"
 V2S_ENVS, V2S_STARTS, V2S_VARIANT_ENVS, V2S_CHAIN_ENVS = 8, 4, 4, 2
-V2S_STEPS, SEQ_V2S_STEPS = 6, 2
+# the 20q trainer cut from 6 vector steps, for the same reason
+V2S_STEPS, SEQ_V2S_STEPS = 4, 2
 SWEEP_IN_STATE_STEPS = 2      # --sweep: the in_state 20q trainers
 # the warm start (stages 0 and 1: tools/generate_data.py, the fit on the
 # card in complex128) of the three trainers' configs, with the data tool's
@@ -705,13 +750,19 @@ REPLACES = {
                           "as a schedule both kernels of a step read)",
 }
 TAPE_SOURCE = "tensorrl_qas_tpu_torch/csrc/apply_tape.cu"
+SWEEP_TAPE_SOURCE = "tensorrl_qas_tpu_torch/csrc/apply_tape_sweep.cu"
 # the composed engine: a step of many tape-kernel launches, held like a
-# fused step (its step / plain come from an optimizer, with_optimizer)
+# fused step (its step / plain come from an optimizer, with_optimizer);
+# its H psi through the dense planes up to 9 qubits, the flip-group planes
+# above
 COMPOSED = Engine(
     name="composed", replaces=REPLACES["tape", "fwd"], source=TAPE_SOURCE,
     step=None, variant="composed", plain=None,
-    h_ops=lambda opt: opt.h_planes(), smem_bytes=lambda case: None,
-    h_flops=lambda case: 8 << (2 * case.n))
+    h_ops=lambda opt: (opt.h_planes() if opt.pauli.n_qubits <= 9
+                       else opt.w_planes()),
+    smem_bytes=lambda case: None,
+    h_flops=lambda case: (8 << (2 * case.n) if case.n <= 9
+                          else flip_h_flops(case)))
 
 
 def without_autograd(fn):
@@ -1740,7 +1791,8 @@ def draw_tape_batch(rng, n_env, s_n, cap, n):
     a controlled RY, RXX, RYY and RZZ (every gate class of the TPU
     kernel's ``_gate_class``) and going on with random RXX / RYY / RZZ and
     RX / RY / RZ; random unit psi rows, angles and unit-norm cotangent rows
-    on the card: (planes, tape, angles, cotangents)."""
+    on the card (from 17 qubits drawn there, and cotangent rows of norm
+    2^(n/2 - 5)): (planes, tape, angles, cotangents)."""
     import numpy as np
     import torch
 
@@ -1768,18 +1820,29 @@ def draw_tape_batch(rng, n_env, s_n, cap, n):
         tapes.append(tape.arrays())
     dev = torch.device("cuda")
     d = 1 << n
+    f32 = dict(dtype=torch.float32, device=dev)
+    tape = tuple(torch.as_tensor(np.stack([a[k] for a in tapes]),
+                                 dtype=torch.int32, device=dev)
+                 for k in range(4))
+    angles = torch.as_tensor(rng.normal(size=(n_env, s_n, cap)), **f32)
+    if n >= 17:
+        # 2^17-2^20 amplitudes a row: drawn on the card (seeded from the
+        # numpy stream), and the cotangent rows of norm 2^(n/2 - 5), so
+        # that the angle gradients are of order 1/32 and not 2^(-n/2)
+        gen = torch.Generator(device=dev).manual_seed(
+            int(rng.integers(2**31)))
+        psi = torch.randn((2, n_env, s_n, d), generator=gen, **f32)
+        psi /= psi.norm(dim=(0, 3), keepdim=True)
+        lam = torch.randn((2, n_env, s_n, d), generator=gen, **f32)
+        lam *= 2.0 ** (n / 2 - 5) / lam.norm(dim=(0, 3), keepdim=True)
+        return (psi[0], psi[1]), tape, angles, (lam[0], lam[1])
     psi = (rng.normal(size=(n_env, s_n, d))
            + 1j * rng.normal(size=(n_env, s_n, d)))
     psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
     lam = rng.normal(size=(2, n_env, s_n, d))
     lam /= np.linalg.norm(lam, axis=(0, 3), keepdims=True)
-    f32 = dict(dtype=torch.float32, device=dev)
-    tape = tuple(torch.as_tensor(np.stack([a[k] for a in tapes]),
-                                 dtype=torch.int32, device=dev)
-                 for k in range(4))
     return ((torch.as_tensor(psi.real, **f32),
-             torch.as_tensor(psi.imag, **f32)), tape,
-            torch.as_tensor(rng.normal(size=(n_env, s_n, cap)), **f32),
+             torch.as_tensor(psi.imag, **f32)), tape, angles,
             (torch.as_tensor(lam[0], **f32), torch.as_tensor(lam[1], **f32)))
 
 
@@ -1789,17 +1852,33 @@ def tape_kernels_label(n):
         return "register kernel"
     if n <= 12:
         return f"wide kernel, {1 << (12 - n)} register row(s) a CTA"
-    return f"wide kernel, clusters of {1 << (n - 12)} CTAs"
+    if n <= 16:
+        return f"wide kernel, clusters of {1 << (n - 12)} CTAs"
+    return "sweep kernels, a launch a segment"
 
 
-def tape_phase(n, n_env, cap, label, woven=False):
-    """B3f and B3b against their plain versions on one random batch, the
-    two controls, a repeat bit for bit, then their times and bounds; from
-    10 qubits under a schedule built once, as a composed step builds it
-    (the schedule kernel held to its twin word for word, and timed), and
-    with ``woven`` also on the batch's tapes woven with error Paulis
-    (``woven_phase``).  -> {"fwd": entry, "bwd": entry} of the kernels
-    line (without launches), and "schedule" from 10 qubits."""
+def sweep_twin(tape, n):
+    """The sweep tape kernels' schedule of (E, G) tapes by its twin
+    (``ops/fused_adam2d.py:sweep_segments``), as an int32 tensor."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops.fused_adam2d import sweep_segments
+
+    arrs = [a.cpu().numpy() for a in tape[:3]]
+    return torch.as_tensor([sweep_segments(*(a[e] for a in arrs), n)
+                            for e in range(arrs[0].shape[0])],
+                           dtype=torch.int32)
+
+
+def tape_phase(n, n_env, cap, label, woven=False, s_n=STARTS):
+    """B3f and B3b against their plain versions on one random batch of E =
+    ``n_env`` envs and ``s_n`` starts, the two controls, a repeat bit for
+    bit, then their times and bounds; from 10 qubits under a schedule
+    built once, as a composed step builds it (the schedule kernel held to
+    its twin word for word, and timed; from 17 qubits the sweep kernels'
+    segments), and with ``woven`` also on the batch's tapes woven with
+    error Paulis (``woven_phase``).  -> {"fwd": entry, "bwd": entry} of
+    the kernels line (without launches), and "schedule" from 10 qubits."""
     import numpy as np
     import torch
 
@@ -1807,8 +1886,9 @@ def tape_phase(n, n_env, cap, label, woven=False):
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
 
     t0 = phase(label)
+    sweep = n >= at.SWEEP_MIN_QUBITS
     planes, tape, angles, cot = draw_tape_batch(
-        np.random.default_rng(1234), n_env, STARTS, cap, n)
+        np.random.default_rng(1234), n_env, s_n, cap, n)
     sched = at.tape_schedule(*tape, n, cap)       # None below 10 qubits
     kw = dict(schedule=sched)
     out = at.apply_tape_fwd(*planes, *tape, angles, **kw)
@@ -1837,21 +1917,30 @@ def tape_phase(n, n_env, cap, label, woven=False):
     bit = all(torch.equal(a, b) for a, b in zip((*out, *grads),
                                                 (*out2, *grads2)))
     sched_err = 0.0
+    segments = None
     if sched is not None:
-        twin = torch.as_tensor(at.tape_schedule_plain(*tape, n, cap))
+        twin = (sweep_twin(tape, n) if sweep else
+                torch.as_tensor(at.tape_schedule_plain(*tape, n, cap)))
         sched_err = float((sched.cpu() - twin).abs().max())
+        if sweep:
+            segments = sched[:, 0].tolist()
     ok = (err_f <= TOL_FWD and err_b <= TOL_BWD
           and wrong_f > 10 * TOL_FWD and wrong_b > 10 * TOL_BWD and bit
           and sched_err == 0.0
           and all(bool(torch.isfinite(t).all()) for t in (*out, *grads)))
-    done(label, t0, E=n_env, S=STARTS, G=cap, R=cap, D=1 << n,
+    extra = {}
+    if sweep:
+        extra = dict(segments_per_env=segments, launches_per_call=(
+            at._sweep_library().apply_tape_sweep_max_segments(cap, n)))
+    done(label, t0, E=n_env, S=s_n, G=cap, R=cap, D=1 << n,
          kernels=tape_kernels_label(n),
          fwd_max_abs_err=f"{err_f:.3e}", bwd_max_abs_err=f"{err_b:.3e}",
          tol=(TOL_FWD, TOL_BWD),
          controls={"RYY sign flipped": f"{wrong_f:.3e}",
                    "RZZ gradient dropped": f"{wrong_b:.3e}"},
          repeat_bit_for_bit=bit,
-         schedule_vs_twin="n/a" if sched is None else sched_err, ok=ok)
+         schedule_vs_twin="n/a" if sched is None else sched_err, **extra,
+         ok=ok)
     if not ok:
         raise AssertionError(f"{label}: the tape kernels disagree with "
                              "their plain versions or a control passed")
@@ -1864,30 +1953,48 @@ def tape_phase(n, n_env, cap, label, woven=False):
     plane_bytes = planes[0].numel() * 4
     tape_bytes = sum(a.numel() * 4 for a in tape)
     in_bytes = tape_bytes + angles.numel() * 4
-    lib = at._library()
     stream = at._stream(angles.device)
     # the main path's launches: one schedule a step, read by every launch
+    if sweep:
+        lib = at._sweep_library()
+        run_fwd, run_bwd = at.run_sweep_fwd, at.run_sweep_bwd
+        kernel_name = "apply_tape_sweep_{}"
+
+        def run_sched():
+            return at.run_sweep_schedule(lib, tape, n, stream=stream)
+
+        def plain_sched():
+            return sweep_twin(tape, n)
+    else:
+        lib = at._library()
+        run_fwd, run_bwd = at.run_fwd, at.run_bwd
+        kernel_name = "apply_tape_{}"
+
+        def run_sched():
+            return at.run_schedule(lib, tape, n, cap, stream=stream)
+
+        def plain_sched():
+            return at.tape_schedule_plain(*tape, n, cap)
     runs = {
-        "fwd": (lambda: at.run_fwd(lib, *planes, tape, angles,
-                                   schedule=sched, stream=stream),
+        "fwd": (lambda: run_fwd(lib, *planes, tape, angles, schedule=sched,
+                                stream=stream),
                 lambda: at.apply_tape_fwd_plain(*planes, *tape, angles),
-                STARTS * tape_flops(tape_np, 1 << n, fwd_flops_t).sum(),
+                s_n * tape_flops(tape_np, 1 << n, fwd_flops_t).sum(),
                 4 * plane_bytes + in_bytes, err_f),
-        "bwd": (lambda: at.run_bwd(lib, *out, *cot, tape, angles,
-                                   schedule=sched, stream=stream),
+        "bwd": (lambda: run_bwd(lib, *out, *cot, tape, angles,
+                                schedule=sched, stream=stream),
                 lambda: at.apply_tape_bwd_plain(*out, *cot, *tape, angles),
-                STARTS * tape_flops(tape_np, 1 << n, bwd_flops_t).sum(),
+                s_n * tape_flops(tape_np, 1 << n, bwd_flops_t).sum(),
                 6 * plane_bytes + in_bytes + angles.numel() * 4, err_b)}
     if sched is not None:
         # integer work only: bound by its bytes (the tapes in, the rows out)
-        runs["schedule"] = (
-            lambda: at.run_schedule(lib, tape, n, cap, stream=stream),
-            lambda: at.tape_schedule_plain(*tape, n, cap), 0.0,
-            tape_bytes + sched.numel() * 4, sched_err)
+        runs["schedule"] = (run_sched, plain_sched, 0.0,
+                            tape_bytes + sched.numel() * 4, sched_err)
     entries, info = {}, {}
     for key, (kernel, plain, flops, nbytes, err) in runs.items():
-        k_ms = time_back_to_back(kernel)
-        dev_ms = device_ms(kernel, f"apply_tape_{key}")
+        k_ms = time_back_to_back(kernel, 5 if sweep else 20)
+        dev_ms = device_ms(kernel, kernel_name.format(key),
+                           reps=3 if sweep else 10)
         p_ms = time_cuda(plain, warmup=0, reps=1)
         t_ops = float(flops) / FP32_PEAK_FLOPS
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1901,12 +2008,17 @@ def tape_phase(n, n_env, cap, label, woven=False):
                      f"{entries[key]['bound_ms']:.6f} ms "
                      f"({entries[key]['bound_by']}; {flops / 1e6:.3f} "
                      f"MFLOP, {nbytes / 1e6:.3f} MB)")
+    if sweep:
+        smem = {"dynamic_smem_bytes_per_cta": tuple(
+                    lib.apply_tape_sweep_smem_bytes(a) for a in (0, 1)),
+                "ctas_per_sm": at.check_sweep_fit(lib, angles.device)}
+    else:
+        smem = {"dynamic_smem_bytes_per_cta": tuple(
+            f(s_n, cap, cap, n, 1)
+            for f in (lib.apply_tape_fwd_smem_bytes,
+                      lib.apply_tape_bwd_smem_bytes))}
     done(f"{label} timing", t0, kernels=tape_kernels_label(n), **info,
-         dynamic_smem_bytes_per_cta=tuple(
-             f(STARTS, cap, cap, n, 1)
-             for f in (lib.apply_tape_fwd_smem_bytes,
-                       lib.apply_tape_bwd_smem_bytes)),
-         library_ms="n/a (no single PyTorch call computes a tape)")
+         **smem, library_ms="n/a (no single PyTorch call computes a tape)")
     return entries
 
 
@@ -1950,14 +2062,22 @@ def woven_phase(n, planes, tape, angles, cot, sched, label):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
     err_f, err_b = max_err(out, out_p), max_err(grads, grads_p)
     acts = max_err(out, clean)
-    where = {"register": 0, "lane": 0, "warp": 0, "cluster": 0}
-    for e, row in enumerate(sched.cpu().numpy()):
-        for k, _, b, g in at.schedule_ops(row)[0]:
-            if k != at.SWAP_OP and kc[e, g]:
-                where["register" if b < 4 else "lane" if b < 9
-                      else "warp" if b < 12 else "cluster"] += 1
+    if n >= at.SWEEP_MIN_QUBITS:
+        # every qubit is local in its gate's segment: count the control
+        # errors whose qubit lies above the chunk's 12 lowest qubits
+        where = {"controls above qubit 11": int(
+            ((kc > 0) & (cq > 11)).sum())}
+        placed = where["controls above qubit 11"] > 0
+    else:
+        where = {"register": 0, "lane": 0, "warp": 0, "cluster": 0}
+        for e, row in enumerate(sched.cpu().numpy()):
+            for k, _, b, g in at.schedule_ops(row)[0]:
+                if k != at.SWAP_OP and kc[e, g]:
+                    where["register" if b < 4 else "lane" if b < 9
+                          else "warp" if b < 12 else "cluster"] += 1
+        placed = where["warp"] > 0 and (n <= 12 or where["cluster"] > 0)
     ok = (err_f <= TOL_FWD and err_b <= TOL_BWD and acts > 100 * TOL_FWD
-          and where["warp"] > 0 and (n <= 12 or where["cluster"] > 0))
+          and placed)
     done(label, t0, errors={"targets": int((kt > 0).sum()),
                             "controls and second qubits by bit": where},
          fwd_max_abs_err=f"{err_f:.3e}", bwd_max_abs_err=f"{err_b:.3e}",
@@ -2018,14 +2138,22 @@ def kernel_launches(prof, key):
                and key in ev.name())
 
 
-def composed_setup(mode):
+def composed_setup(mode, wide=False, cases=None):
     """One of the three composed settings' inputs, optimizer and engine,
     and its plain versions' 3-iteration reference (``plain_reference``,
-    which needs no kernel, so it runs while nvcc builds them).
+    which needs no kernel, so it runs while nvcc builds them); with
+    ``wide`` at 20 qubits (the 20q config, E = WIDE_CHECK_ENVS, S =
+    WIDE_CHECK_STARTS: the sweep tape kernels), else at 8 (E = V1_ENVS, S
+    = 8: the 8q trainers' replicas).  ``cases``: a dict of the inputs
+    already drawn, by config and gate set (the two noisy settings share
+    theirs, and the step's optimizer the inputs' flip-group planes).
     -> (mode, case, opt, engine, reference)."""
+    import copy
+
     from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
 
-    phase(f"composed {mode} setup")
+    name = f"{mode} 20q" if wide else mode
+    t0 = phase(f"composed {name} setup")
     config, gate_set, kw = {
         "su4": (V1_CONFIG, "su4", dict(enable_2q=True)),
         "shot": (RESTRICTED_CONFIG, "cnot",
@@ -2033,20 +2161,33 @@ def composed_setup(mode):
         "traj4": (NOISY_CONFIG, "cnot",
                   dict(noise_mode="depolarizing", n_traj=N_TRAJ)),
     }[mode]
-    case = Case(COMPOSED, config, V1_ENVS, gate_set=gate_set)
-    if mode == "su4" and (case.g, case.r) != (TAPE_CAP, TAPE_CAP):
+    n_env, shape = V1_ENVS, {}
+    if wide:
+        config, n_env = V2S_CONFIG, WIDE_CHECK_ENVS
+        shape = dict(n_starts=WIDE_CHECK_STARTS)
+    cases = {} if cases is None else cases
+    if (config, gate_set) not in cases:
+        drawn = Case(COMPOSED, config, n_env, gate_set=gate_set, **shape)
+        drawn.other = Case(COMPOSED, config, n_env, gate_set=gate_set,
+                           seed=4321, **shape)
+        cases[config, gate_set] = drawn
+    case = copy.copy(cases[config, gate_set])
+    if (mode == "su4" and not wide
+            and (case.g, case.r) != (TAPE_CAP, TAPE_CAP)):
         raise AssertionError(f"su4 capacities {case.g, case.r}, the tape "
                              f"phase assumed {TAPE_CAP}")
-    print(f"[composed {mode}] {config} {gate_set}: E={V1_ENVS} G={case.g} "
-          f"R={case.r} D={1 << case.n} {kw}", flush=True)
-    case.other = Case(COMPOSED, config, V1_ENVS, gate_set=gate_set,
-                      seed=4321)
+    print(f"[composed {name}] {config} {gate_set}: E={n_env} S={case.s} "
+          f"G={case.g} R={case.r} D={1 << case.n} {kw}", flush=True)
     opt = AngleOptimizer(case.prob.pauli, device="cuda", **kw)
+    if wide:
+        opt._w_planes = case.opt.w_planes()      # the same H - offset I
     engine = COMPOSED.with_optimizer(opt)
     if mode != "su4":
         case.noise_kw = {"seed": NOISE_SEED}
         case.has_oracle = False
-    return mode, case, opt, engine, plain_reference(engine, case, 3)
+    ref = plain_reference(engine, case, 3)
+    done(f"composed {name} setup", t0)
+    return name, case, opt, engine, ref
 
 
 def composed_phase(mode, case, opt, engine, ref):
@@ -2055,7 +2196,7 @@ def composed_phase(mode, case, opt, engine, ref):
     one of the three settings, then its CUDA graph against the eager
     kernel path on two batches (``graph_phase``); for shot noise also
     n_shots = 0 against the noiseless composed step, bit for bit; for su4
-    one 100-iteration step timed as a graph and eagerly."""
+    at 8q one 100-iteration step timed as a graph and eagerly."""
     import torch
 
     from tensorrl_qas_tpu_torch.optim.angle_opt import AngleOptimizer
@@ -2064,15 +2205,15 @@ def composed_phase(mode, case, opt, engine, ref):
                  case.controls(), ref=ref)
     graph_phase(opt, (case, case.other), mode)
     pauli = case.prob.pauli
-    if mode == "shot":
-        t0 = phase("composed shot n_shots=0")
+    if mode.startswith("shot"):
+        t0 = phase(f"composed {mode} n_shots=0")
         zero = COMPOSED.with_optimizer(AngleOptimizer(
             pauli, device="cuda", noise_mode="shot", n_shots=0))
         clean = COMPOSED.with_optimizer(AngleOptimizer(pauli, device="cuda"))
         xz, ez = zero.step(*case.args, iters=3, lr=LR, seed=NOISE_SEED)
         xc, ec = clean.step(*case.args, iters=3, lr=LR)
         bit = bool(torch.equal(xz, xc) and torch.equal(ez, ec))
-        done("composed shot n_shots=0", t0, bit_for_bit=bit, ok=bit)
+        done(f"composed {mode} n_shots=0", t0, bit_for_bit=bit, ok=bit)
         if not bit:
             raise AssertionError("shot mode at n_shots = 0 differs from "
                                  "the noiseless composed step")
@@ -2165,6 +2306,8 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
             e.reset()
         for k in tape_kernels:
             k.launches = 0
+        for k in tape_kernels[:2]:
+            k.sweep_launches = 0
         tracer = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
                   if profile else contextlib.nullcontext())
         with tracer:
@@ -2192,6 +2335,8 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
                          **trainer_split(tracer, vector_steps, wall_ms)}
         launches = {e.name: e.launches() for e in variants}
         launches.update({k.__name__: k.launches for k in tape_kernels})
+        launches.update({f"apply_tape_sweep_{key}": k.sweep_launches
+                         for key, k in zip(("fwd", "bwd"), tape_kernels)})
         run_dir = os.path.join(out, family, config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
                         allow_pickle=True).item()
@@ -2273,6 +2418,8 @@ def sequential_phase(config, label, extra=(), expect=None, profile=False):
             e.reset()
         for k in tape_kernels:
             k.launches = 0
+        for k in tape_kernels[:2]:
+            k.sweep_launches = 0
         tracer = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
                   if profile else contextlib.nullcontext())
         with tracer:
@@ -2281,6 +2428,8 @@ def sequential_phase(config, label, extra=(), expect=None, profile=False):
             torch.cuda.synchronize()
         launches = {e.name: e.launches() for e in variants}
         launches.update({k.__name__: k.launches for k in tape_kernels})
+        launches.update({f"apply_tape_sweep_{key}": k.sweep_launches
+                         for key, k in zip(("fwd", "bwd"), tape_kernels)})
         want = expect(summary)
         run_dir = os.path.join(out, FIXED, config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
@@ -2378,7 +2527,7 @@ def csim_us(opt, psi0, tape):
     return sorted(runs)[2]
 
 
-def noisy_cost_phase(config, label):
+def noisy_cost_phase(config, label, csim=True):
     """The noisy COBYLA cost on the card (``kernel_energy_fn``: one B3f
     launch an evaluation on the tape woven with that evaluation's draw)
     against the eager complex128 simulator on the same draws
@@ -2387,7 +2536,8 @@ def noisy_cost_phase(config, label):
     the energy most dropped, and the last rotation's angle shifted by 0.1
     rad.  Then per evaluation: wall ms (the host read included), B3f's
     device ms (profiler) and bound, and the eager simulator's ms; with
-    csim's ms on the same tape beside them.  -> {timings}."""
+    ``csim`` also csim's ms on the same tape beside them (not at 20 qubits,
+    where its host runs take seconds).  -> {timings}."""
     import torch
 
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
@@ -2436,8 +2586,10 @@ def noisy_cost_phase(config, label):
     # woven row (planes in and out, the woven tape and the angles once;
     # its gates' operations, error Paulis none)
     wall_ms = time_cuda(lambda: energy(x), warmup=2, reps=20)
-    b3f_ms = device_ms(lambda: energy(x), "apply_tape_fwd", reps=20)
-    host_us = csim_us(opt, psi0, tape)
+    b3f_ms = device_ms(lambda: energy(x), "apply_tape_sweep_fwd"
+                       if opt.pauli.n_qubits >= at.SWEEP_MIN_QUBITS
+                       else "apply_tape_fwd", reps=20)
+    host_us = csim_us(opt, psi0, tape) if csim else None
     woven = extend_tape_arrays(
         tuple(torch.as_tensor(a, device="cuda").reshape(1, 1, -1)
               for a in tape.arrays()), *draws[0])
@@ -2458,7 +2610,8 @@ def noisy_cost_phase(config, label):
          b3f_device_ms_per_eval=_ms_or_not(b3f_ms),
          b3f_bound_ms=f"{b3f_bound:.3e}",
          eager_complex128_ms_per_eval=f"{eager_ms:.3f}",
-         csim_us_per_eval_same_tape=f"{host_us:.1f}", ok=ok)
+         csim_us_per_eval_same_tape=("not timed" if host_us is None
+                                     else f"{host_us:.1f}"), ok=ok)
     if not ok:
         raise AssertionError(f"{label}: the card's cost disagrees with "
                              f"the eager one ({err:.3e}), or a control "
@@ -3032,7 +3185,9 @@ def trainer_split(prof, vector_steps, wall_ms):
     for k, v in device_us_by_name(prof).items():
         key = kernel_family(k)
         per[key] = per.get(key, 0.0) + v / 1e3 / vector_steps
-    groups = {key: sum(v for k, v in per.items() if f"apply_tape_{key}" in k)
+    groups = {key: sum(v for k, v in per.items()
+                       if f"apply_tape_{key}" in k
+                       or f"apply_tape_sweep_{key}" in k)
               for key in ("fwd", "bwd", "schedule")}
     rest = sorted(((v, k) for k, v in per.items() if "apply_tape" not in k),
                   reverse=True)
@@ -3084,7 +3239,7 @@ def composed_phases(builds, idle=None):
     trainer_phase(COMPOSED, RESTRICTED_CONFIG, V1_ENVS, COMPOSED_STEPS,
                   "trainer restricted", expect=per_step)
     print(f"[trainer su4 12q] replay is not reached: {SU4_12_ENVS} replicas "
-          f"x {SU4_12_STEPS - 4} transitions < batch 1000 (the 8q "
+          f"x {max(0, SU4_12_STEPS - 4)} transitions < batch 1000 (the 8q "
           "trainers run it)", flush=True)
     launches = trainer_phase(
         COMPOSED, SU4_12_CONFIG, SU4_12_ENVS, SU4_12_STEPS,
@@ -3096,6 +3251,234 @@ def composed_phases(builds, idle=None):
         tape["wide"][key]["launches"] = launches[f"apply_tape_{key}"]
     tape["wide"]["schedule"]["launches"] = launches["tape_schedule"]
     return tape
+
+
+def composed_wide_setups():
+    """The 20q composed step's inputs, optimizers and plain references in
+    the three settings (``composed_setup``; no kernel needed, so they run
+    while nvcc builds)."""
+    cases = {}
+    return [composed_setup(mode, wide=True, cases=cases)
+            for mode in ("su4", "shot", "traj4")]
+
+
+def composed_wide_phases(builds, full=False, setups=None):
+    """The composed engine at 17-20 qubits (the sweep tape kernels): its
+    20q step's inputs and plain references in the three settings (given,
+    ``setups``, or made here), the tape kernels on a 17-qubit register and
+    at the su4 20q config's capacities (plainly and woven), the 20q step's
+    checks (against the plain versions with controls, the graph against
+    the eager path bit for bit, shot noise at 0 shots against the
+    noiseless step),
+    with ``full`` the timed 100-iteration su4 step, then the 20q su4
+    trainer at full width (every vector step iters + 2 sweep forward and
+    iters sweep adjoint calls, two segment builds) and the noisy COBYLA
+    cost at 20q.  -> the kernels line's sweep entries ("fwd", "bwd",
+    "schedule"), launches from the trainer."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    g20, r20 = su4_capacity(V2S_CONFIG)
+    if g20 != r20:
+        raise AssertionError(f"20q su4 capacities {g20, r20}: the tape "
+                             "phase takes G = R")
+    setups = setups or composed_wide_setups()
+    builds.wait("apply_tape_sweep")
+    tape_phase(WIDE_CHAIN, WIDE_CHECK_ENVS, CHAIN_CAP,
+               f"kernel tape {WIDE_CHAIN}q", woven=True)
+    entries = tape_phase(20, V2S_ENVS, g20, f"kernel tape 20q G={g20}",
+                         woven=True, s_n=V2S_STARTS)
+    for setup in setups:
+        composed_phase(*setup)
+    if full:
+        composed_wide_timing(setups[0][2])
+    print(f"[trainer su4 20q] replay is not reached: {V2S_ENVS} replicas x "
+          f"{max(0, WIDE_STEPS - 4)} transitions < batch 1000", flush=True)
+    calls = {"fwd": WIDE_STEPS * (ITERS + 2), "bwd": WIDE_STEPS * ITERS}
+    launches = trainer_phase(
+        COMPOSED, V2S_CONFIG, V2S_ENVS, WIDE_STEPS, "trainer su4 20q",
+        SU4_ARGS, expect_replay=False, profile=True,
+        expect={**{f"apply_tape_{k}": v for k, v in calls.items()},
+                **{f"apply_tape_sweep_{k}": v for k, v in calls.items()},
+                "tape_schedule": 2 * WIDE_STEPS})
+    for key in ("fwd", "bwd"):
+        entries[key]["launches"] = launches[f"apply_tape_sweep_{key}"]
+    entries["schedule"]["launches"] = launches["tape_schedule"]
+    before = at.apply_tape_fwd.sweep_launches
+    noisy_cost_phase(V2S_CONFIG, "cobyla noisy cost 20q", csim=False)
+    if at.apply_tape_fwd.sweep_launches - before < COST_DRAWS:
+        raise AssertionError("the noisy cost at 20q missed the sweep B3f")
+    return entries
+
+
+def composed_wide_timing(opt):
+    """``--composed-wide``: one 100-iteration su4 step at 20q at the
+    trainer's shape (E = 8, S = 4; ``opt`` the su4 check's optimizer) as a
+    graph -- its first call (warm-up and capture) apart, then replays --,
+    eagerly once, the launches a step by the
+    counters, a traced replay's device ms by kernel family, its peak
+    device memory, and each tape kernel's bound in bytes (the planes in
+    and out once, as the B3 rows of PERF.md count them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import ComposedGraph
+
+    mode = "su4 20q"
+    t0 = phase(f"composed {mode} timing")
+    case = Case(COMPOSED, V2S_CONFIG, V2S_ENVS, gate_set="su4",
+                n_starts=V2S_STARTS)
+    args = (*case.args[:5], *case.args[-2:])
+    graph = ComposedGraph(opt)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    graph(*args, iters=ITERS, lr=LR)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t1
+    counters = [(at.apply_tape_fwd, "sweep_launches"),
+                (at.apply_tape_bwd, "sweep_launches"),
+                (at.tape_schedule, "launches")]
+    before = [getattr(*k) for k in counters]
+    graph_ms = time_cuda(lambda: graph(*args, iters=ITERS, lr=LR),
+                         warmup=0, reps=2)
+    per = [(getattr(*k) - b) // 2 for k, b in zip(counters, before)]
+    eager_ms = time_cuda(lambda: opt._fused_step_composed(
+        *args[:5], opt._h_apply(torch.float32), *args[5:], iters=ITERS,
+        lr=LR), warmup=0, reps=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        graph(*args, iters=ITERS, lr=LR)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t1)
+    split = trainer_split(prof, 1, wall)
+    rows, d = case.n_env * case.s, 1 << case.n
+    plane = rows * d * 4
+    bounds = {"fwd": 4 * plane, "bwd": 6 * plane}
+    ok = per == [ITERS + 2, ITERS, 2] and graph.captures == 1
+    done(f"composed {mode} timing", t0, iters=ITERS, E=case.n_env,
+         S=case.s, G=case.g, graph_step_ms=f"{graph_ms:.4f}",
+         eager_step_ms=f"{eager_ms:.4f}",
+         first_call_warmup_and_capture_s=f"{capture_s:.3f}",
+         sweep_calls_per_step={"fwd": per[0], "bwd": per[1],
+                               "schedule": per[2]},
+         segment_launches_per_call=at._sweep_library()
+         .apply_tape_sweep_max_segments(case.g, case.n),
+         profiled_step_wall_ms=f"{wall:.2f}", **split,
+         peak_device_GiB=round(torch.cuda.max_memory_allocated() / 2**30,
+                               3),
+         bound_ms_per_call={k: f"{1e3 * v / HBM_BYTES_PER_S:.4f} (bytes)"
+                            for k, v in bounds.items()}, ok=ok)
+    if not ok:
+        raise AssertionError(f"composed {mode} timing: the calls a step "
+                             f"{per} or the captures are not as expected")
+
+
+H_PSI_SHAPES = ((SU4_12_CONFIG, SU4_12_ENVS), ("heisenberg_16q_TNbond2", 4))
+
+
+def h_psi_compare():
+    """``--h-psi``: the composed su4 step (100 iterations, a CUDA graph) at
+    the 12q su4 trainer's shape (E = 16, S = 8) and at 16q Heisenberg (E =
+    4, S = 8) with each H psi of flip-group planes -- ``flip_h_batched``
+    (one gather) and ``flip_h_blocked`` (a group at a time) -- in the order
+    batched, blocked, blocked, batched: each step's median ms of 3
+    replays and its peak device memory (``optim/angle_opt.py:flip_h_for``
+    picks by size), and the largest difference of the two H psi's e_new
+    after 3 iterations (float32 sums in another order; tests/
+    test_torch_composed_wide.py holds the two to 1e-12 in float64)."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.optim import angle_opt
+
+    for config, n_env in H_PSI_SHAPES:
+        t0 = phase(f"h psi {config}")
+        case = Case(COMPOSED, config, n_env, gate_set="su4")
+        opt = angle_opt.AngleOptimizer(case.prob.pauli, device="cuda",
+                                       enable_2q=True)
+        opt._w_planes = case.opt.w_planes()
+        args = (*case.args[:5], *case.args[-2:])
+        ms, peak, e_new = {}, {}, {}
+        for name in ("batched", "blocked", "blocked", "batched"):
+            h = getattr(angle_opt, f"flip_h_{name}")
+            wre, wim, flips = opt.w_planes()
+            opt._h_apply = (lambda dtype, h=h: h(wre.to(dtype),
+                                                 wim.to(dtype), flips))
+            e_new[name] = opt._fused_step_composed(
+                *args[:5], opt._h_apply(torch.float32), *args[5:], iters=3,
+                lr=LR)[1]
+            graph = angle_opt.ComposedGraph(opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            graph(*args, iters=ITERS, lr=LR)
+            ms.setdefault(name, []).append(time_cuda(
+                lambda: graph(*args, iters=ITERS, lr=LR), warmup=0, reps=3))
+            peak[name] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+            del graph
+        diff = float((e_new["batched"] - e_new["blocked"]).abs().max())
+        done(f"h psi {config}", t0, E=n_env, S=case.s, G=case.g,
+             D=1 << case.n, flip_groups=opt.w_planes()[2].numel(),
+             step_ms={k: [f"{v:.4f}" for v in vs] for k, vs in ms.items()},
+             peak_device_GiB=peak, e_new_iters3_max_abs_diff=f"{diff:.3e}")
+        del opt._h_apply
+
+
+PARTING_ENVS, PARTING_DRAWS = 64, 16
+
+
+def parting_env(v1):
+    """``--parting-env``: the draw on which the v1 kernel at the trainable
+    capacities (8q H2O, G = 172, R = 151, shared psi0, Case seed 1234)
+    left the agreement band at E = 64 after 3 iterations.  For each env
+    that fails it: the kernel's e_new alone at E = 1 (bit for bit with its
+    row at E = 64 or not), the kernel's and the plain version's float32
+    and float64 e_new after 1, 2 and 3 iterations, and after 3 with the H
+    planes rounded otherwise (PARTING_DRAWS draws, as ``plain_results``
+    perturbs them) through the kernel and the plain float32 version: the
+    kernel's e_new lies among the plain version's draws when float32
+    rounding decides where the env's trajectory goes."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam
+
+    t0 = phase("parting env")
+    case = Case(v1, V1_CONFIG, PARTING_ENVS, family=TRAINABLE)
+    xk, ek = v1.step(*case.args, iters=3, lr=LR)
+    ref, _ = plain_reference(v1, case, 3)
+    ok, _, stats = fused_adam.agreement(case.args, ref, xk, ek,
+                                        tol=TOL_ITERS3, step=v1.plain,
+                                        iters=3)
+    rows = {}
+    for e in (~ok).nonzero().flatten().tolist():
+        one = (tuple(a[e:e + 1] for a in case.args[0]),
+               tuple(a[e:e + 1] for a in case.args[1]),
+               case.args[2][e:e + 1], *case.args[3:-2],
+               case.args[-2][e:e + 1], case.args[-1][e:e + 1])
+        x1, e1 = v1.step(*one, iters=3, lr=LR)
+        row = {"alone_bit_for_bit": bool(torch.equal(x1[0], xk[e])
+                                         and torch.equal(e1[0], ek[e]))}
+        for it in (1, 2, 3):
+            row[f"iters={it}"] = [f"{float(r[1][0]):.8f}" for r in (
+                v1.step(*one, iters=it, lr=LR),
+                v1.plain(*one, iters=it, lr=LR),
+                v1.plain(*fused_adam._to64(one), iters=it, lr=LR))]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        kd, pd = [], []
+        for _ in range(PARTING_DRAWS):
+            wob = list(one)
+            for i in (5, 6):
+                u = torch.rand(one[i].shape, generator=gen,
+                               dtype=one[i].dtype, device="cuda") * 2 - 1
+                wob[i] = one[i] * (1 + u * 2.0 ** -23)
+            kd.append(float(v1.step(*wob, iters=3, lr=LR)[1][0]))
+            pd.append(float(v1.plain(*wob, iters=3, lr=LR)[1][0]))
+        near = min(abs(float(ek[e]) - p) for p in pd)
+        row.update(kernel_draws=sorted(f"{v:.7f}" for v in kd),
+                   plain_draws=sorted(f"{v:.7f}" for v in pd),
+                   kernel_to_nearest_plain_draw=f"{near:.3e}",
+                   kernel_among_plain_draws=near <= TOL_ITERS3)
+        rows[e] = row
+    done("parting env", t0, E=PARTING_ENVS, G=case.g, R=case.r, **stats,
+         failing=rows)
 
 
 def tape_compare():
@@ -3687,6 +4070,20 @@ def main(argv=()) -> int:
         composed_phases(Builds(("apply_tape",)))
         watchdog.cancel()
         return 0
+    if "--h-psi" in argv:
+        Builds(("apply_tape",)).wait("apply_tape")
+        h_psi_compare()
+        watchdog.cancel()
+        return 0
+    if "--parting-env" in argv:
+        Builds(("fused_adam_v1",)).wait("fused_adam_v1")
+        parting_env(v1)
+        watchdog.cancel()
+        return 0
+    if "--composed-wide" in argv:
+        composed_wide_phases(Builds(("apply_tape_sweep",)), full=True)
+        watchdog.cancel()
+        return 0
     if "--tape" in argv:
         Builds(("apply_tape",)).wait("apply_tape")
         tape_compare()
@@ -3734,7 +4131,8 @@ def main(argv=()) -> int:
         watchdog.cancel()
         return 0
     builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape",
-                     "fused_adam_v2_sweep"), host=("csim",))
+                     "apply_tape_sweep", "fused_adam_v2_sweep"),
+                    host=("csim",))
     # the composed engine's phases go first: their plain references, and
     # then the plain times of later timing phases, while nvcc builds the
     # tape kernels (~45 s), the rest while it builds the fused kernels
@@ -3742,9 +4140,15 @@ def main(argv=()) -> int:
                 (v1p, V1_CONFIG, V1_ENVS, TRAINABLE),
                 (v2n, V2_CONFIG, V2_ENVS, FIXED),
                 (v1n, V1N_CONFIG, V1_ENVS, FIXED))
-    pre = {}
-    tape = composed_phases(
-        builds, idle=lambda ready: pre.update(plain_prefetch(prefetch, ready)))
+    pre, wide = {}, []
+
+    def idle(ready):
+        # the composed engine's 20q references first, then the prefetch
+        wide.extend(composed_wide_setups())
+        pre.update(plain_prefetch(prefetch, ready))
+    tape = composed_phases(builds, idle=idle)
+    # the composed engine at 17-20 qubits: the sweep tape kernels
+    tape["sweep"] = composed_wide_phases(builds, setups=wide)
     # the sequential trainer under COBYLA: csim, and B3f under noise
     builds.wait("csim")
     seq = {"apply_tape_fwd (cobyla noisy 8q)": cobyla_phases()}
@@ -3865,17 +4269,22 @@ def main(argv=()) -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None}
         for e, r in results.items()] + [{
-        "name": f"apply_tape_{key} ({label})",
-        "route": "cuda", "source": TAPE_SOURCE,
+        "name": f"{prefix}{key} ({label})",
+        "route": "cuda", "source": source,
         "replaces": REPLACES["tape", key], "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None}
-        for band, label in (
-            ("reg", "register kernel at 1-9 qubits; numbers at 8, launches "
-                    "from the 8q su4 trainer"),
-            ("wide", "wide kernels at 10-16 qubits; numbers at 12, the 12q "
-                     "su4 trainer's shapes and launches"))
+        for band, prefix, source, label in (
+            ("reg", "apply_tape_", TAPE_SOURCE,
+             "register kernel at 1-9 qubits; numbers at 8, launches from "
+             "the 8q su4 trainer"),
+            ("wide", "apply_tape_", TAPE_SOURCE,
+             "wide kernels at 10-16 qubits; numbers at 12, the 12q su4 "
+             "trainer's shapes and launches"),
+            ("sweep", "apply_tape_sweep_", SWEEP_TAPE_SOURCE,
+             "sweep kernels at 17-20 qubits, a launch a segment; numbers at "
+             "20, the 20q su4 trainer's shapes and calls"))
         for key, r in tape[band].items()]}
     done("total", t_start)
     print(f"card: {smi}", flush=True)

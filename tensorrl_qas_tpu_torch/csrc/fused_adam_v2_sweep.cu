@@ -26,7 +26,7 @@
 //     cannot be co-resident: a grid barrier (grid_sync) waits only on CTAs
 //     that run.  The passes are separated by grid barriers, and every CTA
 //     runs the same sequence of passes.
-//   - The tape is cut into segments (build_segments; twin: ops/
+//   - The tape is cut into segments (segments.cuh; twin: ops/
 //     fused_adam2d.py:sweep_segments): runs of consecutive gates whose
 //     qubits, with qubits 0..4, number at most kChunkBits.  A segment's
 //     local qubits are those and the lowest others up to kChunkBits; a
@@ -89,6 +89,7 @@
 
 #include "gates.cuh"
 #include "philox.cuh"
+#include "segments.cuh"
 
 // The launch and the dynamic shared memory go through these macros, so
 // that tests/cuda_emu/cuda_runtime.h, which defines them, can run this
@@ -124,7 +125,7 @@ using namespace gates;
 
 constexpr int kChunkBits = FUSED_ADAM_SWEEP_CHUNK_BITS;
 constexpr int kChunk = 1 << kChunkBits;
-constexpr int kLaneQubits = 5;          // local in every segment
+constexpr int kLaneQubits = segments::kLaneQubits;
 constexpr int kMinQubits = FUSED_ADAM_SWEEP_MIN_QUBITS;
 constexpr int kMaxQubits = 20;
 constexpr int kThreads = 256;
@@ -145,13 +146,6 @@ static_assert(kChunkBits >= kLaneQubits + 2 && kMinQubits >= kChunkBits,
 // this long is a fault, which fails the launch.
 constexpr unsigned int kSpinLimit = 1u << 26;
 
-// Schedule words of one tape of one env (build_segments): [0] the
-// segments, [1 .. G + 1] each segment's first index into the live-gate
-// list and the end, [G + 2 .. 2 G + 1] each segment's local-qubit mask,
-// [2 G + 2 .. 3 G + 1] the live gates in tape order; -1 where unused.
-__host__ __device__ __forceinline__ int schedule_words(int G) {
-  return 3 * G + 2;
-}
 
 struct SweepParams {
   Tape old_g, new_g;
@@ -174,7 +168,7 @@ struct SweepParams {
   float* best_e;          // E S
   float* gpart;           // E S x G x chunks: gradient-row partials
   double* epart;          // E S x chunks x 2: energy partials
-  int* sched;             // 2 x E x schedule_words(G): old, new tape
+  int* sched;             // 2 x E x segments::words(G): old, new tape
   float* xnew;            // E x R: x_opt remapped onto the new tape
   unsigned int* bar;      // the grid barrier's counter (zero)
   int E, S, G, R, n, n_groups, psi0_stride, iters;
@@ -292,59 +286,6 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar,
 
 // -- the segments ------------------------------------------------------------
 
-// The lowest qubits not in `m` added until it holds kChunkBits.
-__host__ __device__ __forceinline__ unsigned fill_local(unsigned m, int n) {
-  int count = 0;
-  for (int q = 0; q < n; ++q) count += (m >> q) & 1;
-  for (int q = kLaneQubits; q < n && count < kChunkBits; ++q)
-    if (!((m >> q) & 1)) {
-      m |= 1u << q;
-      ++count;
-    }
-  return m;
-}
-
-// Env e's segments of `tape` into `w` (schedule_words(G) ints), by one
-// thread: each live gate joins the current segment unless its qubits above
-// qubit 4 would make the segment's more than kChunkBits - 5; then a new
-// segment starts.  A tape with no live gate has one empty segment (its
-// pass copies psi0).  Twin: ops/fused_adam2d.py:sweep_segments.
-__device__ void build_segments(const Tape& tape, int e, int G, int n,
-                               int* w) {
-  for (int k = 0; k < schedule_words(G); ++k) w[k] = -1;
-  int* begin = w + 1;
-  int* mask = w + G + 2;
-  int* live = w + 2 * G + 2;
-  const unsigned low = (1u << kLaneQubits) - 1u;
-  const int room = kChunkBits - kLaneQubits;
-  int nl = 0, nseg = 0;
-  unsigned cur = 0;
-  begin[0] = 0;
-  for (int g = 0; g < G; ++g) {
-    const size_t at = (size_t)e * G + g;
-    if (__ldg(tape.kind + at) == kNone) continue;
-    const int t = __ldg(tape.tq + at), c = __ldg(tape.cq + at);
-    unsigned q = 1u << t;
-    if (c >= 0) q |= 1u << c;
-    q &= ~low;
-    if (nl > begin[nseg] && __popc(cur | q) > room) {
-      mask[nseg] = (int)fill_local(low | cur, n);
-      begin[++nseg] = nl;
-      cur = 0;
-    }
-    cur |= q;
-    live[nl++] = g;
-  }
-  mask[nseg] = (int)fill_local(low | cur, n);
-  begin[++nseg] = nl;
-  w[0] = nseg;
-}
-
-// Local bit of qubit q in a segment's mask.
-__device__ __forceinline__ int local_bit(unsigned mask, int q) {
-  return __popc(mask & ((1u << q) - 1u));
-}
-
 // Segment k of `w` set up for a pass over env e's chunks at the iterate x
 // (R floats, written inside the launch): each gate's local bits, 2x2
 // entries and, with noise, its error kinds at `tag`; the local and chunk
@@ -380,7 +321,8 @@ __device__ void load_segment(const Sh& sh, const SweepParams& p,
     sh.coef[2 * j] = make_float4(u.u00r, u.u00i, u.u01r, u.u01i);
     sh.coef[2 * j + 1] = make_float4(u.u10r, u.u10i, u.u11r, u.u11i);
     const bool grad = sl >= 0 && (kind == kRX || kind == kRY || kind == kRZ);
-    sh.gate[j] = {kind, local_bit(mask, t), c >= 0 ? local_bit(mask, c) : -1,
+    sh.gate[j] = {kind, segments::local_bit(mask, t),
+                  c >= 0 ? segments::local_bit(mask, c) : -1,
                   grad ? g + 1 : 0};
     int et = 0, ec = 0;
     if (noise)
@@ -388,22 +330,6 @@ __device__ void load_segment(const Sh& sh, const SweepParams& p,
     sh.err[j] = make_int2(et, ec);
   }
   __syncthreads();
-}
-
-// The global index of local amplitude l of chunk `chunk` in the current
-// segment (local bit b -> qubit lq[b], chunk bit b -> qubit nq[b]).
-__device__ __forceinline__ int chunk_base(const Sh& sh, int chunk, int n) {
-  int i = 0;
-  for (int b = 0; b < n - kChunkBits; ++b) i |= ((chunk >> b) & 1) << sh.nq[b];
-  return i;
-}
-
-__device__ __forceinline__ int local_index(const Sh& sh, int l) {
-  int i = l & ((1 << kLaneQubits) - 1);
-#pragma unroll
-  for (int b = kLaneQubits; b < kChunkBits; ++b)
-    i |= ((l >> b) & 1) << sh.lq[b];
-  return i;
 }
 
 __device__ __forceinline__ Coef seg_coef(const Sh& sh, int j) {
@@ -517,7 +443,7 @@ __device__ void forward_pass(const SweepParams& p,
                              unsigned pass) {
   const Sh sh = sweep_shared(p);
   const int chunks = 1 << (p.n - kChunkBits), D = 1 << p.n;
-  const int words = schedule_words(p.G);
+  const int words = segments::words(p.G);
   const int total = rows.count * chunks;
   for (int k = blockIdx.x; k < total; k += gridDim.x) {
     const int item = item_at(k, total, pass);
@@ -527,12 +453,12 @@ __device__ void forward_pass(const SweepParams& p,
     if (seg >= __ldcg(w)) continue;       // block-uniform
     load_segment(sh, p, tape, w, seg, e, xbase + (size_t)r * xstride, tag,
                  noise);
-    const int base = chunk_base(sh, chunk, p.n);
+    const int base = segments::chunk_base<kChunkBits>(sh.nq, chunk, p.n);
     float2* psi = p.psi + (size_t)buf * D;
     const float* p0r = p.p0re + (size_t)e * p.psi0_stride;
     const float* p0i = p.p0im + (size_t)e * p.psi0_stride;
     for (int l = threadIdx.x; l < kChunk; l += blockDim.x) {
-      const int i = base | local_index(sh, l);
+      const int i = base | segments::local_index<kChunkBits>(sh.lq, l);
       sh.psi[l] = seg == 0 ? make_float2(__ldg(p0r + i), __ldg(p0i + i))
                            : __ldcg(psi + i);
     }
@@ -545,7 +471,7 @@ __device__ void forward_pass(const SweepParams& p,
       if (er.y) chunk_pauli<false>(sh, er.y, sh.gate[j].cl);
     }
     for (int l = threadIdx.x; l < kChunk; l += blockDim.x)
-      psi[base | local_index(sh, l)] = sh.psi[l];
+      psi[base | segments::local_index<kChunkBits>(sh.lq, l)] = sh.psi[l];
     __syncthreads();
   }
 }
@@ -558,7 +484,7 @@ __device__ void backward_pass(const SweepParams& p,
                               unsigned pass) {
   const Sh sh = sweep_shared(p);
   const int chunks = 1 << (p.n - kChunkBits), D = 1 << p.n;
-  const int words = schedule_words(p.G);
+  const int words = segments::words(p.G);
   const int total = rows.count * chunks;
   int parity = 0;
   for (int k = blockIdx.x; k < total; k += gridDim.x) {
@@ -569,11 +495,11 @@ __device__ void backward_pass(const SweepParams& p,
     if (seg >= __ldcg(w)) continue;       // block-uniform
     load_segment(sh, p, p.old_g, w, seg, e, p.adam + (size_t)r * 4 * p.R,
                  tag, noise);
-    const int base = chunk_base(sh, chunk, p.n);
+    const int base = segments::chunk_base<kChunkBits>(sh.nq, chunk, p.n);
     float2* psi = p.psi + (size_t)r * D;
     float2* lam = p.lam + (size_t)r * D;
     for (int l = threadIdx.x; l < kChunk; l += blockDim.x) {
-      const int i = base | local_index(sh, l);
+      const int i = base | segments::local_index<kChunkBits>(sh.lq, l);
       sh.psi[l] = __ldcg(psi + i);
       sh.lam[l] = __ldcg(lam + i);
     }
@@ -587,7 +513,7 @@ __device__ void backward_pass(const SweepParams& p,
     }
     if (seg > 0)
       for (int l = threadIdx.x; l < kChunk; l += blockDim.x) {
-        const int i = base | local_index(sh, l);
+        const int i = base | segments::local_index<kChunkBits>(sh.lq, l);
         psi[i] = sh.psi[l];
         lam[i] = sh.lam[l];
       }
@@ -791,16 +717,17 @@ __device__ void adam_pass(const SweepParams& p, bool update,
 // thread a tape; the flips into shared memory.
 __device__ void init_pass(const SweepParams& p) {
   const Sh sh = sweep_shared(p);
-  const int tid = threadIdx.x, R = p.R, words = schedule_words(p.G);
+  const int tid = threadIdx.x, R = p.R, words = segments::words(p.G);
   for (int f = tid; f < p.n_groups; f += blockDim.x) {
     sh.flips[f] = __ldg(p.flips + f);
     sh.wim_any[f] = __ldg(p.wim_any + f);
   }
   for (int k = blockIdx.x; k < 2 * p.E + p.E * p.S; k += gridDim.x) {
     if (k < 2 * p.E) {
+      const Tape& t = k < p.E ? p.old_g : p.new_g;
       if (tid == 0)
-        build_segments(k < p.E ? p.old_g : p.new_g, k % p.E, p.G, p.n,
-                       p.sched + (size_t)k * words);
+        segments::build<kChunkBits>(t.kind, t.tq, t.cq, k % p.E, p.G, p.n,
+                                    p.sched + (size_t)k * words);
       continue;
     }
     const int r = k - 2 * p.E;
@@ -818,7 +745,7 @@ __device__ void init_pass(const SweepParams& p) {
 
 // The most segments an env's tape has: old (tape 0) or new (1).
 __device__ int max_segments(const SweepParams& p, int tape) {
-  const int words = schedule_words(p.G);
+  const int words = segments::words(p.G);
   int m = 0;
   for (int e = 0; e < p.E; ++e)
     m = max(m, __ldcg(p.sched + ((size_t)tape * p.E + e) * words));
@@ -889,7 +816,7 @@ fused_adam_v2_sweep_kernel(SweepParams p) {
   // e_new: the new tape at x_new from psi0, in the env's first start's
   // buffers, under a fresh draw (tag iters + 1)
   const Rows envs = {p.E, p.S, true};
-  const int* sched_new = p.sched + (size_t)p.E * schedule_words(p.G);
+  const int* sched_new = p.sched + (size_t)p.E * segments::words(p.G);
   for (int s = 0; s < max_new; ++s) {
     forward_pass(p, p.new_g, sched_new, envs, p.xnew, p.R, s, p.iters + 1,
                  noise, pass++);

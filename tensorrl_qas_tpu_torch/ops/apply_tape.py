@@ -36,8 +36,13 @@ card once for all the launches on those tapes -- a composed step makes
 iters + 2 forward and iters adjoint launches on two tapes -- and whose
 plain twin is ``tape_schedule_plain``.  Tapes woven with error Paulis
 (``optim/angle_opt.py:extend_tape_arrays``, ``weave`` 3) are read under
-the schedule of their noiseless gates.  Each wrapper counts its launches
-(``launches``).
+the schedule of their noiseless gates.  From 17 to 20 qubits the sweep
+kernels of ``csrc/apply_tape_sweep.cu`` take over: every row stays in
+device memory and the tape is applied segment by segment (one launch a
+segment), under a schedule of segments (``tape_schedule``, the rule of
+``ops/fused_adam2d.py:sweep_segments``, which is its twin word for word).
+Each wrapper counts its launches (``launches``; ``sweep_launches`` those
+that went to the sweep kernels).
 """
 
 from __future__ import annotations
@@ -58,29 +63,55 @@ from tensorrl_qas_tpu_torch.ops.fused_adam import (
 _RX, _RY, _RZ = int(GateKind.RX), int(GateKind.RY), int(GateKind.RZ)
 _RXX, _RYY, _RZZ = int(GateKind.RXX), int(GateKind.RYY), int(GateKind.RZZ)
 
-MAX_QUBITS = 16          # the JAX composed path's ceiling (D <= 65536)
-# where the work above that ceiling is queued
-ABOVE_CAP = "ROADMAP.md, A6: the composed engine above 16 qubits"
+# the composed engine's ceiling, as the fused engine's (the JAX package's
+# Pallas composed path stops at 16 qubits, D <= 65536, and runs the same
+# modes through XLA above it); more qubits run on the sharded path
+MAX_QUBITS = 20
+ABOVE_CAP = ("EnvConfig.mesh_shape runs more on the sharded path "
+             "(optim/sharded_opt.py), a (1, 1) mesh included")
 WIDE_MIN_QUBITS = 10     # the wide kernels, which read a schedule, from here
+SWEEP_MIN_QUBITS = 17    # the sweep kernels (csrc/apply_tape_sweep.cu)
 
 
 # -- plain PyTorch version ---------------------------------------------------
 
-class _Gate:
-    """Gate position g of a batch of tapes at angles (E, S, R), as
-    psi'[i] = d[i] psi[i] + f[i] psi[p[i]] where ``act`` (a controlled
-    1-qubit gate's control bit), and its generator as
-    (P psi)[i] = gd[i] psi[i] + gf[i] psi[p[i]].  Complex coefficients are
-    (re, im) pairs of (E, S, D) or (E, 1, D) tensors."""
+class _Tape:
+    """A batch of tapes at angles (E, S, R), the parts of every gate that
+    are not planes, made at once: (E, 1, G) kinds, qubits and slots, and
+    (E, S, G) cos and sin of the half angles and the 2x2 unitary entries
+    of the 1-qubit kinds (``u``, 8 (re, im) parts).  A gate then takes
+    slices of them (``_Gate``): the plain version's time is mostly the
+    host's cost of its many small operations."""
 
-    def __init__(self, tape, g, angles, col):
-        kind, tq, cq, slot = (a[:, g].long().view(-1, 1, 1) for a in tape)
-        self.slot = slot.view(-1)
-        self.has_grad = ((kind >= _RX) & (kind <= _RZ)) | (kind >= _RXX)
-        s = slot.clamp(min=0).expand(-1, angles.shape[1], 1)
-        theta = torch.where(slot >= 0, angles.gather(2, s), 0.0)
-        cos, sin = torch.cos(0.5 * theta), torch.sin(0.5 * theta)
-        two_q = kind >= _RXX
+    def __init__(self, tape, angles):
+        self.kind, self.tq, self.cq, self.slot = (a.long()[:, None, :]
+                                                  for a in tape)
+        s = self.slot.clamp(min=0).expand(-1, angles.shape[1], -1)
+        theta = torch.where(self.slot >= 0, angles.gather(2, s), 0.0)
+        self.cos, self.sin = torch.cos(0.5 * theta), torch.sin(0.5 * theta)
+        self.two_q = self.kind >= _RXX
+        self.has_grad = (((self.kind >= _RX) & (self.kind <= _RZ))
+                         | self.two_q)
+        # 1-qubit kinds: the 2x2 unitary's entries (kinds beyond H get the
+        # identity's, and are overwritten in _Gate)
+        k1 = torch.where(self.two_q, 0, self.kind)[:, 0, :]
+        self.u = [a * self.cos + b * self.sin + c
+                  for a, b, c in zip(*_coeff_basis(k1, theta.dtype))]
+
+
+class _Gate:
+    """Gate position g of a ``_Tape``, as psi'[i] = d[i] psi[i] + f[i]
+    psi[p[i]] where ``act`` (a controlled 1-qubit gate's control bit), and
+    its generator as (P psi)[i] = gd[i] psi[i] + gf[i] psi[p[i]].  Complex
+    coefficients are (re, im) pairs of (E, S, D) or (E, 1, D) tensors."""
+
+    def __init__(self, tape, g, col):
+        at = slice(g, g + 1)
+        kind, tq, cq = (a[..., at] for a in (tape.kind, tape.tq, tape.cq))
+        self.slot = tape.slot[:, 0, g]
+        self.has_grad = tape.has_grad[..., at]
+        cos, sin, two_q = (a[..., at] for a in (tape.cos, tape.sin,
+                                                 tape.two_q))
         c2 = cq.clamp(min=0)
         bt = (col >> tq) & 1
         bc = (col >> c2) & 1
@@ -88,15 +119,9 @@ class _Gate:
         self.partner = col ^ (1 << tq) ^ torch.where(
             two_q & (kind != _RZZ), 1 << c2, 0)
         self.act = two_q | (cq < 0) | (bc == 1)
-        one, zero = torch.ones_like(theta), torch.zeros_like(theta)
-        sgn = (1 - 2 * bt).to(theta.dtype)            # (-1)^(bit t)
-        z = (1 - 2 * (bt ^ bc)).to(theta.dtype)       # ZZ eigenvalue
-        # 1-qubit kinds: the 2x2 unitary's entries (kinds beyond H get the
-        # identity's, and are overwritten below)
-        k1 = torch.where(two_q, 0, kind).view(-1, 1)
-        basis = _coeff_basis(k1, theta.dtype)
-        u = [a * cos + b * sin + c
-             for a, b, c in zip(*basis)]              # 8 x (E, S, 1)
+        sgn = (1 - 2 * bt).to(cos.dtype)              # (-1)^(bit t)
+        z = (1 - 2 * (bt ^ bc)).to(cos.dtype)         # ZZ eigenvalue
+        u = [p[..., at] for p in tape.u]              # 8 x (E, S, 1)
         dr = torch.where(b0, u[0], u[6])
         di = torch.where(b0, u[1], u[7])
         fr = torch.where(b0, u[2], u[4])
@@ -105,9 +130,9 @@ class _Gate:
         gd2 = torch.where(kind == _RZZ, z, 0.0)
         gf2 = torch.where(kind == _RXX, 1.0, torch.where(kind == _RYY, -z,
                                                          0.0))
-        self.d = (torch.where(two_q, cos * one, dr),
+        self.d = (torch.where(two_q, cos, dr),
                   torch.where(two_q, -sin * gd2, di))
-        self.f = (torch.where(two_q, zero, fr),
+        self.f = (torch.where(two_q, 0.0, fr),
                   torch.where(two_q, -sin * gf2, fi))
         # generators of RX (X), RY (Y: -i (-1)^b on the partner), RZ (Z)
         self.gd = torch.where(two_q, gd2, torch.where(kind == _RZ, sgn, 0.0))
@@ -138,9 +163,9 @@ def apply_tape_fwd_plain(re, im, kind, tq, cq, slot, angles):
     """B3f in plain PyTorch: (E, S, D) planes of any float dtype, (E, G)
     integer tapes, (E, S, R) angles -> the output planes."""
     col = torch.arange(re.shape[-1], device=re.device)
-    tape = (kind, tq, cq, slot)
+    tape = _Tape((kind, tq, cq, slot), angles)
     for g in _live(kind):
-        gate = _Gate(tape, g, angles, col)
+        gate = _Gate(tape, g, col)
         re, im = gate.apply(re, im, gate.d, gate.f)
     return re, im
 
@@ -150,11 +175,11 @@ def apply_tape_bwd_plain(ore, oim, gre, gim, kind, tq, cq, slot, angles):
     real-plane cotangents (gre, gim) -> (dre, dim, dang), the psi0
     cotangents (Re lambda, -Im lambda) and the angle gradients (E, S, R)."""
     col = torch.arange(ore.shape[-1], device=ore.device)
-    tape = (kind, tq, cq, slot)
+    tape = _Tape((kind, tq, cq, slot), angles)
     re, im, lre, lim = ore, oim, gre, -gim
     dang = torch.zeros_like(angles)
     for g in reversed(_live(kind)):
-        gate = _Gate(tape, g, angles, col)
+        gate = _Gate(tape, g, col)
         idx = gate.partner.expand(re.shape)
         pre, pim = re.gather(2, idx), im.gather(2, idx)
         qr = gate.gd * re + gate.gf[0] * pre - gate.gf[1] * pim   # P psi
@@ -397,7 +422,7 @@ def _check(name, planes, tape, angles, tapes_checked, schedule, weave):
                          "two, and angles (E, S, R)")
     if n > MAX_QUBITS:
         raise ValueError(f"{name}: {n} qubits; the composed engine takes at "
-                         f"most {MAX_QUBITS} ({ABOVE_CAP})")
+                         f"most {MAX_QUBITS}; {ABOVE_CAP}")
     g = tape[0].shape[-1]
     if any(t.shape != (n_env, g) for t in tape):
         raise ValueError(f"{name}: tapes must all be (E, G)")
@@ -406,12 +431,14 @@ def _check(name, planes, tape, angles, tapes_checked, schedule, weave):
                          "woven positions)")
     if schedule is not None:
         es = schedule.shape[0]
+        words = (sweep_words(g // weave) if n >= SWEEP_MIN_QUBITS
+                 else schedule_words(g // weave, r))
         if (schedule.dtype != torch.int32 or schedule.device != dev
                 or not schedule.is_contiguous() or n_env % es
-                or schedule.shape[1:] != (schedule_words(g // weave, r),)):
+                or schedule.shape[1:] != (words,)):
             raise ValueError(f"{name}: the schedule must be a contiguous "
-                             "int32 (E_s, schedule_words(G, R)) tensor on "
-                             f"{dev}, E a multiple of E_s")
+                             f"int32 (E_s, {words}) tensor on {dev} (the "
+                             "tapes' tape_schedule), E a multiple of E_s")
     elif weave != 1 and n >= WIDE_MIN_QUBITS:
         raise ValueError(f"{name}: a woven tape needs its gates' schedule")
     if not tapes_checked:
@@ -459,6 +486,152 @@ def _wide_args(lib, tape, n, r, schedule, weave, stream):
     return schedule, schedule.shape[0], weave, g // weave
 
 
+# -- the sweep kernels (17-20 qubits) ----------------------------------------
+
+def sweep_words(g: int) -> int:
+    """Words of one env's segment schedule for G gates (``csrc/
+    apply_tape_sweep.cu``; ``ops/fused_adam2d.py:sweep_segments``)."""
+    return 3 * g + 2
+
+
+@functools.cache
+def _sweep_library():
+    """The sweep kernels' library (built at first use) with its C
+    signatures."""
+    from tensorrl_qas_tpu_torch.ops.build import load
+
+    return bind_sweep(load("apply_tape_sweep"))
+
+
+def bind_sweep(lib):
+    """Set the C signatures of the sweep tape kernels' library ``lib``."""
+    lib.apply_tape_sweep_fwd_launch.argtypes = [_PTR] * 10 + [_I32] * 7 + [
+        _PTR]
+    lib.apply_tape_sweep_bwd_launch.argtypes = ([_PTR] * 13 + [_I32] * 2
+                                                + [_PTR] * 5 + [_I32] * 5
+                                                + [_PTR])
+    lib.apply_tape_sweep_schedule_launch.argtypes = [_PTR] * 4 + [
+        _I32] * 3 + [_PTR]
+    for fn in (lib.apply_tape_sweep_fwd_launch,
+               lib.apply_tape_sweep_bwd_launch,
+               lib.apply_tape_sweep_schedule_launch):
+        fn.restype = _I32
+    for name in ("min_qubits", "max_qubits", "chunk_bits"):
+        getattr(lib, f"apply_tape_sweep_{name}").argtypes = []
+        getattr(lib, f"apply_tape_sweep_{name}").restype = _I32
+    lib.apply_tape_sweep_max_segments.argtypes = [_I32] * 2
+    lib.apply_tape_sweep_max_segments.restype = _I32
+    lib.apply_tape_sweep_ctas_per_sm.argtypes = [_I32]
+    lib.apply_tape_sweep_ctas_per_sm.restype = _I32
+    lib.apply_tape_sweep_smem_bytes.argtypes = [_I32]
+    lib.apply_tape_sweep_grad_smem_bytes.argtypes = [_I32]
+    for fn in (lib.apply_tape_sweep_smem_bytes,
+               lib.apply_tape_sweep_grad_smem_bytes):
+        fn.restype = ctypes.c_size_t
+    lib.apply_tape_sweep_error_string.argtypes = [_I32]
+    lib.apply_tape_sweep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# (library, device) -> the CTAs of the forward and the adjoint segment
+# kernel an SM holds (each >= 1), asked once
+_sweep_fit: dict = {}
+
+
+def check_sweep_fit(lib, device=None):
+    """CTAs of the forward and the adjoint segment kernel one SM of the card
+    (``device``) holds at once, as the runtime reports them for their
+    shared memory; raises where one does not fit (no fallback to another
+    kernel).  A launch needs no more: its CTAs never wait on each other."""
+    key = (lib, device)
+    if key not in _sweep_fit:
+        fits = []
+        for adjoint in (0, 1):
+            ctas = lib.apply_tape_sweep_ctas_per_sm(adjoint)
+            if ctas < 1:
+                why = (f"CUDA error {-ctas} ("
+                       f"{lib.apply_tape_sweep_error_string(-ctas).decode()})"
+                       if ctas < 0 else "none fits")
+                raise RuntimeError(
+                    "apply_tape sweep: the card cannot hold a CTA of "
+                    f"{lib.apply_tape_sweep_smem_bytes(adjoint)} B of shared "
+                    f"memory: {why}")
+            fits.append(ctas)
+        _sweep_fit[key] = tuple(fits)
+    return _sweep_fit[key]
+
+
+def _launch_sweep(lib, kernel, *args):
+    """Call ``<kernel>_launch`` of the sweep library ``lib``; raise on a
+    CUDA error."""
+    rc = getattr(lib, f"{kernel}_launch")(*args)
+    if rc != 0:
+        msg = lib.apply_tape_sweep_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
+def run_sweep_schedule(lib, tape, n: int, *, stream=None):
+    """One launch of the sweep kernels' segment kernel of ``lib`` on checked
+    (E, G) noiseless tapes (not counted) -> (E, 3 G + 2) int32."""
+    n_env, g = tape[0].shape
+    out = torch.empty((n_env, sweep_words(g)), dtype=torch.int32,
+                      device=tape[0].device)
+    _launch_sweep(lib, "apply_tape_sweep_schedule",
+                  *(t.data_ptr() for t in tape[:3]), out.data_ptr(), n_env,
+                  g, n, stream)
+    return out
+
+
+def _sweep_args(lib, tape, n, schedule, weave, stream):
+    """(schedule, E_s, weave, G) of a sweep launch; the schedule is built
+    here when not given (an unwoven tape)."""
+    if schedule is None:
+        if weave != 1:
+            raise ValueError("a woven tape needs its gates' schedule")
+        schedule = run_sweep_schedule(lib, tape, n, stream=stream)
+    return schedule, schedule.shape[0], weave, tape[0].shape[-1] // weave
+
+
+def run_sweep_fwd(lib, re, im, tape, angles, *, schedule=None, weave=1,
+                  stream=None):
+    """One sweep B3f call of ``lib`` on checked inputs at 17-20 qubits (not
+    counted): ``apply_tape_sweep_max_segments`` segment launches ->
+    (ore, oim).  ``schedule`` and ``weave`` as ``run_fwd``'s."""
+    n_env, s_n, _, r, n = _dims(re, tape, angles)
+    sched, es, weave, g = _sweep_args(lib, tape, n, schedule, weave, stream)
+    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    _launch_sweep(lib, "apply_tape_sweep_fwd", *(t.data_ptr() for t in tape),
+                  angles.data_ptr(), re.data_ptr(), im.data_ptr(),
+                  ore.data_ptr(), oim.data_ptr(), sched.data_ptr(), es, weave,
+                  n_env, s_n, g, r, n, stream)
+    return ore, oim
+
+
+def run_sweep_bwd(lib, ore, oim, gre, gim, tape, angles, *, psi0_grad=True,
+                  schedule=None, weave=1, stream=None):
+    """One sweep B3b call of ``lib`` on checked inputs at 17-20 qubits (not
+    counted): the segment launches, last first, and the gradient launch ->
+    (dre, dim, dang), as ``run_bwd``.  Scratch: psi and lambda planes
+    (4 x E S D floats) and the gradient rows' chunk partials."""
+    n_env, s_n, _, r, n = _dims(ore, tape, angles)
+    sched, es, weave, g = _sweep_args(lib, tape, n, schedule, weave, stream)
+    dre, dim = ((torch.empty_like(ore), torch.empty_like(oim)) if psi0_grad
+                else (None, None))
+    dang = torch.empty_like(angles)
+    scratch = [torch.empty_like(ore) for _ in range(4)]
+    chunks = 1 << (n - lib.apply_tape_sweep_chunk_bits())
+    gpart = torch.empty((n_env * s_n, g, chunks), dtype=torch.float32,
+                        device=ore.device)
+    _launch_sweep(lib, "apply_tape_sweep_bwd", *(t.data_ptr() for t in tape),
+                  angles.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+                  gre.data_ptr(), gim.data_ptr(), _ptr(dre), _ptr(dim),
+                  dang.data_ptr(), sched.data_ptr(), es, weave,
+                  *(t.data_ptr() for t in scratch), gpart.data_ptr(), n_env,
+                  s_n, g, r, n, stream)
+    return dre, dim, dang
+
+
 def run_fwd(lib, re, im, tape, angles, *, schedule=None, weave=1,
             stream=None):
     """One B3f launch of ``lib`` on checked inputs (the wrapper's, or a
@@ -501,16 +674,40 @@ def run_bwd(lib, ore, oim, gre, gim, tape, angles, *, psi0_grad=True,
 
 
 def tape_schedule(kind, tq, cq, slot, n: int, r: int):
-    """The wide kernels' schedule of (E, G) int32 tapes with ``r`` angles at
-    ``n`` qubits, for the forward and adjoint launches on those tapes (or
-    their woven extensions) to read: one launch of the schedule kernel on
-    CUDA tensors from 10 qubits (counted in ``tape_schedule.launches``),
-    None where no kernel reads one (CPU tensors, below 10 qubits)."""
+    """The schedule of (E, G) int32 tapes with ``r`` angles at ``n`` qubits,
+    for the forward and adjoint launches on those tapes (or their woven
+    extensions) to read: on CUDA tensors one launch of the wide kernels'
+    schedule kernel at 10-16 qubits, of the sweep kernels' segment kernel
+    at 17-20 (counted in ``tape_schedule.launches``); None where no kernel
+    reads one (CPU tensors, below 10 qubits)."""
     if kind.device.type != "cuda" or n < WIDE_MIN_QUBITS:
         return None
-    out = run_schedule(_library(), (kind, tq, cq, slot), n, r,
-                       stream=_stream(kind.device))
+    tape = (kind, tq, cq, slot)
+    if n >= SWEEP_MIN_QUBITS:
+        out = run_sweep_schedule(_sweep_library(), tape, n,
+                                 stream=_stream(kind.device))
+    else:
+        out = run_schedule(_library(), tape, n, r,
+                           stream=_stream(kind.device))
     tape_schedule.launches += 1
+    return out
+
+
+def _run_kernel(direction, args, kw, n, dev):
+    """One counted call of the forward or adjoint kernel: the sweep kernels
+    from 17 qubits, else apply_tape.cu's."""
+    stream = _stream(dev)
+    if n >= SWEEP_MIN_QUBITS:
+        lib = _sweep_library()
+        check_sweep_fit(lib, dev)
+        run = run_sweep_fwd if direction == "fwd" else run_sweep_bwd
+        out = run(lib, *args, stream=stream, **kw)
+    else:
+        run = run_fwd if direction == "fwd" else run_bwd
+        out = run(_library(), *args, stream=stream, **kw)
+    wrapper = apply_tape_fwd if direction == "fwd" else apply_tape_bwd
+    wrapper.launches += 1
+    wrapper.sweep_launches += n >= SWEEP_MIN_QUBITS
     return out
 
 
@@ -522,7 +719,10 @@ def apply_tape_fwd(re, im, kind, tq, cq, slot, angles, *,
     these tapes (saves a host read per launch).  From 10 qubits the kernel
     reads ``schedule`` (``tape_schedule`` of the tapes, or of the gates of
     woven tapes, ``weave`` 3; made here for an unwoven tape when not
-    given).  Counts launches in ``apply_tape_fwd.launches``."""
+    given).  Counts launches in ``apply_tape_fwd.launches``, those of the
+    sweep kernels (17-20 qubits) also in ``apply_tape_fwd.sweep_launches``;
+    a sweep launch is a call of ``apply_tape_sweep_max_segments`` segment
+    launches."""
     if angles.device.type == "cpu":
         return apply_tape_fwd_plain(re, im, kind, tq, cq, slot, angles)
     if angles.device.type != "cuda":
@@ -533,10 +733,8 @@ def apply_tape_fwd(re, im, kind, tq, cq, slot, angles, *,
                            tapes_checked, schedule, weave)
     if schedule is None:
         schedule = tape_schedule(*tape, n, r)
-    out = run_fwd(_library(), re, im, tape, angles, schedule=schedule,
-                  weave=weave, stream=_stream(angles.device))
-    apply_tape_fwd.launches += 1
-    return out
+    return _run_kernel("fwd", (re, im, tape, angles),
+                       dict(schedule=schedule, weave=weave), n, angles.device)
 
 
 def apply_tape_bwd(ore, oim, gre, gim, kind, tq, cq, slot, angles, *,
@@ -545,7 +743,8 @@ def apply_tape_bwd(ore, oim, gre, gim, kind, tq, cq, slot, angles, *,
     """B3b: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors; -> (dre, dim, dang), (None, None, dang) without
     ``psi0_grad``; ``schedule`` and ``weave`` as ``apply_tape_fwd``'s.
-    Counts launches in ``apply_tape_bwd.launches``."""
+    Counts launches in ``apply_tape_bwd.launches`` and, at 17-20 qubits,
+    ``apply_tape_bwd.sweep_launches``."""
     if angles.device.type == "cpu":
         dre, dim, dang = apply_tape_bwd_plain(ore, oim, gre, gim, kind, tq,
                                               cq, slot, angles)
@@ -558,15 +757,15 @@ def apply_tape_bwd(ore, oim, gre, gim, kind, tq, cq, slot, angles, *,
                            angles, tapes_checked, schedule, weave)
     if schedule is None:
         schedule = tape_schedule(*tape, n, r)
-    out = run_bwd(_library(), ore, oim, gre, gim, tape, angles,
-                  psi0_grad=psi0_grad, schedule=schedule, weave=weave,
-                  stream=_stream(angles.device))
-    apply_tape_bwd.launches += 1
-    return out
+    return _run_kernel("bwd", (ore, oim, gre, gim, tape, angles),
+                       dict(psi0_grad=psi0_grad, schedule=schedule,
+                            weave=weave), n, angles.device)
 
 
 apply_tape_fwd.launches = 0
 apply_tape_bwd.launches = 0
+apply_tape_fwd.sweep_launches = 0
+apply_tape_bwd.sweep_launches = 0
 tape_schedule.launches = 0
 
 

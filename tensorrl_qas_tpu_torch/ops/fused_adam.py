@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import functools
 import math
 
 import numpy as np
@@ -69,6 +70,14 @@ def _coeff_basis(kind, dtype):
     """(A, B, C), each (8, E, 1, G): the (re, im) parts of the 2x2 unitary
     entries (u00, u01, u10, u11) of every gate are A cos(theta/2) +
     B sin(theta/2) + C.  Kinds beyond H (RXX/RYY/RZZ) are not taken."""
+    basis = _basis_table(dtype, kind.device)[kind]       # (E, G, 3, 8)
+    return basis.permute(2, 3, 0, 1)[:, :, :, None, :].unbind(0)
+
+
+@functools.lru_cache(maxsize=None)
+def _basis_table(dtype, device):
+    """(H + 1, 3, 8): ``_coeff_basis``'s (A, B, C) rows by kind, made once
+    a dtype and device."""
     r2 = _INV_SQRT2
     rows = {                      # kind -> {part: (a, b, c)}
         0: {0: (0, 0, 1), 6: (0, 0, 1)},                 # NONE: identity
@@ -85,9 +94,7 @@ def _coeff_basis(kind, dtype):
     for k, parts in rows.items():
         for part, abc in parts.items():
             table[k, :, part] = abc
-    table = torch.as_tensor(table, dtype=dtype, device=kind.device)
-    basis = table[kind]                                  # (E, G, 3, 8)
-    return basis.permute(2, 3, 0, 1)[:, :, :, None, :].unbind(0)
+    return torch.as_tensor(table, dtype=dtype, device=device)
 
 
 def check_gate_kinds(*kinds):

@@ -56,15 +56,39 @@ def pauli_flip_groups(pauli, offset: float = 0.0, dtype=np.float32):
     """Flip-group coefficient planes of H - offset I.
 
     Returns (wre (G_f, D), wim (G_f, D), flips (G_f,) int32), groups in
-    increasing flip order.  ``offset`` (the identity weight, see
-    ``AngleOptimizer.offset``) comes off the real part of the f = 0 plane
-    in float64, before the cast to ``dtype``.
+    increasing flip order, arrays of the caller's own.  ``offset`` (the
+    identity weight, see ``AngleOptimizer.offset``) comes off the real
+    part of the f = 0 plane in float64, before the cast to ``dtype``.  The
+    float64 planes of the last FLIP_GROUPS_KEPT Hamiltonians are kept (by
+    their terms and offset): every env, check and trainer that loads a
+    problem makes its own optimizer, and at 20 qubits the planes take
+    most of a second to make.
     """
+    key = (pauli.n_qubits, float(offset),
+           *(np.asarray(a).tobytes() for a in (pauli.flip, pauli.sign_mask,
+                                                pauli.weights,
+                                                pauli.iphase)))
+    planes = _FLIP_GROUPS.pop(key, None)
+    if planes is None:
+        planes = _flip_groups64(pauli, offset)
+    _FLIP_GROUPS[key] = planes
+    while len(_FLIP_GROUPS) > FLIP_GROUPS_KEPT:
+        del _FLIP_GROUPS[next(iter(_FLIP_GROUPS))]
+    wre, wim, groups = planes
+    return wre.astype(dtype), wim.astype(dtype), groups.copy()
+
+
+FLIP_GROUPS_KEPT = 2
+_FLIP_GROUPS = {}        # key -> float64 planes, least recently used first
+
+
+def _flip_groups64(pauli, offset):
+    """``pauli_flip_groups``' planes in float64."""
     d = 1 << pauli.n_qubits
     flips_arr = np.asarray(pauli.flip)
     idx = np.arange(d, dtype=np.int64)
     groups = sorted(set(int(f) for f in flips_arr))
-    wre = np.zeros((len(groups), d), dtype=dtype)
+    wre = np.zeros((len(groups), d))
     wim = np.zeros_like(wre)
     for gi, f in enumerate(groups):
         # the real and imaginary parts of sum_k c_k (-1)^parity(i & s_k),
@@ -325,12 +349,14 @@ def run_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
 
 def sweep_segments(kind, tq, cq, n: int,
                    chunk_bits: int = SWEEP_CHUNK_BITS) -> list[int]:
-    """Twin of the sweep kernel's ``build_segments``: one tape's schedule
-    words, word for word.  Each live gate joins the current segment unless
-    its qubits above qubit 4 would give the segment more than chunk_bits -
-    5 of them; then a new segment starts.  A segment's local qubits are
-    qubits 0..4, its gates' and the lowest others up to chunk_bits; a
-    tape with no live gate has one empty segment.  ``kind``, ``tq``,
+    """Twin of the sweep kernels' ``segments::build`` (``csrc/
+    segments.cuh``, read by B2's sweep kernel and the sweep tape kernels):
+    one tape's schedule words, word for word.  Each live gate joins the
+    current segment unless its qubits above qubit 4 would give the segment
+    more than chunk_bits - 5 of them; then a new segment starts.  A
+    segment's local qubits are qubits 0..4, its gates' and the lowest
+    others up to chunk_bits; a tape with no live gate has one empty
+    segment.  ``kind``, ``tq``,
     ``cq``: one tape's (G,) arrays.  -> 3 G + 2 ints: the segments, each
     segment's first index into the live-gate list and the end, each
     segment's local-qubit mask, the live gates in tape order; -1 where

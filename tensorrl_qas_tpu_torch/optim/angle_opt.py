@@ -38,8 +38,11 @@ every Adam iteration whatever ``noise_resample`` says, as in the JAX
 package).  Each Adam iteration is one forward and one adjoint launch of
 the tape kernels (``ops/apply_tape.py``), with the energy's H psi between
 them: a matrix product up to 9 qubits, one gather over the flip groups
-above (``flip_h_batched``).  From 10 qubits the kernels read a schedule of
-each tape, built once per step (``tape_schedule``).  On the card the whole
+up to 16 (``flip_h_batched``), one group at a time above
+(``flip_h_blocked``).  From 10 qubits the kernels read a schedule of each
+tape, built once per step (``tape_schedule``); from 17 to 20 they are the
+sweep kernels, every row in device memory, the tape in segments.  On the
+card the whole
 step (100 iterations, the re-check, the argmin, the remap and e_new)
 replays as one CUDA graph (``ComposedGraph``), the counterpart of the JAX
 package's ``lax.scan`` under ``jit``; calling ``_fused_step_composed``
@@ -245,6 +248,94 @@ def _gather_h(re, im, wre, wim, idx, real):
             (pim * wre + pre * wim).sum(-2))
 
 
+class _BlockedFlipH(torch.autograd.Function):
+    """(re, im, wre, wim, wtre, wtim, plans, real) -> (hre, him): H psi over
+    flip-group planes, one group at a time (``_blocked_h``); its backward
+    is the same through the transposed planes, as ``_FlipGroupH``'s."""
+
+    @staticmethod
+    def forward(ctx, re, im, wre, wim, wtre, wtim, plans, real):
+        ctx.save_for_backward(wtre, wtim)
+        ctx.plans = plans
+        ctx.real = real
+        return _blocked_h(re, im, wre, wim, plans, real)
+
+    @staticmethod
+    def backward(ctx, ghre, ghim):
+        wtre, wtim = ctx.saved_tensors
+        dre, dim = _blocked_h(ghre.contiguous(), ghim.contiguous(), wtre,
+                              -wtim, ctx.plans, ctx.real)
+        return dre, dim, None, None, None, None, None, None
+
+
+def flip_plan(flip: int, n: int):
+    """x[..., i ^ flip] as a flip of axes of a view of (..., 2^n) planes:
+    (the view's sizes, the axes to reverse).  Each run of consecutive set
+    bits of ``flip`` is one axis of 2^k amplitudes, whose reversal is the
+    XOR with 2^k - 1; the runs of clear bits between them are axes kept as
+    they are."""
+    sizes, axes = [], []
+    q = n - 1
+    while q >= 0:
+        bit, k = (flip >> q) & 1, 0
+        while q >= 0 and (flip >> q) & 1 == bit:
+            k, q = k + 1, q - 1
+        if bit:
+            axes.append(len(sizes))
+        sizes.append(1 << k)
+    return tuple(sizes), tuple(axes)
+
+
+def _partner(x, plan):
+    """x[..., i ^ f] of (..., D) planes for f's ``flip_plan``."""
+    sizes, axes = plan
+    if not axes:
+        return x
+    lead = x.dim() - 1
+    return x.reshape(*x.shape[:-1], *sizes).flip(
+        [lead + a for a in axes]).reshape(x.shape)
+
+
+def _blocked_h(re, im, wre, wim, plans, real):
+    """sum_f (wre_f + i wim_f) psi[i ^ f] on (..., D) planes, one flip group
+    at a time: its partner planes (``_partner``, two planes of the rows'
+    size) multiplied into the sums in group order."""
+    hre, him = torch.zeros_like(re), torch.zeros_like(im)
+    for f, plan in enumerate(plans):
+        pre, pim = _partner(re, plan), _partner(im, plan)
+        hre.addcmul_(pre, wre[f])
+        him.addcmul_(pim, wre[f])
+        if not real:
+            hre.addcmul_(pim, wim[f], value=-1.0)
+            him.addcmul_(pre, wim[f])
+    return hre, him
+
+
+def flip_h_blocked(wre, wim, flips):
+    """H psi through flip-group planes (G_f, D), one group at a time
+    (``_BlockedFlipH``): the composed energy's H psi above 16 qubits, where
+    ``flip_h_batched``'s single gather would write (rows, G_f, D) planes
+    (2.7 GB a float32 plane at 20 qubits, 32 rows and the Heisenberg
+    chain's 20 groups; 4x that at n_traj = 4).  A block is one group: its
+    partners psi[i ^ f] are a flip of axes of a view of the planes
+    (``flip_plan``: no index tensor), so that beyond its two sums a call
+    holds two partner planes of the rows' size at a time (256 MB at 20
+    qubits, 32 rows, float32).  The flips
+    are read on the host once, here, so that the step itself reads
+    nothing back; the JAX package computes this H psi on XLA
+    (``pauli_expectation``), outside its kernels."""
+    d = wre.shape[-1]
+    n = d.bit_length() - 1
+    plans = tuple(flip_plan(int(f), n) for f in flips.tolist())
+    wtre = torch.stack([_partner(w, p) for w, p in zip(wre, plans)])
+    wtim = torch.stack([_partner(w, p) for w, p in zip(wim, plans)])
+    real = not bool((wim != 0).any())
+
+    def apply(re, im):
+        return _BlockedFlipH.apply(re, im, wre, wim, wtre, wtim, plans, real)
+    return apply
+
+
 def flip_h_batched(wre, wim, flips):
     """H psi through flip-group planes (G_f, D) as one gather of the
     concatenated permutations, a product with the W planes and a sum over
@@ -262,6 +353,15 @@ def flip_h_batched(wre, wim, flips):
     def apply(re, im):
         return _FlipGroupH.apply(re, im, wre, wim, wtre, wtim, idx, real)
     return apply
+
+
+def flip_h_for(wre, wim, flips):
+    """The composed engine's H psi through flip-group planes (G_f, D):
+    ``flip_h_batched`` up to 16 qubits, ``flip_h_blocked`` from 17, where
+    the single gather's (rows, G_f, D) planes outgrow the card."""
+    n = wre.shape[-1].bit_length() - 1
+    h = flip_h_batched if n < tape_ops.SWEEP_MIN_QUBITS else flip_h_blocked
+    return h(wre, wim, flips)
 
 
 class AngleOptimizer:
@@ -338,7 +438,9 @@ class AngleOptimizer:
         """The engine for this problem and tapes of these gate kinds:
         'composed' for the su4 gate set (``enable_2q``), shot noise and
         ``n_traj > 1`` (reference ``optim/angle_opt.py:283-287, 690-693``),
-        at most 16 qubits; else the fused 'v1' for D <= 512, 'v2' for
+        at most 20 qubits (its tape kernels' sweep design from 17; the JAX
+        package runs these modes through XLA above 16, ``optim/
+        angle_opt.py:808-845``); else the fused 'v1' for D <= 512, 'v2' for
         1024 <= D <= 2^20 (both take the flip-group planes,
         ``w_planes``).  Larger problems, and RXX/RYY/RZZ gates without
         ``enable_2q``, raise ValueError here, before any H operand is
@@ -349,7 +451,7 @@ class AngleOptimizer:
             if n > tape_ops.MAX_QUBITS:
                 raise ValueError(
                     f"no composed engine for {n} qubits (at most "
-                    f"{tape_ops.MAX_QUBITS}; {tape_ops.ABOVE_CAP})")
+                    f"{tape_ops.MAX_QUBITS}); {tape_ops.ABOVE_CAP}")
             return "composed"
         check_gate_kinds(*kinds)
         if n <= 9:
@@ -411,12 +513,14 @@ class AngleOptimizer:
 
     def _h_apply(self, dtype):
         """H - offset I on (..., D) planes of ``dtype``: the dense H^T
-        planes up to 9 qubits, the flip-group planes in one gather above
-        (``flip_h_batched``)."""
-        if self.pauli.n_qubits <= 9:
+        planes up to 9 qubits, the flip-group planes in one gather up to 16
+        (``flip_h_batched``), one group at a time above
+        (``flip_h_blocked``)."""
+        n = self.pauli.n_qubits
+        if n <= 9:
             return dense_h(*(p.to(dtype) for p in self.h_planes()))
         wre, wim, flips = self.w_planes()
-        return flip_h_batched(wre.to(dtype), wim.to(dtype), flips)
+        return flip_h_for(wre.to(dtype), wim.to(dtype), flips)
 
     def _sample_noise_kinds(self, kind, n_traj: int, generator):
         """``n_traj`` depolarizing realizations (k_t, k_c), each
@@ -720,14 +824,14 @@ class AngleOptimizer:
         the composed engine lays them out; shot noise, the offset), drawn
         from the optimizer's generator when not given; then the Rayleigh
         quotient of H - offset I (``_h_apply``), plus the offset.  The
-        tape is checked and, from 10 qubits, its schedule built once, here;
-        more than ``ops/apply_tape.py:MAX_QUBITS`` qubits raise (the work
-        ``ops/apply_tape.py:ABOVE_CAP`` names).  On CPU tensors the launch
-        is the kernel's plain version."""
+        tape is checked and, from 10 qubits, its schedule built once, here
+        (from 17 qubits the sweep kernel's segments); more than
+        ``ops/apply_tape.py:MAX_QUBITS`` qubits raise.  On CPU tensors the
+        launch is the kernel's plain version."""
         n = self.pauli.n_qubits
         if n > tape_ops.MAX_QUBITS:
             raise ValueError(f"no tape kernel for {n} qubits (at most "
-                             f"{tape_ops.MAX_QUBITS}; {tape_ops.ABOVE_CAP})")
+                             f"{tape_ops.MAX_QUBITS}); {tape_ops.ABOVE_CAP}")
         dev = self.device
         tape = tuple(torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                      device=dev).reshape(1, -1)
@@ -802,7 +906,8 @@ class ComposedGraph:
     for bit under every noise mode.  The key: E, S, G, R, D, psi0 rows,
     iters, lr, dtype, noise mode, n_traj, n_shots.  A replay launches
     kernels without the wrappers' Python, so it adds the launches its
-    capture recorded to the tape kernels' and the schedule's counters.  A
+    capture recorded to the tape kernels' counters (their sweep counts
+    too) and the schedule's.  A
     capture or a replay that fails raises: nothing falls back to the eager
     loop."""
 
@@ -863,9 +968,12 @@ class ComposedGraph:
             first = run()
         torch.cuda.current_stream(dev).wait_stream(side)
         first = tuple(t.clone() for t in first)
-        counters = (tape_ops.apply_tape_fwd, tape_ops.apply_tape_bwd,
-                    tape_ops.tape_schedule)
-        before = [k.launches for k in counters]
+        counters = [(k, "launches") for k in (tape_ops.apply_tape_fwd,
+                                               tape_ops.apply_tape_bwd,
+                                               tape_ops.tape_schedule)]
+        counters += [(k, "sweep_launches") for k in (tape_ops.apply_tape_fwd,
+                                                     tape_ops.apply_tape_bwd)]
+        before = [getattr(*k) for k in counters]
         graph = torch.cuda.CUDAGraph()
         # a dead graph in a reference cycle (another optimizer's: an
         # optimizer and its ComposedGraph point at each other) that the
@@ -882,14 +990,14 @@ class ComposedGraph:
             if collecting:
                 gc.enable()
         # a capture records its launches without running them
-        per_replay = [k.launches - b for k, b in zip(counters, before)]
-        for k, b in zip(counters, before):
-            k.launches = b
+        per_replay = [getattr(*k) - b for k, b in zip(counters, before)]
+        for (k, attr), b in zip(counters, before):
+            setattr(k, attr, b)
 
         def replay():
             graph.replay()
-            for k, n in zip(counters, per_replay):
-                k.launches += n
+            for (k, attr), n in zip(counters, per_replay):
+                setattr(k, attr, getattr(k, attr) + n)
             return out
         return first, replay
 
@@ -925,15 +1033,15 @@ def composed_step(opt: AngleOptimizer, plain: bool = False):
     """``opt``'s composed engine as a function of the fused step's
     arguments, ``step(old, new, map_idx, p0re, p0im, *h_ops, starts,
     active, *, iters, lr, seed=0, enew_tag=None)`` with the dense H^T
-    planes (two H operands) or the flip-group planes and flips (three, in
-    one gather: ``flip_h_batched``), so that ``ops/fused_adam.py:
-    plain_results`` and ``agreement`` hold the kernels (``plain=False``)
-    to the plain versions (``plain=True``)."""
+    planes (two H operands) or the flip-group planes and flips (three,
+    ``flip_h_for``), so that ``ops/fused_adam.py:plain_results`` and
+    ``agreement`` hold the kernels (``plain=False``) to the plain versions
+    (``plain=True``)."""
+
     def step(old, new, map_idx, p0re, p0im, *rest, iters, lr, seed=0,
              enew_tag=None):
         *h_ops, starts, active = rest
-        h_apply = (dense_h(*h_ops) if len(h_ops) == 2
-                   else flip_h_batched(*h_ops))
+        h_apply = dense_h(*h_ops) if len(h_ops) == 2 else flip_h_for(*h_ops)
         return opt._fused_step_composed(
             old, new, map_idx, p0re, p0im, h_apply, starts, active,
             iters=iters, lr=lr, seed=seed, enew_tag=enew_tag, plain=plain)

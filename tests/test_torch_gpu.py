@@ -51,7 +51,10 @@ identical rows must give the shared launch bit for bit.  Both kernels run
 at the trainable configs' capacities, where the tapes embed the warm start
 and G != R: v1 at H2O 8q (G = 172, R = 151; noisy at the _noise config),
 v2 at LiH 12q (G = 244, R = 211) and at Heisenberg 20q (G = 388, R = 331:
-the sweep kernel over some fifty segments a tape).
+the sweep kernel over some fifty segments a tape).  The one env of
+chip_smoke.py's 64-env v1 draw at the 8q trainable capacities that left
+the agreement band is kept: the plain version's own float32 runs, rounded
+otherwise, reach the kernel's e_new there.
 
 The composed engine's tape kernels (B3f forward, B3b adjoint,
 ``ops/apply_tape.py``) are held to their plain versions at 1-9 qubits
@@ -61,8 +64,10 @@ schedule kernel's rows, which equal its twin's): forward planes within
 1e-5, the psi0 cotangents and angle gradients within 1e-4 (float32 row
 sums in another order); RYY's sign flipped and RZZ's gradient dropped must
 exceed them; two launches agree bit for bit; woven tapes (error Paulis,
-weave 3) under their gates' schedule at 12 and 14 qubits; more than 16
-qubits is refused; no tape kernel spills in ptxas' report.
+weave 3) under their gates' schedule at 12 and 14 qubits; the sweep
+tape kernels at 17 and 20 qubits (every row in device memory, the tape
+in segments of 12 local qubits), plainly and on woven tapes; more than
+20 qubits is refused; no tape kernel spills in ptxas' report.
 The composed step (``AngleOptimizer`` through the kernels against itself
 on the plain versions, 3 iterations, ``agreement``) runs for su4 tapes,
 shot noise (1024 shots) and depolarizing noise over 4 trajectories, under
@@ -703,6 +708,52 @@ def test_kernels_at_trainable_capacities_match_plain_version(config, caps):
 
 
 @pytest.mark.gpu
+def test_v1_trainable_env_that_parts_in_float32():
+    """The draw on which chip_smoke.py's v1 check at the trainable
+    capacities left the agreement band at E = 64 after 3 iterations (8q
+    H2O in_state, G = 172, R = 151, its ``Case`` at seed 1234): env 50.
+    Alone (E = 1) the kernel gives that env's row bit for bit; it agrees
+    with the plain version's float32 and float64 runs after 1 and 2
+    iterations; after 3 those two runs part by more than 1e-4 Ha, and the
+    kernel's e_new lies inside the range that 16 plain float32 runs with
+    the H planes rounded otherwise (as ``plain_results`` perturbs them)
+    span: float32 rounding decides where the env goes.  The check's four
+    perturbed runs did not reach the kernel's e_new (ROADMAP.md, C)."""
+    dev = _card()
+    import chip_smoke
+
+    v1 = chip_smoke.engines()[0]
+    case = chip_smoke.Case(v1, "H2O8q_TNbond2", 64,
+                           family=chip_smoke.TRAINABLE)
+    assert (case.g, case.r) == (172, 151)
+    e, lr = 50, chip_smoke.LR
+    xk, ek = v1.step(*case.args, iters=3, lr=lr)
+    one = (tuple(a[e:e + 1] for a in case.args[0]),
+           tuple(a[e:e + 1] for a in case.args[1]), case.args[2][e:e + 1],
+           *case.args[3:-2], case.args[-2][e:e + 1], case.args[-1][e:e + 1])
+    x1, e1 = v1.step(*one, iters=3, lr=lr)
+    assert torch.equal(x1[0], xk[e]) and torch.equal(e1[0], ek[e])
+    for iters in (1, 2):
+        k = float(v1.step(*one, iters=iters, lr=lr)[1][0])
+        for args in (one, fused_adam._to64(one)):
+            assert abs(k - float(v1.plain(*args, iters=iters, lr=lr)[1][0])
+                       ) < 1e-5
+    p32 = float(v1.plain(*one, iters=3, lr=lr)[1][0])
+    p64 = float(v1.plain(*fused_adam._to64(one), iters=3, lr=lr)[1][0])
+    assert abs(p32 - p64) > 1e-4
+    gen = torch.Generator(device=dev).manual_seed(1)
+    draws = []
+    for _ in range(16):
+        wob = list(one)
+        for i in (5, 6):
+            u = torch.rand(one[i].shape, generator=gen, dtype=one[i].dtype,
+                           device=dev) * 2 - 1
+            wob[i] = one[i] * (1 + u * 2.0 ** -23)
+        draws.append(float(v1.plain(*wob, iters=3, lr=lr)[1][0]))
+    assert min(draws) - 1e-5 <= float(ek[e]) <= max(draws) + 1e-5
+
+
+@pytest.mark.gpu
 def test_noise_kernel_at_trainable_noise_capacity_matches_plain_version():
     dev = _card()
     caps, args = _trainable(dev, "H2O8q_TNbond2_noise", 8, noisy=True)
@@ -935,13 +986,85 @@ def test_tape_kernels_are_deterministic(n):
 
 @pytest.mark.gpu
 def test_tape_kernels_refuse_more_than_sixteen_qubits():
+    """Past the composed engine's ceiling -- 20 qubits since the sweep
+    kernels took 17-20 -- the wrappers raise, naming the sharded path."""
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
 
     dev = _card()
-    planes, tape, angles, _ = _tape_case(dev, 17, n_env=1, s_n=1,
+    planes, tape, angles, _ = _tape_case(dev, 21, n_env=1, s_n=1,
                                          n_gates=4)
-    with pytest.raises(ValueError, match="at most 16"):
+    with pytest.raises(ValueError, match="at most 20.*mesh_shape"):
         at.apply_tape_fwd(*planes, *tape, angles)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [17, 20])
+@pytest.mark.parametrize("woven", [False, True])
+def test_sweep_tape_kernels_match_plain_versions(n, woven):
+    """The sweep tape kernels (17-20 qubits, ``csrc/apply_tape_sweep.cu``)
+    against their plain versions, plainly and on tapes woven with error
+    Paulis under the noiseless tapes' segments (weave 3); every call
+    counted as a sweep launch; a repeat bit for bit; the segment kernel's
+    rows equal ``sweep_segments``' word for word."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.ops.fused_adam2d import sweep_segments
+    from tensorrl_qas_tpu_torch.optim.angle_opt import extend_tape_arrays
+
+    dev = _card()
+    planes, tape, angles, cot = _tape_case(dev, n, n_env=2, s_n=2, seed=n)
+    sched = at.tape_schedule(*tape, n, angles.shape[-1])
+    twin = [sweep_segments(*(a[e].cpu().numpy() for a in tape[:3]), n)
+            for e in range(2)]
+    assert sched.cpu().tolist() == twin
+    run_tape, kw = tape, dict(schedule=sched)
+    if woven:
+        kind = tape[0].cpu().numpy()
+        rng = np.random.default_rng(n)
+        live = (kind >= int(GateKind.RX)) & (kind <= int(GateKind.CX))
+        kt = np.where(live & (rng.random(kind.shape) < 0.5),
+                      rng.integers(5, 8, kind.shape), 0)
+        kc = np.where(kind == int(GateKind.CX),
+                      rng.integers(5, 7, kind.shape), 0)
+        run_tape = tuple(a.to(torch.int32).contiguous()
+                         for a in extend_tape_arrays(
+                             tape, torch.as_tensor(kt, device=dev),
+                             torch.as_tensor(kc, device=dev)))
+        kw["weave"] = 3
+    before = (at.apply_tape_fwd.sweep_launches,
+              at.apply_tape_bwd.sweep_launches)
+    runs = []
+    for _ in range(2):
+        out = at.apply_tape_fwd(*planes, *run_tape, angles, **kw)
+        runs.append((*out, *at.apply_tape_bwd(*out, *cot, *run_tape, angles,
+                                              **kw)))
+    torch.cuda.synchronize()
+    assert (at.apply_tape_fwd.sweep_launches,
+            at.apply_tape_bwd.sweep_launches) == (before[0] + 2,
+                                                  before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out_p = at.apply_tape_fwd_plain(*planes, *run_tape, angles)
+    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *run_tape, angles)
+    assert _max_err(runs[0][:2], out_p) <= TOL_FWD
+    assert _max_err(runs[0][2:], grads_p) <= TOL_BWD
+
+
+@pytest.mark.gpu
+def test_sweep_tape_kernels_do_not_spill():
+    """ptxas' report of the sweep tape kernels' build: 0 bytes of spills in
+    the forward, adjoint, gradient and segment kernels."""
+    from tensorrl_qas_tpu_torch.ops.build import build
+
+    _card()
+    lines = build("apply_tape_sweep")["log"].splitlines()
+    reports = [(ln, nxt) for ln, nxt in zip(lines, lines[1:])
+               if "Function properties for" in ln
+               and "apply_tape_sweep" in ln]
+    names = " ".join(ln for ln, _ in reports)
+    for kernel in ("fwd_kernel", "bwd_kernel", "bwd_grad_kernel",
+                   "schedule_kernel"):
+        assert kernel in names, names
+    for ln, nxt in reports:
+        assert "0 bytes spill stores, 0 bytes spill loads" in nxt, ln
 
 
 def _composed_args(dev, n_env=16, s_n=4, su4=True, seed=0, n=8):

@@ -53,9 +53,12 @@ import sys
 from tensorrl_qas_tpu_torch.ops import apply_tape as at
 from tensorrl_qas_tpu_torch.optim import angle_opt
 assert at._library.cache_info().currsize == 0
+assert at._sweep_library.cache_info().currsize == 0
 assert (at.apply_tape_fwd.launches, at.apply_tape_bwd.launches) == (0, 0)
+assert (at.apply_tape_fwd.sweep_launches,
+        at.apply_tape_bwd.sweep_launches) == (0, 0)
 assert callable(at.apply_tape_fwd_plain) and callable(at.apply_tape_bwd_plain)
-assert hasattr(angle_opt, "composed_step") and at.MAX_QUBITS == 16
+assert hasattr(angle_opt, "composed_step") and at.MAX_QUBITS == 20
 banned = ("jax", "jaxlib", "tensorrl_qas_tpu", "triton")
 found = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 assert not found, found

@@ -9,6 +9,11 @@ once, and the adjoint sweep takes U^H and U^T once.  Each value is still
 the same IEEE operation on the same operands in the same order, so the
 results must equal, bit for bit, those of the forms below: one group, one
 gate and one term at a time.
+
+The tape kernels' plain versions (``ops/apply_tape.py``) make every
+gate's coefficients (angles, cos and sin, the 2x2 entries) for all gates
+at once (``_Tape``); a gate then takes slices of them.  They are held, bit
+for bit, to the same gates with the coefficients made a gate at a time.
 """
 
 import numpy as np
@@ -16,8 +21,10 @@ import pytest
 import torch
 
 from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+from tensorrl_qas_tpu_torch.ops import apply_tape as at
 from tensorrl_qas_tpu_torch.ops import fused_adam as fa
 from tensorrl_qas_tpu_torch.sim.noise import apply_pauli, noise_thresholds
+from tests.test_torch_apply_tape import _case
 from tests.test_torch_fused_adam import _ints, _random_batch
 
 
@@ -204,5 +211,48 @@ def test_step_matches_the_term_by_term_form(noisy, monkeypatch, one_thread):
     monkeypatch.setattr(fa, "_forward", _forward_by_term)
     monkeypatch.setattr(fa, "_backward", _backward_by_term)
     ref = fa.fused_adam_step_reference(*args, iters=iters, lr=0.1, **noise)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+class _RawTape(at._Tape):
+    """``_Tape`` that keeps what it was made from."""
+
+    def __init__(self, tape, angles):
+        super().__init__(tape, angles)
+        self.raw = (tape, angles)
+
+
+class _GateAlone(at._Gate):
+    """``_Gate`` whose coefficients are made for that gate alone."""
+
+    def __init__(self, tape, g, col):
+        raw, angles = tape.raw
+        super().__init__(_RawTape(tuple(a[:, g:g + 1] for a in raw),
+                                  angles), 0, col)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("woven", [False, True])
+def test_tape_plain_versions_match_the_gate_at_a_time_form(
+        dtype, woven, monkeypatch, one_thread):
+    """B3f's and B3b's plain versions on tapes of every gate class
+    (controlled rotations, CX, RXX / RYY / RZZ, and with ``woven`` error
+    Paulis) against themselves with each gate's coefficients made for that
+    gate alone."""
+    tape, re, im, angles, gre, gim = _case(7, n=5, n_env=3, s_n=2,
+                                           n_gates=26, extend=woven)
+    tape = tuple(torch.as_tensor(a) for a in tape)
+    re, im, angles, gre, gim = (torch.as_tensor(a, dtype=dtype)
+                                for a in (re, im, angles, gre, gim))
+
+    def run():
+        out = at.apply_tape_fwd_plain(re, im, *tape, angles)
+        return (*out, *at.apply_tape_bwd_plain(*out, gre, gim, *tape,
+                                               angles))
+    out = run()
+    monkeypatch.setattr(at, "_Tape", _RawTape)
+    monkeypatch.setattr(at, "_Gate", _GateAlone)
+    ref = run()
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
