@@ -11,7 +11,10 @@ with its circuit fit on the card) of the 8q H2O, 12q LiH and 20q
 Heisenberg trainers, which then train from it; the multi-device
 path (an (amp, dp) mesh of devices, every shard on this one card) at 20q;
 and the composed engine at 17-20 qubits (the sweep tape kernels) with
-the 20q su4 trainer at full width.
+the 20q su4 trainer at full width; and complex128 on the card
+(``--sim_dtype complex128``: the composed engine on the double-precision
+tape kernels, csrc/apply_tape_f64.cu) with the main path's trainer, and
+a generation of the structure search.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
@@ -48,6 +51,13 @@ the 20q su4 trainer at full width.
                                       # timings at 20q and 22q
     python3 chip_smoke.py --mesh --cards  # the same with the shards on
                                       # the host's cards in turn
+    python3 chip_smoke.py --f64       # the complex128 phases alone (28.),
+                                      # and the 20q su4 trainer in
+                                      # complex128
+    python3 chip_smoke.py --sweep-tape  # the sweep tape kernels' float
+                                      # (17q, 20q) and double (8-20q)
+                                      # instances alone, with their ptxas
+                                      # lines
 
 The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
 cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.),
@@ -97,7 +107,7 @@ Phases, one line each with its seconds:
                  5q Heisenberg (E = 64); then the 8q fixed and trainable
                  shapes at 8 and 16 amplitudes a thread (``reg_bits``).
 4. trainer v1 -- the CLI's vectorized trainer on configs/TensorRL_fixed/
-                 H2O8q_TNbond2.cfg with 128 env replicas for 20 vector
+                 H2O8q_TNbond2.cfg with 128 env replicas for 12 vector
                  steps, results in a temporary directory outside the
                  repository; checks the reference-schema outputs and that
                  every env step went through fused_adam_v1; traced, it
@@ -127,7 +137,7 @@ Phases, one line each with its seconds:
                  the trainable capacities and v2n timed the same way, and
                  the two traced v1 trainers, and prints no result lines.
 6. trainer v2 -- the trainer on configs/TensorRL_fixed/LIH12q_TNbond2.cfg
-                 with 16 replicas for 80 vector steps (1,280 env steps, so
+                 with 16 replicas for 70 vector steps (1,120 env steps, so
                  that the replay buffer passes batch 1000 and replay runs);
                  checks the outputs, that the replay ran and that every env
                  step went through fused_adam_v2.
@@ -209,7 +219,7 @@ Phases, one line each with its seconds:
                  samples differ; e_new equals the plain version's within
                  1e-5.
 11. trainer v1n -- the CLI's trainer on H2O8q_TNbond2_noise (depolarizing
-                 noise inferred from the name) with 128 replicas for 12
+                 noise inferred from the name) with 128 replicas for 4
                  vector steps, every step through the v1 noise variant.
 12. kernel v2n -- the v2 noise variant at LiH 12q (E = 16, S = 8, G = R =
                  116) at 3 and 100 iterations with the three controls and
@@ -286,8 +296,9 @@ Phases, one line each with its seconds:
                  topology inferred from the name), 128 replicas, and on
                  LIH12q_TNbond2 --gate_set su4 with 16 replicas (the wide
                  kernels; replay is not reached: 16 x 0 transitions <
-                 batch 1000), 12 vector steps each at 8q and 2 at 12q,
-                 every step one replay
+                 batch 1000), 12 vector steps of su4 at 8q (replay
+                 runs), 4 of the restricted config and 2 at 12q, every
+                 step one replay
                  of the composed step's graph (the first its warm-up and
                  capture): every vector step launches B3f iters + 2 times
                  and B3b iters times (at 12q also the schedule kernel
@@ -393,11 +404,40 @@ Phases, one line each with its seconds:
                  ``--composed-wide`` also a 100-iteration su4 step at 20q
                  timed as a graph and eagerly, with its device ms by
                  kernel family, peak memory and the tape kernels' bounds.
+28. complex128 -- (after 27.) the double-precision tape kernels
+                 (csrc/apply_tape_f64.cu, the double instance of the
+                 sweep kernels' body csrc/tape_sweep.cuh) against their float64 plain
+                 versions at 8q (E = 128, S = 8, G = R = 30; one chunk a
+                 row, one launch a call), 12q (E = 16 at the 12q su4
+                 trainer's capacity), 17q (E = 2, S = 8) and 20q (E = 8,
+                 S = 4, G = R = 46; segments, held to their twin): planes
+                 within 1e-12, cotangents and gradients within 1e-10, the
+                 RYY and RZZ controls exceeding them by 1e6, a repeat bit
+                 for bit, then their times (CUDA events; profiler device
+                 time), plain times, CTAs an SM and byte bounds; the
+                 composed step in complex128 at the main path's shapes (8q,
+                 E = 128): e_new against its float64 plain run at 3
+                 iterations within 1e-10 Ha, and as a CUDA graph against
+                 the eager kernel path bit for bit at 100 iterations; the
+                 main path's trainer with --sim_dtype complex128 (128
+                 replicas, 12 vector steps, the fewest with which replay
+                 runs, traced: every vector step
+                 iters + 2 double-precision B3f and iters B3b launches, no
+                 fused kernel; env-steps/s and peak memory beside 4.'s);
+                 the noisy COBYLA cost in complex128 at 8q against the
+                 eager complex128 simulator within 1e-12 Ha.  With
+                 ``--f64`` also the 20q su4 trainer in complex128 (8
+                 replicas, 4 starts, traced, peak memory).
+29. structure search -- (after 23.) one generation of
+                 tools/structure_search.py on 8q H2O (64 structures, 100
+                 iterations x 8 starts) and the champion's polish: two B1
+                 launches, no other kernel; its wall s.
 
 The line before the last is a JSON object with one entry per kernel
 variant (v1, v1 noise, v2, v2 noise, the v2 cluster, group and sweep
 kernels, v1 and v2 per-env psi0, the tape kernels' forward, adjoint and
-schedule at 1-9, 10-16 and 17-20 qubits);
+schedule at 1-9, 10-16 and 17-20 qubits, and their double-precision
+forward and adjoint);
 the last
 line is
 {"ok": true, "device":
@@ -435,8 +475,11 @@ HARD_DEADLINE_MARGIN_S = 30   # SIGALRM ends the process this much later
 STARTS, ITERS, LR = 8, 100, 0.1
 FIXED, TRAINABLE = "TensorRL_fixed/", "TensorRL_trainable/"
 STRUCTURE = "StructureRL/"
-V1_CONFIG, V1_ENVS, V1_STEPS = "H2O8q_TNbond2", 128, 20
-V2_CONFIG, V2_ENVS, V2_STEPS = "LIH12q_TNbond2", 16, 80
+# the main path's trainer 12 vector steps and the 12q one 70, the fewest
+# with which their replay runs (128 x 8 and 16 x 66 transitions > batch
+# 1000), cut from 20 and 80 to pay for the complex128 phases (28.)
+V1_CONFIG, V1_ENVS, V1_STEPS = "H2O8q_TNbond2", 128, 12
+V2_CONFIG, V2_ENVS, V2_STEPS = "LIH12q_TNbond2", 16, 70
 V1_SMALL = ("heisenberg_5q_TNbond2", 64)      # v1 below 8 qubits
 V1N_CONFIG = "H2O8q_TNbond2_noise"            # noise inferred from the name
 V2N_STEPS = 10
@@ -447,10 +490,10 @@ KRAUS_ENVS, KRAUS_P = 4096, (0.15, 0.25)
 # steps, the fewest with which the 8q trainers' replay runs (20 before the
 # composed engine's phases needed the time)
 T_STEPS, BLOCK_COORD = 12, ("--block_coord", "3")
-# the 12q block-coordinate trainer (replay not reached at 16 replicas) and
-# the 8q noisy one (12 steps: replay runs) cut to pay for the warm-start
-# phases
-V2P_STEPS, V1N_STEPS = 6, 12
+# the 12q block-coordinate trainer (replay not reached at 16 replicas) cut
+# to pay for the warm-start phases, and the 8q noisy one 12 -> 4 (too few
+# for replay, which the fixed 8q trainers run) for the complex128 phases
+V2P_STEPS, V1N_STEPS = 6, 4
 # the untraced trainable and StructureRL trainers: 4 vector steps, too
 # few for replay (the fixed 8q trainers and trainer v1p run it), so that
 # the sequential phases fit the deadline
@@ -485,8 +528,10 @@ SU4_12_CONFIG, SU4_12_ENVS, SU4_12_STEPS = "LIH12q_TNbond2", 16, 2
 RESTRICTED_CONFIG = "H2O8q_TNbond2_noise_restricted"
 NOISY_CONFIG = "H2O8q_TNbond2_noise"
 # 12: the fewest vector steps with which the 8q replay runs (20 before the
-# v2 register kernel's longer build needed the time)
-COMPOSED_STEPS = 12
+# v2 register kernel's longer build needed the time), for the su4 trainer;
+# the restricted (shot noise) trainer 4, too few for replay (cut for the
+# complex128 phases: the su4 trainer runs replay through the same engine)
+COMPOSED_STEPS, RESTRICTED_STEPS = 12, 4
 N_SHOTS, N_TRAJ, NOISE_SEED = 1024, 4, 11
 # the composed engine at 17-20 qubits (the sweep tape kernels,
 # csrc/apply_tape_sweep.cu): the tape kernels on a 17-qubit register (no
@@ -579,6 +624,7 @@ TOL_ORACLE = 1e-4        # kernel e_new vs the complex128 eager simulator
 # agree strictly (a single run spans no band of float32 noise); the
 # complex128 oracle stays.  That run is also the plain version's time.
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, non-tensor-core float32
+FP64_PEAK_FLOPS = 34e12  # H100 SXM, non-tensor-core float64
 HBM_BYTES_PER_S = 3.35e12
 
 _phase = ["start"]
@@ -1870,6 +1916,54 @@ def sweep_twin(tape, n):
                            dtype=torch.int32)
 
 
+def tape_check(planes, tape, angles, cot, sched):
+    """B3f and B3b through their wrappers on one batch (under ``sched``)
+    against their plain versions (each run once, timed), with two wrong
+    results -- RYY's sign flipped, RZZ's gradient dropped -- and a repeat.
+    -> {"out", "grads", "err": (forward, adjoint) largest differences,
+    "wrong": the controls' (forward, adjoint), "bit": the repeat's bits
+    equal, "plain_ms": {"fwd", "bwd"}}."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    kw = dict(schedule=sched)
+    out = at.apply_tape_fwd(*planes, *tape, angles, **kw)
+    grads = at.apply_tape_bwd(*out, *cot, *tape, angles, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out_p = at.apply_tape_fwd_plain(*planes, *tape, angles)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *tape, angles)
+    torch.cuda.synchronize()
+    plain_ms = {"fwd": 1e3 * (t2 - t1),
+                "bwd": 1e3 * (time.perf_counter() - t2)}
+
+    def max_err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+    kind, _, _, slot = tape
+    e_idx = torch.arange(kind.shape[0], device=kind.device)[:, None]
+    ryy = torch.where(kind == int(GateKind.RYY), slot, -1)
+    flip = torch.ones_like(angles)
+    flip[e_idx.expand_as(ryy)[ryy >= 0], :, ryy[ryy >= 0].long()] = -1.0
+    wrong_f = max_err(at.apply_tape_fwd(*planes, *tape,
+                                        (angles * flip).contiguous(), **kw),
+                      out_p)
+    rzz = torch.where(kind == int(GateKind.RZZ), slot, -1)
+    dang = grads[2].clone()
+    dang[e_idx.expand_as(rzz)[rzz >= 0], :, rzz[rzz >= 0].long()] = 0.0
+    out2 = at.apply_tape_fwd(*planes, *tape, angles, **kw)
+    grads2 = at.apply_tape_bwd(*out2, *cot, *tape, angles, **kw)
+    return {"out": out, "grads": grads,
+            "err": (max_err(out, out_p), max_err(grads, grads_p)),
+            "wrong": (wrong_f, max_err((dang,), (grads_p[2],))),
+            "bit": all(torch.equal(a, b) for a, b in zip((*out, *grads),
+                                                         (*out2, *grads2))),
+            "plain_ms": plain_ms}
+
+
 def tape_phase(n, n_env, cap, label, woven=False, s_n=STARTS):
     """B3f and B3b against their plain versions on one random batch of E =
     ``n_env`` envs and ``s_n`` starts, the two controls, a repeat bit for
@@ -1882,7 +1976,6 @@ def tape_phase(n, n_env, cap, label, woven=False, s_n=STARTS):
     import numpy as np
     import torch
 
-    from tensorrl_qas_tpu_torch.circuits.tape import GateKind
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
 
     t0 = phase(label)
@@ -1890,32 +1983,9 @@ def tape_phase(n, n_env, cap, label, woven=False, s_n=STARTS):
     planes, tape, angles, cot = draw_tape_batch(
         np.random.default_rng(1234), n_env, s_n, cap, n)
     sched = at.tape_schedule(*tape, n, cap)       # None below 10 qubits
-    kw = dict(schedule=sched)
-    out = at.apply_tape_fwd(*planes, *tape, angles, **kw)
-    grads = at.apply_tape_bwd(*out, *cot, *tape, angles, **kw)
-    torch.cuda.synchronize()
-    out_p = at.apply_tape_fwd_plain(*planes, *tape, angles)
-    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *tape, angles)
-
-    def max_err(a, b):
-        return max(float((x - y).abs().max()) for x, y in zip(a, b))
-    err_f, err_b = max_err(out, out_p), max_err(grads, grads_p)
-    kind, _, _, slot = tape
-    e_idx = torch.arange(n_env, device=kind.device)[:, None]
-    ryy = torch.where(kind == int(GateKind.RYY), slot, -1)
-    flip = torch.ones_like(angles)
-    flip[e_idx.expand_as(ryy)[ryy >= 0], :, ryy[ryy >= 0].long()] = -1.0
-    wrong_f = max_err(at.apply_tape_fwd(*planes, *tape,
-                                        (angles * flip).contiguous(), **kw),
-                      out_p)
-    rzz = torch.where(kind == int(GateKind.RZZ), slot, -1)
-    dang = grads[2].clone()
-    dang[e_idx.expand_as(rzz)[rzz >= 0], :, rzz[rzz >= 0].long()] = 0.0
-    wrong_b = max_err((dang,), (grads_p[2],))
-    out2 = at.apply_tape_fwd(*planes, *tape, angles, **kw)
-    grads2 = at.apply_tape_bwd(*out2, *cot, *tape, angles, **kw)
-    bit = all(torch.equal(a, b) for a, b in zip((*out, *grads),
-                                                (*out2, *grads2)))
+    chk = tape_check(planes, tape, angles, cot, sched)
+    out, grads, bit = chk["out"], chk["grads"], chk["bit"]
+    (err_f, err_b), (wrong_f, wrong_b) = chk["err"], chk["wrong"]
     sched_err = 0.0
     segments = None
     if sched is not None:
@@ -1931,7 +2001,7 @@ def tape_phase(n, n_env, cap, label, woven=False, s_n=STARTS):
     extra = {}
     if sweep:
         extra = dict(segments_per_env=segments, launches_per_call=(
-            at._sweep_library().apply_tape_sweep_max_segments(cap, n)))
+            at._sweep_library().max_segments(cap, n)))
     done(label, t0, E=n_env, S=s_n, G=cap, R=cap, D=1 << n,
          kernels=tape_kernels_label(n),
          fwd_max_abs_err=f"{err_f:.3e}", bwd_max_abs_err=f"{err_b:.3e}",
@@ -1975,27 +2045,29 @@ def tape_phase(n, n_env, cap, label, woven=False, s_n=STARTS):
 
         def plain_sched():
             return at.tape_schedule_plain(*tape, n, cap)
+    # the plain versions' times: their checked runs (the schedule's twin
+    # timed here)
     runs = {
         "fwd": (lambda: run_fwd(lib, *planes, tape, angles, schedule=sched,
                                 stream=stream),
-                lambda: at.apply_tape_fwd_plain(*planes, *tape, angles),
+                chk["plain_ms"]["fwd"],
                 s_n * tape_flops(tape_np, 1 << n, fwd_flops_t).sum(),
                 4 * plane_bytes + in_bytes, err_f),
         "bwd": (lambda: run_bwd(lib, *out, *cot, tape, angles,
                                 schedule=sched, stream=stream),
-                lambda: at.apply_tape_bwd_plain(*out, *cot, *tape, angles),
+                chk["plain_ms"]["bwd"],
                 s_n * tape_flops(tape_np, 1 << n, bwd_flops_t).sum(),
                 6 * plane_bytes + in_bytes + angles.numel() * 4, err_b)}
     if sched is not None:
         # integer work only: bound by its bytes (the tapes in, the rows out)
-        runs["schedule"] = (run_sched, plain_sched, 0.0,
+        runs["schedule"] = (run_sched,
+                            time_cuda(plain_sched, warmup=0, reps=1), 0.0,
                             tape_bytes + sched.numel() * 4, sched_err)
     entries, info = {}, {}
-    for key, (kernel, plain, flops, nbytes, err) in runs.items():
+    for key, (kernel, p_ms, flops, nbytes, err) in runs.items():
         k_ms = time_back_to_back(kernel, 5 if sweep else 20)
         dev_ms = device_ms(kernel, kernel_name.format(key),
                            reps=3 if sweep else 10)
-        p_ms = time_cuda(plain, warmup=0, reps=1)
         t_ops = float(flops) / FP32_PEAK_FLOPS
         t_bytes = nbytes / HBM_BYTES_PER_S
         entries[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
@@ -2010,8 +2082,8 @@ def tape_phase(n, n_env, cap, label, woven=False, s_n=STARTS):
                      f"MFLOP, {nbytes / 1e6:.3f} MB)")
     if sweep:
         smem = {"dynamic_smem_bytes_per_cta": tuple(
-                    lib.apply_tape_sweep_smem_bytes(a) for a in (0, 1)),
-                "ctas_per_sm": at.check_sweep_fit(lib, angles.device)}
+                    lib.smem_bytes(a, n) for a in (0, 1)),
+                "ctas_per_sm": at.check_sweep_fit(lib, n, angles.device)}
     else:
         smem = {"dynamic_smem_bytes_per_cta": tuple(
             f(s_n, cap, cap, n, 1)
@@ -2307,7 +2379,7 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
         for k in tape_kernels:
             k.launches = 0
         for k in tape_kernels[:2]:
-            k.sweep_launches = 0
+            k.sweep_launches = k.f64_launches = 0
         tracer = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
                   if profile else contextlib.nullcontext())
         with tracer:
@@ -2335,8 +2407,10 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
                          **trainer_split(tracer, vector_steps, wall_ms)}
         launches = {e.name: e.launches() for e in variants}
         launches.update({k.__name__: k.launches for k in tape_kernels})
-        launches.update({f"apply_tape_sweep_{key}": k.sweep_launches
-                         for key, k in zip(("fwd", "bwd"), tape_kernels)})
+        launches.update({f"apply_tape_{kind}_{key}": getattr(k, attr)
+                         for key, k in zip(("fwd", "bwd"), tape_kernels)
+                         for kind, attr in (("sweep", "sweep_launches"),
+                                            ("f64", "f64_launches"))})
         run_dir = os.path.join(out, family, config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
                         allow_pickle=True).item()
@@ -2419,7 +2493,7 @@ def sequential_phase(config, label, extra=(), expect=None, profile=False):
         for k in tape_kernels:
             k.launches = 0
         for k in tape_kernels[:2]:
-            k.sweep_launches = 0
+            k.sweep_launches = k.f64_launches = 0
         tracer = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
                   if profile else contextlib.nullcontext())
         with tracer:
@@ -2428,8 +2502,10 @@ def sequential_phase(config, label, extra=(), expect=None, profile=False):
             torch.cuda.synchronize()
         launches = {e.name: e.launches() for e in variants}
         launches.update({k.__name__: k.launches for k in tape_kernels})
-        launches.update({f"apply_tape_sweep_{key}": k.sweep_launches
-                         for key, k in zip(("fwd", "bwd"), tape_kernels)})
+        launches.update({f"apply_tape_{kind}_{key}": getattr(k, attr)
+                         for key, k in zip(("fwd", "bwd"), tape_kernels)
+                         for kind, attr in (("sweep", "sweep_launches"),
+                                            ("f64", "f64_launches"))})
         want = expect(summary)
         run_dir = os.path.join(out, FIXED, config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
@@ -2483,10 +2559,13 @@ def sequential_phase(config, label, extra=(), expect=None, profile=False):
         shutil.rmtree(out, ignore_errors=True)
 
 
-def seq_case(config, noise_mode="none", seed=1234):
-    """A sequential env's optimizer (COBYLA, ``noise_mode``), its warm-start
-    psi0 and a random mid-episode tape at its capacity (numpy ``seed``):
-    the inputs of the COBYLA cost timings and checks."""
+def seq_case(config, noise_mode="none", seed=1234, sim_dtype="auto"):
+    """A sequential env's optimizer (COBYLA, ``noise_mode``, at
+    ``sim_dtype``), its warm-start psi0 and a random mid-episode tape at
+    its capacity (numpy ``seed``): the inputs of the COBYLA cost timings
+    and checks."""
+    import dataclasses
+
     import numpy as np
 
     from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
@@ -2494,9 +2573,9 @@ def seq_case(config, noise_mode="none", seed=1234):
     from tensorrl_qas_tpu_torch.train.config import get_config
 
     conf = get_config(FIXED, f"{config}.cfg")
-    env = CircuitEnv(EnvConfig.from_conf(
+    env = CircuitEnv(dataclasses.replace(EnvConfig.from_conf(
         conf, tn_placement="fixed", noise_mode=noise_mode,
-        optim_alg="cobyla", device="cuda"))
+        optim_alg="cobyla", device="cuda"), sim_dtype=sim_dtype))
     rng = np.random.default_rng(seed)
     n, cap = env.num_qubits, env.tape_capacity
     tape = GateTape(n, cap, env.rot_capacity)
@@ -2527,7 +2606,8 @@ def csim_us(opt, psi0, tape):
     return sorted(runs)[2]
 
 
-def noisy_cost_phase(config, label, csim=True):
+def noisy_cost_phase(config, label, csim=True, sim_dtype="auto",
+                     tol=TOL_FWD):
     """The noisy COBYLA cost on the card (``kernel_energy_fn``: one B3f
     launch an evaluation on the tape woven with that evaluation's draw)
     against the eager complex128 simulator on the same draws
@@ -2537,14 +2617,16 @@ def noisy_cost_phase(config, label, csim=True):
     rad.  Then per evaluation: wall ms (the host read included), B3f's
     device ms (profiler) and bound, and the eager simulator's ms; with
     ``csim`` also csim's ms on the same tape beside them (not at 20 qubits,
-    where its host runs take seconds).  -> {timings}."""
+    where its host runs take seconds).  ``sim_dtype`` 'complex128': the
+    double-precision B3f, held within ``tol``.  -> {timings}."""
     import torch
 
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
     from tensorrl_qas_tpu_torch.optim.angle_opt import extend_tape_arrays
 
     t0 = phase(label)
-    opt, psi0, tape = seq_case(config, "depolarizing")
+    opt, psi0, tape = seq_case(config, "depolarizing", sim_dtype=sim_dtype)
+    f64 = opt.rdtype == torch.float64
     r = tape.rot_capacity
     energy = opt.kernel_energy_fn(psi0, tape.arrays(), r)
     kind = torch.as_tensor(tape.kind, dtype=torch.int32,
@@ -2552,9 +2634,10 @@ def noisy_cost_phase(config, label, csim=True):
     x = tape.x0()
     gen = torch.Generator(device="cuda").manual_seed(NOISE_SEED)
     draws = [opt._draw_noise(gen, kind, 1, 1) for _ in range(COST_DRAWS)]
-    before = at.apply_tape_fwd.launches
+    counter = "f64_launches" if f64 else "launches"
+    before = getattr(at.apply_tape_fwd, counter)
     got = [energy(x, d) for d in draws]
-    launched = at.apply_tape_fwd.launches - before
+    launched = getattr(at.apply_tape_fwd, counter) - before
     t1 = time.perf_counter()
     want = [opt.plain_energy(psi0, tape.arrays(), x, d) for d in draws]
     eager_ms = 1e3 * (time.perf_counter() - t1) / len(draws)
@@ -2586,7 +2669,8 @@ def noisy_cost_phase(config, label, csim=True):
     # woven row (planes in and out, the woven tape and the angles once;
     # its gates' operations, error Paulis none)
     wall_ms = time_cuda(lambda: energy(x), warmup=2, reps=20)
-    b3f_ms = device_ms(lambda: energy(x), "apply_tape_sweep_fwd"
+    b3f_ms = device_ms(lambda: energy(x), "apply_tape_f64_fwd" if f64
+                       else "apply_tape_sweep_fwd"
                        if opt.pauli.n_qubits >= at.SWEEP_MIN_QUBITS
                        else "apply_tape_fwd", reps=20)
     host_us = csim_us(opt, psi0, tape) if csim else None
@@ -2596,14 +2680,16 @@ def noisy_cost_phase(config, label, csim=True):
     woven = [a.reshape(1, -1).cpu().numpy() for a in woven]
     dim = 1 << opt.pauli.n_qubits
     flops = float(tape_flops(woven, dim, gate_tables()[0]).sum())
-    nbytes = 4 * (4 * dim + 4 * woven[0].size + r)
-    b3f_bound = 1e3 * max(flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S)
-    ok = (err <= TOL_FWD and launched == COST_DRAWS
-          and all(v > TOL_FWD for v in controls.values()))
+    word = 8 if f64 else 4
+    nbytes = word * (4 * dim + r) + 4 * 4 * woven[0].size
+    peak = FP64_PEAK_FLOPS if f64 else FP32_PEAK_FLOPS
+    b3f_bound = 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S)
+    ok = (err <= tol and launched == COST_DRAWS
+          and all(v > tol for v in controls.values()))
     fired = sum(bool(((kt != 0) | (kc != 0)).any()) for kt, kc in draws)
     done(label, t0, n=opt.pauli.n_qubits, G=tape.capacity, R=r,
          draws=COST_DRAWS, draws_with_errors=fired,
-         max_abs_err_vs_eager=f"{err:.3e}", tol=TOL_FWD,
+         dtype=str(opt.rdtype), max_abs_err_vs_eager=f"{err:.3e}", tol=tol,
          b3f_launches=launched,
          controls={k: f"{v:.3e}" for k, v in controls.items()},
          eval_wall_ms=f"{wall_ms:.4f}",
@@ -3186,8 +3272,8 @@ def trainer_split(prof, vector_steps, wall_ms):
         key = kernel_family(k)
         per[key] = per.get(key, 0.0) + v / 1e3 / vector_steps
     groups = {key: sum(v for k, v in per.items()
-                       if f"apply_tape_{key}" in k
-                       or f"apply_tape_sweep_{key}" in k)
+                       if any(f"apply_tape_{band}{key}" in k
+                              for band in ("", "sweep_", "f64_")))
               for key in ("fwd", "bwd", "schedule")}
     rest = sorted(((v, k) for k, v in per.items() if "apply_tape" not in k),
                   reverse=True)
@@ -3236,8 +3322,10 @@ def composed_phases(builds, idle=None):
                              "trainer su4", SU4_ARGS, expect=per_step)
     for key in ("fwd", "bwd"):
         tape["reg"][key]["launches"] = launches[f"apply_tape_{key}"]
-    trainer_phase(COMPOSED, RESTRICTED_CONFIG, V1_ENVS, COMPOSED_STEPS,
-                  "trainer restricted", expect=per_step)
+    trainer_phase(COMPOSED, RESTRICTED_CONFIG, V1_ENVS, RESTRICTED_STEPS,
+                  "trainer restricted", expect_replay=False,
+                  expect={"apply_tape_fwd": RESTRICTED_STEPS * (ITERS + 2),
+                          "apply_tape_bwd": RESTRICTED_STEPS * ITERS})
     print(f"[trainer su4 12q] replay is not reached: {SU4_12_ENVS} replicas "
           f"x {max(0, SU4_12_STEPS - 4)} transitions < batch 1000 (the 8q "
           "trainers run it)", flush=True)
@@ -3361,8 +3449,8 @@ def composed_wide_timing(opt):
          first_call_warmup_and_capture_s=f"{capture_s:.3f}",
          sweep_calls_per_step={"fwd": per[0], "bwd": per[1],
                                "schedule": per[2]},
-         segment_launches_per_call=at._sweep_library()
-         .apply_tape_sweep_max_segments(case.g, case.n),
+         segment_launches_per_call=at._sweep_library().max_segments(
+             case.g, case.n),
          profiled_step_wall_ms=f"{wall:.2f}", **split,
          peak_device_GiB=round(torch.cuda.max_memory_allocated() / 2**30,
                                3),
@@ -4045,6 +4133,306 @@ def mesh_phase(v2s, full=False):
     done("mesh", t_all)
 
 
+# -- complex128 on the card (--sim_dtype complex128) -------------------------
+
+# the double-precision tape kernels (csrc/apply_tape_f64.cu) held to their
+# float64 plain versions at (qubits, envs, starts, gates): the main path's
+# 8q E = 128 at the su4 8q capacity, one chunk a row; 12q E = 16 at the 12q
+# su4 trainer's capacity (0: read from the config), the largest row one
+# launch holds; 17q E = 2, S = 8 on the chain's capacity and 20q at the su4
+# 20q trainer's shapes (E = 8, S = 4, 0: its capacity), in segments
+F64_TAPE_SHAPES = ((8, V1_ENVS, STARTS, TAPE_CAP), (12, 16, STARTS, 0),
+                   (WIDE_CHAIN, 2, STARTS, CHAIN_CAP),
+                   (20, V2S_ENVS, V2S_STARTS, 0))
+TOL_FWD64 = 1e-12        # B3f planes in float64: double gate arithmetic
+TOL_BWD64 = 1e-10        # B3b cotangents and gradients: double row sums
+TOL_STEP64 = 1e-10       # the composed step's e_new (Ha) vs its plain run
+# the 8q complex128 trainer's vector steps: the fewest with which its
+# replay runs, as the v1 trainer's (V1_STEPS)
+F64_STEPS = 12
+F64_ARGS = ("--sim_dtype", "complex128")
+F64_SOURCE = "tensorrl_qas_tpu_torch/csrc/apply_tape_f64.cu"
+SEARCH_POP = 64          # the structure search's generation on the card
+
+
+def f64_tape_phase(n, n_env, s_n, cap, label):
+    """The double-precision B3f and B3b against their float64 plain
+    versions on one random batch (``draw_tape_batch`` in float64) within
+    1e-12 / 1e-10, RYY's sign flipped and RZZ's gradient dropped exceeding
+    them, a repeat bit for bit, above 12 qubits the segment kernel held to
+    ``sweep_segments`` word for word; then both kernels' times (CUDA
+    events, calls back to back; the profiler's device time), the plain
+    versions' (their checked runs), the CTAs an SM holds and the bounds
+    (the planes in and out once: twice the float kernels' bytes).  ->
+    {"fwd": entry, "bwd": entry} of the kernels line (without
+    launches)."""
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    t0 = phase(label)
+    lib = at._sweep_library(torch.float64)
+    planes, tape, angles, cot = draw_tape_batch(
+        np.random.default_rng(1234), n_env, s_n, cap, n)
+    planes, cot = (tuple(t.double() for t in p) for p in (planes, cot))
+    angles = angles.double()
+    sched = at.tape_schedule(*tape, n, cap, torch.float64)
+    counters = (at.apply_tape_fwd, at.apply_tape_bwd)
+    before = [k.f64_launches for k in counters]
+    chk = tape_check(planes, tape, angles, cot, sched)
+    # a check, a control and a repeat forward, a check and a repeat adjoint
+    counted = tuple(k.f64_launches - b for k, b in zip(counters, before))
+    out, grads, bit = chk["out"], chk["grads"], chk["bit"]
+    err = dict(zip(("fwd", "bwd"), chk["err"]))
+    wrong_f, wrong_b = chk["wrong"]
+    plain_ms = chk["plain_ms"]
+    sched_err = ("n/a (one chunk a row)" if sched is None
+                 else float((sched.cpu() - sweep_twin(tape, n)).abs().max()))
+    ok = (err["fwd"] <= TOL_FWD64 and err["bwd"] <= TOL_BWD64
+          and wrong_f > 1e6 * TOL_FWD64 and wrong_b > 1e6 * TOL_BWD64
+          and bit and sched_err in (0.0, "n/a (one chunk a row)")
+          and counted == (3, 2)
+          and all(t.dtype == torch.float64 for t in (*out, *grads)))
+    segments = None if sched is None else sched[:, 0].tolist()
+    done(label, t0, E=n_env, S=s_n, G=cap, R=cap, D=1 << n,
+         fwd_max_abs_err=f"{err['fwd']:.3e}",
+         bwd_max_abs_err=f"{err['bwd']:.3e}", tol=(TOL_FWD64, TOL_BWD64),
+         controls={"RYY sign flipped": f"{wrong_f:.3e}",
+                   "RZZ gradient dropped": f"{wrong_b:.3e}"},
+         repeat_bit_for_bit=bit, f64_launches=counted,
+         segments_per_env=segments, schedule_vs_twin=sched_err,
+         launches_per_call=lib.max_segments(cap, n), ok=ok)
+    if not ok:
+        raise AssertionError(f"{label}: the double-precision tape kernels "
+                             "disagree with their plain versions, a "
+                             "control passed or a launch went uncounted")
+    t0 = phase(f"{label} timing")
+    fwd_t, bwd_t = gate_tables()
+    tape_np = tuple(a.cpu().numpy() for a in tape)
+    plane_bytes = planes[0].numel() * 8
+    in_bytes = sum(a.numel() * 4 for a in tape) + angles.numel() * 8
+    stream = at._stream(angles.device)
+    runs = {"fwd": (lambda: at.run_sweep_fwd(lib, *planes, tape, angles,
+                                             schedule=sched, stream=stream),
+                    s_n * tape_flops(tape_np, 1 << n, fwd_t).sum(),
+                    4 * plane_bytes + in_bytes),
+            "bwd": (lambda: at.run_sweep_bwd(lib, *out, *cot, tape, angles,
+                                             schedule=sched, stream=stream),
+                    s_n * tape_flops(tape_np, 1 << n, bwd_t).sum(),
+                    6 * plane_bytes + in_bytes + angles.numel() * 8)}
+    entries, info = {}, {}
+    reps = 5 if n > lib.chunk_bits() else 20
+    for key, (kernel, flops, nbytes) in runs.items():
+        k_ms = time_back_to_back(kernel, reps)
+        dev_ms = device_ms(kernel, f"apply_tape_f64_{key}", reps=3)
+        t_ops = float(flops) / FP64_PEAK_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        entries[key] = {"max_abs_err": err[key], "ms": k_ms,
+                        "plain_ms": plain_ms[key],
+                        "bound_ms": 1e3 * max(t_ops, t_bytes),
+                        "bound_by": "operations" if t_ops >= t_bytes
+                        else "bytes", "device_ms": dev_ms}
+        info[key] = (f"kernel {k_ms:.4f} ms (back to back; profiler "
+                     f"device time {_ms_or_not(dev_ms)}), plain "
+                     f"{plain_ms[key]:.4f} ms, bound "
+                     f"{entries[key]['bound_ms']:.6f} ms "
+                     f"({entries[key]['bound_by']}; {flops / 1e6:.3f} "
+                     f"MFLOP, {nbytes / 1e6:.3f} MB)")
+    done(f"{label} timing", t0, **info,
+         dynamic_smem_bytes_per_cta=tuple(
+             lib.smem_bytes(a, n) for a in (0, 1)),
+         threads_per_cta=lib.threads(n),
+         ctas_per_sm=at.check_sweep_fit(lib, n, angles.device),
+         library_ms="n/a (no single PyTorch call computes a tape)")
+    return entries
+
+
+def f64_composed_phase():
+    """The composed step in complex128 at the main path's shapes (8q H2O,
+    E = 128, S = 8, CNOT tapes at the fixed config's capacities, the
+    double-precision tape kernels): at 3 iterations against its plain run
+    in float64, e_new within 1e-10 Ha (x_opt's largest difference shown:
+    an angle on a flat direction moves by ~lr x 1e-16 / eps an iteration
+    between summation orders); at 100 iterations as a CUDA graph (its
+    first call the warm-up and capture, then replays on other starts and
+    on the first again) against the eager kernel path bit for bit, every
+    call 102 B3f and 100 B3b double-precision launches; the graph's and
+    the eager step's ms."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim.angle_opt import (
+        AngleOptimizer,
+        ComposedGraph,
+    )
+
+    label = "composed complex128 8q"
+    t0 = phase(label)
+    case = Case(COMPOSED, V1_CONFIG, V1_ENVS)
+    opt = AngleOptimizer(case.prob.pauli, device="cuda",
+                         dtype=torch.complex128)
+    args = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in (*case.args[:5], *case.args[-2:]))
+    h_apply = opt._h_apply(torch.float64)
+
+    def step(a, iters, plain=False):
+        return opt._fused_step_composed(*a[:5], h_apply, *a[5:],
+                                        iters=iters, lr=LR, plain=plain)
+    xk, ek = step(args, 3)
+    xp, ep = step(args, 3, plain=True)
+    e_err = float((ek - ep).abs().max())
+    x_diff = float((xk - xp).abs().max())
+    graph = ComposedGraph(opt)
+    counters = (at.apply_tape_fwd, at.apply_tape_bwd)
+    other = (*args[:5], (args[5] + 0.05 * args[6]).contiguous(), args[6])
+    bits, launches = [], []
+    t1 = time.perf_counter()
+    for a in (args, other, args):
+        before = [k.f64_launches for k in counters]
+        xg, eg = graph(*a, iters=ITERS, lr=LR)
+        torch.cuda.synchronize()
+        launches.append(tuple(k.f64_launches - b
+                              for k, b in zip(counters, before)))
+        xe, ee = step(a, ITERS)
+        bits.append(bool(torch.equal(xg, xe) and torch.equal(eg, ee)))
+    first_calls_s = time.perf_counter() - t1
+    graph_ms = time_cuda(lambda: graph(*args, iters=ITERS, lr=LR), warmup=1,
+                         reps=5)
+    eager_ms = time_cuda(lambda: step(args, ITERS), warmup=0, reps=1)
+    ok = (e_err <= TOL_STEP64 and all(bits) and graph.captures == 1
+          and all(n == (ITERS + 2, ITERS) for n in launches)
+          and ek.dtype == torch.float64)
+    done(label, t0, E=case.n_env, S=case.s, G=case.g, R=case.r,
+         e_new_max_abs_err_vs_plain_3_iters=f"{e_err:.3e}", tol=TOL_STEP64,
+         x_opt_max_abs_diff_3_iters=f"{x_diff:.3e}",
+         graph_bit_for_bit_100_iters=bits, captures=graph.captures,
+         f64_launches_per_call=launches,
+         graph_step_ms=f"{graph_ms:.4f}", eager_step_ms=f"{eager_ms:.4f}",
+         checked_calls_s=f"{first_calls_s:.2f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"{label}: the step disagrees with its plain "
+                             "run or the graph with the eager kernel path")
+
+
+def f64_phases(builds):
+    """complex128 on the card: the double-precision tape kernels at
+    ``F64_TAPE_SHAPES``, the 8q composed step (``f64_composed_phase``),
+    the main path's trainer with ``--sim_dtype complex128`` (128
+    replicas, every vector step iters + 2 double-precision B3f and iters
+    B3b launches through the composed step's graph, no fused kernel;
+    traced), and the noisy COBYLA cost in complex128 at 8q (one
+    double-precision B3f launch an evaluation) against the eager complex128
+    simulator within 1e-12 Ha.  -> the kernels line's entries (numbers at
+    8q, launches from the trainer)."""
+    builds.wait("apply_tape_f64")
+    entries = f64_tape_phases()
+    f64_composed_phase()
+    calls = {"fwd": F64_STEPS * (ITERS + 2), "bwd": F64_STEPS * ITERS}
+    launches = trainer_phase(
+        COMPOSED, V1_CONFIG, V1_ENVS, F64_STEPS, "trainer v1 complex128",
+        F64_ARGS, profile=True,
+        expect={**{f"apply_tape_{k}": v for k, v in calls.items()},
+                **{f"apply_tape_f64_{k}": v for k, v in calls.items()}})
+    for key in ("fwd", "bwd"):
+        entries[key]["launches"] = launches[f"apply_tape_f64_{key}"]
+    noisy_cost_phase(NOISY_CONFIG, "cobyla noisy cost complex128 8q",
+                     csim=False, sim_dtype="complex128", tol=1e-12)
+    return entries
+
+
+def f64_tape_phases():
+    """The double-precision tape kernels at ``F64_TAPE_SHAPES``
+    (``f64_tape_phase``) -> the entries of the first (8q)."""
+    g12, _ = su4_capacity(SU4_12_CONFIG)
+    g20, _ = su4_capacity(V2S_CONFIG)
+    entries = None
+    for n, n_env, s_n, cap in F64_TAPE_SHAPES:
+        cap = cap or (g12 if n == 12 else g20)
+        got = f64_tape_phase(n, n_env, s_n, cap,
+                             f"kernel tape f64 {n}q E={n_env}")
+        entries = entries or got
+    return entries
+
+
+def sweep_tape_phases(builds):
+    """``--sweep-tape``: the two instances of the sweep tape kernels' body
+    (``csrc/tape_sweep.cuh``) alone, each build's ptxas lines printed: the
+    float kernels at 17 qubits and at the 20q su4 trainer's shapes (E = 8,
+    S = 4, G = R = 46), then the double ones at ``F64_TAPE_SHAPES``, each
+    checked against its plain versions and timed as in the default
+    run."""
+    g20, _ = su4_capacity(V2S_CONFIG)
+    builds.wait("apply_tape_sweep")
+    tape_phase(WIDE_CHAIN, WIDE_CHECK_ENVS, CHAIN_CAP,
+               f"kernel tape {WIDE_CHAIN}q", woven=True)
+    tape_phase(20, V2S_ENVS, g20, f"kernel tape 20q G={g20}", woven=True,
+               s_n=V2S_STARTS)
+    builds.wait("apply_tape_f64")
+    f64_tape_phases()
+
+
+def f64_wide_trainer():
+    """``--f64``: the 20q Heisenberg su4 trainer in complex128 (8
+    replicas, the config's 4 starts x 100 iterations, G = R = 46) for
+    ``WIDE_STEPS`` vector steps, traced: every vector step iters + 2
+    double-precision B3f and iters B3b calls (3 segment launches each)
+    and two segment builds; env-steps/s, device ms by kernel family, the
+    busy share and peak device memory."""
+    calls = {"fwd": WIDE_STEPS * (ITERS + 2), "bwd": WIDE_STEPS * ITERS}
+    print(f"[trainer su4 20q complex128] replay is not reached: {V2S_ENVS} "
+          f"replicas x {max(0, WIDE_STEPS - 4)} transitions < batch 1000",
+          flush=True)
+    trainer_phase(
+        COMPOSED, V2S_CONFIG, V2S_ENVS, WIDE_STEPS,
+        "trainer su4 20q complex128", SU4_ARGS + F64_ARGS,
+        expect_replay=False, profile=True,
+        expect={**{f"apply_tape_{k}": v for k, v in calls.items()},
+                **{f"apply_tape_f64_{k}": v for k, v in calls.items()},
+                "tape_schedule": 2 * WIDE_STEPS})
+
+
+def structure_search_phase(v1):
+    """One generation of the structure search on the card
+    (``tools/structure_search.py``: 8q H2O, a population of
+    ``SEARCH_POP`` structures of up to 28 gates, 100 Adam iterations x 8
+    starts, then the champion's polish): the generation and the polish one
+    B1 launch each, no other kernel; the result within the output's rules;
+    the wall s."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.tools import structure_search
+
+    t0 = phase("structure search 8q")
+    variants = engines()
+    for e in variants:
+        e.reset()
+    for k in (at.apply_tape_fwd, at.apply_tape_bwd):
+        k.launches = 0
+    t1 = time.perf_counter()
+    res = structure_search.main(["--config", V1_CONFIG, "--pop",
+                                 str(SEARCH_POP), "--gens", "1",
+                                 "--polish_iters", str(ITERS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {e.name: e.launches() for e in variants}
+    launches.update(apply_tape_fwd=at.apply_tape_fwd.launches,
+                    apply_tape_bwd=at.apply_tape_bwd.launches)
+    ok = (all(n == (2 if k == v1.name else 0) for k, n in launches.items())
+          and res["gens"] == 1 and len(res["gates"]) <= 28
+          and res["polished_err"] <= res["best_err"] + 1e-6
+          and res["best_err"] > -1e-5)
+    done("structure search 8q", t0, pop=SEARCH_POP, wall_s=f"{wall:.3f}",
+         best_err_Ha=f"{res['best_err']:.6e}",
+         polished_err_Ha=f"{res['polished_err']:.6e}",
+         depth=res["depth"], cnot=res["cnot"], rot=res["rot"],
+         launches=launches, ok=ok)
+    if not ok:
+        raise AssertionError("structure search: launches or result not as "
+                             f"expected: {launches}, {res}")
+
+
 def main(argv=()) -> int:
     watchdog = threading.Timer(DEADLINE_S, _expire)
     watchdog.daemon = True
@@ -4078,6 +4466,16 @@ def main(argv=()) -> int:
     if "--parting-env" in argv:
         Builds(("fused_adam_v1",)).wait("fused_adam_v1")
         parting_env(v1)
+        watchdog.cancel()
+        return 0
+    if "--f64" in argv:
+        builds = Builds(("apply_tape_f64",))
+        f64_phases(builds)
+        f64_wide_trainer()
+        watchdog.cancel()
+        return 0
+    if "--sweep-tape" in argv:
+        sweep_tape_phases(Builds(("apply_tape_sweep", "apply_tape_f64")))
         watchdog.cancel()
         return 0
     if "--composed-wide" in argv:
@@ -4131,8 +4529,8 @@ def main(argv=()) -> int:
         watchdog.cancel()
         return 0
     builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape",
-                     "apply_tape_sweep", "fused_adam_v2_sweep"),
-                    host=("csim",))
+                     "apply_tape_sweep", "fused_adam_v2_sweep",
+                     "apply_tape_f64"), host=("csim",))
     # the composed engine's phases go first: their plain references, and
     # then the plain times of later timing phases, while nvcc builds the
     # tape kernels (~45 s), the rest while it builds the fused kernels
@@ -4149,6 +4547,9 @@ def main(argv=()) -> int:
     tape = composed_phases(builds, idle=idle)
     # the composed engine at 17-20 qubits: the sweep tape kernels
     tape["sweep"] = composed_wide_phases(builds, setups=wide)
+    # complex128 on the card: the double-precision tape kernels, the
+    # composed step and the main path's trainer in float64
+    tape["f64"] = f64_phases(builds)
     # the sequential trainer under COBYLA: csim, and B3f under noise
     builds.wait("csim")
     seq = {"apply_tape_fwd (cobyla noisy 8q)": cobyla_phases()}
@@ -4164,6 +4565,7 @@ def main(argv=()) -> int:
                                                 V1_STEPS, "trainer v1",
                                                 profile=True)[v1.name]
     seq[f"{v1.name} (sequential v1)"], _ = sequential_v1_phases(v1)
+    structure_search_phase(v1)
     # what needs no fused_adam_v2 library goes first, while nvcc may still
     # build that source (the longest build): v1 below 8 qubits, with noise
     # and at the trainable capacities, and the sweep kernel
@@ -4175,7 +4577,8 @@ def main(argv=()) -> int:
     p0_phase(v1, v1n, V1N_CONFIG, V1_ENVS)
     kraus_phase(v1n)
     results[v1n]["launches"] = trainer_phase(
-        v1n, V1N_CONFIG, V1_ENVS, V1N_STEPS, "trainer v1n")[v1n.name]
+        v1n, V1N_CONFIG, V1_ENVS, V1N_STEPS, "trainer v1n",
+        expect_replay=False)[v1n.name]
     # in_state placement: the kernels at the trainable capacities (G != R),
     # their per-env psi0 variants, and the trainers of both families
     _, case = kernel_phase(v1, V1_CONFIG, V1_ENVS, "kernel v1 trainable",
@@ -4205,7 +4608,7 @@ def main(argv=()) -> int:
     builds.wait("fused_adam_v2_sweep")
     results[v2s], _ = sweep_kernel_phase(v2, v2n, v2p, v2s)
     print(f"[trainer v2 20q] replay is not reached: {V2S_ENVS} replicas x "
-          f"{V2S_STEPS - 4} transitions < batch 1000", flush=True)
+          f"{max(0, V2S_STEPS - 4)} transitions < batch 1000", flush=True)
     with warm_data(warm_dir, V2S_CONFIG):
         results[v2s]["launches"] = trainer_phase(
             v2s, V2S_CONFIG, V2S_ENVS, V2S_STEPS, "trainer v2 20q",
@@ -4284,7 +4687,11 @@ def main(argv=()) -> int:
              "trainer's shapes and launches"),
             ("sweep", "apply_tape_sweep_", SWEEP_TAPE_SOURCE,
              "sweep kernels at 17-20 qubits, a launch a segment; numbers at "
-             "20, the 20q su4 trainer's shapes and calls"))
+             "20, the 20q su4 trainer's shapes and calls"),
+            ("f64", "apply_tape_f64_", F64_SOURCE,
+             "double-precision kernels at 1-20 qubits (complex128), one "
+             "chunk a row up to 12; numbers at 8, launches from the 8q "
+             "complex128 trainer"))
         for key, r in tape[band].items()]}
     done("total", t_start)
     print(f"card: {smi}", flush=True)

@@ -28,6 +28,11 @@ noiseless only, as in the JAX package.  The fixed placement's psi0 is the
 su4-basis warm start with its two-qubit rotations applied (the JAX env
 drops them there: ROADMAP.md, C).
 
+``sim_dtype`` ('auto' | 'complex64' | 'complex128', the CLI's
+``--sim_dtype``) sets the statevector precision of the warm start, the
+states and the optimizer, as in the JAX package; 'auto' is complex128 on
+the CPU and complex64 on CUDA (``tensorrl_qas_tpu_torch.sim_dtypes``).
+
 ``mesh_shape = (n_amp, n_dp)`` runs the per-step optimizer on the sharded
 path (``optim/sharded_opt.py``): the statevector split over the amp axis
 of a mesh of devices, the starts over dp, past the fused kernels' 20
@@ -58,7 +63,7 @@ import dataclasses
 
 import numpy as np
 
-from tensorrl_qas_tpu_torch import as_device, complex_dtype
+from tensorrl_qas_tpu_torch import as_device, sim_dtypes
 from tensorrl_qas_tpu_torch.circuits.actions import action_dictionary
 from tensorrl_qas_tpu_torch.circuits.qasm import load_circuit_tape
 from tensorrl_qas_tpu_torch.circuits.tape import GateKind
@@ -108,6 +113,7 @@ class EnvConfig:
     noise_resample: str = "iter"          # 'iter' | 'step' (AngleOptimizer)
     topology: str = "all_to_all"
     gate_set: str = "cnot"
+    sim_dtype: str = "auto"      # 'auto' | 'complex64' | 'complex128'
     # block-coordinate trainable mode (in_state only, noiseless): the
     # embedded block's angles are re-optimized on every K-th step only;
     # 0/1 = off (joint optimization every step, the reference's)
@@ -184,8 +190,9 @@ class EnvConfig:
         )
 
 
-# warm-start statevectors keyed by (qasm path, device): the replicas of a
-# VectorCircuitEnv share one warm-start file, compiled once per process
+# warm-start statevectors keyed by (qasm path, device, dtype): the replicas
+# of a VectorCircuitEnv share one warm-start file, compiled once per
+# process at each precision
 _TN_PSI_CACHE: dict = {}
 
 
@@ -223,11 +230,13 @@ def _check_supported(cfg: EnvConfig) -> None:
 
 
 def make_optimizer(cfg: EnvConfig, pauli, device, seed: int):
-    """The env's angle optimizer: its method (``optim_alg``), Adam settings
-    and noise from ``cfg``; p1/p2 are the reference's 0.01 / 0.05
+    """The env's angle optimizer: its method (``optim_alg``), Adam settings,
+    noise and statevector dtype (``sim_dtype`` on ``device``) from
+    ``cfg``; p1/p2 are the reference's 0.01 / 0.05
     (``VQE_qulacs_noise.py:32,45``) unless ``noise_values`` gives two
     values.  With ``mesh_shape`` the sharded optimizer on a mesh of
-    ``mesh_devices``."""
+    ``mesh_devices`` (``sim_dtype`` 'auto': the mesh's lead device's
+    default)."""
     p1, p2 = (cfg.noise_values[:2] if len(cfg.noise_values) >= 2
               else (0.01, 0.05))
     if cfg.mesh_shape:
@@ -239,14 +248,15 @@ def make_optimizer(cfg: EnvConfig, pauli, device, seed: int):
             restart_scale=cfg.restart_scale, seed=seed,
             noise_mode=cfg.noise_mode, noise_p1=p1, noise_p2=p2,
             noise_resample=cfg.noise_resample,
-            enable_2q=cfg.gate_set == "su4")
+            enable_2q=cfg.gate_set == "su4",
+            dtype=sim_dtypes(cfg.sim_dtype, mesh.lead)[0])
     return AngleOptimizer(
         pauli, iters=cfg.global_iters, n_starts=cfg.n_starts,
         lr=cfg.adam_lr, restart_scale=cfg.restart_scale, device=device,
         seed=seed, noise_mode=cfg.noise_mode, noise_p1=p1, noise_p2=p2,
         n_shots=cfg.n_shots, n_traj=cfg.n_traj,
         noise_resample=cfg.noise_resample, enable_2q=cfg.gate_set == "su4",
-        method=cfg.optim_alg)
+        method=cfg.optim_alg, dtype=sim_dtypes(cfg.sim_dtype, device)[0])
 
 
 def bc_prefix_states(envs) -> None:
@@ -284,7 +294,7 @@ class CircuitEnv:
         self.num_qubits = n
         self.num_layers = cfg.num_layers
         self.device = as_device(cfg.device)
-        self.dtype = complex_dtype(self.device)
+        self.dtype = sim_dtypes(cfg.sim_dtype, self.device)[0]
 
         # the stored dense matrix (up to 4096^2 complex at 12 qubits) is
         # read by nothing here: the optimizer builds its own H operands
@@ -307,7 +317,7 @@ class CircuitEnv:
             self.tn_tape = load_circuit_tape(qasm_path)
             self.tn_depth = self.tn_tape.depth()
         if self.tn_tape is not None and not in_state:
-            memo_key = (str(qasm_path), str(self.device))
+            memo_key = (str(qasm_path), str(self.device), self.dtype)
             psi = _TN_PSI_CACHE.get(memo_key)
             if psi is None:
                 psi = apply_tape(zero_state(n, self.dtype, self.device),

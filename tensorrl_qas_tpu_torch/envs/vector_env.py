@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tensorrl_qas_tpu_torch import real_of
 from tensorrl_qas_tpu_torch.envs.circuit_env import (
     CircuitEnv,
     EnvConfig,
@@ -50,6 +51,13 @@ class VectorCircuitEnv:
             CircuitEnv(dataclasses.replace(cfg, seed=cfg.seed + i),
                        optimizer=self.optimizer)
             for i in range(1, n_envs)]
+        # one batched call takes one precision: the shared optimizer's
+        dtypes = {e.dtype for e in self.envs}
+        if len(dtypes) != 1 or real_of(first.dtype) != self.optimizer.rdtype:
+            raise ValueError(
+                "VectorCircuitEnv: the replicas and their optimizer must "
+                f"share one dtype, got {sorted(map(str, dtypes))} and "
+                f"{self.optimizer.rdtype}")
 
     @property
     def action_size(self) -> int:

@@ -24,7 +24,8 @@ carries lambda back (U^T).  It returns the psi0 cotangents in the same
 real-plane convention, (Re lambda, -Im lambda), and dang.
 
 ``apply_tape_fwd`` / ``apply_tape_bwd`` launch the CUDA kernels of
-``csrc/apply_tape.cu`` on CUDA tensors (float32) and run
+``csrc/apply_tape.cu`` on CUDA tensors (float32; float64 planes go to
+``csrc/apply_tape_f64.cu``, below) and run
 ``apply_tape_fwd_plain`` / ``apply_tape_bwd_plain``, the plain PyTorch
 versions of the same arithmetic, on CPU tensors; ``ApplyTape`` is the
 ``torch.autograd.Function`` over the two, which saves the output planes,
@@ -41,8 +42,16 @@ kernels of ``csrc/apply_tape_sweep.cu`` take over: every row stays in
 device memory and the tape is applied segment by segment (one launch a
 segment), under a schedule of segments (``tape_schedule``, the rule of
 ``ops/fused_adam2d.py:sweep_segments``, which is its twin word for word).
+Float64 planes and angles (``EnvConfig.sim_dtype = 'complex128'`` on the
+card) go to the double-precision kernels of ``csrc/apply_tape_f64.cu`` at
+1-20 qubits: the sweep kernels' body (``csrc/tape_sweep.cuh``) in double,
+with a chunk of min(n, 12) qubits, so a row of up to 12 qubits is one
+chunk and a call one launch with no schedule; above, segments of the same
+rule (``tape_schedule(..., dtype=float64)``).  One set of bindings
+(``SweepLibrary``, ``run_sweep_*``) drives either instance.
 Each wrapper counts its launches (``launches``; ``sweep_launches`` those
-that went to the sweep kernels).
+that went to the sweep kernels, ``f64_launches`` those that went to the
+double-precision ones).
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ ABOVE_CAP = ("EnvConfig.mesh_shape runs more on the sharded path "
              "(optim/sharded_opt.py), a (1, 1) mesh included")
 WIDE_MIN_QUBITS = 10     # the wide kernels, which read a schedule, from here
 SWEEP_MIN_QUBITS = 17    # the sweep kernels (csrc/apply_tape_sweep.cu)
+KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
 # -- plain PyTorch version ---------------------------------------------------
@@ -410,9 +420,10 @@ def _check(name, planes, tape, angles, tapes_checked, schedule, weave):
             raise ValueError(f"{name}: tensors must be contiguous")
     if any(t.dtype != torch.int32 for t in tape):
         raise TypeError(f"{name}: tapes must be int32")
-    if any(t.dtype != torch.float32 for t in (*planes, angles)):
-        raise TypeError(f"{name}: the CUDA kernel takes float32 planes and "
-                        "angles")
+    dtype = angles.dtype
+    if dtype not in KERNEL_DTYPES or any(p.dtype != dtype for p in planes):
+        raise TypeError(f"{name}: the CUDA kernels take float32 or float64 "
+                        "planes and angles, all of one dtype")
     n_env, s_n, r = angles.shape
     d = planes[0].shape[-1]
     n = d.bit_length() - 1
@@ -429,9 +440,13 @@ def _check(name, planes, tape, angles, tapes_checked, schedule, weave):
     if weave not in (1, 3) or g % weave:
         raise ValueError(f"{name}: weave must be 1 or 3 (a tape of 3 G "
                          "woven positions)")
+    f64 = dtype == torch.float64
+    # the fewest qubits whose launches read a schedule
+    scheduled = (_sweep_library(dtype).chunk_bits() + 1 if f64
+                 else WIDE_MIN_QUBITS)
     if schedule is not None:
         es = schedule.shape[0]
-        words = (sweep_words(g // weave) if n >= SWEEP_MIN_QUBITS
+        words = (sweep_words(g // weave) if f64 or n >= SWEEP_MIN_QUBITS
                  else schedule_words(g // weave, r))
         if (schedule.dtype != torch.int32 or schedule.device != dev
                 or not schedule.is_contiguous() or n_env % es
@@ -439,7 +454,7 @@ def _check(name, planes, tape, angles, tapes_checked, schedule, weave):
             raise ValueError(f"{name}: the schedule must be a contiguous "
                              f"int32 (E_s, {words}) tensor on {dev} (the "
                              "tapes' tape_schedule), E a multiple of E_s")
-    elif weave != 1 and n >= WIDE_MIN_QUBITS:
+    elif weave != 1 and n >= scheduled:
         raise ValueError(f"{name}: a woven tape needs its gates' schedule")
     if not tapes_checked:
         check_tapes(*tape, n, r)
@@ -486,149 +501,166 @@ def _wide_args(lib, tape, n, r, schedule, weave, stream):
     return schedule, schedule.shape[0], weave, g // weave
 
 
-# -- the sweep kernels (17-20 qubits) ----------------------------------------
+# -- the sweep kernels: float32 at 17-20 qubits, float64 at 1-20 ------------
+
+# the sources of the sweep kernels' two instances (csrc/tape_sweep.cuh's
+# body in float and in double), by the planes' dtype; each exports the same
+# C functions under its own name as prefix
+SWEEP_SOURCES = {torch.float32: "apply_tape_sweep",
+                 torch.float64: "apply_tape_f64"}
+
 
 def sweep_words(g: int) -> int:
     """Words of one env's segment schedule for G gates (``csrc/
-    apply_tape_sweep.cu``; ``ops/fused_adam2d.py:sweep_segments``)."""
+    tape_sweep.cuh``; ``ops/fused_adam2d.py:sweep_segments``)."""
     return 3 * g + 2
 
 
+class SweepLibrary:
+    """A library of the sweep tape kernels, one instance of ``csrc/
+    tape_sweep.cuh`` (``SWEEP_SOURCES``), with the C signatures of its
+    functions; ``lib.<name>`` is its function ``<prefix>_<name>``
+    (``lib.chunk_bits()``, ``lib.max_segments(G, n)``, ...)."""
+
+    def __init__(self, lib, prefix: str):
+        self.lib, self.prefix = lib, prefix
+        self.fwd_launch.argtypes = [_PTR] * 10 + [_I32] * 7 + [_PTR]
+        self.bwd_launch.argtypes = ([_PTR] * 13 + [_I32] * 2 + [_PTR] * 5
+                                    + [_I32] * 5 + [_PTR])
+        self.schedule_launch.argtypes = [_PTR] * 4 + [_I32] * 3 + [_PTR]
+        for name, n_args in (("fwd_launch", None), ("bwd_launch", None),
+                             ("schedule_launch", None), ("min_qubits", 0),
+                             ("max_qubits", 0), ("chunk_bits", 0),
+                             ("max_segments", 2), ("threads", 1),
+                             ("ctas_per_sm", 2)):
+            fn = getattr(self, name)
+            if n_args is not None:
+                fn.argtypes = [_I32] * n_args
+            fn.restype = _I32
+        self.smem_bytes.argtypes = [_I32] * 2
+        self.grad_smem_bytes.argtypes = [_I32]
+        for fn in (self.smem_bytes, self.grad_smem_bytes):
+            fn.restype = ctypes.c_size_t
+        self.error_string.argtypes = [_I32]
+        self.error_string.restype = ctypes.c_char_p
+
+    def __getattr__(self, name):
+        if name in ("lib", "prefix"):
+            raise AttributeError(name)
+        return getattr(self.lib, f"{self.prefix}_{name}")
+
+
 @functools.cache
-def _sweep_library():
-    """The sweep kernels' library (built at first use) with its C
-    signatures."""
+def _sweep_library(dtype=torch.float32) -> SweepLibrary:
+    """The sweep kernels' library for planes of ``dtype`` (built at first
+    use)."""
     from tensorrl_qas_tpu_torch.ops.build import load
 
-    return bind_sweep(load("apply_tape_sweep"))
+    return SweepLibrary(load(SWEEP_SOURCES[dtype]), SWEEP_SOURCES[dtype])
 
 
-def bind_sweep(lib):
-    """Set the C signatures of the sweep tape kernels' library ``lib``."""
-    lib.apply_tape_sweep_fwd_launch.argtypes = [_PTR] * 10 + [_I32] * 7 + [
-        _PTR]
-    lib.apply_tape_sweep_bwd_launch.argtypes = ([_PTR] * 13 + [_I32] * 2
-                                                + [_PTR] * 5 + [_I32] * 5
-                                                + [_PTR])
-    lib.apply_tape_sweep_schedule_launch.argtypes = [_PTR] * 4 + [
-        _I32] * 3 + [_PTR]
-    for fn in (lib.apply_tape_sweep_fwd_launch,
-               lib.apply_tape_sweep_bwd_launch,
-               lib.apply_tape_sweep_schedule_launch):
-        fn.restype = _I32
-    for name in ("min_qubits", "max_qubits", "chunk_bits"):
-        getattr(lib, f"apply_tape_sweep_{name}").argtypes = []
-        getattr(lib, f"apply_tape_sweep_{name}").restype = _I32
-    lib.apply_tape_sweep_max_segments.argtypes = [_I32] * 2
-    lib.apply_tape_sweep_max_segments.restype = _I32
-    lib.apply_tape_sweep_ctas_per_sm.argtypes = [_I32]
-    lib.apply_tape_sweep_ctas_per_sm.restype = _I32
-    lib.apply_tape_sweep_smem_bytes.argtypes = [_I32]
-    lib.apply_tape_sweep_grad_smem_bytes.argtypes = [_I32]
-    for fn in (lib.apply_tape_sweep_smem_bytes,
-               lib.apply_tape_sweep_grad_smem_bytes):
-        fn.restype = ctypes.c_size_t
-    lib.apply_tape_sweep_error_string.argtypes = [_I32]
-    lib.apply_tape_sweep_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-# (library, device) -> the CTAs of the forward and the adjoint segment
-# kernel an SM holds (each >= 1), asked once
+# (library, qubits, device) -> the CTAs of the forward and the adjoint
+# segment kernel an SM holds (each >= 1), asked once
 _sweep_fit: dict = {}
 
 
-def check_sweep_fit(lib, device=None):
-    """CTAs of the forward and the adjoint segment kernel one SM of the card
-    (``device``) holds at once, as the runtime reports them for their
-    shared memory; raises where one does not fit (no fallback to another
-    kernel).  A launch needs no more: its CTAs never wait on each other."""
-    key = (lib, device)
+def check_sweep_fit(lib: SweepLibrary, n: int, device=None):
+    """CTAs of the forward and the adjoint segment kernel of ``lib`` one SM
+    of the card (``device``) holds at once at ``n`` qubits, as the runtime
+    reports them for their threads and shared memory; raises where one does
+    not fit (no fallback to another kernel).  A launch needs no more: its
+    CTAs never wait on each other."""
+    key = (lib, n, device)
     if key not in _sweep_fit:
         fits = []
         for adjoint in (0, 1):
-            ctas = lib.apply_tape_sweep_ctas_per_sm(adjoint)
+            ctas = lib.ctas_per_sm(adjoint, n)
             if ctas < 1:
-                why = (f"CUDA error {-ctas} ("
-                       f"{lib.apply_tape_sweep_error_string(-ctas).decode()})"
+                why = (f"CUDA error {-ctas} "
+                       f"({lib.error_string(-ctas).decode()})"
                        if ctas < 0 else "none fits")
                 raise RuntimeError(
-                    "apply_tape sweep: the card cannot hold a CTA of "
-                    f"{lib.apply_tape_sweep_smem_bytes(adjoint)} B of shared "
-                    f"memory: {why}")
+                    f"{lib.prefix}: the card cannot hold a CTA of "
+                    f"{lib.smem_bytes(adjoint, n)} B of shared memory: "
+                    f"{why}")
             fits.append(ctas)
         _sweep_fit[key] = tuple(fits)
     return _sweep_fit[key]
 
 
-def _launch_sweep(lib, kernel, *args):
-    """Call ``<kernel>_launch`` of the sweep library ``lib``; raise on a
-    CUDA error."""
+def _launch_sweep(lib: SweepLibrary, kernel: str, *args):
+    """Call ``<prefix>_<kernel>_launch`` of ``lib``; raise on a CUDA
+    error."""
     rc = getattr(lib, f"{kernel}_launch")(*args)
     if rc != 0:
-        msg = lib.apply_tape_sweep_error_string(rc).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
-                           f"({msg})")
+        msg = lib.error_string(rc).decode()
+        raise RuntimeError(f"{lib.prefix}_{kernel} launch failed: CUDA "
+                           f"error {rc} ({msg})")
 
 
-def run_sweep_schedule(lib, tape, n: int, *, stream=None):
-    """One launch of the sweep kernels' segment kernel of ``lib`` on checked
-    (E, G) noiseless tapes (not counted) -> (E, 3 G + 2) int32."""
+def run_sweep_schedule(lib: SweepLibrary, tape, n: int, *, stream=None):
+    """One launch of ``lib``'s segment kernel on checked (E, G) noiseless
+    tapes above its chunk's qubits (not counted) -> (E, 3 G + 2) int32."""
     n_env, g = tape[0].shape
     out = torch.empty((n_env, sweep_words(g)), dtype=torch.int32,
                       device=tape[0].device)
-    _launch_sweep(lib, "apply_tape_sweep_schedule",
-                  *(t.data_ptr() for t in tape[:3]), out.data_ptr(), n_env,
-                  g, n, stream)
+    _launch_sweep(lib, "schedule", *(t.data_ptr() for t in tape[:3]),
+                  out.data_ptr(), n_env, g, n, stream)
     return out
 
 
 def _sweep_args(lib, tape, n, schedule, weave, stream):
-    """(schedule, E_s, weave, G) of a sweep launch; the schedule is built
-    here when not given (an unwoven tape)."""
+    """(schedule, E_s, weave, G) of a sweep launch: above the chunk's
+    qubits the segments (built here when not given, for an unwoven tape),
+    else none (a row is one chunk)."""
+    g = tape[0].shape[-1] // weave
+    if n <= lib.chunk_bits():
+        return None, 0, weave, g
     if schedule is None:
         if weave != 1:
             raise ValueError("a woven tape needs its gates' schedule")
         schedule = run_sweep_schedule(lib, tape, n, stream=stream)
-    return schedule, schedule.shape[0], weave, tape[0].shape[-1] // weave
+    return schedule, schedule.shape[0], weave, g
 
 
-def run_sweep_fwd(lib, re, im, tape, angles, *, schedule=None, weave=1,
-                  stream=None):
-    """One sweep B3f call of ``lib`` on checked inputs at 17-20 qubits (not
-    counted): ``apply_tape_sweep_max_segments`` segment launches ->
-    (ore, oim).  ``schedule`` and ``weave`` as ``run_fwd``'s."""
+def run_sweep_fwd(lib: SweepLibrary, re, im, tape, angles, *, schedule=None,
+                  weave=1, stream=None):
+    """One sweep B3f call of ``lib`` on checked inputs of its dtype (not
+    counted): ``lib.max_segments(G, n)`` launches, one where a row is one
+    chunk -> (ore, oim).  ``schedule`` and ``weave`` as ``run_fwd``'s."""
     n_env, s_n, _, r, n = _dims(re, tape, angles)
     sched, es, weave, g = _sweep_args(lib, tape, n, schedule, weave, stream)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
-    _launch_sweep(lib, "apply_tape_sweep_fwd", *(t.data_ptr() for t in tape),
+    _launch_sweep(lib, "fwd", *(t.data_ptr() for t in tape),
                   angles.data_ptr(), re.data_ptr(), im.data_ptr(),
-                  ore.data_ptr(), oim.data_ptr(), sched.data_ptr(), es, weave,
+                  ore.data_ptr(), oim.data_ptr(), _ptr(sched), es, weave,
                   n_env, s_n, g, r, n, stream)
     return ore, oim
 
 
-def run_sweep_bwd(lib, ore, oim, gre, gim, tape, angles, *, psi0_grad=True,
-                  schedule=None, weave=1, stream=None):
-    """One sweep B3b call of ``lib`` on checked inputs at 17-20 qubits (not
+def run_sweep_bwd(lib: SweepLibrary, ore, oim, gre, gim, tape, angles, *,
+                  psi0_grad=True, schedule=None, weave=1, stream=None):
+    """One sweep B3b call of ``lib`` on checked inputs of its dtype (not
     counted): the segment launches, last first, and the gradient launch ->
-    (dre, dim, dang), as ``run_bwd``.  Scratch: psi and lambda planes
-    (4 x E S D floats) and the gradient rows' chunk partials."""
+    (dre, dim, dang), as ``run_bwd``.  Scratch: above the chunk's qubits
+    psi and lambda planes (4 x E S D values); the gradient rows' chunk
+    partials."""
     n_env, s_n, _, r, n = _dims(ore, tape, angles)
     sched, es, weave, g = _sweep_args(lib, tape, n, schedule, weave, stream)
     dre, dim = ((torch.empty_like(ore), torch.empty_like(oim)) if psi0_grad
                 else (None, None))
     dang = torch.empty_like(angles)
-    scratch = [torch.empty_like(ore) for _ in range(4)]
-    chunks = 1 << (n - lib.apply_tape_sweep_chunk_bits())
-    gpart = torch.empty((n_env * s_n, g, chunks), dtype=torch.float32,
-                        device=ore.device)
-    _launch_sweep(lib, "apply_tape_sweep_bwd", *(t.data_ptr() for t in tape),
+    cb = lib.chunk_bits()
+    scratch = ([torch.empty_like(ore) for _ in range(4)] if n > cb
+               else [None] * 4)
+    gpart = torch.empty((n_env * s_n, g, 1 << max(0, n - cb)),
+                        dtype=ore.dtype, device=ore.device)
+    _launch_sweep(lib, "bwd", *(t.data_ptr() for t in tape),
                   angles.data_ptr(), ore.data_ptr(), oim.data_ptr(),
                   gre.data_ptr(), gim.data_ptr(), _ptr(dre), _ptr(dim),
-                  dang.data_ptr(), sched.data_ptr(), es, weave,
-                  *(t.data_ptr() for t in scratch), gpart.data_ptr(), n_env,
-                  s_n, g, r, n, stream)
+                  dang.data_ptr(), _ptr(sched), es, weave,
+                  *(_ptr(t) for t in scratch), gpart.data_ptr(), n_env, s_n,
+                  g, r, n, stream)
     return dre, dim, dang
 
 
@@ -673,16 +705,28 @@ def run_bwd(lib, ore, oim, gre, gim, tape, angles, *, psi0_grad=True,
     return dre, dim, dang
 
 
-def tape_schedule(kind, tq, cq, slot, n: int, r: int):
+def tape_schedule(kind, tq, cq, slot, n: int, r: int,
+                  dtype=torch.float32):
     """The schedule of (E, G) int32 tapes with ``r`` angles at ``n`` qubits,
     for the forward and adjoint launches on those tapes (or their woven
-    extensions) to read: on CUDA tensors one launch of the wide kernels'
-    schedule kernel at 10-16 qubits, of the sweep kernels' segment kernel
-    at 17-20 (counted in ``tape_schedule.launches``); None where no kernel
-    reads one (CPU tensors, below 10 qubits)."""
-    if kind.device.type != "cuda" or n < WIDE_MIN_QUBITS:
+    extensions) on planes of ``dtype`` to read: on CUDA tensors one launch
+    of the wide kernels' schedule kernel at 10-16 qubits, of the sweep
+    kernels' segment kernel at 17-20; for float64 planes of the
+    double-precision kernels' segment kernel above their chunk's 12 qubits
+    (counted in ``tape_schedule.launches``); None where no kernel reads one
+    (CPU tensors, below 10 qubits, float64 up to 12)."""
+    if kind.device.type != "cuda":
         return None
     tape = (kind, tq, cq, slot)
+    if dtype == torch.float64:
+        lib = _sweep_library(dtype)
+        if n <= lib.chunk_bits():
+            return None
+        out = run_sweep_schedule(lib, tape, n, stream=_stream(kind.device))
+        tape_schedule.launches += 1
+        return out
+    if n < WIDE_MIN_QUBITS:
+        return None
     if n >= SWEEP_MIN_QUBITS:
         out = run_sweep_schedule(_sweep_library(), tape, n,
                                  stream=_stream(kind.device))
@@ -693,13 +737,16 @@ def tape_schedule(kind, tq, cq, slot, n: int, r: int):
     return out
 
 
-def _run_kernel(direction, args, kw, n, dev):
-    """One counted call of the forward or adjoint kernel: the sweep kernels
-    from 17 qubits, else apply_tape.cu's."""
+def _run_kernel(direction, args, kw, n, dev, dtype):
+    """One counted call of the forward or adjoint kernel: the
+    double-precision kernels on float64 planes; on float32 the sweep
+    kernels from 17 qubits, else apply_tape.cu's."""
     stream = _stream(dev)
-    if n >= SWEEP_MIN_QUBITS:
-        lib = _sweep_library()
-        check_sweep_fit(lib, dev)
+    f64 = dtype == torch.float64
+    sweep = not f64 and n >= SWEEP_MIN_QUBITS
+    if f64 or sweep:
+        lib = _sweep_library(dtype)
+        check_sweep_fit(lib, n, dev)
         run = run_sweep_fwd if direction == "fwd" else run_sweep_bwd
         out = run(lib, *args, stream=stream, **kw)
     else:
@@ -707,7 +754,8 @@ def _run_kernel(direction, args, kw, n, dev):
         out = run(_library(), *args, stream=stream, **kw)
     wrapper = apply_tape_fwd if direction == "fwd" else apply_tape_bwd
     wrapper.launches += 1
-    wrapper.sweep_launches += n >= SWEEP_MIN_QUBITS
+    wrapper.sweep_launches += sweep
+    wrapper.f64_launches += f64
     return out
 
 
@@ -719,9 +767,12 @@ def apply_tape_fwd(re, im, kind, tq, cq, slot, angles, *,
     these tapes (saves a host read per launch).  From 10 qubits the kernel
     reads ``schedule`` (``tape_schedule`` of the tapes, or of the gates of
     woven tapes, ``weave`` 3; made here for an unwoven tape when not
-    given).  Counts launches in ``apply_tape_fwd.launches``, those of the
-    sweep kernels (17-20 qubits) also in ``apply_tape_fwd.sweep_launches``;
-    a sweep launch is a call of ``apply_tape_sweep_max_segments`` segment
+    given).  Float32 planes and angles run the float kernels, float64 the
+    double-precision ones (``csrc/apply_tape_f64.cu``).  Counts launches in
+    ``apply_tape_fwd.launches``, those of the sweep kernels (17-20 qubits,
+    float32) also in ``apply_tape_fwd.sweep_launches``, those of the
+    double-precision kernels in ``apply_tape_fwd.f64_launches``; a sweep or
+    double-precision launch is a call of its library's most segments'
     launches."""
     if angles.device.type == "cpu":
         return apply_tape_fwd_plain(re, im, kind, tq, cq, slot, angles)
@@ -732,9 +783,10 @@ def apply_tape_fwd(re, im, kind, tq, cq, slot, angles, *,
     _, _, _, r, n = _check("apply_tape_fwd", (re, im), tape, angles,
                            tapes_checked, schedule, weave)
     if schedule is None:
-        schedule = tape_schedule(*tape, n, r)
+        schedule = tape_schedule(*tape, n, r, angles.dtype)
     return _run_kernel("fwd", (re, im, tape, angles),
-                       dict(schedule=schedule, weave=weave), n, angles.device)
+                       dict(schedule=schedule, weave=weave), n, angles.device,
+                       angles.dtype)
 
 
 def apply_tape_bwd(ore, oim, gre, gim, kind, tq, cq, slot, angles, *,
@@ -743,8 +795,8 @@ def apply_tape_bwd(ore, oim, gre, gim, kind, tq, cq, slot, angles, *,
     """B3b: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors; -> (dre, dim, dang), (None, None, dang) without
     ``psi0_grad``; ``schedule`` and ``weave`` as ``apply_tape_fwd``'s.
-    Counts launches in ``apply_tape_bwd.launches`` and, at 17-20 qubits,
-    ``apply_tape_bwd.sweep_launches``."""
+    Counts launches in ``apply_tape_bwd.launches`` and, as the forward,
+    ``apply_tape_bwd.sweep_launches`` / ``f64_launches``."""
     if angles.device.type == "cpu":
         dre, dim, dang = apply_tape_bwd_plain(ore, oim, gre, gim, kind, tq,
                                               cq, slot, angles)
@@ -756,16 +808,18 @@ def apply_tape_bwd(ore, oim, gre, gim, kind, tq, cq, slot, angles, *,
     _, _, _, r, n = _check("apply_tape_bwd", (ore, oim, gre, gim), tape,
                            angles, tapes_checked, schedule, weave)
     if schedule is None:
-        schedule = tape_schedule(*tape, n, r)
+        schedule = tape_schedule(*tape, n, r, angles.dtype)
     return _run_kernel("bwd", (ore, oim, gre, gim, tape, angles),
                        dict(psi0_grad=psi0_grad, schedule=schedule,
-                            weave=weave), n, angles.device)
+                            weave=weave), n, angles.device, angles.dtype)
 
 
 apply_tape_fwd.launches = 0
 apply_tape_bwd.launches = 0
 apply_tape_fwd.sweep_launches = 0
 apply_tape_bwd.sweep_launches = 0
+apply_tape_fwd.f64_launches = 0
+apply_tape_bwd.f64_launches = 0
 tape_schedule.launches = 0
 
 

@@ -41,8 +41,12 @@ them: a matrix product up to 9 qubits, one gather over the flip groups
 up to 16 (``flip_h_batched``), one group at a time above
 (``flip_h_blocked``).  From 10 qubits the kernels read a schedule of each
 tape, built once per step (``tape_schedule``); from 17 to 20 they are the
-sweep kernels, every row in device memory, the tape in segments.  On the
-card the whole
+sweep kernels, every row in device memory, the tape in segments.  In
+complex128 on the card (``dtype``, the env's ``sim_dtype``) every Adam
+mode runs through the composed engine, on the double-precision tape
+kernels (one chunk a row up to 12 qubits, segments above), since the
+fused kernels hold their state in float32 registers.  On the card the
+whole
 step (100 iterations, the re-check, the argmin, the remap and e_new)
 replays as one CUDA graph (``ComposedGraph``), the counterpart of the JAX
 package's ``lax.scan`` under ``jit``; calling ``_fused_step_composed``
@@ -64,7 +68,12 @@ import gc
 import numpy as np
 import torch
 
-from tensorrl_qas_tpu_torch import as_device, complex_dtype, real_dtype
+from tensorrl_qas_tpu_torch import (
+    as_device,
+    complex_dtype,
+    real_dtype,
+    real_of,
+)
 from tensorrl_qas_tpu_torch.native import CsimEngine
 from tensorrl_qas_tpu_torch.ops import apply_tape as tape_ops
 from tensorrl_qas_tpu_torch.ops.fused_adam import (
@@ -388,6 +397,8 @@ class AngleOptimizer:
         tapes); the composed engine re-draws every iteration either way.
       enable_2q: tapes may hold RXX/RYY/RZZ (the su4 gate set), which
         only the composed engine takes.
+      dtype: the complex statevector dtype (complex64 or complex128; None:
+        the device's default, complex128 on the CPU, complex64 on CUDA).
     """
 
     def __init__(self, pauli, iters: int = 100, n_starts: int = 8,
@@ -396,7 +407,7 @@ class AngleOptimizer:
                  noise_p1: float = 0.01, noise_p2: float = 0.05,
                  n_shots: int = 0, n_traj: int = 1,
                  noise_resample: str = "iter", enable_2q: bool = False,
-                 method: str = "adam"):
+                 method: str = "adam", dtype=None):
         if method not in METHODS:
             raise ValueError(f"method must be one of {METHODS}, got "
                              f"{method!r}")
@@ -416,8 +427,11 @@ class AngleOptimizer:
         self.lr = lr
         self.restart_scale = restart_scale
         self.device = as_device(device)
-        self.cdtype = complex_dtype(self.device)
-        self.rdtype = real_dtype(self.device)
+        self.cdtype = dtype or complex_dtype(self.device)
+        if self.cdtype not in (torch.complex64, torch.complex128):
+            raise ValueError(f"dtype must be complex64 or complex128, got "
+                             f"{self.cdtype}")
+        self.rdtype = real_of(self.cdtype)
         self.pauli_t = pauli.tensors(self.device, self.cdtype)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -434,26 +448,36 @@ class AngleOptimizer:
         self._graph = None
         self._csim = None
 
+    def _composed_only(self) -> bool:
+        """Whether these modes need the composed engine on any device: the
+        su4 gate set, shot noise, depolarizing noise over n_traj > 1."""
+        return (self.enable_2q or self.noise_mode == "shot"
+                or (self.noise_mode == "depolarizing" and self.n_traj > 1))
+
     def _pick_engine(self, *kinds) -> str:
         """The engine for this problem and tapes of these gate kinds:
         'composed' for the su4 gate set (``enable_2q``), shot noise and
         ``n_traj > 1`` (reference ``optim/angle_opt.py:283-287, 690-693``),
         at most 20 qubits (its tape kernels' sweep design from 17; the JAX
         package runs these modes through XLA above 16, ``optim/
-        angle_opt.py:808-845``); else the fused 'v1' for D <= 512, 'v2' for
-        1024 <= D <= 2^20 (both take the flip-group planes,
-        ``w_planes``).  Larger problems, and RXX/RYY/RZZ gates without
-        ``enable_2q``, raise ValueError here, before any H operand is
-        built."""
+        angle_opt.py:808-845``), and for every mode in float64 on CUDA (the
+        fused kernels are float32; the composed engine's tape kernels have
+        a double-precision instance); else the fused 'v1' for D <= 512,
+        'v2' for 1024 <= D <= 2^20 (both take the flip-group planes,
+        ``w_planes``; on the CPU their plain versions at any dtype).
+        Larger problems, and RXX/RYY/RZZ gates without ``enable_2q``, raise
+        ValueError here, before any H operand is built."""
         n = self.pauli.n_qubits
-        if (self.enable_2q or self.noise_mode == "shot"
-                or (self.noise_mode == "depolarizing" and self.n_traj > 1)):
+        composed = self._composed_only()
+        if not composed:
+            check_gate_kinds(*kinds)
+        if composed or (self.device.type == "cuda"
+                        and self.rdtype == torch.float64):
             if n > tape_ops.MAX_QUBITS:
                 raise ValueError(
                     f"no composed engine for {n} qubits (at most "
                     f"{tape_ops.MAX_QUBITS}); {tape_ops.ABOVE_CAP}")
             return "composed"
-        check_gate_kinds(*kinds)
         if n <= 9:
             return "v1"
         if n <= MAX_QUBITS:
@@ -574,7 +598,7 @@ class AngleOptimizer:
                 for at, tag in enumerate(tags)]
 
     def _composed_energy(self, x, tape, re0, im0, h_apply, plain, gen,
-                         noise=None, schedule=None):
+                         noise=None, schedule=None, quiet=False):
         """(E, S) energies of H - offset I at angles x (E, S, R) of the
         (E, G) int32 tapes from psi0 planes re0 / im0 ((1 or E, 1, D)):
         one forward launch (``ApplyTape``, differentiable in x; from 10
@@ -583,12 +607,15 @@ class AngleOptimizer:
         realization (``_draw_noise``), drawn from ``gen`` when not given:
         depolarizing, the mean over the ``n_traj`` realizations, stacked
         along the env axis (still one launch, on the woven tapes under the
-        same schedule); shot noise, plus its offsets, on the value only."""
+        same schedule); shot noise, plus its offsets, on the value only.
+        ``quiet``: no noise, whatever the optimizer's mode (the tapes carry a
+        quenched realization)."""
         e_n, s_n, _ = x.shape
-        if noise is None and gen is not None and self._noisy():
+        mode = "none" if quiet else self.noise_mode
+        if noise is None and gen is not None and not quiet and self._noisy():
             noise = self._draw_noise(gen, tape[0], e_n, s_n)
         t_n, weave = 1, 1
-        if self.noise_mode == "depolarizing":
+        if mode == "depolarizing":
             weave = 3
             t_n = self.n_traj
             kt, kc = noise
@@ -604,14 +631,15 @@ class AngleOptimizer:
                                           schedule=schedule, weave=weave)
         _, _, ev = _h_energy(ore, oim, h_apply)
         ev = ev.view(t_n, e_n, s_n).mean(0)
-        if self.noise_mode == "shot" and noise is not None:
+        if mode == "shot" and noise is not None:
             ev = ev + noise.to(ev.dtype)
         return ev
 
     def _fused_step_composed(self, old, new, map_idx, p0re, p0im, h_apply,
                              starts, active, *, iters: int, lr: float,
                              seed: int = 0, enew_tag: int | None = None,
-                             plain: bool = False, draws=None):
+                             plain: bool = False, draws=None,
+                             quiet: bool = False):
         """The composed engine (reference ``_fused_step_pallas``,
         ``optim/angle_opt.py:580-671``), in the fused step's layout: (E, G)
         int32 tapes ``old`` / ``new`` (checked with ``check_tapes``),
@@ -634,23 +662,25 @@ class AngleOptimizer:
         with block-coordinate mode) costs nothing here (the JAX package
         runs that case on XLA, ``optim/angle_opt.py:818-822``).
         ``plain`` runs the kernels' plain versions on any device (the card
-        check's reference).
+        check's reference).  ``quiet`` runs the step without noise (tapes
+        that carry a quenched realization).
         Returns (x_opt (E, R), e_new (E,)) of H - offset I."""
         dtype = starts.dtype
         re0, im0 = (p.to(dtype).reshape(-1, 1, p.shape[-1])
                     for p in (p0re, p0im))
-        noisy = self._noisy()
+        noisy = self._noisy() and not quiet
         n, r = self.pauli.n_qubits, starts.shape[-1]
 
         def schedule(tape):
-            return None if plain else tape_ops.tape_schedule(*tape, n, r)
+            return (None if plain
+                    else tape_ops.tape_schedule(*tape, n, r, dtype))
 
         def energy(x, tape, tag, at, sched):
             noise = None if draws is None else draws[at]
             gen = (self._noise_generator(seed, tag)
                    if noisy and draws is None else None)
             return self._composed_energy(x, tape, re0, im0, h_apply, plain,
-                                         gen, noise, sched)
+                                         gen, noise, sched, quiet)
 
         sched_old = schedule(old)
 
@@ -710,12 +740,21 @@ class AngleOptimizer:
         p0re = p0.real.to(self.rdtype).contiguous()
         p0im = p0.imag.to(self.rdtype).contiguous()
         if engine == "composed":
+            quiet = (self.noise_mode == "depolarizing"
+                     and self.noise_resample == "step"
+                     and not self._composed_only())
+            if quiet:
+                # a fused mode on the composed engine (float64 on the
+                # card): one realization quenched into both tapes, as the
+                # fused path does, and the step run without noise
+                p = (self.noise_p1, self.noise_p2)
+                old, new = (self._quench(arrs, p) for arrs in (old, new))
             for tape in (old, new):
                 tape_ops.check_tapes(*tape, self.pauli.n_qubits, r)
             seed = int(torch.randint(0, 2**31 - 1, (1,),
                                      generator=self.generator, device=dev))
             args = (old, new, ints(map_idx_b), p0re, p0im)
-            kw = dict(iters=self.iters, lr=self.lr, seed=seed)
+            kw = dict(iters=self.iters, lr=self.lr, seed=seed, quiet=quiet)
             if dev.type == "cuda":
                 x_opt, e_new = self.composed_graph()(
                     *args, starts, active[:, None, :], **kw)
@@ -837,7 +876,7 @@ class AngleOptimizer:
                                      device=dev).reshape(1, -1)
                      for a in tape_arrays)
         tape_ops.check_tapes(*tape, n, r)
-        schedule = tape_ops.tape_schedule(*tape, n, r)
+        schedule = tape_ops.tape_schedule(*tape, n, r, self.rdtype)
         p0 = psi0.reshape(1, 1, -1)
         re0 = p0.real.to(self.rdtype).contiguous()
         im0 = p0.imag.to(self.rdtype).contiguous()
@@ -904,10 +943,11 @@ class ComposedGraph:
     replay by ``predraw_noise`` (host generators would be frozen into a
     graph), so a replay gives the eager kernel path's x_opt and e_new bit
     for bit under every noise mode.  The key: E, S, G, R, D, psi0 rows,
-    iters, lr, dtype, noise mode, n_traj, n_shots.  A replay launches
+    iters, lr, dtype, noise mode (none for a ``quiet`` step), n_traj,
+    n_shots.  A replay launches
     kernels without the wrappers' Python, so it adds the launches its
-    capture recorded to the tape kernels' counters (their sweep counts
-    too) and the schedule's.  A
+    capture recorded to the tape kernels' counters (their sweep and
+    double-precision counts too) and the schedule's.  A
     capture or a replay that fails raises: nothing falls back to the eager
     loop."""
 
@@ -916,19 +956,20 @@ class ComposedGraph:
         self.entries = {}
         self.captures = 0
 
-    def key(self, old, p0re, starts, iters: int, lr: float):
+    def key(self, old, p0re, starts, iters: int, lr: float, quiet: bool):
         o = self.opt
         return (*starts.shape, old[0].shape[-1], *p0re.shape, iters,
-                float(lr), starts.dtype, o.noise_mode, o.n_traj, o.n_shots)
+                float(lr), starts.dtype, "none" if quiet else o.noise_mode,
+                o.n_traj, o.n_shots)
 
     def __call__(self, old, new, map_idx, p0re, p0im, starts, active, *,
                  iters: int, lr: float, seed: int = 0,
-                 enew_tag: int | None = None):
+                 enew_tag: int | None = None, quiet: bool = False):
         inputs = (*old, *new, map_idx, p0re, p0im, starts, active)
-        reals = self.opt.predraw_noise(old[0], new[0], *starts.shape[:2],
-                                       iters=iters, seed=seed,
-                                       enew_tag=enew_tag)
-        key = self.key(old, p0re, starts, iters, lr)
+        reals = None if quiet else self.opt.predraw_noise(
+            old[0], new[0], *starts.shape[:2], iters=iters, seed=seed,
+            enew_tag=enew_tag)
+        key = self.key(old, p0re, starts, iters, lr, quiet)
         entry = self.entries.get(key)
         if entry is not None:
             entry["load"](inputs, reals)
@@ -941,7 +982,8 @@ class ComposedGraph:
             o_, n_ = static[:4], static[4:8]
             return self.opt._fused_step_composed(
                 o_, n_, *static[8:11], h_apply, *static[11:], iters=iters,
-                lr=lr, draws=None if noise is None else noise["draws"])
+                lr=lr, draws=None if noise is None else noise["draws"],
+                quiet=quiet)
 
         def load(inputs, reals):
             for dst, src in zip(static, inputs):
@@ -971,8 +1013,9 @@ class ComposedGraph:
         counters = [(k, "launches") for k in (tape_ops.apply_tape_fwd,
                                                tape_ops.apply_tape_bwd,
                                                tape_ops.tape_schedule)]
-        counters += [(k, "sweep_launches") for k in (tape_ops.apply_tape_fwd,
-                                                     tape_ops.apply_tape_bwd)]
+        counters += [(k, attr) for k in (tape_ops.apply_tape_fwd,
+                                         tape_ops.apply_tape_bwd)
+                     for attr in ("sweep_launches", "f64_launches")]
         before = [getattr(*k) for k in counters]
         graph = torch.cuda.CUDAGraph()
         # a dead graph in a reference cycle (another optimizer's: an

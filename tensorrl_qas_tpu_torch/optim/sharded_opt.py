@@ -54,9 +54,10 @@ class ShardedAngleOptimizer:
       mesh: ``parallel.mesh.Mesh``.
       n_qubits: problem size; 2^n splits over the amp axis.
       pauli: the problem's ``PauliSum``.
-      iters / n_starts / lr / restart_scale / seed: as ``AngleOptimizer``;
-        the statevector dtype is ``ShardedSimulator``'s default, the
-        port's policy for the mesh's lead device.
+      iters / n_starts / lr / restart_scale / seed: as ``AngleOptimizer``.
+      dtype: the complex statevector dtype, passed to ``ShardedSimulator``
+        (None: its default, the port's policy for the mesh's lead
+        device), as the JAX env passes its own.
       noise_mode / noise_p1 / noise_p2 / noise_resample: 'none' or
         'depolarizing' one-trajectory tape-extension noise.
       enable_2q: tapes may hold RXX / RYY / RZZ (the su4 gate set).
@@ -67,7 +68,7 @@ class ShardedAngleOptimizer:
                  restart_scale: float = 0.1, seed: int = 0,
                  noise_mode: str = "none", noise_p1: float = 0.01,
                  noise_p2: float = 0.05, noise_resample: str = "iter",
-                 enable_2q: bool = False):
+                 enable_2q: bool = False, dtype=None):
         if noise_mode not in ("none", "depolarizing"):
             raise NotImplementedError(
                 f"sharded path supports noise_mode none/depolarizing, "
@@ -78,7 +79,7 @@ class ShardedAngleOptimizer:
         self.mesh = mesh
         self.n = n_qubits
         self.pauli = pauli
-        self.sim = ShardedSimulator(mesh, n_qubits, pauli,
+        self.sim = ShardedSimulator(mesh, n_qubits, pauli, dtype=dtype,
                                     enable_2q=enable_2q)
         self.dtype, self.rdtype = self.sim.dtype, self.sim.rdtype
         self.device = mesh.lead

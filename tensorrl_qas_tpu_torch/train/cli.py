@@ -29,7 +29,10 @@ the hexagon topology (the ``_restricted`` configs, inferred from the name;
 ``--noise shot``); with the CNOT or the su4 gate set (``--gate_set su4``:
 RXX/RYY/RZZ actions, noiseless).  A config with ``init_net`` resumes from
 ``<results_path>finalize/<config>/`` (``train/checkpoint.py:init_net``).
-``--sim_dtype`` is not ported: the card simulates in complex64.
+``--sim_dtype`` sets the statevector precision as in the JAX package
+('auto': complex64 on the card, complex128 on the CPU); ``--sim_dtype
+complex128`` on the card runs every Adam mode through the composed engine
+on the double-precision tape kernels.
 """
 
 from __future__ import annotations
@@ -107,6 +110,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stop_on_success", type=int, default=0,
                    help="sequential mode: stop after N successful episodes "
                         "(0 = run all)")
+    p.add_argument("--sim_dtype", type=str, default="auto",
+                   choices=["auto", "complex64", "complex128"],
+                   help="statevector precision ('auto': complex64 on the "
+                        "card, complex128 on the CPU)")
     p.add_argument("--vector", type=int, default=0,
                    help="number of env replicas of the vectorized trainer "
                         "(0 = the reference's sequential episodes)")
@@ -209,9 +216,11 @@ def configure(args) -> tuple[dict, EnvConfig]:
     device = args.device
     if args.gpu_id is not None and device == "cuda":
         device = f"cuda:{args.gpu_id}"
-    return conf, EnvConfig.from_conf(conf, tn_placement=tn_placement,
-                                     noise_mode=noise_mode, seed=args.seed,
-                                     optim_alg=args.optim, device=device)
+    env_cfg = EnvConfig.from_conf(conf, tn_placement=tn_placement,
+                                  noise_mode=noise_mode, seed=args.seed,
+                                  optim_alg=args.optim, device=device)
+    env_cfg.sim_dtype = args.sim_dtype
+    return conf, env_cfg
 
 
 def run(argv=None) -> dict:

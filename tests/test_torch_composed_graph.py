@@ -14,6 +14,9 @@ ComposedGraph``), on the CPU.
   recaptures; without noise (su4 tapes), with shot noise and with two
   trajectories.  On a device without CUDA graphs the capture raises
   (nothing falls back to the eager loop).
+- A float32 and a float64 entry live side by side in one graph, and a
+  ``quiet`` step (noise off, for tapes that carry a quenched realization)
+  is its own entry, equal to a noiseless optimizer's step bit for bit.
 """
 
 import numpy as np
@@ -143,3 +146,51 @@ def test_capture_needs_a_cuda_device():
     args = _args(4, 2, 2, 8, SU4, seed=1)
     with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
         ComposedGraph(opt)(*args, iters=ITERS, lr=0.1)
+
+
+def test_float32_and_float64_graphs_side_by_side():
+    """One optimizer's graph holds a float32 and a float64 entry at the
+    same shapes (the key carries the starts' dtype): each call equals the
+    eager step at its own dtype bit for bit, in that dtype, and a second
+    call of either reuses its capture."""
+    kw, kinds = MODES["su4"]
+    opt = AngleOptimizer(_pauli(4), device="cpu", **kw)
+    graph = HostGraph(opt)
+    args32 = _args(4, 3, 3, 8, kinds, seed=1)
+    args64 = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                   else a for a in args32)
+    for args, dtype in ((args32, torch.float32), (args64, torch.float64),
+                        (args32, torch.float32), (args64, torch.float64)):
+        old, new, maps, p0re, p0im, starts, active = args
+        x_g, e_g = graph(*args, iters=ITERS, lr=0.1, seed=5)
+        x_e, e_e = opt._fused_step_composed(
+            old, new, maps, p0re, p0im, opt._h_apply(dtype), starts, active,
+            iters=ITERS, lr=0.1, seed=5)
+        assert x_g.dtype == dtype and e_g.dtype == dtype
+        assert torch.equal(x_g, x_e) and torch.equal(e_g, e_e)
+    assert graph.captures == 2 and len(graph.entries) == 2
+
+
+def test_quiet_step_runs_without_noise_as_its_own_entry():
+    """``quiet``: the step of an optimizer with depolarizing noise on tapes
+    that carry a quenched realization (``noise_resample='step'`` on the
+    composed engine) runs without noise -- the graph's call equals the
+    eager quiet step and a noiseless optimizer's step on the same inputs
+    bit for bit -- and is its own graph entry beside the noisy step at the
+    same shapes."""
+    pauli = _pauli(4)
+    opt = AngleOptimizer(pauli, device="cpu", noise_mode="depolarizing",
+                         noise_p1=0.2, noise_p2=0.3)
+    plain = AngleOptimizer(pauli, device="cpu")
+    graph = HostGraph(opt)
+    args = _args(4, 3, 3, 8, CNOT, seed=4)
+    old, new, maps, p0re, p0im, starts, active = args
+    x_g, e_g = graph(*args, iters=ITERS, lr=0.1, seed=5, quiet=True)
+    for o, kw in ((opt, dict(quiet=True)), (plain, {})):
+        x_e, e_e = o._fused_step_composed(
+            old, new, maps, p0re, p0im, o._h_apply(starts.dtype), starts,
+            active, iters=ITERS, lr=0.1, seed=5, **kw)
+        assert torch.equal(x_g, x_e) and torch.equal(e_g, e_e)
+    x_n, e_n = graph(*args, iters=ITERS, lr=0.1, seed=5)
+    assert not torch.equal(e_n, e_g)                 # the noisy step differs
+    assert graph.captures == 2 and len(graph.entries) == 2

@@ -1431,3 +1431,160 @@ def test_stage1_on_the_card_is_double_precision(graph):
     assert {torch.complex128, torch.float64} <= mode.seen
     assert not mode.seen & {torch.complex64, torch.float32, torch.float16,
                             torch.bfloat16}, mode.seen
+
+
+# -- complex128 on the card: the double-precision tape kernels
+# (csrc/apply_tape_f64.cu) and the composed route every Adam mode takes --
+
+TOL_FWD64, TOL_BWD64 = 1e-12, 1e-10
+
+
+def _double(case):
+    planes, tape, angles, cot = case
+    return (tuple(p.double() for p in planes), tape, angles.double(),
+            tuple(c.double() for c in cot))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [3, 8, 12, 14, 17])
+@pytest.mark.parametrize("woven", [False, True])
+def test_double_tape_kernels_match_plain_versions(n, woven):
+    """B3f and B3b on float64 planes against their float64 plain versions
+    (1e-12 / 1e-10: double roundings; row sums in another order): one
+    chunk a row up to 12 qubits, segments above (the segment kernel's rows
+    equal ``sweep_segments``' word for word), plainly and on woven tapes;
+    every call counted as a double-precision launch; a repeat bit for bit;
+    RYY's sign flipped and RZZ's gradient dropped must exceed the
+    tolerances."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.ops.fused_adam2d import sweep_segments
+    from tensorrl_qas_tpu_torch.optim.angle_opt import extend_tape_arrays
+
+    dev = _card()
+    planes, tape, angles, cot = _double(_tape_case(
+        dev, n, n_env=4 if n < 14 else 2, s_n=2, seed=40 + n))
+    r = angles.shape[-1]
+    sched = at.tape_schedule(*tape, n, r, torch.float64)
+    if n <= at._sweep_library(torch.float64).chunk_bits():
+        assert sched is None
+    else:
+        assert sched.cpu().tolist() == [
+            sweep_segments(*(a[e].cpu().numpy() for a in tape[:3]), n)
+            for e in range(tape[0].shape[0])]
+    run_tape, kw = tape, dict(schedule=sched)
+    if woven:
+        kind = tape[0].cpu().numpy()
+        rng = np.random.default_rng(n)
+        live = (kind >= int(GateKind.RX)) & (kind <= int(GateKind.CX))
+        kt = np.where(live & (rng.random(kind.shape) < 0.5),
+                      rng.integers(5, 8, kind.shape), 0)
+        kc = np.where(kind == int(GateKind.CX),
+                      rng.integers(5, 7, kind.shape), 0)
+        run_tape = tuple(a.to(torch.int32).contiguous()
+                         for a in extend_tape_arrays(
+                             tape, torch.as_tensor(kt, device=dev),
+                             torch.as_tensor(kc, device=dev)))
+        kw["weave"] = 3
+    before = (at.apply_tape_fwd.f64_launches, at.apply_tape_bwd.f64_launches,
+              at.apply_tape_fwd.sweep_launches)
+    runs = []
+    for _ in range(2):
+        out = at.apply_tape_fwd(*planes, *run_tape, angles, **kw)
+        runs.append((*out, *at.apply_tape_bwd(*out, *cot, *run_tape, angles,
+                                              **kw)))
+    torch.cuda.synchronize()
+    assert (at.apply_tape_fwd.f64_launches, at.apply_tape_bwd.f64_launches,
+            at.apply_tape_fwd.sweep_launches) == (before[0] + 2,
+                                                  before[1] + 2, before[2])
+    assert all(t.dtype == torch.float64 for t in runs[0])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out_p = at.apply_tape_fwd_plain(*planes, *run_tape, angles)
+    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *run_tape, angles)
+    assert _max_err(runs[0][:2], out_p) <= TOL_FWD64
+    assert _max_err(runs[0][2:], grads_p) <= TOL_BWD64
+    if woven:
+        return
+    kind, _, _, slot = tape
+    ryy = (kind == int(GateKind.RYY)) & (slot >= 0)
+    flip = torch.ones_like(angles)
+    for e in range(kind.shape[0]):
+        flip[e, :, slot[e][ryy[e]].long()] = -1.0
+    wrong = at.apply_tape_fwd(*planes, *tape, (angles * flip).contiguous(),
+                              schedule=sched)
+    assert _max_err(wrong, out_p) > 1e6 * TOL_FWD64
+    rzz = (kind == int(GateKind.RZZ)) & (slot >= 0)
+    dang = runs[0][4].clone()
+    for e in range(kind.shape[0]):
+        dang[e, :, slot[e][rzz[e]].long()] = 0.0
+    assert _max_err((dang,), (grads_p[2],)) > 1e6 * TOL_BWD64
+
+
+@pytest.mark.gpu
+def test_double_tape_kernels_do_not_spill():
+    """ptxas' report of the double-precision tape kernels' build: 0 bytes
+    of spills in the forward, adjoint, gradient and segment kernels; and
+    the CTAs an SM holds at 12 chunk bits as the runtime reports them."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.ops.build import build
+
+    _card()
+    lines = build("apply_tape_f64")["log"].splitlines()
+    reports = [(ln, nxt) for ln, nxt in zip(lines, lines[1:])
+               if "Function properties for" in ln and "apply_tape_f64" in ln]
+    names = " ".join(ln for ln, _ in reports)
+    for kernel in ("fwd_kernel", "bwd_kernel", "bwd_grad_kernel",
+                   "schedule_kernel"):
+        assert kernel in names, names
+    for ln, nxt in reports:
+        assert "0 bytes spill stores, 0 bytes spill loads" in nxt, ln
+    fwd, bwd = at.check_sweep_fit(at._sweep_library(torch.float64), 20,
+                                  torch.device("cuda"))
+    assert fwd >= 1 and bwd >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["H2O8q_TNbond2", "H2O10q_TNbond2"])
+def test_complex128_env_step_matches_the_cpu(config, monkeypatch):
+    """A complex128 ``CircuitEnv`` on the card (the composed engine on the
+    double-precision kernels, as one CUDA graph) against the same env on
+    the CPU (the fused engines' plain versions in float64), with the same
+    injected starts: the reset and two steps' energies within 1e-9 Ha."""
+    import dataclasses
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.optim import angle_opt
+
+    _card()
+    keep, shift = [1.0, 1.0, 0.0], [0.0, -0.13, 0.0]
+    monkeypatch.setattr(
+        angle_opt, "make_multistarts",
+        lambda x0, active, n_starts, *a, **k: (
+            (torch.tensor(keep, dtype=x0.dtype, device=x0.device)[:, None]
+             * x0[..., None, :]
+             + torch.tensor(shift, dtype=x0.dtype,
+                            device=x0.device)[:, None])
+            * active[..., None, :]))
+    conf = get_config("TensorRL_fixed/", f"{config}.cfg")
+    envs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = EnvConfig.from_conf(conf, tn_placement="fixed",
+                                  noise_mode="none", seed=3, device=dev)
+        envs[dev] = CircuitEnv(dataclasses.replace(
+            cfg, sim_dtype="complex128", global_iters=10, n_starts=3))
+    assert envs["cuda"].optimizer._pick_engine() == "composed"
+    assert envs["cpu"].optimizer._pick_engine() in ("v1", "v2")
+    assert envs["cuda"].psi0.dtype == torch.complex128
+    for env in envs.values():
+        env.reset()
+    assert abs(envs["cuda"].prev_energy - envs["cpu"].prev_energy) < 1e-9
+    n = envs["cpu"].num_qubits
+    acts = [next(a for a, v in envs["cpu"].action_dict.items()
+                 if v[0] == n and v[2] == 5 and v[3] == 3),
+            next(a for a, v in envs["cpu"].action_dict.items() if v[0] == 5)]
+    before = at.apply_tape_fwd.f64_launches
+    for a in acts:
+        for env in envs.values():
+            env.step(env.action_dict[a])
+        assert abs(envs["cuda"].energy - envs["cpu"].energy) < 1e-9
+    torch.cuda.synchronize()
+    assert at.apply_tape_fwd.f64_launches - before == 2 * (10 + 2)

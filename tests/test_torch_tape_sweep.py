@@ -4,7 +4,7 @@ B3f / B3b at 17-20 qubits) run on the host.
 The source is compiled by the host's C++ compiler against
 ``tests/cuda_emu/cuda_runtime.h`` (a fiber per CUDA thread, switched at
 every barrier and shuffle) and bound like the card's library
-(``ops/apply_tape.py:bind_sweep``).  Twice: as the card builds it (chunks
+(``ops/apply_tape.py:SweepLibrary``).  Twice: as the card builds it (chunks
 of 2^12 amplitudes, 17-20 qubits), held at 17 qubits on a tiny tape that
 crosses two segments; and with chunks of 2^7 amplitudes from 8 qubits
 (``-DAPPLY_TAPE_SWEEP_CHUNK_BITS=7 -DAPPLY_TAPE_SWEEP_MIN_QUBITS=8``),
@@ -58,7 +58,7 @@ def _build(out, chunk_bits=None):
                     "-x", "c++", f"-I{EMU}", f"-I{CSRC}", *define, "-o",
                     str(lib), str(CSRC / "apply_tape_sweep.cu")],
                    check=True, capture_output=True, timeout=300)
-    return at.bind_sweep(ctypes.CDLL(str(lib)))
+    return at.SweepLibrary(ctypes.CDLL(str(lib)), "apply_tape_sweep")
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +103,7 @@ def _held_to_plain(lib, case, n, woven=None):
     planes, tape, angles, cot = case
     sched = at.run_sweep_schedule(lib, tape, n)
     np.testing.assert_array_equal(
-        sched.numpy(), _twin(tape, n, lib.apply_tape_sweep_chunk_bits()))
+        sched.numpy(), _twin(tape, n, lib.chunk_bits()))
     run_tape, kw = tape, dict(schedule=sched)
     if woven is not None:
         run_tape, kw = woven, dict(schedule=sched, weave=3)
@@ -177,12 +177,12 @@ def _tiny_17q():
 
 def test_emulated_sweep_tape_kernels_at_17_qubits(emulated, one_thread):
     n, case = _tiny_17q()
-    assert emulated.apply_tape_sweep_chunk_bits() == 12
-    assert (emulated.apply_tape_sweep_min_qubits(),
-            emulated.apply_tape_sweep_max_qubits()) == (17, 20)
+    assert emulated.chunk_bits() == 12
+    assert (emulated.min_qubits(),
+            emulated.max_qubits()) == (17, 20)
     segments = _held_to_plain(emulated, case, n)
     assert segments.tolist() == [2]
-    assert emulated.apply_tape_sweep_max_segments(7, n) >= 2
+    assert emulated.max_segments(7, n) >= 2
 
 
 def test_max_segments_bounds_every_tape(emulated_small):
@@ -193,12 +193,12 @@ def test_max_segments_bounds_every_tape(emulated_small):
     case, _ = _wide_case(10, 4, 1, seed=3, n_gates=50)
     tape = case[1]
     words = _twin(tape, 10, 7)
-    bound = emulated_small.apply_tape_sweep_max_segments(tape[0].shape[1],
+    bound = emulated_small.max_segments(tape[0].shape[1],
                                                          10)
     assert int(words[:, 0].max()) <= bound == tape[0].shape[1]
     for g in (1, 2, 3, 46, 97):
         assert at.sweep_words(g) == 3 * g + 2
-        assert emulated_small.apply_tape_sweep_max_segments(g, 7) == 1
+        assert emulated_small.max_segments(g, 7) == 1
     # every segment but the last holds 3 live gates or more at 12-bit
     # chunks: random 20-qubit tapes stay inside (G - 1) // 3 + 1
     rng = np.random.default_rng(5)

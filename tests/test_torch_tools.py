@@ -155,3 +155,153 @@ def test_generate_molecules_matches_jax_script(tmp_path):
     shipped = np.load(REPO / "data/mol_data" / name, allow_pickle=True)
     raw = np.load(ours / name, allow_pickle=True)
     assert set(raw["paulis"]) == set(shipped["paulis"])
+
+
+# -- the analysis, search and launch tools (tools/analyze_longrun.py,
+# structure_search.py, train_multiseed.py) against the JAX package's
+# scripts; twins of tests/test_analyze_longrun.py and
+# tests/test_structure_search.py.  Counts and picks are equal; --f64's
+# complex128 error within 1e-12 Ha of the script's (two eager complex128
+# simulators, the same gates in the same order).
+
+def _jax_analyze():
+    """The JAX package's script as a module (it puts JAX on the CPU in
+    x64 when imported, as its own test does)."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import analyze_longrun as script
+
+    return script
+
+
+def _ids(acts, n, keys):
+    rev = {tuple(v): k for k, v in acts.items()}
+    return [rev[k] for k in keys]
+
+
+def test_analyze_circuit_stats_match_script():
+    """Counts and depth of a replayed action list (the script test's two
+    cases: a bare circuit, and one with an embedded warm-start tape)."""
+    from tensorrl_qas_tpu.circuits.tape import GateKind as KindJax
+    from tensorrl_qas_tpu.circuits.tape import GateTape as TapeJax
+    from tensorrl_qas_tpu_torch.circuits.actions import all_to_all_actions
+    from tensorrl_qas_tpu_torch.circuits.tape import GateKind, GateTape
+    from tensorrl_qas_tpu_torch.tools import analyze_longrun as ours
+
+    script = _jax_analyze()
+    n = 4
+    acts = all_to_all_actions(n)
+    ids = _ids(acts, n, [(0, 1, n, 0), (n, 0, 2, 1), (2, 1, n, 0),
+                         (n, 0, 2, 2)])
+    out = ours.circuit_stats(ids, n, 10, acts)
+    assert out == script.circuit_stats(ids, n, 10, acts)
+    assert out == {"depth": 3, "cnots": 2, "rots": 2}
+    n = 3
+    acts = all_to_all_actions(n)
+    tapes = []
+    for kind, tape_cls in ((GateKind, GateTape), (KindJax, TapeJax)):
+        tn = tape_cls(n, 4, 4)
+        tn.add_cx(0, 1)
+        tn.add(kind.RY, target=2, angle=0.3)
+        tapes.append(tn)
+    ids = _ids(acts, n, [(n, 0, 0, 1)])
+    out = ours.circuit_stats(ids, n, 10, acts, tn_tape=tapes[0])
+    assert out == script.circuit_stats(ids, n, 10, acts, tn_tape=tapes[1])
+    assert out["cnots"] == 1 and out["rots"] == 2
+
+
+def test_analyze_summary_matches_script(tmp_path):
+    """``analyze`` picks the same best (episode, step) and scores its
+    circuit as the script does, on the script test's summary."""
+    from tensorrl_qas_tpu_torch.circuits.actions import all_to_all_actions
+    from tensorrl_qas_tpu_torch.tools import analyze_longrun as ours
+
+    script = _jax_analyze()
+    n = 4
+    acts = all_to_all_actions(n)
+    summary = {"train": {
+        0: {"errors": [0.5, 0.2], "reward": [0.0, 0.1],
+            "actions": _ids(acts, n, [(0, 1, n, 0), (n, 0, 2, 1)])},
+        1: {"errors": [0.4, 1e-4], "reward": [0.0, 5.0],
+            "actions": _ids(acts, n, [(1, 1, n, 0), (n, 0, 0, 3)])},
+    }, "test": {}}
+    p = tmp_path / "summary_7.npy"
+    np.save(p, summary, allow_pickle=True)
+    conf = {"env": {"num_qubits": n, "num_layers": 10, "accept_err": 1.6e-3,
+                    "tn_init": 0},
+            "problem": {"ham_type": "x"}}
+    out = ours.analyze(p, conf, tn_placement="fixed")
+    assert out == script.analyze(p, conf, tn_placement="fixed")
+    assert (out["episodes"], out["successes"]) == (2, 1)
+    assert out["best"]["episode"] == 1 and out["best"]["error"] == 1e-4
+    assert out["best"]["cnots"] == 1 and out["best"]["rots"] == 1
+    assert out["best_done"]["episode"] == 1
+
+
+def test_analyze_f64_matches_script(tmp_path):
+    """``--f64`` on a recorded 5q Heisenberg step (TensorRL-fixed, the warm
+    start in psi0): an RY, a CNOT, then an RZ, with the pre-action
+    circuit's optimized RY angle stored; the complex128 error through the
+    main function, from the results directory as the CLI writes it,
+    against the script's ``f64_error`` within 1e-12 Ha."""
+    from tensorrl_qas_tpu_torch.circuits.actions import all_to_all_actions
+    from tensorrl_qas_tpu_torch.tools import analyze_longrun as ours
+    from tensorrl_qas_tpu_torch.train.config import get_config
+
+    script = _jax_analyze()
+    n = 5
+    acts = all_to_all_actions(n)
+    ids = _ids(acts, n, [(n, 0, 1, 2), (1, 2, n, 0), (n, 0, 3, 3)])
+    rec = {"errors": [0.3, 0.2, 0.1], "reward": [0.0, 0.1, 0.1],
+           "actions": ids, "opt_ang": [[], [0.0], [0.4321]]}
+    results = tmp_path / "TensorRL_fixed" / "heisenberg_5q_TNbond2"
+    results.mkdir(parents=True)
+    np.save(results / "summary_3.npy", {"train": {0: rec}, "test": {}},
+            allow_pickle=True)
+    conf = get_config("TensorRL_fixed/", "heisenberg_5q_TNbond2.cfg")
+    num_layers = conf["env"]["num_layers"]
+    theirs = script.f64_error(ids, [0.4321], conf, "fixed", num_layers,
+                              acts)
+    mine = ours.f64_error(ids, [0.4321], conf, "fixed", num_layers, acts,
+                          device="cpu")
+    assert abs(mine - theirs) < 1e-12
+    assert mine > 0.0                        # above the ground state
+    out = json.loads(_run(["-m", "tensorrl_qas_tpu_torch.tools."
+                           "analyze_longrun", str(results), "--seed", "3",
+                           "--f64", "--device", "cpu"]))
+    assert abs(out["best"]["error_f64"] - theirs) < 1e-12
+    assert out["family"] == "TensorRL_fixed/"
+    assert out["config"] == "heisenberg_5q_TNbond2.cfg"
+
+
+def test_structure_search_smoke(tmp_path):
+    """The search on the CPU (5q, pop 8, 4 generations, 20 iterations, 2
+    starts) within the output's own rules, as the script's slow-gated
+    test checks them."""
+    from tensorrl_qas_tpu_torch.tools import structure_search
+
+    out_path = tmp_path / "ss.json"
+    res = structure_search.main([
+        "--device", "cpu", "--config", "heisenberg_5q_TNbond2", "--pop", "8",
+        "--gens", "4", "--max_gates", "10", "--global_iters", "20",
+        "--n_starts", "2", "--polish_iters", "20", "--out", str(out_path)])
+    assert json.loads(out_path.read_text()) == json.loads(json.dumps(res))
+    assert res["best_err"] >= -1e-6
+    assert res["gens"] == 4
+    assert len(res["gates"]) <= 10
+    assert res["depth"] >= 1
+    assert res["polished_err"] <= res["best_err"] + 1e-9
+
+
+def test_train_multiseed_two_seeds(tmp_path):
+    """Two seeds of a tiny CPU run of the port's CLI, the flags passed
+    through; each writes its summary."""
+    out = _run(["-m", "tensorrl_qas_tpu_torch.tools.train_multiseed",
+                "--seeds", "0", "1", "--max_parallel", "2", "--device",
+                "cpu", "--config", "heisenberg_5q_TNbond2", "--vector", "2",
+                "--total_steps", "4", "--global_iters", "2", "--n_starts",
+                "2", "--batch_size", "4", "--results_path",
+                str(tmp_path) + "/"])
+    assert "all seeds completed" in out
+    run_dir = tmp_path / "TensorRL_fixed" / "heisenberg_5q_TNbond2"
+    assert sorted(p.name for p in run_dir.glob("summary_*.npy")) == [
+        "summary_0.npy", "summary_1.npy"]
