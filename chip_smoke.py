@@ -14,7 +14,9 @@ and the composed engine at 17-20 qubits (the sweep tape kernels) with
 the 20q su4 trainer at full width; and complex128 on the card
 (``--sim_dtype complex128``: the composed engine on the double-precision
 tape kernels, csrc/apply_tape_f64.cu) with the main path's trainer, and
-a generation of the structure search.
+a generation of the structure search; the tools: the complex128 polish
+of a champion and of a trainer's best step, and the 20q demo on one card
+and on an (amp, dp) mesh, once under the profiling hook.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --split     # the split phases alone (3b., 5b.,
@@ -58,6 +60,11 @@ a generation of the structure search.
                                       # (17q, 20q) and double (8-20q)
                                       # instances alone, with their ptxas
                                       # lines
+    python3 chip_smoke.py --tools     # the tools' phases alone (29b.),
+                                      # then the champion's polish at
+                                      # 3000 x 8 x 3 (its graph's capture
+                                      # timed) and the 20q demo at its
+                                      # defaults on both meshes
 
 The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
 cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.),
@@ -432,6 +439,30 @@ Phases, one line each with its seconds:
                  tools/structure_search.py on 8q H2O (64 structures, 100
                  iterations x 8 starts) and the champion's polish: two B1
                  launches, no other kernel; its wall s.
+29b. tools    -- (after 26.) tools/polish_champion.py on 29.'s champion
+                 (complex128, 300 iterations x 8 starts x 1 seed: the
+                 composed engine on the double-precision tape kernels,
+                 one graph; iters + 2 B3f and iters B3b launches, no
+                 fused kernel), its error at most the search's polished
+                 error + 1e-9 and above the ground state, and with one
+                 start for 50 iterations on the card against --device cpu
+                 within 1e-9 Ha; tools/polish_best.py on 23.'s summary (100
+                 iterations x 8 x 1, the row's keys the script's, its error
+                 at most analyze_longrun.f64_error of the same step +
+                 1e-9); tools/demo_20q_training.py at 20q, one episode:
+                 --mesh none for 3 env steps (a B2 sweep-kernel launch a
+                 step, no other kernel), --mesh 2,4 with all eight shards
+                 on this card for 2 (no kernel), their warm-start energies
+                 within 1e-5 and above the bound less 1e-4, and the
+                 --mesh none run again under TRLQAS_PROFILE
+                 (utils/profiling.py: the Chrome trace holds device-kernel
+                 events; whether it names the sweep kernel is printed) with
+                 its PhaseTimer summary.  With ``--tools`` (alone) also the
+                 champion's polish at the scripts' 3000 x 8 x 3, its graph's
+                 capture and instantiation s, the first step's host and
+                 device memory, the replays' s, seed 0 replayed bit for
+                 bit, the graph's device operations, and the demo at its
+                 defaults on both meshes (env-steps/s).
 
 The line before the last is a JSON object with one entry per kernel
 variant (v1, v1 noise, v2, v2 noise, the v2 cluster, group and sweep
@@ -2347,6 +2378,36 @@ def composed_timing(opt, engine, case):
                              "disagree between counters and profiler")
 
 
+def _tape_kernels():
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    return at.apply_tape_fwd, at.apply_tape_bwd, at.tape_schedule
+
+
+def reset_counts():
+    """Every kernel's launch counts to 0 (the fused kernels' wrappers, the
+    tape kernels' own, sweep and double-precision counts, the
+    schedule's)."""
+    for e in engines():
+        e.reset()
+    for k in _tape_kernels():
+        k.launches = 0
+    for k in _tape_kernels()[:2]:
+        k.sweep_launches = k.f64_launches = 0
+
+
+def kernel_counts():
+    """{kernel name: launches} of every kernel since ``reset_counts``."""
+    fwd, bwd, sched = _tape_kernels()
+    out = {e.name: e.launches() for e in engines()}
+    out.update({k.__name__: k.launches for k in (fwd, bwd, sched)})
+    out.update({f"apply_tape_{kind}_{key}": getattr(k, attr)
+                for key, k in (("fwd", fwd), ("bwd", bwd))
+                for kind, attr in (("sweep", "sweep_launches"),
+                                   ("f64", "f64_launches"))})
+    return out
+
+
 def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
                   expect_replay=True, family=FIXED, expect=None,
                   profile=False):
@@ -2364,22 +2425,14 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
     import torch
     from torch.profiler import ProfilerActivity
 
-    from tensorrl_qas_tpu_torch.ops import apply_tape as at
     from tensorrl_qas_tpu_torch.train import cli
 
-    variants = engines()
-    tape_kernels = (at.apply_tape_fwd, at.apply_tape_bwd, at.tape_schedule)
     expect = expect or {engine.name: vector_steps}
     out = tempfile.mkdtemp(prefix="trlqas_smoke_")
     try:
         t0 = phase(label)
         torch.cuda.reset_peak_memory_stats()
-        for e in variants:
-            e.reset()
-        for k in tape_kernels:
-            k.launches = 0
-        for k in tape_kernels[:2]:
-            k.sweep_launches = k.f64_launches = 0
+        reset_counts()
         tracer = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
                   if profile else contextlib.nullcontext())
         with tracer:
@@ -2405,12 +2458,7 @@ def trainer_phase(engine, config, n_env, vector_steps, label, extra=(),
                 trace = {"profiled_wall_ms_per_vector_step":
                          f"{wall_ms:.3f}",
                          **trainer_split(tracer, vector_steps, wall_ms)}
-        launches = {e.name: e.launches() for e in variants}
-        launches.update({k.__name__: k.launches for k in tape_kernels})
-        launches.update({f"apply_tape_{kind}_{key}": getattr(k, attr)
-                         for key, k in zip(("fwd", "bwd"), tape_kernels)
-                         for kind, attr in (("sweep", "sweep_launches"),
-                                            ("f64", "f64_launches"))})
+        launches = kernel_counts()
         run_dir = os.path.join(out, family, config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
                         allow_pickle=True).item()
@@ -2463,7 +2511,8 @@ def episode_layers(config, steps):
     return str(load_circuit_tape(qasm).depth() + steps)
 
 
-def sequential_phase(config, label, extra=(), expect=None, profile=False):
+def sequential_phase(config, label, extra=(), expect=None, profile=False,
+                     keep=None):
     """The CLI without --vector (the sequential trainer) on
     TensorRL_fixed/``config`` with ``extra`` flags, every kernel's launch
     count set to 0 just before and read just after; ``expect(summary)``
@@ -2472,40 +2521,28 @@ def sequential_phase(config, label, extra=(), expect=None, profile=False):
     episode) and finite errors; prints wall ms a step (train and test
     steps, host clock around the training, which ends in a host read),
     nfev a step, and with ``profile`` (torch.profiler, CUDA activity) the
-    device ms a step by kernel.  -> (summary, launches, per-step records
-    of the train episodes)."""
+    device ms a step by kernel.  ``keep``: a directory that receives the
+    run's ``summary_0.npy`` as ``<keep>/TensorRL_fixed/<config>/``.  ->
+    (summary, launches, per-step records of the train episodes)."""
     import contextlib
 
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity
 
-    from tensorrl_qas_tpu_torch.ops import apply_tape as at
     from tensorrl_qas_tpu_torch.train import cli
 
-    variants = engines()
-    tape_kernels = (at.apply_tape_fwd, at.apply_tape_bwd, at.tape_schedule)
     out = tempfile.mkdtemp(prefix="trlqas_smoke_")
     try:
         t0 = phase(label)
-        for e in variants:
-            e.reset()
-        for k in tape_kernels:
-            k.launches = 0
-        for k in tape_kernels[:2]:
-            k.sweep_launches = k.f64_launches = 0
+        reset_counts()
         tracer = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
                   if profile else contextlib.nullcontext())
         with tracer:
             summary = cli.run(["--config", config, "--experiment_name",
                                FIXED, "--results_path", out + "/", *extra])
             torch.cuda.synchronize()
-        launches = {e.name: e.launches() for e in variants}
-        launches.update({k.__name__: k.launches for k in tape_kernels})
-        launches.update({f"apply_tape_{kind}_{key}": getattr(k, attr)
-                         for key, k in zip(("fwd", "bwd"), tape_kernels)
-                         for kind, attr in (("sweep", "sweep_launches"),
-                                            ("f64", "f64_launches"))})
+        launches = kernel_counts()
         want = expect(summary)
         run_dir = os.path.join(out, FIXED, config)
         stats = np.load(os.path.join(run_dir, "summary_0.npy"),
@@ -2554,6 +2591,12 @@ def sequential_phase(config, label, extra=(), expect=None, profile=False):
              launches=launches, **trace, checks=checks)
         if not all(checks.values()):
             raise AssertionError(f"{label} checks failed: {checks}")
+        if keep is not None:
+            # the summary for tools/polish_best.py, laid out as the CLI
+            # lays out its results directory
+            os.makedirs(os.path.join(keep, FIXED, config))
+            shutil.copy(os.path.join(run_dir, "summary_0.npy"),
+                        os.path.join(keep, FIXED, config))
         return summary, launches, records
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -2739,15 +2782,16 @@ def cobyla_phases():
     return launches["apply_tape_fwd"]
 
 
-def sequential_v1_phases(v1):
+def sequential_v1_phases(v1, keep=None):
     """The sequential trainer with Adam at 8q (every env step, train and
-    greedy test, one v1 launch at E = 1, traced), and v1 at E = 1 against
-    its plain version at 3 iterations with the controls, and timed (the
-    plain version untimed).  -> (v1's launches in the run, its E = 1
-    timing)."""
+    greedy test, one v1 launch at E = 1, traced; its results copied into
+    ``keep``, see ``sequential_phase``), and v1 at E = 1 against its plain
+    version at 3 iterations with the controls, and timed (the plain
+    version untimed).  -> (v1's launches in the run, its E = 1 timing)."""
     _, launches, _ = sequential_phase(
         V1_CONFIG, "sequential v1", SEQ_ARGS, profile=True,
-        expect=lambda s: {v1.name: s["steps"] + s["test_steps"]})
+        expect=lambda s: {v1.name: s["steps"] + s["test_steps"]},
+        keep=keep)
     case = Case(v1, V1_CONFIG, 1)
     check_kernel(v1, case, "kernel v1 E=1", 3, TOL_ITERS3, case.controls())
     timing = time_kernel(v1, case, "kernel v1 E=1", time_plain=False)
@@ -4153,6 +4197,15 @@ F64_STEPS = 12
 F64_ARGS = ("--sim_dtype", "complex128")
 F64_SOURCE = "tensorrl_qas_tpu_torch/csrc/apply_tape_f64.cu"
 SEARCH_POP = 64          # the structure search's generation on the card
+# the tools (29b.): the champion's complex128 polish, its one-start check
+# against the host, polish_best on the 8q trainer's summary; the 20q demo
+# cut to 3 / 2 env steps (the warm start's 22 layers count against
+# --num_layers)
+POLISH_ITERS, POLISH_CHECK_ITERS, POLISH_BEST_ITERS = 300, 50, 100
+POLISH_FULL = (3000, 8, 3)   # --tools: the scripts' iters, starts, seeds
+DEMO_NONE_LAYERS, DEMO_MESH_LAYERS = 25, 24
+TOL_POLISH = 1e-9        # complex128 polished errors (Ha)
+TOL_DEMO_WARM = 1e-5     # complex64 warm-start energies, mesh against none
 
 
 def f64_tape_phase(n, n_env, s_n, cap, label):
@@ -4398,27 +4451,22 @@ def structure_search_phase(v1):
     ``SEARCH_POP`` structures of up to 28 gates, 100 Adam iterations x 8
     starts, then the champion's polish): the generation and the polish one
     B1 launch each, no other kernel; the result within the output's rules;
-    the wall s."""
+    the wall s.  -> the path of the champion's artifact (``--out``)."""
     import torch
 
-    from tensorrl_qas_tpu_torch.ops import apply_tape as at
     from tensorrl_qas_tpu_torch.tools import structure_search
 
     t0 = phase("structure search 8q")
-    variants = engines()
-    for e in variants:
-        e.reset()
-    for k in (at.apply_tape_fwd, at.apply_tape_bwd):
-        k.launches = 0
+    champion = os.path.join(tools_tempdir(), "champion.json")
+    reset_counts()
     t1 = time.perf_counter()
     res = structure_search.main(["--config", V1_CONFIG, "--pop",
                                  str(SEARCH_POP), "--gens", "1",
-                                 "--polish_iters", str(ITERS)])
+                                 "--polish_iters", str(ITERS), "--out",
+                                 champion])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = {e.name: e.launches() for e in variants}
-    launches.update(apply_tape_fwd=at.apply_tape_fwd.launches,
-                    apply_tape_bwd=at.apply_tape_bwd.launches)
+    launches = kernel_counts()
     ok = (all(n == (2 if k == v1.name else 0) for k, n in launches.items())
           and res["gens"] == 1 and len(res["gates"]) <= 28
           and res["polished_err"] <= res["best_err"] + 1e-6
@@ -4431,6 +4479,388 @@ def structure_search_phase(v1):
     if not ok:
         raise AssertionError("structure search: launches or result not as "
                              f"expected: {launches}, {res}")
+    return champion
+
+
+def tools_tempdir():
+    """A temporary directory for the tools' inputs and outputs, outside
+    the checkout, removed when the script ends."""
+    path = tempfile.mkdtemp(prefix="trlqas_tools_")
+    _TEMP_DIRS.append(path)
+    return path
+
+
+def polish_expect(iters, calls=1):
+    """The launches of ``calls`` complex128 polish steps of ``iters``
+    iterations at 8q: iters + 2 double-precision B3f and iters B3b calls
+    a step (a row is one chunk: no schedule), no other kernel."""
+    fwd, bwd = calls * (iters + 2), calls * iters
+    return {"apply_tape_fwd": fwd, "apply_tape_bwd": bwd,
+            "apply_tape_f64_fwd": fwd, "apply_tape_f64_bwd": bwd}
+
+
+def counts_as(got, expect):
+    """Whether ``got`` (``kernel_counts``) is ``expect``, the others 0."""
+    return all(n == expect.get(k, 0) for k, n in got.items())
+
+
+def polish_champion_phase(champion):
+    """``tools/polish_champion.py`` on the structure search's champion
+    (29.) on the card: complex128, ``POLISH_ITERS`` x 8 starts x 1 seed
+    (the composed engine on the double-precision tape kernels, one CUDA
+    graph), its error at most the search's own ``polished_err`` + 1e-9
+    and above the ground state; then with one start (no random draw) for
+    ``POLISH_CHECK_ITERS`` iterations on the card and on the host
+    (``--device cpu``: the fused v1 engine's plain version in float64)
+    within 1e-9 Ha.  -> the wall s of the first run."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.tools import polish_champion
+
+    t0 = phase("polish champion 8q")
+    with open(champion) as f:
+        search = json.load(f)
+    reset_counts()
+    t1 = time.perf_counter()
+    res = polish_champion.main([champion, "--iters", str(POLISH_ITERS),
+                                "--seeds", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = kernel_counts()
+    one = ["--iters", str(POLISH_CHECK_ITERS), "--n_starts", "1",
+           "--seeds", "1"]
+    card = polish_champion.main([champion, *one])["f64_polished_err"]
+    host = polish_champion.main([champion, *one, "--device", "cpu"])[
+        "f64_polished_err"]
+    err = res["f64_polished_err"]
+    checks = {
+        "launches as expected": counts_as(launches,
+                                          polish_expect(POLISH_ITERS)),
+        "not above the search's polish":
+            err <= search["polished_err"] + TOL_POLISH,
+        "above the ground state": err >= -TOL_POLISH,
+        "card as host, one start": abs(card - host) < TOL_POLISH,
+    }
+    done("polish champion 8q", t0, iters=POLISH_ITERS, wall_s=f"{wall:.3f}",
+         f64_polished_err_Ha=f"{err:.9e}",
+         search_polished_err_Ha=f"{search['polished_err']:.9e}",
+         one_start_card_Ha=f"{card:.12e}", one_start_host_Ha=f"{host:.12e}",
+         one_start_diff_Ha=f"{abs(card - host):.3e}", launches=launches,
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"polish champion: checks failed: {checks}")
+    return wall
+
+
+def polish_best_phase(kept):
+    """``tools/polish_best.py`` on the summary of the sequential 8q trainer
+    (23.: two episodes), which ``kept`` holds, on the card: complex128,
+    ``POLISH_BEST_ITERS`` x 8 starts x 1 restart; the row has the script's
+    keys, and its error is at most ``analyze_longrun.f64_error`` of the
+    same step + 1e-9 (start 0 is that step's remapped angles, and the step
+    keeps its best iterate) and above the ground state.  -> the wall s."""
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.circuits.actions import action_dictionary
+    from tensorrl_qas_tpu_torch.tools import analyze_longrun, polish_best
+    from tensorrl_qas_tpu_torch.train.config import get_config
+
+    t0 = phase("polish best 8q")
+    run_dir = os.path.join(kept, FIXED, V1_CONFIG)
+    reset_counts()
+    t1 = time.perf_counter()
+    (row,) = polish_best.main([run_dir, "--seed", "0", "--iters",
+                               str(POLISH_BEST_ITERS), "--restarts", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = kernel_counts()
+    train = np.load(os.path.join(run_dir, "summary_0.npy"),
+                    allow_pickle=True).item()["train"]
+    (cand,) = polish_best.candidates(train)
+    conf = get_config(FIXED, f"{V1_CONFIG}.cfg")
+    n = conf["env"]["num_qubits"]
+    exact = analyze_longrun.f64_error(
+        cand["actions"], cand["angles"], conf, "fixed",
+        conf["env"]["num_layers"], action_dictionary(n, "all_to_all"))
+    err = row["polished_f64_error"]
+    keys = {"results_dir", "which", "episode", "step", "run_error",
+            "depth", "cnots", "rots", "polished_f64_error", "iters",
+            "n_starts", "restarts"}
+    checks = {
+        "launches as expected": counts_as(
+            launches, polish_expect(POLISH_BEST_ITERS)),
+        "the script's keys": set(row) == keys,
+        "the best step": (row["episode"], row["step"]) == (
+            cand["episode"], cand["step"]),
+        "not above its stored angles": err <= exact + TOL_POLISH,
+        "above the ground state": err >= -TOL_POLISH,
+    }
+    done("polish best 8q", t0, iters=POLISH_BEST_ITERS,
+         wall_s=f"{wall:.3f}", episode=row["episode"], step=row["step"],
+         run_error_Ha=f"{row['run_error']:.6e}",
+         stored_angles_f64_error_Ha=f"{exact:.9e}",
+         polished_f64_error_Ha=f"{err:.9e}", launches=launches,
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"polish best: checks failed: {checks}")
+    return wall
+
+
+def demo_run(mesh, args=(), trace=False):
+    """``tools/demo_20q_training.py --mesh <mesh>`` on the card with
+    ``args``, every kernel's count set to 0 just before; with ``trace``
+    under ``TRLQAS_PROFILE`` (a temporary directory) inside
+    ``utils/profiling.maybe_device_trace``, its phases in a
+    ``PhaseTimer``.  -> (record, launches, wall s, the trace's path and
+    the timer's summary, or None)."""
+    import torch
+
+    from tensorrl_qas_tpu_torch.tools import demo_20q_training
+    from tensorrl_qas_tpu_torch.utils import profiling
+
+    out = os.path.join(tools_tempdir(), "demo20q.json")
+    argv = ["--mesh", mesh, *args, "--out", out]
+    timer = profiling.PhaseTimer()
+    reset_counts()
+    t1 = time.perf_counter()
+    if trace:
+        os.environ["TRLQAS_PROFILE"] = tools_tempdir()
+    try:
+        with profiling.maybe_device_trace() as prof:
+            with timer.phase("demo_20q_training"):
+                record = demo_20q_training.main(argv)
+            with timer.phase("synchronize"):
+                torch.cuda.synchronize()
+    finally:
+        os.environ.pop("TRLQAS_PROFILE", None)
+    wall = time.perf_counter() - t1
+    traced = (prof.trace_path, timer.summary()) if trace else None
+    return record, kernel_counts(), wall, traced
+
+
+def demo_line(record):
+    """The per-episode numbers of a demo record for a phase's line."""
+    eps = record["episodes"]
+    steps = sum(e["steps"] for e in eps)
+    wall = sum(e["wall_s"] for e in eps)
+    return {"episodes": len(eps), "env_steps": steps,
+            "wall_s_per_step": f"{wall / steps:.4f}",
+            "env_steps_per_s": f"{steps / wall:.4f}",
+            "warmstart_Ha": f"{eps[0]['warmstart']:.7f}",
+            "best_energy_Ha": f"{record['best_energy']:.7f}",
+            "min_eig_bound_Ha": f"{record['min_eig_bound']:.7f}"}
+
+
+def demo_phases(v2, v2s):
+    """The 20q demo (``tools/demo_20q_training.py``) on the card, one
+    episode a run: ``--mesh none`` for ``DEMO_NONE_LAYERS`` layers (3 env
+    steps, each one launch of the v2 engine's sweep kernel, no other
+    kernel), ``--mesh 2,4`` (the sharded optimizer, all eight shards on
+    this card) for ``DEMO_MESH_LAYERS`` (2 steps, no kernel), their
+    warm-start energies within 1e-5 of each other and above the lower
+    bound less 1e-4; then the ``--mesh none`` run again under
+    ``TRLQAS_PROFILE``: the trace file holds device-kernel events (whether
+    it names the sweep kernel is printed, not required: the profiler has
+    missed kernels before), and the PhaseTimer's summary."""
+    import torch
+
+    t0 = phase("demo 20q none")
+    none, counts, wall, _ = demo_run("none", ("--episodes", "1",
+                                              "--num_layers",
+                                              str(DEMO_NONE_LAYERS)))
+    steps = none["episodes"][0]["steps"]
+    warm = none["episodes"][0]["warmstart"]
+    checks = {"3 env steps": steps == 3,
+              "a sweep launch a step": counts_as(
+                  counts, {v2.name: steps, v2s.name: steps}),
+              "above the bound": warm >= none["min_eig_bound"] - 1e-4}
+    done("demo 20q none", t0, wall_s=f"{wall:.3f}", **demo_line(none),
+         launches=counts, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"demo 20q none: checks failed: {checks}")
+
+    t0 = phase("demo 20q mesh 2,4")
+    mesh, counts, wall, _ = demo_run("2,4", ("--episodes", "1",
+                                             "--num_layers",
+                                             str(DEMO_MESH_LAYERS)))
+    warm_mesh = mesh["episodes"][0]["warmstart"]
+    checks = {"2 env steps": mesh["episodes"][0]["steps"] == 2,
+              "no kernel": counts_as(counts, {}),
+              "warm start as --mesh none":
+                  abs(warm_mesh - warm) < TOL_DEMO_WARM}
+    done("demo 20q mesh 2,4", t0, wall_s=f"{wall:.3f}", **demo_line(mesh),
+         warm_diff_Ha=f"{abs(warm_mesh - warm):.3e}", launches=counts,
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"demo 20q mesh: checks failed: {checks}")
+
+    t0 = phase("demo 20q traced")
+    _, counts, wall, (path, timer) = demo_run(
+        "none", ("--episodes", "1", "--num_layers", str(DEMO_NONE_LAYERS)),
+        trace=True)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [ev.get("name", "") for ev in events
+               if ev.get("cat") == "kernel"]
+    names_sweep = any("fused_adam_v2_sweep_kernel" in k for k in kernels)
+    checks = {"trace file": os.path.getsize(path) > 0,
+              "device-kernel events": len(kernels) > 0,
+              "a sweep launch a step": counts_as(
+                  counts, {v2.name: steps, v2s.name: steps})}
+    done("demo 20q traced", t0, wall_s=f"{wall:.3f}",
+         trace_MB=f"{os.path.getsize(path) / 2**20:.2f}",
+         kernel_events=len(kernels), names_sweep_kernel=names_sweep,
+         phase_timer=json.dumps(timer), checks=checks)
+    torch.cuda.synchronize()
+    if not all(checks.values()):
+        raise AssertionError(f"demo 20q traced: checks failed: {checks}")
+
+
+def host_rss_bytes():
+    """This process's resident set (VmRSS of /proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def polish_champion_full(champion):
+    """``--tools``: the champion's polish at the script's size
+    (``POLISH_FULL``: 3000 iterations x 8 starts x 3 seeds) through the
+    tool's main, its CUDA graph's capture and instantiation timed (a
+    ``torch.cuda.CUDAGraph`` that times ``capture_begin`` to
+    ``capture_end`` and ``capture_end``, which instantiates) and the
+    first step's host and device memory; each seed's wall s (the first:
+    the eager warm-up, the capture and the instantiation; the others a
+    replay); seed 0 again, a replay, bit for bit the first (eager) run;
+    the graph's device operations estimated from traced steps of 10 and
+    20 iterations (every iteration the same kernels)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.optim import angle_opt
+    from tensorrl_qas_tpu_torch.tools import polish_champion
+
+    iters, starts, seeds = POLISH_FULL
+    t0 = phase("polish champion 8q full")
+    made, steps, graphs = [], [], []
+
+    class TimedGraph(torch.cuda.CUDAGraph):
+        def capture_begin(self, *args, **kwargs):
+            self.times = [time.perf_counter()]
+            return super().capture_begin(*args, **kwargs)
+
+        def capture_end(self):
+            self.times.append(time.perf_counter())
+            super().capture_end()
+            self.times.append(time.perf_counter())
+            graphs.append(self.times)
+
+    class Recorded(angle_opt.AngleOptimizer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def fused_step(self, *args):
+            rss, reserved = host_rss_bytes(), torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            allocated = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            out = super().fused_step(*args)
+            torch.cuda.synchronize()
+            steps.append({
+                "s": time.perf_counter() - t1, "out": out, "args": args,
+                "host_MB": (host_rss_bytes() - rss) / 2**20,
+                "reserved_MB": (torch.cuda.memory_reserved() - reserved)
+                / 2**20,
+                "peak_MB": (torch.cuda.max_memory_allocated() - allocated)
+                / 2**20})
+            return out
+
+    # the earlier phases' graphs and cached blocks freed first, so that
+    # the first step's memory is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_cls, opt_cls = torch.cuda.CUDAGraph, polish_champion.AngleOptimizer
+    torch.cuda.CUDAGraph, polish_champion.AngleOptimizer = (TimedGraph,
+                                                            Recorded)
+    try:
+        t1 = time.perf_counter()
+        res = polish_champion.main([champion, "--iters", str(iters),
+                                    "--n_starts", str(starts), "--seeds",
+                                    str(seeds)])
+        wall = time.perf_counter() - t1
+        (opt,) = made
+        opt.generator.manual_seed(0)
+        opt.fused_step(*steps[0]["args"])
+    finally:
+        torch.cuda.CUDAGraph, polish_champion.AngleOptimizer = (graph_cls,
+                                                                opt_cls)
+    (times,) = graphs
+    capture_s, instantiate_s = times[1] - times[0], times[2] - times[1]
+    first, again = steps[0], steps[-1]
+    same = (np.array_equal(first["out"][0], again["out"][0])
+            and first["out"][1] == again["out"][1])
+    # device operations of one step: traced steps of 10 and 20 iterations
+    # (the warm-up before each capture), the difference a 10-iteration one
+    psi0, arrs, x0, n_rots, _, map_idx = steps[0]["args"]
+    ops = {}
+    for k in (10, 20):
+        small = angle_opt.AngleOptimizer(opt.pauli, iters=k, n_starts=starts,
+                                          device=opt.device,
+                                          dtype=torch.complex128)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            small.fused_step(psi0, arrs, x0, n_rots, arrs, map_idx)
+            torch.cuda.synchronize()
+        ops[k] = kernel_launches(prof, "")
+    per_iter = (ops[20] - ops[10]) / 10
+    nodes = ops[10] + per_iter * (iters - 10)
+    eager_s = first["s"] - capture_s - instantiate_s
+    replays = [st["s"] for st in steps[1:seeds]]
+    checks = {"seed 0 replayed bit for bit as its eager run": same,
+              "above the ground state":
+                  res["f64_polished_err"] >= -TOL_POLISH}
+    done("polish champion 8q full", t0, iters=iters, n_starts=starts,
+         seeds=seeds, wall_s=f"{wall:.3f}",
+         f64_polished_err_Ha=f"{res['f64_polished_err']:.9e}",
+         search_polished_err_Ha=res["search_reported_err"],
+         first_step_s=f"{first['s']:.3f}", eager_warmup_s=f"{eager_s:.3f}",
+         capture_s=f"{capture_s:.3f}",
+         capture_end_instantiate_s=f"{instantiate_s:.3f}",
+         replay_s=[f"{r:.4f}" for r in replays],
+         first_step_host_rss_MB=f"{first['host_MB']:.1f}",
+         first_step_device_reserved_MB=f"{first['reserved_MB']:.1f}",
+         first_step_device_peak_MB=f"{first['peak_MB']:.1f}",
+         device_ops_10_20_iters=[ops[10], ops[20]],
+         device_ops_per_iteration=per_iter,
+         graph_device_ops_estimate=int(nodes), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"polish champion full: checks failed: "
+                             f"{checks}")
+
+
+def demo_full(v2, v2s):
+    """``--tools``: the 20q demo at its defaults (2 episodes, 30 layers: up
+    to 9 env steps an episode, 20 iterations x 4 starts) on one card
+    (``--mesh none``, a sweep launch a step) and on the (2, 4) mesh (no
+    kernel): env-steps/s and wall s a step of each."""
+    for mesh in ("none", "2,4"):
+        label = f"demo 20q {mesh} defaults"
+        t0 = phase(label)
+        record, counts, wall, _ = demo_run(mesh)
+        steps = sum(e["steps"] for e in record["episodes"])
+        expect = ({v2.name: steps, v2s.name: steps} if mesh == "none"
+                  else {})
+        checks = {"launches as expected": counts_as(counts, expect)}
+        done(label, t0, wall_s=f"{wall:.3f}", **demo_line(record),
+             launches=counts, checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"{label}: checks failed: {checks}")
 
 
 def main(argv=()) -> int:
@@ -4519,6 +4949,23 @@ def main(argv=()) -> int:
         warm_start_bricks()
         watchdog.cancel()
         return 0
+    if "--tools" in argv:
+        builds = Builds(("fused_adam_v1", "apply_tape_f64",
+                         "fused_adam_v2_sweep"))
+        builds.wait("fused_adam_v1")
+        kept = tools_tempdir()
+        sequential_phase(
+            V1_CONFIG, "sequential v1", SEQ_ARGS, keep=kept,
+            expect=lambda s: {v1.name: s["steps"] + s["test_steps"]})
+        champion = structure_search_phase(v1)
+        builds.wait("apply_tape_f64", "fused_adam_v2_sweep")
+        polish_champion_phase(champion)
+        polish_best_phase(kept)
+        demo_phases(v2, v2s)
+        polish_champion_full(champion)
+        demo_full(v2, v2s)
+        watchdog.cancel()
+        return 0
     if "--split" in argv:
         builds = Builds(("fused_adam_v1", "fused_adam_v2", "apply_tape"))
         builds.wait("apply_tape")
@@ -4564,8 +5011,9 @@ def main(argv=()) -> int:
         results[v1]["launches"] = trainer_phase(v1, V1_CONFIG, V1_ENVS,
                                                 V1_STEPS, "trainer v1",
                                                 profile=True)[v1.name]
-    seq[f"{v1.name} (sequential v1)"], _ = sequential_v1_phases(v1)
-    structure_search_phase(v1)
+    kept = tools_tempdir()
+    seq[f"{v1.name} (sequential v1)"], _ = sequential_v1_phases(v1, kept)
+    champion = structure_search_phase(v1)
     # what needs no fused_adam_v2 library goes first, while nvcc may still
     # build that source (the longest build): v1 below 8 qubits, with noise
     # and at the trainable capacities, and the sweep kernel
@@ -4619,6 +5067,12 @@ def main(argv=()) -> int:
     # 26. the sharded path (parallel/) on the card, beside the sweep
     # kernel it is held to
     mesh_phase(v2s)
+    # 29b. the tools: the complex128 polish of the search's champion and of
+    # the sequential 8q trainer's best step, the 20q demo on one card, on
+    # the mesh, and traced
+    polish_champion_phase(champion)
+    polish_best_phase(kept)
+    demo_phases(v2, v2s)
 
     builds.wait("fused_adam_v2")
     results[v2], _ = kernel_phase(v2, V2_CONFIG, V2_ENVS, "kernel v2")

@@ -1588,3 +1588,89 @@ def test_complex128_env_step_matches_the_cpu(config, monkeypatch):
         assert abs(envs["cuda"].energy - envs["cpu"].energy) < 1e-9
     torch.cuda.synchronize()
     assert at.apply_tape_fwd.f64_launches - before == 2 * (10 + 2)
+
+
+# -- the tools (tools/polish_champion.py, tools/demo_20q_training.py) and
+# the profiling hook (utils/profiling.py) on the card
+
+@pytest.mark.gpu
+def test_polish_on_the_card_matches_the_cpu(tmp_path):
+    """``polish_champion`` on a hand-written 5q Heisenberg champion with
+    one start (the exact start, no random draw), 50 iterations: on the
+    card (the composed engine on the double-precision tape kernels, one
+    CUDA graph, iters + 2 B3f and iters B3b launches) within 1e-9 Ha of
+    ``--device cpu`` (the fused v1 engine's plain version in float64).
+    Not at 8q H2O: its Hamiltonian conserves the particle number, so
+    every rotation of a champion at angle 0 has an exact zero gradient,
+    and rounding picks the sign of each first Adam step (the JAX script
+    and the port's host run part by ~1e-7 Ha after 50 iterations
+    there)."""
+    import json
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.tools import polish_champion
+
+    _card()
+    art = tmp_path / "champion.json"
+    art.write_text(json.dumps({
+        "config": "heisenberg_5q_TNbond2", "polished_err": None,
+        "gates": [[2, 0, -1], [4, 1, 0], [3, 1, -1], [1, 2, -1],
+                  [4, 3, 2], [2, 4, -1], [2, 3, -1], [3, 0, -1]]}))
+    flags = [str(art), "--iters", "50", "--n_starts", "1", "--seeds", "1"]
+    before = (at.apply_tape_fwd.f64_launches, at.apply_tape_bwd.f64_launches,
+              fused_adam.fused_adam_step.launches)
+    card = polish_champion.main(flags)["f64_polished_err"]
+    torch.cuda.synchronize()
+    after = (at.apply_tape_fwd.f64_launches, at.apply_tape_bwd.f64_launches,
+             fused_adam.fused_adam_step.launches)
+    host = polish_champion.main([*flags, "--device", "cpu"])[
+        "f64_polished_err"]
+    assert [a - b for a, b in zip(after, before)] == [52, 50, 0]
+    assert abs(card - host) < 1e-9
+    assert card > 0.0
+
+
+@pytest.mark.gpu
+def test_demo_without_mesh_launches_the_sweep_kernel_once_a_step(tmp_path):
+    """``demo_20q_training --mesh none`` on the card, one episode of two
+    env steps (24 layers, the warm start's 22 among them), 3 iterations x
+    4 starts: every step one launch of the v2 engine's sweep kernel, no
+    other kernel; finite energies above the lower bound."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.tools import demo_20q_training
+
+    _card()
+    step = fused_adam2d.fused_adam_step2d
+    counters = (fused_adam.fused_adam_step, at.apply_tape_fwd,
+                at.apply_tape_bwd)
+    before = (step.launches, step.sweep_launches,
+              *(c.launches for c in counters))
+    record = demo_20q_training.main([
+        "--mesh", "none", "--episodes", "1", "--num_layers", "24",
+        "--global_iters", "3", "--out", str(tmp_path / "demo.json")])
+    torch.cuda.synchronize()
+    after = (step.launches, step.sweep_launches,
+             *(c.launches for c in counters))
+    (ep,) = record["episodes"]
+    assert ep["steps"] == 2
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 0, 0, 0]
+    assert np.isfinite(ep["energies"]).all()
+    assert min(ep["energies"]) > record["min_eig_bound"] - 1e-4
+
+
+@pytest.mark.gpu
+def test_device_trace_holds_device_events(tmp_path, monkeypatch):
+    """``maybe_device_trace`` with TRLQAS_PROFILE set, around a product
+    on the card: the Chrome trace it writes holds device-kernel events."""
+    import json
+
+    from tensorrl_qas_tpu_torch.utils.profiling import maybe_device_trace
+
+    _card()
+    monkeypatch.setenv("TRLQAS_PROFILE", str(tmp_path))
+    with maybe_device_trace() as prof:
+        a = torch.randn(256, 256, device="cuda")
+        (a @ a).sum().item()
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(ev.get("cat") == "kernel" for ev in events)

@@ -305,3 +305,108 @@ def test_train_multiseed_two_seeds(tmp_path):
     run_dir = tmp_path / "TensorRL_fixed" / "heisenberg_5q_TNbond2"
     assert sorted(p.name for p in run_dir.glob("summary_*.npy")) == [
         "summary_0.npy", "summary_1.npy"]
+
+
+# -- the complex128 polish tools (tools/polish_best.py, polish_champion.py)
+# against the JAX package's scripts on the CPU, one start (start 0 is the
+# exact warm start: no random draw in either package) and 30 iterations:
+# the polished errors within 1e-9 Ha (two float64 Adam runs, sums in
+# another order).
+
+POLISH = ["--iters", "30", "--n_starts", "1"]
+
+
+def _summary_dir(tmp_path):
+    """A hand-written 5q Heisenberg summary (TensorRL-fixed, as
+    ``test_analyze_f64_matches_script`` builds one) with four episodes,
+    two of which share their best step's action prefix."""
+    from tensorrl_qas_tpu_torch.circuits.actions import all_to_all_actions
+
+    n = 5
+    acts = all_to_all_actions(n)
+    a = _ids(acts, n, [(n, 0, 1, 2), (1, 2, n, 0), (n, 0, 3, 3)])
+    b = _ids(acts, n, [(n, 0, 0, 1), (0, 1, n, 0), (n, 0, 2, 2),
+                       (n, 0, 4, 3)])
+    train = {
+        0: {"errors": [0.3, 0.2, 0.1], "reward": [0.0, 0.1, 0.1],
+            "actions": a, "opt_ang": [[], [0.0], [0.4321]]},
+        1: {"errors": [0.3, 0.25, 0.15, 0.2], "reward": [0.0] * 4,
+            "actions": b, "opt_ang": [[], [0.1], [0.2], [0.2, -0.3]]},
+        2: {"errors": [0.5, 0.12], "reward": [0.0, 0.1], "actions": a[:2],
+            "opt_ang": [[], [0.05]]},
+        3: {"errors": [0.4, 0.3, 0.11], "reward": [0.0, 0.1, 0.0],
+            "actions": a, "opt_ang": [[], [0.07], [0.3]]},
+    }
+    results = tmp_path / "TensorRL_fixed" / "heisenberg_5q_TNbond2"
+    results.mkdir(parents=True)
+    np.save(results / "summary_1.npy", {"train": train, "test": {}},
+            allow_pickle=True)
+    return results
+
+
+def test_polish_best_matches_script(tmp_path, capsys):
+    """``--topk 2``: the same two steps of distinct action prefixes are
+    picked (episode 3's best step repeats episode 0's prefix and is
+    passed over for episode 2's), with the
+    script's keys, and each polished error within 1e-9 Ha of the
+    script's."""
+    from tensorrl_qas_tpu_torch.tools import polish_best
+
+    results = _summary_dir(tmp_path)
+    flags = [str(results), *POLISH, "--restarts", "2", "--topk", "2"]
+    theirs = [json.loads(line) for line in _run(
+        ["scripts/polish_best.py", *flags],
+        JAX_PLATFORMS="cpu").strip().splitlines()]
+    ours = polish_best.main([*flags, "--device", "cpu"])
+    printed = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()]
+    assert printed == ours
+    assert [(r["episode"], r["step"]) for r in ours] == [
+        (r["episode"], r["step"]) for r in theirs] == [(0, 2), (2, 1)]
+    for mine, script in zip(ours, theirs):
+        assert set(mine) == set(script)
+        err = mine.pop("polished_f64_error")
+        assert abs(err - script.pop("polished_f64_error")) < 1e-9
+        assert mine == script
+        assert err > 0.0
+
+
+def test_polish_best_candidates_best_done():
+    """``--which best_done`` takes an episode's last step when its last
+    reward is >= 5, as the script does."""
+    from tensorrl_qas_tpu_torch.tools.polish_best import candidates
+
+    train = {0: {"errors": [0.3, 0.2], "reward": [0.0, 5.0],
+                 "actions": [1, 2], "opt_ang": [[], [0.5]]},
+             1: {"errors": [0.1, 0.4], "reward": [0.0, 0.0],
+                 "actions": [3, 4], "opt_ang": [[], [0.6]]},
+             2: {"errors": [], "reward": [], "actions": []}}
+    (done,) = candidates(train, "best_done", 3)
+    assert (done["episode"], done["step"], done["angles"]) == (0, 1, [0.5])
+    best = candidates(train, "best", 3)
+    assert [(c["episode"], c["step"]) for c in best] == [(1, 0), (0, 1)]
+
+
+def test_polish_champion_matches_script(tmp_path, capsys):
+    """A hand-written 5q Heisenberg champion (rotations and CNOTs after the
+    warm start) polished for two seeds: ``f64_polished_err`` within 1e-9
+    Ha of the script's, the other keys equal."""
+    from tensorrl_qas_tpu_torch.tools import polish_champion
+
+    art = tmp_path / "champion.json"
+    art.write_text(json.dumps({
+        "config": "heisenberg_5q_TNbond2", "polished_err": 1.5e-3,
+        "gates": [[2, 0, -1], [4, 1, 0], [3, 1, -1], [1, 2, -1],
+                  [4, 3, 2], [2, 4, -1], [2, 3, -1], [3, 0, -1]]}))
+    flags = [str(art), *POLISH, "--seeds", "2"]
+    theirs = json.loads(_run(["scripts/polish_champion.py", *flags],
+                             JAX_PLATFORMS="cpu").strip().splitlines()[-1])
+    ours = polish_champion.main([*flags, "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [line.split(":")[0] for line in lines[:-1]] == ["seed 0",
+                                                          "seed 1"]
+    assert json.loads(lines[-1]) == ours
+    err = ours.pop("f64_polished_err")
+    assert abs(err - theirs.pop("f64_polished_err")) < 1e-9
+    assert ours == theirs
+    assert err > 0.0
