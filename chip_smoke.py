@@ -40,7 +40,14 @@ and on an (amp, dp) mesh, once under the profiling hook.
                                       # 5b.), to compare two checkouts
     python3 chip_smoke.py --sweep     # the sweep kernel's phases alone
                                       # (6f.-6h.), and the 20q trainer in
-                                      # the in_state families
+                                      # the in_state families; first the
+                                      # kernel timed and split against a
+                                      # parent commit's in
+                                      # parent_checkout/, in turns
+    python3 chip_smoke.py --sweep-time  # the sweep kernel timed at 20q
+                                      # E = 8 and E = 1, and the split of
+                                      # a launch (copies of its source
+                                      # with work taken out)
     python3 chip_smoke.py --plain-modes  # the plain version's time with
                                       # and without autograd's bookkeeping,
                                       # and its peak memory at 20q
@@ -70,8 +77,9 @@ The v2 kernel runs a start in one CTA up to 12 qubits, in a thread-block
 cluster of 2^(n - 12) CTAs from 13 to 16 (the cluster kernel, 6b.-6c.),
 in 2^(n - 12) CTAs in clusters that trade through global memory at 17-18
 (the group kernel, 6d.-6e.), and at 19-20, where the card cannot hold a
-start, with every start's state in device memory, swept by a cooperative
-grid (the sweep kernel, csrc/fused_adam_v2_sweep.cu, 6f.-6h.).
+start, with a start's state swept through L2 by a slot of a cooperative
+grid, a start a slot at a time (the sweep kernel, csrc/
+fused_adam_v2_sweep.cu, 6f.-6h.).
 
 Phases, one line each with its seconds:
 
@@ -188,9 +196,10 @@ Phases, one line each with its seconds:
                  controls; the noise variant (E = 4) with the three, the
                  per-env psi0 variant at 20q (E = 4) with the three; every
                  launch through the sweep kernel; the CTAs the card holds
-                 at once (the cooperative grid); at the trainer's shape
-                 two 100-iteration launches bit for bit, kernel ms (CUDA
-                 events), device ms (profiler) and bound; at the
+                 at once (the cooperative grid), an SM and their slots;
+                 at the trainer's shape two 100-iteration launches bit
+                 for bit, kernel ms (CUDA events), device ms (profiler),
+                 bound and the barriers a launch passed; at the
                  sequential trainer's shape (E = 1) held at 100 iterations
                  to the plain version's float32 run with the controls, and
                  timed beside that run.
@@ -1020,6 +1029,14 @@ class Case:
                      *engine.h_ops(self.opt), starts,
                      active[:, None, :].contiguous())
         self.noise_kw = {}
+        # the v2 wrapper's flip-group terms: the sweep kernel (19-20
+        # qubits) computes W from them where a group has few, as the
+        # optimizer passes them; kernel launches only, not the plain
+        # version (none in a checkout from before them: --sweep's parent)
+        self.kernel_kw = ({"terms": self.opt.w_terms()}
+                          if engine.variant != "composed"
+                          and "fused_adam_v2" in engine.name
+                          and hasattr(self.opt, "w_terms") else {})
         if engine.noise:
             seeds = torch.randint(
                 0, 2**31 - 1, (n_env, 2), dtype=torch.int32, device=dev,
@@ -1143,7 +1160,8 @@ def check_kernel(engine, case, label, iters, tol, controls=(), ref=None):
 
     t0 = phase(f"{label} iters={iters}")
     kw = case.noise_kw
-    xk, ek = engine.step(*case.args, iters=iters, lr=LR, **kw)
+    xk, ek = engine.step(*case.args, iters=iters, lr=LR, **kw,
+                         **case.kernel_kw)
     torch.cuda.synchronize()
     ref, plain_ms = ref or plain_reference(engine, case, iters)
     cache = {}      # ref's float64 energies, shared with the controls
@@ -1156,7 +1174,8 @@ def check_kernel(engine, case, label, iters, tol, controls=(), ref=None):
               if case.has_oracle else float("nan"))
     caught = {}
     for name, c_args, c_lr, c_kw, required, share in controls:
-        xc, ec = engine.step(*c_args, iters=iters, lr=c_lr, **c_kw)
+        xc, ec = engine.step(*c_args, iters=iters, lr=c_lr, **c_kw,
+                             **case.kernel_kw)
         c_ok, _, _ = fused_adam.agreement(case.args, ref, xc, ec, tol=tol,
                                           check_x=iters == 3,
                                           step=engine.plain, iters=iters,
@@ -1321,12 +1340,13 @@ def time_kernel(engine, case, label, time_plain=True, plain_ms=None):
     t0 = phase(f"{label} timing")
     kw = case.noise_kw
     k_ms = time_cuda(lambda: engine.step(*case.args, iters=ITERS, lr=LR,
-                                         **kw), warmup=2, reps=10)
+                                         **kw, **case.kernel_kw),
+                     warmup=2, reps=10)
     extra = {}
     if kw:      # what the noise costs: the noiseless kernel, same inputs
         extra["noiseless_kernel_same_inputs_ms"] = "{:.4f}".format(time_cuda(
-            lambda: engine.step(*case.args, iters=ITERS, lr=LR), warmup=1,
-            reps=10))
+            lambda: engine.step(*case.args, iters=ITERS, lr=LR,
+                                **case.kernel_kw), warmup=1, reps=10))
     p_ms = plain_ms
     if time_plain and p_ms is None:
         p_ms = time_cuda(lambda: engine.plain(*case.args, iters=ITERS,
@@ -1719,10 +1739,13 @@ def sweep_kernel_phase(v2, v2n, v2p, v2s):
     big = Case(v2s, V2S_CONFIG, V2S_ENVS, n_starts=V2S_STARTS)
     lib = fused_adam2d._sweep_library()
     smem = lib.fused_adam_sweep_smem_bytes(big.g, big.args[7].numel())
+    ctas = fused_adam2d.check_residency(lib, smem)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = lib.fused_adam_sweep_slots(big.n, V2S_ENVS * V2S_STARTS, ctas)
     print(f"[kernel v2 sweep] {FIXED}{V2S_CONFIG}: G={big.g} R={big.r} "
           f"D={1 << big.n} chunk={1 << lib.fused_adam_sweep_chunk_bits()} "
-          f"smem={smem} resident_ctas="
-          f"{fused_adam2d.check_residency(lib, smem)}", flush=True)
+          f"smem={smem} resident_ctas={ctas} ctas_per_sm={ctas // sms} "
+          f"slots={slots}", flush=True)
     check_sweep(v2s, big, f"kernel v2 20q E={V2S_ENVS} S={V2S_STARTS}")
     chain = chain_case(v2s, V2S_CHAIN_ENVS, 19)
     check_sweep(v2s, chain, f"kernel v2 19q chain E={V2S_CHAIN_ENVS}")
@@ -1732,8 +1755,8 @@ def sweep_kernel_phase(v2, v2n, v2p, v2s):
                     f"kernel {engine.name} 20q E={V2S_VARIANT_ENVS} "
                     f"S={V2S_STARTS}")
     t0 = phase("sweep repeat")
-    x1, e1 = v2s.step(*big.args, iters=ITERS, lr=LR)
-    x2, e2 = v2s.step(*big.args, iters=ITERS, lr=LR)
+    x1, e1 = v2s.step(*big.args, iters=ITERS, lr=LR, **big.kernel_kw)
+    x2, e2 = v2s.step(*big.args, iters=ITERS, lr=LR, **big.kernel_kw)
     torch.cuda.synchronize()
     bit = bool(torch.equal(x1, x2) and torch.equal(e1, e2))
     done("sweep repeat", t0, E=V2S_ENVS, S=V2S_STARTS, iters=ITERS,
@@ -1741,15 +1764,22 @@ def sweep_kernel_phase(v2, v2n, v2p, v2s):
     if not bit:
         raise AssertionError("two sweep kernel launches differ")
     t0 = phase("kernel v2 sweep timing")
-    k_ms = time_cuda(lambda: v2s.step(*big.args, iters=ITERS, lr=LR),
+    k_ms = time_cuda(lambda: v2s.step(*big.args, iters=ITERS, lr=LR,
+                                      **big.kernel_kw),
                      warmup=0, reps=3)
-    dev_ms = device_ms(lambda: v2s.step(*big.args, iters=ITERS, lr=LR),
+    dev_ms = device_ms(lambda: v2s.step(*big.args, iters=ITERS, lr=LR,
+                                        **big.kernel_kw),
                        "fused_adam_v2_sweep", reps=2)
     flops, nbytes, bound_ms, bound_by = bound(v2s, big)
+    # one launch more, uncounted, for its barrier counters
+    res = fused_adam2d.run_sweep_kernel(
+        lib, *big.args, iters=ITERS, lr=LR, noise=None, seeds=None,
+        stream=torch.cuda.current_stream().cuda_stream, **big.kernel_kw)
     done("kernel v2 sweep timing", t0, E=V2S_ENVS, S=V2S_STARTS,
          kernel_ms=f"{k_ms:.4f}", device_ms=_ms_or_not(dev_ms),
          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
          gflop=f"{flops / 1e9:.3f}", input_MB=f"{nbytes / 1e6:.1f}",
+         slots=res[-1]["slots"], barriers=sweep_barriers(res, big),
          plain_ms="not timed (see E=1)")
     one = Case(v2s, V2S_CONFIG, 1, n_starts=V2S_STARTS)
     stats = check_sweep(v2s, one, "kernel v2 20q E=1", iters=ITERS)
@@ -1757,6 +1787,219 @@ def sweep_kernel_phase(v2, v2n, v2p, v2s):
              **time_kernel(v2s, one, "kernel v2 sweep E=1",
                            plain_ms=stats["plain_ms"])}
     return entry, big
+
+
+# The split of a sweep-kernel launch (--sweep, --sweep-time): copies of the
+# kernel's source with some of its work taken out by text substitutions
+# (each must match), built side by side with nvcc and launched on the same
+# inputs.  Keyed by a name only that design's source holds; a variant
+# lists (text, replacement) pairs, every occurrence replaced.
+SWEEP_SPLIT_VARIANTS = {
+    # the first design: every start in device memory, all starts
+    # through each pass together
+    "kHRows": {
+        "no gate work": [
+            ("for (int j = 0; j < gates; ++j) {",
+             "for (int j = 0; j < 0; ++j) {"),
+            ("for (int j = sh.misc[0] - 1; j >= 0; --j) {",
+             "for (int j = -1; j >= 0; --j) {")],
+        "no W reads": [
+            ("__ldg(p.wre + (size_t)f * D + at[a])", "0.5f")],
+        "barriers alone": [
+            ("const int total = rows.count * chunks;",
+             "const int total = 0;"),
+            ("const int total = groups * chunks;", "const int total = 0;"),
+            ("for (int r = blockIdx.x; r < p.E * p.S; r += gridDim.x) {",
+             "for (int r = blockIdx.x; r < 0; r += gridDim.x) {")],
+    },
+    # the second design: starts in slots of the grid, one start of
+    # a slot at a time
+    "kSlotBytes": {
+        "no gate work": [
+            ("for (int j = 0; j < gates; ++j) {  // forward gates",
+             "for (int j = 0; j < 0; ++j) {"),
+            ("for (int j = sh.misc[0] - 1; j >= 0; --j) {  // adjoint gates",
+             "for (int j = -1; j >= 0; --j) {")],
+        "barriers alone": [
+            ("for (int chunk = cb; chunk < chunks; chunk += C) {",
+             "for (int chunk = cb; chunk < 0; chunk += C) {"),
+            ("for (int chunk = slot.cb(p); chunk < chunks; chunk += C) {",
+             "for (int chunk = slot.cb(p); chunk < 0; chunk += C) {"),
+            ("if (slot.cb(p) == 0) adam_step(",
+             "if (slot.cb(p) < 0) adam_step(")],
+        "no H pass": [
+            ("for (int chunk = slot.cb(p); chunk < chunks; chunk += C) {",
+             "for (int chunk = slot.cb(p); chunk < 0; chunk += C) {")],
+        "no Adam step": [
+            ("if (slot.cb(p) == 0) adam_step(",
+             "if (slot.cb(p) < 0) adam_step(")],
+        "two CTAs an SM": [
+            ("constexpr int kMinBlocks = 3;",
+             "constexpr int kMinBlocks = 2;")],
+        "H: W a constant": [
+            ("wv = sh.wtab[kWTable * f + (v0 ^ ((kt >> (4 * a)) & 15))];",
+             "wv = make_float2(1.f, 0.f);")],
+        "H: partners from shared memory": [
+            ("q[a] = __ldcg(psi + ((base + l0 + a * kThreads) ^ fl));",
+             "q[a] = sh.psi[l0 + a * kThreads];")],
+    },
+}
+
+
+# the slots the second design's --sweep-time also times at E = 8
+SWEEP_SLOTS = (2, 4, 6)
+
+
+def build_sweep_variants(source):
+    """The split's copies of ``source`` (csrc/fused_adam_v2_sweep.cu of
+    some checkout), one nvcc each, all started together -> {variant: the
+    library bound by that checkout's ``bind_sweep``}; raises on a
+    substitution that matches nothing or a failed build."""
+    import ctypes
+    import pathlib
+
+    from tensorrl_qas_tpu_torch.ops import build, fused_adam2d
+
+    text = pathlib.Path(source).read_text()
+    design = next(k for k in SWEEP_SPLIT_VARIANTS if k in text)
+    out_dir = build.BUILD_DIR / "split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, subs) in enumerate(SWEEP_SPLIT_VARIANTS[design].items()):
+        src = text
+        for old, new in subs:
+            if old not in src:
+                raise AssertionError(f"split {name!r}: {old!r} not in "
+                                     f"{source}")
+            src = src.replace(old, new)
+        cu = out_dir / f"sweep_split_{i}.cu"
+        cu.write_text(src)
+        lib = out_dir / f"libsweep_split_{i}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS,
+             f"-I{pathlib.Path(source).parent}", "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate(timeout=build.NVCC_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"split {name!r}: nvcc failed:\n{log}")
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"  ptxas split {name!r}: {' | '.join(regs[-2:])}", flush=True)
+        libs[name] = fused_adam2d.bind_sweep(ctypes.CDLL(str(lib)))
+    return libs
+
+
+def sweep_time_phase(v2s):
+    """(``--sweep-time``; ``--sweep`` runs it in a parent checkout and
+    here, in turns) the sweep kernel of this checkout at the 20q trainer's
+    shape (E = 8, S = 4, 100 iterations) and at E = 1: kernel ms (CUDA
+    events, median of 3), device ms (profiler), bound, barriers a launch,
+    and the split of a launch at E = 8: the copies of
+    ``build_sweep_variants`` (no gate work; no W reads; barriers alone,
+    every pass empty), every gate NONE on the same tapes (one empty
+    segment a tape), and, where the wrapper takes flip-group terms, W read
+    from its planes in place of being computed."""
+    import inspect
+
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import fused_adam2d
+
+    t0 = phase("sweep time")
+    run = fused_adam2d.run_sweep_kernel
+    params = inspect.signature(run).parameters
+    source = v2s.source
+    variants = build_sweep_variants(source)
+    lib = fused_adam2d._sweep_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {"design": next(k for k in SWEEP_SPLIT_VARIANTS
+                          if k in open(source).read())}
+    for label, n_env in (("E=8", V2S_ENVS), ("E=1", 1)):
+        case = Case(v2s, V2S_CONFIG, n_env, n_starts=V2S_STARTS)
+        kw = {}
+        if "terms" in params:
+            kw["terms"] = case.opt.w_terms()
+
+        def launch(lib=lib, args=case.args, **more):
+            return run(lib, *args, iters=ITERS, lr=LR, noise=None,
+                       seeds=None, stream=stream, **{**kw, **more})
+
+        res = launch()
+        torch.cuda.synchronize()
+        out[f"{label} kernel_ms"] = time_cuda(launch, warmup=1, reps=3)
+        dev = device_ms(launch, "fused_adam_v2_sweep", reps=2)
+        out[f"{label} device_ms"] = _ms_or_not(dev)
+        out[f"{label} bound_ms"] = bound(v2s, case)[2]
+        out[f"{label} barriers"] = sweep_barriers(res, case)
+        if label != "E=8":
+            continue
+        for name, vlib in variants.items():
+            out[f"split {name} ms"] = time_cuda(
+                lambda vlib=vlib: launch(vlib), warmup=1, reps=3)
+        none = tuple(tuple(torch.zeros_like(a) if i == 0 else a
+                           for i, a in enumerate(tape))
+                     for tape in case.args[:2])
+        out["split every gate NONE ms"] = time_cuda(
+            lambda: launch(args=(*none, *case.args[2:])), warmup=1, reps=3)
+        if "terms" in params:
+            out["split W from planes ms"] = time_cuda(
+                lambda: launch(terms=None), warmup=1, reps=3)
+        if "slots" in params:
+            for slots in SWEEP_SLOTS:
+                out[f"slots {slots} ms"] = time_cuda(
+                    lambda: launch(slots=slots), warmup=1, reps=3)
+    done("sweep time", t0, **{k.replace(" ", "_"): (f"{v:.4f}"
+                                                    if isinstance(v, float)
+                                                    else v)
+                              for k, v in out.items()})
+    return out
+
+
+def sweep_compare(v2s):
+    """(``--sweep``) this checkout's sweep kernel against the parent
+    commit's, in turns (parent, this, this, parent), each timed and split
+    by ``sweep_time_phase``: the parent's from ``parent_checkout/`` (``git
+    archive`` of the parent with this script copied in), in a process of
+    its own, when that directory holds this script."""
+    import pathlib
+
+    parent = (pathlib.Path(__file__).resolve().parent / "parent_checkout"
+              / "chip_smoke.py")
+
+    def run_parent():
+        if not parent.exists():
+            print("[sweep parent] no parent_checkout/chip_smoke.py: not "
+                  "timed", flush=True)
+            return
+        out = subprocess.run([sys.executable, str(parent), "--sweep-time"],
+                             cwd=parent.parent, capture_output=True,
+                             text=True, timeout=600, check=False)
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("[sweep time]")]
+        print("[sweep parent] " + (lines[-1] if lines else
+                                   f"failed ({out.returncode}): "
+                                   f"{out.stdout[-1500:]}"
+                                   f"{out.stderr[-1500:]}"), flush=True)
+
+    run_parent()
+    sweep_time_phase(v2s)
+    sweep_time_phase(v2s)
+    run_parent()
+
+
+def sweep_barriers(res, case):
+    """Barriers a launch of the sweep kernel: its counters' final values
+    over the CTAs that wait on each (the second design returns its
+    scratch), else the first design's count from its schedule (1 + per
+    iteration 2 K + 2, K the most segments of an old tape, + the tail's
+    2 + the new tape's K' + 1)."""
+    if isinstance(res[-1], dict):
+        return res[-1]["barriers"]
+    sched = res[-1]
+    k_old, k_new = (int(sched[t, :, 0].max()) for t in (0, 1))
+    return 1 + ITERS * (2 * k_old + 2) + (k_old + 2) + 2 + k_new + 1
 
 
 def p0_phase(engine, noisy, config, n_env, repeat_bit_for_bit=False):
@@ -3978,7 +4221,7 @@ def mesh_sweep_phase(v2s):
         torch.Generator(device=x0.device).manual_seed(7)).contiguous()
     args = (*case.args[:8], starts, case.args[9])
     before = (v2s.step.launches, v2s.step.sweep_launches)
-    xk, ek = v2s.step(*args, iters=3, lr=LR)
+    xk, ek = v2s.step(*args, iters=3, lr=LR, **case.kernel_kw)
     swept = (v2s.step.launches - before[0],
              v2s.step.sweep_launches - before[1])
     opt = ShardedAngleOptimizer(mesh_of(MESH_SHAPE), case.n,
@@ -4927,8 +5170,14 @@ def main(argv=()) -> int:
         split_band(v2)
         watchdog.cancel()
         return 0
+    if "--sweep-time" in argv:
+        Builds(("fused_adam_v2_sweep",)).wait("fused_adam_v2_sweep")
+        sweep_time_phase(v2s)
+        watchdog.cancel()
+        return 0
     if "--sweep" in argv:
         Builds(("fused_adam_v2_sweep",)).wait("fused_adam_v2_sweep")
+        sweep_compare(v2s)
         sweep_kernel_phase(v2, v2n, v2p, v2s)
         trainer_phase(v2s, V2S_CONFIG, V2S_ENVS, V2S_STEPS, "trainer v2 20q",
                       expect={v2.name: V2S_STEPS, v2s.name: V2S_STEPS},

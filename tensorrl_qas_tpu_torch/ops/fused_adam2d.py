@@ -20,9 +20,11 @@ memory (``start_ctas``, ``cluster_size``) -- laid out as
 ``register_layout`` says and moved as ``swap_schedule`` (the plain twin
 of the kernel's schedule) says.  At 19 and 20 qubits, where the card
 cannot hold a start on chip, it launches ``csrc/fused_adam_v2_sweep.cu``:
-every start's psi and lambda in device memory, swept chunk by chunk by a
-cooperative grid (``check_residency``) along the tape's segments
-(``sweep_segments``, the plain twin of the kernel's).  It runs
+a cooperative grid (``check_residency``) in slots, each running one
+start at a time, whose psi and lambda are swept chunk by chunk through
+L2 along the tape's segments (``sweep_segments``, the plain twin of the
+kernel's), W computed from the flip groups' terms
+(``flip_group_terms``) where a group has few.  It runs
 ``fused_adam_step2d_reference``, the plain PyTorch version of the same
 arithmetic, on CPU tensors.
 Layouts: tapes
@@ -110,6 +112,27 @@ def _flip_groups64(pauli, offset):
         wre[gi] = wr
         wim[gi] = wi
     return wre, wim, np.asarray(groups, dtype=np.int32)
+
+
+def flip_group_terms(pauli, offset: float = 0.0):
+    """The terms behind ``pauli_flip_groups``' planes, for the sweep
+    kernel to compute a group's W_f(i) = sum_k c_k (-1)^popc(i & sign_k)
+    itself: groups in increasing flip order, each group's terms in the
+    order of ``pauli``, c_k = w_k iphase_k in float64 as the planes take
+    it.  -> (gterm (G_f + 1,) int32: group f's terms are [gterm[f],
+    gterm[f + 1]); tsign (T,) int32 sign masks; tcoef (T, 2) float64
+    (re, im); offset, which comes off the f = 0 group)."""
+    flips_arr = np.asarray(pauli.flip)
+    groups = sorted(set(int(f) for f in flips_arr))
+    gterm, tsign, tcoef = [0], [], []
+    for f in groups:
+        for k in np.nonzero(flips_arr == f)[0]:
+            c = pauli.weights[k] * complex(pauli.iphase[k])
+            tsign.append(int(pauli.sign_mask[k]))
+            tcoef.append((c.real, c.imag))
+        gterm.append(len(tsign))
+    return (np.asarray(gterm, np.int32), np.asarray(tsign, np.int32),
+            np.asarray(tcoef, np.float64).reshape(-1, 2), float(offset))
 
 
 # the plain PyTorch version of the v2 kernel: the plain step both kernels
@@ -398,18 +421,23 @@ def sweep_segments(kind, tq, cq, n: int,
 def bind_sweep(lib):
     """Set the C signatures of the sweep kernel's library ``lib``."""
     lib.fused_adam_sweep_launch.argtypes = (
-        [_PTR] * 29 + [_I32] * 9 + [_F32, _F64, _F64] + [_F32] * 3
+        [_PTR] * 32 + [_I32] * 10 + [_F64, _F32, _F64, _F64] + [_F32] * 3
         + [_U32] * 2 + [_PTR])
     lib.fused_adam_sweep_launch.restype = _I32
-    for name in ("min_qubits", "max_qubits", "chunk_bits"):
+    for name in ("min_qubits", "max_qubits", "chunk_bits", "compute_terms"):
         getattr(lib, f"fused_adam_sweep_{name}").argtypes = []
         getattr(lib, f"fused_adam_sweep_{name}").restype = _I32
     lib.fused_adam_sweep_smem_bytes.argtypes = [_I32, _I32]
     lib.fused_adam_sweep_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_adam_sweep_slots.argtypes = [_I32] * 3
+    lib.fused_adam_sweep_slots.restype = _I32
     lib.fused_adam_sweep_resident_ctas.argtypes = [ctypes.c_size_t]
     lib.fused_adam_sweep_resident_ctas.restype = _I32
     lib.fused_adam_sweep_error_string.argtypes = [_I32]
     lib.fused_adam_sweep_error_string.restype = ctypes.c_char_p
+    lib.fused_adam_sweep_w_planes.argtypes = (
+        [_PTR] * 5 + [_F64] + [_I32] * 2 + [_PTR] * 3)
+    lib.fused_adam_sweep_w_planes.restype = _I32
     return lib
 
 
@@ -447,14 +475,38 @@ def check_residency(lib, smem: int, device=None) -> int:
     return ctas
 
 
+def sweep_terms(terms, n_groups, device):
+    """``flip_group_terms``' arrays as the sweep kernel reads them, on
+    ``device``: (gterm, tsign, tcoef, offset), or None's (every group's W
+    read from its planes) for ``terms`` None."""
+    if terms is None:
+        return None, None, None, 0.0
+    gterm, tsign, tcoef, offset = terms
+    if len(gterm) != n_groups + 1:
+        raise ValueError(f"fused_adam_step2d: terms of {len(gterm) - 1} "
+                         f"groups for {n_groups} W planes")
+    # an empty term list still needs a valid pointer
+    return (torch.as_tensor(np.asarray(gterm, np.int32), device=device),
+            torch.as_tensor(np.asarray(tsign, np.int32).reshape(-1)
+                            if len(tsign) else np.zeros(1, np.int32),
+                            device=device),
+            torch.as_tensor(np.asarray(tcoef, np.float64).reshape(-1)
+                            if len(tsign) else np.zeros(2), device=device),
+            float(offset))
+
+
 def run_sweep_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
                      flips, starts, active, *, iters, lr, noise, seeds,
-                     stream):
+                     stream, terms=None, slots=None):
     """Check the inputs and launch the sweep kernel of ``lib`` (bound by
     ``bind_sweep``) on ``stream``, uncounted (the host emulation's tests
     call it directly), on a grid of as many CTAs as the card holds at
-    once.  -> (psi0 stride, CTAs, x_opt, e_new, the schedule words (2, E,
-    3 G + 2): old tape, new tape)."""
+    once, in ``slots`` slots (None: ``fused_adam_sweep_slots``'s pick).
+    ``terms``: ``flip_group_terms`` of the planes' Hamiltonian (arrays or
+    tensors), or None to read every group's planes.  -> (psi0 stride,
+    CTAs, x_opt, e_new, scratch: a dict of the launch's buffers, among
+    them the schedule words (2, E, 3 G + 2) of the old and new tapes, with
+    the slots and the barriers each slot passed)."""
     ints = (*old_arrs, *new_arrs)
     floats = (p0re, p0im, wre, wim, starts, active)
     band = (lib.fused_adam_sweep_min_qubits(),
@@ -469,41 +521,95 @@ def run_sweep_kernel(lib, old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
     ctas = check_residency(lib, smem, dev)
     rows, d = n_env * s_n, 1 << n
     chunks = d >> lib.fused_adam_sweep_chunk_bits()
+    grid = min(ctas, rows * chunks)
+    if slots is None:
+        slots = lib.fused_adam_sweep_slots(n, rows, grid)
+    if not 1 <= slots <= min(grid, rows):
+        raise ValueError(f"fused_adam_step2d: {slots} slots for {rows} "
+                         f"starts on {grid} CTAs")
     f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     x_opt = torch.empty((n_env, r), **f32)
     e_new = torch.empty((n_env,), **f32)
     scratch = dict(
-        psi=torch.empty((rows, d, 2), **f32),
-        lam=torch.empty((rows, d, 2), **f32),
+        psi=torch.empty((slots, d, 2), **f32),
+        lam=torch.empty((slots, d, 2), **f32),
         adam=torch.empty((rows, 4, r), **f32),
         best_e=torch.empty((rows,), **f32),
-        gpart=torch.empty((rows, g, chunks), **f32),
-        epart=torch.empty((rows, chunks, 2), dtype=torch.float64,
+        gpart=torch.empty((slots, g, chunks), **f32),
+        epart=torch.empty((slots, chunks, 2), dtype=torch.float64,
                           device=dev),
-        sched=torch.empty((2, n_env, 3 * g + 2), dtype=torch.int32,
-                          device=dev),
+        sched=torch.empty((2, n_env, 3 * g + 2), **i32),
         xnew=torch.empty((n_env, r), **f32),
-        bar=torch.zeros((1,), dtype=torch.int32, device=dev))
+        bar=torch.zeros((slots + 1, 32), **i32))
     stride = fused_adam.psi0_stride(p0re)
     wim_any = (wim != 0).any(dim=1).to(torch.int32)
+    gterm, tsign, tcoef, offset = sweep_terms(terms, n_groups, dev)
     fused_adam.launch(
         lib, "fused_adam_sweep", *(t.data_ptr() for t in ints),
         map_idx.data_ptr(), p0re.data_ptr(), p0im.data_ptr(), wre.data_ptr(),
         wim.data_ptr(), flips.data_ptr(), wim_any.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (gterm, tsign, tcoef)),
         starts.data_ptr(), active.data_ptr(), seeds_ptr, x_opt.data_ptr(),
-        e_new.data_ptr(), *(t.data_ptr() for t in scratch.values()),
-        min(ctas, rows * chunks), n_env, s_n, g, r, n, n_groups, stride,
-        int(iters), float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS, thr1, thr2,
-        stream)
-    return stride, ctas, x_opt, e_new, scratch["sched"]
+        e_new.data_ptr(), *(t.data_ptr() for t in scratch.values()), grid,
+        slots, n_env, s_n, g, r, n, n_groups, stride, int(iters), offset,
+        float(lr), B1, B2, 1.0 - B1, 1.0 - B2, EPS, thr1, thr2, stream)
+    scratch["slots"] = slots
+    scratch["barriers"] = _Barriers(scratch["bar"], slots, grid)
+    return stride, ctas, x_opt, e_new, scratch
+
+
+class _Barriers:
+    """The barriers a sweep launch passed, read from its counters once it
+    has run: ``per_slot`` (each slot's), ``grid`` (the whole grid's);
+    str() the total a CTA passed at most."""
+
+    def __init__(self, bar, slots, grid):
+        self.bar, self.slots, self.grid = bar, slots, grid
+
+    def counts(self):
+        counts = self.bar[:, 0].cpu().tolist()
+        per_slot = [counts[s] // len(range(s, self.grid, self.slots))
+                    for s in range(self.slots)]
+        return per_slot, counts[self.slots] // self.grid
+
+    def __str__(self):
+        per_slot, grid = self.counts()
+        return f"{max(per_slot) + grid} (slots {per_slot}, grid {grid})"
+
+
+def sweep_w_planes(lib, flips, wim, terms, n: int, stream=None):
+    """The sweep kernel's own W of every group it computes (``group_w``,
+    from ``terms`` = ``flip_group_terms``) as (G_f, 2^n) float32 planes on
+    ``flips``' device, NaN in the rows of the groups it reads; and which
+    rows those are (a bool per group)."""
+    dev = flips.device
+    n_groups = flips.numel()
+    gterm, tsign, tcoef, offset = sweep_terms(terms, n_groups, dev)
+    out = [torch.full((n_groups, 1 << n), float("nan"), dtype=torch.float32,
+                      device=dev) for _ in range(2)]
+    wim_any = (wim != 0).any(dim=1).to(torch.int32)
+    rc = lib.fused_adam_sweep_w_planes(
+        flips.data_ptr(), wim_any.data_ptr(), gterm.data_ptr(),
+        tsign.data_ptr(), tcoef.data_ptr(), offset, n, n_groups,
+        out[0].data_ptr(), out[1].data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_adam_sweep_w_planes failed: CUDA error "
+                           f"{rc} ({lib.fused_adam_sweep_error_string(rc)})")
+    computed = torch.as_tensor(np.diff(np.asarray(terms[0]))
+                               <= lib.fused_adam_sweep_compute_terms())
+    return out[0], out[1], computed
 
 
 def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
                       flips, starts, active, *, iters: int, lr: float,
-                      noise=None, seeds=None):
+                      noise=None, seeds=None, terms=None):
     """Fused env step with flip-group planes: the CUDA kernel for CUDA
     tensors, the plain PyTorch version for CPU tensors.  See the module
-    docstring for the layouts and ``noise`` / ``seeds``.
+    docstring for the layouts and ``noise`` / ``seeds``.  ``terms``
+    (``flip_group_terms`` of the same H, optional) lets the sweep kernel
+    compute W where a group has few terms; the other kernels and the
+    plain version read the planes.
     ``fused_adam_step2d.launches`` counts kernel launches,
     ``fused_adam_step2d.noise_launches`` those of the noise variant,
     ``fused_adam_step2d.psi0_launches`` those with per-env psi0 planes,
@@ -523,7 +629,7 @@ def fused_adam_step2d(old_arrs, new_arrs, map_idx, p0re, p0im, wre, wim,
         stride, _, x_opt, e_new, _ = run_sweep_kernel(
             _sweep_library(), old_arrs, new_arrs, map_idx, p0re, p0im, wre,
             wim, flips, starts, active, iters=iters, lr=lr, noise=noise,
-            seeds=seeds, stream=stream)
+            seeds=seeds, stream=stream, terms=terms)
         fused_adam_step2d.launches += 1
         fused_adam_step2d.noise_launches += noise is not None
         fused_adam_step2d.psi0_launches += stride != 0

@@ -87,6 +87,7 @@ from tensorrl_qas_tpu_torch.ops.fused_adam import (
 )
 from tensorrl_qas_tpu_torch.ops.fused_adam2d import (
     MAX_QUBITS,
+    flip_group_terms,
     fused_adam_step2d,
     pauli_flip_groups,
 )
@@ -445,6 +446,7 @@ class AngleOptimizer:
         self.enable_2q = enable_2q
         self._h_planes = None
         self._w_planes = None
+        self._w_terms = None
         self._graph = None
         self._csim = None
 
@@ -510,6 +512,13 @@ class AngleOptimizer:
                   for p in (wre, wim)),
                 torch.as_tensor(flips, device=self.device))
         return self._w_planes
+
+    def w_terms(self):
+        """``flip_group_terms`` of the planes' H - offset I: from them the
+        sweep kernel (19-20 qubits) computes a group's W itself."""
+        if self._w_terms is None:
+            self._w_terms = flip_group_terms(self.pauli, self.offset)
+        return self._w_terms
 
     def energy(self, psi0, tape_arrays, x) -> float:
         """Energy of one tape at angles x (eager path): with depolarizing
@@ -765,21 +774,23 @@ class AngleOptimizer:
             return (x_opt.cpu().numpy(),
                     e_new.cpu().numpy().astype(np.float64) + self.offset,
                     self.iters * self.n_starts)
-        noise = {}
+        step_kw = {}
         if self.noise_mode == "depolarizing":
             p = (self.noise_p1, self.noise_p2)
             if self.noise_resample == "iter":
-                noise = dict(noise=p, seeds=torch.randint(
+                step_kw = dict(noise=p, seeds=torch.randint(
                     0, 2**31 - 1, (x0.shape[0], 2), generator=self.generator,
                     dtype=torch.int32, device=dev))
             else:
                 old, new = (self._quench(arrs, p) for arrs in (old, new))
         step = fused_adam_step if engine == "v1" else fused_adam_step2d
+        if engine != "v1":
+            step_kw["terms"] = self.w_terms()
         x_opt, e_new = step(
             old, new, ints(map_idx_b), p0re, p0im,
             *self.w_planes(), starts.contiguous(),
             active[:, None, :].contiguous(), iters=self.iters, lr=self.lr,
-            **noise)
+            **step_kw)
         return (x_opt.cpu().numpy(),
                 e_new.cpu().numpy().astype(np.float64) + self.offset,
                 self.iters * self.n_starts)

@@ -530,20 +530,52 @@ def test_cluster_kernel_raises_when_no_cluster_fits(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("g", [46, 388])
-def test_sweep_kernel_residency(g):
+@pytest.mark.parametrize("g, per_sm, slots", [(46, 3, 3), (388, 2, 1)])
+def test_sweep_kernel_residency(g, per_sm, slots):
     """The sweep kernel's CTA at the 20q configs' capacities (fixed: G =
-    46; in_state: 388) fits the card at least once an SM, and its
-    cooperative grid is what the card holds at once; asking for more
+    46; in_state: 388) fits the card three times an SM at G = 46 (its
+    registers allow three, ``__launch_bounds__(256, 3)``; its shared
+    memory, a chunk's psi and lambda and the segment's gates, 71,696 B)
+    and twice at G = 388 (90,848 B); its cooperative grid is what the card
+    holds at once, cut into the slots of the fewest chunk rounds at 20
+    qubits with 32 starts (3 of 132 CTAs; 1 of 264); asking for more
     shared memory than a CTA may have leaves none, and the check raises
     (no fallback)."""
     _card()
     lib = fused_adam2d._sweep_library()
     smem = lib.fused_adam_sweep_smem_bytes(g, 20)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert fused_adam2d.check_residency(lib, smem) >= sms
+    ctas = fused_adam2d.check_residency(lib, smem)
+    assert ctas == per_sm * sms
+    assert lib.fused_adam_sweep_slots(20, 32, ctas) == slots
     with pytest.raises(RuntimeError, match="cannot hold one"):
         fused_adam2d.check_residency(lib, 300_000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", [False, True])
+def test_sweep_kernel_w_from_terms_is_the_planes(chain):
+    """At 20 qubits, on random Pauli sums (complex groups) and on the open
+    Heisenberg chain: the kernel's W of every group it computes equals
+    the float32 plane bit for bit, and a launch that computes W from the
+    terms gives the bits of one that reads every plane."""
+    dev = _card()
+    opt = AngleOptimizer(_pauli(20, chain), device=dev)
+    wre, wim, flips = opt.w_planes()
+    lib = fused_adam2d._sweep_library()
+    kre, kim, computed = fused_adam2d.sweep_w_planes(
+        lib, flips, wim, opt.w_terms(), 20)
+    torch.cuda.synchronize()
+    assert bool(computed.any())
+    rows = computed.nonzero().flatten().tolist()
+    assert torch.equal(kre[rows], wre[rows])
+    assert torch.equal(kim[rows], wim[rows])
+    args = _inputs2d(dev, 20, n_env=2, chain=chain)
+    step = fused_adam2d.fused_adam_step2d
+    x0, e0 = step(*args, iters=3, lr=0.1)
+    x1, e1 = step(*args, iters=3, lr=0.1, terms=opt.w_terms())
+    torch.cuda.synchronize()
+    assert torch.equal(x0, x1) and torch.equal(e0, e1)
 
 
 @pytest.mark.gpu
@@ -939,15 +971,22 @@ def test_v2_kernels_do_not_spill():
 
 @pytest.mark.gpu
 def test_sweep_kernel_does_not_spill():
-    """ptxas' report of the sweep kernel's build: 0 bytes of spills."""
+    """ptxas' report of the sweep kernel's build: 0 bytes of spills, and
+    at most 80 registers a thread (three CTAs of 256 threads an SM: 85 a
+    thread, allocated 8 at a time)."""
+    import re
+
     from tensorrl_qas_tpu_torch.ops.build import build
 
     _card()
     lines = build("fused_adam_v2_sweep")["log"].splitlines()
-    reports = [(ln, nxt) for ln, nxt in zip(lines, lines[1:])
+    reports = [(ln, nxt, after) for ln, nxt, after
+               in zip(lines, lines[1:], lines[2:])
                if "Function properties for" in ln and "sweep_kernel" in ln]
     assert len(reports) == 1, lines
     assert "0 bytes spill stores, 0 bytes spill loads" in reports[0][1]
+    regs = re.search(r"Used (\d+) registers", reports[0][2])
+    assert regs and int(regs.group(1)) <= 80, reports[0]
 
 
 @pytest.mark.gpu
