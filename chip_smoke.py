@@ -67,6 +67,13 @@ and on an (amp, dp) mesh, once under the profiling hook.
                                       # (17q, 20q) and double (8-20q)
                                       # instances alone, with their ptxas
                                       # lines
+    python3 chip_smoke.py --tape-time  # the sweep tape kernels timed
+                                      # at 17 and 20q in both instances,
+                                      # and the split of a call (copies of
+                                      # their body with work taken out)
+    python3 chip_smoke.py --tape-compare  # the same in a parent commit's
+                                      # parent_checkout/ and here, in
+                                      # turns
     python3 chip_smoke.py --tools     # the tools' phases alone (29b.),
                                       # then the champion's polish at
                                       # 3000 x 8 x 3 (its graph's capture
@@ -2174,7 +2181,7 @@ def tape_kernels_label(n):
         return f"wide kernel, {1 << (12 - n)} register row(s) a CTA"
     if n <= 16:
         return f"wide kernel, clusters of {1 << (n - 12)} CTAs"
-    return "sweep kernels, a launch a segment"
+    return "sweep kernels, one launch a call"
 
 
 def sweep_twin(tape, n):
@@ -2238,6 +2245,33 @@ def tape_check(planes, tape, angles, cot, sched):
             "plain_ms": plain_ms}
 
 
+def call_kernels(planes, tape, angles, cot, sched, prefix):
+    """(B3f, B3b) device kernels of one call each through the wrappers,
+    whose names start with ``prefix`` (the profiler's count, read again up
+    to twice where its trace held no device kernel at all; None where it
+    stayed empty, which says nothing of the launches)."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    out = at.apply_tape_fwd(*planes, *tape, angles, schedule=sched)
+    fns = (lambda: at.apply_tape_fwd(*planes, *tape, angles, schedule=sched),
+           lambda: at.apply_tape_bwd(*out, *cot, *tape, angles,
+                                     schedule=sched))
+    counts = []
+    for fn in fns:
+        for _ in range(3):
+            got = profiled_launches(fn, prefix)
+            if got is not None:
+                break
+        counts.append(got)
+    return tuple(counts)
+
+
+def one_and_two(calls):
+    """Whether ``call_kernels``' counts are one B3f and two B3b kernels (a
+    count the profiler could not read passes)."""
+    return all(c in (None, e) for c, e in zip(calls, (1, 2)))
+
+
 def tape_phase(n, n_env, cap, label, woven=False, s_n=STARTS):
     """B3f and B3b against their plain versions on one random batch of E =
     ``n_env`` envs and ``s_n`` starts, the two controls, a repeat bit for
@@ -2274,8 +2308,11 @@ def tape_phase(n, n_env, cap, label, woven=False, s_n=STARTS):
           and all(bool(torch.isfinite(t).all()) for t in (*out, *grads)))
     extra = {}
     if sweep:
-        extra = dict(segments_per_env=segments, launches_per_call=(
-            at._sweep_library().max_segments(cap, n)))
+        # device kernels a B3f and a B3b call (the profiler's count)
+        calls = call_kernels(planes, tape, angles, cot, sched,
+                             "apply_tape_sweep")
+        ok = ok and one_and_two(calls)
+        extra = dict(segments_per_env=segments, kernels_per_call=calls)
     done(label, t0, E=n_env, S=s_n, G=cap, R=cap, D=1 << n,
          kernels=tape_kernels_label(n),
          fwd_max_abs_err=f"{err_f:.3e}", bwd_max_abs_err=f"{err_b:.3e}",
@@ -3736,8 +3773,7 @@ def composed_wide_timing(opt):
          first_call_warmup_and_capture_s=f"{capture_s:.3f}",
          sweep_calls_per_step={"fwd": per[0], "bwd": per[1],
                                "schedule": per[2]},
-         segment_launches_per_call=at._sweep_library().max_segments(
-             case.g, case.n),
+         sweep_kernels_per_call=(1, 2),
          profiled_step_wall_ms=f"{wall:.2f}", **split,
          peak_device_GiB=round(torch.cuda.max_memory_allocated() / 2**30,
                                3),
@@ -4491,6 +4527,9 @@ def f64_tape_phase(n, n_env, s_n, cap, label):
           and counted == (3, 2)
           and all(t.dtype == torch.float64 for t in (*out, *grads)))
     segments = None if sched is None else sched[:, 0].tolist()
+    # device kernels a B3f and a B3b call (the profiler's count)
+    calls = call_kernels(planes, tape, angles, cot, sched, "apply_tape_f64")
+    ok = ok and one_and_two(calls)
     done(label, t0, E=n_env, S=s_n, G=cap, R=cap, D=1 << n,
          fwd_max_abs_err=f"{err['fwd']:.3e}",
          bwd_max_abs_err=f"{err['bwd']:.3e}", tol=(TOL_FWD64, TOL_BWD64),
@@ -4498,7 +4537,7 @@ def f64_tape_phase(n, n_env, s_n, cap, label):
                    "RZZ gradient dropped": f"{wrong_b:.3e}"},
          repeat_bit_for_bit=bit, f64_launches=counted,
          segments_per_env=segments, schedule_vs_twin=sched_err,
-         launches_per_call=lib.max_segments(cap, n), ok=ok)
+         kernels_per_call=calls, ok=ok)
     if not ok:
         raise AssertionError(f"{label}: the double-precision tape kernels "
                              "disagree with their plain versions, a "
@@ -4538,7 +4577,8 @@ def f64_tape_phase(n, n_env, s_n, cap, label):
     done(f"{label} timing", t0, **info,
          dynamic_smem_bytes_per_cta=tuple(
              lib.smem_bytes(a, n) for a in (0, 1)),
-         threads_per_cta=lib.threads(n),
+         threads_per_cta=tuple(lib.threads(a, n) for a in (0, 1)),
+         chunk_buffers=tuple(lib.stages(a) for a in (0, 1)),
          ctas_per_sm=at.check_sweep_fit(lib, n, angles.device),
          library_ms="n/a (no single PyTorch call computes a tape)")
     return entries
@@ -4668,13 +4708,238 @@ def sweep_tape_phases(builds):
     f64_tape_phases()
 
 
+# The split of a sweep tape kernel call (--tape-time, --tape-compare):
+# copies of csrc/tape_sweep.cuh with some work taken out by text
+# substitutions (each must match), each built beside a copy of the
+# instance's source with nvcc, bound as the library is and launched on the
+# same inputs.  Keyed by a text only that design's body holds; a variant
+# is (substitutions, nvcc defines), ``{chunk}`` the instance's chunk
+# macro.  "NONE" variants run on the batch's tapes with every gate NONE
+# (one empty segment a tape).
+TAPE_SPLIT_VARIANTS = {
+    # the first design: a launch a segment, max_segments(G, n) a call
+    "for (int seg = 0; seg < max_segments<C>(a.G, a.n); ++seg) {": {
+        "no gates": ([("for (int q = threadIdx.x; q < pairs; "
+                       "q += blockDim.x) {",
+                       "for (int q = threadIdx.x; q < 0; q += blockDim.x) {")],
+                     ()),
+        "no copies": ([("for (int l = threadIdx.x; l < (1 << cb); "
+                        "l += blockDim.x) {",
+                        "for (int l = threadIdx.x; l < 0; "
+                        "l += blockDim.x) {")], ()),
+        "NONE, one launch": ([
+            ("for (int seg = 0; seg < max_segments<C>(a.G, a.n); ++seg) {",
+             "for (int seg = 0; seg < 1; ++seg) {"),
+            ("for (int seg = max_segments<C>(a.G, a.n) - 1; seg >= 0; "
+             "--seg) {", "for (int seg = 0; seg >= 0; --seg) {")], ()),
+        "11 chunk bits": ([], ("-D{chunk}=11",)),
+    },
+    # the second design: a persistent grid, one launch a call
+    "constexpr unsigned kSpinLimit": {
+        "no gates": ([("for (int q = threadIdx.x; q < pairs; "
+                       "q += blockDim.x) {",
+                       "for (int q = threadIdx.x; q < 0; q += blockDim.x) {")],
+                     ()),
+        "no copies": ([("for (int hi = 0; hi + l0 < (1 << cb); "
+                        "hi += step) {",
+                        "for (int hi = 0; hi < 0; hi += step) {")], ()),
+        "one chunk buffer": ([("constexpr int kMaxStages = 2;",
+                               "constexpr int kMaxStages = 1;")], ()),
+        "256 threads alone": ([("constexpr int kLoneThreads = 512;",
+                                "constexpr int kLoneThreads = 256;")], ()),
+        "11 chunk bits": ([], ("-D{chunk}=11",)),
+    },
+}
+
+def _tape_split_libs(prefix, design, text, source):
+    """The split's libraries of one instance (``prefix``, its source
+    ``source``) of the tape body ``text``, one nvcc each, all started
+    together -> {variant: SweepLibrary}."""
+    import ctypes
+    import pathlib
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+    from tensorrl_qas_tpu_torch.ops import build
+
+    csrc = pathlib.Path(source).parent
+    chunk = {"apply_tape_f64": "APPLY_TAPE_F64_CHUNK_BITS",
+             "apply_tape_sweep": "APPLY_TAPE_SWEEP_CHUNK_BITS"}[prefix]
+    procs = {}
+    for i, (name, (subs, defines)) in enumerate(
+            TAPE_SPLIT_VARIANTS[design].items()):
+        body = text
+        for old, new in subs:
+            if old not in body:
+                raise AssertionError(f"tape split {name!r}: {old!r} not in "
+                                     "tape_sweep.cuh")
+            body = body.replace(old, new)
+        out = build.BUILD_DIR / "tape_split" / f"{prefix}_{i}"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "tape_sweep.cuh").write_text(body)
+        cu = out / f"{prefix}.cu"
+        cu.write_text(pathlib.Path(source).read_text())
+        lib = out / f"lib{prefix}_{i}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS,
+             *(d.format(chunk=chunk) for d in defines), f"-I{csrc}", "-o",
+             str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate(timeout=build.NVCC_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"tape split {name!r}: nvcc failed:\n{log}")
+        regs = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                if "registers" in ln]
+        print(f"  ptxas {prefix} split {name!r}: {' | '.join(regs)}",
+              flush=True)
+        libs[name] = at.SweepLibrary(ctypes.CDLL(str(lib)), prefix)
+    return libs
+
+
+def profiled_launches(fn, name):
+    """Device kernels whose names contain ``name`` in one call of ``fn``,
+    counted from torch.profiler's CUDA activity (None where the trace holds
+    no device kernel at all)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    return sum(name in n for n in names) if names else None
+
+
+# (instance, qubits, envs, starts, gates; 0: the su4 20q capacity): the
+# split's shapes, the checks' random mid-episode su4 tapes
+TAPE_TIME_SHAPES = (("double", 20, V2S_ENVS, V2S_STARTS, 0),
+                    ("double", WIDE_CHAIN, 2, STARTS, CHAIN_CAP),
+                    ("float", 20, V2S_ENVS, V2S_STARTS, 0))
+
+
+def tape_time_phase():
+    """(``--tape-time``; ``--tape-compare`` runs it in a parent checkout and
+    here, in turns) the sweep tape kernels of this checkout, both instances,
+    at ``TAPE_TIME_SHAPES`` on the checks' batches (numpy seed 1234): B3f
+    and B3b ms a call (CUDA events, 5 calls back to back), the adjoint's
+    profiler device time, device kernels a call (profiler), the segments of
+    each env's tape, and the split's variants (``TAPE_SPLIT_VARIANTS``:
+    copies of the body with the gates or the copies taken out, other chunk
+    bits, ...) on the same inputs; tapes with every gate NONE (one empty
+    segment a tape) through the library and the NONE variants."""
+    import pathlib
+
+    import numpy as np
+    import torch
+
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    t0 = phase("tape time")
+    csrc = pathlib.Path(at.__file__).resolve().parents[1] / "csrc"
+    text = (csrc / "tape_sweep.cuh").read_text()
+    design = next(k for k in TAPE_SPLIT_VARIANTS if k in text)
+    g20, _ = su4_capacity(V2S_CONFIG)
+    dtypes = {"double": torch.float64, "float": torch.float32}
+    libs = {}
+    for inst in dict.fromkeys(s[0] for s in TAPE_TIME_SHAPES):
+        prefix = at.SWEEP_SOURCES[dtypes[inst]]
+        libs[inst] = {"as is": at._sweep_library(dtypes[inst]),
+                      **_tape_split_libs(prefix, design, text,
+                                         csrc / f"{prefix}.cu")}
+    stream = at._stream(torch.device("cuda"))
+    for inst, n, n_env, s_n, cap in TAPE_TIME_SHAPES:
+        cap = cap or g20
+        dt = dtypes[inst]
+        prefix = at.SWEEP_SOURCES[dt]
+        planes, tape, angles, cot = draw_tape_batch(
+            np.random.default_rng(1234), n_env, s_n, cap, n)
+        planes, cot = (tuple(t.to(dt) for t in p) for p in (planes, cot))
+        angles = angles.to(dt)
+        none = (torch.zeros_like(tape[0]), *tape[1:])
+        out = {"design": design[:40], "E": n_env, "S": s_n, "G": cap,
+               "n": n}
+        for name, lib in libs[inst].items():
+            runs = [("", tape)]
+            if name == "as is":
+                runs.append(("NONE ", none))
+            elif name.startswith("NONE"):
+                runs = [("", none)]
+            for tag, tp in runs:
+                sched = at.run_sweep_schedule(lib, tp, n, stream=stream)
+                if not tag and name == "as is":
+                    out["segments"] = sched[:, 0].tolist()
+                ore, oim = at.run_sweep_fwd(lib, *planes, tp, angles,
+                                            schedule=sched, stream=stream)
+
+                def fwd(lib=lib, tp=tp, sched=sched):
+                    return at.run_sweep_fwd(lib, *planes, tp, angles,
+                                            schedule=sched, stream=stream)
+
+                def bwd(lib=lib, tp=tp, sched=sched, ore=ore, oim=oim):
+                    return at.run_sweep_bwd(lib, ore, oim, *cot, tp, angles,
+                                            schedule=sched, stream=stream)
+                key = f"{tag}{name}"
+                out[f"{key} fwd ms"] = time_back_to_back(fwd, 5)
+                out[f"{key} bwd ms"] = time_back_to_back(bwd, 5)
+                if name == "as is":
+                    out[f"{key} kernels a call"] = (
+                        profiled_launches(fwd, prefix),
+                        profiled_launches(bwd, prefix))
+                if name == "as is" and not tag:
+                    out["bwd device ms"] = _ms_or_not(
+                        device_ms(bwd, f"{prefix}_bwd", reps=3))
+                    out["ctas per sm"] = at.check_sweep_fit(
+                        lib, n, angles.device)
+            del ore, oim
+        print(f"[tape time {inst} {n}q] " + json.dumps(
+            {k: f"{v:.4f}" if isinstance(v, float) else v
+             for k, v in out.items()}), flush=True)
+        del planes, cot, angles
+        torch.cuda.empty_cache()
+    done("tape time", t0)
+
+
+def tape_time_compare():
+    """(``--tape-compare``) this checkout's sweep tape kernels against the
+    parent commit's, in turns (parent, this, this, parent), each timed and
+    split by ``tape_time_phase``: the parent's from ``parent_checkout/``
+    (``git archive`` of the parent with this script copied in), in a
+    process of its own, when that directory holds this script."""
+    import pathlib
+
+    parent = (pathlib.Path(__file__).resolve().parent / "parent_checkout"
+              / "chip_smoke.py")
+
+    def run_parent():
+        if not parent.exists():
+            print("[tape parent] no parent_checkout/chip_smoke.py: not "
+                  "timed", flush=True)
+            return
+        out = subprocess.run([sys.executable, str(parent), "--tape-time"],
+                             cwd=parent.parent, capture_output=True,
+                             text=True, timeout=600, check=False)
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith(("[tape time ", "  ptxas"))]
+        print("\n".join(f"[tape parent] {ln}" for ln in lines) if lines
+              else f"[tape parent] failed ({out.returncode}): "
+                   f"{out.stdout[-1500:]}{out.stderr[-1500:]}", flush=True)
+
+    run_parent()
+    tape_time_phase()
+    tape_time_phase()
+    run_parent()
+
+
 def f64_wide_trainer():
     """``--f64``: the 20q Heisenberg su4 trainer in complex128 (8
     replicas, the config's 4 starts x 100 iterations, G = R = 46) for
     ``WIDE_STEPS`` vector steps, traced: every vector step iters + 2
-    double-precision B3f and iters B3b calls (3 segment launches each)
-    and two segment builds; env-steps/s, device ms by kernel family, the
-    busy share and peak device memory."""
+    double-precision B3f and iters B3b calls (one device kernel a B3f
+    call, two a B3b) and two segment builds; env-steps/s, device ms by
+    kernel family, the busy share and peak device memory."""
     calls = {"fwd": WIDE_STEPS * (ITERS + 2), "bwd": WIDE_STEPS * ITERS}
     print(f"[trainer su4 20q complex128] replay is not reached: {V2S_ENVS} "
           f"replicas x {max(0, WIDE_STEPS - 4)} transitions < batch 1000",
@@ -5151,6 +5416,15 @@ def main(argv=()) -> int:
         sweep_tape_phases(Builds(("apply_tape_sweep", "apply_tape_f64")))
         watchdog.cancel()
         return 0
+    if "--tape-time" in argv or "--tape-compare" in argv:
+        Builds(("apply_tape_sweep", "apply_tape_f64")).wait(
+            "apply_tape_sweep", "apply_tape_f64")
+        if "--tape-compare" in argv:
+            tape_time_compare()
+        else:
+            tape_time_phase()
+        watchdog.cancel()
+        return 0
     if "--composed-wide" in argv:
         composed_wide_phases(Builds(("apply_tape_sweep",)), full=True)
         watchdog.cancel()
@@ -5389,7 +5663,7 @@ def main(argv=()) -> int:
              "wide kernels at 10-16 qubits; numbers at 12, the 12q su4 "
              "trainer's shapes and launches"),
             ("sweep", "apply_tape_sweep_", SWEEP_TAPE_SOURCE,
-             "sweep kernels at 17-20 qubits, a launch a segment; numbers at "
+             "sweep kernels at 17-20 qubits, one launch a call; numbers at "
              "20, the 20q su4 trainer's shapes and calls"),
             ("f64", "apply_tape_f64_", F64_SOURCE,
              "double-precision kernels at 1-20 qubits (complex128), one "

@@ -26,23 +26,24 @@
 // two sources share, instantiated here for double planes and angles.  The
 // float kernels below 17 qubits hold a row in registers (202-255 a thread
 // already in float); doubled state would spill, so this instance keeps
-// every row in device memory and takes a chunk of 2^cb amplitudes, cb =
-// min(n, kChunkBits), into shared memory:
-//   - At n <= kChunkBits a chunk is the whole row: the tape is one segment
-//     of all its gates, a CTA takes one row (a thread a pair, from one
-//     warp to 256), and a call is one launch (the adjoint one more, the
-//     fixed-order gradient sum).  No schedule.
-//   - Above, the tape is cut into segments by segments.cuh's rule, which
-//     the schedule kernel writes once per tape; a call makes
-//     max_segments(G, n) launches, a CTA a chunk of a row a launch.
-//   - kChunkBits = 12, not 11: the adjoint's psi and lambda chunks take
-//     2 x 64 KB (the CTA ~144 KB of the 227 KB, one CTA an SM; the forward
-//     ~80 KB, two), and a segment holds 7 qubits above qubit 4 rather than
-//     6, so a 20-qubit tape needs fewer segments -- each one a pass over
-//     every row in device memory, the cost that bounds these kernels -- and
-//     rows of up to 12 qubits (the 12q LiH band) stay one launch.  The
-//     wrappers ask the runtime for the CTAs an SM holds at the chunk's
-//     shared memory (apply_tape_f64_ctas_per_sm).
+// every row in device memory and takes chunks of it into shared memory:
+//   - At n <= kWholeBits (12) a chunk is the whole row: the tape is one
+//     segment of all its gates, a CTA takes one row (a thread a pair, from
+//     one warp to 256), and a call is one launch (the adjoint one more,
+//     the fixed-order gradient sum).  No schedule.
+//   - Above, chunks of 2^kChunkBits amplitudes and the tape cut into
+//     segments by segments.cuh's rule, which the schedule kernel writes
+//     once per tape; a call is one cooperative launch of a persistent grid
+//     that walks every (pass, row, chunk) item (the adjoint one more
+//     launch, the gradient sum).
+//   - kChunkBits = 12: a segment holds 7 qubits above qubit 4, so a
+//     20-qubit tape needs fewer segments -- each a pass over its row in
+//     device memory -- than at 11 (22 env-segments against ~27 on the
+//     checks' 20q tapes).  The forward's two 64 KB chunk buffers (psi)
+//     take ~145 KB of shared memory, one CTA an SM, so the next chunk
+//     loads while the gates run; the adjoint's psi and mu take 128 KB a
+//     chunk, one buffer.  The wrappers ask the runtime for the CTAs the
+//     card holds (apply_tape_f64_resident_ctas).
 // All amplitude arithmetic is double FMA.
 //
 // Bound.  Bytes the function must move: the planes in and out once
@@ -51,9 +52,9 @@
 // 8, S = 4 that is 1074 MB forward, 0.32 ms at the card's 3.35 TB/s, and
 // 1611 MB adjoint, 0.48 ms.  Operations (an RX is 6 flops an amplitude) at
 // the card's ~34 TFLOP/s of FP64 stay below that.  What the design moves:
-// each segment reads and writes every row once (the adjoint psi and
-// lambda), with a CTA barrier a gate.  chip_smoke.py prints the bound at
-// its shapes.
+// each segment reads and writes its row once (the adjoint psi and mu),
+// with a CTA barrier a gate.  chip_smoke.py prints the bound at its
+// shapes.
 
 #include "tape_sweep.cuh"
 
@@ -75,15 +76,29 @@ __global__ void apply_tape_f64_schedule_kernel(const int* kind, const int* tq,
 }
 
 __global__ void __launch_bounds__(tape_sweep::kThreads)
-apply_tape_f64_fwd_kernel(Args a, int seg) {
+apply_tape_f64_fwd_row_kernel(Args a) {
   DYNAMIC_SHARED(apply_tape_f64_smem);
-  tape_sweep::fwd<C>(a, seg, apply_tape_f64_smem);
+  tape_sweep::whole_row<C, false>(a, apply_tape_f64_smem);
 }
 
 __global__ void __launch_bounds__(tape_sweep::kThreads)
-apply_tape_f64_bwd_kernel(Args a, int seg) {
+apply_tape_f64_bwd_row_kernel(Args a) {
   DYNAMIC_SHARED(apply_tape_f64_smem);
-  tape_sweep::bwd<C>(a, seg, apply_tape_f64_smem);
+  tape_sweep::whole_row<C, true>(a, apply_tape_f64_smem);
+}
+
+__global__ void __launch_bounds__(C::sweep_threads(false),
+                                    C::min_blocks(false))
+apply_tape_f64_fwd_kernel(Args a) {
+  DYNAMIC_SHARED(apply_tape_f64_smem);
+  tape_sweep::sweep<C, false>(a, apply_tape_f64_smem);
+}
+
+__global__ void __launch_bounds__(C::sweep_threads(true),
+                                    C::min_blocks(true))
+apply_tape_f64_bwd_kernel(Args a) {
+  DYNAMIC_SHARED(apply_tape_f64_smem);
+  tape_sweep::sweep<C, true>(a, apply_tape_f64_smem);
 }
 
 __global__ void __launch_bounds__(tape_sweep::kThreads)
@@ -93,7 +108,8 @@ apply_tape_f64_bwd_grad_kernel(Args a, double* dang) {
 }
 
 const tape_sweep::Kernels<C> kKernels = {
-    apply_tape_f64_fwd_kernel, apply_tape_f64_bwd_kernel,
+    apply_tape_f64_fwd_row_kernel, apply_tape_f64_bwd_row_kernel,
+    apply_tape_f64_fwd_kernel,     apply_tape_f64_bwd_kernel,
     apply_tape_f64_bwd_grad_kernel, apply_tape_f64_schedule_kernel};
 
 }  // namespace
@@ -105,17 +121,23 @@ int apply_tape_f64_min_qubits() { return C::kMinQubits; }
 int apply_tape_f64_max_qubits() { return tape_sweep::kMaxQubits; }
 int apply_tape_f64_chunk_bits() { return C::kChunkBits; }
 
-// Launches of one forward (or one adjoint, before its gradient launch) on
-// tapes of G gates at n qubits.
+// The most segments a tape of G gates can have at n qubits (a call's
+// items are at most E S chunks x that).
 int apply_tape_f64_max_segments(int G, int n) {
   return tape_sweep::max_segments<C>(G, n);
 }
 
-// Threads a CTA of the segment kernels at n qubits.
-int apply_tape_f64_threads(int n) { return C::threads(n); }
+// Threads of a CTA, and chunk buffers of a sweep CTA, of the forward
+// (adjoint 0) or adjoint (1) kernel at n qubits.
+int apply_tape_f64_threads(int adjoint, int n) {
+  return C::threads(n, adjoint != 0);
+}
+int apply_tape_f64_stages(int adjoint) {
+  return C::stages(adjoint != 0);
+}
 
 // Shared-memory bytes of one CTA of the forward (adjoint 0) or adjoint (1)
-// segment kernel at n qubits; of the gradient kernel at G gates.
+// kernel at n qubits; of the gradient kernel at G gates.
 size_t apply_tape_f64_smem_bytes(int adjoint, int n) {
   return tape_sweep::smem_bytes<C>(adjoint != 0, n);
 }
@@ -124,11 +146,19 @@ size_t apply_tape_f64_grad_smem_bytes(int G) {
   return tape_sweep::grad_smem_bytes<C>(G);
 }
 
-// How many CTAs of the forward (adjoint 0) or adjoint (1) segment kernel an
-// SM holds at once at n qubits; 0 when none fits, or minus a CUDA error
-// code.
+// The int32 sync words (zeroed by each call) a sweep call on `rows` rows
+// takes from the caller.
+int apply_tape_f64_sync_words(int rows) { return tape_sweep::sync_words(rows); }
+
+// How many CTAs of the forward (adjoint 0) or adjoint (1) kernel an SM
+// holds at once at n qubits, and the card (a sweep call's grid at most);
+// 0 when none fits, or minus a CUDA error code.
 int apply_tape_f64_ctas_per_sm(int adjoint, int n) {
   return tape_sweep::ctas_per_sm<C>(kKernels, adjoint, n);
+}
+
+int apply_tape_f64_resident_ctas(int adjoint, int n) {
+  return tape_sweep::resident_ctas<C>(kKernels, adjoint, n);
 }
 
 const char* apply_tape_f64_error_string(int code) {
@@ -143,39 +173,40 @@ int apply_tape_f64_schedule_launch(const int* kind, const int* tq,
                                         n, stream);
 }
 
-// Forward: re / im / ore / oim (E, S, D) double, tapes (E, weave x G)
-// int32 (weave 3: every gate followed by its error Paulis), angles (E, S,
-// R) double, sched (es rows of the noiseless tapes' segments; env e reads
-// row e % es; null where a row is one chunk).  max_segments(G, n) launches on
-// `stream`; returns the first launch's error (cudaGetLastError), 0 on
-// success.
+// Forward: re / im / ore / oim (E, S, D) double, tapes (E, weave x G) int32
+// (weave 3: every gate followed by its error Paulis), angles (E, S, R)
+// double, sched (es rows of the noiseless tapes' segments; env e reads row
+// e % es; null where a row is whole), sync (apply_tape_f64_sync_words(E S)
+// int32 of scratch; null where a row is whole).  One launch on `stream`;
+// returns the first error (cudaGetLastError), 0 on success.
 int apply_tape_f64_fwd_launch(const int* kind, const int* tq, const int* cq,
-    const int* slot, const double* angles, const double* re,
-    const double* im, double* ore, double* oim, const int* sched, int es,
-    int weave, int E, int S, int G, int R, int n, void* stream) {
+    const int* slot, const double* angles, const double* re, const double* im,
+    double* ore, double* oim, const int* sched, int es, int weave, int E, int S,
+    int G, int R, int n, unsigned* sync, void* stream) {
   const Args a = {kind,    tq,      cq,      slot,    angles, re,
                   im,      ore,     oim,     nullptr, nullptr, nullptr,
                   nullptr, nullptr, nullptr, nullptr, sched,  es,
-                  weave,   E,       S,       G,       R,      n};
+                  weave,   E,       S,       G,       R,      n,
+                  sync};
   return tape_sweep::fwd_launch<C>(kKernels, a, stream);
 }
 
 // Adjoint: from the forward output (ore, oim) and the cotangents (gre,
-// gim), all (E, S, D) double, into dre / dim (E, S, D; both may be null:
-// the psi0 cotangents are then not written) and dang (E, S, R); the tapes,
-// sched, es and weave as the forward's.  Scratch from the caller: pre /
-// pim / lre / lim (E, S, D) double each (null where a row is one chunk),
-// gpart (E S x G x 2^(n - chunk bits)) double.  max_segments(G, n) segment
-// launches, last segment first, then the gradient launch.
+// gim), all (E, S, D) double, into dre / dim (E, S, D; both may be null: the
+// psi0 cotangents are then not written) and dang (E, S, R); the tapes,
+// sched, es, weave and sync as the forward's.  Scratch from the caller:
+// pre / pim / lre / lim (E, S, D) double each (null where a row is whole),
+// gpart (E S x G x chunks a row) double.  The segment launch, then the
+// gradient launch.
 int apply_tape_f64_bwd_launch(const int* kind, const int* tq, const int* cq,
-    const int* slot, const double* angles, const double* ore,
-    const double* oim, const double* gre, const double* gim, double* dre,
-    double* dim, double* dang, const int* sched, int es, int weave,
-    double* pre, double* pim, double* lre, double* lim, double* gpart, int E,
-    int S, int G, int R, int n, void* stream) {
+    const int* slot, const double* angles, const double* ore, const double* oim,
+    const double* gre, const double* gim, double* dre, double* dim, double* dang,
+    const int* sched, int es, int weave, double* pre, double* pim, double* lre,
+    double* lim, double* gpart, int E, int S, int G, int R, int n, unsigned* sync,
+    void* stream) {
   const Args a = {kind, tq, cq, slot, angles, ore, oim, pre,
                   pim, gre, gim, lre, lim, dre, dim, gpart,
-                  sched, es, weave, E, S, G, R, n};
+                  sched, es, weave, E, S, G, R, n, sync};
   return tape_sweep::bwd_launch<C>(kKernels, a, dang, stream);
 }
 

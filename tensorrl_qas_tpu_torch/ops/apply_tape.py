@@ -40,7 +40,8 @@ plain twin is ``tape_schedule_plain``.  Tapes woven with error Paulis
 the schedule of their noiseless gates.  From 17 to 20 qubits the sweep
 kernels of ``csrc/apply_tape_sweep.cu`` take over: every row stays in
 device memory and the tape is applied segment by segment (one launch a
-segment), under a schedule of segments (``tape_schedule``, the rule of
+call: a persistent grid walks every segment of every row, chunk by
+chunk), under a schedule of segments (``tape_schedule``, the rule of
 ``ops/fused_adam2d.py:sweep_segments``, which is its twin word for word).
 Float64 planes and angles (``EnvConfig.sim_dtype = 'complex128'`` on the
 card) go to the double-precision kernels of ``csrc/apply_tape_f64.cu`` at
@@ -524,15 +525,17 @@ class SweepLibrary:
 
     def __init__(self, lib, prefix: str):
         self.lib, self.prefix = lib, prefix
-        self.fwd_launch.argtypes = [_PTR] * 10 + [_I32] * 7 + [_PTR]
+        self.fwd_launch.argtypes = [_PTR] * 10 + [_I32] * 7 + [_PTR] * 2
         self.bwd_launch.argtypes = ([_PTR] * 13 + [_I32] * 2 + [_PTR] * 5
-                                    + [_I32] * 5 + [_PTR])
+                                    + [_I32] * 5 + [_PTR] * 2)
         self.schedule_launch.argtypes = [_PTR] * 4 + [_I32] * 3 + [_PTR]
         for name, n_args in (("fwd_launch", None), ("bwd_launch", None),
                              ("schedule_launch", None), ("min_qubits", 0),
                              ("max_qubits", 0), ("chunk_bits", 0),
-                             ("max_segments", 2), ("threads", 1),
-                             ("ctas_per_sm", 2)):
+                             ("max_segments", 2),
+                             ("threads", 2), ("stages", 1),
+                             ("sync_words", 1), ("ctas_per_sm", 2),
+                             ("resident_ctas", 2)):
             fn = getattr(self, name)
             if n_args is not None:
                 fn.argtypes = [_I32] * n_args
@@ -560,21 +563,25 @@ def _sweep_library(dtype=torch.float32) -> SweepLibrary:
 
 
 # (library, qubits, device) -> the CTAs of the forward and the adjoint
-# segment kernel an SM holds (each >= 1), asked once
+# kernel an SM holds (each >= 1), asked once
 _sweep_fit: dict = {}
 
 
 def check_sweep_fit(lib: SweepLibrary, n: int, device=None):
-    """CTAs of the forward and the adjoint segment kernel of ``lib`` one SM
-    of the card (``device``) holds at once at ``n`` qubits, as the runtime
-    reports them for their threads and shared memory; raises where one does
-    not fit (no fallback to another kernel).  A launch needs no more: its
-    CTAs never wait on each other."""
+    """CTAs of the forward and the adjoint kernel of ``lib`` one SM of the
+    card (``device``) holds at once at ``n`` qubits, as the runtime reports
+    them for their threads and shared memory; raises where one does not
+    fit, or where the card holds no grid for a call above the chunk's
+    qubits (no fallback to another kernel).  A row-a-CTA launch needs no
+    more; a call above takes at most ``lib.resident_ctas`` CTAs, which need
+    not be resident at once to finish (``csrc/tape_sweep.cuh``)."""
     key = (lib, n, device)
     if key not in _sweep_fit:
         fits = []
         for adjoint in (0, 1):
             ctas = lib.ctas_per_sm(adjoint, n)
+            if n > lib.chunk_bits() and ctas > 0:
+                ctas = min(ctas, lib.resident_ctas(adjoint, n))
             if ctas < 1:
                 why = (f"CUDA error {-ctas} "
                        f"({lib.error_string(-ctas).decode()})"
@@ -623,27 +630,37 @@ def _sweep_args(lib, tape, n, schedule, weave, stream):
     return schedule, schedule.shape[0], weave, g
 
 
+def _sweep_sync(lib, n_env, s_n, n, device):
+    """A sweep call's sync words (int32, zeroed by the call), or None where
+    a row is one chunk."""
+    if n <= lib.chunk_bits():
+        return None
+    return torch.empty(lib.sync_words(n_env * s_n), dtype=torch.int32,
+                       device=device)
+
+
 def run_sweep_fwd(lib: SweepLibrary, re, im, tape, angles, *, schedule=None,
                   weave=1, stream=None):
     """One sweep B3f call of ``lib`` on checked inputs of its dtype (not
-    counted): ``lib.max_segments(G, n)`` launches, one where a row is one
-    chunk -> (ore, oim).  ``schedule`` and ``weave`` as ``run_fwd``'s."""
+    counted): one launch -> (ore, oim).  ``schedule`` and ``weave`` as
+    ``run_fwd``'s."""
     n_env, s_n, _, r, n = _dims(re, tape, angles)
     sched, es, weave, g = _sweep_args(lib, tape, n, schedule, weave, stream)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
+    sync = _sweep_sync(lib, n_env, s_n, n, re.device)
     _launch_sweep(lib, "fwd", *(t.data_ptr() for t in tape),
                   angles.data_ptr(), re.data_ptr(), im.data_ptr(),
                   ore.data_ptr(), oim.data_ptr(), _ptr(sched), es, weave,
-                  n_env, s_n, g, r, n, stream)
+                  n_env, s_n, g, r, n, _ptr(sync), stream)
     return ore, oim
 
 
 def run_sweep_bwd(lib: SweepLibrary, ore, oim, gre, gim, tape, angles, *,
                   psi0_grad=True, schedule=None, weave=1, stream=None):
     """One sweep B3b call of ``lib`` on checked inputs of its dtype (not
-    counted): the segment launches, last first, and the gradient launch ->
-    (dre, dim, dang), as ``run_bwd``.  Scratch: above the chunk's qubits
-    psi and lambda planes (4 x E S D values); the gradient rows' chunk
+    counted): the segment launch and the gradient launch -> (dre, dim,
+    dang), as ``run_bwd``.  Scratch: above the chunk's qubits psi and mu
+    planes (4 x E S D values) and the sync words; the gradient rows' chunk
     partials."""
     n_env, s_n, _, r, n = _dims(ore, tape, angles)
     sched, es, weave, g = _sweep_args(lib, tape, n, schedule, weave, stream)
@@ -655,12 +672,13 @@ def run_sweep_bwd(lib: SweepLibrary, ore, oim, gre, gim, tape, angles, *,
                else [None] * 4)
     gpart = torch.empty((n_env * s_n, g, 1 << max(0, n - cb)),
                         dtype=ore.dtype, device=ore.device)
+    sync = _sweep_sync(lib, n_env, s_n, n, ore.device)
     _launch_sweep(lib, "bwd", *(t.data_ptr() for t in tape),
                   angles.data_ptr(), ore.data_ptr(), oim.data_ptr(),
                   gre.data_ptr(), gim.data_ptr(), _ptr(dre), _ptr(dim),
                   dang.data_ptr(), _ptr(sched), es, weave,
                   *(_ptr(t) for t in scratch), gpart.data_ptr(), n_env, s_n,
-                  g, r, n, stream)
+                  g, r, n, _ptr(sync), stream)
     return dre, dim, dang
 
 
@@ -771,9 +789,8 @@ def apply_tape_fwd(re, im, kind, tq, cq, slot, angles, *,
     double-precision ones (``csrc/apply_tape_f64.cu``).  Counts launches in
     ``apply_tape_fwd.launches``, those of the sweep kernels (17-20 qubits,
     float32) also in ``apply_tape_fwd.sweep_launches``, those of the
-    double-precision kernels in ``apply_tape_fwd.f64_launches``; a sweep or
-    double-precision launch is a call of its library's most segments'
-    launches."""
+    double-precision kernels in ``apply_tape_fwd.f64_launches``; each a
+    call, one device launch (B3b's: two)."""
     if angles.device.type == "cpu":
         return apply_tape_fwd_plain(re, im, kind, tq, cq, slot, angles)
     if angles.device.type != "cuda":

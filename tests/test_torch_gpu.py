@@ -66,8 +66,12 @@ sums in another order); RYY's sign flipped and RZZ's gradient dropped must
 exceed them; two launches agree bit for bit; woven tapes (error Paulis,
 weave 3) under their gates' schedule at 12 and 14 qubits; the sweep
 tape kernels at 17 and 20 qubits (every row in device memory, the tape
-in segments of 12 local qubits), plainly and on woven tapes; more than
-20 qubits is refused; no tape kernel spills in ptxas' report.
+in segments of 12 local qubits), plainly and on woven tapes, each call
+one device kernel forward and two adjoint (the profiler's count), rows
+of one and of several segments in one call; more than 20 qubits is
+refused; no tape kernel spills in ptxas' report, and the sweep kernels'
+CTAs an SM are those their shared memory allows.  The composed step at
+20 qubits, float32 and complex128, replays as a graph bit for bit.
 The composed step (``AngleOptimizer`` through the kernels against itself
 on the plain versions, 3 iterations, ``agreement``) runs for su4 tapes,
 shot noise (1024 shots) and depolarizing noise over 4 trajectories, under
@@ -1087,10 +1091,28 @@ def test_sweep_tape_kernels_match_plain_versions(n, woven):
     assert _max_err(runs[0][2:], grads_p) <= TOL_BWD
 
 
+def _sweep_fit_as_designed(dtype, n):
+    """The CTAs an SM of the sweep tape kernels at n qubits, forward and
+    adjoint, are those their shared memory allows (their registers do not
+    hold fewer), and the grid a call takes is that times the SMs."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    lib = at._sweep_library(dtype)
+    per_sm = at.check_sweep_fit(lib, n, torch.device("cuda"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for adjoint, ctas in enumerate(per_sm):
+        by_smem = 233472 // (lib.smem_bytes(adjoint, n) + 1024)
+        assert ctas == by_smem >= 1, (adjoint, ctas, by_smem)
+        assert lib.resident_ctas(adjoint, n) == ctas * sms
+    return per_sm
+
+
 @pytest.mark.gpu
 def test_sweep_tape_kernels_do_not_spill():
     """ptxas' report of the sweep tape kernels' build: 0 bytes of spills in
-    the forward, adjoint, gradient and segment kernels."""
+    the forward, adjoint, gradient and segment kernels; three CTAs an SM
+    each (the forward with two 32 KB chunk buffers, the adjoint with one
+    of psi and mu)."""
     from tensorrl_qas_tpu_torch.ops.build import build
 
     _card()
@@ -1104,6 +1126,7 @@ def test_sweep_tape_kernels_do_not_spill():
         assert kernel in names, names
     for ln, nxt in reports:
         assert "0 bytes spill stores, 0 bytes spill loads" in nxt, ln
+    assert _sweep_fit_as_designed(torch.float32, 20) == (3, 3)
 
 
 def _composed_args(dev, n_env=16, s_n=4, su4=True, seed=0, n=8):
@@ -1561,8 +1584,10 @@ def test_double_tape_kernels_match_plain_versions(n, woven):
 @pytest.mark.gpu
 def test_double_tape_kernels_do_not_spill():
     """ptxas' report of the double-precision tape kernels' build: 0 bytes
-    of spills in the forward, adjoint, gradient and segment kernels; and
-    the CTAs an SM holds at 12 chunk bits as the runtime reports them."""
+    of spills in the whole-row and sweep forward and adjoint, gradient and
+    segment kernels; and the CTAs an SM holds at 20 qubits as the runtime
+    reports them, two forward (a 64 KB chunk buffer), one adjoint (psi and
+    mu), with the whole-row kernels' at 12."""
     from tensorrl_qas_tpu_torch.ops import apply_tape as at
     from tensorrl_qas_tpu_torch.ops.build import build
 
@@ -1571,14 +1596,15 @@ def test_double_tape_kernels_do_not_spill():
     reports = [(ln, nxt) for ln, nxt in zip(lines, lines[1:])
                if "Function properties for" in ln and "apply_tape_f64" in ln]
     names = " ".join(ln for ln, _ in reports)
-    for kernel in ("fwd_kernel", "bwd_kernel", "bwd_grad_kernel",
-                   "schedule_kernel"):
+    for kernel in ("fwd_row_kernel", "bwd_row_kernel", "fwd_kernel",
+                   "bwd_kernel", "bwd_grad_kernel", "schedule_kernel"):
         assert kernel in names, names
     for ln, nxt in reports:
         assert "0 bytes spill stores, 0 bytes spill loads" in nxt, ln
-    fwd, bwd = at.check_sweep_fit(at._sweep_library(torch.float64), 20,
+    assert _sweep_fit_as_designed(torch.float64, 20) == (2, 1)
+    fwd, bwd = at.check_sweep_fit(at._sweep_library(torch.float64), 12,
                                   torch.device("cuda"))
-    assert fwd >= 1 and bwd >= 1
+    assert fwd >= 2 and bwd >= 1
 
 
 @pytest.mark.gpu
@@ -1713,3 +1739,106 @@ def test_device_trace_holds_device_events(tmp_path, monkeypatch):
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
     assert any(ev.get("cat") == "kernel" for ev in events)
+
+
+def _device_kernels(fn, name):
+    """Device kernels whose names contain ``name`` in one call of ``fn``
+    (torch.profiler's CPU and CUDA activity, as ``utils/profiling.py``
+    traces; read again up to twice where the trace holds no device kernel
+    at all, which says nothing of the launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name() for ev in prof.profiler.kineto_results.events()
+                 if ev.device_type() == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return sum(name in n for n in names)
+
+
+def _segment_mix(dev, n, dtype, seed):
+    """Two envs of 2 starts at n qubits: env 0's tape on qubits 0..11
+    only (one segment), env 1's across all n; in ``dtype``."""
+    planes, tape, angles, cot = _tape_case(dev, n, n_env=2, s_n=2,
+                                           seed=seed)
+    kind, tq, cq, slot = (a.clone() for a in tape)
+    tq[0] %= 12
+    cq[0] = torch.where(cq[0] >= 0, (tq[0] + 1 + cq[0] % 11) % 12, -1)
+    cast = dict(dtype=dtype)
+    return (tuple(p.to(**cast) for p in planes), (kind, tq, cq, slot),
+            angles.to(**cast), tuple(c.to(**cast) for c in cot))
+
+
+# -- device kernels a call, counted by the profiler (after the tests that
+# trace: a short trace in a process that profiled before held no kernel
+# events) --
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [17, 20])
+def test_sweep_tape_call_is_one_launch(dtype, n):
+    """Above the whole rows a B3f call is one device kernel and a B3b call
+    two (the segment pass and the gradient sum), whatever the segments,
+    counted by the profiler; on rows of one and of several segments in
+    one call, against the plain versions."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    dev = _card()
+    planes, tape, angles, cot = _segment_mix(dev, n, dtype, seed=n)
+    sched = at.tape_schedule(*tape, n, angles.shape[-1], dtype)
+    segments = sched[:, 0].tolist()
+    assert segments[0] == 1 and segments[1] >= 2, segments
+    prefix = at.SWEEP_SOURCES[dtype]
+    out = at.apply_tape_fwd(*planes, *tape, angles, schedule=sched)
+    grads = at.apply_tape_bwd(*out, *cot, *tape, angles, schedule=sched)
+    assert _device_kernels(lambda: at.apply_tape_fwd(
+        *planes, *tape, angles, schedule=sched), prefix) == 1
+    assert _device_kernels(lambda: at.apply_tape_bwd(
+        *out, *cot, *tape, angles, schedule=sched), prefix) == 2
+    out_p = at.apply_tape_fwd_plain(*planes, *tape, angles)
+    grads_p = at.apply_tape_bwd_plain(*out_p, *cot, *tape, angles)
+    tol = (TOL_FWD, TOL_BWD) if dtype == torch.float32 else (TOL_FWD64,
+                                                             TOL_BWD64)
+    assert _max_err(out, out_p) <= tol[0]
+    assert _max_err(grads, grads_p) <= tol[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_composed_graph_at_twenty_qubits(dtype):
+    """The composed step at 20 qubits (E = 2, S = 1, the open Heisenberg
+    chain; float32 through su4, complex128 in every mode) as a CUDA graph
+    against the eager kernel path, bit for bit, on two batches through
+    one capture; a replay's sweep tape kernels are iters + 2 forward
+    kernels and 2 iters adjoint ones (one launch a B3f call, two a
+    B3b)."""
+    from tensorrl_qas_tpu_torch.ops import apply_tape as at
+
+    dev = _card()
+    n, iters = 20, 3
+    pauli = _pauli(n, chain=True)
+    kw = (dict(enable_2q=True) if dtype == torch.float32
+          else dict(dtype=torch.complex128))
+    opt = AngleOptimizer(pauli, device=dev, **kw)
+    graph = opt.composed_graph()
+    h_apply = opt._h_apply(dtype)
+    prefix = at.SWEEP_SOURCES[dtype]
+    for seed in (0, 1, 0):
+        head, tail = _tapes(dev, n, 2, 1, 30, seed)
+        args = (*head[:3], *(a.to(dtype) for a in (*head[3:], *tail)))
+        xg, eg = graph(*args, iters=iters, lr=0.1)
+        torch.cuda.synchronize()
+        xe, ee = opt._fused_step_composed(*args[:5], h_apply, *args[5:],
+                                          iters=iters, lr=0.1)
+        assert torch.equal(xg, xe) and torch.equal(eg, ee), seed
+    assert graph.captures == 1
+    assert _device_kernels(lambda: graph(*args, iters=iters, lr=0.1),
+                           f"{prefix}_fwd") == iters + 2
+    assert _device_kernels(lambda: graph(*args, iters=iters, lr=0.1),
+                           f"{prefix}_bwd") == 2 * iters

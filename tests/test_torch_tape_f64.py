@@ -43,6 +43,8 @@ from tests.test_torch_tape_layout import _max_err, _wide_case
 
 CSRC = pathlib.Path(at.__file__).resolve().parents[1] / "csrc"
 EMU = pathlib.Path(__file__).resolve().parent / "cuda_emu"
+# the emulated card's SMs (one CTA each): a call's persistent grid at most
+SMS = 6
 TOL_FWD, TOL_BWD = 1e-12, 1e-10
 
 
@@ -59,7 +61,9 @@ def _build(out, chunk_bits=None):
                     "-x", "c++", f"-I{EMU}", f"-I{CSRC}", *define, "-o",
                     str(lib), str(CSRC / "apply_tape_f64.cu")],
                    check=True, capture_output=True, timeout=300)
-    return at.SweepLibrary(ctypes.CDLL(str(lib)), "apply_tape_f64")
+    cdll = ctypes.CDLL(str(lib))
+    cdll.cuda_emu_set_sms(SMS)
+    return at.SweepLibrary(cdll, "apply_tape_f64")
 
 
 @pytest.fixture(scope="module")
@@ -98,6 +102,8 @@ def _twin(tape, n, chunk_bits):
 
 
 def _launch(lib, planes, tape, angles, cot, **kw):
+    """One forward call and one adjoint call -> ((ore, oim), (dre, dim,
+    dang))."""
     out = at.run_sweep_fwd(lib, *planes, tape, angles, **kw)
     grads = at.run_sweep_bwd(lib, *out, *cot, tape, angles, **kw)
     return out, grads
@@ -152,6 +158,16 @@ def test_emulated_f64_kernels_one_chunk_a_row(emulated, shape, one_thread):
     assert segments.tolist() == [1] * n_env
 
 
+def test_emulated_f64_kernels_above_the_card_chunk(emulated, one_thread):
+    """The card's build above its 12-qubit chunk (13 qubits: two chunks a
+    row, the adjoint's CTAs alone on an SM with kLoneThreads threads)."""
+    n = 13
+    assert emulated.threads(1, n) == 512 and emulated.threads(0, n) == 256
+    case, _ = _wide_case(n, 1, 2, seed=93, n_gates=24)
+    segments = _held_to_plain(emulated, _double(case), n)
+    assert int(segments.max()) >= 2
+
+
 @pytest.mark.parametrize("shape", list(SMALL))
 def test_emulated_f64_kernels_across_segments(emulated_small, shape,
                                               one_thread):
@@ -180,18 +196,25 @@ def test_emulated_f64_kernels_on_woven_tapes(emulated, emulated_small, build,
 
 
 def test_f64_launch_shapes(emulated, emulated_small):
-    """A CTA's threads (a thread a pair, one warp to 256), its shared
-    memory (psi, and lambda for the adjoint, 16 B an amplitude of the
-    chunk), the segments' bound (one up to the chunk, (G - 1) // 3 + 1 at
-    12-bit chunks above), and refused shapes."""
-    assert [emulated.threads(n) for n in (1, 6, 8, 9, 12, 20)] == [
+    """A CTA's threads (a thread a pair of a whole row, one warp to 256;
+    256 above 12 qubits),
+    its shared memory (psi's re / im planes, and mu's for the adjoint, 16 B
+    an amplitude of the chunk each; above 12 qubits one chunk buffer: two
+    would leave one CTA an SM), the persistent grid (the CTAs the
+    card holds) and the sync words of a call above 12 qubits, the
+    segments' bound (one up to the chunk, (G - 1) // 3 + 1 at 12-bit
+    chunks above), and refused shapes."""
+    assert [emulated.threads(0, n) for n in (1, 6, 8, 9, 12, 20)] == [
         32, 32, 128, 256, 256, 256]
     fwd, bwd = (emulated.smem_bytes(adj, 12) for adj in (0, 1))
     assert bwd - fwd == 16 << 12 and fwd > 16 << 12
     assert bwd < 227 * 1024
-    assert emulated.smem_bytes(1, 20) == bwd
+    assert [emulated.stages(adj) for adj in (0, 1)] == [1, 1]
+    assert [emulated.smem_bytes(adj, 20) for adj in (0, 1)] == [fwd, bwd]
     assert emulated.smem_bytes(0, 8) == fwd - (16 << 12) + (16 << 8)
     assert emulated.ctas_per_sm(1, 20) == 1
+    assert emulated.resident_ctas(0, 20) == SMS
+    assert emulated.sync_words(32) == 32 + 32
     for g in (1, 2, 46, 97):
         assert emulated.max_segments(g, 12) == 1
         assert emulated.max_segments(g, 20) == (g - 1) // 3 + 1
@@ -203,16 +226,20 @@ def test_f64_launch_shapes(emulated, emulated_small):
         cq = np.where(kinds >= 9, (tq + 1 + rng.integers(0, 19, g)) % 20, -1)
         assert sweep_segments(kinds, tq, cq, 20)[0] <= (
             emulated.max_segments(g, 20))
-    # above the chunk a launch needs its segments; 21 qubits and mixed
-    # dtypes are refused
+    # above the chunk a launch needs its segments and its sync words; 21
+    # qubits and mixed dtypes are refused
     planes = tuple(torch.zeros(1, 1, 1 << 9, dtype=torch.float64)
                    for _ in range(2))
     tape = tuple(torch.zeros(1, 2, dtype=torch.int32) for _ in range(4))
     angles = torch.zeros(1, 1, 1, dtype=torch.float64)
     ptrs = [*(t.data_ptr() for t in (*tape, angles, *planes, *planes))]
-    with pytest.raises(RuntimeError, match="apply_tape_f64_fwd"):
-        at._launch_sweep(emulated_small, "fwd", *ptrs, None, 0, 1, 1, 1,
-                         2, 1, 9, None)
+    sched = at.run_sweep_schedule(emulated_small, tape, 9)
+    sync = torch.zeros(emulated_small.sync_words(1), dtype=torch.int32)
+    for words, sync_ptr in ((None, sync.data_ptr()),
+                            (sched.data_ptr(), None)):
+        with pytest.raises(RuntimeError, match="apply_tape_f64_fwd"):
+            at._launch_sweep(emulated_small, "fwd", *ptrs, words, 1, 1, 1,
+                             1, 2, 1, 9, sync_ptr, None)
     with pytest.raises(TypeError, match="float32 or float64"):
         at._check("apply_tape_fwd", (planes[0].float(), planes[1]), tape,
                   angles, True, None, 1)
@@ -220,3 +247,89 @@ def test_f64_launch_shapes(emulated, emulated_small):
                 for _ in range(2))
     with pytest.raises(ValueError, match="EnvConfig.mesh_shape"):
         at._check("apply_tape_fwd", big, tape, angles, True, None, 1)
+
+
+def _mixed_case(n, seed):
+    """Two envs of 2 starts at n qubits: env 0's tape on qubits 0..6 only
+    (one segment at the small build's 7-bit chunks), env 1's across all n
+    (many segments)."""
+    case, _ = _wide_case(n, 2, 2, seed=seed, n_gates=40)
+    low, _ = _wide_case(7, 1, 1, seed=seed + 1, n_gates=40)
+    planes, tape, angles, cot = _double(case)
+    r = angles.shape[-1]
+    tape = tuple(torch.cat([b[:1], a[1:]]) for a, b in zip(tape, low[1]))
+    tape = (*tape[:3], torch.where(tape[3] >= r, r - 1, tape[3]))
+    return planes, tape, angles, cot
+
+
+@pytest.mark.parametrize("n", [9, 10])
+def test_emulated_f64_one_call_rows_of_one_and_many_segments(
+        emulated_small, n, one_thread):
+    """One call on rows of 1 and of 5 or more segments: the one-segment
+    rows take no item in the later passes, the others wait pass by pass;
+    both held to the plain versions."""
+    case = _mixed_case(n, seed=40 + n)
+    segments = _held_to_plain(emulated_small, case, n)
+    assert int(segments[0]) == 1 and int(segments[1]) >= 5
+
+
+def test_emulated_f64_tape_with_no_live_gate(emulated_small, one_thread):
+    """An env whose tape holds no live gate (one empty segment) beside one
+    that crosses segments: its forward is psi0, its psi0 cotangents the
+    cotangents, its angle gradients zero."""
+    case, _ = _wide_case(9, 2, 2, seed=61, n_gates=36)
+    planes, tape, angles, cot = _double(case)
+    kind = tape[0].clone()
+    kind[1] = 0
+    tape = (kind, *tape[1:])
+    segments = _held_to_plain(emulated_small, (planes, tape, angles, cot), 9)
+    assert int(segments[1]) == 1 and int(segments[0]) >= 3
+    out, grads = _launch(emulated_small, planes, tape, angles, cot,
+                         schedule=at.run_sweep_schedule(emulated_small, tape,
+                                                        9))
+    assert all(torch.equal(o[1], p[1]) for o, p in zip(out, planes))
+    assert all(torch.equal(g[1], c[1]) for g, c in zip(grads, cot))
+    assert not bool(grads[2][1].any())
+
+
+@pytest.mark.parametrize("sms", [1, 2])
+def test_emulated_f64_grid_smaller_than_the_items(emulated_small, sms,
+                                                  one_thread):
+    """A card of 1 or 2 SMs: the persistent grid (1 or 2 CTAs) walks every
+    item of the call, waiting on the rows' counters where a pass needs the
+    last one; held to the plain versions, and the same bits as on a grid
+    of SMS CTAs."""
+    n = 10
+    case = _mixed_case(n, seed=77)
+    sched = at.run_sweep_schedule(emulated_small, case[1], n)
+    items = int(sched[:, 0].sum()) * case[0][0].shape[1] << (n - 7)
+    wide = _launch(emulated_small, *case, schedule=sched)
+    emulated_small.lib.cuda_emu_set_sms(sms)
+    try:
+        assert emulated_small.resident_ctas(1, n) == sms < items
+        _held_to_plain(emulated_small, case, n)
+        small = _launch(emulated_small, *case, schedule=sched)
+    finally:
+        emulated_small.lib.cuda_emu_set_sms(SMS)
+    assert all(torch.equal(a, b) for a, b in zip((*wide[0], *wide[1]),
+                                                (*small[0], *small[1])))
+
+
+def test_emulated_f64_repeat_bit_for_bit(emulated, emulated_small,
+                                         one_thread):
+    """Three calls on the same inputs give the same bits, above the chunk
+    (woven, the items taken in another interleaving by the emulated
+    threads each call) and for whole rows."""
+    for lib, n in ((emulated_small, 9), (emulated, 8)):
+        case, woven = _wide_case(n, 2, 2, seed=90 + n, n_gates=30,
+                                 woven=True)
+        planes, tape, angles, cot = _double(case)
+        kw = dict(weave=3)
+        if n > lib.chunk_bits():
+            kw["schedule"] = at.run_sweep_schedule(lib, tape, n)
+        runs = [_launch(lib, planes, woven, angles, cot, **kw)
+                for _ in range(3)]
+        first = (*runs[0][0], *runs[0][1])
+        for out, grads in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(first,
+                                                        (*out, *grads)))

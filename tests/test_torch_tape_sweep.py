@@ -40,6 +40,8 @@ from tests.test_torch_tape_layout import _max_err, _wide_case
 
 CSRC = pathlib.Path(at.__file__).resolve().parents[1] / "csrc"
 EMU = pathlib.Path(__file__).resolve().parent / "cuda_emu"
+# the emulated card's SMs (one CTA each): a call's persistent grid at most
+SMS = 6
 TOL_FWD, TOL_BWD = 1e-5, 1e-4
 K = GateKind
 
@@ -58,7 +60,9 @@ def _build(out, chunk_bits=None):
                     "-x", "c++", f"-I{EMU}", f"-I{CSRC}", *define, "-o",
                     str(lib), str(CSRC / "apply_tape_sweep.cu")],
                    check=True, capture_output=True, timeout=300)
-    return at.SweepLibrary(ctypes.CDLL(str(lib)), "apply_tape_sweep")
+    cdll = ctypes.CDLL(str(lib))
+    cdll.cuda_emu_set_sms(SMS)
+    return at.SweepLibrary(cdll, "apply_tape_sweep")
 
 
 @pytest.fixture(scope="module")
@@ -186,10 +190,11 @@ def test_emulated_sweep_tape_kernels_at_17_qubits(emulated, one_thread):
 
 
 def test_max_segments_bounds_every_tape(emulated_small):
-    """The launches a call makes cover the most segments a tape can have:
-    one gate a segment at the small build's chunks from 8 qubits, one
-    segment at most 7 qubits' worth of them; the card's build at a third
-    of the gates plus one."""
+    """The segments' bound, which bounds a call's items (its persistent
+    grid is at most E S chunks x that), covers the most segments a tape
+    can have: one gate a segment at the small build's chunks from 8
+    qubits, one segment at most 7 qubits' worth of them; the card's build
+    at a third of the gates plus one."""
     case, _ = _wide_case(10, 4, 1, seed=3, n_gates=50)
     tape = case[1]
     words = _twin(tape, 10, 7)
@@ -222,3 +227,31 @@ def test_more_than_20_qubits_raise(emulated):
     sched = torch.zeros(1, at.sweep_words(2), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="apply_tape_sweep_fwd"):
         at.run_sweep_fwd(emulated, *planes, tape, angles, schedule=sched)
+
+
+def test_emulated_sweep_tape_grid_smaller_than_the_items(emulated_small,
+                                                         one_thread):
+    """A card of 2 SMs: the forward's and the adjoint's grid of 2 CTAs
+    walks every item of the call (a launch each, the adjoint's gradient sum
+    one more), held to the plain versions, with the bits of a grid of SMS
+    CTAs; at 7-bit chunks both keep two chunk buffers (psi; psi and
+    mu)."""
+    n = 9
+    case, _ = _wide_case(n, 3, 2, seed=79, n_gates=36)
+    sched = at.run_sweep_schedule(emulated_small, case[1], n)
+    items = int(sched[:, 0].sum()) * 2 << (n - 7)
+    wide = _launch(emulated_small, case[0], case[1], case[2], case[3],
+                   schedule=sched)
+    emulated_small.lib.cuda_emu_set_sms(2)
+    try:
+        assert emulated_small.resident_ctas(0, n) == 2 < items
+        _held_to_plain(emulated_small, case, n)
+        small = _launch(emulated_small, case[0], case[1], case[2], case[3],
+                        schedule=sched)
+    finally:
+        emulated_small.lib.cuda_emu_set_sms(SMS)
+    assert all(torch.equal(a, b) for a, b in zip((*wide[0], *wide[1]),
+                                                (*small[0], *small[1])))
+    assert [emulated_small.stages(adj) for adj in (0, 1)] == [2, 2]
+    assert emulated_small.smem_bytes(1, n) - emulated_small.smem_bytes(
+        0, n) == 2 * 2 * 4 << 7
